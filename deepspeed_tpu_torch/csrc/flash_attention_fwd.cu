@@ -1,0 +1,279 @@
+// Flash attention forward (bf16, causal or not, GQA) with mma.sync tensor cores.
+//
+// Replaces deepspeed_tpu/ops/pallas/flash_attention.py:_fwd_kernel (line 175),
+// driven by _flash_fwd (line 334) from flash_attention (line 1011), in the form
+// the serving prefill uses: causal, grouped-query heads, no segment ids, bias
+// or ALiBi.
+//
+// out[b, s, h] = softmax_k(q[b, s, h] . k[b, k, kv]^T * scale, causal) @ v,
+// kv = h / (H / KV); lse[b, h, s] = log sum_k exp(score), kept for a backward.
+//
+// Bound on the H100: operations for long prompts. The causal product is
+// 4 * D flops per visible (query, key) pair, about 2 * B * H * S^2 * D in all,
+// over 989 TFLOP/s of bf16 tensor-core rate; q, k, v and out are read or
+// written once. Design: one 128-thread block (4 warps) per (64-row query tile,
+// head, batch row). Each warp owns 16 query rows and keeps its Q fragments,
+// its 16 x 64 score tile, its fp32 output accumulator and its online-softmax
+// state (max, sum) in registers. Q K^T and P V are mma.sync m16n8k16 bf16
+// products with fp32 accumulation; P is rounded to bf16 for the second
+// product, as the TPU kernel does. K and V tiles of 64 keys are staged in
+// padded shared memory (row stride HD + 8, conflict-free fragment reads). The
+// key loop stops at the diagonal, which is the causal skip the TPU kernel gets
+// from its compaction tables. Heads are addressed through strides, so the model
+// layout [B, S, H, D] is read and written without transposes, and every row
+// and key past S is masked in the kernel: any prompt length runs here, where
+// the TPU entry fell back to XLA for lengths without a 128-aligned tile.
+// wgmma, TMA and a pipelined K/V ring are later work.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBlockM = 16 * kWarps;  // query rows per block
+constexpr int kBlockN = 64;           // keys per tile
+constexpr float kLn2 = 0.6931471805599453f;
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, fp32 out.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int S, int H, int KV, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh, float scale_log2,
+    int causal) {
+  constexpr int kLds = HD + 8;           // shared row stride, in elements
+  constexpr int kKSteps = HD / 16;       // k-steps of Q K^T
+  constexpr int kSTiles = kBlockN / 8;   // n-tiles of the score tile
+  constexpr int kOTiles = HD / 8;        // n-tiles of the output
+  constexpr int kChunks = HD / 8;        // 16-byte chunks per K/V row
+  __shared__ __align__(16) __nv_bfloat16 sk[kBlockN * kLds];
+  __shared__ __align__(16) __nv_bfloat16 sv[kBlockN * kLds];
+
+  const int qblock = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;   // row within the 8-row half of the fragment
+  const int tig = lane & 3;  // thread within the group of four
+  const int row0 = qblock * kBlockM + warp * 16 + g;
+  const int row1 = row0 + 8;
+
+  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
+  const __nv_bfloat16* kb = k + b * k_sb + kvh * k_sh;
+  const __nv_bfloat16* vb = v + b * v_sb + kvh * v_sh;
+
+  // Q fragments (A operand) straight from device memory, once per block.
+  uint32_t qa[kKSteps][4];
+#pragma unroll
+  for (int ks = 0; ks < kKSteps; ++ks) {
+    const int c = ks * 16 + tig * 2;
+    qa[ks][0] = row0 < S ? load_pair(qb + row0 * q_ss + c) : 0u;
+    qa[ks][1] = row1 < S ? load_pair(qb + row1 * q_ss + c) : 0u;
+    qa[ks][2] = row0 < S ? load_pair(qb + row0 * q_ss + c + 8) : 0u;
+    qa[ks][3] = row1 < S ? load_pair(qb + row1 * q_ss + c + 8) : 0u;
+  }
+
+  float o[kOTiles][4];
+#pragma unroll
+  for (int n = 0; n < kOTiles; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max, log2 domain
+  float l0 = 0.f, l1 = 0.f;              // running sum over this thread's columns
+
+  const int n_all = (S + kBlockN - 1) / kBlockN;
+  const int last_row = (qblock + 1) * kBlockM - 1;
+  const int n_tiles = causal ? min(n_all, last_row / kBlockN + 1) : n_all;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBlockN;
+    __syncthreads();  // the previous tile is fully consumed
+    for (int i = tid; i < kBlockN * kChunks; i += kThreads) {
+      const int r = i / kChunks;
+      const int c = (i - r * kChunks) * 8;
+      uint4 kval = make_uint4(0u, 0u, 0u, 0u);
+      uint4 vval = make_uint4(0u, 0u, 0u, 0u);
+      if (k0 + r < S) {
+        kval = *reinterpret_cast<const uint4*>(kb + (long long)(k0 + r) * k_ss + c);
+        vval = *reinterpret_cast<const uint4*>(vb + (long long)(k0 + r) * v_ss + c);
+      }
+      *reinterpret_cast<uint4*>(sk + r * kLds + c) = kval;
+      *reinterpret_cast<uint4*>(sv + r * kLds + c) = vval;
+    }
+    __syncthreads();
+
+    // scores: s = Q K^T for this warp's 16 rows and the tile's 64 keys
+    float s[kSTiles][4];
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kKSteps; ++ks) {
+#pragma unroll
+      for (int j = 0; j < kSTiles; ++j) {
+        const __nv_bfloat16* kr = sk + (j * 8 + g) * kLds + ks * 16 + tig * 2;
+        mma_16816(s[j], qa[ks], load_pair(kr), load_pair(kr + 8));
+      }
+    }
+
+    // scale to the log2 domain, mask, and fold into the online softmax
+    float mt0 = -INFINITY, mt1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + j * 8 + tig * 2 + (e & 1);
+        const int row = e < 2 ? row0 : row1;
+        const bool visible = key < S && (!causal || key <= row);
+        s[j][e] = visible ? s[j][e] * scale_log2 : -INFINITY;
+      }
+      mt0 = fmaxf(mt0, fmaxf(s[j][0], s[j][1]));
+      mt1 = fmaxf(mt1, fmaxf(s[j][2], s[j][3]));
+    }
+    mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 1));
+    mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 2));
+    mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 1));
+    mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 2));
+    const float mn0 = fmaxf(m0, mt0);
+    const float mn1 = fmaxf(m1, mt1);
+    const float ms0 = mn0 == -INFINITY ? 0.f : mn0;  // rows with nothing visible yet
+    const float ms1 = mn1 == -INFINITY ? 0.f : mn1;
+    const float c0 = exp2f(m0 - ms0);
+    const float c1 = exp2f(m1 - ms1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j) {
+      s[j][0] = exp2f(s[j][0] - ms0);
+      s[j][1] = exp2f(s[j][1] - ms0);
+      s[j][2] = exp2f(s[j][2] - ms1);
+      s[j][3] = exp2f(s[j][3] - ms1);
+      ps0 += s[j][0] + s[j][1];
+      ps1 += s[j][2] + s[j][3];
+    }
+    l0 = l0 * c0 + ps0;
+    l1 = l1 * c1 + ps1;
+#pragma unroll
+    for (int n = 0; n < kOTiles; ++n) {
+      o[n][0] *= c0;
+      o[n][1] *= c0;
+      o[n][2] *= c1;
+      o[n][3] *= c1;
+    }
+
+    // o += P V: the score fragments of two adjacent n-tiles are the A
+    // fragment of one 16-key step
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_f32(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_f32(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int n = 0; n < kOTiles; ++n) {
+        const __nv_bfloat16* vr = sv + (kk * 16 + tig * 2) * kLds + n * 8 + g;
+        const uint32_t b0 = pack_bf16(vr[0], vr[kLds]);
+        const uint32_t b1 = pack_bf16(vr[8 * kLds], vr[9 * kLds]);
+        mma_16816(o[n], pa, b0, b1);
+      }
+    }
+  }
+
+  // the four threads of a group hold disjoint columns of the same rows
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = l0 == 0.f ? 1.f : l0;
+  const float d1 = l1 == 0.f ? 1.f : l1;
+  if (row0 < S) {
+    __nv_bfloat16* orow = out + b * o_sb + row0 * o_ss + h * o_sh + tig * 2;
+#pragma unroll
+    for (int n = 0; n < kOTiles; ++n) {
+      *reinterpret_cast<uint32_t*>(orow + n * 8) = pack_f32(o[n][0] / d0, o[n][1] / d0);
+    }
+    if (tig == 0) {
+      lse[((long long)b * H + h) * S + row0] =
+          l0 == 0.f ? -INFINITY : (m0 + log2f(l0)) * kLn2;
+    }
+  }
+  if (row1 < S) {
+    __nv_bfloat16* orow = out + b * o_sb + row1 * o_ss + h * o_sh + tig * 2;
+#pragma unroll
+    for (int n = 0; n < kOTiles; ++n) {
+      *reinterpret_cast<uint32_t*>(orow + n * 8) = pack_f32(o[n][2] / d1, o[n][3] / d1);
+    }
+    if (tig == 0) {
+      lse[((long long)b * H + h) * S + row1] =
+          l1 == 0.f ? -INFINITY : (m1 + log2f(l1)) * kLn2;
+    }
+  }
+}
+
+template <int HD>
+void launch(const void* q, const void* k, const void* v, void* out, void* lse,
+            int B, int S, int H, int KV, const long long* st, float scale_log2,
+            int causal, cudaStream_t stream) {
+  dim3 grid((S + kBlockM - 1) / kBlockM, H, B);
+  flash_fwd_kernel<HD><<<grid, kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), S, H, KV, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale_log2, causal);
+}
+
+}  // namespace
+
+// q: [B, S, H, hd], k/v: [B, S, KV, hd], out: [B, S, H, hd], each by its
+// (batch, seq, head) strides with a contiguous last dim; every row start
+// 16-byte aligned. lse: [B, H, S] fp32 contiguous. scale: softmax scale
+// applied to q . k (1 / sqrt(hd) for the model).
+extern "C" int dst_flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* out, void* lse, int B,
+    int S, int H, int KV, int hd, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
+    long long o_ss, long long o_sh, float scale, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                            v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
+  if (B <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
+  if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  if (hd == 128) {
+    launch<128>(q, k, v, out, lse, B, S, H, KV, st, scale_log2, causal, s);
+  } else if (hd == 64) {
+    launch<64>(q, k, v, out, lse, B, S, H, KV, st, scale_log2, causal, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

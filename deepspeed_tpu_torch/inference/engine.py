@@ -1,0 +1,369 @@
+"""Inference engine: ``init_inference`` → ``InferenceEngine.generate`` on one
+CUDA device (or the CPU, when asked).
+
+Counterpart of ``deepspeed_tpu/inference/engine.py``. One prefill of the
+bucketed prompt fills a static KV cache, then a Python token loop (where JAX
+has one compiled ``lax.while_loop``) runs one cached forward per token, with
+greedy or top-k / top-p / temperature sampling, an optional repetition
+penalty, eos forcing, and a stop once every row is done. The cache is updated
+in place (models/decoding.py).
+
+``replace_with_kernel_inject=True`` on a CUDA device selects the hand-written
+kernels: flash prefill attention, decode attention and RMSNorm
+(``ops/cuda``). Attention resolves to the kernels on CUDA whatever the flag,
+as the JAX package resolves flash on a TPU; the flag adds the RMSNorm kernel.
+
+Numbers that differ from the JAX engine by design: sampled tokens (a seeded
+``torch.Generator`` replaces threefry keys; greedy tokens are the same), and
+bf16 logits, which the head rounds to bf16 before the fp32 cast. With an eos
+id the loop reads ``done.all()`` on the host once per token.
+"""
+
+from __future__ import annotations
+
+import time
+from contextlib import ExitStack
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..models.decoding import forward_with_cache, init_cache
+from ..models.transformer import apply, cast_floating, check_supported
+from ..ops.attention import attention_impl
+from ..ops.normalization import kernel_rmsnorm_scope
+from ..utils.logging import log_dist
+
+NEG_INF = -1e30
+
+
+def _align_cache(n: int, mult: int = 128) -> int:
+    """KV-cache capacity rounded up to a multiple of 128 (the JAX engine's
+    cache granule; kept so shapes match across the two packages)."""
+    return max(-(-n // mult) * mult, mult)
+
+
+def _bucket_prompt(n: int, mult: int = 32) -> int:
+    """Prompt-width bucket: the prefill runs the prompt padded to 32s."""
+    return _align_cache(n, mult)
+
+
+def apply_repetition_penalty(logits: torch.Tensor, seen: torch.Tensor,
+                             penalty: float,
+                             active: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """HF-convention repetition penalty: for tokens in ``seen`` [B, V],
+    positive logits divide by the penalty, negative multiply. ``active``
+    ([B] bool) leaves the rows of finished sequences untouched."""
+    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
+    mask = seen
+    if active is not None:
+        mask = mask & active.reshape(-1, 1)
+    return torch.where(mask, penalized, logits)
+
+
+def _sample(logits: torch.Tensor, generator: torch.Generator,
+            temperature: float, top_k: int, top_p: float) -> torch.Tensor:
+    """Greedy when temperature is 0, else top-k / top-p filtered sampling.
+
+    The filters keep every maximal logit, so the greedy token is the argmax
+    of the scaled logits without them."""
+    logits = logits / max(temperature, 1e-6)
+    if temperature == 0.0:
+        return logits.argmax(dim=-1)
+    if top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+        logits = torch.where(logits < kth, NEG_INF, logits)
+    if top_p < 1.0:
+        # nucleus: keep the smallest prefix of the sorted distribution whose
+        # mass reaches top_p (the top-1 token always survives)
+        sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_desc, dim=-1)
+        keep = (torch.cumsum(probs, dim=-1) - probs) < top_p
+        keep[:, 0] = True
+        kth = torch.where(keep, sorted_desc, torch.inf).amin(dim=-1, keepdim=True)
+        logits = torch.where(logits < kth, NEG_INF, logits)
+    return torch.multinomial(torch.softmax(logits, dim=-1), 1,
+                             generator=generator)[:, 0]
+
+
+def _resolve_device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "init_inference: no CUDA device is available; pass "
+                "device='cpu' to serve on the CPU"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"init_inference: {device} requested, no CUDA device")
+    return device
+
+
+def init_inference(
+    model,
+    tensor_parallel: Optional[Dict[str, Any]] = None,
+    tp_size: int = 1,
+    ep_size: int = 1,
+    dtype=torch.bfloat16,
+    replace_with_kernel_inject: bool = False,
+    quantize_bits: Optional[int] = None,
+    max_tokens: int = 1024,
+    kv_cache_dtype: str = "auto",
+    draft_model=None,
+    draft_params=None,
+    checkpoint=None,
+    params=None,
+    rng: Optional[torch.Generator] = None,
+    matvec_max_rows: Optional[int] = None,
+    config: Optional[Dict[str, Any]] = None,
+    device=None,
+    **kwargs,
+) -> "InferenceEngine":
+    """Parity: ``deepspeed.init_inference(model, tp_size, dtype, ...)``.
+
+    ``params`` is the port's parameter tree (see ``models.convert`` for the
+    JAX bridge); without it the weights are drawn from ``rng`` (a
+    ``torch.Generator`` on ``device``, seed 0 by default). ``device`` defaults
+    to the current CUDA device; with no CUDA device it must be ``"cpu"``.
+    Arguments that need a later slice of the port raise
+    ``NotImplementedError`` naming it."""
+    later = []
+    if tensor_parallel:
+        tp_size = tensor_parallel.get("tp_size", tp_size)
+        if tensor_parallel.get("overlap_comm"):
+            later.append("tensor_parallel.overlap_comm")
+    if tp_size > 1:
+        later.append(f"tp_size={tp_size} (tensor parallelism)")
+    if ep_size > 1:
+        later.append(f"ep_size={ep_size} (MoE expert parallelism)")
+    if dtype in ("int8", "int4", torch.int8) or quantize_bits:
+        later.append("int8/int4 weights (port slice 2)")
+    if kv_cache_dtype == "int8":
+        later.append("the int8 KV cache (port slice 2)")
+    if draft_model is not None or draft_params is not None:
+        later.append("speculative decode (port slice 2)")
+    if matvec_max_rows is not None or (config and "matvec_max_rows" in config):
+        later.append("matvec_max_rows (int8/int4 weights, port slice 2)")
+    if checkpoint is not None:
+        later.append("checkpoint= loading")
+    if later:
+        raise NotImplementedError(
+            "deepspeed_tpu_torch port slice 1 serves unquantized weights on "
+            "one device; not yet ported: " + "; ".join(later)
+        )
+    if config:
+        log_dist(f"init_inference: ignoring unsupported config keys {sorted(config)}")
+    if kwargs:
+        log_dist(f"init_inference: ignoring unsupported arguments {sorted(kwargs)}")
+    return InferenceEngine(
+        model,
+        dtype=dtype,
+        kernel_inject=replace_with_kernel_inject,
+        max_tokens=max_tokens,
+        kv_cache_dtype=kv_cache_dtype,
+        params=params,
+        rng=rng,
+        device=_resolve_device(device),
+    )
+
+
+class InferenceEngine:
+    def __init__(self, model, *, device: torch.device,
+                 dtype: torch.dtype = torch.bfloat16,
+                 kernel_inject: bool = False, max_tokens: int = 1024,
+                 kv_cache_dtype: str = "auto", params=None,
+                 rng: Optional[torch.Generator] = None):
+        self.model = model
+        self.config = model.config
+        check_supported(self.config)
+        self.device = device
+        self.dtype = dtype
+        self.max_tokens = min(max_tokens, self.config.max_seq_len)
+        self.kernel_inject = kernel_inject
+        if kv_cache_dtype not in ("auto", "int8", "bf16", "bfloat16"):
+            raise ValueError(
+                f"kv_cache_dtype must be auto|bf16|bfloat16|int8, got "
+                f"{kv_cache_dtype!r}"
+            )
+        self.kv_cache_storage_dtype = (
+            torch.bfloat16 if kv_cache_dtype in ("bf16", "bfloat16") else dtype
+        )
+        on_cuda = device.type == "cuda"
+        if on_cuda and dtype != torch.bfloat16:
+            raise NotImplementedError(
+                "the CUDA attention kernels of port slice 1 take bfloat16; "
+                f"got dtype={dtype} (serve other dtypes with device='cpu')"
+            )
+
+        def impl_scopes():
+            stack = ExitStack()
+            if kernel_inject:
+                stack.enter_context(attention_impl("auto"))  # flash on CUDA
+                stack.enter_context(kernel_rmsnorm_scope(on_cuda))
+            return stack
+
+        self._impl_ctx = impl_scopes
+        if params is None:
+            gen = rng if rng is not None else \
+                torch.Generator(device=device).manual_seed(0)
+            params = model.init(gen, dtype=dtype, device=device)
+        self.params = cast_floating(params, dtype, device)
+        self.last_generate_stats: Optional[Dict[str, float]] = None
+        n_params = sum(t.numel() for t in _leaves(self.params))
+        log_dist(
+            f"InferenceEngine: {n_params / 1e6:.1f}M params, dtype={dtype}, "
+            f"device={device}, kernel_inject={kernel_inject}"
+        )
+
+    # -------------------------------------------------------------- forward
+    def forward(self, input_ids) -> torch.Tensor:
+        """Plain logits forward (no cache) → fp32 [B, S, V]."""
+        ids = _token_ids(input_ids).to(self.device)
+        with self._impl_ctx(), torch.inference_mode():
+            return apply(self.config, self.params, ids)
+
+    __call__ = forward
+
+    # ------------------------------------------------------------- generate
+    def generate(
+        self,
+        input_ids,
+        max_new_tokens: int = 32,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        repetition_penalty: float = 1.0,
+        eos_token_id: int = -1,
+        rng: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Greedy (temperature=0) or top-k / top-p sampled decoding, with
+        an optional HF-convention repetition penalty.
+
+        Returns [B, prompt + max_new_tokens] int32 token ids on the CPU
+        (eos-padded once a row is done). ``rng`` is a ``torch.Generator`` on
+        the engine's device (seed 0 when omitted). Timings of the last call
+        are in ``last_generate_stats``."""
+        ids = _token_ids(input_ids)
+        B, prompt_len = ids.shape
+        if max_new_tokens <= 0:
+            # nothing to generate: echo the prompt
+            return ids.to(torch.int32)
+        if prompt_len >= self.max_tokens:
+            raise ValueError(
+                f"prompt length {prompt_len} leaves no room to generate under "
+                f"max_tokens={self.max_tokens} (model max_seq_len="
+                f"{self.config.max_seq_len}); truncate the prompt or raise "
+                f"max_tokens"
+            )
+        total_len = min(prompt_len + max_new_tokens, self.max_tokens)
+        pb, tb = _bucket_prompt(prompt_len), _align_cache(total_len)
+        fill = eos_token_id if eos_token_id >= 0 else 0
+        buf = torch.full((B, tb), fill, dtype=torch.long, device=self.device)
+        buf[:, :prompt_len] = ids.to(self.device)
+        if rng is None:
+            rng = torch.Generator(device=self.device).manual_seed(0)
+        with self._impl_ctx(), torch.inference_mode():
+            self._decode(buf, pb, prompt_len, total_len, rng,
+                         float(temperature), int(top_k), float(top_p),
+                         float(repetition_penalty), int(eos_token_id))
+        return buf[:, :total_len].to(torch.int32).cpu()
+
+    def _decode(self, buf, pb, prompt_len, total_len, rng, temperature, top_k,
+                top_p, rep_penalty, eos_id) -> None:
+        """Prefill, then one cached forward per token, writing into ``buf``."""
+        cfg = self.config
+        B, tb = buf.shape
+        rows = torch.arange(B, device=self.device)
+        use_penalty = rep_penalty != 1.0
+        seen = None
+        if use_penalty:
+            seen = torch.zeros((B, cfg.vocab_size), dtype=torch.bool,
+                               device=self.device)
+            seen[rows[:, None], buf[:, :prompt_len]] = True
+
+        def step_sample(logits, live=None):
+            if use_penalty:
+                logits = apply_repetition_penalty(logits, seen, rep_penalty,
+                                                  active=live)
+            return _sample(logits, rng, temperature, top_k, top_p)
+
+        clock = _Clock(self.device)
+        cache = init_cache(cfg, B, tb, self.kv_cache_storage_dtype, self.device)
+        logits, cache = forward_with_cache(cfg, self.params, buf[:, :pb],
+                                           cache, 0)
+        nxt = step_sample(logits[:, prompt_len - 1])
+        if use_penalty:
+            seen[rows, nxt] = True
+        buf[:, prompt_len] = nxt
+        done = nxt == eos_id
+        clock.mark()
+        pos, steps = prompt_len, 0
+        while pos < total_len - 1:
+            if eos_id >= 0 and bool(done.all()):  # one host sync per token
+                break
+            logits, cache = forward_with_cache(cfg, self.params,
+                                               buf[:, pos:pos + 1], cache, pos)
+            nxt = step_sample(logits[:, -1], live=~done)
+            nxt = torch.where(done, eos_id, nxt)
+            if use_penalty:
+                # rows already done emit forced eos padding: never book it
+                # as seen (and never scatter a negative eos id)
+                col = nxt.clamp(0, cfg.vocab_size - 1)
+                seen[rows, col] = seen[rows, col] | ~done
+            buf[:, pos + 1] = nxt
+            done = done | (nxt == eos_id)
+            pos += 1
+            steps += 1
+        prefill_ms, decode_ms = clock.finish()
+        self.last_generate_stats = {
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "decode_steps": steps, "batch": B, "prompt_bucket": pb,
+        }
+
+
+class _Clock:
+    """Prefill and decode times of one generate: CUDA events on the card
+    (no host sync until the caller's copy back), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.events = [torch.cuda.Event(enable_timing=True)]
+            self.events[0].record()
+        else:
+            self.times = [time.perf_counter()]
+
+    def mark(self) -> None:
+        if self.cuda:
+            self.events.append(torch.cuda.Event(enable_timing=True))
+            self.events[-1].record()
+        else:
+            self.times.append(time.perf_counter())
+
+    def finish(self):
+        self.mark()
+        if self.cuda:
+            self.events[-1].synchronize()
+            e = self.events
+            return e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2])
+        t = self.times
+        return (t[1] - t[0]) * 1e3, (t[2] - t[1]) * 1e3
+
+
+def _token_ids(input_ids) -> torch.Tensor:
+    """Token ids as an int64 tensor (a copy of array-likes, so read-only
+    numpy arrays are fine)."""
+    if isinstance(input_ids, torch.Tensor):
+        return input_ids.long()
+    return torch.from_numpy(np.array(input_ids, dtype=np.int64))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+

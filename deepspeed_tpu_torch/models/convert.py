@@ -1,0 +1,43 @@
+"""Weight bridge: a JAX parameter tree, as numpy arrays, into the port's
+parameters.
+
+``deepspeed_tpu``'s ``init`` returns nested dicts with the layers stacked
+along a leading [L] dim and projection weights [in, out]. The port keeps the
+same tree and layout, so the bridge is a checked copy: every tensor the port's
+``init`` would make must be present with the same shape.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+from .transformer import Params, TransformerConfig, param_specs
+
+
+def params_from_numpy(cfg: TransformerConfig, tree: Mapping[str, Any], *,
+                      dtype: Optional[torch.dtype] = None,
+                      device="cpu") -> Params:
+    """Nested dict of numpy arrays → the port's parameter tree of tensors
+    on ``device`` (floating leaves cast to ``dtype`` when given)."""
+
+    def convert(expected, node, path):
+        if isinstance(expected, dict):
+            if not isinstance(node, Mapping) or set(node) != set(expected):
+                got = sorted(node) if isinstance(node, Mapping) else type(node).__name__
+                raise ValueError(
+                    f"params{path}: keys {got} != expected {sorted(expected)}"
+                )
+            return {k: convert(expected[k], node[k], f"{path}[{k!r}]")
+                    for k in expected}
+        arr = np.asarray(node)
+        if tuple(arr.shape) != expected[0]:
+            raise ValueError(f"params{path}: shape {arr.shape} != {expected[0]}")
+        t = torch.from_numpy(np.array(arr))  # a writable copy
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device)
+
+    return convert(param_specs(cfg), tree, "")

@@ -1,0 +1,262 @@
+"""Decoder transformer core in PyTorch.
+
+Counterpart of ``deepspeed_tpu/models/transformer.py``. A model is a
+:class:`TransformerConfig` plus a parameter tree of tensors in the JAX
+package's layout: nested dicts, the layers stacked along a leading [L] dim,
+projection weights [in, out]. The forward is plain functions on tensors with a
+Python loop over the layers where JAX has ``lax.scan``.
+
+This slice covers the Llama family: RoPE, RMSNorm, SwiGLU, grouped-query
+attention, no biases, an untied head. Other families raise
+``NotImplementedError`` (see :func:`check_supported`).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.attention import attention
+from ..ops.normalization import rmsnorm
+
+Params = Dict[str, Any]
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 512
+    num_layers: int = 4
+    num_heads: int = 8
+    num_kv_heads: Optional[int] = None  # None => MHA
+    head_dim: Optional[int] = None
+    intermediate_size: Optional[int] = None
+    max_seq_len: int = 2048
+    pos_embedding: str = "rope"  # rope | learned | alibi | none
+    rope_theta: float = 10000.0
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    norm_eps: float = 1e-5
+    activation: str = "swiglu"  # swiglu | gelu | gelu_new
+    use_bias: bool = False
+    tie_embeddings: bool = False
+    embed_norm: bool = False
+    initializer_range: float = 0.02
+    name: str = "transformer"
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_heads
+
+    @property
+    def ffn(self) -> int:
+        return self.intermediate_size or 4 * self.hidden_size
+
+    def num_params(self) -> int:
+        d, v, L = self.hidden_size, self.vocab_size, self.num_layers
+        qkvo = d * self.num_heads * self.hd * 2 + d * self.kv_heads * self.hd * 2
+        mlp = (3 if self.activation == "swiglu" else 2) * d * self.ffn
+        head = 0 if self.tie_embeddings else v * d
+        return L * (qkvo + mlp + 2 * d) + v * d + head + d
+
+
+def check_supported(cfg: TransformerConfig) -> None:
+    """Raise for a configuration outside this slice of the port."""
+    missing = []
+    if cfg.pos_embedding != "rope":
+        missing.append(f"pos_embedding={cfg.pos_embedding!r} (ALiBi/learned families)")
+    if cfg.norm != "rmsnorm":
+        missing.append(f"norm={cfg.norm!r} (LayerNorm families)")
+    if cfg.activation != "swiglu":
+        missing.append(f"activation={cfg.activation!r}")
+    if cfg.use_bias or cfg.tie_embeddings or cfg.embed_norm:
+        missing.append("biases, tied embeddings or an embedding norm")
+    if missing:
+        raise NotImplementedError(
+            "deepspeed_tpu_torch port slice 1 serves the Llama family only; "
+            f"not yet ported: {'; '.join(missing)}"
+        )
+
+
+# -----------------------------------------------------------------------------
+# init
+# -----------------------------------------------------------------------------
+def param_specs(cfg: TransformerConfig) -> Params:
+    """The parameter tree as (shape, init): init is the normal's std, or
+    None for a norm scale initialised to ones. Shapes and scales are the
+    JAX package's ``init``."""
+    check_supported(cfg)
+    std = cfg.initializer_range
+    d, hd, nh, nkv, f = cfg.hidden_size, cfg.hd, cfg.num_heads, cfg.kv_heads, cfg.ffn
+    L = cfg.num_layers
+    # residual-branch output projections get depth-scaled init (GPT-2 paper)
+    out_std = std / math.sqrt(2 * L)
+    return {
+        "embed": {"tok": ((cfg.vocab_size, d), std)},
+        "final_norm": {"scale": ((d,), None)},
+        "lm_head": ((d, cfg.vocab_size), std),
+        "layers": {
+            "ln1": {"scale": ((L, d), None)},
+            "ln2": {"scale": ((L, d), None)},
+            "attn": {
+                "wq": ((L, d, nh * hd), std),
+                "wk": ((L, d, nkv * hd), std),
+                "wv": ((L, d, nkv * hd), std),
+                "wo": ((L, nh * hd, d), out_std),
+            },
+            "mlp": {
+                "wi": ((L, d, f), std),
+                "wo": ((L, f, d), out_std),
+                "wg": ((L, d, f), std),
+            },
+        },
+    }
+
+
+def init(cfg: TransformerConfig, generator: torch.Generator,
+         dtype: torch.dtype = torch.float32,
+         device: Optional[torch.device] = None) -> Params:
+    """Random parameters with the JAX package's shapes and scales, drawn
+    from ``generator`` (on ``device``, the generator's device by default)."""
+    device = torch.device(device) if device is not None else generator.device
+
+    def make(spec):
+        if isinstance(spec, dict):
+            return {k: make(v) for k, v in spec.items()}
+        shape, std = spec
+        if std is None:
+            return torch.ones(shape, dtype=dtype, device=device)
+        t = torch.randn(shape, generator=generator, dtype=dtype, device=device)
+        return t.mul_(std)
+
+    return make(param_specs(cfg))
+
+
+def cast_floating(tree, dtype: torch.dtype, device=None):
+    """``.to(dtype)`` for every floating tensor of a parameter tree, every
+    tensor moved to ``device`` when given (no-ops where they already match)."""
+    if isinstance(tree, dict):
+        return {k: cast_floating(v, dtype, device) for k, v in tree.items()}
+    if tree.is_floating_point():
+        return tree.to(device=device, dtype=dtype)
+    return tree.to(device) if device is not None else tree
+
+
+def layer_params(layers: Params, i: int) -> Params:
+    """Layer ``i``'s parameters: views into the stacked [L, ...] tensors."""
+    return {
+        k: layer_params(v, i) if isinstance(v, dict) else v[i]
+        for k, v in layers.items()
+    }
+
+
+# -----------------------------------------------------------------------------
+# building blocks
+# -----------------------------------------------------------------------------
+def _norm(cfg: TransformerConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """RMSNorm in fp32, returned in x's dtype (the kernel fuses the casts)."""
+    return rmsnorm(x, p["scale"], cfg.norm_eps)
+
+
+def rope_tables(positions: torch.Tensor, hd: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 rotation tables (cos, signed sin), each [B, S, 1, hd], for
+    integer positions [B, S]; computed once per forward and shared by every
+    layer."""
+    freqs = 1.0 / (theta ** (
+        torch.arange(0, hd, 2, dtype=torch.float32, device=positions.device) / hd
+    ))
+    angles = positions[..., None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    return (torch.cat([cos, cos], dim=-1)[:, :, None, :],
+            torch.cat([-sin, sin], dim=-1)[:, :, None, :])
+
+
+def _rope(q: torch.Tensor, k: torch.Tensor, rope) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rotary embeddings by split-half rotation in fp32, cast back;
+    q/k [B, S, H, hd], ``rope`` from :func:`rope_tables`. With x = [x1, x2],
+    x * cos + [x2, x1] * [-sin, sin] is [x1 cos - x2 sin, x2 cos + x1 sin],
+    the JAX package's products and sums in the same order."""
+    cos, sin = rope
+
+    def rot(x):
+        xf = x.float()
+        return (xf * cos + xf.roll(x.shape[-1] // 2, dims=-1) * sin).to(x.dtype)
+
+    return rot(q), rot(k)
+
+
+def _qkv(cfg: TransformerConfig, p: Params, x: torch.Tensor, rope):
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).view(B, S, cfg.num_heads, cfg.hd)
+    k = (x @ p["wk"]).view(B, S, cfg.kv_heads, cfg.hd)
+    v = (x @ p["wv"]).view(B, S, cfg.kv_heads, cfg.hd)
+    q, k = _rope(q, k, rope)
+    return q, k, v
+
+
+def _attention(cfg: TransformerConfig, p: Params, x: torch.Tensor, rope) -> torch.Tensor:
+    B, S, _ = x.shape
+    q, k, v = _qkv(cfg, p, x, rope)
+    out = attention(q, k, v, causal=True)
+    return out.reshape(B, S, cfg.num_heads * cfg.hd) @ p["wo"]
+
+
+def _mlp(cfg: TransformerConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Dense SwiGLU MLP."""
+    return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+
+
+def lm_head_logits(cfg: TransformerConfig, params: Params,
+                   y: torch.Tensor) -> torch.Tensor:
+    """Final projection → fp32 logits [..., S, V].
+
+    The product runs in the compute dtype; a bf16 product rounds the logits
+    to bf16 before the fp32 cast, where the JAX head accumulates and returns
+    fp32 without that rounding. fp32 models agree exactly."""
+    return (y @ params["lm_head"].to(y.dtype)).float()
+
+
+def default_positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
+def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
+          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """No-cache forward → fp32 logits [B, S, V]."""
+    check_supported(cfg)
+    B, S = input_ids.shape
+    if dtype is not None:
+        params = cast_floating(params, dtype)
+    x = params["embed"]["tok"][input_ids]
+    rope = rope_tables(default_positions(B, S, x.device), cfg.hd, cfg.rope_theta)
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        lp = layer_params(layers, i)
+        x = x + _attention(cfg, lp["attn"], _norm(cfg, lp["ln1"], x), rope)
+        x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
+    x = _norm(cfg, params["final_norm"], x)
+    return lm_head_logits(cfg, params, x)
+
+
+class TransformerModel:
+    """Bundles (config, init, apply), the engine's model protocol."""
+
+    def __init__(self, cfg: TransformerConfig):
+        self.config = cfg
+
+    def init(self, generator: torch.Generator, dtype=torch.float32, device=None):
+        return init(self.config, generator, dtype, device)
+
+    def apply(self, params, input_ids, **kw):
+        return apply(self.config, params, input_ids, **kw)
+
+    def num_params(self) -> int:
+        return self.config.num_params()

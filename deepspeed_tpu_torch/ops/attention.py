@@ -1,0 +1,61 @@
+"""Attention op registry.
+
+Counterpart of ``deepspeed_tpu/ops/attention.py``. Two implementations:
+``plain`` (GQA attention with an fp32 softmax, the counterpart of
+``xla_attention``) and ``flash`` (the CUDA flash kernel's wrapper, which takes
+its plain version for CPU tensors). ``auto`` resolves per device: flash for
+CUDA tensors, plain elsewhere, as the JAX package resolves flash on a TPU and
+XLA elsewhere. :class:`attention_impl` scopes a choice.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from .cuda.flash_attention import flash_attention_fwd, flash_attention_plain
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q [B,S,H,hd], k/v [B,S,KV,hd] → [B,S,H,hd] in q's dtype; fp32 softmax."""
+    return flash_attention_plain(q, k, v, causal)[0]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    return flash_attention_fwd(q, k, v, causal)[0]
+
+
+_IMPLS: Dict[str, Callable] = {"plain": plain_attention, "flash": flash_attention}
+_override_stack: list = []
+
+
+class attention_impl:
+    """Scoped implementation choice: ``with attention_impl("flash"): ...``."""
+
+    def __init__(self, name: str):
+        if name != "auto" and name not in _IMPLS:
+            raise KeyError(f"unknown attention impl {name!r}; have {sorted(_IMPLS)}")
+        self.name = name
+
+    def __enter__(self):
+        _override_stack.append(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        _override_stack.pop()
+
+
+def resolve_attention_impl(device: torch.device) -> str:
+    """The implementation that runs now for tensors on ``device``."""
+    name = _override_stack[-1] if _override_stack else "auto"
+    if name != "auto":
+        return name
+    return "flash" if device.type == "cuda" else "plain"
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True) -> torch.Tensor:
+    return _IMPLS[resolve_attention_impl(q.device)](q, k, v, causal=causal)
