@@ -10,22 +10,39 @@ sm_90a). In order, any failure exiting non-zero:
    limit as nvidia-smi reports them;
 2. build: compiles deepspeed_tpu_torch/csrc/*.cu (one nvcc per source, in
    parallel) and prints the build seconds and ptxas register counts;
-3. each kernel against its plain PyTorch version on the card, in bf16, at the
-   main path's shapes: max abs error against a stated tolerance, and the
-   kernel's, plain version's and library call's times (CUDA events, median
-   of single launches with L2 flushed before each) beside the bound;
-4. a reference check: a two-layer full-width Llama-3-8B, kernel path against
-   plain path, prefill and three cached decode steps;
-5. the main path: init_inference(llama("llama3-8b"), bf16, kernel injection,
-   max_tokens=1024) with seeded random weights at full depth, and generate on
-   three requests; the launch counters, zeroed just before, must show every
-   kernel ran;
-6. the kernels line (one JSON object), then the device line (last line).
+3. each of the seven kernels against its plain PyTorch version on the card, at
+   the shapes each main path gives it (the flash and RMSNorm forwards at the
+   serving and at the training shape): max abs error against a stated
+   tolerance, and the kernel's, plain version's and library call's times
+   (CUDA events, median of single launches with L2 flushed before each)
+   beside the bound, one row per kernel and path; then the other shapes and
+   dtypes the wrappers take;
+4. serving reference check: a two-layer full-width Llama-3-8B, kernel path
+   against plain path, prefill and three cached decode steps;
+5. training reference check: a two-layer full-width Llama-3.2-1B
+   (``llama3-1b``), the kernel path against the plain path (loss, per-leaf
+   gradients, then after three train_batch steps the masters' moves, the
+   Adam moments and the grad norm), and ``full`` remat against ``none``
+   (bitwise);
+6. the training main path: initialize(llama("llama3-1b")) at full depth, bf16
+   over fp32 masters, AdamW, ZeRO 0, micro-batch 4 x 2 accumulation steps of
+   2048 tokens, 10 steps on one seeded batch; the loss must be finite and fall;
+   ms/step, tokens/s, MFU and peak memory; a profiled step (device busy share,
+   top kernels); the launch counters, zeroed just before, must show every
+   training kernel ran; then 3 steps rerun from the same seed must give
+   bitwise-equal losses;
+7. the serving main path: init_inference(llama("llama3-8b"), bf16, kernel
+   injection, max_tokens=1024) with seeded random weights at full depth, and
+   generate on three requests; the launch counters, zeroed just before, must
+   show every serving kernel ran;
+8. the kernels line (one JSON object, one entry per kernel and main path,
+   with that path's launches), then the device line (last line).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -34,7 +51,7 @@ import time
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch import init_inference
+from deepspeed_tpu_torch import init_inference, initialize
 from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.models.decoding import forward_with_cache, init_cache
 from deepspeed_tpu_torch.models.transformer import apply
@@ -43,8 +60,10 @@ from deepspeed_tpu_torch.ops.attention import attention_impl
 from deepspeed_tpu_torch.ops.cuda import _build
 from deepspeed_tpu_torch.ops.cuda import decode_attention as dec
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+from deepspeed_tpu_torch.ops.cuda import fused_adam as fad
 from deepspeed_tpu_torch.ops.cuda import rmsnorm as rn
 from deepspeed_tpu_torch.ops.normalization import kernel_rmsnorm_scope
+from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_map
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and dense bf16
 HBM_BYTES_PER_S = 3.35e12
@@ -64,7 +83,29 @@ KERNELS = {
         "source": "deepspeed_tpu_torch/csrc/rmsnorm.cu",
         "replaces": "deepspeed_tpu/ops/pallas/rmsnorm.py:23",
     },
+    "rmsnorm_bwd": {
+        "source": "deepspeed_tpu_torch/csrc/rmsnorm_bwd.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/rmsnorm.py:30",
+    },
+    "flash_attention_bwd_dq": {
+        "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:455",
+    },
+    "flash_attention_bwd_dkv": {
+        "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:517",
+    },
+    "fused_adam": {
+        "source": "deepspeed_tpu_torch/csrc/fused_adam.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/fused_adam.py:29",
+    },
 }
+SERVING_KERNELS = ("flash_attention_fwd", "decode_attention", "rmsnorm_fwd")
+TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv", "rmsnorm_fwd", "rmsnorm_bwd",
+                    "fused_adam")
+# the training main path: llama3-1b micro-batch 4 x 2048 tokens, 2 micro-batches
+TRAIN_B, TRAIN_S, TRAIN_ACCUM, TRAIN_LR = 4, 2048, 2, 1e-4
 
 
 def require(cond: bool, msg: str) -> None:
@@ -105,10 +146,15 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def check_flash(gen, timer):
-    H, KV, D = 32, 8, 128
+    """The flash forward at both main paths' shapes: serving (Llama-3-8B
+    prefill, head_dim 128, S up to the 512 bucket) and training (llama3-1b
+    micro-batch 4 x 2048, head_dim 64). Returns one timed row per path."""
     tol_out, tol_lse = 2e-2, 1e-3
-    worst = 0.0
-    for B, S in ((2, 512), (2, 160), (4, 512)):
+    rows = {}
+    # (path timed at this shape or None, B, S, H, KV, D)
+    for path, B, S, H, KV, D in ((None, 2, 512, 32, 8, 128), (None, 2, 160, 32, 8, 128),
+                                 ("serving", 4, 512, 32, 8, 128),
+                                 ("training", TRAIN_B, TRAIN_S, 32, 8, 64)):
         q = torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=BF16)
         k = torch.randn(B, S, KV, D, generator=gen, device="cuda", dtype=BF16)
         v = torch.randn(B, S, KV, D, generator=gen, device="cuda", dtype=BF16)
@@ -119,22 +165,26 @@ def check_flash(gen, timer):
               f"max_abs_err out {e_out:.3e} (tol {tol_out}) lse {e_lse:.3e} "
               f"(tol {tol_lse})")
         require(e_out <= tol_out and e_lse <= tol_lse,
-                f"flash_attention_fwd disagrees at B={B} S={S}")
-        worst = max(worst, e_out)
-    # timed at the main path's largest prefill: B=4, prompt bucket 512
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    pairs = B * H * S * (S + 1) / 2
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * B * H * S
-    b_ms, b_by = bound(4 * D * pairs, nbytes)
-    return {
-        "max_abs_err": worst,
-        "ms": timer(lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
-        "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v, causal=True)),
-        "library_ms": timer(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"B={B} S={S} H={H} KV={KV} D={D} causal",
-    }
+                f"flash_attention_fwd disagrees at B={B} S={S} D={D}")
+        del out, lse, ref, ref_lse
+        if path is None:
+            continue
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        pairs = B * H * S * (S + 1) / 2
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * B * H * S
+        b_ms, b_by = bound(4 * D * pairs, nbytes)
+        rows[path] = {
+            "max_abs_err": e_out,
+            "ms": timer(lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
+            "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v, causal=True)),
+            "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"B={B} S={S} H={H} KV={KV} D={D} causal",
+        }
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_decode(gen, timer):
@@ -175,37 +225,175 @@ def check_decode(gen, timer):
 
 
 def check_rmsnorm(gen, timer):
-    D, eps = 4096, 1e-5
+    """The RMSNorm forward at both main paths' shapes: serving (the B=4 x
+    512 prefill of hidden 4096, and a decode step's 4 rows) and training
+    (the llama3-1b micro-batch's 8192 rows of hidden 2048). Returns one
+    timed row per path."""
+    eps = 1e-5
     atol, rtol = 1e-3, 1.6e-2  # two bf16 ulps of the plain result
-    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(BF16)
-    worst = 0.0
-    for rows in (4 * 512, 4):
-        x = torch.randn(rows, D, generator=gen, device="cuda", dtype=BF16)
+    rows = {}
+    for path, n, D in (("serving", 4 * 512, 4096), (None, 4, 4096),
+                       ("training", TRAIN_B * TRAIN_S, 2048)):
+        w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(BF16)
+        x = torch.randn(n, D, generator=gen, device="cuda", dtype=BF16)
         out = rn.rmsnorm_fwd(x, w, eps)
         ref = rn.rmsnorm_plain(x, w, eps)
         e = max_err(out, ref)
         ok = bool(((out.float() - ref.float()).abs()
                    <= atol + rtol * ref.float().abs()).all())
-        print(f"rmsnorm_fwd rows={rows} D={D}: max_abs_err {e:.3e} "
+        print(f"rmsnorm_fwd rows={n} D={D}: max_abs_err {e:.3e} "
               f"(tol {atol} + {rtol}*|ref|)")
-        require(ok, f"rmsnorm_fwd disagrees at rows={rows}")
-        worst = max(worst, e)
-    x = torch.randn(4 * 512, D, generator=gen, device="cuda", dtype=BF16)
-    b_ms, b_by = bound(4 * x.numel(), 2 * 2 * x.numel() + 2 * D)
+        require(ok, f"rmsnorm_fwd disagrees at rows={n} D={D}")
+        if path is None:
+            continue
+        b_ms, b_by = bound(4 * x.numel(), 2 * 2 * x.numel() + 2 * D)
+        rows[path] = {
+            "max_abs_err": e,
+            "ms": timer(lambda: rn.rmsnorm_fwd(x, w, eps)),
+            "plain_ms": timer(lambda: rn.rmsnorm_plain(x, w, eps)),
+            "library_ms": timer(lambda: F.rms_norm(x, (D,), w, eps)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"rows={n} D={D} bf16",
+        }
+    return rows
+
+
+def check_rmsnorm_bwd(gen, timer):
+    """The backward at the training path's shape: the llama3-1b micro-batch's
+    8192 rows of hidden 2048, bf16 x, g and scale."""
+    rows, D, eps = TRAIN_B * TRAIN_S, 2048, 1e-5
+    atol, rtol = 1e-3, 1.6e-2  # dx: two bf16 ulps of the plain result
+    ds_rel = 1e-5  # dscale: fp32 sums over 8192 rows in another order
+    x = torch.randn(rows, D, generator=gen, device="cuda", dtype=BF16)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(BF16)
+    g = torch.randn(rows, D, generator=gen, device="cuda", dtype=BF16)
+    dx, ds = rn.rmsnorm_bwd(x, w, g, eps)
+    rdx, rds = rn.rmsnorm_bwd_plain(x, w, g, eps)
+    e_dx, e_ds = max_err(dx, rdx), max_err(ds, rds)
+    ok_dx = bool(((dx.float() - rdx.float()).abs()
+                  <= atol + rtol * rdx.float().abs()).all())
+    print(f"rmsnorm_bwd rows={rows} D={D}: max_abs_err dx {e_dx:.3e} (tol {atol} + "
+          f"{rtol}*|ref|) dscale {e_ds:.3e} (tol {ds_rel}*max|ref| = "
+          f"{ds_rel * rds.abs().max().item():.3e})")
+    require(ok_dx and e_ds <= ds_rel * rds.abs().max().item(),
+            "rmsnorm_bwd disagrees with its plain version")
+    xr, wr = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    lib_out = F.rms_norm(xr, (D,), wr, eps)
+    b_ms, b_by = bound(10 * x.numel(), 3 * 2 * x.numel() + 2 * D + 4 * D)
     return {
-        "max_abs_err": worst,
-        "ms": timer(lambda: rn.rmsnorm_fwd(x, w, eps)),
-        "plain_ms": timer(lambda: rn.rmsnorm_plain(x, w, eps)),
-        "library_ms": timer(lambda: F.rms_norm(x, (D,), w, eps)),
+        "max_abs_err": max(e_dx, e_ds),
+        "ms": timer(lambda: rn.rmsnorm_bwd(x, w, g, eps)),
+        "plain_ms": timer(lambda: rn.rmsnorm_bwd_plain(x, w, g, eps)),
+        "library_ms": timer(lambda: torch.autograd.grad(
+            lib_out, (xr, wr), g, retain_graph=True)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"rows={x.shape[0]} D={D}",
+        "shape": f"rows={rows} D={D} bf16",
     }
 
 
+def check_flash_bwd(gen, timer):
+    """The dq and dk/dv kernels at the training path's shape (llama3-1b,
+    micro-batch 4 x 2048, 32 query / 8 kv heads of 64), causal. The dk/dv
+    kernel gets the plain version's delta, so each kernel is held alone."""
+    B, S, H, KV, D = TRAIN_B, TRAIN_S, 32, 8, 64
+    tol = 2e-2  # of the largest gradient: p and ds round to bf16 before the products
+    tol_delta = 1e-4  # of the largest delta: an fp32 row sum in another order
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=BF16)
+
+    q, k, v, do = rand(B, S, H, D), rand(B, S, KV, D), rand(B, S, KV, D), rand(B, S, H, D)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
+    rdq, rdelta = fa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, rdelta, do)
+    rdk, rdv = fa.flash_attention_bwd_dkv_plain(q, k, v, lse, rdelta, do)
+    errs = {name: (max_err(a, r), r.float().abs().max().item())
+            for name, a, r in (("dq", dq, rdq), ("delta", delta, rdelta),
+                               ("dk", dk, rdk), ("dv", dv, rdv))}
+    print(f"flash_attention_bwd B={B} S={S} H={H} KV={KV} D={D} causal: "
+          + ", ".join(f"{n} max_abs_err {e:.3e} (max|ref| {m:.3e})"
+                      for n, (e, m) in errs.items())
+          + f"; tol {tol}*max|ref| ({tol_delta} for delta)")
+    for name, (e, m) in errs.items():
+        require(e <= (tol_delta if name == "delta" else tol) * m,
+                f"flash_attention_bwd {name} disagrees with its plain version")
+    del dq, delta, dk, dv, rdq, rdk, rdv
+    torch.cuda.empty_cache()
+    pairs = B * H * S * (S + 1) / 2
+    rows = 4 * B * H * S  # one fp32 [B, H, S] tensor, bytes
+    qkvo = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, o (or do), k, v
+    b_dq = bound(6 * D * pairs, qkvo + 2 * do.numel() + 2 * q.numel() + 2 * rows)
+    b_dkv = bound(8 * D * pairs, 2 * (q.numel() + k.numel() + v.numel() + do.numel())
+                  + 2 * (k.numel() + v.numel()) + 2 * rows)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib_ms = timer(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                               retain_graph=True))
+    shape = f"B={B} S={S} H={H} KV={KV} D={D} causal"
+    dq_r = {
+        "max_abs_err": errs["dq"][0],
+        "ms": timer(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do)),
+        "plain_ms": timer(lambda: fa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do)),
+        "library_ms": lib_ms, "bound_ms": b_dq[0], "bound_by": b_dq[1],
+        "shape": shape + " (library: SDPA backward, dq+dk+dv)",
+    }
+    dkv_r = {
+        "max_abs_err": max(errs["dk"][0], errs["dv"][0]),
+        "ms": timer(lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, rdelta, do)),
+        "plain_ms": timer(lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, lse,
+                                                                   rdelta, do)),
+        "library_ms": lib_ms, "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
+        "shape": shape + " (library: SDPA backward, dq+dk+dv)",
+    }
+    return dq_r, dkv_r
+
+
+def check_fused_adam(gen, timer):
+    """One update of the training path's largest leaf (the stacked MLP
+    weight, 16 x 2048 x 8192 fp32), clip factor 0.5 from the device."""
+    n = 16 * 2048 * 8192
+    tol_p, tol_mv = 1e-6, 1e-6  # p: 1 % of an lr-1e-4 step; m, v: of max|ref|
+    kw = dict(lr=TRAIN_LR, b1=0.9, b2=0.999, eps=1e-8, wd=0.01,
+              bc1=1 - 0.9 ** 3, bc2=1 - 0.999 ** 3,
+              clip=torch.tensor(0.5, device="cuda"))
+    p = 0.02 * torch.randn(n, generator=gen, device="cuda")
+    g = 1e-3 * torch.randn(n, generator=gen, device="cuda")
+    m = 1e-4 * torch.randn(n, generator=gen, device="cuda")
+    v = 1e-8 * torch.rand(n, generator=gen, device="cuda")
+    p2, m2, v2 = p.clone(), m.clone(), v.clone()
+    fad.adam_update(p, g, m, v, **kw)
+    fad.adam_update_plain(p2, g, m2, v2, **kw)
+    e_p, e_m, e_v = max_err(p, p2), max_err(m, m2), max_err(v, v2)
+    print(f"fused_adam n={n}: max_abs_err p {e_p:.3e} (tol {tol_p}) m {e_m:.3e} "
+          f"v {e_v:.3e} (tol {tol_mv}*max|ref|)")
+    require(e_p <= tol_p and e_m <= tol_mv * m2.abs().max().item()
+            and e_v <= tol_mv * v2.abs().max().item(),
+            "fused_adam disagrees with its plain version")
+    del p2, m2, v2
+    lib_p = torch.nn.Parameter(p.clone())
+    lib_p.grad = g.clone()
+    lib_opt = torch.optim.AdamW([lib_p], lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=0.01, foreach=True)
+    lib_opt.step()  # state
+    b_ms, b_by = bound(15 * n, 28 * n)
+    r = {
+        "max_abs_err": e_p,
+        "ms": timer(lambda: fad.adam_update(p, g, m, v, **kw)),
+        "plain_ms": timer(lambda: fad.adam_update_plain(p, g, m, v, **kw)),
+        "library_ms": timer(lib_opt.step),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": f"n={n} fp32 (library: torch.optim.AdamW foreach)",
+    }
+    return r
+
+
 def check_other_forms(gen):
-    """The other shapes and dtypes the wrappers take (head_dim 64, ragged
-    and short sequences, non-causal, fp32 cache and norms), each against
-    its plain version on the card."""
+    """The other shapes and dtypes the wrappers take (head_dim 64 and 128,
+    ragged and short sequences, non-causal, GQA groups 1 to 8, fp32 caches
+    and norms, an Adam leaf with a scalar tail), each against its plain
+    version on the card."""
     F32 = torch.float32
 
     def rand(*shape, dtype=BF16):
@@ -232,8 +420,36 @@ def check_other_forms(gen):
         x, w = rand(5, 4096, dtype=xd), (1 + 0.1 * rand(4096, dtype=F32)).to(wd)
         err = max_err(rn.rmsnorm_fwd(x, w), rn.rmsnorm_plain(x, w))
         cases.append((f"rmsnorm x {xd} w {wd} rows=5 D=4096", err, tol))
+    for B, S, H, KV, D, causal in ((1, 200, 8, 2, 128, True), (2, 256, 4, 4, 64, False),
+                                   (1, 37, 8, 1, 64, True), (2, 384, 16, 4, 128, True)):
+        q, k, v, do = rand(B, S, H, D), rand(B, S, KV, D), rand(B, S, KV, D), rand(B, S, H, D)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            scale = w.float().abs().max().item()
+            cases.append((f"flash_bwd {name} B={B} S={S} H={H} KV={KV} D={D} "
+                          f"causal={causal}", max_err(a, w), 2e-2 * scale))
+    for xd, wd, rows, D, tol in ((F32, F32, 300, 4096, 1e-4), (BF16, F32, 300, 4096, 6.25e-2),
+                                 (F32, BF16, 5, 128, 1e-4)):
+        x, g = rand(rows, D, dtype=xd), rand(rows, D, dtype=xd)
+        w = (1 + 0.1 * rand(D, dtype=F32)).to(wd)
+        (dx, ds), (rdx, rds) = rn.rmsnorm_bwd(x, w, g), rn.rmsnorm_bwd_plain(x, w, g)
+        cases.append((f"rmsnorm_bwd dx x {xd} w {wd} rows={rows} D={D}",
+                      max_err(dx, rdx), tol))
+        cases.append((f"rmsnorm_bwd dscale x {xd} w {wd} rows={rows} D={D}",
+                      max_err(ds, rds), 1e-5 * rds.abs().max().item()))
+    n = 1_000_003  # not a multiple of 4: the scalar tail
+    p, g, m = rand(n, dtype=F32), rand(n, dtype=F32), rand(n, dtype=F32)
+    v = rand(n, dtype=F32).abs()
+    p2, m2, v2 = p.clone(), m.clone(), v.clone()
+    kw = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, bc1=0.1, bc2=0.05)
+    fad.adam_update(p, g, m, v, **kw)
+    fad.adam_update_plain(p2, g, m2, v2, **kw)
+    cases.append((f"fused_adam n={n} no clip", max(max_err(p, p2), max_err(m, m2),
+                                                   max_err(v, v2)), 1e-5))
     for name, err, tol in cases:
-        print(f"{name}: max_abs_err {err:.3e} (tol {tol})")
+        print(f"{name}: max_abs_err {err:.3e} (tol {tol:.3e})")
         require(err <= tol, f"{name} disagrees with its plain version")
 
 
@@ -331,9 +547,9 @@ def main_path():
     kernels.reset_launch_counts()
     second = serve(report=True)
     counts = kernels.launch_counts()
-    print(f"main path launches: {counts}")
-    for name, n in counts.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+    print(f"serving main path launches: { {k: counts[k] for k in SERVING_KERNELS} }")
+    for name in SERVING_KERNELS:
+        require(counts[name] > 0, f"kernel {name} was not launched on the serving path")
     for (name, _, _), a, b in zip(requests, first, second):
         require(torch.equal(a, b), f"{name}: tokens differ between two runs")
     print("reruns (greedy, and sampled with the same seed): identical tokens")
@@ -348,20 +564,24 @@ def main_path():
         per_step[eos].append(st["decode_ms"] / st["decode_steps"])
     print(f"host sync per token (B=1): ms/step with eos "
           f"{per_step[V - 1]} vs without {per_step[-1]}")
-    profile_decode(engine, prompt, kw)
+    profile_device(lambda: engine.generate(prompt, **kw), "B=1 generate")
     return counts
 
 
-def profile_decode(engine, prompt, kw):
-    """Device busy share of one B=1 generate: kernel time from torch.profiler
-    over the wall time of the same request run without the profiler."""
+def profile_device(run, label: str) -> None:
+    """Device busy share of ``run()``: kernel time from torch.profiler over
+    the wall time of the same call run without the profiler; and the top
+    kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine.generate(prompt, **kw)
+    run()
+    torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.generate(prompt, **kw)
+        run()
+        torch.cuda.synchronize()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or \
@@ -371,10 +591,208 @@ def profile_decode(engine, prompt, kw):
     kernels_run = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(dev_us(e) for e in kernels_run) / 1e3
-    print(f"profile B=1 generate: wall {wall_ms:.2f} ms unprofiled, device "
+    print(f"profile {label}: wall {wall_ms:.2f} ms unprofiled, device "
           f"kernels {busy_ms:.2f} ms, busy share {busy_ms / wall_ms:.3f}")
     for e in sorted(kernels_run, key=dev_us, reverse=True)[:10]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+
+
+def train_config(kernels: bool, remat: str = "none", batch: int = TRAIN_B * TRAIN_ACCUM,
+                 micro: int = TRAIN_B, weight_decay: float = 0.0):
+    """bench.py's default training leg (make_ds_config): bf16 over fp32
+    masters, AdamW lr 1e-4, clipping 1.0, ZeRO 0; every kernel switch "auto"
+    (on for a CUDA device) or off (the plain paths)."""
+    switch = "auto" if kernels else False
+    return {
+        "train_batch_size": batch, "train_micro_batch_size_per_gpu": micro,
+        "optimizer": {"type": "adamw", "params": {"lr": TRAIN_LR,
+                                                  "weight_decay": weight_decay}},
+        "bf16": {"enabled": True}, "zero_optimization": {"stage": 0},
+        "gradient_clipping": 1.0, "steps_per_print": 1000,
+        "activation_checkpointing": {"policy": remat},
+        "tpu_kernels": {k: switch for k in ("flash_attention", "fused_rmsnorm",
+                                            "fused_adam", "fused_ce")},
+    }
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """Leaf paths ("layers/attn/wq"), in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in leaf_names(v, f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)).item()
+
+
+def reference_check_training():
+    """Two-layer full-width llama3-1b in bf16, micro-batch 2 x 2048 tokens,
+    AdamW with weight decay 0.1: the kernel path (flash forward and
+    backward, RMSNorm kernels, chunked CE, fused Adam) against the plain
+    path from the same masters. One micro-batch's loss and every leaf's
+    gradient; then three train_batch steps on three batches, after which,
+    leaf by leaf, the masters' moves p - p0 and the Adam moments mu and nu
+    (by then no longer a sign per element) and the last step's global
+    gradient norm; then ``full`` remat against ``none`` on the kernel path,
+    bitwise over the three steps."""
+    tol_loss, tol_grad, steps, wd = 1e-2, 5e-2, 3, 0.1
+    # per-leaf relative L2 after three steps, about twice the readings of
+    # the H100 run that set them (PERF.md): moves 0.112 (Adam moves an
+    # element whose gradient is at the bf16 noise level by a full lr in
+    # either path), mu 1.49e-2, nu 1.85e-2; grad norm 9.6e-6
+    tol_move, tol_mu, tol_nu, tol_norm = 0.25, 3e-2, 4e-2, 1e-4
+    # embedding rows no batch touched: zero gradient, so weight decay alone
+    # moves them, p0 * ((1 - lr wd)^3 - 1); fp32 rounding of p is 0.3 % of it
+    tol_decay = 1e-2
+    model = llama("llama3-1b", num_layers=2)
+    params0 = model.init(torch.Generator(device="cuda").manual_seed(1),
+                         dtype=torch.float32, device="cuda")
+    ids = torch.randint(0, model.config.vocab_size, (steps, 2, TRAIN_S),
+                        generator=torch.Generator().manual_seed(1)).cuda()
+
+    def run(kernels: bool, remat: str = "none"):
+        eng, *_ = initialize(model=model, config=train_config(kernels, remat, 2, 2, wd),
+                             model_parameters=params0)
+        mb = {k: t[0] for k, t in eng._prepare_batch({"input_ids": ids[0]}).items()}
+        with eng._kernel_scope():
+            loss, _ = eng.model.loss(eng.params, mb, dtype=BF16, remat_policy=remat)
+            loss.backward()
+        grads = tree_map(lambda p: p.grad, eng.params)
+        for p in tree_leaves(eng.params):
+            p.grad = None
+        step_losses = torch.stack([eng.train_batch(batch={"input_ids": ids[i]})
+                                   for i in range(steps)])
+        return {"loss": loss.detach(), "grads": grads, "steps": step_losses,
+                "gnorm": eng.get_global_grad_norm(),
+                "masters": tree_map(lambda p: p.detach(), eng.params),
+                "mu": eng.opt_state["mu"], "nu": eng.opt_state["nu"]}
+
+    k, p = run(True), run(False)
+    rel_loss = abs(k["loss"].item() - p["loss"].item()) / abs(p["loss"].item())
+    rel_norm = abs(k["gnorm"] - p["gnorm"]) / p["gnorm"]
+
+    def leaf_errs(key, fn=lambda t, t0: t):
+        return [rel_l2(fn(a, a0), fn(b, a0)) for a, b, a0 in
+                zip(tree_leaves(k[key]), tree_leaves(p[key]), tree_leaves(params0))]
+
+    grad_errs = leaf_errs("grads")
+    move_errs = leaf_errs("masters", lambda t, t0: t - t0)
+    mu_errs, nu_errs = leaf_errs("mu"), leaf_errs("nu")
+    names = leaf_names(params0)
+    untouched = torch.ones(model.config.vocab_size, dtype=torch.bool, device="cuda")
+    untouched[ids.flatten()] = False
+    e0 = params0["embed"]["tok"][untouched]
+    decayed = e0 * ((1 - TRAIN_LR * wd) ** steps - 1)
+    decay_errs = [rel_l2(r["masters"]["embed"]["tok"][untouched] - e0, decayed)
+                  for r in (k, p)]
+
+    def worst(errs):
+        i = max(range(len(errs)), key=errs.__getitem__)
+        return f"{errs[i]:.3e} ({names[i]})"
+
+    print(f"training reference check (llama3-1b, 2 layers, full width, 2 x {TRAIN_S} "
+          f"tokens, weight decay {wd}): loss kernel {k['loss'].item():.6f} plain "
+          f"{p['loss'].item():.6f} (rel {rel_loss:.3e}, tol {tol_loss}); per-leaf grad "
+          f"relative L2 max {worst(grad_errs)} (tol {tol_grad})")
+    print(f"training reference check after {steps} steps: step losses kernel "
+          f"{k['steps'].tolist()} plain {p['steps'].tolist()}; grad norm kernel "
+          f"{k['gnorm']:.6f} plain {p['gnorm']:.6f} (rel {rel_norm:.3e}, tol {tol_norm}); "
+          f"per-leaf relative L2 max: masters' move p - p0 {worst(move_errs)} "
+          f"(tol {tol_move}), mu {worst(mu_errs)} (tol {tol_mu}), nu "
+          f"{worst(nu_errs)} (tol {tol_nu}); {int(untouched.sum())} untouched "
+          f"embedding rows against weight decay alone: kernel {decay_errs[0]:.3e} "
+          f"plain {decay_errs[1]:.3e} (tol {tol_decay})")
+    for name, e_move, e_mu, e_nu in zip(names, move_errs, mu_errs, nu_errs):
+        print(f"  {name}: move {e_move:.3e} mu {e_mu:.3e} nu {e_nu:.3e}")
+    require(bool(torch.isfinite(k["loss"])) and rel_loss <= tol_loss,
+            "training loss: kernel path disagrees with the plain path")
+    require(max(grad_errs) <= tol_grad, "gradients: kernel path disagrees")
+    require(rel_norm <= tol_norm and max(move_errs) <= tol_move
+            and max(mu_errs) <= tol_mu and max(nu_errs) <= tol_nu
+            and max(decay_errs) <= tol_decay,
+            f"after {steps} steps: kernel path disagrees with the plain path")
+    del p
+    f = run(True, "full")
+    same = torch.equal(f["loss"], k["loss"]) and torch.equal(f["steps"], k["steps"]) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(f["masters"]), tree_leaves(k["masters"])))
+    print(f"training reference check: full remat vs none bitwise equal over {steps} "
+          f"steps: {same}")
+    require(same, "full remat differs from none")
+    del f, k, params0
+    torch.cuda.empty_cache()
+
+
+def train_flops(cfg, tokens: int, seq: int) -> float:
+    """6 N per token (forward + backward of every weight) plus causal
+    attention: 4 D flops per visible pair and head forward, 3x with the
+    backward."""
+    pairs_per_seq = seq * (seq + 1) / 2
+    attn = 12 * cfg.hd * cfg.num_heads * cfg.num_layers * (tokens / seq) * pairs_per_seq
+    return 6 * cfg.num_params() * tokens + attn
+
+
+def main_path_training():
+    """llama3-1b at full width and depth, seeded random masters, one seeded
+    batch of 8 x 2048 tokens (micro-batch 4, 2 accumulation steps), 10
+    steps; then the same 3 first steps from the same seed."""
+    model = llama("llama3-1b")
+    cfg = model.config
+    steps, tokens = 10, TRAIN_B * TRAIN_ACCUM * TRAIN_S
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_B * TRAIN_ACCUM, TRAIN_S),
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    batch = {"input_ids": ids}
+
+    def build():
+        eng, *_ = initialize(model=model, config=train_config(True),
+                             rng=torch.Generator(device="cuda").manual_seed(0))
+        return eng
+
+    t0 = time.perf_counter()
+    engine = build()
+    torch.cuda.synchronize()
+    print(f"training main path: {cfg.name} L={cfg.num_layers} d={cfg.hidden_size} "
+          f"H={cfg.num_heads} KV={cfg.kv_heads} hd={cfg.hd} ffn={cfg.ffn} "
+          f"V={cfg.vocab_size} ({cfg.num_params() / 1e9:.3f} B params), depth not cut; "
+          f"init {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(steps):
+        losses.append(engine.train_batch(batch=batch))
+        if i == 1:  # the first two steps warm up cuBLAS and the allocator
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter()
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t_warm) * 1e3 / (steps - 2)
+    counts = kernels.launch_counts()
+    losses = [x.item() for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    mfu = train_flops(cfg, tokens, TRAIN_S) / (ms_step / 1e3) / BF16_FLOPS
+    print(f"training losses: {losses}")
+    print(f"training: {ms_step:.2f} ms/step (steps 3-{steps}), "
+          f"{tokens / (ms_step / 1e3):.1f} tokens/s, MFU {mfu:.4f} (6 N tokens + "
+          f"attention over {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16), peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"training main path launches ({steps} steps): "
+          f"{ {k: counts[k] for k in TRAINING_KERNELS} }")
+    require(all(math.isfinite(x) for x in losses), "non-finite training loss")
+    require(losses[-1] < losses[0], f"training loss did not fall: {losses}")
+    for name in TRAINING_KERNELS:
+        require(counts[name] > 0, f"kernel {name} was not launched on the training path")
+    profile_device(lambda: engine.train_batch(batch=batch), "one training step")
+    del engine
+    torch.cuda.empty_cache()
+    engine = build()
+    rerun = [engine.train_batch(batch=batch).item() for _ in range(3)]
+    print(f"determinism: 3 steps rerun from the same seed {rerun}, bitwise equal "
+          f"to the first run: {rerun == losses[:3]}")
+    require(rerun == losses[:3], "the rerun from the same seed gave other losses")
+    del engine
+    torch.cuda.empty_cache()
+    return counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -397,13 +815,22 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer()
-    results = {
-        "flash_attention_fwd": check_flash(gen, timer),
-        "decode_attention": check_decode(gen, timer),
-        "rmsnorm_fwd": check_rmsnorm(gen, timer),
-    }
-    for name, r in results.items():
-        print(f"{name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
+    # one timed row per (kernel, main path) at that path's shape
+    flash, norm = check_flash(gen, timer), check_rmsnorm(gen, timer)
+    dq, dkv = check_flash_bwd(gen, timer)
+    rows = [
+        ("flash_attention_fwd", "serving", flash["serving"]),
+        ("flash_attention_fwd", "training", flash["training"]),
+        ("decode_attention", "serving", check_decode(gen, timer)),
+        ("rmsnorm_fwd", "serving", norm["serving"]),
+        ("rmsnorm_fwd", "training", norm["training"]),
+        ("rmsnorm_bwd", "training", check_rmsnorm_bwd(gen, timer)),
+        ("flash_attention_bwd_dq", "training", dq),
+        ("flash_attention_bwd_dkv", "training", dkv),
+        ("fused_adam", "training", check_fused_adam(gen, timer)),
+    ]
+    for name, path, r in rows:
+        print(f"{name} ({path}) [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     del timer
@@ -411,14 +838,16 @@ def main() -> int:
 
     check_other_forms(gen)
     reference_check()
-    counts = main_path()
+    reference_check_training()
+    counts = {"training": main_path_training(), "serving": main_path()}
 
+    # launches: the row's main path's run, counters zeroed just before it
     line = {"kernels": [
-        {"name": name, "route": "cuda", **KERNELS[name],
-         "launches": counts[name],
+        {"name": name, "path": path, "route": "cuda", **KERNELS[name],
+         "launches": counts[path][name],
          **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}}
-        for name, r in results.items()
+        for name, path, r in rows
     ]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,12 @@
 Hopper (H100).
 
 It grows slice by slice beside the JAX package, which stays the reference.
-This slice serves the Llama family through ``init_inference`` →
-``InferenceEngine.generate``, with hand-written CUDA kernels for flash
-prefill attention, decode attention and RMSNorm (``ops/cuda``). It imports
-neither jax nor deepspeed_tpu.
+It serves the Llama family through ``init_inference`` →
+``InferenceEngine.generate`` and trains it on one device through
+``initialize`` → ``TorchEngine.train_batch``, with hand-written CUDA kernels
+(``ops/cuda``): flash attention forward and backward, decode attention,
+RMSNorm forward and backward, and the fused Adam update. It imports neither
+jax nor deepspeed_tpu.
 """
 
 from .accelerator import get_accelerator  # noqa: F401
@@ -18,3 +20,10 @@ def init_inference(*args, **kwargs):
     from .inference.engine import init_inference as _init_inference
 
     return _init_inference(*args, **kwargs)
+
+
+def initialize(*args, **kwargs):
+    """Parity: deepspeed.initialize."""
+    from .runtime.engine import initialize as _initialize
+
+    return _initialize(*args, **kwargs)

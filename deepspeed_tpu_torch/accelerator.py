@@ -74,6 +74,22 @@ class CudaAccelerator:
         return torch.cuda.is_available()
 
 
+def resolve_device(device, caller: str) -> torch.device:
+    """The device an entry point runs on: the current CUDA device by
+    default; with no CUDA device only an explicit ``device="cpu"``."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{caller}: no CUDA device is available; pass device='cpu' "
+                "to run on the CPU"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{caller}: {device} requested, no CUDA device")
+    return device
+
+
 _ACCEL: Optional[CudaAccelerator] = None
 _LOCK = threading.Lock()
 

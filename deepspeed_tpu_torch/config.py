@@ -1,0 +1,245 @@
+"""DeepSpeed-compatible configuration: the sections the one-device training
+step reads.
+
+Counterpart of ``deepspeed_tpu/config.py``. It accepts the same
+``ds_config.json`` (a dict or a path), resolves the batch triangle
+(``train_batch_size = micro_batch * gradient_accumulation_steps * dp``, dp = 1
+on one device), and types the sections the training step reads: optimizer,
+scheduler, fp16/bf16, ZeRO stage, activation-checkpointing policy, gradient
+clipping, logging, and ``tpu_kernels`` (which kernels replace the plain
+paths; ``"auto"`` resolves on for a CUDA device as the JAX package's does for
+a TPU). It raises :class:`DeepSpeedConfigError` for the same bad inputs as the
+JAX package: a batch-triangle mismatch, fp16 and bf16 both on, a ZeRO stage
+out of range, an unknown remat policy, negative clipping. Every other section
+is kept raw in :attr:`DeepSpeedConfig.raw`; ``initialize`` refuses the ones a
+later slice ports when they are turned on.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import os
+from dataclasses import dataclass, field, fields
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from .runtime.activation_checkpointing import KNOWN_POLICIES
+
+AUTO = "auto"
+
+
+class DeepSpeedConfigError(ValueError):
+    pass
+
+
+def _get(d: Dict[str, Any], key: str, default=None):
+    v = d.get(key, default)
+    return default if v == AUTO else v
+
+
+def _parse_dc(cls, section):
+    """Build dataclass ``cls`` from dict ``section``, ignoring unknown keys."""
+    names = {f.name for f in fields(cls)}
+    return cls(**{k: v for k, v in dict(section or {}).items() if k in names})
+
+
+@dataclass
+class OptimizerConfig:
+    """The "optimizer" section."""
+
+    type: str = "adamw"
+    params: Dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def lr(self) -> float:
+        return float(self.params.get("lr", 1e-3))
+
+    @property
+    def betas(self) -> Tuple[float, float]:
+        betas = self.params.get("betas", (0.9, 0.999))
+        return (float(betas[0]), float(betas[1]))
+
+    @property
+    def eps(self) -> float:
+        return float(self.params.get("eps", 1e-8))
+
+    @property
+    def weight_decay(self) -> float:
+        return float(self.params.get("weight_decay", 0.0))
+
+
+@dataclass
+class SchedulerConfig:
+    type: Optional[str] = None
+    params: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class FP16Config:
+    """The "fp16" section, dynamic loss-scaling knobs included."""
+
+    enabled: bool = False
+    loss_scale: float = 0.0  # 0 => dynamic
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    consecutive_hysteresis: bool = False
+    min_loss_scale: float = 1.0
+
+
+@dataclass
+class BF16Config:
+    enabled: bool = False
+    accumulate_grads_in_fp32: bool = True
+
+
+@dataclass
+class ZeroConfig:
+    """The "zero_optimization" stage; the rest of the section stays raw."""
+
+    stage: int = 0
+
+    def validate(self) -> None:
+        if self.stage not in (0, 1, 2, 3):
+            raise DeepSpeedConfigError(
+                f"zero_optimization.stage must be 0-3, got {self.stage}")
+
+
+@dataclass
+class ActivationCheckpointingConfig:
+    """The "activation_checkpointing" policy."""
+
+    policy: str = "none"
+
+    def validate(self) -> None:
+        if self.policy not in (None, "none") and self.policy not in KNOWN_POLICIES:
+            raise DeepSpeedConfigError(
+                f"activation_checkpointing.policy {self.policy!r} is unknown; "
+                f"have none, {', '.join(sorted(KNOWN_POLICIES))}"
+            )
+
+
+@dataclass
+class TpuKernelsConfig:
+    """Which hand-written kernels replace the plain paths (the JAX
+    package's section name). ``"auto"`` resolves on for a CUDA device and
+    off elsewhere. Every switch defaults to ``"auto"``: where the JAX
+    package defaults the RMSNorm and Adam kernels off, XLA fuses the plain
+    versions, but here the plain versions run as separate torch ops and are
+    never the faster choice on the card. ``False`` opts out."""
+
+    flash_attention: Any = AUTO
+    fused_rmsnorm: Any = AUTO
+    fused_adam: Any = AUTO
+    fused_ce: Any = AUTO  # vocab-chunked cross-entropy (ops/cross_entropy.py)
+    ce_chunk: int = 4096
+
+    def resolve(self, on_cuda: bool) -> "TpuKernelsConfig":
+        def res(v):
+            return on_cuda if v == AUTO else bool(v)
+
+        return TpuKernelsConfig(
+            flash_attention=res(self.flash_attention),
+            fused_rmsnorm=res(self.fused_rmsnorm),
+            fused_adam=res(self.fused_adam),
+            fused_ce=res(self.fused_ce),
+            ce_chunk=int(self.ce_chunk),
+        )
+
+
+class DeepSpeedConfig:
+    """Parsed and validated ds_config (a dict or a json path); the batch
+    triangle resolves when ``dp_world_size`` is given (``initialize`` gives
+    1)."""
+
+    def __init__(self, config, dp_world_size: Optional[int] = None):
+        if isinstance(config, (str, os.PathLike)):
+            with open(config, "r") as f:
+                config = json.load(f)
+        if not isinstance(config, dict):
+            raise DeepSpeedConfigError(f"config must be dict or path, got {type(config)}")
+        self.raw: Dict[str, Any] = copy.deepcopy(config)
+        d = self.raw
+
+        self.train_batch_size = _get(d, "train_batch_size")
+        self.train_micro_batch_size_per_gpu = _get(d, "train_micro_batch_size_per_gpu")
+        self.gradient_accumulation_steps = _get(d, "gradient_accumulation_steps")
+        if dp_world_size is not None:
+            self.resolve_batch_sizes(dp_world_size)
+
+        self.steps_per_print = int(_get(d, "steps_per_print", 10) or 10)
+        self.wall_clock_breakdown = bool(_get(d, "wall_clock_breakdown", False))
+        self.gradient_clipping = float(_get(d, "gradient_clipping", 0.0) or 0.0)
+        self.seed = int(_get(d, "seed", 1234) or 1234)
+
+        opt = d.get("optimizer") or {}
+        self.optimizer = OptimizerConfig(
+            type=str(opt.get("type", "adamw")).lower(), params=dict(opt.get("params", {}))
+        )
+        sched = d.get("scheduler") or {}
+        self.scheduler = SchedulerConfig(
+            type=(sched.get("type") or None), params=dict(sched.get("params", {}))
+        )
+        self.fp16 = _parse_dc(FP16Config, d.get("fp16"))
+        self.bf16 = _parse_dc(BF16Config, d.get("bf16"))
+        self.zero_config = _parse_dc(ZeroConfig, d.get("zero_optimization"))
+        self.activation_checkpointing = _parse_dc(
+            ActivationCheckpointingConfig, d.get("activation_checkpointing"))
+        self.tpu_kernels = _parse_dc(TpuKernelsConfig, d.get("tpu_kernels"))
+        self._validate()
+
+    def resolve_batch_sizes(self, dp_world_size: int) -> None:
+        tb, mb, ga = (self.train_batch_size, self.train_micro_batch_size_per_gpu,
+                      self.gradient_accumulation_steps)
+        if tb is not None and mb is not None and ga is not None:
+            if tb != mb * ga * dp_world_size:
+                raise DeepSpeedConfigError(
+                    f"train_batch_size {tb} != micro_batch {mb} * grad_accum "
+                    f"{ga} * dp {dp_world_size}")
+        elif tb is not None and mb is not None:
+            if tb % (mb * dp_world_size) != 0:
+                raise DeepSpeedConfigError(
+                    f"train_batch_size {tb} not divisible by micro_batch {mb} "
+                    f"* dp {dp_world_size}")
+            ga = tb // (mb * dp_world_size)
+        elif tb is not None and ga is not None:
+            if tb % (ga * dp_world_size) != 0:
+                raise DeepSpeedConfigError(
+                    f"train_batch_size {tb} not divisible by grad_accum {ga} "
+                    f"* dp {dp_world_size}")
+            mb = tb // (ga * dp_world_size)
+        elif mb is not None:
+            ga = ga or 1
+            tb = mb * ga * dp_world_size
+        elif tb is not None:
+            ga = 1
+            if tb % dp_world_size != 0:
+                raise DeepSpeedConfigError(
+                    f"train_batch_size {tb} not divisible by dp world size "
+                    f"{dp_world_size}")
+            mb = tb // dp_world_size
+        else:
+            tb, mb, ga = dp_world_size, 1, 1
+        self.train_batch_size, self.train_micro_batch_size_per_gpu = int(tb), int(mb)
+        self.gradient_accumulation_steps = int(ga)
+
+    def _validate(self) -> None:
+        if self.fp16.enabled and self.bf16.enabled:
+            raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
+        self.zero_config.validate()
+        if self.gradient_clipping < 0:
+            raise DeepSpeedConfigError("gradient_clipping must be >= 0")
+        self.activation_checkpointing.validate()
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        if self.bf16.enabled:
+            return torch.bfloat16
+        if self.fp16.enabled:
+            return torch.float16
+        return torch.float32
+
+    def to_dict(self) -> Dict[str, Any]:
+        return copy.deepcopy(self.raw)

@@ -28,11 +28,13 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..accelerator import resolve_device
 from ..models.decoding import forward_with_cache, init_cache
 from ..models.transformer import apply, cast_floating, check_supported
 from ..ops.attention import attention_impl
 from ..ops.normalization import kernel_rmsnorm_scope
 from ..utils.logging import log_dist
+from ..utils.tree import tree_size
 
 NEG_INF = -1e30
 
@@ -87,20 +89,6 @@ def _sample(logits: torch.Tensor, generator: torch.Generator,
                              generator=generator)[:, 0]
 
 
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "init_inference: no CUDA device is available; pass "
-                "device='cpu' to serve on the CPU"
-            )
-        return torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"init_inference: {device} requested, no CUDA device")
-    return device
-
-
 def init_inference(
     model,
     tensor_parallel: Optional[Dict[str, Any]] = None,
@@ -139,18 +127,18 @@ def init_inference(
     if ep_size > 1:
         later.append(f"ep_size={ep_size} (MoE expert parallelism)")
     if dtype in ("int8", "int4", torch.int8) or quantize_bits:
-        later.append("int8/int4 weights (port slice 2)")
+        later.append("int8/int4 weights (port slice 3)")
     if kv_cache_dtype == "int8":
-        later.append("the int8 KV cache (port slice 2)")
+        later.append("the int8 KV cache (port slice 3)")
     if draft_model is not None or draft_params is not None:
-        later.append("speculative decode (port slice 2)")
+        later.append("speculative decode (port slice 3)")
     if matvec_max_rows is not None or (config and "matvec_max_rows" in config):
-        later.append("matvec_max_rows (int8/int4 weights, port slice 2)")
+        later.append("matvec_max_rows (int8/int4 weights, port slice 3)")
     if checkpoint is not None:
         later.append("checkpoint= loading")
     if later:
         raise NotImplementedError(
-            "deepspeed_tpu_torch port slice 1 serves unquantized weights on "
+            "deepspeed_tpu_torch serves unquantized weights on "
             "one device; not yet ported: " + "; ".join(later)
         )
     if config:
@@ -165,7 +153,7 @@ def init_inference(
         kv_cache_dtype=kv_cache_dtype,
         params=params,
         rng=rng,
-        device=_resolve_device(device),
+        device=resolve_device(device, "init_inference"),
     )
 
 
@@ -193,7 +181,7 @@ class InferenceEngine:
         on_cuda = device.type == "cuda"
         if on_cuda and dtype != torch.bfloat16:
             raise NotImplementedError(
-                "the CUDA attention kernels of port slice 1 take bfloat16; "
+                "the CUDA attention kernels take bfloat16; "
                 f"got dtype={dtype} (serve other dtypes with device='cpu')"
             )
 
@@ -211,7 +199,7 @@ class InferenceEngine:
             params = model.init(gen, dtype=dtype, device=device)
         self.params = cast_floating(params, dtype, device)
         self.last_generate_stats: Optional[Dict[str, float]] = None
-        n_params = sum(t.numel() for t in _leaves(self.params))
+        n_params = tree_size(self.params)
         log_dist(
             f"InferenceEngine: {n_params / 1e6:.1f}M params, dtype={dtype}, "
             f"device={device}, kernel_inject={kernel_inject}"
@@ -359,11 +347,4 @@ def _token_ids(input_ids) -> torch.Tensor:
         return input_ids.long()
     return torch.from_numpy(np.array(input_ids, dtype=np.int64))
 
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 

@@ -1,5 +1,5 @@
 """Weight bridge: a JAX parameter tree, as numpy arrays, into the port's
-parameters.
+parameters, and the port's parameters back to numpy.
 
 ``deepspeed_tpu``'s ``init`` returns nested dicts with the layers stacked
 along a leading [L] dim and projection weights [in, out]. The port keeps the
@@ -9,7 +9,7 @@ same tree and layout, so the bridge is a checked copy: every tensor the port's
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -41,3 +41,13 @@ def params_from_numpy(cfg: TransformerConfig, tree: Mapping[str, Any], *,
         return t.to(device)
 
     return convert(param_specs(cfg), tree, "")
+
+
+def params_to_numpy(params: Params) -> Dict[str, Any]:
+    """The port's parameter tree → nested dict of numpy arrays (bf16 leaves
+    as fp32), the inverse of :func:`params_from_numpy`: trained masters
+    compare with the JAX engine's ``state.params``."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    t = params.detach().to("cpu")
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -35,7 +35,7 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
     """Zeroed KV buffer for all layers, {"k", "v"}: [L, B, max_len, KV, hd]."""
     if quantized:
         raise NotImplementedError(
-            "the int8 KV cache is not ported yet (port slice 2)"
+            "the int8 KV cache is not ported yet (port slice 3)"
         )
     shape = (cfg.num_layers, batch, max_len, cfg.kv_heads, cfg.hd)
     return {

@@ -6,22 +6,28 @@ package's layout: nested dicts, the layers stacked along a leading [L] dim,
 projection weights [in, out]. The forward is plain functions on tensors with a
 Python loop over the layers where JAX has ``lax.scan``.
 
-This slice covers the Llama family: RoPE, RMSNorm, SwiGLU, grouped-query
+The port covers the Llama family: RoPE, RMSNorm, SwiGLU, grouped-query
 attention, no biases, an untied head. Other families raise
-``NotImplementedError`` (see :func:`check_supported`).
+``NotImplementedError`` (see :func:`check_supported`). For training,
+:func:`loss_fn` is the next-token cross-entropy (dense, or vocab-chunked under
+``ops.cross_entropy.fused_ce_scope``), and :func:`apply` can re-run each
+layer in backward (``remat_policy="full"``).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
+from ..ops.cross_entropy import chunked_masked_ce, fused_ce_config
 from ..ops.normalization import rmsnorm
+from ..runtime.activation_checkpointing import policy_by_name
 
 Params = Dict[str, Any]
 
@@ -80,7 +86,8 @@ def check_supported(cfg: TransformerConfig) -> None:
         missing.append("biases, tied embeddings or an embedding norm")
     if missing:
         raise NotImplementedError(
-            "deepspeed_tpu_torch port slice 1 serves the Llama family only; "
+            "deepspeed_tpu_torch runs the Llama family only (port slice 1 serves "
+            "it, slice 2 trains it); "
             f"not yet ported: {'; '.join(missing)}"
         )
 
@@ -157,6 +164,19 @@ def layer_params(layers: Params, i: int) -> Params:
     }
 
 
+def unstack_layers(layers: Params, num_layers: int) -> List[Params]:
+    """Every layer's parameters, by one ``unbind`` per stacked tensor: its
+    backward stacks the L layer gradients once, where L views ``v[i]``
+    would each scatter into a zeroed [L, ...] gradient."""
+    def split(tree):
+        if isinstance(tree, dict):
+            parts = {k: split(v) for k, v in tree.items()}
+            return [{k: p[i] for k, p in parts.items()} for i in range(num_layers)]
+        return tree.unbind(0)
+
+    return split(layers)
+
+
 # -----------------------------------------------------------------------------
 # building blocks
 # -----------------------------------------------------------------------------
@@ -228,26 +248,80 @@ def default_positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
+def _layer(cfg: TransformerConfig, lp: Params, x: torch.Tensor, rope) -> torch.Tensor:
+    x = x + _attention(cfg, lp["attn"], _norm(cfg, lp["ln1"], x), rope)
+    return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
+
+
 def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
-          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """No-cache forward → fp32 logits [B, S, V]."""
+          dtype: Optional[torch.dtype] = None, remat_policy: Optional[str] = None,
+          return_hidden: bool = False) -> torch.Tensor:
+    """No-cache forward → fp32 logits [B, S, V]; with ``return_hidden`` the
+    final normed hidden [B, S, d] instead (the chunked-CE path projects
+    chunk by chunk itself).
+
+    ``dtype`` casts the parameters for compute (the layer stack as a whole,
+    as the JAX package does; the embedding rows after the lookup, so the
+    table's gradient accumulates in its own dtype). ``remat_policy="full"``
+    re-runs each layer in backward when a gradient is being recorded."""
     check_supported(cfg)
     B, S = input_ids.shape
-    if dtype is not None:
-        params = cast_floating(params, dtype)
-    x = params["embed"]["tok"][input_ids]
+    x = F.embedding(input_ids, params["embed"]["tok"])
+    cast = (lambda t: t) if dtype is None else (lambda t: cast_floating(t, dtype))
+    x = cast(x)
     rope = rope_tables(default_positions(B, S, x.device), cfg.hd, cfg.rope_theta)
-    layers = params["layers"]
-    for i in range(cfg.num_layers):
-        lp = layer_params(layers, i)
-        x = x + _attention(cfg, lp["attn"], _norm(cfg, lp["ln1"], x), rope)
-        x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
-    x = _norm(cfg, params["final_norm"], x)
+    remat = policy_by_name(remat_policy) if torch.is_grad_enabled() else None
+    for lp in unstack_layers(cast(params["layers"]), cfg.num_layers):
+        if remat:
+            x = checkpoint(_layer, cfg, lp, x, rope, use_reentrant=False)
+        else:
+            x = _layer(cfg, lp, x, rope)
+    x = _norm(cfg, cast(params["final_norm"]), x)
+    if return_hidden:
+        return x
     return lm_head_logits(cfg, params, x)
 
 
+def masked_ce(logits: torch.Tensor, labels: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ce, total_valid_tokens) from fp32 logits; labels < 0 ignored (HF
+    -100 style)."""
+    mask = (labels >= 0).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    denom = mask.sum().clamp(min=1.0)
+    return ((logz - gold) * mask).sum() / denom, denom
+
+
+def loss_fn(cfg: TransformerConfig, params: Params, batch: Dict[str, torch.Tensor],
+            *, dtype: Optional[torch.dtype] = torch.bfloat16,
+            remat_policy: Optional[str] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy (fp32); labels < 0 are ignored. Under an
+    enabled ``fused_ce_scope`` with a vocab wider than one chunk, the
+    [B, S, V] logits never materialise (``ops/cross_entropy.py``)."""
+    fused_on, chunk = fused_ce_config()
+    kw = dict(dtype=dtype, remat_policy=remat_policy)
+    # one device never shards the vocab: chunk once it spans more than one
+    if fused_on and cfg.vocab_size > chunk:
+        x = apply(cfg, params, batch["input_ids"], return_hidden=True, **kw)
+        ce, denom = chunked_masked_ce(x, params["lm_head"], batch["labels"], chunk)
+    else:
+        ce, denom = masked_ce(apply(cfg, params, batch["input_ids"], **kw),
+                              batch["labels"])
+    return ce, {"lm_loss": ce, "tokens": denom}
+
+
+def make_lm_batch(input_ids: torch.Tensor, pad_id: int = -1) -> Dict[str, torch.Tensor]:
+    """Shift inputs into (input_ids, labels) next-token form."""
+    pad = torch.full((input_ids.shape[0], 1), pad_id, dtype=input_ids.dtype,
+                     device=input_ids.device)
+    return {"input_ids": input_ids,
+            "labels": torch.cat([input_ids[:, 1:], pad], dim=1)}
+
+
 class TransformerModel:
-    """Bundles (config, init, apply), the engine's model protocol."""
+    """Bundles (config, init, apply, loss), the engines' model protocol."""
 
     def __init__(self, cfg: TransformerConfig):
         self.config = cfg
@@ -257,6 +331,9 @@ class TransformerModel:
 
     def apply(self, params, input_ids, **kw):
         return apply(self.config, params, input_ids, **kw)
+
+    def loss(self, params, batch, **kw):
+        return loss_fn(self.config, params, batch, **kw)
 
     def num_params(self) -> int:
         return self.config.num_params()

@@ -2,10 +2,12 @@
 
 Counterpart of ``deepspeed_tpu/ops/attention.py``. Two implementations:
 ``plain`` (GQA attention with an fp32 softmax, the counterpart of
-``xla_attention``) and ``flash`` (the CUDA flash kernel's wrapper, which takes
-its plain version for CPU tensors). ``auto`` resolves per device: flash for
-CUDA tensors, plain elsewhere, as the JAX package resolves flash on a TPU and
-XLA elsewhere. :class:`attention_impl` scopes a choice.
+``xla_attention``, differentiated by torch) and ``flash`` (the CUDA flash
+kernels' wrappers, which take their plain versions for CPU tensors; with a
+gradient wanted, :class:`FlashAttentionFunction` pairs the forward kernel with
+the dq and dk/dv kernels). ``auto`` resolves per device: flash for CUDA
+tensors, plain elsewhere, as the JAX package resolves flash on a TPU and XLA
+elsewhere. :class:`attention_impl` scopes a choice.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from typing import Callable, Dict
 
 import torch
 
-from .cuda.flash_attention import flash_attention_fwd, flash_attention_plain
+from .cuda.flash_attention import (flash_attention_bwd, flash_attention_fwd,
+                                   flash_attention_plain, strides_ok)
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -23,8 +26,31 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return flash_attention_plain(q, k, v, causal)[0]
 
 
+class FlashAttentionFunction(torch.autograd.Function):
+    """The forward kernel, saving (out, lse); the backward runs the dq
+    kernel, then the dk/dv kernel (the counterpart of the Pallas flash
+    attention's custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do.device.type != "cpu" and not strides_ok(do):
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFunction.apply(q, k, v, causal)
     return flash_attention_fwd(q, k, v, causal)[0]
 
 

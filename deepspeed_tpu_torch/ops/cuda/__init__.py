@@ -1,24 +1,22 @@
-"""Hand-written CUDA kernels for Hopper (sm_90a), one module per kernel.
+"""Hand-written CUDA kernels for Hopper (sm_90a), one module per kernel
+family.
 
-Each module holds the kernel's wrapper, its plain PyTorch version and a
-launch counter. Sources are in ``deepspeed_tpu_torch/csrc``; ``_build``
-compiles and loads them on first use.
+Each module holds the kernels' wrappers, their plain PyTorch versions and a
+``launches`` dict counting each kernel's launches. Sources are in
+``deepspeed_tpu_torch/csrc``; ``_build`` compiles and loads them on first use.
 """
 
-from . import decode_attention, flash_attention, rmsnorm
+from . import decode_attention, flash_attention, fused_adam, rmsnorm
 
-KERNEL_MODULES = {
-    "flash_attention_fwd": flash_attention,
-    "decode_attention": decode_attention,
-    "rmsnorm_fwd": rmsnorm,
-}
+KERNEL_MODULES = (flash_attention, decode_attention, rmsnorm, fused_adam)
 
 
 def launch_counts() -> dict:
     """Kernel launches per kernel since the last reset."""
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return {name: n for mod in KERNEL_MODULES for name, n in mod.launches.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    for mod in KERNEL_MODULES:
+        for name in mod.launches:
+            mod.launches[name] = 0

@@ -36,10 +36,16 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_LP = ctypes.POINTER(ctypes.c_longlong)  # a strides array
 # argtypes of every C entry point (pointers and the stream as c_void_p, so
 # ctypes never cuts a 64-bit address to an int)
 SIGNATURES: Dict[str, List] = {
     "dst_rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
+    "dst_rmsnorm_bwd_nblocks": [_I],
+    "dst_rmsnorm_bwd": [_P] * 6 + [_I, _I, _F, _I, _I, _P],
+    "dst_flash_attention_bwd_dq": [_P] * 8 + [_I] * 5 + [_LP, _F, _I, _P],
+    "dst_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 5 + [_LP, _F, _I, _P],
+    "dst_fused_adam": [_P] * 4 + [_L, _P] + [_F] * 9 + [_I, _P],
     "dst_flash_attention_fwd": (
         [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _P]
     ),
@@ -146,6 +152,13 @@ def check(status: int, name: str) -> None:
     if status != 0:
         msg = library().dst_error_string(status).decode()
         raise RuntimeError(f"{name}: CUDA error {status} ({msg})")
+
+
+def strides_array(*tensors: torch.Tensor):
+    """The (batch, seq, head) strides of each [B, S, H, D] tensor, in order,
+    as the C array the flash kernels take."""
+    vals = [st for t in tensors for st in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def dtype_code(dtype) -> int:

@@ -23,7 +23,7 @@ import torch
 
 from . import _build
 
-launches = 0  # kernel launches since the last reset
+launches = {"decode_attention": 0}  # kernel launches since the last reset
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
@@ -69,7 +69,6 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     kernel, or raise on what it does not take."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len)
-    global launches
     lib = _build.library()
     B, one, H, hd = q.shape
     Smax, KV = k_cache.shape[1], k_cache.shape[2]
@@ -115,5 +114,5 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "decode_attention")
-    launches += 1
+    launches["decode_attention"] += 1
     return out

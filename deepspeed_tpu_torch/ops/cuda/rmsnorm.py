@@ -1,21 +1,29 @@
-"""RMSNorm forward: the CUDA kernel ``csrc/rmsnorm.cu`` and its plain version.
+"""RMSNorm forward and backward: the CUDA kernels ``csrc/rmsnorm.cu`` and
+``csrc/rmsnorm_bwd.cu`` and their plain versions.
 
-Replaces ``deepspeed_tpu/ops/pallas/rmsnorm.py:_fwd_kernel`` (line 23),
-reached through ``_run_fwd`` (line 64) from ``rmsnorm`` (line 110).
+The forward replaces ``deepspeed_tpu/ops/pallas/rmsnorm.py:_fwd_kernel``
+(line 23), reached through ``_run_fwd`` (line 64) from ``rmsnorm`` (line 110);
+the backward replaces ``_bwd_kernel`` (line 30), reached through ``_run_bwd``
+(line 80) from the custom VJP.
 
-Bound on the H100: bytes, 2 * rows * D * itemsize over 3.35 TB/s. The kernel
-reads x in its own dtype (bf16 or fp32), computes in fp32 and writes x's dtype,
-one 256-thread block per row; that fuses the fp32 casts the JAX model wraps
-around the TPU kernel, so its result is the fp32 result rounded once.
+Bound on the H100: bytes. Forward 2 * rows * D * itemsize, backward
+3 * rows * D * itemsize (x and g read, dx written) over 3.35 TB/s. Both read
+x in its own dtype (bf16 or fp32), compute in fp32 and write x's dtype; that
+fuses the fp32 casts the JAX model wraps around the TPU kernel, so each
+result is the fp32 result rounded once. The backward's dscale is summed over
+row groups in fp32 partials and a second pass, with no atomics.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from . import _build
 
-launches = 0  # kernel launches since the last reset
+# kernel launches since the last reset
+launches = {"rmsnorm_fwd": 0, "rmsnorm_bwd": 0}
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -26,6 +34,36 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def rmsnorm_bwd_plain(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                      eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx in x's dtype, dscale fp32 [D]) for the upstream gradient g of
+    :func:`rmsnorm_plain`; the TPU kernel's formula in fp32."""
+    D = x.shape[-1]
+    x32, g32 = x.float().reshape(-1, D), g.float().reshape(-1, D)
+    rstd = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = x32 * rstd
+    gs = g32 * scale.float()
+    dot = (gs * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd * (gs - xhat * dot)).to(x.dtype).reshape(x.shape)
+    return dx, (g32 * xhat).sum(dim=0)
+
+
+def _check(name: str, x: torch.Tensor, scale: torch.Tensor) -> int:
+    """Raise on what the kernels do not take; returns D."""
+    D = x.shape[-1]
+    vec = 16 // x.element_size()
+    if not (x.is_cuda and scale.device == x.device):
+        raise ValueError(f"{name}: x and scale must be on one CUDA device")
+    if scale.shape != (D,) or not scale.is_contiguous():
+        raise ValueError(f"{name}: scale must be contiguous [{D}]")
+    if not x.is_contiguous() or x.data_ptr() % 16 or D % vec:
+        raise ValueError(
+            f"{name}: x must be contiguous, 16-byte aligned, with a last "
+            f"dim divisible by {vec}"
+        )
+    return D
+
+
 def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last dim of x [..., D] with scale [D].
@@ -34,19 +72,8 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
     kernel, or raises on what the kernel does not take."""
     if x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps)
-    global launches
     lib = _build.library()
-    D = x.shape[-1]
-    vec = 16 // x.element_size()
-    if not (x.is_cuda and scale.device == x.device):
-        raise ValueError("rmsnorm_fwd: x and scale must be on one CUDA device")
-    if scale.shape != (D,) or not scale.is_contiguous():
-        raise ValueError(f"rmsnorm_fwd: scale must be contiguous [{D}]")
-    if not x.is_contiguous() or x.data_ptr() % 16 or D % vec:
-        raise ValueError(
-            "rmsnorm_fwd: x must be contiguous, 16-byte aligned, with a last "
-            f"dim divisible by {vec}"
-        )
+    D = _check("rmsnorm_fwd", x, scale)
     out = torch.empty_like(x)
     rows = x.numel() // D if D else 0
     status = lib.dst_rmsnorm_fwd(
@@ -55,5 +82,40 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "rmsnorm_fwd")
-    launches += 1
+    launches["rmsnorm_fwd"] += 1
     return out
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx [..., D] in x's dtype, dscale [D] fp32) of RMSNorm for the
+    upstream gradient g (x's shape and dtype).
+
+    A CPU tensor takes :func:`rmsnorm_bwd_plain`; a CUDA tensor launches the
+    kernel (D at most 2048 * 16 / itemsize), or raises."""
+    if x.device.type == "cpu":
+        return rmsnorm_bwd_plain(x, scale, g, eps)
+    lib = _build.library()
+    D = _check("rmsnorm_bwd", x, scale)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device \
+            or not g.is_contiguous() or g.data_ptr() % 16:
+        raise ValueError(
+            f"rmsnorm_bwd: g {tuple(g.shape)} {g.dtype} must match x "
+            f"{tuple(x.shape)} {x.dtype}, contiguous and 16-byte aligned"
+        )
+    if D * x.element_size() > 2048 * 16:
+        raise ValueError(f"rmsnorm_bwd: D={D} over the kernel's row limit")
+    rows = x.numel() // D if D else 0
+    dx = torch.empty_like(x)
+    part = torch.empty((lib.dst_rmsnorm_bwd_nblocks(rows), D),
+                       dtype=torch.float32, device=x.device)
+    dscale = torch.zeros((D,), dtype=torch.float32, device=x.device)
+    status = lib.dst_rmsnorm_bwd(
+        x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        part.data_ptr(), dscale.data_ptr(), rows, D, float(eps),
+        _build.dtype_code(x.dtype), _build.dtype_code(scale.dtype),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, "rmsnorm_bwd")
+    launches["rmsnorm_bwd"] += 1
+    return dx, dscale

@@ -1,19 +1,23 @@
-"""Normalization ops: the dispatch between the RMSNorm kernel and the plain
+"""Normalization ops: the dispatch between the RMSNorm kernels and the plain
 expression.
 
 Counterpart of ``deepspeed_tpu/ops/normalization.py``. Under a
 :class:`kernel_rmsnorm_scope` that is on (the inference engine enters one
-under kernel injection on a CUDA device), :func:`rmsnorm` goes to the kernel
-wrapper, which launches the CUDA kernel for CUDA tensors and takes its plain
-version for CPU tensors. Otherwise it is the plain expression, as the JAX
-package runs XLA off-kernel.
+under kernel injection on a CUDA device, the training engine when
+``tpu_kernels.fused_rmsnorm`` resolves on), :func:`rmsnorm` goes to the kernel
+wrappers, which launch the CUDA kernels for CUDA tensors and take their plain
+versions for CPU tensors. Where a gradient is wanted, the call goes through
+:class:`RMSNormFunction`, whose backward is the backward kernel; without one
+(serving, under ``no_grad``/``inference_mode``) the forward wrapper is called
+directly, with no autograd bookkeeping. Off the scope it is the plain
+expression, differentiated by torch, as the JAX package runs XLA off-kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .cuda.rmsnorm import rmsnorm_fwd, rmsnorm_plain
+from .cuda.rmsnorm import rmsnorm_bwd, rmsnorm_fwd, rmsnorm_plain
 
 _scope_stack: list = []
 
@@ -33,9 +37,28 @@ class kernel_rmsnorm_scope:
         _scope_stack.pop()
 
 
+class RMSNormFunction(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient (the
+    counterpart of the Pallas rmsnorm's custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, scale)
+        return rmsnorm_fwd(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, g.contiguous(), ctx.eps)
+        return dx, dscale.to(scale.dtype), None
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last dim in fp32, returned in x's dtype."""
     if _scope_stack and _scope_stack[-1]:
+        if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+            return RMSNormFunction.apply(x, scale, eps)
         return rmsnorm_fwd(x, scale, eps)
     return rmsnorm_plain(x, scale, eps)

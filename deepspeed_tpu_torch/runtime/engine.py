@@ -1,0 +1,308 @@
+"""Training engine: ``initialize`` → ``TorchEngine.train_batch`` on one CUDA
+device (or the CPU, when asked).
+
+Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``initialize`` line 62,
+``TpuEngine.train_batch`` line 2168, ``_train_step`` line 2038) for one
+device, ZeRO stage 0, bf16 (or fp32) compute over fp32 master weights, and
+AdamW. A step splits the global batch into ``gradient_accumulation_steps``
+micro-batches; each micro-batch's loss is the mean over its own tokens, and
+its fp32 gradient accumulates in the masters' ``.grad`` (the sum the JAX scan
+carries), scaled by 1/accum at the end (``_compute_grads`` line 1579). Then
+the global norm, the clip factor min(1, clip / (norm + 1e-6)) (line 1953), and
+the optimizer update in place (line 1973), all on the device: the step reads
+nothing back to the host except at a ``steps_per_print`` boundary (or every
+step under ``wall_clock_breakdown``, whose device timer has to wait). The
+returned loss is a device tensor.
+
+Where the JAX engine traces one program, the port runs eagerly: the
+``tpu_kernels`` section picks the kernels (flash attention forward and
+backward, the RMSNorm kernels, the fused Adam kernel, the chunked CE) through
+scoped selections entered around each step. Everything outside this slice
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import time
+from contextlib import ExitStack
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..accelerator import resolve_device
+from ..config import DeepSpeedConfig
+from ..models.transformer import check_supported, make_lm_batch
+from ..ops.attention import attention_impl
+from ..ops.cross_entropy import fused_ce_scope
+from ..ops.normalization import kernel_rmsnorm_scope
+from ..utils.logging import log_dist
+from ..utils.tree import global_norm, tree_leaves, tree_map, tree_size
+from .activation_checkpointing import policy_by_name
+from .lr_schedules import build_schedule
+from .optimizers import build_optimizer
+
+
+def _enabled(section: Any) -> bool:
+    return isinstance(section, dict) and bool(section.get("enabled"))
+
+
+def unported_features(cfg: DeepSpeedConfig) -> List[str]:
+    """The features a config turns on that a later slice of the port
+    brings, each with its ROADMAP queue A item."""
+    raw = cfg.raw
+    zo = raw.get("zero_optimization") or {}
+    pipe = raw.get("pipeline") or {}
+    tp = raw.get("tensor_parallel") or {}
+    sp = raw.get("sequence_parallel") or {}
+    de = raw.get("data_efficiency") or {}
+    comp = raw.get("compression_training") or {}
+    checks = [
+        (cfg.fp16.enabled, "fp16 and its loss scaler (item 6)"),
+        (cfg.zero_config.stage > 0, f"ZeRO stage {cfg.zero_config.stage} (item 7)"),
+        (any((zo.get(k) or {}).get("device", "none") not in ("none", None)
+             for k in ("offload_optimizer", "offload_param")),
+         "optimizer/parameter offload, NVMe included (item 7)"),
+        (int(pipe.get("stages", pipe.get("num_stages", 1)) or 1) > 1,
+         "pipeline parallelism (item 7)"),
+        (int(tp.get("tp_size", tp.get("autotp_size", 1)) or 1) > 1,
+         "tensor parallelism (item 7)"),
+        (_enabled(raw.get("moe")), "MoE (item 7)"),
+        (int(sp.get("sp_size", raw.get("sequence_parallel_size", 1)) or 1) > 1,
+         "sequence parallelism (item 7)"),
+        (_enabled(raw.get("progressive_layer_drop")),
+         "progressive layer drop (item 11)"),
+        (_enabled(de) or _enabled(raw.get("curriculum_learning"))
+         or _enabled((de.get("data_routing") or {}).get("random_ltd"))
+         or _enabled((de.get("data_sampling") or {}).get("curriculum_learning")),
+         "data efficiency: random-LTD, curriculum (item 11)"),
+        (any(_enabled((v or {}).get("shared_parameters")) or _enabled(v)
+             for v in comp.values() if isinstance(v, dict)),
+         "compression training (item 11)"),
+        ((raw.get("sparse_attention") or {}).get("mode", "none") != "none",
+         "sparse attention (item 11)"),
+        (cfg.optimizer.type.replace("_", "") in ("onebitadam", "zerooneadam",
+                                                 "onebitlamb"),
+         "1-bit optimizers (item 11)"),
+        (any(_enabled(raw.get(k)) for k in (
+            "steptrace", "healthwatch", "flops_profiler", "comms_logger",
+            "tensorboard", "wandb", "csv_monitor")),
+         "steptrace, healthwatch, profilers and monitors (item 10)"),
+    ]
+    return [what for on, what in checks if on]
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, config=None,
+               config_params=None, rng: Optional[torch.Generator] = None,
+               device=None):
+    """Parity: ``deepspeed.initialize`` → (engine, engine, None, lr_scheduler).
+
+    ``model`` follows the model protocol (``init``/``loss``, as
+    ``models.transformer.TransformerModel``). ``model_parameters`` is a
+    parameter tree (see ``models.convert.params_from_numpy``), copied to
+    fp32 masters; without it the masters are drawn from ``rng`` (a
+    ``torch.Generator`` on ``device``, seeded with the config's ``seed`` by
+    default). ``device`` defaults to the current CUDA device; with no CUDA
+    device it must be ``"cpu"``."""
+    if config is None:
+        config = config_params
+    if config is None and args is not None:
+        config = getattr(args, "deepspeed_config", None)
+    if config is None:
+        raise ValueError("initialize() requires config (dict or ds_config.json path)")
+    if model is None:
+        raise ValueError("initialize() requires model")
+    later = []
+    if optimizer is not None:
+        later.append("a caller-built optimizer (item 6)")
+    if lr_scheduler is not None:
+        later.append("a caller-built lr scheduler (item 6)")
+    if training_data is not None:
+        later.append("training_data / the data loader (item 11)")
+    cfg = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
+    cfg.resolve_batch_sizes(1)
+    later += unported_features(cfg)
+    if later:
+        raise NotImplementedError(
+            "deepspeed_tpu_torch trains on one device at ZeRO stage 0 with "
+            "bf16/fp32 and AdamW; not yet ported (ROADMAP queue A): "
+            + "; ".join(later)
+        )
+    engine = TorchEngine(model, cfg, device=resolve_device(device, "initialize"),
+                         model_parameters=model_parameters, rng=rng)
+    return engine, engine, None, engine.lr_scheduler
+
+
+class TorchEngine:
+    """Parity surface of ``TpuEngine`` for one device: train_batch,
+    eval_batch, lr, global_steps, micro_steps, the grad norm."""
+
+    def __init__(self, model, config: DeepSpeedConfig, *, device: torch.device,
+                 model_parameters=None, rng: Optional[torch.Generator] = None):
+        self.model = model
+        self.config = config
+        self.device = device
+        check_supported(model.config)
+        self.compute_dtype = config.compute_dtype
+        self.remat_policy = config.activation_checkpointing.policy
+        policy_by_name(self.remat_policy)  # raises for a policy not ported
+        on_cuda = device.type == "cuda"
+        tk = config.tpu_kernels.resolve(on_cuda)
+        if on_cuda and tk.flash_attention and self.compute_dtype != torch.bfloat16:
+            raise NotImplementedError(
+                "the CUDA flash-attention kernels take bfloat16: enable bf16, "
+                "or set tpu_kernels.flash_attention to false"
+            )
+        self.tpu_kernels = tk
+        self.lr_schedule = build_schedule(config.scheduler.type,
+                                          config.scheduler.params,
+                                          config.optimizer.lr)
+        self.lr_scheduler = self.lr_schedule
+        self.optimizer = build_optimizer(config.optimizer, self.lr_schedule,
+                                         use_fused_adam=tk.fused_adam)
+        if model_parameters is not None:
+            params = tree_map(
+                lambda t: torch.as_tensor(t).detach().to(
+                    device=device, dtype=torch.float32, copy=True),
+                model_parameters)
+        else:
+            gen = rng if rng is not None else \
+                torch.Generator(device=device).manual_seed(config.seed)
+            params = model.init(gen, dtype=torch.float32, device=device)
+        self.params = tree_map(lambda t: t.requires_grad_(True), params)
+        self.opt_state = self.optimizer.init(self.params)
+        self.global_steps = 0
+        self.micro_steps = 0
+        self._metrics: Dict[str, Any] = {}
+        self._timings: Dict[str, float] = {}
+        log_dist(
+            f"TorchEngine: {tree_size(self.params) / 1e6:.1f}M params, "
+            f"compute {self.compute_dtype}, device {device}, batch "
+            f"{config.train_batch_size} = {config.train_micro_batch_size_per_gpu}"
+            f" x {config.gradient_accumulation_steps}, remat "
+            f"{self.remat_policy}, kernels {tk}"
+        )
+
+    # ------------------------------------------------------------- helpers
+    def _kernel_scope(self) -> ExitStack:
+        """This engine's kernel selection, scoped to one step."""
+        tk = self.tpu_kernels
+        stack = ExitStack()
+        stack.enter_context(attention_impl("flash" if tk.flash_attention else "plain"))
+        stack.enter_context(kernel_rmsnorm_scope(tk.fused_rmsnorm))
+        stack.enter_context(fused_ce_scope(tk.fused_ce, tk.ce_chunk))
+        return stack
+
+    def _to_device(self, v) -> torch.Tensor:
+        """Token ids as int64 on the engine's device; a host batch goes
+        through pinned memory so the copy does not wait for the device."""
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+        t = t.long()
+        if t.device == self.device:
+            return t
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _lm_batch(self, batch) -> Dict[str, torch.Tensor]:
+        out = {k: self._to_device(v) for k, v in batch.items()}
+        return out if "labels" in out else make_lm_batch(out["input_ids"])
+
+    def _prepare_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """Global batch → [accum, micro, ...] tensors on the device."""
+        accum = self.config.gradient_accumulation_steps
+        expect = self.config.train_batch_size
+        out = {}
+        for k, t in self._lm_batch(batch).items():
+            if t.shape[0] != expect:
+                raise ValueError(
+                    f"batch field {k!r} has batch {t.shape[0]}, config "
+                    f"train_batch_size={expect}")
+            out[k] = t.reshape(accum, expect // accum, *t.shape[1:])
+        return out
+
+    @staticmethod
+    def _next_batch(data_iter):
+        return next(data_iter) if hasattr(data_iter, "__next__") else data_iter
+
+    # ---------------------------------------------------------------- API
+    def train_batch(self, data_iter=None, batch=None) -> torch.Tensor:
+        """One optimizer step over a global batch dict (``batch=``) or the
+        next one from ``data_iter``; returns the mean micro-batch loss as a
+        device tensor."""
+        if batch is None:
+            if data_iter is None:
+                raise ValueError("train_batch needs data_iter or batch")
+            batch = self._next_batch(data_iter)
+        cfg = self.config
+        t0 = time.perf_counter()
+        prepared = self._prepare_batch(batch)
+        accum = cfg.gradient_accumulation_steps
+        t1 = time.perf_counter()
+        loss_sum = None
+        with self._kernel_scope():
+            for i in range(accum):
+                mb = {k: v[i] for k, v in prepared.items()}
+                loss, _ = self.model.loss(self.params, mb, dtype=self.compute_dtype,
+                                          remat_policy=self.remat_policy)
+                loss.backward()
+                loss = loss.detach()
+                loss_sum = loss if loss_sum is None else loss_sum + loss
+        grads = tree_map(lambda p: p.grad, self.params)
+        leaves = tree_leaves(grads)
+        if accum > 1:
+            for g in leaves:
+                g.mul_(1.0 / accum)
+        gnorm = global_norm(leaves)
+        clip = None
+        if cfg.gradient_clipping > 0:
+            clip = torch.clamp(cfg.gradient_clipping / (gnorm + 1e-6), max=1.0)
+        self.optimizer.step(self.params, grads, self.opt_state, self.global_steps,
+                            clip)
+        for p in tree_leaves(self.params):
+            p.grad = None
+        lr = self.lr_schedule(self.global_steps)
+        self.global_steps += 1
+        self.micro_steps += accum
+        loss = loss_sum / accum
+        self._metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        if cfg.wall_clock_breakdown:
+            t2 = time.perf_counter()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._timings = {"batch_prep": (t1 - t0) * 1e3,
+                             "step_dispatch": (t2 - t1) * 1e3,
+                             "step_device": (time.perf_counter() - t2) * 1e3}
+        if self.global_steps % cfg.steps_per_print == 0:
+            msg = (f"step {self.global_steps}: loss={float(loss):.4f} "
+                   f"lr={lr:.3e} gnorm={float(gnorm):.3f}")
+            if self._timings:
+                msg += " " + " ".join(f"{k}={v:.2f}ms" for k, v in self._timings.items())
+            log_dist(msg)
+        return loss
+
+    def eval_batch(self, data_iter=None, batch=None) -> torch.Tensor:
+        """Loss of a batch dict under the same weights, no gradient."""
+        if batch is None:
+            batch = self._next_batch(data_iter)
+        with torch.no_grad(), self._kernel_scope():
+            loss, _ = self.model.loss(self.params, self._lm_batch(batch),
+                                      dtype=self.compute_dtype)
+        return loss
+
+    # ----------------------------------------------------------- properties
+    @property
+    def lr(self) -> float:
+        return float(self.lr_schedule(self.global_steps))
+
+    def get_lr(self):
+        return [self.lr]
+
+    @property
+    def loss_scale(self) -> float:
+        return 1.0  # no fp16 loss scaling on the ported path
+
+    def get_global_grad_norm(self) -> float:
+        g = self._metrics.get("grad_norm")
+        return float(g) if g is not None else 0.0

@@ -12,7 +12,8 @@ import torch
 
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import llama
-from deepspeed_tpu_torch.ops.cuda import _build, decode_attention, flash_attention, rmsnorm
+from deepspeed_tpu_torch.ops.cuda import (_build, decode_attention, flash_attention,
+                                         fused_adam, rmsnorm)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -56,6 +57,19 @@ def test_init_inference_needs_a_card_unless_asked_for_cpu(monkeypatch):
     assert eng.device.type == "cpu"
 
 
+def test_initialize_needs_a_card_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = llama("llama-tiny", vocab_size=64, max_seq_len=64)
+    cfg = {"train_batch_size": 2}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deepspeed_tpu_torch.initialize(model=model, config=cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deepspeed_tpu_torch.initialize(model=model, config=cfg, device="cuda")
+    eng, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg, device="cpu")
+    assert eng.device.type == "cpu"
+    assert all(t.device.type == "cpu" for t in eng.opt_state["mu"]["layers"]["mlp"].values())
+
+
 def test_accelerator_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     acc = deepspeed_tpu_torch.get_accelerator()
@@ -82,6 +96,15 @@ def test_build_without_nvcc_raises(monkeypatch):
                                                   t(1, 8, 2, 64)),
     lambda t: decode_attention.decode_attention(t(1, 1, 2, 64), t(1, 8, 2, 64),
                                                 t(1, 8, 2, 64), 3),
+    lambda t: rmsnorm.rmsnorm_bwd(t(4, 64), t(64), t(4, 64)),
+    lambda t: flash_attention.flash_attention_bwd_dq(
+        t(1, 8, 2, 64), t(1, 8, 2, 64), t(1, 8, 2, 64), t(1, 8, 2, 64), t(1, 2, 8),
+        t(1, 8, 2, 64)),
+    lambda t: flash_attention.flash_attention_bwd_dkv(
+        t(1, 8, 2, 64), t(1, 8, 2, 64), t(1, 8, 2, 64), t(1, 2, 8), t(1, 2, 8),
+        t(1, 8, 2, 64)),
+    lambda t: fused_adam.adam_update(t(64), t(64), t(64), t(64), lr=1e-3, b1=0.9,
+                                     b2=0.999, eps=1e-8, wd=0.0, bc1=0.1, bc2=0.001),
 ])
 def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch, call):
     """A tensor off the CPU goes to the kernel path; where the kernel cannot
