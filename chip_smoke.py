@@ -10,7 +10,7 @@ sm_90a). In order, any failure exiting non-zero:
    limit as nvidia-smi reports them;
 2. build: compiles deepspeed_tpu_torch/csrc/*.cu (one nvcc per source, in
    parallel) and prints the build seconds and ptxas register counts;
-3. each of the seven kernels against its plain PyTorch version on the card, at
+3. each of the ten kernels against its plain PyTorch version on the card, at
    the shapes each main path gives it (the flash and RMSNorm forwards at the
    serving and at the training shape): max abs error against a stated
    tolerance, and the kernel's, plain version's and library call's times
@@ -35,7 +35,22 @@ sm_90a). In order, any failure exiting non-zero:
    injection, max_tokens=1024) with seeded random weights at full depth, and
    generate on three requests; the launch counters, zeroed just before, must
    show every serving kernel ran;
-8. the kernels line (one JSON object, one entry per kernel and main path,
+8. the quantized serving reference check: a two-layer full-width Llama-3-8B
+   with int8 (then int4) weights and the int8 KV cache, kernel path (the
+   quantized matvec, int8 decode attention, flash prefill, RMSNorm) against
+   the plain path (the dense product over the dequantized weights, plain
+   attention and norm), prefill and three cached decode steps; then
+   speculative decode with the main weights as the draft, which must accept
+   every proposal;
+9. the quantized serving main path: Llama-3-8B at full depth with int8
+   weights and the int8 KV cache (the three requests), int4 weights (greedy
+   B=1), and speculative decode on the int8 engine with the "ngram" draft
+   and a Llama-3.2-1B draft, and on int8 weights with the bf16 cache drafted
+   by its own weights (every proposal must be accepted); tokens equal to the
+   engine's plain greedy tokens (a mismatch only at a near-tie of the plain
+   run's logits); the counters, zeroed just before, must show every kernel of
+   the path ran; rerun, identical tokens; a profiled int8 decode;
+10. the kernels line (one JSON object, one entry per kernel and main path,
    with that path's launches), then the device line (last line).
 """
 
@@ -53,7 +68,8 @@ import torch.nn.functional as F
 
 from deepspeed_tpu_torch import init_inference, initialize
 from deepspeed_tpu_torch.models import llama
-from deepspeed_tpu_torch.models.decoding import forward_with_cache, init_cache
+from deepspeed_tpu_torch.models.decoding import (_decode_rows, _quantize_kv,
+                                                 forward_with_cache, init_cache)
 from deepspeed_tpu_torch.models.transformer import apply
 from deepspeed_tpu_torch.ops import cuda as kernels
 from deepspeed_tpu_torch.ops.attention import attention_impl
@@ -61,8 +77,10 @@ from deepspeed_tpu_torch.ops.cuda import _build
 from deepspeed_tpu_torch.ops.cuda import decode_attention as dec
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 from deepspeed_tpu_torch.ops.cuda import fused_adam as fad
+from deepspeed_tpu_torch.ops.cuda import quantized_matmul as qmm
 from deepspeed_tpu_torch.ops.cuda import rmsnorm as rn
 from deepspeed_tpu_torch.ops.normalization import kernel_rmsnorm_scope
+from deepspeed_tpu_torch.ops.quantizer import PackedWeight, pack_quantize_blockwise
 from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_map
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and dense bf16
@@ -99,8 +117,26 @@ KERNELS = {
         "source": "deepspeed_tpu_torch/csrc/fused_adam.cu",
         "replaces": "deepspeed_tpu/ops/pallas/fused_adam.py:29",
     },
+    "quantized_matvec_int8": {
+        "source": "deepspeed_tpu_torch/csrc/quantized_matvec.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/quantized_matmul.py:38",
+    },
+    "quantized_matvec_int4": {
+        "source": "deepspeed_tpu_torch/csrc/quantized_matvec.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/quantized_matmul.py:38",
+    },
+    "decode_attention_int8": {
+        "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:76",
+    },
 }
 SERVING_KERNELS = ("flash_attention_fwd", "decode_attention", "rmsnorm_fwd")
+QUANT_SERVING_KERNELS = ("quantized_matvec_int8", "quantized_matvec_int4",
+                         "decode_attention_int8", "flash_attention_fwd",
+                         "rmsnorm_fwd", "decode_attention")
+# Llama-3-8B's projection leaves (D, N): wq/wo, wk/wv, wi/wg, the MLP's wo
+LLAMA3_8B_LEAVES = (("wq/wo", 4096, 4096), ("wk/wv", 4096, 1024),
+                    ("wi/wg", 4096, 14336), ("mlp wo", 14336, 4096))
 TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                     "flash_attention_bwd_dkv", "rmsnorm_fwd", "rmsnorm_bwd",
                     "fused_adam")
@@ -222,6 +258,131 @@ def check_decode(gen, timer):
         "bound_ms": b_ms, "bound_by": b_by,
         "shape": f"B={B} Smax={Smax} H={H} KV={KV} D={D} cache_len={frontier.tolist()}",
     }
+
+
+def bf16_ulp(v: float) -> float:
+    """One bf16 ulp at magnitude v (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(v), 1e-30))) - 7)
+
+
+def check_quantized_matvec(gen, timer):
+    """The int8 and int4 matvec at Llama-3-8B's four leaf shapes, M in
+    {1, 4, 5}, against the plain version (fp32 fold x·(q·s)), tolerance two
+    bf16 ulps of the output's largest value; each row of a multi-row call
+    must equal the same row alone, bitwise, and a rerun the first run. One
+    timed row per width at wi/wg, M = 1."""
+    rows = {}
+    for bits in (8, 4):
+        for leaf, D, N in LLAMA3_8B_LEAVES:
+            w = (0.02 * torch.randn(D, N, generator=gen, device="cuda")).to(BF16)
+            pw = pack_quantize_blockwise(w, bits=bits)
+            for M in (1, 4, 5):
+                x = torch.randn(M, D, generator=gen, device="cuda", dtype=BF16)
+                out = qmm.packed_matvec(x, pw)
+                ref = qmm.packed_matvec_plain(x, pw)
+                peak = ref.float().abs().max().item()
+                e, tol = max_err(out, ref), 2 * bf16_ulp(peak)
+                alone = qmm.packed_matvec(x[M - 1:], pw)
+                same = torch.equal(alone, out[M - 1:]) and \
+                    torch.equal(qmm.packed_matvec(x, pw), out)
+                print(f"quantized_matvec int{bits} {leaf} D={D} N={N} M={M}: "
+                      f"max_abs_err {e:.3e} (tol {tol:.3e}, 2 bf16 ulps of "
+                      f"{peak:.3e}); last row alone and rerun bitwise equal: {same}")
+                require(e <= tol, f"quantized_matvec int{bits} disagrees at {leaf} M={M}")
+                require(same, f"quantized_matvec int{bits} {leaf} M={M}: a row "
+                        "depends on M, or a rerun differs")
+                if leaf == "wi/wg" and M == 1:
+                    wd = pw.dequantize()
+                    nbytes = pw.nbytes + 2 * x.numel() + 2 * M * N
+                    b_ms, b_by = bound(2 * M * D * N, nbytes)
+                    rows[bits] = {
+                        "max_abs_err": e,
+                        "ms": timer(lambda: qmm.packed_matvec(x, pw)),
+                        "plain_ms": timer(lambda: qmm.packed_matvec_plain(x, pw)),
+                        "library_ms": timer(lambda: torch.matmul(x, wd)),
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "shape": f"M={M} D={D} N={N} int{bits} (library: "
+                                 "torch.matmul on the dequantized bf16 weight)",
+                    }
+                    del wd
+            del w, pw
+    torch.cuda.empty_cache()
+    return rows[8], rows[4]
+
+
+def int8_cache(gen, B, Smax, KV, D):
+    """One layer of a two-layer int8 cache and its scales, filled by
+    ``_quantize_kv`` from random bf16 K/V: (k8, v8, k_scale, v_scale)."""
+    k8 = torch.zeros(2, B, Smax, KV, D, dtype=torch.int8, device="cuda")
+    v8 = torch.zeros_like(k8)
+    ks = torch.zeros(2, B, KV, Smax, device="cuda")
+    vs = torch.zeros_like(ks)
+    for c8, cs in ((k8, ks), (v8, vs)):
+        q, sc = _quantize_kv(torch.randn(B, Smax, KV, D, generator=gen,
+                                         device="cuda", dtype=BF16))
+        c8[1] = q
+        cs[1] = sc.transpose(1, 2)
+    return k8[1], v8[1], ks[1], vs[1]
+
+
+def check_decode_int8(gen, timer):
+    """The int8 form at B=4, Smax=1024, frontiers [0, 37, 511, 1023] and a
+    scalar 700, head_dim 128 (Llama-3-8B) and 64, against its plain version
+    (rows dequantized and rounded to bf16 as the kernel does); timed at 128."""
+    B, Smax, H, KV = 4, 1024, 32, 8
+    tol = 1e-2
+    frontier = torch.tensor([0, 37, 511, 1023], dtype=torch.int32, device="cuda")
+    row = None
+    for D in (128, 64):
+        q = torch.randn(B, 1, H, D, generator=gen, device="cuda", dtype=BF16)
+        kc, vc, ks, vs = int8_cache(gen, B, Smax, KV, D)
+        worst = 0.0
+        for cl in (frontier, 700):
+            out = dec.decode_attention(q, kc, vc, cl, ks, vs)
+            ref = dec.decode_attention_plain(q, kc, vc, cl, ks, vs)
+            e = max_err(out, ref)
+            print(f"decode_attention_int8 B={B} Smax={Smax} H={H} KV={KV} D={D} "
+                  f"cache_len={cl.tolist() if torch.is_tensor(cl) else cl}: "
+                  f"max_abs_err {e:.3e} (tol {tol})")
+            require(e <= tol, f"decode_attention_int8 disagrees at D={D} cache_len={cl}")
+            worst = max(worst, e)
+        # a 5-token verify window of one sequence as decode rows over its
+        # cache: each row bitwise the single-token decode at its position
+        qw = torch.randn(1, 5, H, D, generator=gen, device="cuda", dtype=BF16)
+        one = (kc[3:4], vc[3:4])
+        sc = (ks[3:4], vs[3:4])
+        win = _decode_rows(qw, *one, 600, *sc)
+        same = all(torch.equal(win[:, s:s + 1], dec.decode_attention(
+            qw[:, s:s + 1], *one, 600 + s, *sc)) for s in range(5))
+        e = max_err(win, dec.cached_attention_plain(qw, *one, 600, *sc))
+        print(f"decode_attention_int8 window of 5 at cache_len=600 D={D}: max_abs_err "
+              f"{e:.3e} against the plain window (tol {tol}); rows bitwise equal to "
+              f"single-token decode: {same}")
+        require(e <= tol and same, f"decode_attention_int8 window rows at D={D}")
+        worst = max(worst, e)
+        if D != 128:
+            continue
+        n_keys = sum(min(int(c) + 1, Smax) for c in frontier.tolist())
+        nbytes = 2 * n_keys * KV * (D + 4) + 2 * 2 * B * H * D + 4 * B
+        b_ms, b_by = bound(4 * H * D * n_keys, nbytes)
+        kt = dec.dequantize_cache(kc, ks).to(BF16).transpose(1, 2).contiguous()
+        vt = dec.dequantize_cache(vc, vs).to(BF16).transpose(1, 2).contiguous()
+        qt = q.transpose(1, 2).contiguous()
+        mask = (torch.arange(Smax, device="cuda")[None, :]
+                <= frontier[:, None].long())[:, None, None, :]
+        row = {
+            "max_abs_err": worst,
+            "ms": timer(lambda: dec.decode_attention(q, kc, vc, frontier, ks, vs)),
+            "plain_ms": timer(lambda: dec.decode_attention_plain(q, kc, vc, frontier,
+                                                                 ks, vs)),
+            "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"B={B} Smax={Smax} H={H} KV={KV} D={D} int8 "
+                     f"cache_len={frontier.tolist()} (library: SDPA over the "
+                     "dequantized bf16 cache)",
+        }
+    return row
 
 
 def check_rmsnorm(gen, timer):
@@ -493,6 +654,48 @@ def reference_check():
     torch.cuda.empty_cache()
 
 
+def serving_requests(V: int):
+    """The three serving requests: (name, prompt, generate arguments)."""
+    host = torch.Generator().manual_seed(0)
+    return [
+        ("greedy B=1 P=100 new=32", torch.randint(0, V, (1, 100), generator=host),
+         dict(max_new_tokens=32)),
+        ("greedy B=4 P=512 new=64", torch.randint(0, V, (4, 512), generator=host),
+         dict(max_new_tokens=64)),
+        ("sampled B=2 P=37 new=16 T=0.8 top_k=50 top_p=0.9",
+         torch.randint(0, V, (2, 37), generator=host),
+         dict(max_new_tokens=16, temperature=0.8, top_k=50, top_p=0.9)),
+    ]
+
+
+def serve(engine, requests, report: bool, label: str = ""):
+    """Each request through ``engine.generate`` (a seeded generator each),
+    its output checked for shape, prompt echo and token range; with
+    ``report`` the engine's prefill and decode times are printed."""
+    V = engine.config.vocab_size
+    outs = []
+    for name, prompt, kw in requests:
+        rng = torch.Generator(device="cuda").manual_seed(3)
+        t0 = time.perf_counter()
+        out = engine.generate(prompt, rng=rng, **kw)
+        wall = time.perf_counter() - t0
+        B, P = prompt.shape
+        require(tuple(out.shape) == (B, P + kw["max_new_tokens"]),
+                f"{name}: output shape {tuple(out.shape)}")
+        require(bool((out[:, :P] == prompt).all()), f"{name}: prompt not echoed")
+        require(bool(((out >= 0) & (out < V)).all()), f"{name}: token out of range")
+        st = engine.last_generate_stats
+        steps = st["decode_steps"]
+        if report:
+            tok_s = B * steps / (st["decode_ms"] / 1e3)
+            print(f"request {label}{name}: prefill {st['prefill_ms']:.2f} ms "
+                  f"(bucket {st['prompt_bucket']}), decode {steps} steps "
+                  f"{st['decode_ms']:.2f} ms = {st['decode_ms'] / steps:.3f} "
+                  f"ms/step, {tok_s:.1f} tok/s; wall {wall:.2f} s")
+        outs.append(out)
+    return outs
+
+
 def main_path():
     """Llama-3-8B at full width and depth, seeded random bf16 weights."""
     model = llama("llama3-8b")
@@ -506,46 +709,11 @@ def main_path():
           f"H={cfg.num_heads} KV={cfg.kv_heads} ffn={cfg.ffn} V={cfg.vocab_size}, "
           f"depth not cut; init {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
-    host = torch.Generator().manual_seed(0)
     V = cfg.vocab_size
-    requests = [
-        ("greedy B=1 P=100 new=32", torch.randint(0, V, (1, 100), generator=host),
-         dict(max_new_tokens=32)),
-        ("greedy B=4 P=512 new=64", torch.randint(0, V, (4, 512), generator=host),
-         dict(max_new_tokens=64)),
-        ("sampled B=2 P=37 new=16 T=0.8 top_k=50 top_p=0.9",
-         torch.randint(0, V, (2, 37), generator=host),
-         dict(max_new_tokens=16, temperature=0.8, top_k=50, top_p=0.9)),
-    ]
-
-    def serve(report: bool):
-        outs = []
-        for name, prompt, kw in requests:
-            rng = torch.Generator(device="cuda").manual_seed(3)
-            t0 = time.perf_counter()
-            out = engine.generate(prompt, rng=rng, **kw)
-            wall = time.perf_counter() - t0
-            B, P = prompt.shape
-            require(tuple(out.shape) == (B, P + kw["max_new_tokens"]),
-                    f"{name}: output shape {tuple(out.shape)}")
-            require(bool((out[:, :P] == prompt).all()), f"{name}: prompt not echoed")
-            require(bool(((out >= 0) & (out < V)).all()),
-                    f"{name}: token out of range")
-            st = engine.last_generate_stats
-            steps = st["decode_steps"]
-            if report:
-                tok_s = B * steps / (st["decode_ms"] / 1e3)
-                print(f"request {name}: prefill {st['prefill_ms']:.2f} ms "
-                      f"(bucket {st['prompt_bucket']}), decode {steps} steps "
-                      f"{st['decode_ms']:.2f} ms = "
-                      f"{st['decode_ms'] / steps:.3f} ms/step, {tok_s:.1f} "
-                      f"tok/s; wall {wall:.2f} s")
-            outs.append(out)
-        return outs
-
-    first = serve(report=False)  # first use of every shape and kernel
+    requests = serving_requests(V)
+    first = serve(engine, requests, report=False)  # first use of every shape
     kernels.reset_launch_counts()
-    second = serve(report=True)
+    second = serve(engine, requests, report=True)
     counts = kernels.launch_counts()
     print(f"serving main path launches: { {k: counts[k] for k in SERVING_KERNELS} }")
     for name in SERVING_KERNELS:
@@ -565,6 +733,212 @@ def main_path():
     print(f"host sync per token (B=1): ms/step with eos "
           f"{per_step[V - 1]} vs without {per_step[-1]}")
     profile_device(lambda: engine.generate(prompt, **kw), "B=1 generate")
+    del engine
+    torch.cuda.empty_cache()
+    return counts
+
+
+def tree_bytes(tree) -> int:
+    """Bytes the parameter tree holds on the device (packed leaves: their
+    int8 bytes and fp32 scales)."""
+    return sum(t.nbytes if isinstance(t, PackedWeight) else t.numel() * t.element_size()
+               for t in tree_leaves(tree))
+
+
+def first_mismatch_is_near_tie(engine, want, got, P: int, what: str) -> None:
+    """Speculative tokens ``got`` against the same engine's plain greedy
+    ``want`` [1, P + new]: equal, or the first mismatch falls where the plain
+    run's top-2 logits are within two bf16 ulps (printed, not failed); any
+    other mismatch fails."""
+    if torch.equal(got, want):
+        return
+    j = int((got != want).int().argmax())
+    logits = engine.forward(want[:, :j])[0, -1]
+    top2 = logits.topk(2).values.tolist()
+    gap, tie = top2[0] - top2[1], 2 * bf16_ulp(top2[0])
+    print(f"{what}: first mismatch at position {j} (plain {int(want[0, j])}, "
+          f"speculative {int(got[0, j])}); plain top-2 logits {top2}, gap {gap:.3e} "
+          f"against two bf16 ulps {tie:.3e}: "
+          f"{'near-tie, not a fault' if gap < tie else 'FAULT'}")
+    require(gap < tie, f"{what}: speculative tokens differ from plain greedy "
+            "away from a near-tie")
+
+
+def check_spec_full_acceptance(model, params, prompt) -> None:
+    """Speculative decode with the packed main weights as the draft, four
+    drafts a round (a window of k = 5 with the verifier's own token), 32 new
+    tokens: the tokens must be the plain greedy tokens (a mismatch
+    only at a near-tie) with the int8 KV cache and with the bf16 one. With
+    the bf16 cache the draft (whose cache is in the compute dtype, as in the
+    JAX engine) computes what plain decoding computes, so every proposal
+    must be accepted: ceil((new - 1) / k) rounds. With the int8 cache the
+    draft's bf16 cache differs from the verifier's, and the rounds are
+    printed."""
+    new, nd = 32, 4
+    want_rounds = math.ceil((new - 1) / (nd + 1))
+    for kv in ("int8", "auto"):
+        kw = dict(dtype="int8", kv_cache_dtype=kv, replace_with_kernel_inject=True,
+                  max_tokens=1024, params=params)
+        eng = init_inference(model, **kw)
+        spec = init_inference(model, draft_model=model, draft_params=params, **kw)
+        plain = eng.generate(prompt, max_new_tokens=new)
+        got = spec.generate(prompt, max_new_tokens=new, num_draft_tokens=nd)
+        rounds = spec.last_spec_rounds
+        print(f"speculative reference check (int8 weights, {kv} KV cache, draft = the "
+              f"main weights, num_draft_tokens = {nd}, window k = {nd + 1}): "
+              f"{rounds} rounds (full acceptance: {want_rounds}), tokens equal to plain greedy: {torch.equal(plain, got)}")
+        first_mismatch_is_near_tie(eng, plain, got, prompt.shape[1],
+                                   f"speculative reference check ({kv} KV)")
+        if kv == "auto":
+            require(rounds == want_rounds,
+                    f"speculative reference check: {rounds} rounds, want {want_rounds}")
+        del eng, spec
+
+
+def reference_check_quantized():
+    """Two-layer full-width Llama-3-8B with int8 (then int4) weights and the
+    int8 KV cache: the kernel path (quantized matvec, int8 decode kernel,
+    flash prefill, RMSNorm kernel) against the plain path (the dense product
+    over the dequantized weights under matvec_max_rows_scope(0), the plain
+    attention and norm) on the same weights, prefill of 160 tokens then
+    three cached decode steps. Then speculative decode with the int8 main
+    weights as the draft (:func:`check_spec_full_acceptance`)."""
+    tol = 2e-2
+    model = llama("llama3-8b", num_layers=2)
+    cfg = model.config
+    ids = torch.randint(0, cfg.vocab_size, (2, 163),
+                        generator=torch.Generator().manual_seed(1)).cuda()
+    for wdtype in ("int8", "int4"):
+        eng = init_inference(model, dtype=wdtype, kv_cache_dtype="int8",
+                             replace_with_kernel_inject=True, max_tokens=1024,
+                             rng=torch.Generator(device="cuda").manual_seed(1))
+
+        def run():
+            cache = init_cache(cfg, 2, 256, BF16, "cuda", quantized=True)
+            logits, _ = forward_with_cache(cfg, eng.params, ids[:, :160], cache, 0)
+            outs = [logits]
+            for pos in range(160, 163):
+                logits, _ = forward_with_cache(cfg, eng.params, ids[:, pos:pos + 1],
+                                               cache, pos)
+                outs.append(logits)
+            return torch.cat(outs, dim=1)
+
+        with torch.inference_mode():
+            kernels.reset_launch_counts()
+            with attention_impl("auto"), kernel_rmsnorm_scope(True):
+                got = run()
+            counts = kernels.launch_counts()
+            with attention_impl("plain"), kernel_rmsnorm_scope(False), \
+                    qmm.matvec_max_rows_scope(0):
+                want = run()
+        require(bool(torch.isfinite(got).all()), f"non-finite {wdtype} logits")
+        require(counts[f"quantized_matvec_{wdtype}"] > 0
+                and counts["decode_attention_int8"] > 0,
+                f"{wdtype} reference check: the kernels did not run: {counts}")
+        rel = ((got - want).norm() / want.norm()).item()
+        print(f"quantized reference check ({wdtype} weights, int8 KV, 2 layers, full "
+              f"width): relative L2 error kernel vs plain path {rel:.3e} (tol {tol})")
+        require(rel <= tol, f"{wdtype} kernel path disagrees with the plain path")
+        if wdtype == "int8":
+            check_spec_full_acceptance(model, eng.params, ids[:1, :100].cpu())
+        del eng
+        torch.cuda.empty_cache()
+
+
+def main_path_quantized():
+    """Llama-3-8B at full width and depth with seeded random weights: an
+    int8-weight engine with the int8 KV cache on the three serving requests,
+    an int4-weight engine on the greedy B=1 request, and speculative decode
+    on the int8 engine with the "ngram" draft (a repetitive prompt) and a
+    Llama-3.2-1B draft in bf16, and on the int8 weights with the bf16 cache
+    drafted by the same weights, where every proposal must be accepted.
+    Returns the launch counts of the second of two identical runs, counters
+    zeroed just before it."""
+    model = llama("llama3-8b")
+    cfg = model.config
+    V = cfg.vocab_size
+    t0 = time.perf_counter()
+    eng8 = init_inference(model, dtype="int8", kv_cache_dtype="int8",
+                          replace_with_kernel_inject=True, max_tokens=1024,
+                          rng=torch.Generator(device="cuda").manual_seed(0))
+    eng4 = init_inference(model, dtype="int4", replace_with_kernel_inject=True,
+                          max_tokens=1024,
+                          rng=torch.Generator(device="cuda").manual_seed(0))
+    ngram = init_inference(model, dtype="int8", kv_cache_dtype="int8",
+                           replace_with_kernel_inject=True, max_tokens=1024,
+                           params=eng8.params, draft_model="ngram")
+    drafted = init_inference(model, dtype="int8", kv_cache_dtype="int8",
+                             replace_with_kernel_inject=True, max_tokens=1024,
+                             params=eng8.params, draft_model=llama("llama3-1b"))
+    # the int8 weights with the bf16 KV cache, plain and drafting with its
+    # own weights: every proposal must be accepted at full depth too
+    eng8bf = init_inference(model, dtype="int8", replace_with_kernel_inject=True,
+                            max_tokens=1024, params=eng8.params)
+    selfd = init_inference(model, dtype="int8", replace_with_kernel_inject=True,
+                           max_tokens=1024, params=eng8.params, draft_model=model,
+                           draft_params=eng8.params)
+    torch.cuda.synchronize()
+    b8, b4, bd = tree_bytes(eng8.params), tree_bytes(eng4.params), \
+        tree_bytes(drafted.draft_params)
+    dense = 2 * cfg.num_params()
+    print(f"quantized main path: {cfg.name} full depth; init {time.perf_counter() - t0:.1f} s; "
+          f"weights resident: int8 {b8 / 1e9:.3f} GB, int4 {b4 / 1e9:.3f} GB, bf16 "
+          f"would be {dense / 1e9:.3f} GB; the llama3-1b draft {bd / 1e9:.3f} GB; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    requests = serving_requests(V)
+    B, P = requests[1][1].shape
+    slots = 2 * cfg.num_layers * B * cfg.kv_heads * (P + requests[1][2]["max_new_tokens"])
+    kv8, kv16 = slots * (cfg.hd + 4), slots * cfg.hd * 2
+    print(f"KV cache for B={B} P={P} (+64): int8 {kv8 / 1e6:.1f} MB (values and one "
+          f"fp32 scale per token and head) against bf16 {kv16 / 1e6:.1f} MB, "
+          f"{kv8 / kv16:.3f}x")
+    greedy = requests[0]
+    rep = torch.tensor([[11, 7, 3, 9, 5] * 20])  # a repetitive prompt, 100 tokens
+    # (label, speculative engine, plain engine, prompt)
+    spec_runs = [("ngram, int8 KV", ngram, eng8, rep),
+                 ("llama3-1b draft, int8 KV", drafted, eng8, greedy[1]),
+                 ("its own weights as the draft, bf16 KV", selfd, eng8bf, greedy[1])]
+
+    def run_all(report: bool):
+        outs = serve(eng8, requests, report, "int8+int8-KV ")
+        outs += serve(eng4, requests[:1], report, "int4 ")
+        for label, eng, plain_eng, prompt in spec_runs:
+            plain = plain_eng.generate(prompt, max_new_tokens=32)
+            plain_ms = plain_eng.last_generate_stats["decode_ms"]
+            got = eng.generate(prompt, max_new_tokens=32, num_draft_tokens=4)
+            st = eng.last_generate_stats
+            if report:
+                print(f"speculative (int8 weights, {label}, num_draft_tokens = 4, "
+                      f"window k = 5) B=1 P=100 new=32: {eng.last_spec_rounds} rounds for 31 tokens, "
+                      f"{st['decode_ms']:.2f} ms after the prefill (plain greedy "
+                      f"{plain_ms:.2f} ms); tokens equal to plain greedy: "
+                      f"{torch.equal(plain, got)}")
+            first_mismatch_is_near_tie(plain_eng, plain, got, 100,
+                                       f"speculative ({label})")
+            outs += [plain, got]
+        require(selfd.last_spec_rounds == math.ceil(31 / 5),
+                f"self-drafted speculative decode took {selfd.last_spec_rounds} "
+                f"rounds, want {math.ceil(31 / 5)} (every proposal accepted)")
+        return outs
+
+    with torch.inference_mode():
+        first = run_all(report=False)  # first use of every shape
+        kernels.reset_launch_counts()
+        second = run_all(report=True)
+    counts = kernels.launch_counts()
+    print(f"quantized serving main path launches: "
+          f"{ {k: counts[k] for k in QUANT_SERVING_KERNELS} }")
+    for name in QUANT_SERVING_KERNELS:
+        require(counts[name] > 0,
+                f"kernel {name} was not launched on the quantized serving path")
+    for i, (a, b) in enumerate(zip(first, second)):
+        require(torch.equal(a, b), f"quantized main path output {i} differs between runs")
+    print(f"reruns: identical tokens ({len(first)} outputs: greedy, speculative, and "
+          "sampled with the same seed)")
+    _, prompt, kw = greedy
+    profile_device(lambda: eng8.generate(prompt, **kw), "int8 B=1 generate")
+    del eng8, eng4, ngram, drafted, eng8bf, selfd
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -818,16 +1192,26 @@ def main() -> int:
     # one timed row per (kernel, main path) at that path's shape
     flash, norm = check_flash(gen, timer), check_rmsnorm(gen, timer)
     dq, dkv = check_flash_bwd(gen, timer)
+    qmv8, qmv4 = check_quantized_matvec(gen, timer)
+    decode = check_decode(gen, timer)
+    # the quantized serving path runs the bf16 path's requests: its flash,
+    # RMSNorm and (int4 engine, draft) dense decode shapes are the same
     rows = [
         ("flash_attention_fwd", "serving", flash["serving"]),
         ("flash_attention_fwd", "training", flash["training"]),
-        ("decode_attention", "serving", check_decode(gen, timer)),
+        ("flash_attention_fwd", "serving_quantized", flash["serving"]),
+        ("decode_attention", "serving", decode),
+        ("decode_attention", "serving_quantized", decode),
         ("rmsnorm_fwd", "serving", norm["serving"]),
         ("rmsnorm_fwd", "training", norm["training"]),
+        ("rmsnorm_fwd", "serving_quantized", norm["serving"]),
         ("rmsnorm_bwd", "training", check_rmsnorm_bwd(gen, timer)),
         ("flash_attention_bwd_dq", "training", dq),
         ("flash_attention_bwd_dkv", "training", dkv),
         ("fused_adam", "training", check_fused_adam(gen, timer)),
+        ("quantized_matvec_int8", "serving_quantized", qmv8),
+        ("quantized_matvec_int4", "serving_quantized", qmv4),
+        ("decode_attention_int8", "serving_quantized", check_decode_int8(gen, timer)),
     ]
     for name, path, r in rows:
         print(f"{name} ({path}) [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
@@ -839,7 +1223,9 @@ def main() -> int:
     check_other_forms(gen)
     reference_check()
     reference_check_training()
-    counts = {"training": main_path_training(), "serving": main_path()}
+    reference_check_quantized()
+    counts = {"training": main_path_training(), "serving": main_path(),
+              "serving_quantized": main_path_quantized()}
 
     # launches: the row's main path's run, counters zeroed just before it
     line = {"kernels": [

@@ -3,7 +3,8 @@
 // Replaces deepspeed_tpu/ops/pallas/decode_attention.py:_decode_kernel
 // (line 76) with its shared _tile_update (line 35), reached through
 // decode_attention_kernel (line 160) from decode_attention (line 323): the
-// dense form over a bf16 (or fp32) cache, without int8 scales.
+// dense form over a bf16 (or fp32) cache, and the int8 form (has_scales=True)
+// over an int8 cache with one fp32 scale per (token, kv head).
 //
 // out[b, h] = softmax(q[b, h] . K[b, :n, kv]^T * scale) @ V[b, :n, kv] with
 // kv = h / (H / KV) and n = min(cache_len[b] + 1, Smax): every position at or
@@ -26,8 +27,18 @@
 // read in place through its strides (a layer of the [L, B, Smax, KV, hd] cache
 // needs no copy); every row start must be 16-byte aligned.
 //
+// The int8 form reads the int8 K/V rows by the same 16-byte loads (16 values
+// a load, so a tile is a quarter of the bf16 bytes' loads) together with each
+// row's scale, and dequantizes each value as it lands in shared memory:
+// float(q) * scale, rounded to q's dtype, the order of the TPU kernel's
+// _tile_update:42-43. Scales are read through their (batch, head) strides
+// from the port's [B, KV, Smax] layer layout, one fp32 a (token, head).
+// Bound: bytes, 2 * sum_b n_b * KV * (hd + 4) over 3.35 TB/s.
+//
 // Known gap: at B = 1 and KV = 8 only 8 of the card's 132 SMs have a block.
 // Split-K over the sequence with a combine pass is the later fix.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -42,20 +53,35 @@ __device__ __forceinline__ float2 load2(const float* p) {
   return make_float2(p[0], p[1]);
 }
 
-template <typename T, int HD>
+// One dequantized pair into shared memory in q's dtype.
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  p[0] = a;
+  p[1] = b;
+}
+
+// T: q, out and the shared tiles; TC: the cache's storage type (T, or int8_t
+// with the fp32 scales ks/vs, [B, KV, Smax] by strides (sb, sh, 1)).
+template <typename T, typename TC, int HD>
 __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ q, const TC* __restrict__ k, const TC* __restrict__ v,
+    const float* __restrict__ ks_scale, const float* __restrict__ vs_scale,
     T* __restrict__ out, const int* __restrict__ cache_len, int cache_len_scalar,
     int Smax, int H, int KV, long long q_sb, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, float scale) {
+    long long v_sh, long long ks_sb, long long ks_sh, long long vs_sb,
+    long long vs_sh, float scale) {
+  constexpr bool kInt8 = std::is_same<TC, int8_t>::value;
   // 64 keys a tile in bf16, 32 in fp32: K and V tiles both fit the 48 KB of
   // static shared memory
   constexpr int kTile = sizeof(T) == 2 ? 64 : 32;
   constexpr int kPerLane = kTile / 32;           // scores per lane in the softmax
   constexpr int kPad = sizeof(T) == 2 ? 2 : 1;   // row stride odd in 32-bit words
   constexpr int kLd = HD + kPad;
-  constexpr int kChunks = HD * sizeof(T) / 16;   // 16-byte chunks per row
+  constexpr int kChunks = HD * sizeof(TC) / 16;  // 16-byte chunks per cache row
+  constexpr int kPerChunk = 16 / sizeof(TC);     // values per chunk
   constexpr int kLoads = kTile * kChunks / kThreads;
   static_assert(kTile * kChunks % kThreads == 0, "tile loads must divide");
   __shared__ __align__(16) T ks[kTile * kLd];
@@ -90,12 +116,16 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 
   const char* kb = reinterpret_cast<const char*>(k + b * k_sb + kvh * k_sh);
   const char* vb = reinterpret_cast<const char*>(v + b * v_sb + kvh * v_sh);
-  const long long k_row = k_ss * (long long)sizeof(T);
-  const long long v_row = v_ss * (long long)sizeof(T);
+  const long long k_row = k_ss * (long long)sizeof(TC);
+  const long long v_row = v_ss * (long long)sizeof(TC);
+  const float* ksr = kInt8 ? ks_scale + b * ks_sb + kvh * ks_sh : nullptr;
+  const float* vsr = kInt8 ? vs_scale + b * vs_sb + kvh * vs_sh : nullptr;
 
-  // 16-byte loads of one K and one V tile into registers, all in flight at
-  // once; the next tile's loads overlap this tile's arithmetic
+  // 16-byte loads of one K and one V tile into registers (and, int8, each
+  // row's two scales), all in flight at once; the next tile's loads overlap
+  // this tile's arithmetic
   uint4 kreg[kLoads], vreg[kLoads];
+  float kscl[kLoads], vscl[kLoads];
   auto fetch = [&](int start) {
 #pragma unroll
     for (int j = 0; j < kLoads; ++j) {
@@ -104,9 +134,15 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
       const int c = i - r * kChunks;
       kreg[j] = make_uint4(0u, 0u, 0u, 0u);
       vreg[j] = make_uint4(0u, 0u, 0u, 0u);
+      kscl[j] = 0.f;
+      vscl[j] = 0.f;
       if (start + r < n_keys) {
         kreg[j] = *reinterpret_cast<const uint4*>(kb + (start + r) * k_row + c * 16);
         vreg[j] = *reinterpret_cast<const uint4*>(vb + (start + r) * v_row + c * 16);
+        if (kInt8) {
+          kscl[j] = ksr[start + r];
+          vscl[j] = vsr[start + r];
+        }
       }
     }
   };
@@ -120,10 +156,25 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
       const int i = tid + j * kThreads;
       const int r = i / kChunks;
       const int c = i - r * kChunks;
-      uint32_t* kd = reinterpret_cast<uint32_t*>(ks + r * kLd) + c * 4;
-      uint32_t* vd = reinterpret_cast<uint32_t*>(vs + r * kLd) + c * 4;
-      kd[0] = kreg[j].x; kd[1] = kreg[j].y; kd[2] = kreg[j].z; kd[3] = kreg[j].w;
-      vd[0] = vreg[j].x; vd[1] = vreg[j].y; vd[2] = vreg[j].z; vd[3] = vreg[j].w;
+      if constexpr (kInt8) {
+        // dequantize as the row lands: float(q) * scale, rounded to T
+        const int8_t* kq = reinterpret_cast<const int8_t*>(&kreg[j]);
+        const int8_t* vq = reinterpret_cast<const int8_t*>(&vreg[j]);
+        T* kd = ks + r * kLd + c * kPerChunk;
+        T* vd = vs + r * kLd + c * kPerChunk;
+#pragma unroll
+        for (int e = 0; e < kPerChunk; e += 2) {
+          store2(kd + e, __fmul_rn(static_cast<float>(kq[e]), kscl[j]),
+                 __fmul_rn(static_cast<float>(kq[e + 1]), kscl[j]));
+          store2(vd + e, __fmul_rn(static_cast<float>(vq[e]), vscl[j]),
+                 __fmul_rn(static_cast<float>(vq[e + 1]), vscl[j]));
+        }
+      } else {
+        uint32_t* kd = reinterpret_cast<uint32_t*>(ks + r * kLd) + c * 4;
+        uint32_t* vd = reinterpret_cast<uint32_t*>(vs + r * kLd) + c * 4;
+        kd[0] = kreg[j].x; kd[1] = kreg[j].y; kd[2] = kreg[j].z; kd[3] = kreg[j].w;
+        vd[0] = vreg[j].x; vd[1] = vreg[j].y; vd[2] = vreg[j].z; vd[3] = vreg[j].w;
+      }
     }
     __syncthreads();
     if (start + kTile < n_keys) fetch(start + kTile);
@@ -203,16 +254,55 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   }
 }
 
-template <typename T, int HD>
-void launch(const void* q, const void* k, const void* v, void* out,
-            const void* cache_len, int cache_len_scalar, int B, int Smax, int H,
-            int KV, const long long* st, float scale, cudaStream_t stream) {
+template <typename T, typename TC, int HD>
+void launch(const void* q, const void* k, const void* v, const void* ksc,
+            const void* vsc, void* out, const void* cache_len,
+            int cache_len_scalar, int B, int Smax, int H, int KV,
+            const long long* st, float scale, cudaStream_t stream) {
   dim3 grid(KV, B);
-  decode_attention_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
+  decode_attention_kernel<T, TC, HD><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const TC*>(k),
+      static_cast<const TC*>(v), static_cast<const float*>(ksc),
+      static_cast<const float*>(vsc), static_cast<T*>(out),
       static_cast<const int*>(cache_len), cache_len_scalar, Smax, H, KV, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], scale);
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+      st[11], scale);
+}
+
+// The cache's storage type: the query's (dense) or int8_t.
+template <bool kInt8, typename T>
+using CacheT = typename std::conditional<kInt8, int8_t, T>::type;
+
+// The head sizes and query dtypes both forms take.
+template <bool kInt8>
+int dispatch(const void* q, const void* k, const void* v, const void* ksc,
+             const void* vsc, void* out, const void* cache_len,
+             int cache_len_scalar, int B, int Smax, int H, int KV, int hd,
+             const long long* st, float scale, int dtype, cudaStream_t s) {
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  if (KV <= 0 || H % KV != 0 || H / KV > kMaxGroup) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == dst::kBFloat16 && hd == 128) {
+    launch<__nv_bfloat16, CacheT<kInt8, __nv_bfloat16>, 128>(
+        q, k, v, ksc, vsc, out, cache_len, cache_len_scalar, B, Smax, H, KV,
+        st, scale, s);
+  } else if (dtype == dst::kBFloat16 && hd == 64) {
+    launch<__nv_bfloat16, CacheT<kInt8, __nv_bfloat16>, 64>(
+        q, k, v, ksc, vsc, out, cache_len, cache_len_scalar, B, Smax, H, KV,
+        st, scale, s);
+  } else if (dtype == dst::kFloat32 && hd == 128) {
+    launch<float, CacheT<kInt8, float>, 128>(
+        q, k, v, ksc, vsc, out, cache_len, cache_len_scalar, B, Smax, H, KV,
+        st, scale, s);
+  } else if (dtype == dst::kFloat32 && hd == 64) {
+    launch<float, CacheT<kInt8, float>, 64>(
+        q, k, v, ksc, vsc, out, cache_len, cache_len_scalar, B, Smax, H, KV,
+        st, scale, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -227,26 +317,26 @@ extern "C" int dst_decode_attention(
     int hd, long long q_sb, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, float scale,
     int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long st[8] = {q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
-  if (B <= 0) return static_cast<int>(cudaGetLastError());
-  if (KV <= 0 || H % KV != 0 || H / KV > kMaxGroup) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (dtype == dst::kBFloat16 && hd == 128) {
-    launch<__nv_bfloat16, 128>(q, k, v, out, cache_len, cache_len_scalar, B,
-                               Smax, H, KV, st, scale, s);
-  } else if (dtype == dst::kBFloat16 && hd == 64) {
-    launch<__nv_bfloat16, 64>(q, k, v, out, cache_len, cache_len_scalar, B,
-                              Smax, H, KV, st, scale, s);
-  } else if (dtype == dst::kFloat32 && hd == 128) {
-    launch<float, 128>(q, k, v, out, cache_len, cache_len_scalar, B, Smax, H,
-                       KV, st, scale, s);
-  } else if (dtype == dst::kFloat32 && hd == 64) {
-    launch<float, 64>(q, k, v, out, cache_len, cache_len_scalar, B, Smax, H,
-                      KV, st, scale, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const long long st[12] = {q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                            0, 0, 0, 0};
+  return dispatch<false>(q, k, v, nullptr, nullptr, out, cache_len,
+                         cache_len_scalar, B, Smax, H, KV, hd, st, scale, dtype,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The int8 form: k, v int8 as above; k_scale, v_scale: fp32, one layer of the
+// [L, B, KV, Smax] scale caches, [B, KV, Smax] by strides (batch, head) with
+// the sequence contiguous.
+extern "C" int dst_decode_attention_int8(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, void* out, const void* cache_len, int cache_len_scalar,
+    int B, int Smax, int H, int KV, int hd, long long q_sb, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, long long ks_sb, long long ks_sh,
+    long long vs_sb, long long vs_sh, float scale, int dtype, void* stream) {
+  const long long st[12] = {q_sb, q_sh, k_sb, k_ss, k_sh, v_sb,
+                            v_ss, v_sh, ks_sb, ks_sh, vs_sb, vs_sh};
+  return dispatch<true>(q, k, v, k_scale, v_scale, out, cache_len,
+                          cache_len_scalar, B, Smax, H, KV, hd, st, scale,
+                          dtype, static_cast<cudaStream_t>(stream));
 }

@@ -13,10 +13,21 @@ kernels: flash prefill attention, decode attention and RMSNorm
 (``ops/cuda``). Attention resolves to the kernels on CUDA whatever the flag,
 as the JAX package resolves flash on a TPU; the flag adds the RMSNorm kernel.
 
+``dtype="int8"|"int4"`` (or ``quantize_bits``) serves weight-only quantized
+projections: bf16 compute, the six big projection leaves of every layer
+packed (``ops/quantizer.py``) and streamed by the quantized matvec for up to
+``matvec_max_rows`` rows (``ops/cuda/quantized_matmul.py``).
+``kv_cache_dtype="int8"`` stores the KV cache in int8 with one fp32 scale per
+(token, kv head). A ``draft_model`` (a model, or ``"ngram"`` for
+prompt-lookup drafting) makes greedy B = 1 generation speculative: the draft
+proposes ``num_draft_tokens`` tokens, the main model verifies the window in
+one forward, and the tokens are those of plain greedy decoding.
+
 Numbers that differ from the JAX engine by design: sampled tokens (a seeded
 ``torch.Generator`` replaces threefry keys; greedy tokens are the same), and
 bf16 logits, which the head rounds to bf16 before the fp32 cast. With an eos
-id the loop reads ``done.all()`` on the host once per token.
+id the loop reads ``done.all()`` on the host once per token; the speculative
+loop reads its advance on the host once per round.
 """
 
 from __future__ import annotations
@@ -30,14 +41,19 @@ import torch
 
 from ..accelerator import resolve_device
 from ..models.decoding import forward_with_cache, init_cache
-from ..models.transformer import apply, cast_floating, check_supported
+from ..models.transformer import apply, check_supported
 from ..ops.attention import attention_impl
+from ..ops.cuda.quantized_matmul import matvec_max_rows_scope
 from ..ops.normalization import kernel_rmsnorm_scope
+from ..ops.quantizer import PackedWeight, cast_floating, pack_quantize_blockwise
+from ..serving.spec import (clamp_advance_at_eos, longest_accepted_prefix,
+                            ngram_propose)
 from ..utils.logging import log_dist
 from ..utils.tree import tree_size
 
 NEG_INF = -1e30
-
+# the projection leaves weight-only quantization packs
+QUANTIZED_LEAVES = ("wq", "wk", "wv", "wo", "wi", "wg")
 
 def _align_cache(n: int, mult: int = 128) -> int:
     """KV-cache capacity rounded up to a multiple of 128 (the JAX engine's
@@ -112,11 +128,20 @@ def init_inference(
     """Parity: ``deepspeed.init_inference(model, tp_size, dtype, ...)``.
 
     ``params`` is the port's parameter tree (see ``models.convert`` for the
-    JAX bridge); without it the weights are drawn from ``rng`` (a
-    ``torch.Generator`` on ``device``, seed 0 by default). ``device`` defaults
+    JAX bridge; it may hold packed leaves already); without it the weights
+    are drawn from ``rng`` (a ``torch.Generator`` on ``device``, seed 0 by
+    default). ``dtype="int8"|"int4"`` means bf16 compute with 8- or 4-bit
+    packed projections; ``matvec_max_rows`` (or ``config={"matvec_max_rows":
+    N}``) sets the row threshold of the quantized matvec. ``device`` defaults
     to the current CUDA device; with no CUDA device it must be ``"cpu"``.
     Arguments that need a later slice of the port raise
     ``NotImplementedError`` naming it."""
+    if config:
+        if matvec_max_rows is None and "matvec_max_rows" in config:
+            matvec_max_rows = int(config["matvec_max_rows"])
+        extras = sorted(set(config) - {"matvec_max_rows"})
+        if extras:
+            log_dist(f"init_inference: ignoring unsupported config keys {extras}")
     later = []
     if tensor_parallel:
         tp_size = tensor_parallel.get("tp_size", tp_size)
@@ -126,43 +151,59 @@ def init_inference(
         later.append(f"tp_size={tp_size} (tensor parallelism)")
     if ep_size > 1:
         later.append(f"ep_size={ep_size} (MoE expert parallelism)")
-    if dtype in ("int8", "int4", torch.int8) or quantize_bits:
-        later.append("int8/int4 weights (port slice 3)")
-    if kv_cache_dtype == "int8":
-        later.append("the int8 KV cache (port slice 3)")
-    if draft_model is not None or draft_params is not None:
-        later.append("speculative decode (port slice 3)")
-    if matvec_max_rows is not None or (config and "matvec_max_rows" in config):
-        later.append("matvec_max_rows (int8/int4 weights, port slice 3)")
     if checkpoint is not None:
         later.append("checkpoint= loading")
     if later:
         raise NotImplementedError(
-            "deepspeed_tpu_torch serves unquantized weights on "
-            "one device; not yet ported: " + "; ".join(later)
+            "deepspeed_tpu_torch serves on one device; not yet ported: "
+            + "; ".join(later)
         )
-    if config:
-        log_dist(f"init_inference: ignoring unsupported config keys {sorted(config)}")
     if kwargs:
         log_dist(f"init_inference: ignoring unsupported arguments {sorted(kwargs)}")
+    if dtype in ("int8", torch.int8):
+        dtype, quantize_bits = torch.bfloat16, quantize_bits or 8
+    elif dtype == "int4":
+        dtype, quantize_bits = torch.bfloat16, quantize_bits or 4
     return InferenceEngine(
         model,
         dtype=dtype,
         kernel_inject=replace_with_kernel_inject,
+        quantize_bits=quantize_bits,
         max_tokens=max_tokens,
         kv_cache_dtype=kv_cache_dtype,
+        draft_model=draft_model,
+        draft_params=draft_params,
         params=params,
         rng=rng,
+        matvec_max_rows=matvec_max_rows,
         device=resolve_device(device, "init_inference"),
     )
+
+
+def quantize_weights(params, bits: int):
+    """Weight-only block quantization of the projection leaves
+    (:data:`QUANTIZED_LEAVES`, stacked [L, in, out]) into packed storage;
+    other leaves, and leaves already packed, pass through."""
+    def q(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: q(v, k) for k, v in tree.items()}
+        if name in QUANTIZED_LEAVES and not isinstance(tree, PackedWeight) \
+                and tree.ndim >= 2:
+            return pack_quantize_blockwise(tree, bits=bits)
+        return tree
+
+    return q(params)
 
 
 class InferenceEngine:
     def __init__(self, model, *, device: torch.device,
                  dtype: torch.dtype = torch.bfloat16,
-                 kernel_inject: bool = False, max_tokens: int = 1024,
-                 kv_cache_dtype: str = "auto", params=None,
-                 rng: Optional[torch.Generator] = None):
+                 kernel_inject: bool = False,
+                 quantize_bits: Optional[int] = None, max_tokens: int = 1024,
+                 kv_cache_dtype: str = "auto", draft_model=None,
+                 draft_params=None, params=None,
+                 rng: Optional[torch.Generator] = None,
+                 matvec_max_rows: Optional[int] = None):
         self.model = model
         self.config = model.config
         check_supported(self.config)
@@ -175,6 +216,9 @@ class InferenceEngine:
                 f"kv_cache_dtype must be auto|bf16|bfloat16|int8, got "
                 f"{kv_cache_dtype!r}"
             )
+        if quantize_bits not in (None, 4, 8):
+            raise ValueError(f"quantize_bits must be 4 or 8, got {quantize_bits!r}")
+        self.kv_cache_quantized = kv_cache_dtype == "int8"
         self.kv_cache_storage_dtype = (
             torch.bfloat16 if kv_cache_dtype in ("bf16", "bfloat16") else dtype
         )
@@ -184,9 +228,13 @@ class InferenceEngine:
                 "the CUDA attention kernels take bfloat16; "
                 f"got dtype={dtype} (serve other dtypes with device='cpu')"
             )
+        self.matvec_max_rows = (
+            int(matvec_max_rows) if matvec_max_rows is not None else None
+        )
 
         def impl_scopes():
             stack = ExitStack()
+            stack.enter_context(matvec_max_rows_scope(self.matvec_max_rows))
             if kernel_inject:
                 stack.enter_context(attention_impl("auto"))  # flash on CUDA
                 stack.enter_context(kernel_rmsnorm_scope(on_cuda))
@@ -197,11 +245,43 @@ class InferenceEngine:
             gen = rng if rng is not None else \
                 torch.Generator(device=device).manual_seed(0)
             params = model.init(gen, dtype=dtype, device=device)
-        self.params = cast_floating(params, dtype, device)
+        params = cast_floating(params, dtype, device)
+        if quantize_bits:
+            params = quantize_weights(params, quantize_bits)
+        self.params = params
+        # speculative decoding (greedy, B = 1): a draft proposes, the main
+        # model verifies a whole window per forward; "ngram" drafts by
+        # prompt lookup in the token buffer
+        self.draft_model = draft_model
+        self.draft_params = None
+        self.spec_ngram_n = 3  # context length of the "ngram" draft
+        self.last_spec_rounds: Optional[int] = None
+        if isinstance(draft_model, str):
+            if draft_model != "ngram":
+                raise ValueError(
+                    f"draft_model={draft_model!r}: the only string draft is "
+                    '"ngram" (prompt-lookup self-drafting); otherwise pass '
+                    "a model"
+                )
+        elif draft_model is not None:
+            if draft_model.config.vocab_size != self.config.vocab_size:
+                raise ValueError(
+                    "draft model must share the main model's vocabulary "
+                    f"({draft_model.config.vocab_size} != "
+                    f"{self.config.vocab_size})"
+                )
+            check_supported(draft_model.config)
+            if draft_params is None:
+                draft_params = draft_model.init(
+                    torch.Generator(device=device).manual_seed(1),
+                    dtype=dtype, device=device,
+                )
+            self.draft_params = cast_floating(draft_params, dtype, device)
         self.last_generate_stats: Optional[Dict[str, float]] = None
         n_params = tree_size(self.params)
         log_dist(
             f"InferenceEngine: {n_params / 1e6:.1f}M params, dtype={dtype}, "
+            f"quant={quantize_bits or 'off'}, kv_cache={kv_cache_dtype}, "
             f"device={device}, kernel_inject={kernel_inject}"
         )
 
@@ -224,10 +304,15 @@ class InferenceEngine:
         top_p: float = 1.0,
         repetition_penalty: float = 1.0,
         eos_token_id: int = -1,
+        num_draft_tokens: int = 4,
         rng: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Greedy (temperature=0) or top-k / top-p sampled decoding, with
-        an optional HF-convention repetition penalty.
+        an optional HF-convention repetition penalty. With a draft model
+        attached (``init_inference(draft_model=...)``), greedy B = 1
+        generation without a penalty runs speculatively, ``num_draft_tokens``
+        proposals per verifier forward, with the plain greedy tokens as
+        output (``last_spec_rounds`` counts the verifier forwards).
 
         Returns [B, prompt + max_new_tokens] int32 token ids on the CPU
         (eos-padded once a row is done). ``rng`` is a ``torch.Generator`` on
@@ -248,14 +333,26 @@ class InferenceEngine:
         total_len = min(prompt_len + max_new_tokens, self.max_tokens)
         pb, tb = _bucket_prompt(prompt_len), _align_cache(total_len)
         fill = eos_token_id if eos_token_id >= 0 else 0
-        buf = torch.full((B, tb), fill, dtype=torch.long, device=self.device)
+        speculative = (
+            self.draft_model is not None
+            and temperature == 0.0
+            and B == 1
+            and repetition_penalty == 1.0
+            and num_draft_tokens >= 1
+        )
+        k = int(num_draft_tokens) + 1 if speculative else 0  # drafts + bonus
+        buf = torch.full((B, tb + k), fill, dtype=torch.long, device=self.device)
         buf[:, :prompt_len] = ids.to(self.device)
-        if rng is None:
-            rng = torch.Generator(device=self.device).manual_seed(0)
         with self._impl_ctx(), torch.inference_mode():
-            self._decode(buf, pb, prompt_len, total_len, rng,
-                         float(temperature), int(top_k), float(top_p),
-                         float(repetition_penalty), int(eos_token_id))
+            if speculative:
+                self._spec_decode(buf, pb, prompt_len, total_len, k,
+                                  int(eos_token_id))
+            else:
+                if rng is None:
+                    rng = torch.Generator(device=self.device).manual_seed(0)
+                self._decode(buf, pb, prompt_len, total_len, rng,
+                             float(temperature), int(top_k), float(top_p),
+                             float(repetition_penalty), int(eos_token_id))
         return buf[:, :total_len].to(torch.int32).cpu()
 
     def _decode(self, buf, pb, prompt_len, total_len, rng, temperature, top_k,
@@ -278,7 +375,8 @@ class InferenceEngine:
             return _sample(logits, rng, temperature, top_k, top_p)
 
         clock = _Clock(self.device)
-        cache = init_cache(cfg, B, tb, self.kv_cache_storage_dtype, self.device)
+        cache = init_cache(cfg, B, tb, self.kv_cache_storage_dtype, self.device,
+                           quantized=self.kv_cache_quantized)
         logits, cache = forward_with_cache(cfg, self.params, buf[:, :pb],
                                            cache, 0)
         nxt = step_sample(logits[:, prompt_len - 1])
@@ -308,6 +406,80 @@ class InferenceEngine:
         self.last_generate_stats = {
             "prefill_ms": prefill_ms, "decode_ms": decode_ms,
             "decode_steps": steps, "batch": B, "prompt_bucket": pb,
+        }
+
+
+    def _spec_decode(self, buf, pb, prompt_len, total_len, k, eos_id) -> None:
+        """Greedy speculative decoding of one sequence into ``buf`` [1,
+        tb + k]: each round the draft proposes k - 1 tokens after the last
+        committed one, the main model scores the k-token window in one cached
+        forward at ``cache_len = pos``, and the longest matching draft prefix
+        plus the verifier's own next token is accepted (clamped at an eos).
+
+        On the card the verify window computes each of its tokens as
+        single-token decode does: the packed matvec sums every row in one
+        order whatever the row count, the window's attention is the decode
+        kernel a row each, and the head runs a row at a time. With packed
+        projections the speculative tokens are therefore the plain greedy
+        tokens bit for bit; dense bf16 projections go through cuBLAS, whose
+        kernel choice depends on the row count.
+
+        Cache discipline: a verify writes its whole window at the accepted
+        position, so rows of rejected drafts are rewritten before any later
+        query can attend them (windows are contiguous and advance by at
+        least 1). The draft model runs k steps, one past its last proposal:
+        that step's token is discarded, but its forward writes the draft
+        cache row pos + k - 1, which a fully accepted round would otherwise
+        leave empty for good."""
+        cfg = self.config
+        ngram = isinstance(self.draft_model, str)
+        capacity = _align_cache(buf.shape[1])
+        clock = _Clock(self.device)
+        main_cache = init_cache(cfg, 1, capacity, self.kv_cache_storage_dtype,
+                                self.device, quantized=self.kv_cache_quantized)
+        prompt = buf[:, :pb]
+        logits, _ = forward_with_cache(cfg, self.params, prompt, main_cache, 0)
+        buf[:, prompt_len] = logits[:, prompt_len - 1].argmax(dim=-1)
+        if not ngram:
+            dcfg = self.draft_model.config
+            draft_cache = init_cache(dcfg, 1, capacity, self.dtype, self.device)
+            forward_with_cache(dcfg, self.draft_params, prompt, draft_cache, 0)
+        clock.mark()
+        pos, rounds = prompt_len, 0
+        done = bool(buf[0, prompt_len] == eos_id)
+        while pos < total_len - 1 and not done:
+            if ngram:
+                cand = torch.cat([
+                    buf[:, pos:pos + 1],
+                    ngram_propose(buf[0], pos, k - 1, self.spec_ngram_n)[None, :],
+                ], dim=1)
+            else:
+                cand = torch.empty((1, k + 1), dtype=torch.long, device=self.device)
+                cand[:, 0] = buf[:, pos]
+                for i in range(k):
+                    dlog, _ = forward_with_cache(dcfg, self.draft_params,
+                                                 cand[:, i:i + 1], draft_cache,
+                                                 pos + i)
+                    cand[:, i + 1] = dlog[:, -1].argmax(dim=-1)
+                cand = cand[:, :k]  # the k-th draft is never proposed
+            vlog, _ = forward_with_cache(cfg, self.params, cand, main_cache, pos)
+            targets = vlog.argmax(dim=-1)  # [1, k]
+            n_acc = longest_accepted_prefix(cand[0, 1:] == targets[0, :k - 1])
+            adv, has_eos = clamp_advance_at_eos(targets[0], n_acc + 1, eos_id)
+            buf[:, pos + 1:pos + 1 + k] = targets
+            adv, has_eos = torch.stack([adv, has_eos.to(adv.dtype)]).tolist()
+            pos += adv
+            done = bool(has_eos)
+            rounds += 1
+        # positions past the last accepted token hold rejected-window
+        # predictions: restore the fill the buffer started with
+        buf[:, pos + 1:] = eos_id if eos_id >= 0 else 0
+        prefill_ms, decode_ms = clock.finish()
+        self.last_spec_rounds = rounds
+        self.last_generate_stats = {
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "decode_steps": min(pos, total_len - 1) - prompt_len, "batch": 1,
+            "prompt_bucket": pb, "spec_rounds": rounds,
         }
 
 

@@ -4,7 +4,11 @@ parameters, and the port's parameters back to numpy.
 ``deepspeed_tpu``'s ``init`` returns nested dicts with the layers stacked
 along a leading [L] dim and projection weights [in, out]. The port keeps the
 same tree and layout, so the bridge is a checked copy: every tensor the port's
-``init`` would make must be present with the same shape.
+``init`` would make must be present with the same shape. A weight-only
+quantized leaf of the JAX package (a ``PackedWeight`` whose ``qdata`` and
+``scale`` are numpy arrays, with ``shape``, ``bits``, ``dtype`` and
+``nibbles``) becomes the port's ``PackedWeight`` with the same bytes: the two
+packed layouts are identical.
 """
 
 from __future__ import annotations
@@ -14,7 +18,15 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from ..ops.quantizer import PackedWeight
 from .transformer import Params, TransformerConfig, param_specs
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
+def _is_packed(node) -> bool:
+    return all(hasattr(node, a) for a in ("qdata", "scale", "shape", "bits", "nibbles"))
 
 
 def params_from_numpy(cfg: TransformerConfig, tree: Mapping[str, Any], *,
@@ -32,6 +44,14 @@ def params_from_numpy(cfg: TransformerConfig, tree: Mapping[str, Any], *,
                 )
             return {k: convert(expected[k], node[k], f"{path}[{k!r}]")
                     for k in expected}
+        if _is_packed(node):
+            if tuple(node.shape) != expected[0]:
+                raise ValueError(f"params{path}: shape {tuple(node.shape)} != {expected[0]}")
+            pw_dtype = dtype or _TORCH_DTYPES[np.dtype(node.dtype).name]
+            return PackedWeight(torch.from_numpy(np.array(node.qdata, dtype=np.int8)),
+                                torch.from_numpy(np.array(node.scale, dtype=np.float32)),
+                                node.shape, node.bits, pw_dtype,
+                                node.nibbles).to(device)
         arr = np.asarray(node)
         if tuple(arr.shape) != expected[0]:
             raise ValueError(f"params{path}: shape {arr.shape} != {expected[0]}")

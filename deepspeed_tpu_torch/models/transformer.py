@@ -26,7 +26,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
 from ..ops.cross_entropy import chunked_masked_ce, fused_ce_config
+from ..ops.cuda.quantized_matmul import packed_proj
 from ..ops.normalization import rmsnorm
+from ..ops.quantizer import cast_floating
 from ..runtime.activation_checkpointing import policy_by_name
 
 Params = Dict[str, Any]
@@ -146,18 +148,9 @@ def init(cfg: TransformerConfig, generator: torch.Generator,
     return make(param_specs(cfg))
 
 
-def cast_floating(tree, dtype: torch.dtype, device=None):
-    """``.to(dtype)`` for every floating tensor of a parameter tree, every
-    tensor moved to ``device`` when given (no-ops where they already match)."""
-    if isinstance(tree, dict):
-        return {k: cast_floating(v, dtype, device) for k, v in tree.items()}
-    if tree.is_floating_point():
-        return tree.to(device=device, dtype=dtype)
-    return tree.to(device) if device is not None else tree
-
-
 def layer_params(layers: Params, i: int) -> Params:
-    """Layer ``i``'s parameters: views into the stacked [L, ...] tensors."""
+    """Layer ``i``'s parameters: views into the stacked [L, ...] tensors
+    (a PackedWeight leaf gives its layer's packed slice)."""
     return {
         k: layer_params(v, i) if isinstance(v, dict) else v[i]
         for k, v in layers.items()
@@ -214,10 +207,12 @@ def _rope(q: torch.Tensor, k: torch.Tensor, rope) -> Tuple[torch.Tensor, torch.T
 
 
 def _qkv(cfg: TransformerConfig, p: Params, x: torch.Tensor, rope):
+    """The q/k/v projections (each through ``packed_proj``: a dense weight
+    is ``x @ w``, an int8/int4 one the quantized matvec), with RoPE."""
     B, S, _ = x.shape
-    q = (x @ p["wq"]).view(B, S, cfg.num_heads, cfg.hd)
-    k = (x @ p["wk"]).view(B, S, cfg.kv_heads, cfg.hd)
-    v = (x @ p["wv"]).view(B, S, cfg.kv_heads, cfg.hd)
+    q = packed_proj(x, p["wq"]).view(B, S, cfg.num_heads, cfg.hd)
+    k = packed_proj(x, p["wk"]).view(B, S, cfg.kv_heads, cfg.hd)
+    v = packed_proj(x, p["wv"]).view(B, S, cfg.kv_heads, cfg.hd)
     q, k = _rope(q, k, rope)
     return q, k, v
 
@@ -226,12 +221,13 @@ def _attention(cfg: TransformerConfig, p: Params, x: torch.Tensor, rope) -> torc
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x, rope)
     out = attention(q, k, v, causal=True)
-    return out.reshape(B, S, cfg.num_heads * cfg.hd) @ p["wo"]
+    return packed_proj(out.reshape(B, S, cfg.num_heads * cfg.hd), p["wo"])
 
 
 def _mlp(cfg: TransformerConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Dense SwiGLU MLP."""
-    return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+    """SwiGLU MLP, each projection through ``packed_proj``."""
+    return packed_proj(F.silu(packed_proj(x, p["wg"])) * packed_proj(x, p["wi"]),
+                       p["wo"])
 
 
 def lm_head_logits(cfg: TransformerConfig, params: Params,

@@ -6,9 +6,10 @@ Each module holds the kernels' wrappers, their plain PyTorch versions and a
 ``deepspeed_tpu_torch/csrc``; ``_build`` compiles and loads them on first use.
 """
 
-from . import decode_attention, flash_attention, fused_adam, rmsnorm
+from . import decode_attention, flash_attention, fused_adam, quantized_matmul, rmsnorm
 
-KERNEL_MODULES = (flash_attention, decode_attention, rmsnorm, fused_adam)
+KERNEL_MODULES = (flash_attention, decode_attention, rmsnorm, fused_adam,
+                  quantized_matmul)
 
 
 def launch_counts() -> dict:

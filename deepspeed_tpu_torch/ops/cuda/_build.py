@@ -52,6 +52,10 @@ SIGNATURES: Dict[str, List] = {
     "dst_decode_attention": (
         [_P] * 5 + [_I] * 6 + [_L] * 8 + [_F, _I, _P]
     ),
+    "dst_decode_attention_int8": (
+        [_P] * 7 + [_I] * 6 + [_L] * 12 + [_F, _I, _P]
+    ),
+    "dst_quantized_matvec": [_P] * 5 + [_I] * 9 + [_P],
 }
 
 # dtype codes shared with csrc/common.cuh

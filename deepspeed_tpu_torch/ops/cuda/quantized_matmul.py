@@ -1,0 +1,148 @@
+"""Weight-only int8/int4 projection: the CUDA kernel
+``csrc/quantized_matvec.cu``, its plain version and the dispatch.
+
+Replaces ``deepspeed_tpu/ops/pallas/quantized_matmul.py:_kernel`` (line 38),
+reached through ``_packed_matvec`` (line 89) from ``packed_proj`` (line 436).
+Dequantize-then-multiply would write a full-width copy of the weights every
+decode step; the kernel dequantizes in registers, so device memory streams
+only the int8/int4 bytes and the fp32 scales.
+
+:func:`packed_proj` is the JAX dispatch: a dense weight is ``x @ w``; a
+:class:`~deepspeed_tpu_torch.ops.quantizer.PackedWeight` with at most
+:func:`matvec_max_rows` rows of x and 128-aligned columns takes the matvec
+(the kernel for CUDA tensors, its plain version for CPU tensors); more rows
+are the dense product over the dequantized weight, as the JAX package leaves
+them to XLA. On the card a shape the kernel does not take raises.
+
+Bound on the H100: bytes, every weight byte read once (Llama-3-8B's wi at
+D = 4096, N = 14336 is 58.7 MB int8 + 1.8 MB of scales).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import torch
+
+from ..quantizer import PackedWeight
+from . import _build
+
+# kernel launches since the last reset, by weight width
+launches = {"quantized_matvec_int8": 0, "quantized_matvec_int4": 0}
+
+MAX_KERNEL_ROWS = 16  # rows of x the kernel holds
+COLS = 128            # columns of one block's tile
+TARGET_BLOCKS = 264   # about two blocks per SM on the H100's 132
+
+# rows at or below this take the matvec; more rows (a prefill) are
+# compute-bound and take the dense product over the dequantized weight
+_MATVEC_MAX_ROWS = 8
+_rows_override: Optional[int] = None
+
+
+@contextlib.contextmanager
+def matvec_max_rows_scope(rows):
+    """Scoped override of the matvec row threshold (None keeps the current
+    value): engines with different settings in one process do not fight.
+    The inference engine enters it around every forward."""
+    global _rows_override
+    prev = _rows_override
+    if rows is not None:
+        _rows_override = int(rows)
+    try:
+        yield
+    finally:
+        _rows_override = prev
+
+
+def matvec_max_rows() -> int:
+    """The active row threshold of the matvec."""
+    return _rows_override if _rows_override is not None else _MATVEC_MAX_ROWS
+
+
+def packed_matvec_plain(x2d: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+    """y [M, N] = x [M, D] · dequant(w) with the TPU kernel's fp32 fold
+    x·(q·s): every weight dequantized in fp32, an fp32 product, the result in
+    x's dtype."""
+    q = w.unpacked_qdata()
+    wf = (q.float() * w.scale).reshape(-1, q.shape[-1])
+    return (x2d.float() @ wf).to(x2d.dtype)
+
+
+def split_plan(planes: int, n_tiles: int):
+    """(splits, planes per split) of the contraction for a weight of
+    ``planes`` byte planes and ``n_tiles`` column tiles: enough blocks to
+    fill the card at the narrowest leaf. It depends on the weight's shape
+    only, never on the rows of x, so every row's sums run in the same order
+    whatever M is (a verify window's rows equal single-token decode)."""
+    want = min(planes, max(1, -(-TARGET_BLOCKS // n_tiles)))
+    per = -(-planes // want)
+    return -(-planes // per), per
+
+
+def packed_matvec(x2d: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+    """x [M, D] @ w [D, N] for a 2-D packed weight (qdata [G, B, N] or
+    nibble planes [G/2, B, N]). A CPU tensor takes
+    :func:`packed_matvec_plain`; a CUDA tensor launches the kernel, or raises
+    on what it does not take."""
+    if x2d.device.type == "cpu":
+        return packed_matvec_plain(x2d, w)
+    lib = _build.library()
+    q, s = w.qdata, w.scale
+    M, D = x2d.shape
+    if q.ndim != 3 or s.ndim != 3:
+        raise ValueError(f"packed_matvec: qdata {tuple(q.shape)} is not one 2-D weight")
+    Gp, Bq, N = q.shape
+    G = s.shape[0]
+    if not (x2d.is_cuda and q.device == x2d.device and s.device == x2d.device):
+        raise ValueError("packed_matvec: x and the weight must be on one CUDA device")
+    if q.dtype != torch.int8 or s.dtype != torch.float32:
+        raise ValueError(f"packed_matvec: qdata {q.dtype} / scale {s.dtype}, "
+                         "want int8 / float32")
+    if not 1 <= M <= MAX_KERNEL_ROWS:
+        raise ValueError(f"packed_matvec: {M} rows, the kernel takes 1 to "
+                         f"{MAX_KERNEL_ROWS}")
+    if N % COLS or s.shape != (G, 1, N) or G * Bq != D \
+            or Gp != (G // 2 if w.nibbles else G):
+        raise ValueError(
+            f"packed_matvec: x {tuple(x2d.shape)}, qdata {tuple(q.shape)}, "
+            f"scale {tuple(s.shape)} do not fit (N must be a multiple of {COLS})"
+        )
+    if not (x2d.is_contiguous() and q.is_contiguous() and s.is_contiguous()) \
+            or any(t.data_ptr() % 16 for t in (x2d, q, s)):
+        raise ValueError("packed_matvec: x, qdata and scale must be contiguous "
+                         "and 16-byte aligned")
+    n_tiles = N // COLS
+    splits, per = split_plan(Gp, n_tiles)
+    out = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
+    part = torch.empty((splits, M, N) if splits > 1 else (0,),
+                       dtype=torch.float32, device=x2d.device)
+    status = lib.dst_quantized_matvec(
+        x2d.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+        part.data_ptr(), M, D, N, Gp, Bq, int(w.nibbles), splits, per,
+        _build.dtype_code(x2d.dtype),
+        torch.cuda.current_stream(x2d.device).cuda_stream,
+    )
+    _build.check(status, "quantized_matvec")
+    launches[f"quantized_matvec_int{w.bits}"] += 1
+    return out
+
+
+def packed_proj(x: torch.Tensor, w) -> torch.Tensor:
+    """x [..., d] @ w [d, n], where w may be a PackedWeight.
+
+    A dense weight costs one ``isinstance`` (the training path). A packed
+    one takes the matvec for up to :func:`matvec_max_rows` rows of x; more
+    rows, and on the CPU a column count off the 128 grid, are the dense
+    product over the dequantized weight (the JAX package's rule)."""
+    if not isinstance(w, PackedWeight):
+        return x @ w
+    lead = x.shape[:-1]
+    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    N = w.scale.shape[-1]
+    if rows <= matvec_max_rows() and w.qdata.ndim == 3 and (
+            N % COLS == 0 or x.device.type != "cpu"):
+        x2d = x.reshape(rows, x.shape[-1]).contiguous()
+        return packed_matvec(x2d, w).reshape(*lead, N)
+    return x @ w.dequantize()

@@ -1,7 +1,7 @@
 """Helpers over the port's parameter trees (nested dicts of tensors).
 
 Counterpart of ``deepspeed_tpu/utils/tree.py``; the dtype cast of a tree
-is ``models.transformer.cast_floating``.
+is ``ops.quantizer.cast_floating``.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ def _iter_leaves(tree) -> Iterator[torch.Tensor]:
 
 
 def tree_size(tree) -> int:
-    """Total number of elements across all leaves."""
+    """Total number of elements across all leaves (a PackedWeight leaf
+    counts its dense weight's elements)."""
     return sum(t.numel() for t in tree_leaves(tree))
 
 

@@ -143,9 +143,7 @@ def test_sampling_is_seeded(engines):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(tp_size=2), dict(dtype="int8"), dict(quantize_bits=4),
-    dict(kv_cache_dtype="int8"), dict(draft_model="ngram"),
-    dict(checkpoint="ckpt"), dict(matvec_max_rows=16),
+    dict(tp_size=2), dict(ep_size=2), dict(checkpoint="ckpt"),
     dict(tensor_parallel={"tp_size": 1, "overlap_comm": True}),
 ])
 def test_later_slice_arguments_raise(engines, kw):

@@ -12,8 +12,9 @@ import torch
 
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import llama
+from deepspeed_tpu_torch.ops import quantizer
 from deepspeed_tpu_torch.ops.cuda import (_build, decode_attention, flash_attention,
-                                         fused_adam, rmsnorm)
+                                         fused_adam, quantized_matmul, rmsnorm)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -105,6 +106,10 @@ def test_build_without_nvcc_raises(monkeypatch):
         t(1, 8, 2, 64)),
     lambda t: fused_adam.adam_update(t(64), t(64), t(64), t(64), lr=1e-3, b1=0.9,
                                      b2=0.999, eps=1e-8, wd=0.0, bc1=0.1, bc2=0.001),
+    lambda t: decode_attention.decode_attention(
+        t(1, 1, 2, 64), t(1, 8, 2, 64), t(1, 8, 2, 64), 3, t(1, 2, 8), t(1, 2, 8)),
+    lambda t: quantized_matmul.packed_proj(t(1, 256), quantizer.PackedWeight(
+        t(2, 128, 128), t(2, 1, 128), (256, 128), 8, torch.bfloat16)),
 ])
 def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch, call):
     """A tensor off the CPU goes to the kernel path; where the kernel cannot
