@@ -10,9 +10,11 @@ sm_90a). In order, any failure exiting non-zero:
    limit as nvidia-smi reports them;
 2. build: compiles deepspeed_tpu_torch/csrc/*.cu (one nvcc per source, in
    parallel) and prints the build seconds and ptxas register counts;
-3. each of the ten kernels against its plain PyTorch version on the card, at
-   the shapes each main path gives it (the flash and RMSNorm forwards at the
-   serving and at the training shape): max abs error against a stated
+3. each of the twelve kernels against its plain PyTorch version on the card,
+   at the shapes each main path gives it (the flash and RMSNorm forwards at
+   the serving and at the training shape; the paged and dense decode kernels
+   with 64 rows a slot at the continuous-batching step's shape, the paged
+   ones also bitwise against the dense ones over the same bytes): max abs error against a stated
    tolerance, and the kernel's, plain version's and library call's times
    (CUDA events, median of single launches with L2 flushed before each)
    beside the bound, one row per kernel and path; then the other shapes and
@@ -50,7 +52,23 @@ sm_90a). In order, any failure exiting non-zero:
    engine's plain greedy tokens (a mismatch only at a near-tie of the plain
    run's logits); the counters, zeroed just before, must show every kernel of
    the path ran; rerun, identical tokens; a profiled int8 decode;
-10. the kernels line (one JSON object, one entry per kernel and main path,
+10. the continuous-batching reference check: a two-layer full-width
+   Llama-3-8B through the serving step's forward (per-slot frontiers, padded
+   rows, the head on each slot's last real row), kernel path against plain
+   path, over a paged pool (bf16 and int8 KV) and a contiguous arena;
+11. the continuous-batching main path (``serving_cb``): init_serving on
+   Llama-3-8B at full depth, bf16 weights, kernel injection, 8 slots x a
+   64-token budget, pages of 16 tokens, max_tokens 1024; a seeded trace of
+   24 requests (prompts of 16-700 tokens, 16-64 new tokens, half sampled, six
+   sharing a 250-token prefix, two repeating an earlier prompt) through the
+   contiguous and the paged arena with bf16 and with int8 KV: outputs equal
+   bitwise between the arenas per request, one step shape, the page pool's
+   invariants, prefix reuse and copy-on-write, a rerun with identical
+   tokens; the counters, zeroed before each run, must show the paged and
+   dense decode kernels (bf16 and int8) and RMSNorm ran and the plain
+   attention never ran on the card; per run steps, tokens/s, step ms, TTFT,
+   TPOT, pool bytes and peak memory; a profiled window of 20 steps;
+12. the kernels line (one JSON object, one entry per kernel and main path,
    with that path's launches), then the device line (last line).
 """
 
@@ -63,13 +81,15 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch import init_inference, initialize
+from deepspeed_tpu_torch import init_inference, init_serving, initialize
 from deepspeed_tpu_torch.models import llama
-from deepspeed_tpu_torch.models.decoding import (_decode_rows, _quantize_kv,
-                                                 forward_with_cache, init_cache)
+from deepspeed_tpu_torch.models.decoding import (_quantize_kv, _window_rows,
+                                                 forward_with_cache, init_cache,
+                                                 init_paged_cache)
 from deepspeed_tpu_torch.models.transformer import apply
 from deepspeed_tpu_torch.ops import cuda as kernels
 from deepspeed_tpu_torch.ops.attention import attention_impl
@@ -81,6 +101,7 @@ from deepspeed_tpu_torch.ops.cuda import quantized_matmul as qmm
 from deepspeed_tpu_torch.ops.cuda import rmsnorm as rn
 from deepspeed_tpu_torch.ops.normalization import kernel_rmsnorm_scope
 from deepspeed_tpu_torch.ops.quantizer import PackedWeight, pack_quantize_blockwise
+from deepspeed_tpu_torch.serving import Request, RequestStatus
 from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_map
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and dense bf16
@@ -129,6 +150,14 @@ KERNELS = {
         "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
         "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:76",
     },
+    "paged_decode_attention": {
+        "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:111",
+    },
+    "paged_decode_attention_int8": {
+        "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:111",
+    },
 }
 SERVING_KERNELS = ("flash_attention_fwd", "decode_attention", "rmsnorm_fwd")
 QUANT_SERVING_KERNELS = ("quantized_matvec_int8", "quantized_matvec_int4",
@@ -142,6 +171,12 @@ TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                     "fused_adam")
 # the training main path: llama3-1b micro-batch 4 x 2048 tokens, 2 micro-batches
 TRAIN_B, TRAIN_S, TRAIN_ACCUM, TRAIN_LR = 4, 2048, 2, 1e-4
+# the continuous-batching main path: slots x token budget of the one step
+CB_SLOTS, CB_BUDGET, CB_PAGE = 8, 64, 16
+# a contiguous-arena slot: max_tokens 1024 + the budget, rounded up to 128
+CB_CAPACITY = 1152
+CB_KERNELS = ("paged_decode_attention", "paged_decode_attention_int8",
+              "decode_attention", "decode_attention_int8", "rmsnorm_fwd")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -351,7 +386,7 @@ def check_decode_int8(gen, timer):
         qw = torch.randn(1, 5, H, D, generator=gen, device="cuda", dtype=BF16)
         one = (kc[3:4], vc[3:4])
         sc = (ks[3:4], vs[3:4])
-        win = _decode_rows(qw, *one, 600, *sc)
+        win = _window_rows(qw, *one, 600, None, None, *sc, kernel=True)
         same = all(torch.equal(win[:, s:s + 1], dec.decode_attention(
             qw[:, s:s + 1], *one, 600 + s, *sc)) for s in range(5))
         e = max_err(win, dec.cached_attention_plain(qw, *one, 600, *sc))
@@ -385,16 +420,159 @@ def check_decode_int8(gen, timer):
     return row
 
 
+def paged_case(gen, int8: bool):
+    """The serving step's attention at its full shape: N = 8 slots of R = 64
+    rows, 68 logical pages of 16 tokens a slot over a pool of 8 * 68 pages
+    plus the NULL page, H = 32, KV = 8, hd = 128. Physical pages are
+    shuffled; slot 0 is a 64-row prefill chunk at start 448, slots 1-6 one
+    decode row each at ragged frontiers (their other rows padded, frontier
+    -1), slot 7 idle; logical pages past a slot's frontier name the NULL
+    page. The dense operands are layer 1 of a two-layer contiguous arena
+    ([2, N, 1152, KV, hd], the serving engine's layout and strides) holding
+    the same bytes at every mapped position. Returns (q, pools, scales,
+    page_table, frontier, dense layers, dense scale layers)."""
+    N, R, mp, ps, H, KV, D = CB_SLOTS, CB_BUDGET, 68, 16, 32, 8, 128
+    P = N * mp
+    q = torch.randn(N * R, 1, H, D, generator=gen, device="cuda", dtype=BF16)
+    if int8:
+        kp = torch.zeros(P + 1, ps, KV, D, dtype=torch.int8, device="cuda")
+        vp, ks, vs = torch.zeros_like(kp), None, None
+        scales = []
+        for pool in (kp, vp):
+            qv, sc = _quantize_kv(torch.randn(P + 1, ps, KV, D, generator=gen,
+                                              device="cuda", dtype=BF16))
+            pool.copy_(qv)
+            scales.append(sc.transpose(1, 2).contiguous())  # [P+1, KV, ps]
+        ks, vs = scales
+    else:
+        kp = torch.randn(P + 1, ps, KV, D, generator=gen, device="cuda", dtype=BF16)
+        vp = torch.randn(P + 1, ps, KV, D, generator=gen, device="cuda", dtype=BF16)
+        ks = vs = None
+    frontier = torch.full((N, R), -1, dtype=torch.int32)
+    frontier[0] = 448 + torch.arange(R, dtype=torch.int32)
+    frontier[1:7, 0] = torch.tensor([0, 17, 100, 333, 640, 1023], dtype=torch.int32)
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(5)).int()
+    table = torch.full((N, mp), P, dtype=torch.int32)
+    for n in range(N):
+        used = -(-(int(frontier[n].max()) + 1) // ps)
+        table[n, :used] = perm[n * mp:n * mp + used]
+    table, frontier = table.cuda(), frontier.reshape(-1).cuda()
+    arena = init_cache(llama("llama3-8b", num_layers=2).config, N, CB_CAPACITY, BF16,
+                       "cuda", quantized=int8)
+    span = mp * ps
+    arena["k"][1, :, :span] = dec.gather_pages(kp, table)
+    arena["v"][1, :, :span] = dec.gather_pages(vp, table)
+    dense, dense_scales = (arena["k"][1], arena["v"][1]), ()
+    if int8:
+        arena["k_scale"][1, :, :, :span] = dec.gather_page_scales(ks, table)
+        arena["v_scale"][1, :, :, :span] = dec.gather_page_scales(vs, table)
+        dense_scales = (arena["k_scale"][1], arena["v_scale"][1])
+    return q, (kp, vp), ((ks, vs) if int8 else ()), table, frontier, dense, dense_scales
+
+
+def check_paged_decode(gen, timer):
+    """The paged decode kernel, bf16 and int8, against its plain version at
+    the continuous-batching step's shape (:func:`paged_case`), and equal bit
+    for bit to the dense decode kernel (``rows_per_seq`` = 64) over the same
+    bytes laid out contiguously. Returns timed rows: the paged kernels, and
+    the dense kernels at the contiguous arena's step shape."""
+    tol = 1e-2
+    R, ps, KV, H, D = CB_BUDGET, 16, 8, 32, 128
+    rows = {}
+    for int8 in (False, True):
+        q, pools, scales, table, frontier, dense, dense_scales = paged_case(gen, int8)
+        suffix = "_int8" if int8 else ""
+        out = dec.paged_decode_attention(q, *pools, frontier, table, *scales,
+                                         rows_per_seq=R)
+        ref = dec.paged_decode_attention_plain(q, *pools, frontier, table, *scales,
+                                               rows_per_seq=R)
+        flat = dec.decode_attention(q, *dense, frontier, *dense_scales, rows_per_seq=R)
+        e = max_err(out, ref)
+        same = torch.equal(out, flat)
+        padded = frontier < 0
+        zeros = bool((out[padded] == 0).all())
+        print(f"paged_decode_attention{suffix} N={CB_SLOTS} R={R} mp=68 ps={ps} H={H} "
+              f"KV={KV} D={D}: max_abs_err {e:.3e} (tol {tol}); bitwise equal to the "
+              f"dense kernel over the same bytes: {same}; padded rows zero: {zeros}")
+        require(e <= tol and same and zeros, f"paged_decode_attention{suffix} check")
+        # bound: each slot's K/V rows up to its furthest frontier, once (and,
+        # int8, one fp32 scale per row and head), the q of the real rows (a
+        # padded row's output is zero whatever its q), every output row, the
+        # frontiers and, paged, the page table
+        fr = frontier.reshape(CB_SLOTS, R).cpu()
+        n_keys = sum(int(f.max()) + 1 for f in fr)
+        per_row = KV * (D + 4) if int8 else KV * D * 2
+        pairs = int((fr + 1).clamp_min(0).sum())
+        nbytes = 2 * n_keys * per_row + 2 * H * D * int((fr >= 0).sum()) \
+            + 2 * q.numel() + 4 * frontier.numel()
+        b_ms, b_by = bound(4 * H * D * pairs, nbytes + 4 * table.numel())
+        b_dense_ms, b_dense_by = bound(4 * H * D * pairs, nbytes)
+        # library: the page gather and SDPA with the frontier mask over the
+        # per-slot views (the gather inside the time; int8 dequantized too)
+        qt = q.reshape(CB_SLOTS, R, H, D).transpose(1, 2).contiguous()
+        masks = {n: (torch.arange(n, device="cuda")[None, None, :]
+                     <= frontier.reshape(CB_SLOTS, R)[:, :, None].long())[:, None]
+                 for n in (table.shape[1] * ps, CB_CAPACITY)}
+
+        def library(views=None):
+            kv = views or (dec.gather_pages(pools[0], table), dec.gather_pages(pools[1], table))
+            if int8 and views is None:
+                kv = tuple(dec.dequantize_cache(c, dec.gather_page_scales(s, table)).to(BF16)
+                           for c, s in zip(kv, scales))
+            kt, vt = (c.transpose(1, 2) for c in kv)
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=masks[kt.shape[2]],
+                                                  enable_gqa=True)
+
+        shape = (f"N={CB_SLOTS} R={R} mp=68 ps={ps} H={H} KV={KV} D={D}"
+                 f"{' int8' if int8 else ''}; slot 0 a 64-row chunk at 448, six "
+                 "decode rows at [0, 17, 100, 333, 640, 1023], one idle slot")
+        rows[f"paged_decode_attention{suffix}"] = {
+            "max_abs_err": e,
+            "ms": timer(lambda: dec.paged_decode_attention(
+                q, *pools, frontier, table, *scales, rows_per_seq=R)),
+            "plain_ms": timer(lambda: dec.paged_decode_attention_plain(
+                q, *pools, frontier, table, *scales, rows_per_seq=R)),
+            "library_ms": timer(library),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": shape + " (library: page gather" + (" and dequantize" if int8 else "")
+                     + " inside the time, then masked SDPA)",
+        }
+        # the contiguous arena's step: the dense kernel with rows_per_seq
+        e_dense = max_err(flat, dec.decode_attention_plain(
+            q, *dense, frontier, *dense_scales, rows_per_seq=R))
+        require(e_dense <= tol, f"decode_attention{suffix} rows_per_seq disagrees")
+        lib_views = (tuple(dec.dequantize_cache(c, s).to(BF16)
+                           for c, s in zip(dense, dense_scales)) if int8 else dense)
+        rows[f"decode_attention{suffix}"] = {
+            "max_abs_err": e_dense,
+            "ms": timer(lambda: dec.decode_attention(q, *dense, frontier, *dense_scales,
+                                                     rows_per_seq=R)),
+            "plain_ms": timer(lambda: dec.decode_attention_plain(
+                q, *dense, frontier, *dense_scales, rows_per_seq=R)),
+            "library_ms": timer(lambda: library(lib_views)),
+            "bound_ms": b_dense_ms, "bound_by": b_dense_by,
+            "shape": shape.replace("mp=68 ps=16", f"Smax={CB_CAPACITY}, one layer of "
+                                   "the contiguous arena")
+                     + " (library: masked SDPA" + (" over the dequantized cache"
+                                                   if int8 else "") + ")",
+        }
+        del q, pools, scales, dense, dense_scales
+        torch.cuda.empty_cache()
+    return rows
+
+
 def check_rmsnorm(gen, timer):
-    """The RMSNorm forward at both main paths' shapes: serving (the B=4 x
-    512 prefill of hidden 4096, and a decode step's 4 rows) and training
-    (the llama3-1b micro-batch's 8192 rows of hidden 2048). Returns one
-    timed row per path."""
+    """The RMSNorm forward at the main paths' shapes: serving (the B=4 x
+    512 prefill of hidden 4096, and a decode step's 4 rows), training
+    (the llama3-1b micro-batch's 8192 rows of hidden 2048) and the
+    continuous-batching step (8 slots x 64 rows). Returns one timed row per
+    path."""
     eps = 1e-5
     atol, rtol = 1e-3, 1.6e-2  # two bf16 ulps of the plain result
     rows = {}
     for path, n, D in (("serving", 4 * 512, 4096), (None, 4, 4096),
-                       ("training", TRAIN_B * TRAIN_S, 2048)):
+                       ("training", TRAIN_B * TRAIN_S, 2048),
+                       ("serving_cb", CB_SLOTS * CB_BUDGET, 4096)):
         w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(BF16)
         x = torch.randn(n, D, generator=gen, device="cuda", dtype=BF16)
         out = rn.rmsnorm_fwd(x, w, eps)
@@ -942,6 +1120,256 @@ def main_path_quantized():
     return counts
 
 
+def reference_check_serving_cb():
+    """Two-layer full-width Llama-3-8B: the continuous-batching step's
+    forward (per-slot frontiers, padded rows, the head on each slot's last
+    real row) on the kernel path (decode kernels with rows_per_seq = 64,
+    RMSNorm kernel) against the plain path on the same weights, over a paged
+    pool with shuffled pages (bf16 and int8 KV) and a contiguous arena: a
+    first step of eight 64-token prompt chunks, then a step of one chunk at
+    64, six decode rows at 64 and an idle slot."""
+    tol = 2e-2
+    N, W, ps = CB_SLOTS, CB_BUDGET, CB_PAGE
+    model = llama("llama3-8b", num_layers=2)
+    cfg = model.config
+    eng = init_inference(model, dtype=BF16, replace_with_kernel_inject=True,
+                         max_tokens=1024, rng=torch.Generator(device="cuda").manual_seed(1))
+    ids = torch.randint(0, cfg.vocab_size, (N, 2 * W),
+                        generator=torch.Generator().manual_seed(2)).cuda()
+    mp = 8
+    table = torch.randperm(N * mp, generator=torch.Generator().manual_seed(3)).int()
+    table = table.reshape(N, mp).cuda()
+    n2 = torch.tensor([W] + [1] * 6 + [0], device="cuda")
+    steps = [(ids[:, :W], torch.zeros(N, dtype=torch.int32, device="cuda"),
+              torch.full((N,), W, device="cuda")),
+             (ids[:, W:], torch.full((N,), W, dtype=torch.int32, device="cuda"), n2)]
+
+    def run(paged: bool, int8: bool):
+        cache = (init_paged_cache(cfg, N * mp, ps, BF16, "cuda", quantized=int8) if paged
+                 else init_cache(cfg, N, 256, BF16, "cuda", quantized=int8))
+        outs = []
+        for toks, start, n in steps:
+            valid = torch.arange(W, device="cuda")[None, :] < n[:, None]
+            head = (n - 1).clamp_min(0)[:, None]
+            logits, _ = forward_with_cache(cfg, eng.params, toks, cache, start,
+                                           page_table=table if paged else None,
+                                           token_valid=valid, head_rows=head)
+            outs.append(logits[:7])  # the idle slot's row is not read
+        return torch.cat(outs, dim=1)
+
+    with torch.inference_mode():
+        for paged, int8 in ((True, False), (True, True), (False, False)):
+            with attention_impl("auto"), kernel_rmsnorm_scope(True):
+                got = run(paged, int8)
+            with attention_impl("plain"), kernel_rmsnorm_scope(False):
+                want = run(paged, int8)
+            require(bool(torch.isfinite(got).all()), "non-finite serving step logits")
+            rel = ((got - want).norm() / want.norm()).item()
+            print(f"serving_cb reference check (2 layers, full width, "
+                  f"{'paged' if paged else 'contiguous'}, {'int8' if int8 else 'bf16'} "
+                  f"KV): relative L2 error kernel vs plain path {rel:.3e} (tol {tol})")
+            require(rel <= tol, "serving step kernel path disagrees with the plain path")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def cb_trace(V: int, seed: int = 7):
+    """The serving_cb trace, 24 requests (id, prompt, max_new_tokens,
+    sampling arguments, id that must have finished first): prompts of 16-700
+    tokens, 16-64 new tokens, odd requests sampled (T 0.8, top-k 50, top-p
+    0.9); requests 0, 12, 14, 16, 18 and 20 share a 250-token prefix (not a
+    multiple of the 16-token page, so a sharer diverges inside a shared page
+    and copies it); requests 22 and 23 repeat the prompts of 1 and 2 once
+    those have finished (the prefix cache then covers all but their last
+    prompt token)."""
+    r = np.random.RandomState(seed)
+    prefix = r.randint(0, V, 250)
+    sharers = (0, 12, 14, 16, 18, 20)
+    out = []
+    for i in range(22):
+        if i in sharers:
+            tail = 16 if i == 0 else r.randint(16, 451)
+            prompt = np.concatenate([prefix, r.randint(0, V, tail)])
+        else:
+            prompt = r.randint(0, V, r.randint(16, 701))
+        kw = dict(temperature=0.8, top_k=50, top_p=0.9) if i % 2 else {}
+        out.append((f"cb{i}", prompt, 16 if i == 0 else int(r.randint(16, 65)), kw, None))
+    for j, i in enumerate((1, 2)):
+        _, prompt, new, kw, _ = out[i]
+        out.append((f"cb{22 + j}", prompt, new, kw, f"cb{i}"))
+    return out
+
+
+def drive_cb(srv, trace, max_steps=None):
+    """8 requests arrive at once, then 2 after every step (a repeat waits for
+    the request it repeats to finish); steps until idle, or ``max_steps``.
+    Returns ({id: state}, host ms of each step, whether each step fed a
+    prompt chunk)."""
+    pending, states, step_ms, chunked = list(trace), {}, [], []
+
+    def arrive(n):
+        while pending and n > 0:
+            rid, prompt, new, kw, after = pending[0]
+            if after is not None and not states[after].finished:
+                return
+            states[rid] = srv.submit(Request(rid, prompt, max_new_tokens=new, **kw))
+            pending.pop(0)
+            n -= 1
+
+    arrive(8)
+    while pending or srv.scheduler.has_work:
+        if max_steps is not None and len(step_ms) >= max_steps:
+            break
+        chunks = srv.metrics.prefill_chunks
+        t0 = time.perf_counter()
+        srv.step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        chunked.append(srv.metrics.prefill_chunks > chunks)
+        arrive(2)
+    return states, step_ms, chunked
+
+
+def serve_cb(srv, trace, label: str):
+    """One serving_cb run through ``srv``, counters zeroed just before:
+    every request must finish with its tokens in range; the step shape
+    stays one; the page pool's invariants hold at the end (paged); the plain
+    attention never runs on the card. Prints the run's numbers and returns
+    (outputs by id, launch counts)."""
+    V = srv.config.vocab_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    states, step_ms, chunked = drive_cb(srv, trace)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    plain = kernels.plain_attention_on_cuda()
+    peak = torch.cuda.max_memory_allocated()
+    outs = {}
+    for rid, prompt, new, _, _ in trace:
+        st = states[rid]
+        require(st.status is RequestStatus.DONE and len(st.tokens) == new,
+                f"{label} {rid}: {st.status.value} with {len(st.tokens)}/{new} tokens")
+        out = st.output()
+        require(bool(((out >= 0) & (out < V)).all()) and (out[:prompt.size] == prompt).all(),
+                f"{label} {rid}: tokens out of range or prompt not echoed")
+        outs[rid] = out
+    require(srv.step_traces == 1, f"{label}: {srv.step_traces} step shapes, want 1")
+    require(sum(plain.values()) == 0, f"{label}: plain attention ran on the card {plain}")
+    m = srv.metrics.snapshot()
+    gen = sum(len(st.tokens) for st in states.values())
+
+    def pct(xs, p):
+        xs = sorted(xs)
+        return xs[int(round(p / 100 * (len(xs) - 1)))] if xs else float("nan")
+
+    mixed = [t for t, c in zip(step_ms, chunked) if c]
+    decode_only = [t for t, c in zip(step_ms, chunked) if not c]
+    print(f"serving_cb {label}: {len(step_ms)} steps, {gen} generated tokens, "
+          f"{m['scheduled_tokens']} tokens fed, wall {wall:.3f} s, {gen / wall:.1f} "
+          f"generated tok/s, {m['scheduled_tokens'] / wall:.1f} fed tok/s; step ms p50 "
+          f"{pct(step_ms, 50):.3f} p95 {pct(step_ms, 95):.3f} (with a prompt chunk: "
+          f"{len(mixed)} steps, p50 {pct(mixed, 50):.3f}; decode rows only: "
+          f"{len(decode_only)} steps, p50 {pct(decode_only, 50):.3f}); TTFT p50 "
+          f"{m['ttft_p50_s'] * 1e3:.1f} ms p95 {m['ttft_p95_s'] * 1e3:.1f} ms; TPOT p50 "
+          f"{m['tpot_p50_s'] * 1e3:.2f} ms; prefix hits {m['prefix_hits']} "
+          f"({m['cached_prompt_tokens']} tokens), COW copies {m['cow_copies']}, prefill "
+          f"chunks {m['prefill_chunks']}; {'pool' if srv.paged else 'arena'} "
+          f"{srv.arena_bytes / 1e9:.3f} GB; peak memory {peak / 2**30:.2f} GiB; "
+          f"plain attention on the card {plain}")
+    if srv.paged:
+        sched = srv.scheduler
+        sched.assert_page_invariants()
+        held = len(sched.prefix_cache.held_pages)
+        require(sched.pool.free_count + sched.pool.live_count == sched.num_pages
+                and all(s is None for s in sched.slots),
+                f"{label}: page pool invariants at the end")
+        for rep in ("cb22", "cb23"):
+            st = states[rep]
+            require(st.cached_tokens == st.prompt_len - 1,
+                    f"{label} {rep}: {st.cached_tokens} cached of {st.prompt_len}, the "
+                    "repeated prompt must skip its prefill")
+        require(m["cow_copies"] >= 1 and m["prefix_hits"] >= 2,
+                f"{label}: prefix reuse and copy-on-write did not happen")
+        print(f"serving_cb {label}: pool invariants hold (free {sched.pool.free_count} + "
+              f"live {sched.pool.live_count} = {sched.num_pages}; {held} prefix-cache "
+              "references); the two repeats fed only their last prompt token")
+    return outs, counts
+
+
+def cb_serving(paged: bool):
+    return {"max_slots": CB_SLOTS, "token_budget": CB_BUDGET, "max_tokens": 1024,
+            "paged": paged, "page_size": CB_PAGE}
+
+
+def main_path_serving_cb():
+    """Continuous-batching serving of Llama-3-8B at full width and depth:
+    init_serving with seeded random bf16 weights and kernel injection, the
+    24-request trace (:func:`cb_trace`) through four engines sharing the
+    weights: the contiguous and the paged arena, each with bf16 and int8 KV.
+    Each request's tokens must be bitwise equal between the two arenas, greedy
+    and sampled, in each KV dtype; a rerun gives identical tokens; then a
+    profiled window of 20 steps. Returns the launches of the four runs,
+    counters zeroed just before each."""
+    model = llama("llama3-8b")
+    cfg = model.config
+    t0 = time.perf_counter()
+    first = init_serving(model, serving=cb_serving(False), dtype=BF16,
+                         replace_with_kernel_inject=True,
+                         rng=torch.Generator(device="cuda").manual_seed(0))
+    engine = first.engine
+    engine8 = init_inference(model, dtype=BF16, kv_cache_dtype="int8",
+                             replace_with_kernel_inject=True, max_tokens=1024,
+                             params=engine.params)
+    torch.cuda.synchronize()
+    print(f"serving_cb: {cfg.name} L={cfg.num_layers} full depth, slots={CB_SLOTS}, "
+          f"token_budget={CB_BUDGET}, page_size={CB_PAGE}, max_tokens=1024; init "
+          f"{time.perf_counter() - t0:.1f} s; step rows {CB_SLOTS * CB_BUDGET} through "
+          f"the projections: {2 * cfg.num_params() * CB_SLOTS * CB_BUDGET / 1e12:.2f} "
+          "TFLOP a step")
+    trace = cb_trace(cfg.vocab_size)
+    totals = {name: 0 for name in kernels.launch_counts()}
+    outs = {}
+    for kv, eng in (("bf16", engine), ("int8", engine8)):
+        for paged in (False, True):
+            srv = first if (kv, paged) == ("bf16", False) else \
+                init_serving(serving=cb_serving(paged), engine=eng)
+            label = f"{'paged' if paged else 'contiguous'} {kv} KV"
+            with torch.inference_mode():
+                outs[(kv, paged)], counts = serve_cb(srv, trace, label)
+            for name in totals:
+                totals[name] += counts[name]
+            want = ("paged_" if paged else "") + "decode_attention" + \
+                ("_int8" if kv == "int8" else "")
+            require(counts[want] > 0 and counts["rmsnorm_fwd"] > 0,
+                    f"serving_cb {label}: {want} or rmsnorm_fwd not launched: {counts}")
+            del srv
+            torch.cuda.empty_cache()
+        diff = [rid for rid in outs[(kv, False)]
+                if not np.array_equal(outs[(kv, False)][rid], outs[(kv, True)][rid])]
+        print(f"serving_cb {kv} KV: paged == contiguous bitwise for "
+              f"{len(outs[(kv, False)]) - len(diff)}/{len(trace)} requests (12 greedy, "
+              f"12 sampled); differ: {diff}")
+        require(not diff, f"serving_cb {kv} KV: paged and contiguous outputs differ")
+    with torch.inference_mode():
+        again, _ = serve_cb(init_serving(serving=cb_serving(True), engine=engine), trace,
+                            "paged bf16 KV rerun")
+    same = all(np.array_equal(again[rid], outs[("bf16", True)][rid]) for rid in again)
+    print(f"serving_cb rerun (paged, bf16 KV): identical tokens: {same}")
+    require(same, "serving_cb: the rerun gave other tokens")
+
+    def window():
+        srv = init_serving(serving=cb_serving(True), engine=engine)
+        with torch.inference_mode():
+            drive_cb(srv, trace, max_steps=20)
+
+    profile_device(window, "serving_cb paged bf16 KV, first 20 steps of the trace")
+    print(f"serving_cb launches (four runs): { {k: totals[k] for k in CB_KERNELS} }")
+    del first, engine, engine8
+    torch.cuda.empty_cache()
+    return totals
+
+
 def profile_device(run, label: str) -> None:
     """Device busy share of ``run()``: kernel time from torch.profiler over
     the wall time of the same call run without the profiler; and the top
@@ -1194,6 +1622,7 @@ def main() -> int:
     dq, dkv = check_flash_bwd(gen, timer)
     qmv8, qmv4 = check_quantized_matvec(gen, timer)
     decode = check_decode(gen, timer)
+    cb = check_paged_decode(gen, timer)
     # the quantized serving path runs the bf16 path's requests: its flash,
     # RMSNorm and (int4 engine, draft) dense decode shapes are the same
     rows = [
@@ -1212,6 +1641,11 @@ def main() -> int:
         ("quantized_matvec_int8", "serving_quantized", qmv8),
         ("quantized_matvec_int4", "serving_quantized", qmv4),
         ("decode_attention_int8", "serving_quantized", check_decode_int8(gen, timer)),
+        ("paged_decode_attention", "serving_cb", cb["paged_decode_attention"]),
+        ("paged_decode_attention_int8", "serving_cb", cb["paged_decode_attention_int8"]),
+        ("decode_attention", "serving_cb", cb["decode_attention"]),
+        ("decode_attention_int8", "serving_cb", cb["decode_attention_int8"]),
+        ("rmsnorm_fwd", "serving_cb", norm["serving_cb"]),
     ]
     for name, path, r in rows:
         print(f"{name} ({path}) [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
@@ -1224,8 +1658,10 @@ def main() -> int:
     reference_check()
     reference_check_training()
     reference_check_quantized()
+    reference_check_serving_cb()
     counts = {"training": main_path_training(), "serving": main_path(),
-              "serving_quantized": main_path_quantized()}
+              "serving_quantized": main_path_quantized(),
+              "serving_cb": main_path_serving_cb()}
 
     # launches: the row's main path's run, counters zeroed just before it
     line = {"kernels": [

@@ -3,11 +3,13 @@ Hopper (H100).
 
 It grows slice by slice beside the JAX package, which stays the reference.
 It serves the Llama family through ``init_inference`` →
-``InferenceEngine.generate`` and trains it on one device through
+``InferenceEngine.generate`` and through the continuous-batching front door
+``init_serving`` → ``ServingEngine``, and trains it on one device through
 ``initialize`` → ``TorchEngine.train_batch``, with hand-written CUDA kernels
-(``ops/cuda``): flash attention forward and backward, decode attention,
-RMSNorm forward and backward, and the fused Adam update. It imports neither
-jax nor deepspeed_tpu.
+(``ops/cuda``): flash attention forward and backward, decode attention over
+a contiguous cache and over a page pool, RMSNorm forward and backward, the
+quantized matvec and the fused Adam update. It imports neither jax nor
+deepspeed_tpu.
 """
 
 from .accelerator import get_accelerator  # noqa: F401
@@ -20,6 +22,18 @@ def init_inference(*args, **kwargs):
     from .inference.engine import init_inference as _init_inference
 
     return _init_inference(*args, **kwargs)
+
+
+def init_serving(model=None, serving=None, **kwargs):
+    """Continuous-batching serving front door (DeepSpeed-MII / FastGen
+    parity): a model and the "serving" config section → a
+    :class:`~deepspeed_tpu_torch.serving.engine.ServingEngine` (request queue,
+    SplitFuse scheduler, one fixed-shape slot step). Other keyword arguments
+    go to ``init_inference`` (``device``, ``dtype``,
+    ``replace_with_kernel_inject``, ...), or pass ``engine=``."""
+    from .serving.engine import ServingEngine
+
+    return ServingEngine(model=model, serving=serving, **kwargs)
 
 
 def initialize(*args, **kwargs):

@@ -149,6 +149,143 @@ class TpuKernelsConfig:
         )
 
 
+def _check_tristate(name: str, v) -> None:
+    if v not in (True, False, AUTO):
+        raise DeepSpeedConfigError(f"{name} must be true|false|\"auto\", got {v!r}")
+
+
+@dataclass
+class SpecDecodeConfig:
+    """The "serving.spec" section: speculative decoding inside the slot
+    engine (each decode slot drafts up to ``max_draft`` n-gram tokens; the
+    one step verifies every window). The serving engine refuses it turned
+    on: ROADMAP A4 ports it."""
+
+    enabled: Any = False  # bool | "auto" ("auto" resolves off: no knob table)
+    max_draft: int = 4
+    draft: str = "ngram"
+    ngram_n: int = 3
+
+    def validate(self) -> None:
+        if int(self.max_draft) < 1:
+            raise DeepSpeedConfigError(
+                f"serving.spec.max_draft must be >= 1, got {self.max_draft}")
+        if self.draft != "ngram":
+            raise DeepSpeedConfigError(
+                'serving.spec.draft must be "ngram" (host-side n-gram / '
+                f"prompt-lookup), got {self.draft!r}")
+        if int(self.ngram_n) < 1:
+            raise DeepSpeedConfigError(
+                f"serving.spec.ngram_n must be >= 1, got {self.ngram_n}")
+
+
+@dataclass
+class FleetConfig:
+    """The "serving.fleet" section's switch (the replicated serving tier);
+    its other keys are not read. Refused turned on: ROADMAP A9."""
+
+    enabled: bool = False
+
+
+@dataclass
+class ServingConfig:
+    """The "serving" section: the continuous-batching runtime
+    (``serving/``), the counterpart of ``deepspeed_tpu/config.py:526``.
+    One step of fixed shape [max_slots, token_budget] takes whatever mix of
+    prompt chunks and decode tokens the SplitFuse scheduler packs.
+
+    Knobs left ``"auto"`` resolve as the JAX package resolves them on a
+    miss of its measured knob table (the H100 has no such table):
+    ``paged`` off, ``spec`` off, ``kv_cache_dtype`` the engine's dtype;
+    ``moe_a2a`` is accepted and has no effect on a dense model."""
+
+    max_slots: int = 8           # concurrent in-flight requests (KV slots)
+    token_budget: int = 64       # tokens per step (the SplitFuse chunk width)
+    queue_limit: int = 64        # bounded admission queue; 0 = unbounded
+    request_timeout_s: float = 60.0   # queued longer than this -> EVICTED
+    eviction_backoff_s: float = 1.0   # retry-after hint: backoff * 2**attempts
+    max_tokens: int = 1024       # per-request prompt + output cap
+    kv_cache_dtype: str = AUTO   # auto | bf16 | bfloat16 | int8
+    paged: Any = False           # block-paged KV pool instead of slot regions
+    page_size: int = 16          # tokens per KV page (paged)
+    num_pages: int = 0           # pool pages; 0 = max_slots * pages_per_slot
+    prefix_cache: bool = True    # shared read-only prefix pages (paged)
+    host_pages: int = 0          # tiered KV behind the pool (refused: A4)
+    moe_a2a: str = AUTO          # expert-exchange form (MoE serving: A9)
+    spec: SpecDecodeConfig = field(default_factory=SpecDecodeConfig)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
+
+    def __post_init__(self):
+        if isinstance(self.spec, bool) or self.spec == AUTO:
+            self.spec = SpecDecodeConfig(enabled=self.spec)
+        if isinstance(self.spec, dict):
+            self.spec = _parse_dc(SpecDecodeConfig, self.spec)
+        if isinstance(self.fleet, dict):
+            self.fleet = _parse_dc(FleetConfig, self.fleet)
+
+    def resolve_auto(self) -> "ServingConfig":
+        """The table-miss defaults of the JAX package's ``resolve_auto_knobs``
+        for the knobs the port reads; ``kv_cache_dtype`` "auto" stays, and
+        the engine reads it as its own dtype."""
+        if self.paged == AUTO:
+            self.paged = False
+        if self.spec.enabled == AUTO:
+            self.spec.enabled = False
+        return self
+
+    def pages_per_slot(self, max_tokens: Optional[int] = None) -> int:
+        """Logical pages per slot: the per-request token cap plus the
+        token_budget write margin (padded chunk tails never leave the mapped
+        range). The engine passes its clamped max_tokens."""
+        span = int(max_tokens if max_tokens is not None
+                   else self.max_tokens) + int(self.token_budget)
+        return -(-span // int(self.page_size))
+
+    def validate(self) -> None:
+        if int(self.max_slots) < 1:
+            raise DeepSpeedConfigError(
+                f"serving.max_slots must be >= 1, got {self.max_slots}")
+        if int(self.token_budget) < 1:
+            raise DeepSpeedConfigError(
+                f"serving.token_budget must be >= 1, got {self.token_budget}")
+        if int(self.queue_limit) < 0:
+            raise DeepSpeedConfigError(
+                f"serving.queue_limit must be >= 0, got {self.queue_limit}")
+        if float(self.request_timeout_s) <= 0:
+            raise DeepSpeedConfigError(
+                "serving.request_timeout_s must be > 0, got "
+                f"{self.request_timeout_s}")
+        if self.kv_cache_dtype not in (AUTO, "int8", "bf16", "bfloat16"):
+            raise DeepSpeedConfigError(
+                "serving.kv_cache_dtype must be auto|bf16|bfloat16|int8, "
+                f"got {self.kv_cache_dtype!r}")
+        if int(self.page_size) < 1:
+            raise DeepSpeedConfigError(
+                f"serving.page_size must be >= 1, got {self.page_size}")
+        if int(self.num_pages) < 0:
+            raise DeepSpeedConfigError(
+                f"serving.num_pages must be >= 0 (0 = auto), got {self.num_pages}")
+        if self.moe_a2a not in (AUTO, "stock", "chunked"):
+            raise DeepSpeedConfigError(
+                f"serving.moe_a2a must be auto|stock|chunked, got {self.moe_a2a!r}")
+        if int(self.host_pages) < 0:
+            raise DeepSpeedConfigError(
+                f"serving.host_pages must be >= 0 (0 = untiered), got "
+                f"{self.host_pages}")
+        if int(self.host_pages) > 0 and self.paged is False:
+            raise DeepSpeedConfigError(
+                "serving.host_pages > 0 requires serving.paged: the host tier "
+                "demotes and promotes pages of the block-paged arena")
+        _check_tristate("serving.spec.enabled", self.spec.enabled)
+        _check_tristate("serving.paged", self.paged)
+        if self.spec.enabled is True:
+            self.spec.validate()
+            if int(self.spec.max_draft) + 1 > int(self.token_budget):
+                raise DeepSpeedConfigError(
+                    f"serving.spec.max_draft {self.spec.max_draft} needs "
+                    f"max_draft + 1 <= token_budget {self.token_budget}")
+
+
 class DeepSpeedConfig:
     """Parsed and validated ds_config (a dict or a json path); the batch
     triangle resolves when ``dp_world_size`` is given (``initialize`` gives

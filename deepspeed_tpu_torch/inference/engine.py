@@ -72,11 +72,13 @@ def apply_repetition_penalty(logits: torch.Tensor, seen: torch.Tensor,
                              ) -> torch.Tensor:
     """HF-convention repetition penalty: for tokens in ``seen`` [B, V],
     positive logits divide by the penalty, negative multiply. ``active``
-    ([B] bool) leaves the rows of finished sequences untouched."""
+    ([B] bool) leaves the rows of finished sequences untouched. ``logits``
+    may also be a [B, S, V] verify window (the serving step): the one
+    [B, V] ``seen`` matrix then applies to every window position."""
     penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
-    mask = seen
+    mask = seen if logits.ndim == 2 else seen[:, None, :]
     if active is not None:
-        mask = mask & active.reshape(-1, 1)
+        mask = mask & active.reshape((-1,) + (1,) * (logits.ndim - 1))
     return torch.where(mask, penalized, logits)
 
 

@@ -71,3 +71,16 @@ def params_to_numpy(params: Params) -> Dict[str, Any]:
         return {k: params_to_numpy(v) for k, v in params.items()}
     t = params.detach().to("cpu")
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def cache_from_numpy(cache: Mapping[str, Any], *, device="cpu") -> Dict[str, torch.Tensor]:
+    """A JAX KV arena, as numpy arrays, in the port's layout: contiguous
+    {"k", "v"} [L, N, C, KV, hd] or paged [L, P+1, ps, KV, hd] carry over as
+    they are; an int8 arena's scales [L, N, KV, C, SL] or [L, P+1, KV, ps, SL]
+    keep their column 0, the port's one scale per (token, kv head)."""
+    out = {name: torch.from_numpy(np.array(cache[name])).to(device) for name in ("k", "v")}
+    for name in ("k_scale", "v_scale"):
+        if name in cache:
+            s = np.asarray(cache[name], np.float32)[..., 0]
+            out[name] = torch.from_numpy(np.ascontiguousarray(s)).to(device)
+    return out

@@ -1,27 +1,39 @@
 """KV-cache decoding forward passes for the transformer core.
 
-Counterpart of ``deepspeed_tpu/models/decoding.py``, for the contiguous cache.
-The cache is a static buffer ``{"k", "v"}`` of [L, B, Smax, KV, hd] tensors.
+Counterpart of ``deepspeed_tpu/models/decoding.py``. Two cache forms:
+
+- the contiguous cache ``{"k", "v"}`` of [L, B, Smax, KV, hd] tensors
+  (:func:`init_cache`): the lockstep engine's batch, and the serving engine's
+  slots;
+- the block-paged pool (:func:`init_paged_cache`) of [L, P+1, page_size, KV,
+  hd] tensors shared by every slot through per-slot page tables; physical
+  page P is the NULL page, where unmapped logical pages point and padded
+  writes land, never attended.
+
 Where the JAX package donates the cache and gets a new one back, the port
 updates it IN PLACE: every call of :func:`forward_with_cache` writes the new
 tokens' K/V into the tensors it was given and returns the same dict.
 
-The int8 cache (``init_cache(quantized=True)``) stores K/V as int8 with one
-fp32 absmax scale per (token, kv head), ``"k_scale"``/``"v_scale"`` of
-[L, B, KV, Smax]. The JAX package keeps ``SCALE_LANES = 8`` copies of each
-scale to fill the TPU's minimum sublane tile; the port keeps one: at hd = 128
-the eight copies would add 25 % to the bytes a decode step reads from the
-int8 cache, one copy adds 3 %. Column 0 of the JAX scales is the port's.
+The int8 cache (``quantized=True``) stores K/V as int8 with one fp32 absmax
+scale per (token, kv head): ``"k_scale"``/``"v_scale"`` of [L, B, KV, Smax]
+contiguous, [L, P+1, KV, page_size] paged. The JAX package keeps
+``SCALE_LANES = 8`` copies of each scale to fill the TPU's minimum sublane
+tile; the port keeps one: at hd = 128 the eight copies would add 25 % to the
+bytes a decode step reads from the int8 cache, one copy adds 3 %. Column 0
+of the JAX scales is the port's.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from ..ops.attention import attention, resolve_attention_impl
-from ..ops.cuda.decode_attention import cached_attention_plain, decode_attention
+from ..ops.cuda.decode_attention import (cached_attention_plain, decode_attention,
+                                         decode_attention_plain,
+                                         paged_decode_attention,
+                                         paged_decode_attention_plain)
 from ..ops.cuda.quantized_matmul import packed_proj
 from .transformer import (Params, TransformerConfig, _mlp, _norm, _qkv,
                           check_supported, layer_params, lm_head_logits,
@@ -45,6 +57,29 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
     shape = (cfg.num_layers, batch, max_len, cfg.kv_heads, cfg.hd)
     if quantized:
         sshape = (cfg.num_layers, batch, cfg.kv_heads, max_len)
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(sshape, dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(sshape, dtype=torch.float32, device=device),
+        }
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def init_paged_cache(cfg: TransformerConfig, num_pages: int, page_size: int,
+                     dtype: torch.dtype = torch.bfloat16, device=None,
+                     quantized: bool = False) -> Cache:
+    """Zeroed block-paged KV pool for all layers: {"k", "v"} of
+    [L, num_pages + 1, page_size, KV, hd]; page ``num_pages`` is the NULL
+    page. ``quantized`` stores int8 K/V with fp32 scales of
+    [L, num_pages + 1, KV, page_size]."""
+    P1 = int(num_pages) + 1
+    shape = (cfg.num_layers, P1, page_size, cfg.kv_heads, cfg.hd)
+    if quantized:
+        sshape = (cfg.num_layers, P1, cfg.kv_heads, page_size)
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -97,68 +132,159 @@ def _update_scale_at(scale: torch.Tensor, new: torch.Tensor, cache_len) -> None:
         scale[:, :, cache_len:cache_len + S] = new.transpose(1, 2)
 
 
-def _decode_rows(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 cache_len, k_scale=None, v_scale=None) -> torch.Tensor:
-    """Decode attention for q [B,S,H,hd]: one token a row, or one sequence's
-    window of S tokens (a speculative verify) as S single-token rows over the
-    same cache layer (batch stride 0), row s seeing positions up to
-    ``cache_len + s``. Each window row is then the decode kernel's own
-    computation at its position, so a verify window gives the bits that
-    single-token decode gives."""
-    S = q.shape[1]
-    if S == 1:
-        return decode_attention(q, k_cache, v_cache, cache_len, k_scale, v_scale)
-    lens = _positions(cache_len, 1, S, q.device)[0]
+def _page_indices(cache_len: torch.Tensor, S: int, page_table: torch.Tensor,
+                  page_size: int):
+    """Per-token physical destination of a [B, S] chunk written at the
+    per-row frontier: (physical page [B, S], offset in the page [B, S])."""
+    mp = page_table.shape[1]
+    pos = _positions(cache_len, page_table.shape[0], S, page_table.device)
+    pageidx = (pos // page_size).clamp(0, mp - 1)
+    return page_table.long().gather(1, pageidx), pos % page_size
 
-    def rows(t):
-        return None if t is None else t.expand(S, *t.shape[1:])
 
-    out = decode_attention(q.transpose(0, 1), rows(k_cache), rows(v_cache), lens,
-                           rows(k_scale), rows(v_scale))
-    return out.transpose(0, 1)
+def _paged_write(pool: torch.Tensor, new: torch.Tensor, cache_len,
+                 page_table: torch.Tensor) -> None:
+    """Scatter a chunk's new K/V [B, S, KV, hd] into the page pool
+    [P+1, page_size, KV, hd] in place through the per-slot page tables.
+    Tokens past a slot's mapped pages (padding) land on the NULL page the
+    tables point unmapped entries at, several onto one row: which write
+    wins there is unspecified and harmless, since no frontier reaches the
+    NULL page."""
+    phys, off = _page_indices(cache_len, new.shape[1], page_table, pool.shape[1])
+    pool[phys, off] = new.to(pool.dtype)
+
+
+def _paged_write_scale(pool: torch.Tensor, new: torch.Tensor, cache_len,
+                       page_table: torch.Tensor) -> None:
+    """Scale twin of :func:`_paged_write`: pool [P+1, KV, ps], new chunk
+    scales [B, S, KV]."""
+    phys, off = _page_indices(cache_len, new.shape[1], page_table, pool.shape[2])
+    kv = torch.arange(pool.shape[1], device=pool.device)
+    pool[phys[:, :, None], kv[None, None, :], off[:, :, None]] = new
+
+
+def paged_cow_copy(cache: Cache, page_table: torch.Tensor, start_pos: torch.Tensor,
+                   cow_src: torch.Tensor) -> Cache:
+    """Copy-on-write, in place: slots whose ``cow_src`` is a physical page
+    (>= 0) copy that page's KV, all layers and scales, onto their frontier
+    page before the chunk write, so a slot diverging from a shared prefix
+    mid-page keeps the shared tokens without writing the shared page. Every
+    source page is read (one gather into a copy) before any destination is
+    written: a page freed by one slot's divergence and handed to another in
+    the same step still gives its old bytes. Rows with ``cow_src == -1``
+    copy their frontier page onto itself (idle rows: the NULL page)."""
+    ps = cache["k"].shape[2]
+    N, mp = page_table.shape
+    rows = torch.arange(N, device=page_table.device)
+    pt = page_table.long()
+    dst = pt[rows, (start_pos.long() // ps).clamp(0, mp - 1)]
+    src = torch.where(cow_src >= 0, cow_src.long(), dst)
+    for pool in cache.values():
+        pool[:, dst] = pool[:, src]
+    return cache
+
+
+def verify_window_rows(num_new: torch.Tensor, spec_len: torch.Tensor,
+                       max_draft: int, W: int) -> torch.Tensor:
+    """[B, max_draft + 1] positions of each row's verify window in a ragged
+    [B, W] chunk: its last ``spec_len + 1`` real positions (the
+    committed-token feed and its drafts), left-aligned; positions past a
+    row's ``spec_len`` are clipped and masked by the caller."""
+    base = (num_new - 1 - spec_len).long()
+    return (base[:, None] + torch.arange(max_draft + 1, device=base.device)[None, :]
+            ).clamp(0, W - 1)
+
+
+def _window_rows(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 cache_len, token_valid, page_table, k_scale, v_scale,
+                 kernel: bool) -> torch.Tensor:
+    """The window of S tokens of each of B sequences as B*S single-token
+    rows, row (b, s) at frontier ``cache_len[b] + s`` (-1 where
+    ``token_valid`` is False: a padded row, zeros) through the decode kernel
+    with ``rows_per_seq = S``, over the contiguous cache or, with
+    ``page_table``, the page pool. ``kernel`` False takes the plain twin.
+    Each row is the kernel's own computation at its position, one block a
+    row, so a speculative verify window (B = 1) gives the bits single-token
+    decode gives, and S = 1 is single-token decode."""
+    B, S, H, hd = q.shape
+    frontier = _positions(cache_len, B, S, q.device)
+    if token_valid is not None:
+        frontier = torch.where(token_valid.to(q.device), frontier, -1)
+    rows, frontier = q.reshape(B * S, 1, H, hd), frontier.reshape(-1)
+    if page_table is not None:
+        fn = paged_decode_attention if kernel else paged_decode_attention_plain
+        out = fn(rows, k_cache, v_cache, frontier, page_table, k_scale, v_scale,
+                 rows_per_seq=S)
+    else:
+        fn = decode_attention if kernel else decode_attention_plain
+        out = fn(rows, k_cache, v_cache, frontier, k_scale, v_scale, rows_per_seq=S)
+    return out.reshape(B, S, H, hd)
 
 
 def _cached_attention(cfg: TransformerConfig, p: Params, x: torch.Tensor, rope,
                       k_cache: torch.Tensor, v_cache: torch.Tensor,
-                      cache_len, k_scale=None, v_scale=None) -> torch.Tensor:
+                      cache_len, k_scale=None, v_scale=None, page_table=None,
+                      token_valid=None) -> torch.Tensor:
     """Attend the new tokens x [B,S,D] against cache[:cache_len] and
     themselves; writes their K/V into the cache layer first (int8 with its
-    scales when ``k_scale`` is given).
+    scales when ``k_scale`` is given), into the page pool through the page
+    tables when ``page_table`` [B, mp] is given.
 
-    A fresh prefill (``cache_len == 0``, S > 1) attends among the new tokens,
-    with their exact K/V, through the registered attention (the flash kernel
-    on CUDA); only reads from the cache dequantize. When the registered
-    attention is flash, a single token, and a window of one sequence, take
-    the decode kernel (:func:`_decode_rows`). Everything else is the plain
-    masked attention over the cache."""
+    A fresh prefill (``cache_len == 0``, S > 1, contiguous) attends among the
+    new tokens, with their exact K/V, through the registered attention (the
+    flash kernel on CUDA); only reads from the cache dequantize. When the
+    registered attention is flash, every other call takes the decode kernels
+    with ``rows_per_seq`` (:func:`_window_rows`); so does a paged pool or a
+    serving chunk (``token_valid`` given) under the plain attention, through
+    the kernels' plain twins. Everything else is the plain masked attention
+    over the cache."""
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x, rope)
+    def write(cache, new, scale=False):
+        if page_table is not None:
+            (_paged_write_scale if scale else _paged_write)(cache, new, cache_len,
+                                                            page_table)
+        else:
+            (_update_scale_at if scale else _update_at)(cache, new, cache_len)
+
     if k_scale is not None:
         kq, ks = _quantize_kv(k)
         vq, vs = _quantize_kv(v)
-        _update_at(k_cache, kq, cache_len)
-        _update_at(v_cache, vq, cache_len)
-        _update_scale_at(k_scale, ks, cache_len)
-        _update_scale_at(v_scale, vs, cache_len)
+        write(k_cache, kq)
+        write(v_cache, vq)
+        write(k_scale, ks, scale=True)
+        write(v_scale, vs, scale=True)
     else:
-        _update_at(k_cache, k, cache_len)
-        _update_at(v_cache, v, cache_len)
-    if isinstance(cache_len, int) and cache_len == 0 and S > 1:
+        write(k_cache, k)
+        write(v_cache, v)
+    flash = resolve_attention_impl(q.device) == "flash"
+    window = page_table is not None or token_valid is not None
+    if not window and isinstance(cache_len, int) and cache_len == 0 and S > 1:
         out = attention(q, k, v, causal=True)
-    elif (S == 1 or B == 1) and resolve_attention_impl(q.device) == "flash":
-        out = _decode_rows(q, k_cache, v_cache, cache_len, k_scale, v_scale)
+    elif window or flash:
+        out = _window_rows(q, k_cache, v_cache, cache_len, token_valid, page_table,
+                           k_scale, v_scale, kernel=flash)
     else:
         out = cached_attention_plain(q, k_cache, v_cache, cache_len, k_scale, v_scale)
     return packed_proj(out.reshape(B, S, cfg.num_heads * cfg.hd), p["wo"])
 
 
 def forward_with_cache(cfg: TransformerConfig, params: Params,
-                       input_ids: torch.Tensor, cache: Cache, cache_len):
+                       input_ids: torch.Tensor, cache: Cache, cache_len, *,
+                       page_table: Optional[torch.Tensor] = None,
+                       token_valid: Optional[torch.Tensor] = None,
+                       head_rows: Optional[torch.Tensor] = None):
     """Run new tokens [B, S] through all layers against the cache.
 
     ``cache_len`` is the number of tokens already cached: an int shared by
     every row, or a per-row [B] tensor. Returns (fp32 logits [B, S, V],
     cache); the cache is the argument itself, updated in place.
+
+    The serving engine's step adds ``page_table`` [B, mp] (the cache is then
+    a page pool from :func:`init_paged_cache`), ``token_valid`` [B, S] (the
+    real tokens of each slot's chunk; padded rows attend nothing) and
+    ``head_rows`` [B, K] (the positions whose logits it reads: the head runs
+    on those rows only and the logits are [B, K, V]).
 
     A window of S > 1 tokens against a filled cache (a speculative verify)
     runs the head one token at a time: a library GEMM picks its kernel by
@@ -183,8 +309,13 @@ def forward_with_cache(cfg: TransformerConfig, params: Params,
         x = x + _cached_attention(
             cfg, lp["attn"], _norm(cfg, lp["ln1"], x), rope,
             cache["k"][i], cache["v"][i], cache_len, *scales,
+            page_table=page_table, token_valid=token_valid,
         )
         x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
+    if head_rows is not None:
+        idx = head_rows.to(device).long()[:, :, None].expand(-1, -1, x.shape[-1])
+        return lm_head_logits(cfg, params, _norm(cfg, params["final_norm"],
+                                                 x.gather(1, idx))), cache
     x = _norm(cfg, params["final_norm"], x)
     if S > 1 and not (isinstance(cache_len, int) and cache_len == 0):
         return torch.cat([lm_head_logits(cfg, params, x[:, s:s + 1])

@@ -2,7 +2,9 @@
 family.
 
 Each module holds the kernels' wrappers, their plain PyTorch versions and a
-``launches`` dict counting each kernel's launches. Sources are in
+``launches`` dict counting each kernel's launches; the attention modules also
+count their plain versions' calls on CUDA tensors (``plain_on_cuda``), which
+a run that should take the kernels keeps at 0. Sources are in
 ``deepspeed_tpu_torch/csrc``; ``_build`` compiles and loads them on first use.
 """
 
@@ -17,7 +19,13 @@ def launch_counts() -> dict:
     return {name: n for mod in KERNEL_MODULES for name, n in mod.launches.items()}
 
 
+def plain_attention_on_cuda() -> dict:
+    """Plain attention calls on CUDA tensors since the last reset."""
+    return {**decode_attention.plain_on_cuda, **flash_attention.plain_on_cuda}
+
+
 def reset_launch_counts() -> None:
     for mod in KERNEL_MODULES:
-        for name in mod.launches:
-            mod.launches[name] = 0
+        for counts in (mod.launches, getattr(mod, "plain_on_cuda", {})):
+            for name in counts:
+                counts[name] = 0

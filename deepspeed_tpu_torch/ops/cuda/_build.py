@@ -50,10 +50,16 @@ SIGNATURES: Dict[str, List] = {
         [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _P]
     ),
     "dst_decode_attention": (
-        [_P] * 5 + [_I] * 6 + [_L] * 8 + [_F, _I, _P]
+        [_P] * 5 + [_I] * 7 + [_L] * 8 + [_F, _I, _P]
     ),
     "dst_decode_attention_int8": (
-        [_P] * 7 + [_I] * 6 + [_L] * 12 + [_F, _I, _P]
+        [_P] * 7 + [_I] * 7 + [_L] * 12 + [_F, _I, _P]
+    ),
+    "dst_paged_decode_attention": (
+        [_P] * 6 + [_I] * 7 + [_L] * 8 + [_F, _I, _P]
+    ),
+    "dst_paged_decode_attention_int8": (
+        [_P] * 8 + [_I] * 7 + [_L] * 12 + [_F, _I, _P]
     ),
     "dst_quantized_matvec": [_P] * 5 + [_I] * 9 + [_P],
 }

@@ -1,22 +1,34 @@
-"""Single-token decode attention: the CUDA kernel ``csrc/decode_attention.cu``
-and its plain version.
+"""Decode attention over a KV cache: the CUDA kernels
+``csrc/decode_attention.cu`` and their plain versions.
 
 Replaces ``deepspeed_tpu/ops/pallas/decode_attention.py:_decode_kernel``
-(line 76, with ``_tile_update`` at line 35), reached through
-``decode_attention_kernel`` (line 160) from ``decode_attention`` (line 323):
-the dense form over a bf16 or fp32 cache, and the int8 form
+(line 76) and ``_paged_decode_kernel`` (line 111), with ``_tile_update`` at
+line 35, reached through ``decode_attention_kernel`` (line 160) and
+``paged_decode_attention_kernel`` (line 243) from ``decode_attention``
+(line 323): the dense form over a bf16 or fp32 cache, and the int8 form
 (``has_scales=True``) over an int8 cache with fp32 scales, one per
-(token, kv head), in the port's [B, KV, Smax] layer layout. The int8 form
-dequantizes each K/V value as it lands in shared memory, float(q) * scale
-rounded to q's dtype, the TPU kernel's order (``_tile_update:42-43``).
+(token, kv head); each over a contiguous cache ([B, Smax, KV, hd] layers) or
+through per-sequence page tables over a shared page pool
+([P + 1, page_size, KV, hd] layers, scales [P + 1, KV, page_size]). The int8
+forms dequantize each K/V value as it lands in shared memory, float(q) *
+scale rounded to q's dtype, the TPU kernel's order (``_tile_update:42-43``).
 
-Bound on the H100: bytes, the K and V rows up to each row's frontier over
-3.35 TB/s. One 128-thread block per (kv head, batch row) shares every K/V tile
-among the G query heads of the group and loops over key tiles up to the row's
-own frontier, carrying the fp32 online softmax in the block (the TPU kernel
-carried it across a sequential grid axis, which Hopper does not have). The
-cache layer is read in place through its strides. At B = 1 only KV blocks
-run (8 of 132 SMs for Llama-3-8B): split-K is the later fix.
+``rows_per_seq = R`` runs R query rows per sequence in one launch, row r
+reading sequence r // R at its own frontier: the serving engine's [N, W]
+step puts each slot's W window rows through one kernel call, where the JAX
+package runs that window as XLA's masked softmax (``models/decoding.py``
+lines 365-444), row for row the same function. A negative frontier (a
+padded row) attends nothing and gives zeros, as the TPU kernels do.
+
+Bound on the H100: bytes, the K and V rows up to each sequence's furthest
+frontier over 3.35 TB/s. One 128-thread block per (kv head, query row) shares
+every K/V tile among the G query heads of the group and loops over key tiles
+up to the row's own frontier, carrying the fp32 online softmax in the block
+(the TPU kernel carried it across a sequential grid axis, which Hopper does
+not have). The paged form changes only where a key position's row is read
+from, so a pool and a contiguous cache holding the same bytes give the same
+bits. At one query row only KV blocks run (8 of 132 SMs for Llama-3-8B):
+split-K is the later fix.
 """
 
 from __future__ import annotations
@@ -29,7 +41,11 @@ import torch
 from . import _build
 
 # kernel launches since the last reset
-launches = {"decode_attention": 0, "decode_attention_int8": 0}
+launches = {"decode_attention": 0, "decode_attention_int8": 0,
+            "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
+# calls of the plain attention on CUDA tensors since the last reset: a
+# serving run that should take the kernels keeps it at 0
+plain_on_cuda = {"decode_attention_plain": 0}
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
@@ -39,6 +55,28 @@ MAX_GROUP = 8  # query heads per kv head the kernel holds
 def dequantize_cache(cache: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """int8 cache [B,Smax,KV,hd] times its scales [B,KV,Smax], in fp32."""
     return cache.float() * scale.transpose(1, 2)[..., None]
+
+
+def _attend_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  qpos: torch.Tensor, k_scale=None, v_scale=None) -> torch.Tensor:
+    """q [B,S,H,hd] at positions ``qpos`` [B or 1, S] against k/v [B,Smax,KV,hd]:
+    each query sees the cache positions at or before its own; a negative
+    position sees none and gives zeros. fp32 softmax, output in q's dtype."""
+    if q.is_cuda:
+        plain_on_cuda["decode_attention_plain"] += 1
+    hd, H = q.shape[3], q.shape[2]
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    if k_scale is not None:
+        k_cache = dequantize_cache(k_cache, k_scale).to(q.dtype)
+        v_cache = dequantize_cache(v_cache, v_scale).to(q.dtype)
+    kf = k_cache.float().repeat_interleave(H // KV, dim=2)
+    vf = v_cache.float().repeat_interleave(H // KV, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / math.sqrt(hd))
+    kpos = torch.arange(Smax, device=q.device)[None, None, None, :]
+    s = torch.where(kpos <= qpos[:, None, :, None], s, NEG_INF)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vf)
+    out = torch.where(qpos[:, :, None, None] >= 0, out, 0.0)
+    return out.to(q.dtype)
 
 
 def cached_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -57,107 +95,180 @@ def cached_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     For S > 1 new tokens against a cache already holding tokens (a
     speculative verify window) the JAX package runs plain XLA
     (``models/decoding.py`` lines 413-444), not a Pallas kernel, and this is
-    its counterpart on the CPU and for windows of several sequences. On the
-    card a window of one sequence runs the decode kernel instead, one row per
-    window token (``models/decoding.py:_decode_rows``): this function's
-    fp32 einsum and the kernel's online softmax round differently, and over
-    32 layers that moved a greedy token of Llama-3-8B on the H100. The XLA
-    path keeps the dequantized rows in fp32; rounding them to q's dtype, as
-    the decode kernel does, keeps this function's window rows on the values
+    its counterpart on the CPU. On the card a window runs the decode kernel
+    instead, one row per window token with ``rows_per_seq``
+    (``models/decoding.py:_window_rows``): this function's fp32 einsum and
+    the kernel's online softmax round differently, and over 32 layers that
+    moved a greedy token of Llama-3-8B on the H100. The XLA path keeps the
+    dequantized rows in fp32; rounding them to q's dtype, as the decode
+    kernel does, keeps this function's window rows on the values
     single-token decode sees (in fp32 the two are the same)."""
-    B, S, H, hd = q.shape
-    Smax, KV = k_cache.shape[1], k_cache.shape[2]
-    if k_scale is not None:
-        k_cache = dequantize_cache(k_cache, k_scale).to(q.dtype)
-        v_cache = dequantize_cache(v_cache, v_scale).to(q.dtype)
-    kf = k_cache.float().repeat_interleave(H // KV, dim=2)
-    vf = v_cache.float().repeat_interleave(H // KV, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / math.sqrt(hd))
-    kpos = torch.arange(Smax, device=q.device)[None, None, None, :]
-    qpos = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1, 1, 1) \
-        + torch.arange(S, device=q.device)[None, None, :, None]
-    s = torch.where(kpos <= qpos, s, NEG_INF)
-    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vf)
-    return out.to(q.dtype)
+    S = q.shape[1]
+    qpos = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1) \
+        + torch.arange(S, device=q.device)[None, :]
+    return _attend_plain(q, k_cache, v_cache, qpos, k_scale, v_scale)
+
+
+def decode_rows_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      frontier: torch.Tensor, k_scale=None, v_scale=None,
+                      rows_per_seq: int = 1) -> torch.Tensor:
+    """The kernel's function for R = ``rows_per_seq`` rows a sequence:
+    q [N*R,1,H,hd] rows, row r of sequence r // R with its own frontier
+    ``frontier`` [N*R] (negative: zeros). Each sequence's cache is cut to
+    its own furthest frontier first (one host read), so a sequence's rows
+    depend on its own bytes only: not on the cache's capacity, nor on the
+    other sequences of the call."""
+    rows, _, H, hd = q.shape
+    N = k_cache.shape[0]
+    R = int(rows_per_seq)
+    if rows != N * R:
+        raise ValueError(f"decode attention: {rows} query rows != {N} sequences x {R}")
+    fr = torch.as_tensor(frontier, device=q.device).reshape(-1).expand(rows).reshape(N, R)
+    qs = q.reshape(N, R, H, hd)
+    out = torch.zeros_like(qs)
+    for n, top in enumerate(fr.amax(dim=1).tolist()):
+        if top < 0:
+            continue  # every row padded: zeros
+        m = min(top + 1, k_cache.shape[1])
+        scales = ((k_scale[n:n + 1, :, :m], v_scale[n:n + 1, :, :m])
+                  if k_scale is not None else ())
+        out[n] = _attend_plain(qs[n:n + 1], k_cache[n:n + 1, :m], v_cache[n:n + 1, :m],
+                               fr[n:n + 1], *scales)[0]
+    return out.reshape(rows, 1, H, hd)
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, cache_len,
                            k_scale: Optional[torch.Tensor] = None,
-                           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The decode kernel's function in plain PyTorch (q [B,1,H,hd])."""
+                           v_scale: Optional[torch.Tensor] = None,
+                           rows_per_seq: int = 1) -> torch.Tensor:
+    """The decode kernel's function in plain PyTorch (q [rows,1,H,hd])."""
     if q.shape[1] != 1:
         raise ValueError(f"decode attention is single-token, got {q.shape[1]}")
+    if rows_per_seq != 1:
+        return decode_rows_plain(q, k_cache, v_cache, cache_len, k_scale, v_scale,
+                                 rows_per_seq)
     return cached_attention_plain(q, k_cache, v_cache, cache_len, k_scale, v_scale)
+
+
+def gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """Per-sequence contiguous view [N, mp*ps, KV, hd] of a page pool
+    [P+1, ps, KV, hd] through the page tables [N, mp]: the bytes a
+    contiguous cache holds at every mapped position."""
+    N, mp = page_table.shape
+    view = pool[page_table.long()]  # [N, mp, ps, KV, hd]
+    return view.reshape(N, mp * pool.shape[1], *pool.shape[2:])
+
+
+def gather_page_scales(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """[P+1, KV, ps] scale pool → the dense [N, KV, mp*ps] scale layout."""
+    N, mp = page_table.shape
+    view = pool[page_table.long()].transpose(1, 2)  # [N, KV, mp, ps]
+    return view.reshape(N, pool.shape[1], mp * pool.shape[2])
+
+
+def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor, cache_len,
+                                 page_table: torch.Tensor,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None,
+                                 rows_per_seq: int = 1) -> torch.Tensor:
+    """The paged kernel's function in plain PyTorch: the dense plain version
+    over the pages gathered into per-sequence views."""
+    scales = ((gather_page_scales(k_scale, page_table),
+               gather_page_scales(v_scale, page_table))
+              if k_scale is not None else ())
+    return decode_attention_plain(q, gather_pages(k_pool, page_table),
+                                  gather_pages(v_pool, page_table), cache_len,
+                                  *scales, rows_per_seq=rows_per_seq)
+
+
+def _check_common(name, q, k, v, k_scale, v_scale, tensors):
+    """The checks both forms share; returns (H, KV, hd, int8)."""
+    _, one, H, hd = q.shape
+    KV = k.shape[2]
+    int8 = k_scale is not None
+    if one != 1:
+        raise ValueError(f"{name}: single-token rows, got {one} tokens")
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError(f"{name}: q and the cache must be on one CUDA device")
+    want = torch.int8 if int8 else q.dtype
+    if k.dtype != want or v.dtype != want:
+        raise ValueError(
+            f"{name}: cache dtype {k.dtype}, want {want} for q "
+            f"{q.dtype}{' with scales' if int8 else ''}"
+        )
+    if k.shape[3] != hd or v.shape != k.shape:
+        raise ValueError(f"{name}: cache {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    if hd not in HEAD_DIMS or KV == 0 or H % KV or H // KV > MAX_GROUP:
+        raise ValueError(
+            f"{name}: head_dim {hd} not in {HEAD_DIMS}, or group "
+            f"{H}/{KV} not an integer up to {MAX_GROUP}"
+        )
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError(f"{name}: the head dim must be contiguous")
+    item = k.element_size()
+    if any(t.data_ptr() % 16 or any(st * item % 16 for st in t.stride()[:3])
+           for t in (k, v)):
+        raise ValueError(f"{name}: cache rows must start 16-byte aligned")
+    if int8 and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
+                 or k_scale.stride(-1) != 1 or v_scale.stride(-1) != 1):
+        raise ValueError(f"{name}: scales must be fp32 with the positions contiguous")
+    return H, KV, hd, int8
+
+
+def _frontier(cache_len, rows: int, device):
+    """Per-row int32 frontiers on the device: (tensor, pointer)."""
+    cl = cache_len.to(device=device, dtype=torch.int32).reshape(-1)
+    cl = cl.expand(rows).contiguous()
+    return cl, cl.data_ptr()
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len,
                      k_scale: Optional[torch.Tensor] = None,
-                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q [B,1,H,hd] against one cache layer k/v_cache [B,Smax,KV,hd] whose
-    position ``cache_len`` (int, or int [B] tensor) already holds the new
-    token. An int8 cache comes with its fp32 scales [B,KV,Smax] (one layer
-    of the [L,B,KV,Smax] scale caches, read in place). Returns [B,1,H,hd].
+                     v_scale: Optional[torch.Tensor] = None,
+                     rows_per_seq: int = 1) -> torch.Tensor:
+    """q [B*R,1,H,hd] against one cache layer k/v_cache [B,Smax,KV,hd]
+    whose positions up to each row's frontier already hold the new tokens;
+    row r reads sequence r // R (R = ``rows_per_seq``). ``cache_len`` is an
+    int for every row, or an int tensor of each row's frontier ([B*R], or [B]
+    when R = 1). An int8 cache comes with its fp32 scales [B,KV,Smax] (one
+    layer of the [L,B,KV,Smax] scale caches, read in place). Returns
+    [B*R,1,H,hd].
 
     CPU tensors take :func:`decode_attention_plain`; CUDA tensors launch the
     kernel, or raise on what it does not take."""
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, cache_len, k_scale, v_scale)
+        return decode_attention_plain(q, k_cache, v_cache, cache_len, k_scale,
+                                      v_scale, rows_per_seq)
     lib = _build.library()
-    B, one, H, hd = q.shape
-    Smax, KV = k_cache.shape[1], k_cache.shape[2]
-    int8 = k_scale is not None
-    if one != 1:
-        raise ValueError(f"decode_attention: single-token, got {one} tokens")
-    tensors = (q, k_cache, v_cache) + ((k_scale, v_scale) if int8 else ())
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
-        raise ValueError("decode_attention: q and the cache must be on one CUDA device")
-    want = torch.int8 if int8 else q.dtype
-    if k_cache.dtype != want or v_cache.dtype != want:
+    rows = q.shape[0]
+    B, Smax = k_cache.shape[0], k_cache.shape[1]
+    tensors = (q, k_cache, v_cache) + ((k_scale, v_scale) if k_scale is not None else ())
+    H, KV, hd, int8 = _check_common("decode_attention", q, k_cache, v_cache,
+                                    k_scale, v_scale, tensors)
+    if rows_per_seq < 1 or rows != B * rows_per_seq:
         raise ValueError(
-            f"decode_attention: cache dtype {k_cache.dtype}, want {want} "
-            f"for q {q.dtype}{' with scales' if int8 else ''}"
+            f"decode_attention: {rows} query rows != {B} sequences x "
+            f"rows_per_seq {rows_per_seq}"
         )
-    if int8 and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
-                 or k_scale.shape != (B, KV, Smax) or v_scale.shape != (B, KV, Smax)
-                 or k_scale.stride(-1) != 1 or v_scale.stride(-1) != 1):
-        raise ValueError(
-            f"decode_attention: scales must be fp32 [{B}, {KV}, {Smax}] with "
-            "the sequence contiguous"
-        )
-    if k_cache.shape != (B, Smax, KV, hd) or v_cache.shape != k_cache.shape:
-        raise ValueError(
-            f"decode_attention: cache {tuple(k_cache.shape)} does not match q "
-            f"{tuple(q.shape)}"
-        )
-    if hd not in HEAD_DIMS or KV == 0 or H % KV or H // KV > MAX_GROUP:
-        raise ValueError(
-            f"decode_attention: head_dim {hd} not in {HEAD_DIMS}, or group "
-            f"{H}/{KV} not an integer up to {MAX_GROUP}"
-        )
-    if any(t.stride(-1) != 1 for t in (q, k_cache, v_cache)):
-        raise ValueError("decode_attention: the head dim must be contiguous")
-    item = k_cache.element_size()
-    if any(t.data_ptr() % 16 or any(st * item % 16 for st in t.stride()[:3])
-           for t in (k_cache, v_cache)):
-        raise ValueError("decode_attention: cache rows must start 16-byte aligned")
+    if int8 and (k_scale.shape != (B, KV, Smax) or v_scale.shape != (B, KV, Smax)):
+        raise ValueError(f"decode_attention: scales must be [{B}, {KV}, {Smax}]")
     code = _build.dtype_code(q.dtype)
     cl_ptr, cl_scalar, cl = None, 0, None
     if isinstance(cache_len, torch.Tensor):
-        cl = cache_len.to(device=q.device, dtype=torch.int32).reshape(-1)
-        cl = cl.expand(B).contiguous()
-        cl_ptr = cl.data_ptr()
+        cl, cl_ptr = _frontier(cache_len, rows, q.device)
     else:
         cl_scalar = int(cache_len)
-    out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((rows, 1, H, hd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    common = (cl_ptr, cl_scalar, rows, Smax, H, KV, hd, rows_per_seq,
+              q.stride(0), q.stride(2), *k_cache.stride()[:3], *v_cache.stride()[:3])
     if int8:
         status = lib.dst_decode_attention_int8(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
-            cl_ptr, cl_scalar, B, Smax, H, KV, hd,
-            q.stride(0), q.stride(2), *k_cache.stride()[:3], *v_cache.stride()[:3],
+            k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), *common,
             *k_scale.stride()[:2], *v_scale.stride()[:2],
             1.0 / math.sqrt(hd), code, stream,
         )
@@ -165,11 +276,72 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     else:
         status = lib.dst_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-            cl_ptr, cl_scalar, B, Smax, H, KV, hd,
-            q.stride(0), q.stride(2), *k_cache.stride()[:3], *v_cache.stride()[:3],
-            1.0 / math.sqrt(hd), code, stream,
+            *common, 1.0 / math.sqrt(hd), code, stream,
         )
         name = "decode_attention"
+    _build.check(status, name)
+    launches[name] += 1
+    return out
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, cache_len,
+                           page_table: torch.Tensor,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None,
+                           rows_per_seq: int = 1) -> torch.Tensor:
+    """q [N*R,1,H,hd] against one layer of a page pool k/v_pool
+    [P+1,ps,KV,hd] through the page tables ``page_table`` [N, mp] (int32
+    physical page per logical page; unmapped entries name the NULL page P,
+    which no frontier reaches). Row r reads sequence r // R at its frontier
+    ``cache_len`` (an int tensor, [N*R], or [N] when R = 1). An int8 pool
+    comes with its fp32 scale pools [P+1,KV,ps]. Returns [N*R,1,H,hd].
+
+    CPU tensors take :func:`paged_decode_attention_plain`; CUDA tensors
+    launch the kernel, or raise on what it does not take. The page table's
+    entries are not read on the host: each must name a page of the pool."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, cache_len, page_table,
+                                            k_scale, v_scale, rows_per_seq)
+    lib = _build.library()
+    rows = q.shape[0]
+    P1, ps = k_pool.shape[0], k_pool.shape[1]
+    N, mp = page_table.shape
+    tensors = (q, k_pool, v_pool, page_table) + (
+        (k_scale, v_scale) if k_scale is not None else ())
+    H, KV, hd, int8 = _check_common("paged_decode_attention", q, k_pool, v_pool,
+                                    k_scale, v_scale, tensors)
+    if rows_per_seq < 1 or rows != N * rows_per_seq:
+        raise ValueError(
+            f"paged_decode_attention: {rows} query rows != {N} sequences x "
+            f"rows_per_seq {rows_per_seq}"
+        )
+    if page_table.dtype != torch.int32 or not page_table.is_contiguous():
+        raise ValueError("paged_decode_attention: page_table must be contiguous int32")
+    if int8 and (k_scale.shape != (P1, KV, ps) or v_scale.shape != (P1, KV, ps)):
+        raise ValueError(f"paged_decode_attention: scales must be [{P1}, {KV}, {ps}]")
+    if not isinstance(cache_len, torch.Tensor):
+        cache_len = torch.tensor([int(cache_len)])
+    cl, cl_ptr = _frontier(cache_len, rows, q.device)
+    code = _build.dtype_code(q.dtype)
+    out = torch.empty((rows, 1, H, hd), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    common = (cl_ptr, page_table.data_ptr(), rows, mp, ps, H, KV, hd, rows_per_seq,
+              q.stride(0), q.stride(2), *k_pool.stride()[:3], *v_pool.stride()[:3])
+    if int8:
+        status = lib.dst_paged_decode_attention_int8(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), *common,
+            *k_scale.stride()[:2], *v_scale.stride()[:2],
+            1.0 / math.sqrt(hd), code, stream,
+        )
+        name = "paged_decode_attention_int8"
+    else:
+        status = lib.dst_paged_decode_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
+            *common, 1.0 / math.sqrt(hd), code, stream,
+        )
+        name = "paged_decode_attention"
     _build.check(status, name)
     launches[name] += 1
     return out

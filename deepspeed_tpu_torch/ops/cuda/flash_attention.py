@@ -32,6 +32,8 @@ from . import _build
 # kernel launches since the last reset
 launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0}
+# calls of the plain attention on CUDA tensors since the last reset
+plain_on_cuda = {"flash_attention_plain": 0}
 
 NEG_INF = -1e30  # the JAX package's mask value (finite: a fully masked row stays finite)
 HEAD_DIMS = (64, 128)
@@ -46,6 +48,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KV = k.shape[2]
     if H % KV:
         raise ValueError(f"heads {H} not a multiple of kv heads {KV}")
+    if q.is_cuda:
+        plain_on_cuda["flash_attention_plain"] += 1
     kf = k.float().repeat_interleave(H // KV, dim=2)
     vf = v.float().repeat_interleave(H // KV, dim=2)
     scale = 1.0 / math.sqrt(D)

@@ -1,0 +1,957 @@
+"""Continuous-batching scheduler: admission, SplitFuse interleave, slots.
+
+Counterpart of ``deepspeed_tpu/serving/scheduler.py`` (numpy only; the port
+keeps its own copy, with the speculative-draft and KV-tiering branches
+intact: they are unreachable while the serving engine refuses
+``serving.spec`` and ``serving.host_pages``). Parity: DeepSpeed-MII /
+FastGen's Dynamic SplitFuse scheduler. Every
+engine step gets a :class:`StepPlan` of fixed shape
+``[max_slots, token_budget]`` built under three invariants:
+
+1. **Token budget** — at most ``token_budget`` REAL tokens are scheduled
+   per step (sum of per-slot ``num_new``). Decode slots are served first
+   (one committed feed each — they are latency-critical and starving them
+   inflates every in-flight request's TPOT); with speculative decoding on
+   (serving.spec) each decode slot then claims up to ``max_draft`` extra
+   DRAFT rows — a spec slot costs ``k + 1`` budget rows, and under
+   pressure ``k`` shrinks toward 0 (plain decode) before any slot loses
+   its feed; leftover budget goes to prompt chunks FCFS, so long prompts
+   "split" across steps and "fuse" with running decodes instead of
+   monopolizing a step.
+2. **Frontier** — a slot's ``start_pos`` always equals its cached token
+   count; the engine writes the chunk there, so cache contents beyond a
+   slot's frontier are never attendable (see models/decoding.py).
+3. **Bounded queue** — admission beyond ``queue_limit`` is rejected
+   GRACEFULLY (an EVICTED state with a ``retry_after`` backoff hint, not
+   an exception); queued requests older than ``request_timeout_s`` are
+   evicted the same way with exponential backoff on resubmission.
+
+The clock is injected (``clock=``) so eviction and timing are unit
+testable with a fake clock.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+from ..utils.logging import log_dist
+from .paging import STAGE_SLOTS, PagePool, PrefixCache
+from .request import Request, RequestState, RequestStatus
+from .spec import propose_drafts
+
+
+@dataclass
+class ScheduledWork:
+    """One slot's share of a step."""
+
+    slot: int
+    state: RequestState
+    n_tokens: int          # real tokens fed this step (committed + drafts)
+    sample: bool           # does this step produce tokens for the slot?
+    spec_len: int = 0      # draft tokens in the row's verify window: the
+    #   slot emits 1..spec_len+1 tokens this step depending on acceptance
+
+
+@dataclass
+class StagedPage:
+    """One host→HBM page promotion riding under this step's math.
+
+    The engine decodes ``key``'s blob into the rotating staging buffer
+    and the jitted step scatters it onto physical page ``dst_page``
+    BEFORE the gathers (models/decoding.staged_promote) — the promoted
+    page is attendable the same step. ``owned`` keys are dropped from
+    the host store once the step lands (complete()); shared keys belong
+    to the prefix cache's host tier and are merely unpinned."""
+
+    dst_page: int
+    key: int
+    owned: bool
+    state: RequestState
+
+
+@dataclass
+class StepPlan:
+    """Fixed-shape arrays for ONE jitted engine step."""
+
+    tokens: np.ndarray      # [max_slots, token_budget] int32 (0-padded)
+    num_new: np.ndarray     # [max_slots] int32 (0 = slot idle this step)
+    start_pos: np.ndarray   # [max_slots] int32 (slot frontier)
+    fresh: np.ndarray       # [max_slots] bool (slot newly allocated)
+    sample: np.ndarray      # [max_slots] bool
+    # paged arena only (None on the contiguous arena):
+    page_table: Optional[np.ndarray] = None  # [max_slots, pages_per_slot]
+    #   int32 physical page per logical page; unmapped entries (and whole
+    #   idle rows) point at the NULL sink page
+    cow_src: Optional[np.ndarray] = None     # [max_slots] int32 physical
+    #   page to copy-on-write onto the slot's frontier page (-1 = none)
+    spec_len: Optional[np.ndarray] = None    # [max_slots] int32 draft
+    #   tokens per row (speculative decoding; None/zeros = plain)
+    work: List[ScheduledWork] = field(default_factory=list)
+    stage: List[StagedPage] = field(default_factory=list)  # tiered KV:
+    #   <= STAGE_SLOTS host pages promoting under this step (may be
+    #   non-empty with an otherwise idle work list — a promote-only step
+    #   still dispatches so waiting slots become schedulable)
+
+    @property
+    def total_tokens(self) -> int:
+        return int(self.num_new.sum())
+
+
+class Scheduler:
+    def __init__(
+        self,
+        max_slots: int,
+        token_budget: int,
+        queue_limit: int = 64,
+        request_timeout_s: float = 60.0,
+        eviction_backoff_s: float = 1.0,
+        max_tokens: int = 1024,
+        clock: Callable[[], float] = time.monotonic,
+        metrics=None,
+        page_size: Optional[int] = None,
+        num_pages: Optional[int] = None,
+        pages_per_slot: Optional[int] = None,
+        prefix_cache: bool = False,
+        spec_max_draft: int = 0,
+        spec_ngram_n: int = 3,
+        spiller=None,
+    ):
+        self.max_slots = int(max_slots)
+        self.token_budget = int(token_budget)
+        self.queue_limit = int(queue_limit)
+        self.request_timeout_s = float(request_timeout_s)
+        self.eviction_backoff_s = float(eviction_backoff_s)
+        self.max_tokens = int(max_tokens)
+        self.clock = clock
+        self.metrics = metrics
+        self.queue: List[RequestState] = []           # FCFS admission queue
+        self.slots: List[Optional[RequestState]] = [None] * self.max_slots
+        self._free: List[int] = list(range(self.max_slots - 1, -1, -1))
+        self._fresh: set = set()  # slots allocated since their first step
+        self._decode_rr = 0  # rotating decode start: fairness when the
+                             # token budget cannot cover every decode slot
+        # ---- speculative decoding (serving.spec): each decode slot may
+        # claim up to spec_max_draft draft rows on top of its committed
+        # feed — a spec slot costs k+1 budget rows; under pressure k
+        # shrinks toward 0 (plain decode) before any slot loses its feed
+        self.spec_max_draft = int(spec_max_draft)
+        self.spec_ngram_n = int(spec_ngram_n)
+        # ---- block-paged arena bookkeeping (host side; the device only
+        # sees the per-step page_table / cow_src int32 vectors) ----------
+        self.paged = page_size is not None
+        # ---- tiered KV (serving.host_pages > 0): the engine owns the
+        # HostPageStore + PageSpiller (movement needs device access); the
+        # scheduler owns POLICY — which pages demote under pressure,
+        # which promote into the step's staging slots — plus the key
+        # lifecycle (owned keys drop at complete(); shared prefix keys
+        # stay pinned while a slot's promotion is in flight) -------------
+        self.spiller = spiller if self.paged else None
+        self._ticks = 0               # plan() counter (coldness ordering)
+        self._inflight: Dict[int, bool] = {}  # store key -> owned, for
+        #   promotions between plan() and complete() (invariant checks)
+        self._plan_protect: set = set()  # id(state)s whose pages must not
+        #   demote THIS tick (already planned / promoting — their pages
+        #   are read or written by the step being built)
+        self._promote_focus: Optional[int] = None  # slot index the
+        #   promotion planner is committed to filling to full residency
+        #   (sticky across ticks — see _plan_promotions)
+        if self.paged:
+            self.page_size = int(page_size)
+            self.num_pages = int(num_pages)
+            self.pages_per_slot = int(pages_per_slot)
+            self.null_page = self.num_pages  # physical id of the sink page
+            self.pool = PagePool(self.num_pages)
+            self.prefix_cache = (
+                PrefixCache(self.pool, self.page_size, spiller=self.spiller)
+                if prefix_cache else None
+            )
+        else:
+            self.pool = self.prefix_cache = None
+
+    # -------------------------------------------------------------- intake
+    def submit(self, request: Request) -> RequestState:
+        """Admit (or gracefully reject) one request. Always returns the
+        state; check ``state.status`` — EVICTED means rejected, with
+        ``retry_after``/``evict_reason`` saying when/why."""
+        now = self.clock()
+        state = RequestState(request=request, arrival_t=now)
+        state.attempts = 1
+        return self._enqueue(state, now)
+
+    def resubmit(self, state: RequestState) -> RequestState:
+        """Retry a previously evicted request (backoff already elapsed is
+        the caller's business; the scheduler only counts attempts)."""
+        if state.status is not RequestStatus.EVICTED:
+            raise ValueError(
+                f"resubmit needs an EVICTED state, got {state.status.value}"
+            )
+        now = self.clock()
+        state.transition(RequestStatus.QUEUED)
+        state.arrival_t = now
+        state.attempts += 1
+        state.retry_after = None
+        state.evict_reason = None
+        return self._enqueue(state, now)
+
+    def _enqueue(self, state: RequestState, now: float) -> RequestState:
+        req = state.request
+        # every submission counts as submitted, including the ones the
+        # checks below reject — 'submitted >= rejected' must always hold
+        if self.metrics is not None:
+            self.metrics.on_submit(state, now, queue_depth=len(self.queue))
+        if req.prompt.size + req.max_new_tokens > self.max_tokens:
+            return self._evict(
+                state, now,
+                f"prompt+max_new_tokens {req.prompt.size + req.max_new_tokens}"
+                f" exceeds serving.max_tokens {self.max_tokens}",
+            )
+        # admission is EAGER: drain waiters into free slots before judging
+        # the bound, so a bounded queue never rejects while capacity idles
+        self._admit_to_slots(now)
+        if self.queue_limit and len(self.queue) >= self.queue_limit:
+            return self._evict(state, now, "queue full")
+        self.queue.append(state)
+        self._admit_to_slots(now)  # the arrival itself may slot immediately
+        return state
+
+    def _evict(self, state: RequestState, now: float,
+               reason: str) -> RequestState:
+        if state.status is RequestStatus.QUEUED and state in self.queue:
+            self.queue.remove(state)
+        if state.status is not RequestStatus.EVICTED:
+            state.transition(RequestStatus.EVICTED)
+        # exponential backoff: each failed attempt doubles the retry hint
+        state.retry_after = now + self.eviction_backoff_s * (
+            2 ** max(state.attempts - 1, 0)
+        )
+        state.evict_reason = reason
+        state.finish_t = now
+        if state.slot is not None:
+            self.release(state.slot)
+            state.slot = None
+            # mid-flight eviction (page-pool starvation) loses the slot's
+            # KV: restart cleanly on resubmission — progress, generated
+            # tokens and the RNG chain rewind to the request's origin so
+            # a retried request still reproduces its deterministic output
+            state.prompt_pos = 0
+            state.tokens = []
+            state.draft_tail = []
+            state.rng = None  # the engine re-seeds it at the next schedule
+            state.first_token_t = None  # the retry's TTFT is its own
+        if self.metrics is not None:
+            self.metrics.on_evict(state, now)
+        log_dist(f"serving: evicted {state.request.request_id}: {reason}")
+        return state
+
+    # ------------------------------------------------------------- slots
+    def release(self, slot: int, *, insert_prefix: bool = False) -> None:
+        """Recycle a slot (its KV range is dead past the next frontier).
+        Paged arena: drop the slot's page references — and, for finished
+        requests (``insert_prefix``), publish its pages to the prefix
+        cache first so identical prompts skip their prefill entirely."""
+        state = self.slots[slot]
+        if state is not None:
+            self.slots[slot] = None
+            self._free.append(slot)
+            self._fresh.discard(slot)
+            if self.paged:
+                self._release_pages(state, insert=insert_prefix)
+
+    # ------------------------------------------------------------- pages
+    def _release_pages(self, state: RequestState, insert: bool) -> None:
+        pages, state.pages = state.pages, []
+        host, state.host_pages = state.host_pages, {}
+        state.owned_from = 0
+        # tiered: entries still waiting on promotion hold store keys, not
+        # HBM pages. Owned keys (slot demotions) die with the slot;
+        # shared keys belong to the prefix cache's host tier — unpin so
+        # host-LRU pressure may reclaim them again
+        for key, owned in host.values():
+            if owned:
+                self.spiller.drop(key)
+            elif self.prefix_cache is not None:
+                self.prefix_cache.unpin_host(key)
+        if not pages:
+            return
+        if insert and self.prefix_cache is not None:
+            # KV exists for prompt + generated-but-last (the final sampled
+            # token was never fed back, so its K/V was never written).
+            # A -1 placeholder (unpromoted host page) truncates the
+            # publishable run — its HBM content does not exist
+            pub = pages
+            if -1 in pages:
+                pub = pages[: pages.index(-1)]
+            frontier = state.prompt_len + max(len(state.tokens) - 1, 0)
+            seq = np.concatenate([
+                np.asarray(state.request.prompt, np.int32),
+                np.asarray(state.tokens[:-1], np.int32),
+            ])[:frontier]
+            covered = min(len(seq), len(pub) * self.page_size)
+            self.prefix_cache.insert(seq[:covered], pub)
+        for p in pages:
+            if p != -1:
+                self.pool.decref(p)
+
+    def _attach_prefix(self, state: RequestState) -> None:
+        """Prefix-cache lookup at slot admission: the longest cached
+        prefix becomes shared (refcounted, read-only) pages and its
+        tokens skip prefill. Capped at prompt_len - 1 — a request must
+        always feed its final prompt token to sample the first output, so
+        a full-prompt hit enters decode with ONE single-token feed (and a
+        copy-on-write of the shared tail page) instead of prefill
+        chunks."""
+        state.pages = []
+        state.owned_from = 0
+        state.cached_tokens = 0
+        if self.prefix_cache is None:
+            return
+        if state.request.repetition_penalty != 1.0:
+            # the repetition-penalty ``seen`` matrix is built from FED
+            # tokens; a cache hit skips feeding the cached prompt, so a
+            # penalized request's sampling would depend on cache warmth.
+            # Penalized requests therefore always prefill — correctness
+            # (bitwise parity with the single-request oracle) over reuse.
+            return
+        pages, covered = self.prefix_cache.match(state.request.prompt)
+        covered = min(covered, state.prompt_len - 1)
+        npages = -(-covered // self.page_size) if covered > 0 else 0
+        pages = pages[:npages]
+        for p in pages:
+            self.pool.incref(p)
+        state.pages = list(pages)
+        state.owned_from = len(pages)
+        # tiered: the chain may continue in the HOST tier past the
+        # resident hit. Attach those blocks as -1 placeholders + pinned
+        # store keys — the slot waits on promotion instead of refeeding
+        # the prompt. Host pages are whole blocks, so the extension keeps
+        # ``covered`` page-aligned and the write frontier lands exactly
+        # on the first un-promoted page (promoted pages are never
+        # written: no COW interaction).
+        n_host = 0
+        if self.spiller is not None and covered == npages * self.page_size:
+            cap = min(
+                self.pages_per_slot - npages,
+                # the final prompt token must still be FED (sampling):
+                # never cover past prompt_len - 1
+                (state.prompt_len - 1 - covered) // self.page_size,
+            )
+            for key, _h in self.prefix_cache.host_chain(
+                    state.request.prompt, covered, cap):
+                state.host_pages[len(state.pages)] = (key, False)
+                self.prefix_cache.pin_host(key)
+                state.pages.append(-1)
+                covered += self.page_size
+                n_host += 1
+        state.cached_tokens = covered
+        state.prompt_pos = covered
+        if self.metrics is not None:
+            self.metrics.on_prefix_lookup(
+                covered, state.prompt_len,
+                host_tokens=n_host * self.page_size,
+            )
+
+    def _alloc_page(self, protect=(), stalled_only=False) -> Optional[int]:
+        """One fresh page, evicting LRU prefix-cache entries under
+        pressure — and, tiered, demoting cold live-slot pages to the
+        host store; None when every tier is truly exhausted.
+
+        ``protect`` lists RequestStates whose pages must not demote
+        (typically the state the page is being allocated FOR).
+        ``stalled_only`` restricts demotion victims to slots that are
+        ALREADY waiting on host pages — the promotion planner's mode:
+        feeding a waiter must never un-run a resident slot (see
+        :meth:`_plan_promotions` for the liveness argument)."""
+        p = self.pool.alloc()
+        while p is None and self.prefix_cache is not None \
+                and self.prefix_cache.evict_lru():
+            p = self.pool.alloc()
+        while p is None and self.spiller is not None \
+                and self._demote_for_page(protect, stalled_only):
+            p = self.pool.alloc()
+        return p
+
+    def _written_tokens(self, state: RequestState) -> int:
+        """KV positions this slot has actually WRITTEN: the chunked
+        prefill frontier, plus — in decode — everything before the
+        current position (the latest sampled token was never fed)."""
+        if state.status is RequestStatus.DECODE:
+            return state.prompt_len + len(state.tokens) - 1
+        return state.prompt_pos
+
+    def _demote_for_page(self, protect=(), stalled_only=False) -> bool:
+        """Spill ONE cold page to the host tier to relieve pool pressure.
+
+        Victim order: coldest slot first (oldest ``last_planned``), its
+        lowest fully-written OWNED page (refcount 1 — shared prefix pages
+        are the cache's to evict, and the frontier page is excluded by
+        the fully-written test so COW never meets a demoted page). The
+        put-before-free contract lives in PageSpiller.demote: on a full
+        host store nothing was mutated and we report failure — the
+        caller falls through to the forced-eviction backstop.
+
+        ``stalled_only`` limits victims to slots already waiting on host
+        pages (they cannot decode this tick anyway, so taking more of
+        their pages costs no progress)."""
+        skip = {id(s) for s in protect} | self._plan_protect
+        victims = sorted(
+            (s for s in self.slots
+             if s is not None and id(s) not in skip
+             and not (stalled_only and not s.host_pages)),
+            key=lambda s: (s.last_planned, s.slot),
+        )
+        ps = self.page_size
+        for state in victims:
+            full = self._written_tokens(state) // ps
+            for li in range(state.owned_from, min(len(state.pages), full)):
+                if state.pages[li] == -1 or li in state.host_pages:
+                    continue
+                key = self.spiller.demote(state.pages[li])
+                if key is None:
+                    return False  # host store full: nothing was mutated
+                page = state.pages[li]
+                state.host_pages[li] = (key, True)
+                state.pages[li] = -1
+                self.pool.decref(page)  # refcount 1 -> frees the page
+                return True
+        return False
+
+    def alloc_pages(self, n: int) -> Optional[List[int]]:
+        """``n`` fresh pages all-or-nothing (LRU prefix-cache eviction
+        under pressure, like :meth:`_alloc_page`): the fleet KV handoff's
+        destination-side allocation. On exhaustion every page already
+        taken is returned to the pool — a failed transfer must leave
+        ``free + live == num_pages`` intact on this side too."""
+        got: List[int] = []
+        for _ in range(int(n)):
+            p = self._alloc_page()
+            if p is None:
+                for q in got:
+                    self.pool.decref(q)
+                return None
+            got.append(p)
+        return got
+
+    def adopt(self, state: RequestState) -> int:
+        """Adopt an in-flight DECODE request whose KV this scheduler's
+        arena already holds (the fleet's prefill→decode handoff: the
+        caller imported the page payload and set ``state.pages`` to pages
+        allocated FROM THIS scheduler's pool via :meth:`alloc_pages`).
+        Returns the slot. The slot is marked fresh so its first decode
+        feed clears the previous occupant's stale ``seen`` row."""
+        if not self._free:
+            raise RuntimeError("adopt: no free slot")
+        if state.status is not RequestStatus.DECODE:
+            raise ValueError(
+                f"adopt needs a DECODE state, got {state.status.value}"
+            )
+        if self.paged and len(state.pages) > self.pages_per_slot:
+            raise ValueError(
+                f"adopt: {len(state.pages)} pages exceed pages_per_slot "
+                f"{self.pages_per_slot}"
+            )
+        slot = self._free.pop()
+        state.slot = slot
+        self.slots[slot] = state
+        self._fresh.add(slot)
+        return slot
+
+    def _prepare_pages(self, state: RequestState, start: int,
+                       n: int) -> tuple:
+        """Make [start, start + n) writable for one slot: allocate fresh
+        pages covering the span and copy-on-write the frontier page when
+        it is shared. Returns ``(n_writable, cow_src)`` — pool pressure
+        may shrink the chunk (0 = skip the slot this step); ``cow_src``
+        is the physical page the step must copy onto the slot's frontier
+        page, or -1."""
+        ps = self.page_size
+        need = min(-(-(start + n) // ps), self.pages_per_slot)
+        while len(state.pages) < need:
+            p = self._alloc_page(protect=(state,))
+            if p is None:
+                break
+            state.pages.append(p)
+        n = min(n, len(state.pages) * ps - start)
+        if n <= 0:
+            return 0, -1
+        cow = -1
+        fp = start // ps
+        if fp < state.owned_from:
+            # the write frontier sits inside a shared page: divergence.
+            # Remap to a fresh page; the step copies the shared page's KV
+            # onto it BEFORE the chunk write. Decref-ing the shared page
+            # immediately is safe even if it frees: the step's COW gather
+            # reads pre-step pool content, and any new owner's writes land
+            # in the later scatter phase.
+            newp = self._alloc_page(protect=(state,))
+            if newp is None:
+                return 0, -1
+            cow = state.pages[fp]
+            state.pages[fp] = newp
+            state.owned_from = fp
+            self.pool.decref(cow)
+            if self.metrics is not None:
+                self.metrics.on_cow()
+        return n, cow
+
+    def assert_page_invariants(self) -> None:
+        """The leak invariant after every tick: ``free + live ==
+        num_pages``, and every live page's refcount equals exactly the
+        slot + prefix-cache references the scheduler knows about.
+
+        Tiered, the ledger spans BOTH tiers: every host-store key must be
+        accounted for by exactly the references the scheduler knows —
+        owned slot demotions, in-flight promotions, and the prefix
+        cache's host chains — and HBM free + HBM live + host-resident
+        must equal the total logical page count. A mid-demotion failure
+        (full host store) mutates nothing, so this holds on every tick
+        including the rollback path."""
+        if not self.paged:
+            return
+        expected: dict = {}
+        for st in self.slots:
+            if st is None:
+                continue
+            for p in st.pages:
+                if p != -1:
+                    expected[p] = expected.get(p, 0) + 1
+        if self.prefix_cache is not None:
+            for p in self.prefix_cache.held_pages:
+                expected[p] = expected.get(p, 0) + 1
+        self.pool.check_leaks(expected)
+        if self.spiller is not None:
+            store = self.spiller.store
+            exp_keys = set(self._inflight)
+            for st in self.slots:
+                if st is None:
+                    continue
+                exp_keys.update(k for k, _ in st.host_pages.values())
+            if self.prefix_cache is not None:
+                exp_keys.update(self.prefix_cache.host_keys)
+            actual = set(store.keys())
+            assert actual == exp_keys, (
+                f"host page leak: store holds {sorted(actual - exp_keys)} "
+                f"unreferenced / missing {sorted(exp_keys - actual)}"
+            )
+            total = (self.pool.free_count + self.pool.live_count
+                     + store.resident_count)
+            assert total == self.num_pages + len(exp_keys), (
+                f"cross-tier page leak: HBM free {self.pool.free_count} + "
+                f"live {self.pool.live_count} + host {store.resident_count}"
+                f" != {self.num_pages} + {len(exp_keys)} logical pages"
+            )
+
+    def evict_timeouts(self) -> List[RequestState]:
+        """Evict queued requests that waited past request_timeout_s."""
+        now = self.clock()
+        timed_out = [
+            s for s in self.queue
+            if now - s.arrival_t > self.request_timeout_s
+        ]
+        return [self._evict(s, now, "queue timeout") for s in timed_out]
+
+    def _admit_to_slots(self, now: float) -> None:
+        while self._free and self.queue:
+            state = self.queue.pop(0)  # FCFS
+            slot = self._free.pop()
+            state.slot = slot
+            state.transition(RequestStatus.PREFILL)
+            state.prefill_start_t = now
+            self.slots[slot] = state
+            self._fresh.add(slot)
+            if self.paged:
+                self._attach_prefix(state)
+            if self.metrics is not None:
+                self.metrics.on_admit(state, now,
+                                      queue_depth=len(self.queue))
+
+    # -------------------------------------------------------------- plan
+    @property
+    def active_count(self) -> int:
+        return sum(1 for s in self.slots if s is not None)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.queue) or self.active_count > 0
+
+    def _plan_promotions(self) -> List[StagedPage]:
+        """Drain waiting host pages into this step's staging slots
+        (<= STAGE_SLOTS per tick — the rotating in-step staging buffer is
+        that wide).
+
+        The liveness argument, in three parts. (1) Promotion allocations
+        run ``stalled_only``: a waiter is only ever fed from free pages,
+        LRU prefix chains, or OTHER stalled slots' pages — never by
+        demoting a resident (runnable) slot, so whatever is running keeps
+        running. (2) The planner is STICKY: the slot it started filling
+        (``_promote_focus``) goes first every tick until it has no host
+        pages left — a slot needing more than STAGE_SLOTS pages reaches
+        full residency in ceil(n / STAGE_SLOTS) consecutive ticks instead
+        of round-robining with the other waiters forever. (3) A promoted
+        slot is warmed (``last_planned``) so the victim ordering doesn't
+        eat its pages before it decodes. Without (1)+(2), 4 slots of 4
+        pages over an 8-page pool livelock: 2 pages in, 2 pages out,
+        every tick, zero tokens."""
+        stage: List[StagedPage] = []
+        if self.spiller is None:
+            return stage
+        sticky = True
+        waiting = sorted(
+            (s for s in self.slots if s is not None and s.host_pages),
+            key=lambda s: (s.last_planned, s.slot),
+        )
+        if self._promote_focus is not None and sticky:
+            focus = next(
+                (s for s in waiting if s.slot == self._promote_focus), None
+            )
+            if focus is None:
+                self._promote_focus = None  # drained or slot turned over
+            else:
+                waiting.remove(focus)
+                waiting.insert(0, focus)
+        for state in waiting:
+            if len(stage) >= STAGE_SLOTS:
+                break
+            self._plan_protect.add(id(state))
+            promoted = False
+            for li in sorted(state.host_pages):
+                if len(stage) >= STAGE_SLOTS:
+                    break
+                dst = self._alloc_page(protect=(state,),
+                                       stalled_only=sticky)
+                if dst is None:
+                    break  # pool bound even after demotions: wait a tick
+                key, owned = state.host_pages.pop(li)
+                state.pages[li] = dst
+                self._inflight[key] = owned
+                stage.append(StagedPage(dst, key, owned, state))
+                promoted = True
+            if promoted:
+                # a promotion IS progress: warm the slot so the next
+                # tick's victim ordering doesn't re-demote these pages
+                # before the slot ever decodes through them (the other
+                # half of the liveness argument — _plan_protect only
+                # covers THIS tick)
+                state.last_planned = self._ticks
+                if state.host_pages:
+                    if sticky:
+                        # sticky: keep filling THIS slot next tick until
+                        # it is fully resident
+                        self._promote_focus = state.slot
+                        break
+                elif state.slot == self._promote_focus:
+                    self._promote_focus = None
+        return stage
+
+    def plan(self) -> Optional[StepPlan]:
+        """Build the next step's fixed-shape work, or None when idle."""
+        now = self.clock()
+        self._ticks += 1
+        self._plan_protect = set()
+        self.evict_timeouts()
+        self._admit_to_slots(now)
+        stage = self._plan_promotions()
+        plan = self._build_plan(stage)
+        # paged arena: an empty plan while slots are live means page-pool
+        # starvation (a live slot always schedules otherwise). Evict the
+        # NEWEST in-flight request — gracefully, it can resubmit after
+        # backoff — and retry, so the oldest requests always finish. The
+        # config floor num_pages >= pages_per_slot makes this terminate
+        # with at least one schedulable request.
+        while plan is None and self.paged and self.active_count > 0:
+            victim = max(
+                (s for s in self.slots if s is not None),
+                key=lambda s: (s.prefill_start_t or 0.0, s.slot),
+            )
+            self._evict(victim, now, "page pool exhausted")
+            self._admit_to_slots(now)
+            plan = self._build_plan(stage)
+        if plan is not None and plan.stage:
+            # a promotion planned for a slot the starvation loop evicted
+            # must not scatter into its (freed) destination page: consume
+            # the key here — _release_pages already dropped the slot's
+            # un-promoted keys, but THESE were popped into the stage list
+            live = [s for s in plan.stage if s.state.slot is not None]
+            for s in plan.stage:
+                if s.state.slot is None:
+                    self._inflight.pop(s.key, None)
+                    if s.owned:
+                        self.spiller.drop(s.key)
+                    elif self.prefix_cache is not None:
+                        self.prefix_cache.unpin_host(s.key)
+            plan.stage = live
+        if self.paged:
+            self.assert_page_invariants()
+            if self.metrics is not None:
+                self.metrics.on_pages(
+                    self.pool,
+                    len(self.prefix_cache) if self.prefix_cache else 0,
+                    host_resident=(
+                        self.spiller.store.resident_count
+                        if self.spiller is not None else 0
+                    ),
+                )
+        if plan is not None and self.metrics is not None:
+            self.metrics.on_plan(plan, now, queue_depth=len(self.queue),
+                                 occupancy=self.active_count)
+        return plan
+
+    def _build_plan(self, stage: Optional[List[StagedPage]] = None
+                    ) -> Optional[StepPlan]:
+        N, W = self.max_slots, self.token_budget
+        plan = StepPlan(
+            tokens=np.zeros((N, W), np.int32),
+            num_new=np.zeros(N, np.int32),
+            start_pos=np.zeros(N, np.int32),
+            fresh=np.zeros(N, np.bool_),
+            sample=np.zeros(N, np.bool_),
+            page_table=(
+                np.full((N, self.pages_per_slot), self.null_page, np.int32)
+                if self.paged else None
+            ),
+            cow_src=np.full(N, -1, np.int32) if self.paged else None,
+            spec_len=np.zeros(N, np.int32),
+            stage=list(stage) if stage else [],
+        )
+        budget = W
+        # decodes first: latency-critical, one committed feed each. The
+        # scan starts at a ROTATING index so a budget smaller than the
+        # decode count round-robins across steps instead of
+        # deterministically starving the high-index slots.
+        decodes: List[list] = []  # [slot, state, pos, cow, k]
+        for off in range(N):
+            slot = (self._decode_rr + off) % N
+            state = self.slots[slot]
+            if state is None or state.status is not RequestStatus.DECODE:
+                continue
+            if state.host_pages:
+                continue  # tiered: waiting on promotion — attention
+                #   gathers the whole sequence, so a slot with ANY page
+                #   still on host cannot schedule this step
+            if budget < 1:
+                break
+            pos = state.prompt_len + len(state.tokens) - 1
+            cow = -1
+            if self.paged:
+                ok, cow = self._prepare_pages(state, pos, 1)
+                if ok < 1:
+                    continue  # page pressure: this decode waits a step
+            self._plan_protect.add(id(state))
+            state.last_planned = self._ticks
+            decodes.append([slot, state, pos, cow, 0])
+            budget -= 1
+        self._decode_rr = (self._decode_rr + 1) % N
+        # speculative drafts ride WITH the decode pass: a spec slot's row
+        # claims k+1 budget rows (committed feed + k drafts), assigned
+        # round-robin one draft at a time so budget pressure shrinks k
+        # toward 0 uniformly — plain decode is the graceful floor, and the
+        # step shape never changes
+        if self.spec_max_draft > 0 and budget > 0 and decodes:
+            budget = self._assign_drafts(decodes, budget)
+        for slot, state, pos, cow, k in decodes:
+            row = [state.tokens[-1]]
+            if k > 0:
+                drafts = propose_drafts(
+                    state.request.prompt, state.tokens, state.draft_tail,
+                    k, self.spec_ngram_n,
+                )
+                row.extend(int(t) for t in drafts)
+            n = len(row)
+            plan.tokens[slot, :n] = row
+            plan.num_new[slot] = n
+            plan.start_pos[slot] = pos
+            plan.sample[slot] = True
+            plan.spec_len[slot] = n - 1
+            # an ADOPTED slot (fleet handoff) enters decode directly: its
+            # first feed clears the previous occupant's stale seen row
+            plan.fresh[slot] = slot in self._fresh
+            self._fresh.discard(slot)
+            if self.paged:
+                plan.cow_src[slot] = cow
+                plan.page_table[slot, :len(state.pages)] = state.pages
+            plan.work.append(ScheduledWork(slot, state, n, True,
+                                           spec_len=n - 1))
+        # leftover budget to prompt chunks, FCFS by prefill start
+        prefills = sorted(
+            (
+                (slot, state) for slot, state in enumerate(self.slots)
+                if state is not None
+                and state.status is RequestStatus.PREFILL
+            ),
+            key=lambda it: (it[1].prefill_start_t, it[0]),
+        )
+        for slot, state in prefills:
+            if budget < 1:
+                break
+            if state.host_pages:
+                continue  # tiered: prefix tail still on host — the write
+                #   frontier sits past pages that must promote first
+            chunk = min(budget, state.prompt_remaining, W)
+            lo = state.prompt_pos
+            cow = -1
+            if self.paged:
+                chunk, cow = self._prepare_pages(state, lo, chunk)
+                if chunk < 1:
+                    continue  # page pressure: the prompt waits a step
+            self._plan_protect.add(id(state))
+            state.last_planned = self._ticks
+            plan.tokens[slot, :chunk] = state.request.prompt[lo: lo + chunk]
+            plan.num_new[slot] = chunk
+            plan.start_pos[slot] = lo
+            final = lo + chunk == state.prompt_len
+            plan.sample[slot] = final
+            plan.fresh[slot] = slot in self._fresh
+            self._fresh.discard(slot)
+            if self.paged:
+                plan.cow_src[slot] = cow
+                plan.page_table[slot, :len(state.pages)] = state.pages
+            if self.metrics is not None:
+                # a fully-cached prompt's only feed is its final token
+                # (the sampling feed) — that is NOT a prefill chunk
+                self.metrics.on_prefill_chunk(
+                    cached_tail=(
+                        state.cached_tokens >= state.prompt_len - 1
+                        and lo == state.prompt_len - 1
+                    ),
+                )
+            plan.work.append(ScheduledWork(slot, state, chunk, final))
+            budget -= chunk
+        # inactive slots keep num_new=0 and start_pos=0; the ENGINE
+        # repoints their padded W-wide cache write at the dead tail
+        # margin (ServingEngine._run_plan) — or, paged, their all-NULL
+        # page-table row sinks it — so an idle-but-active slot never
+        # clobbers its own cached tokens
+        if not plan.work and not plan.stage:
+            return None
+        return plan
+
+    def _assign_drafts(self, decodes: List[list], budget: int) -> int:
+        """Distribute leftover budget as draft rows over the scheduled
+        decode slots, one draft per slot per round (round-robin in the
+        same rotating order as the feed pass), until every slot hits its
+        cap or the budget runs out. Caps: ``spec_max_draft``, the
+        request's remaining token allowance minus one (the device then
+        never emits past ``max_new_tokens``, which keeps the RNG chain
+        exactly where spec-off would leave it), and — paged — the pages
+        actually allocatable for the widened window (pool pressure
+        shrinks k instead of failing; pages stay slot-owned on
+        rejection, so rollback never leaks). Requests with
+        ``repetition_penalty != 1.0`` never draft: their ``seen`` matrix
+        is built from fed tokens and accepted spec tokens are never
+        re-fed — correctness over speed, same as the prefix-cache
+        bypass."""
+        grew = True
+        while budget > 0 and grew:
+            grew = False
+            for item in decodes:
+                if budget < 1:
+                    break
+                slot, state, pos, cow, k = item
+                req = state.request
+                if req.repetition_penalty != 1.0:
+                    continue
+                cap = min(
+                    self.spec_max_draft,
+                    req.max_new_tokens - len(state.tokens) - 1,
+                    self.token_budget - 1,
+                )
+                if k >= cap:
+                    continue
+                if self.paged:
+                    ok, _ = self._prepare_pages(state, pos, k + 2)
+                    if ok < k + 2:
+                        continue  # page pressure: this slot stops growing
+                item[4] = k + 1
+                budget -= 1
+                grew = True
+        return budget
+
+    # ---------------------------------------------------------- complete
+    def complete(self, plan: StepPlan, next_tokens: np.ndarray,
+                 new_rng: Optional[np.ndarray] = None,
+                 n_emit: Optional[np.ndarray] = None
+                 ) -> List[RequestState]:
+        """Fold one executed step back into request state. Returns the
+        requests that finished this step (slots already recycled).
+
+        ``next_tokens`` is the engine's verify-window output
+        ``[max_slots, max_draft + 1]`` with ``n_emit`` tokens emitted
+        per sampling slot (speculative decoding: accepted drafts + the
+        bonus token advance a slot by >1 per step). The legacy 1-D form
+        ``[max_slots]`` (one token per sampling slot) is still accepted —
+        scheduler unit tests and pre-spec callers pass that."""
+        next_tokens = np.asarray(next_tokens)
+        if next_tokens.ndim == 1:
+            next_tokens = next_tokens[:, None]
+        now = self.clock()
+        finished: List[RequestState] = []
+        for w in plan.work:
+            st = w.state
+            if w.n_tokens and st.status is RequestStatus.PREFILL:
+                st.prompt_pos += w.n_tokens
+            if not w.sample:
+                continue
+            n = int(n_emit[w.slot]) if n_emit is not None else 1
+            if new_rng is not None:
+                st.rng = new_rng[w.slot]
+            req = st.request
+            emitted = 0
+            for j in range(n):
+                tok = int(next_tokens[w.slot, j])
+                if st.first_token_t is None:
+                    st.first_token_t = now
+                st.tokens.append(tok)
+                emitted += 1
+                if st.status is RequestStatus.PREFILL:
+                    st.transition(RequestStatus.DECODE)
+                if self.metrics is not None:
+                    self.metrics.on_token(st, now)
+                hit_eos = req.eos_token_id >= 0 and tok == req.eos_token_id
+                if hit_eos or len(st.tokens) >= req.max_new_tokens:
+                    st.transition(RequestStatus.DONE)
+                    st.finish_t = now
+                    # finished requests publish their pages to the prefix
+                    # cache (paged arena) before the slot recycles
+                    self.release(st.slot, insert_prefix=True)
+                    finished.append(st)
+                    # the device clamps n_emit at eos and the planner caps
+                    # drafts at the remaining allowance, so termination
+                    # can only land on the window's last emitted token —
+                    # the RNG chain is exactly where spec-off stopped
+                    assert j == n - 1, (
+                        f"request {req.request_id}: terminated at emitted "
+                        f"token {j + 1} of {n} — device/planner clamp drift"
+                    )
+                    break
+            if w.spec_len > 0:
+                # the rejected tail of the verify window feeds the next
+                # step's no-match draft fallback (stale-but-plausible
+                # verifier predictions, the lockstep engine's trick)
+                st.draft_tail = [
+                    int(next_tokens[w.slot, j])
+                    for j in range(emitted, w.spec_len + 1)
+                ]
+                if self.metrics is not None:
+                    self.metrics.on_spec(
+                        st, proposed=w.spec_len,
+                        accepted=max(emitted - 1, 0), emitted=emitted,
+                    )
+        # tiered: the step consumed its staging buffer — the promoted
+        # pages are HBM-resident now. Owned keys (slot demotions) leave
+        # the host store; shared keys (prefix host tier) merely unpin, so
+        # host-LRU pressure may reclaim them again
+        for s in plan.stage:
+            self._inflight.pop(s.key, None)
+            if s.owned:
+                self.spiller.drop(s.key)
+            elif self.prefix_cache is not None:
+                self.prefix_cache.unpin_host(s.key)
+        if self.paged:
+            self.assert_page_invariants()
+        if self.metrics is not None:
+            for st in finished:
+                self.metrics.on_finish(st, now)
+        return finished

@@ -1,11 +1,13 @@
-"""Speculative decoding: the draft proposal and the acceptance math.
+"""Speculative decoding: the draft proposal, the acceptance math and the
+serving step's verify window.
 
-Counterpart of the lockstep pieces of ``deepspeed_tpu/serving/spec.py``:
-:func:`ngram_propose` and :func:`propose_drafts` (each in a host numpy form
-and a tensor form), :func:`longest_accepted_prefix` and
-:func:`clamp_advance_at_eos`. The inference engine's speculative loop
-(``inference/engine.py``) calls them; the slot engine's batched verify comes
-with continuous batching.
+Counterpart of ``deepspeed_tpu/serving/spec.py``: :func:`ngram_propose` and
+:func:`propose_drafts` (each in a host numpy form and a tensor form),
+:func:`longest_accepted_prefix` and :func:`clamp_advance_at_eos`, which the
+inference engine's speculative loop (``inference/engine.py``) calls, and
+:func:`verify_window` (``spec.py:162``), the sampling tail of the serving
+engine's step. The serving engine runs it with ``max_draft = 0`` until its
+speculative decode is ported (ROADMAP A4): one token per sampling slot.
 
 Acceptance is greedy and exact: a draft is accepted only when it equals the
 token the verifier picks at its position, so the emitted tokens are the plain
@@ -15,7 +17,7 @@ needs.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -25,6 +27,7 @@ __all__ = [
     "propose_drafts",
     "longest_accepted_prefix",
     "clamp_advance_at_eos",
+    "verify_window",
 ]
 
 
@@ -106,3 +109,79 @@ def clamp_advance_at_eos(targets, adv, eos_id):
     has_eos = is_eos.any(dim=-1)
     first = is_eos.to(torch.int32).argmax(dim=-1) + 1
     return torch.where(has_eos, first, adv), has_eos
+
+
+def verify_window(win: torch.Tensor, tokens: torch.Tensor, seen: torch.Tensor,
+                  num_new: torch.Tensor, spec_len: torch.Tensor, live,
+                  rngs: Sequence[Optional[torch.Generator]], temperature, top_k,
+                  top_p, rep_penalty, eos_id: torch.Tensor, max_draft: int):
+    """The serving step's batched-ragged verification and sampling.
+
+    Every live slot's row ends with a verify window: its committed token
+    followed by ``spec_len`` drafts (``spec_len = 0`` is plain decode or the
+    final prefill feed). For each of the ``max_draft + 1`` window positions
+    this samples the target token, accepts the longest draft prefix that
+    matches the targets, clamps the advance at an emitted eos, and leaves
+    each slot's generator in the state after exactly ``n_emit`` samples.
+
+    Device tensors (N = max_slots, W = token_budget, Kw = max_draft + 1):
+      win [N, Kw, V] fp32 logits of the window rows
+      (``models.decoding.verify_window_rows``), tokens [N, W], seen [N, V]
+      (bool or uint8), num_new/spec_len/eos_id [N].
+    Host values: live [N] bool (the slot samples this step), rngs [N] (each
+    live slot's generator), temperature/top_k/top_p/rep_penalty [N].
+
+    Greedy rows (temperature 0) take one batched argmax; each sampling row
+    draws from its own generator, advanced only when that slot samples, so a
+    request's tokens do not depend on the batch it rides in (the JAX
+    package's per-slot key chain). The repetition penalty applies to every
+    window position with the pre-step ``seen`` matrix; with no live
+    penalized row it is skipped (it would be the identity).
+
+    Returns ``(out_tokens [N, Kw] int32, n_emit [N] int32)`` on the device:
+    ``out_tokens[:, :n_emit]`` are a slot's emitted tokens this step;
+    ``n_emit`` is 0 for rows that do not sample."""
+    from ..inference.engine import _sample, apply_repetition_penalty
+
+    N, W = tokens.shape
+    kw = max_draft + 1
+    dev = win.device
+    live = np.asarray(live, bool)
+    live_t = torch.as_tensor(live, device=dev)
+    temperature = np.asarray(temperature, np.float32)
+    penalty = np.asarray(rep_penalty, np.float32)
+    if (penalty[live] != 1.0).any():
+        win = apply_repetition_penalty(
+            win, seen.bool(), torch.as_tensor(penalty, device=dev)[:, None, None],
+            active=live_t)
+    sampled = [b for b in range(N) if live[b] and temperature[b] != 0.0]
+    states = {b: [] for b in sampled}
+    targets = []
+    for j in range(kw):
+        tok = (win[:, j] / 1e-6).argmax(dim=-1)
+        for b in sampled:
+            if kw > 1:
+                states[b].append(rngs[b].get_state())
+            tok[b] = _sample(win[b:b + 1, j], rngs[b], float(temperature[b]),
+                             int(top_k[b]), float(top_p[b]))[0]
+        targets.append(tok)
+    out_tokens = torch.stack(targets, dim=1).to(torch.int32)  # [N, kw]
+    # drafts ride in the row right after the committed token: window
+    # position j's draft is tokens[base + 1 + j]
+    base = (num_new - 1 - spec_len).long()
+    draft_idx = (base[:, None] + 1 + torch.arange(max_draft, device=dev)[None, :]
+                 ).clamp(0, W - 1)
+    drafts = tokens.long().gather(1, draft_idx)
+    in_window = torch.arange(max_draft, device=dev)[None, :] < spec_len[:, None]
+    match = (drafts == out_tokens[:, :max_draft]) & in_window
+    n_acc = longest_accepted_prefix(match)
+    adv, _ = clamp_advance_at_eos(out_tokens, n_acc + 1, eos_id)
+    n_emit = torch.where(live_t, adv, 0).to(torch.int32)
+    if kw > 1 and sampled:
+        # rewind each sampling slot's generator to the state after n_emit
+        # samples: keys past the emitted run were never consumed
+        emitted = n_emit.tolist()
+        for b in sampled:
+            if emitted[b] < kw:
+                rngs[b].set_state(states[b][emitted[b]])
+    return out_tokens, n_emit

@@ -101,10 +101,11 @@ def test_plain_rounds_dequantized_rows_to_q_dtype():
 
 @pytest.mark.parametrize("int8", [True, False])
 def test_window_rows_are_single_token_decode(int8):
-    """A one-sequence window as decode rows over one cache (stride-0 batch):
-    row s is the single-token decode at cache_len + s, and the window agrees
-    with the plain masked window attention. (Bit for bit is the kernel's
-    property, one block per row; chip_smoke.py checks it on the card.)"""
+    """A one-sequence window as decode rows over one cache (rows_per_seq =
+    S): row s is the single-token decode at cache_len + s, and the window
+    agrees with the plain masked window attention. (Bit for bit is the
+    kernel's property, one block per row; chip_smoke.py checks it on the
+    card.)"""
     _, k8, v8, ks, vs, _, _ = _int8_cache(seed=6)
     t = torch.from_numpy
     qw = t(np.random.RandomState(6).randn(1, 4, H, HD).astype(np.float32))
@@ -112,7 +113,8 @@ def test_window_rows_are_single_token_decode(int8):
         k, v, scales = t(k8[:1]), t(v8[:1]), (t(ks[:1]), t(vs[:1]))
     else:
         k, v, scales = t(k8[:1]).float() / 50, t(v8[:1]).float() / 50, ()
-    rows = pdec._decode_rows(qw, k, v, 50, *scales)
+    rows = pdec._window_rows(qw, k, v, 50, None, None, *(scales or (None, None)),
+                             kernel=True)
     for s in range(4):
         np.testing.assert_allclose(
             rows[:, s:s + 1].numpy(),

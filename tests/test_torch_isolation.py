@@ -58,6 +58,19 @@ def test_init_inference_needs_a_card_unless_asked_for_cpu(monkeypatch):
     assert eng.device.type == "cpu"
 
 
+def test_init_serving_needs_a_card_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = llama("llama-tiny", vocab_size=64, max_seq_len=64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deepspeed_tpu_torch.init_serving(model, serving={"paged": True})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deepspeed_tpu_torch.init_serving(model, device="cuda")
+    srv = deepspeed_tpu_torch.init_serving(model, serving={"paged": True},
+                                           dtype=torch.float32, device="cpu")
+    assert srv.device.type == "cpu"
+    assert all(t.device.type == "cpu" for t in srv._caches.values())
+
+
 def test_initialize_needs_a_card_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = llama("llama-tiny", vocab_size=64, max_seq_len=64)
@@ -110,6 +123,14 @@ def test_build_without_nvcc_raises(monkeypatch):
         t(1, 1, 2, 64), t(1, 8, 2, 64), t(1, 8, 2, 64), 3, t(1, 2, 8), t(1, 2, 8)),
     lambda t: quantized_matmul.packed_proj(t(1, 256), quantizer.PackedWeight(
         t(2, 128, 128), t(2, 1, 128), (256, 128), 8, torch.bfloat16)),
+    lambda t: decode_attention.decode_attention(t(4, 1, 2, 64), t(2, 8, 2, 64),
+                                                t(2, 8, 2, 64), t(4), rows_per_seq=2),
+    lambda t: decode_attention.paged_decode_attention(
+        t(2, 1, 2, 64), t(5, 4, 2, 64), t(5, 4, 2, 64), t(2),
+        torch.zeros(2, 2, dtype=torch.int32, device="meta")),
+    lambda t: decode_attention.paged_decode_attention(
+        t(2, 1, 2, 64), t(5, 4, 2, 64), t(5, 4, 2, 64), t(2),
+        torch.zeros(2, 2, dtype=torch.int32, device="meta"), t(5, 2, 4), t(5, 2, 4)),
 ])
 def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch, call):
     """A tensor off the CPU goes to the kernel path; where the kernel cannot
