@@ -2,17 +2,19 @@
 Hopper (H100).
 
 It grows slice by slice beside the JAX package, which stays the reference.
-It serves the Llama family through ``init_inference`` →
-``InferenceEngine.generate`` and through the continuous-batching front door
-``init_serving`` → ``ServingEngine``, and trains it on one device through
-``initialize`` → ``TorchEngine.train_batch``, with hand-written CUDA kernels
-(``ops/cuda``): flash attention forward and backward, decode attention over
-a contiguous cache and over a page pool, RMSNorm forward and backward, the
+It serves the Llama, GPT-2 and BLOOM families through ``init_inference`` →
+``InferenceEngine.generate``, Llama also through the continuous-batching
+front door ``init_serving`` → ``ServingEngine``, and trains them on one
+device through ``initialize`` → ``TorchEngine.train_batch``, with
+hand-written CUDA kernels (``ops/cuda``): flash attention forward and
+backward (with ALiBi), decode attention over a contiguous cache and over a
+page pool (with ALiBi), RMSNorm and LayerNorm forward and backward, the
 quantized matvec and the fused Adam update. It imports neither jax nor
 deepspeed_tpu.
 """
 
 from .accelerator import get_accelerator  # noqa: F401
+from .models import bloom, gpt2, llama  # noqa: F401
 
 __version__ = "0.1.0"
 

@@ -14,7 +14,13 @@
 // n = min(cache_len[r] + 1, Smax): every position at or before the row's
 // frontier is attended, as `kpos <= cache_len` in the TPU kernels. A row
 // whose frontier is negative attends nothing and writes zeros (the TPU
-// kernels' _finalize_out). rows_per_seq = R lets the serving engine's
+// kernels' _finalize_out). With ALiBi slopes (BLOOM), each score is
+// dot * scale - slope[h] * (frontier - pos), the key's distance from the
+// row's own frontier, added before the mask and the fp32 softmax: what the TPU
+// package computes for every ALiBi step after a fresh prefill, on its XLA path
+// (models/decoding.py:424-438), since its Pallas decode kernel takes no slope.
+// slopes == nullptr (Llama) skips the term, so those scores keep their bits.
+// rows_per_seq = R lets the serving engine's
 // [N, W] step run its W query rows of each slot, each at its own frontier,
 // in one launch: the TPU package runs that window as XLA's masked softmax,
 // row by row the same function.
@@ -76,6 +82,7 @@ struct Args {
   const float* vs;
   void* out;
   const int* cache_len;  // [rows], or nullptr for cache_len_scalar
+  const float* slopes;   // [H] ALiBi slopes, or nullptr
   int cache_len_scalar;
   const int* page_table;  // [B, max_pages] (paged form)
   int page_size;
@@ -137,6 +144,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(Args a) {
   const int lane = tid & 31;
   const int cl = a.cache_len != nullptr ? a.cache_len[row] : a.cache_len_scalar;
   const int n_keys = min(max(cl + 1, 0), a.Smax);
+  const float* slopes = a.slopes != nullptr ? a.slopes + kvh * G : nullptr;
 
   const T* q = static_cast<const T*>(a.q);
   for (int i = tid; i < G * HD; i += kThreads) {
@@ -243,6 +251,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(Args a) {
           dot += qs[g][d] * kf.x + qs[g][d + 1] * kf.y;
         }
         s = dot * a.scale;
+        if (slopes != nullptr) s -= slopes[g] * static_cast<float>(cl - (start + t));
       }
       sc[g][t] = s;
     }
@@ -340,8 +349,9 @@ int dispatch(const Args& a, int rows, int hd, int dtype, cudaStream_t s) {
 Args base_args(const void* q, const void* k, const void* v, void* out,
                int H, int KV, int rows_per_seq, long long q_sb, long long q_sh,
                long long k_s0, long long k_s1, long long k_sh, long long v_s0,
-               long long v_s1, long long v_sh, float scale) {
+               long long v_s1, long long v_sh, const void* slopes, float scale) {
   Args a{};
+  a.slopes = static_cast<const float*>(slopes);
   a.q = q;
   a.k = k;
   a.v = v;
@@ -367,15 +377,17 @@ Args base_args(const void* q, const void* k, const void* v, void* out,
 // r / rows_per_seq of k, v: one layer of the cache, [B, Smax, KV, hd] by
 // strides (batch, seq, head); the last dim is contiguous everywhere. out:
 // [rows, 1, H, hd] contiguous. cache_len: int32 [rows] on the device (each
-// row's frontier), or nullptr to use cache_len_scalar for every row.
+// row's frontier), or nullptr to use cache_len_scalar for every row. slopes:
+// fp32 [H] ALiBi slopes on the device, or nullptr for none (every form).
 extern "C" int dst_decode_attention(
     const void* q, const void* k, const void* v, void* out,
     const void* cache_len, int cache_len_scalar, int rows, int Smax, int H,
     int KV, int hd, int rows_per_seq, long long q_sb, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, float scale, int dtype, void* stream) {
+    long long v_ss, long long v_sh, const void* slopes, float scale, int dtype,
+    void* stream) {
   Args a = base_args(q, k, v, out, H, KV, rows_per_seq, q_sb, q_sh, k_sb, k_ss,
-                     k_sh, v_sb, v_ss, v_sh, scale);
+                     k_sh, v_sb, v_ss, v_sh, slopes, scale);
   a.cache_len = static_cast<const int*>(cache_len);
   a.cache_len_scalar = cache_len_scalar;
   a.Smax = Smax;
@@ -391,10 +403,10 @@ extern "C" int dst_decode_attention_int8(
     int rows, int Smax, int H, int KV, int hd, int rows_per_seq, long long q_sb,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long ks_sb,
-    long long ks_sh, long long vs_sb, long long vs_sh, float scale, int dtype,
-    void* stream) {
+    long long ks_sh, long long vs_sb, long long vs_sh, const void* slopes,
+    float scale, int dtype, void* stream) {
   Args a = base_args(q, k, v, out, H, KV, rows_per_seq, q_sb, q_sh, k_sb, k_ss,
-                     k_sh, v_sb, v_ss, v_sh, scale);
+                     k_sh, v_sb, v_ss, v_sh, slopes, scale);
   a.ks = static_cast<const float*>(k_scale);
   a.vs = static_cast<const float*>(v_scale);
   a.ks_s0 = ks_sb;
@@ -417,10 +429,10 @@ extern "C" int dst_paged_decode_attention(
     const void* cache_len, const void* page_table, int rows, int max_pages,
     int page_size, int H, int KV, int hd, int rows_per_seq, long long q_sb,
     long long q_sh, long long k_sp, long long k_ss, long long k_sh,
-    long long v_sp, long long v_ss, long long v_sh, float scale, int dtype,
-    void* stream) {
+    long long v_sp, long long v_ss, long long v_sh, const void* slopes,
+    float scale, int dtype, void* stream) {
   Args a = base_args(q, k, v, out, H, KV, rows_per_seq, q_sb, q_sh, k_sp, k_ss,
-                     k_sh, v_sp, v_ss, v_sh, scale);
+                     k_sh, v_sp, v_ss, v_sh, slopes, scale);
   a.cache_len = static_cast<const int*>(cache_len);
   a.page_table = static_cast<const int*>(page_table);
   a.page_size = page_size;
@@ -438,9 +450,10 @@ extern "C" int dst_paged_decode_attention_int8(
     int KV, int hd, int rows_per_seq, long long q_sb, long long q_sh,
     long long k_sp, long long k_ss, long long k_sh, long long v_sp,
     long long v_ss, long long v_sh, long long ks_sp, long long ks_sh,
-    long long vs_sp, long long vs_sh, float scale, int dtype, void* stream) {
+    long long vs_sp, long long vs_sh, const void* slopes, float scale, int dtype,
+    void* stream) {
   Args a = base_args(q, k, v, out, H, KV, rows_per_seq, q_sb, q_sh, k_sp, k_ss,
-                     k_sh, v_sp, v_ss, v_sh, scale);
+                     k_sh, v_sp, v_ss, v_sh, slopes, scale);
   a.ks = static_cast<const float*>(k_scale);
   a.vs = static_cast<const float*>(v_scale);
   a.ks_s0 = ks_sp;

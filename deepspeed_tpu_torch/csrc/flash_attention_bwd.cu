@@ -3,11 +3,12 @@
 //
 // Replaces deepspeed_tpu/ops/pallas/flash_attention.py:_bwd_dq_kernel
 // (line 455) and :_bwd_dkv_kernel (line 517), driven by _flash_bwd (line 719),
-// in the form the training step uses: causal, grouped-query heads, no segment
-// ids, bias or ALiBi.
+// in the forms the training step uses: causal, grouped-query heads, with or
+// without ALiBi slopes; no segment ids or dense bias.
 //
-// With s = q . k * scale, p = exp(s - lse) (the forward's saved lse; p = 0
-// where the key is masked), dp = do . v and delta = rowsum(do * o):
+// With s = q . k * scale - slope[h] * |q - k| (the ALiBi term only when
+// slopes are given), p = exp(s - lse) (the forward's saved lse; p = 0 where
+// the key is masked), dp = do . v and delta = rowsum(do * o):
 //   ds = p * (dp - delta) * scale
 //   dq = sum_k ds K,  dk = sum_q ds^T Q,  dv = sum_q p^T dO
 // dk and dv of a kv head sum over the query heads of its group.
@@ -31,7 +32,12 @@
 //     kernel writes per-query-head dk/dv [B, H, S, D] and sums them
 //     afterwards; here each output is written once, with no atomics, so the
 //     result does not depend on the schedule.
-// wgmma, TMA and pipelined tiles are later work.
+// ALiBi (flash_attention.py:149-246 carries the slope into both backward
+// kernels): each score is recomputed by alibi_score, the very expression the
+// forward kernel used (flash_attention_fwd.cu), so p is the p whose sum went
+// into the saved lse; slopes == nullptr instantiates the kernels without the
+// term, as they were before ALiBi came in. wgmma, TMA and pipelined tiles are
+// later work.
 #include "common.cuh"
 
 namespace {
@@ -62,6 +68,14 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi
 
 __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The forward kernel's ALiBi score (flash_attention_fwd.cu:alibi_score), to
+// the bit: s * scale_log2 rounded, then - slope_log2 * |row - key| fused.
+__device__ __forceinline__ float alibi_score(float s, float scale_log2,
+                                             float slope_log2, int row, int key) {
+  return __fmaf_rn(-slope_log2, static_cast<float>(abs(row - key)),
+                   __fmul_rn(s, scale_log2));
 }
 
 __device__ __forceinline__ float2 unpack(uint32_t u) {
@@ -178,14 +192,14 @@ struct Strides {
 // ---------------------------------------------------------------------------
 // dq (+ delta)
 // ---------------------------------------------------------------------------
-template <int HD>
+template <int HD, bool kAlibi>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
     const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
     float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int S, int H,
     int KV, Strides qs, Strides ks_, Strides vs, Strides os, Strides dos,
-    Strides dqs, float scale, int causal) {
+    Strides dqs, const float* __restrict__ slopes, float scale, int causal) {
   constexpr int kBlockN = HD == 128 ? 32 : 64;  // keys per tile
   constexpr int kLds = HD + 8;
   constexpr int kSTiles = kBlockN / 8;
@@ -247,6 +261,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const float lse0 = row0 < S ? lse[lrow + row0] * kLog2e : -INFINITY;
   const float lse1 = row1 < S ? lse[lrow + row1] * kLog2e : -INFINITY;
   const float scale_log2 = scale * kLog2e;
+  const float slope_log2 = kAlibi ? slopes[h] * kLog2e : 0.f;
 
   float acc[HD / 8][4];
 #pragma unroll
@@ -274,7 +289,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
         const float dlt = e < 2 ? dl0 : dl1;
         const bool visible = key < S && row < S && (!causal || key <= row) &&
                              l != -INFINITY;
-        const float p = visible ? exp2f(s[j][e] * scale_log2 - l) : 0.f;
+        float p = 0.f;
+        if constexpr (kAlibi) {
+          if (visible) p = exp2f(alibi_score(s[j][e], scale_log2, slope_log2, row, key) - l);
+        } else {
+          p = visible ? exp2f(s[j][e] * scale_log2 - l) : 0.f;
+        }
         s[j][e] = p * (dp[j][e] - dlt) * scale;  // ds
       }
     }
@@ -286,14 +306,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 // ---------------------------------------------------------------------------
 // dk, dv (summed over the GQA group)
 // ---------------------------------------------------------------------------
-template <int HD>
+template <int HD, bool kAlibi>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int H,
     int KV, Strides qs, Strides ks_, Strides vs, Strides dos, Strides dks,
-    Strides dvs, float scale, int causal) {
+    Strides dvs, const float* __restrict__ slopes, float scale, int causal) {
   constexpr int kBlockN = HD == 128 ? 32 : 64;  // queries per tile
   constexpr int kLds = HD + 8;
   constexpr int kSTiles = kBlockN / 8;
@@ -334,6 +354,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const __nv_bfloat16* qb = q + b * qs.sb + h * qs.sh;
     const __nv_bfloat16* dob = dout + b * dos.sb + h * dos.sh;
     const long long lrow = ((long long)b * H + h) * S;
+    const float slope_log2 = kAlibi ? slopes[h] * kLog2e : 0.f;
     for (int t = t0; t < n_all; ++t) {
       const int q0 = t * kBlockN;
       __syncthreads();  // the previous tile is fully consumed
@@ -359,7 +380,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
           const float l = slse[col];
           const bool visible = query < S && key < S &&
                                (!causal || key <= query) && l != -INFINITY;
-          const float p = visible ? exp2f(st[jj][e] * scale_log2 - l) : 0.f;
+          float p = 0.f;
+          if constexpr (kAlibi) {
+            if (visible) {
+              p = exp2f(alibi_score(st[jj][e], scale_log2, slope_log2, query, key) - l);
+            }
+          } else {
+            p = visible ? exp2f(st[jj][e] * scale_log2 - l) : 0.f;
+          }
           st[jj][e] = p;
           dpt[jj][e] = p * (dpt[jj][e] - sdelta[col]) * scale;  // ds^T
         }
@@ -379,11 +407,12 @@ Strides at(const long long* st, int i) { return Strides{st[3 * i], st[3 * i + 1]
 // q, o, do, dq: [B, S, H, hd]; k, v: [B, S, KV, hd], each by its (batch, seq,
 // head) strides (st: 3 per tensor in the order q, k, v, o, do, dq) with a
 // contiguous last dim and 16-byte aligned rows. lse (in), delta (out): [B, H, S]
-// fp32 contiguous.
+// fp32 contiguous. slopes: fp32 [H] ALiBi slopes on the device (those the
+// forward took), or nullptr for none.
 extern "C" int dst_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* delta, void* dq, int B, int S, int H, int KV, int hd,
-    const long long* st, float scale, int causal, void* stream) {
+    const long long* st, const void* slopes, float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -394,11 +423,16 @@ extern "C" int dst_flash_attention_bwd_dq(
       static_cast<const T*>(o), static_cast<const T*>(dout),                      \
       static_cast<const float*>(lse), static_cast<float*>(delta),                 \
       static_cast<T*>(dq), S, H, KV, at(st, 0), at(st, 1), at(st, 2), at(st, 3),  \
-      at(st, 4), at(st, 5), scale, causal
-  if (hd == 128) {
-    flash_bwd_dq_kernel<128><<<grid, kThreads, 0, s>>>(DQ_ARGS);
+      at(st, 4), at(st, 5), static_cast<const float*>(slopes), scale, causal
+  const bool alibi = slopes != nullptr;
+  if (hd == 128 && alibi) {
+    flash_bwd_dq_kernel<128, true><<<grid, kThreads, 0, s>>>(DQ_ARGS);
+  } else if (hd == 128) {
+    flash_bwd_dq_kernel<128, false><<<grid, kThreads, 0, s>>>(DQ_ARGS);
+  } else if (hd == 64 && alibi) {
+    flash_bwd_dq_kernel<64, true><<<grid, kThreads, 0, s>>>(DQ_ARGS);
   } else if (hd == 64) {
-    flash_bwd_dq_kernel<64><<<grid, kThreads, 0, s>>>(DQ_ARGS);
+    flash_bwd_dq_kernel<64, false><<<grid, kThreads, 0, s>>>(DQ_ARGS);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -407,11 +441,13 @@ extern "C" int dst_flash_attention_bwd_dq(
 }
 
 // q, do: [B, S, H, hd]; k, v, dk, dv: [B, S, KV, hd], by strides (st: q, k, v,
-// do, dk, dv); lse, delta: [B, H, S] fp32 contiguous (delta from the dq kernel).
+// do, dk, dv); lse, delta: [B, H, S] fp32 contiguous (delta from the dq kernel);
+// slopes as for the dq kernel.
 extern "C" int dst_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
-    int KV, int hd, const long long* st, float scale, int causal, void* stream) {
+    int KV, int hd, const long long* st, const void* slopes, float scale,
+    int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -422,11 +458,16 @@ extern "C" int dst_flash_attention_bwd_dkv(
       static_cast<const T*>(dout), static_cast<const float*>(lse),                \
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), \
       S, H, KV, at(st, 0), at(st, 1), at(st, 2), at(st, 3), at(st, 4), at(st, 5), \
-      scale, causal
-  if (hd == 128) {
-    flash_bwd_dkv_kernel<128><<<grid, kThreads, 0, s>>>(DKV_ARGS);
+      static_cast<const float*>(slopes), scale, causal
+  const bool alibi = slopes != nullptr;
+  if (hd == 128 && alibi) {
+    flash_bwd_dkv_kernel<128, true><<<grid, kThreads, 0, s>>>(DKV_ARGS);
+  } else if (hd == 128) {
+    flash_bwd_dkv_kernel<128, false><<<grid, kThreads, 0, s>>>(DKV_ARGS);
+  } else if (hd == 64 && alibi) {
+    flash_bwd_dkv_kernel<64, true><<<grid, kThreads, 0, s>>>(DKV_ARGS);
   } else if (hd == 64) {
-    flash_bwd_dkv_kernel<64><<<grid, kThreads, 0, s>>>(DKV_ARGS);
+    flash_bwd_dkv_kernel<64, false><<<grid, kThreads, 0, s>>>(DKV_ARGS);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,12 +1,16 @@
 // Flash attention forward (bf16, causal or not, GQA) with mma.sync tensor cores.
 //
 // Replaces deepspeed_tpu/ops/pallas/flash_attention.py:_fwd_kernel (line 175),
-// driven by _flash_fwd (line 334) from flash_attention (line 1011), in the form
-// the serving prefill uses: causal, grouped-query heads, no segment ids, bias
-// or ALiBi.
+// driven by _flash_fwd (line 334) from flash_attention (line 1011), in the forms
+// the serving prefill and the training step use: causal, grouped-query heads,
+// with or without ALiBi slopes; no segment ids or dense bias.
 //
-// out[b, s, h] = softmax_k(q[b, s, h] . k[b, k, kv]^T * scale, causal) @ v,
+// out[b, s, h] = softmax_k(score, causal) @ v with
+// score = q[b, s, h] . k[b, k, kv]^T * scale - slope[h] * |s - k|,
 // kv = h / (H / KV); lse[b, h, s] = log sum_k exp(score), kept for a backward.
+// The ALiBi term is _mask_and_bias's (flash_attention.py:94-113), added before
+// the mask; slopes == nullptr (Llama) instantiates the kernel without it, so
+// that form's code and bits are those of the kernel before ALiBi came in.
 //
 // Bound on the H100: operations for long prompts. The causal product is
 // 4 * D flops per visible (query, key) pair, about 2 * B * H * S^2 * D in all,
@@ -23,7 +27,11 @@
 // layout [B, S, H, D] is read and written without transposes, and every row
 // and key past S is masked in the kernel: any prompt length runs here, where
 // the TPU entry fell back to XLA for lengths without a 128-aligned tile.
-// wgmma, TMA and a pipelined K/V ring are later work.
+// The scores live in the log2 domain (s * scale * log2 e), so the ALiBi term is
+// slope * log2 e * |s - k|, computed by alibi_score (the backward kernels in
+// flash_attention_bwd.cu use the same expression, so p recomputed there is the
+// p whose sum went into lse). wgmma, TMA and a pipelined K/V ring are later
+// work.
 #include "common.cuh"
 
 namespace {
@@ -58,15 +66,25 @@ __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <int HD>
+// A score with its ALiBi term in the log2 domain: s * scale_log2 rounded,
+// then - slope_log2 * |row - key| by one fused multiply-add. Written with
+// intrinsics so no contraction choice of the compiler can make the forward's
+// and the backward's scores differ.
+__device__ __forceinline__ float alibi_score(float s, float scale_log2,
+                                             float slope_log2, int row, int key) {
+  return __fmaf_rn(-slope_log2, static_cast<float>(abs(row - key)),
+                   __fmul_rn(s, scale_log2));
+}
+
+template <int HD, bool kAlibi>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
     float* __restrict__ lse, int S, int H, int KV, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh, float scale_log2,
-    int causal) {
+    long long o_sb, long long o_ss, long long o_sh, const float* __restrict__ slopes,
+    float scale_log2, int causal) {
   constexpr int kLds = HD + 8;           // shared row stride, in elements
   constexpr int kKSteps = HD / 16;       // k-steps of Q K^T
   constexpr int kSTiles = kBlockN / 8;   // n-tiles of the score tile
@@ -86,6 +104,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int tig = lane & 3;  // thread within the group of four
   const int row0 = qblock * kBlockM + warp * 16 + g;
   const int row1 = row0 + 8;
+  const float slope_log2 = kAlibi ? slopes[h] * 1.4426950408889634f : 0.f;
 
   const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
   const __nv_bfloat16* kb = k + b * k_sb + kvh * k_sh;
@@ -151,7 +170,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         const int key = k0 + j * 8 + tig * 2 + (e & 1);
         const int row = e < 2 ? row0 : row1;
         const bool visible = key < S && (!causal || key <= row);
-        s[j][e] = visible ? s[j][e] * scale_log2 : -INFINITY;
+        if constexpr (kAlibi) {
+          s[j][e] = visible ? alibi_score(s[j][e], scale_log2, slope_log2, row, key)
+                            : -INFINITY;
+        } else {
+          s[j][e] = visible ? s[j][e] * scale_log2 : -INFINITY;
+        }
       }
       mt0 = fmaxf(mt0, fmaxf(s[j][0], s[j][1]));
       mt1 = fmaxf(mt1, fmaxf(s[j][2], s[j][3]));
@@ -238,40 +262,55 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
 }
 
-template <int HD>
+template <int HD, bool kAlibi>
 void launch(const void* q, const void* k, const void* v, void* out, void* lse,
-            int B, int S, int H, int KV, const long long* st, float scale_log2,
-            int causal, cudaStream_t stream) {
+            int B, int S, int H, int KV, const long long* st, const float* slopes,
+            float scale_log2, int causal, cudaStream_t stream) {
   dim3 grid((S + kBlockM - 1) / kBlockM, H, B);
-  flash_fwd_kernel<HD><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_kernel<HD, kAlibi><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(lse), S, H, KV, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale_log2, causal);
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11], slopes, scale_log2, causal);
+}
+
+template <int HD>
+void launch_form(const void* q, const void* k, const void* v, void* out, void* lse,
+                 int B, int S, int H, int KV, const long long* st,
+                 const float* slopes, float scale_log2, int causal,
+                 cudaStream_t stream) {
+  if (slopes != nullptr) {
+    launch<HD, true>(q, k, v, out, lse, B, S, H, KV, st, slopes, scale_log2, causal, stream);
+  } else {
+    launch<HD, false>(q, k, v, out, lse, B, S, H, KV, st, slopes, scale_log2, causal, stream);
+  }
 }
 
 }  // namespace
 
 // q: [B, S, H, hd], k/v: [B, S, KV, hd], out: [B, S, H, hd], each by its
 // (batch, seq, head) strides with a contiguous last dim; every row start
-// 16-byte aligned. lse: [B, H, S] fp32 contiguous. scale: softmax scale
-// applied to q . k (1 / sqrt(hd) for the model).
+// 16-byte aligned. lse: [B, H, S] fp32 contiguous. slopes: fp32 [H] ALiBi
+// slopes on the device, or nullptr for none. scale: softmax scale applied to
+// q . k (1 / sqrt(hd) for the model).
 extern "C" int dst_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse, int B,
     int S, int H, int KV, int hd, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_ss, long long o_sh, float scale, int causal, void* stream) {
+    long long o_ss, long long o_sh, const void* slopes, float scale, int causal,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                             v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
   if (B <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   const float scale_log2 = scale * 1.4426950408889634f;
+  const float* sl = static_cast<const float*>(slopes);
   if (hd == 128) {
-    launch<128>(q, k, v, out, lse, B, S, H, KV, st, scale_log2, causal, s);
+    launch_form<128>(q, k, v, out, lse, B, S, H, KV, st, sl, scale_log2, causal, s);
   } else if (hd == 64) {
-    launch<64>(q, k, v, out, lse, B, S, H, KV, st, scale_log2, causal, s);
+    launch_form<64>(q, k, v, out, lse, B, S, H, KV, st, sl, scale_log2, causal, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -9,9 +9,13 @@ penalty, eos forcing, and a stop once every row is done. The cache is updated
 in place (models/decoding.py).
 
 ``replace_with_kernel_inject=True`` on a CUDA device selects the hand-written
-kernels: flash prefill attention, decode attention and RMSNorm
+kernels: flash prefill attention, decode attention and RMSNorm or LayerNorm
 (``ops/cuda``). Attention resolves to the kernels on CUDA whatever the flag,
-as the JAX package resolves flash on a TPU; the flag adds the RMSNorm kernel.
+as the JAX package resolves flash on a TPU; the flag adds the norm kernels.
+The GPT-2 and BLOOM families (LayerNorm, learned positions or ALiBi, GELU,
+biases, a tied head) serve in bf16 or fp32; their quantized weights, int8 KV
+cache and speculative decode are not ported yet and raise
+``NotImplementedError`` naming ROADMAP queue A item 2.
 
 ``dtype="int8"|"int4"`` (or ``quantize_bits``) serves weight-only quantized
 projections: bf16 compute, the six big projection leaves of every layer
@@ -41,7 +45,7 @@ import torch
 
 from ..accelerator import resolve_device
 from ..models.decoding import forward_with_cache, init_cache
-from ..models.transformer import apply, check_supported
+from ..models.transformer import apply, check_supported, non_llama_features
 from ..ops.attention import attention_impl
 from ..ops.cuda.quantized_matmul import matvec_max_rows_scope
 from ..ops.normalization import kernel_rmsnorm_scope
@@ -209,6 +213,19 @@ class InferenceEngine:
         self.model = model
         self.config = model.config
         check_supported(self.config)
+        family = non_llama_features(self.config)
+        if draft_model is not None and not isinstance(draft_model, str):
+            family += non_llama_features(draft_model.config)
+        llama_only = [what for on, what in (
+            (quantize_bits, f"{quantize_bits}-bit weights"),
+            (kv_cache_dtype == "int8", "the int8 KV cache"),
+            (draft_model is not None, "speculative decode")) if on]
+        if family and llama_only:
+            raise NotImplementedError(
+                f"deepspeed_tpu_torch serves {', '.join(llama_only)} for the Llama "
+                f"family only; a model with {', '.join(family)} (GPT-2/BLOOM) is "
+                "not ported there yet (ROADMAP queue A item 2)"
+            )
         self.device = device
         self.dtype = dtype
         self.max_tokens = min(max_tokens, self.config.max_seq_len)

@@ -34,10 +34,9 @@ from ..ops.cuda.decode_attention import (cached_attention_plain, decode_attentio
                                          decode_attention_plain,
                                          paged_decode_attention,
                                          paged_decode_attention_plain)
-from ..ops.cuda.quantized_matmul import packed_proj
 from .transformer import (Params, TransformerConfig, _mlp, _norm, _qkv,
-                          check_supported, layer_params, lm_head_logits,
-                          rope_tables)
+                          check_supported, embed_tokens, layer_params,
+                          lm_head_logits, model_slopes, out_proj, rope_tables)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -197,7 +196,7 @@ def verify_window_rows(num_new: torch.Tensor, spec_len: torch.Tensor,
 
 def _window_rows(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                  cache_len, token_valid, page_table, k_scale, v_scale,
-                 kernel: bool) -> torch.Tensor:
+                 kernel: bool, slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The window of S tokens of each of B sequences as B*S single-token
     rows, row (b, s) at frontier ``cache_len[b] + s`` (-1 where
     ``token_valid`` is False: a padded row, zeros) through the decode kernel
@@ -205,7 +204,8 @@ def _window_rows(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     ``page_table``, the page pool. ``kernel`` False takes the plain twin.
     Each row is the kernel's own computation at its position, one block a
     row, so a speculative verify window (B = 1) gives the bits single-token
-    decode gives, and S = 1 is single-token decode."""
+    decode gives, and S = 1 is single-token decode. ``slopes``: ALiBi's,
+    measured from each row's frontier."""
     B, S, H, hd = q.shape
     frontier = _positions(cache_len, B, S, q.device)
     if token_valid is not None:
@@ -214,17 +214,18 @@ def _window_rows(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     if page_table is not None:
         fn = paged_decode_attention if kernel else paged_decode_attention_plain
         out = fn(rows, k_cache, v_cache, frontier, page_table, k_scale, v_scale,
-                 rows_per_seq=S)
+                 rows_per_seq=S, slopes=slopes)
     else:
         fn = decode_attention if kernel else decode_attention_plain
-        out = fn(rows, k_cache, v_cache, frontier, k_scale, v_scale, rows_per_seq=S)
+        out = fn(rows, k_cache, v_cache, frontier, k_scale, v_scale, rows_per_seq=S,
+                 slopes=slopes)
     return out.reshape(B, S, H, hd)
 
 
 def _cached_attention(cfg: TransformerConfig, p: Params, x: torch.Tensor, rope,
                       k_cache: torch.Tensor, v_cache: torch.Tensor,
                       cache_len, k_scale=None, v_scale=None, page_table=None,
-                      token_valid=None) -> torch.Tensor:
+                      token_valid=None, slopes=None) -> torch.Tensor:
     """Attend the new tokens x [B,S,D] against cache[:cache_len] and
     themselves; writes their K/V into the cache layer first (int8 with its
     scales when ``k_scale`` is given), into the page pool through the page
@@ -237,8 +238,9 @@ def _cached_attention(cfg: TransformerConfig, p: Params, x: torch.Tensor, rope,
     with ``rows_per_seq`` (:func:`_window_rows`); so does a paged pool or a
     serving chunk (``token_valid`` given) under the plain attention, through
     the kernels' plain twins. Everything else is the plain masked attention
-    over the cache."""
-    B, S, _ = x.shape
+    over the cache. ALiBi ``slopes`` go into every branch: the decode kernels
+    take them too, so an ALiBi step on the card never leaves the kernels."""
+    S = x.shape[1]
     q, k, v = _qkv(cfg, p, x, rope)
     def write(cache, new, scale=False):
         if page_table is not None:
@@ -260,13 +262,14 @@ def _cached_attention(cfg: TransformerConfig, p: Params, x: torch.Tensor, rope,
     flash = resolve_attention_impl(q.device) == "flash"
     window = page_table is not None or token_valid is not None
     if not window and isinstance(cache_len, int) and cache_len == 0 and S > 1:
-        out = attention(q, k, v, causal=True)
+        out = attention(q, k, v, causal=True, alibi_slopes=slopes)
     elif window or flash:
         out = _window_rows(q, k_cache, v_cache, cache_len, token_valid, page_table,
-                           k_scale, v_scale, kernel=flash)
+                           k_scale, v_scale, kernel=flash, slopes=slopes)
     else:
-        out = cached_attention_plain(q, k_cache, v_cache, cache_len, k_scale, v_scale)
-    return packed_proj(out.reshape(B, S, cfg.num_heads * cfg.hd), p["wo"])
+        out = cached_attention_plain(q, k_cache, v_cache, cache_len, k_scale, v_scale,
+                                     slopes)
+    return out_proj(cfg, p, out)
 
 
 def forward_with_cache(cfg: TransformerConfig, params: Params,
@@ -299,8 +302,10 @@ def forward_with_cache(cfg: TransformerConfig, params: Params,
     else:
         positions = (cache_len + torch.arange(S, dtype=torch.int32,
                                               device=device)).expand(B, S)
-    rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
-    x = params["embed"]["tok"][input_ids]
+    rope = (rope_tables(positions, cfg.hd, cfg.rope_theta)
+            if cfg.pos_embedding == "rope" else None)
+    slopes = model_slopes(cfg, device)
+    x = embed_tokens(cfg, params, input_ids, positions)
     layers = params["layers"]
     quantized = "k_scale" in cache
     for i in range(cfg.num_layers):
@@ -309,7 +314,7 @@ def forward_with_cache(cfg: TransformerConfig, params: Params,
         x = x + _cached_attention(
             cfg, lp["attn"], _norm(cfg, lp["ln1"], x), rope,
             cache["k"][i], cache["v"][i], cache_len, *scales,
-            page_table=page_table, token_valid=token_valid,
+            page_table=page_table, token_valid=token_valid, slopes=slopes,
         )
         x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
     if head_rows is not None:

@@ -6,16 +6,20 @@ package's layout: nested dicts, the layers stacked along a leading [L] dim,
 projection weights [in, out]. The forward is plain functions on tensors with a
 Python loop over the layers where JAX has ``lax.scan``.
 
-The port covers the Llama family: RoPE, RMSNorm, SwiGLU, grouped-query
-attention, no biases, an untied head. Other families raise
-``NotImplementedError`` (see :func:`check_supported`). For training,
-:func:`loss_fn` is the next-token cross-entropy (dense, or vocab-chunked under
-``ops.cross_entropy.fused_ce_scope``), and :func:`apply` can re-run each
-layer in backward (``remat_policy="full"``).
+The port covers the Llama family (RoPE, RMSNorm, SwiGLU, grouped-query
+attention, no biases, an untied head) and the GPT-2 and BLOOM families:
+LayerNorm with a bias, learned positions or ALiBi slopes, GELU (erf or tanh),
+biases on every projection, a head tied to the token table (its gradient sums
+the lookup's and the head's), BLOOM's embedding LayerNorm. What stays
+unported raises ``NotImplementedError`` (see :func:`check_supported`). For
+training, :func:`loss_fn` is the next-token cross-entropy (dense, or
+vocab-chunked under ``ops.cross_entropy.fused_ce_scope``), and :func:`apply`
+can re-run each layer in backward (``remat_policy="full"``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -27,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import attention
 from ..ops.cross_entropy import chunked_masked_ce, fused_ce_config
 from ..ops.cuda.quantized_matmul import packed_proj
-from ..ops.normalization import rmsnorm
+from ..ops.normalization import layernorm, rmsnorm
 from ..ops.quantizer import cast_floating
 from ..runtime.activation_checkpointing import policy_by_name
 
@@ -68,30 +72,61 @@ class TransformerConfig:
         return self.intermediate_size or 4 * self.hidden_size
 
     def num_params(self) -> int:
+        """Analytic parameter count, the JAX package's formula: biases, the
+        LayerNorm bias, learned positions and the embedding norm included."""
         d, v, L = self.hidden_size, self.vocab_size, self.num_layers
+        ln_width = 2 * d if self.norm == "layernorm" else d  # scale (+bias)
         qkvo = d * self.num_heads * self.hd * 2 + d * self.kv_heads * self.hd * 2
         mlp = (3 if self.activation == "swiglu" else 2) * d * self.ffn
+        biases = 0
+        if self.use_bias:
+            biases += self.num_heads * self.hd + 2 * self.kv_heads * self.hd + d
+            if self.activation != "swiglu":
+                biases += self.ffn + d
+        per_layer = qkvo + mlp + biases + 2 * ln_width
+        embed = v * d + (self.max_seq_len * d if self.pos_embedding == "learned" else 0)
+        if self.embed_norm:
+            embed += ln_width
         head = 0 if self.tie_embeddings else v * d
-        return L * (qkvo + mlp + 2 * d) + v * d + head + d
+        return L * per_layer + embed + head + ln_width
+
+
+POS_EMBEDDINGS = ("rope", "learned", "alibi")
+NORMS = ("rmsnorm", "layernorm")
+ACTIVATIONS = ("swiglu", "gelu", "gelu_new")
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """Raise for a configuration outside this slice of the port."""
+    """Raise for a configuration outside the port's families."""
     missing = []
-    if cfg.pos_embedding != "rope":
-        missing.append(f"pos_embedding={cfg.pos_embedding!r} (ALiBi/learned families)")
-    if cfg.norm != "rmsnorm":
-        missing.append(f"norm={cfg.norm!r} (LayerNorm families)")
-    if cfg.activation != "swiglu":
-        missing.append(f"activation={cfg.activation!r}")
-    if cfg.use_bias or cfg.tie_embeddings or cfg.embed_norm:
-        missing.append("biases, tied embeddings or an embedding norm")
+    if cfg.pos_embedding not in POS_EMBEDDINGS:
+        missing.append(f"pos_embedding={cfg.pos_embedding!r} (the port has "
+                       f"{', '.join(POS_EMBEDDINGS)})")
+    if cfg.norm not in NORMS:
+        missing.append(f"norm={cfg.norm!r} (the port has {', '.join(NORMS)})")
+    if cfg.activation not in ACTIVATIONS:
+        missing.append(f"activation={cfg.activation!r} (the port has "
+                       f"{', '.join(ACTIVATIONS)})")
     if missing:
         raise NotImplementedError(
-            "deepspeed_tpu_torch runs the Llama family only (port slice 1 serves "
-            "it, slice 2 trains it); "
+            "deepspeed_tpu_torch runs the Llama, GPT-2 and BLOOM families; "
             f"not yet ported: {'; '.join(missing)}"
         )
+
+
+def non_llama_features(cfg: TransformerConfig) -> List[str]:
+    """The GPT-2/BLOOM features ``cfg`` turns on: empty for the Llama family.
+    The paths that serve Llama only (quantized and speculative serving, the
+    continuous-batching engine) refuse a config that has any."""
+    checks = [
+        (cfg.norm != "rmsnorm", f"norm={cfg.norm!r}"),
+        (cfg.pos_embedding != "rope", f"pos_embedding={cfg.pos_embedding!r}"),
+        (cfg.activation != "swiglu", f"activation={cfg.activation!r}"),
+        (cfg.use_bias, "biases"),
+        (cfg.tie_embeddings, "a tied head"),
+        (cfg.embed_norm, "an embedding norm"),
+    ]
+    return [what for on, what in checks if on]
 
 
 # -----------------------------------------------------------------------------
@@ -99,34 +134,50 @@ def check_supported(cfg: TransformerConfig) -> None:
 # -----------------------------------------------------------------------------
 def param_specs(cfg: TransformerConfig) -> Params:
     """The parameter tree as (shape, init): init is the normal's std, or
-    None for a norm scale initialised to ones. Shapes and scales are the
-    JAX package's ``init``."""
+    ``"ones"`` for a norm scale and ``"zeros"`` for a bias. Leaves, shapes
+    and scales are the JAX package's ``init``, leaf for leaf: learned
+    positions, the embedding norm, LayerNorm and projection biases where the
+    config has them, and no ``lm_head`` when the head is tied."""
     check_supported(cfg)
     std = cfg.initializer_range
     d, hd, nh, nkv, f = cfg.hidden_size, cfg.hd, cfg.num_heads, cfg.kv_heads, cfg.ffn
     L = cfg.num_layers
+    ln_bias = cfg.norm == "layernorm"
+
+    def norm(lead=()):
+        p = {"scale": ((*lead, d), "ones")}
+        if ln_bias:
+            p["bias"] = ((*lead, d), "zeros")
+        return p
+
+    specs: Params = {"embed": {"tok": ((cfg.vocab_size, d), std)},
+                     "final_norm": norm()}
+    if cfg.pos_embedding == "learned":
+        specs["embed"]["pos"] = ((cfg.max_seq_len, d), std)
+    if cfg.embed_norm:
+        specs["embed_norm"] = norm()
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ((d, cfg.vocab_size), std)
     # residual-branch output projections get depth-scaled init (GPT-2 paper)
     out_std = std / math.sqrt(2 * L)
-    return {
-        "embed": {"tok": ((cfg.vocab_size, d), std)},
-        "final_norm": {"scale": ((d,), None)},
-        "lm_head": ((d, cfg.vocab_size), std),
-        "layers": {
-            "ln1": {"scale": ((L, d), None)},
-            "ln2": {"scale": ((L, d), None)},
-            "attn": {
-                "wq": ((L, d, nh * hd), std),
-                "wk": ((L, d, nkv * hd), std),
-                "wv": ((L, d, nkv * hd), std),
-                "wo": ((L, nh * hd, d), out_std),
-            },
-            "mlp": {
-                "wi": ((L, d, f), std),
-                "wo": ((L, f, d), out_std),
-                "wg": ((L, d, f), std),
-            },
-        },
+    attn = {
+        "wq": ((L, d, nh * hd), std),
+        "wk": ((L, d, nkv * hd), std),
+        "wv": ((L, d, nkv * hd), std),
+        "wo": ((L, nh * hd, d), out_std),
     }
+    if cfg.use_bias:
+        for name, width in (("bq", nh * hd), ("bk", nkv * hd), ("bv", nkv * hd),
+                            ("bo", d)):
+            attn[name] = ((L, width), "zeros")
+    mlp = {"wi": ((L, d, f), std), "wo": ((L, f, d), out_std)}
+    if cfg.activation == "swiglu":
+        mlp["wg"] = ((L, d, f), std)
+    elif cfg.use_bias:
+        mlp["bi"] = ((L, f), "zeros")
+        mlp["bo"] = ((L, d), "zeros")
+    specs["layers"] = {"ln1": norm((L,)), "ln2": norm((L,)), "attn": attn, "mlp": mlp}
+    return specs
 
 
 def init(cfg: TransformerConfig, generator: torch.Generator,
@@ -140,8 +191,10 @@ def init(cfg: TransformerConfig, generator: torch.Generator,
         if isinstance(spec, dict):
             return {k: make(v) for k, v in spec.items()}
         shape, std = spec
-        if std is None:
+        if std == "ones":
             return torch.ones(shape, dtype=dtype, device=device)
+        if std == "zeros":
+            return torch.zeros(shape, dtype=dtype, device=device)
         t = torch.randn(shape, generator=generator, dtype=dtype, device=device)
         return t.mul_(std)
 
@@ -174,8 +227,37 @@ def unstack_layers(layers: Params, num_layers: int) -> List[Params]:
 # building blocks
 # -----------------------------------------------------------------------------
 def _norm(cfg: TransformerConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """RMSNorm in fp32, returned in x's dtype (the kernel fuses the casts)."""
-    return rmsnorm(x, p["scale"], cfg.norm_eps)
+    """RMSNorm or LayerNorm (by ``cfg.norm``) in fp32, returned in x's dtype
+    (the kernels fuse the casts)."""
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, p["scale"], cfg.norm_eps)
+    return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
+
+
+def alibi_slopes(num_heads: int) -> torch.Tensor:
+    """BLOOM's ALiBi head slopes (power-of-2 interpolation), fp32 [H]; the
+    JAX package's ``models/transformer.py:alibi_slopes``, computed in Python
+    floats and rounded once."""
+    closest = 2 ** math.floor(math.log2(num_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3)))
+    slopes = [base ** (i + 1) for i in range(closest)]
+    if closest != num_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3)))
+        slopes += [extra_base ** (2 * i + 1) for i in range(num_heads - closest)]
+    return torch.tensor(slopes, dtype=torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _slopes_on(num_heads: int, device: str) -> torch.Tensor:
+    return alibi_slopes(num_heads).to(device)
+
+
+def model_slopes(cfg: TransformerConfig, device) -> Optional[torch.Tensor]:
+    """The model's ALiBi slopes on ``device`` (made once per device), or
+    None for a model without ALiBi."""
+    if cfg.pos_embedding != "alibi":
+        return None
+    return _slopes_on(cfg.num_heads, str(torch.device(device)))
 
 
 def rope_tables(positions: torch.Tensor, hd: int, theta: float
@@ -208,26 +290,69 @@ def _rope(q: torch.Tensor, k: torch.Tensor, rope) -> Tuple[torch.Tensor, torch.T
 
 def _qkv(cfg: TransformerConfig, p: Params, x: torch.Tensor, rope):
     """The q/k/v projections (each through ``packed_proj``: a dense weight
-    is ``x @ w``, an int8/int4 one the quantized matvec), with RoPE."""
+    is ``x @ w``, an int8/int4 one the quantized matvec), their biases where
+    the model has them, then RoPE when ``rope`` tables are given."""
     B, S, _ = x.shape
     q = packed_proj(x, p["wq"]).view(B, S, cfg.num_heads, cfg.hd)
     k = packed_proj(x, p["wk"]).view(B, S, cfg.kv_heads, cfg.hd)
     v = packed_proj(x, p["wv"]).view(B, S, cfg.kv_heads, cfg.hd)
-    q, k = _rope(q, k, rope)
+    if cfg.use_bias:
+        q = q + p["bq"].view(cfg.num_heads, cfg.hd)
+        k = k + p["bk"].view(cfg.kv_heads, cfg.hd)
+        v = v + p["bv"].view(cfg.kv_heads, cfg.hd)
+    if rope is not None:
+        q, k = _rope(q, k, rope)
     return q, k, v
 
 
-def _attention(cfg: TransformerConfig, p: Params, x: torch.Tensor, rope) -> torch.Tensor:
-    B, S, _ = x.shape
+def out_proj(cfg: TransformerConfig, p: Params, out: torch.Tensor) -> torch.Tensor:
+    """The attention output [B, S, H, hd] through ``wo`` (and ``bo``)."""
+    B, S = out.shape[:2]
+    y = packed_proj(out.reshape(B, S, cfg.num_heads * cfg.hd), p["wo"])
+    return y + p["bo"] if cfg.use_bias else y
+
+
+def _attention(cfg: TransformerConfig, p: Params, x: torch.Tensor, rope,
+               slopes) -> torch.Tensor:
     q, k, v = _qkv(cfg, p, x, rope)
-    out = attention(q, k, v, causal=True)
-    return packed_proj(out.reshape(B, S, cfg.num_heads * cfg.hd), p["wo"])
+    return out_proj(cfg, p, attention(q, k, v, causal=True, alibi_slopes=slopes))
+
+
+def _act(cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
+    """GELU: the tanh form for ``gelu_new`` (GPT-2), the erf form else."""
+    return F.gelu(x, approximate="tanh" if cfg.activation == "gelu_new" else "none")
 
 
 def _mlp(cfg: TransformerConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP, each projection through ``packed_proj``."""
-    return packed_proj(F.silu(packed_proj(x, p["wg"])) * packed_proj(x, p["wi"]),
-                       p["wo"])
+    """SwiGLU MLP, or GELU with its biases; each projection through
+    ``packed_proj``."""
+    if cfg.activation == "swiglu":
+        return packed_proj(F.silu(packed_proj(x, p["wg"])) * packed_proj(x, p["wi"]),
+                           p["wo"])
+    h = packed_proj(x, p["wi"])
+    if cfg.use_bias:
+        h = h + p["bi"]
+    y = packed_proj(_act(cfg, h), p["wo"])
+    return y + p["bo"] if cfg.use_bias else y
+
+
+def embed_tokens(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor,
+                 positions: torch.Tensor, cast=lambda t: t) -> torch.Tensor:
+    """Token rows (plus learned position rows at ``positions``), then the
+    embedding norm where the model has one; ``cast`` casts the looked-up
+    rows and the norm's parameters to the compute dtype."""
+    x = cast(F.embedding(input_ids, params["embed"]["tok"]))
+    if cfg.pos_embedding == "learned":
+        x = x + cast(F.embedding(positions.long(), params["embed"]["pos"]))
+    if cfg.embed_norm:
+        x = _norm(cfg, cast(params["embed_norm"]), x)
+    return x
+
+
+def lm_head_weight(cfg: TransformerConfig, params: Params) -> torch.Tensor:
+    """[d, V] head: the token table's transpose when tied, else
+    ``lm_head``."""
+    return params["embed"]["tok"].t() if cfg.tie_embeddings else params["lm_head"]
 
 
 def lm_head_logits(cfg: TransformerConfig, params: Params,
@@ -237,15 +362,16 @@ def lm_head_logits(cfg: TransformerConfig, params: Params,
     The product runs in the compute dtype; a bf16 product rounds the logits
     to bf16 before the fp32 cast, where the JAX head accumulates and returns
     fp32 without that rounding. fp32 models agree exactly."""
-    return (y @ params["lm_head"].to(y.dtype)).float()
+    return (y @ lm_head_weight(cfg, params).to(y.dtype)).float()
 
 
 def default_positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
-def _layer(cfg: TransformerConfig, lp: Params, x: torch.Tensor, rope) -> torch.Tensor:
-    x = x + _attention(cfg, lp["attn"], _norm(cfg, lp["ln1"], x), rope)
+def _layer(cfg: TransformerConfig, lp: Params, x: torch.Tensor, rope,
+           slopes) -> torch.Tensor:
+    x = x + _attention(cfg, lp["attn"], _norm(cfg, lp["ln1"], x), rope, slopes)
     return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
 
 
@@ -262,16 +388,18 @@ def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
     re-runs each layer in backward when a gradient is being recorded."""
     check_supported(cfg)
     B, S = input_ids.shape
-    x = F.embedding(input_ids, params["embed"]["tok"])
     cast = (lambda t: t) if dtype is None else (lambda t: cast_floating(t, dtype))
-    x = cast(x)
-    rope = rope_tables(default_positions(B, S, x.device), cfg.hd, cfg.rope_theta)
+    positions = default_positions(B, S, input_ids.device)
+    x = embed_tokens(cfg, params, input_ids, positions, cast)
+    rope = (rope_tables(positions, cfg.hd, cfg.rope_theta)
+            if cfg.pos_embedding == "rope" else None)
+    slopes = model_slopes(cfg, x.device)
     remat = policy_by_name(remat_policy) if torch.is_grad_enabled() else None
     for lp in unstack_layers(cast(params["layers"]), cfg.num_layers):
         if remat:
-            x = checkpoint(_layer, cfg, lp, x, rope, use_reentrant=False)
+            x = checkpoint(_layer, cfg, lp, x, rope, slopes, use_reentrant=False)
         else:
-            x = _layer(cfg, lp, x, rope)
+            x = _layer(cfg, lp, x, rope, slopes)
     x = _norm(cfg, cast(params["final_norm"]), x)
     if return_hidden:
         return x
@@ -301,7 +429,8 @@ def loss_fn(cfg: TransformerConfig, params: Params, batch: Dict[str, torch.Tenso
     # one device never shards the vocab: chunk once it spans more than one
     if fused_on and cfg.vocab_size > chunk:
         x = apply(cfg, params, batch["input_ids"], return_hidden=True, **kw)
-        ce, denom = chunked_masked_ce(x, params["lm_head"], batch["labels"], chunk)
+        ce, denom = chunked_masked_ce(x, lm_head_weight(cfg, params), batch["labels"],
+                                      chunk)
     else:
         ce, denom = masked_ce(apply(cfg, params, batch["input_ids"], **kw),
                               batch["labels"])

@@ -8,9 +8,10 @@ a run that should take the kernels keeps at 0. Sources are in
 ``deepspeed_tpu_torch/csrc``; ``_build`` compiles and loads them on first use.
 """
 
-from . import decode_attention, flash_attention, fused_adam, quantized_matmul, rmsnorm
+from . import (decode_attention, flash_attention, fused_adam, layernorm,
+               quantized_matmul, rmsnorm)
 
-KERNEL_MODULES = (flash_attention, decode_attention, rmsnorm, fused_adam,
+KERNEL_MODULES = (flash_attention, decode_attention, rmsnorm, layernorm, fused_adam,
                   quantized_matmul)
 
 

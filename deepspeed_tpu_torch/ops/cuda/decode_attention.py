@@ -20,6 +20,13 @@ package runs that window as XLA's masked softmax (``models/decoding.py``
 lines 365-444), row for row the same function. A negative frontier (a
 padded row) attends nothing and gives zeros, as the TPU kernels do.
 
+``slopes`` (fp32 [H], BLOOM's ALiBi) subtract slope * (frontier - key
+position) from each score before the mask, the function the JAX package's
+XLA path computes for every ALiBi step after a fresh prefill
+(``models/decoding.py`` lines 424-438; its Pallas decode kernel has no
+slope). Every form takes them; ``slopes=None`` leaves a score's arithmetic as
+it was.
+
 Bound on the H100: bytes, the K and V rows up to each sequence's furthest
 frontier over 3.35 TB/s. One 128-thread block per (kv head, query row) shares
 every K/V tile among the G query heads of the group and loops over key tiles
@@ -39,10 +46,13 @@ from typing import Optional
 import torch
 
 from . import _build
+from .flash_attention import form_suffix, slopes_ptr
 
-# kernel launches since the last reset
-launches = {"decode_attention": 0, "decode_attention_int8": 0,
-            "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
+# kernel launches since the last reset; the ALiBi form counts apart
+launches = {name + form: 0 for name in ("decode_attention", "decode_attention_int8",
+                                        "paged_decode_attention",
+                                        "paged_decode_attention_int8")
+            for form in ("", "_alibi")}
 # calls of the plain attention on CUDA tensors since the last reset: a
 # serving run that should take the kernels keeps it at 0
 plain_on_cuda = {"decode_attention_plain": 0}
@@ -58,10 +68,12 @@ def dequantize_cache(cache: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def _attend_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                  qpos: torch.Tensor, k_scale=None, v_scale=None) -> torch.Tensor:
+                  qpos: torch.Tensor, k_scale=None, v_scale=None,
+                  slopes=None) -> torch.Tensor:
     """q [B,S,H,hd] at positions ``qpos`` [B or 1, S] against k/v [B,Smax,KV,hd]:
     each query sees the cache positions at or before its own; a negative
-    position sees none and gives zeros. fp32 softmax, output in q's dtype."""
+    position sees none and gives zeros. With ALiBi ``slopes`` [H] each score
+    gets slope * -|kpos - qpos| first. fp32 softmax, output in q's dtype."""
     if q.is_cuda:
         plain_on_cuda["decode_attention_plain"] += 1
     hd, H = q.shape[3], q.shape[2]
@@ -73,6 +85,9 @@ def _attend_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     vf = v_cache.float().repeat_interleave(H // KV, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / math.sqrt(hd))
     kpos = torch.arange(Smax, device=q.device)[None, None, None, :]
+    if slopes is not None:
+        rel = -(kpos - qpos[:, None, :, None]).abs().float()
+        s = s + slopes.float().to(q.device)[None, :, None, None] * rel
     s = torch.where(kpos <= qpos[:, None, :, None], s, NEG_INF)
     out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vf)
     out = torch.where(qpos[:, :, None, None] >= 0, out, 0.0)
@@ -82,7 +97,8 @@ def _attend_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
 def cached_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, cache_len,
                            k_scale: Optional[torch.Tensor] = None,
-                           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           v_scale: Optional[torch.Tensor] = None,
+                           slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attend S new queries against a cache that already holds them.
 
     q [B,S,H,hd]; k/v_cache [B,Smax,KV,hd]; cache_len an int or a per-row
@@ -102,16 +118,17 @@ def cached_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     moved a greedy token of Llama-3-8B on the H100. The XLA path keeps the
     dequantized rows in fp32; rounding them to q's dtype, as the decode
     kernel does, keeps this function's window rows on the values
-    single-token decode sees (in fp32 the two are the same)."""
+    single-token decode sees (in fp32 the two are the same). ``slopes``: ALiBi, as
+    the module says."""
     S = q.shape[1]
     qpos = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1) \
         + torch.arange(S, device=q.device)[None, :]
-    return _attend_plain(q, k_cache, v_cache, qpos, k_scale, v_scale)
+    return _attend_plain(q, k_cache, v_cache, qpos, k_scale, v_scale, slopes)
 
 
 def decode_rows_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                       frontier: torch.Tensor, k_scale=None, v_scale=None,
-                      rows_per_seq: int = 1) -> torch.Tensor:
+                      rows_per_seq: int = 1, slopes=None) -> torch.Tensor:
     """The kernel's function for R = ``rows_per_seq`` rows a sequence:
     q [N*R,1,H,hd] rows, row r of sequence r // R with its own frontier
     ``frontier`` [N*R] (negative: zeros). Each sequence's cache is cut to
@@ -131,9 +148,9 @@ def decode_rows_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
             continue  # every row padded: zeros
         m = min(top + 1, k_cache.shape[1])
         scales = ((k_scale[n:n + 1, :, :m], v_scale[n:n + 1, :, :m])
-                  if k_scale is not None else ())
+                  if k_scale is not None else (None, None))
         out[n] = _attend_plain(qs[n:n + 1], k_cache[n:n + 1, :m], v_cache[n:n + 1, :m],
-                               fr[n:n + 1], *scales)[0]
+                               fr[n:n + 1], *scales, slopes)[0]
     return out.reshape(rows, 1, H, hd)
 
 
@@ -141,14 +158,16 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, cache_len,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None,
-                           rows_per_seq: int = 1) -> torch.Tensor:
+                           rows_per_seq: int = 1,
+                           slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The decode kernel's function in plain PyTorch (q [rows,1,H,hd])."""
     if q.shape[1] != 1:
         raise ValueError(f"decode attention is single-token, got {q.shape[1]}")
     if rows_per_seq != 1:
         return decode_rows_plain(q, k_cache, v_cache, cache_len, k_scale, v_scale,
-                                 rows_per_seq)
-    return cached_attention_plain(q, k_cache, v_cache, cache_len, k_scale, v_scale)
+                                 rows_per_seq, slopes)
+    return cached_attention_plain(q, k_cache, v_cache, cache_len, k_scale, v_scale,
+                                  slopes)
 
 
 def gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -172,15 +191,16 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                  page_table: torch.Tensor,
                                  k_scale: Optional[torch.Tensor] = None,
                                  v_scale: Optional[torch.Tensor] = None,
-                                 rows_per_seq: int = 1) -> torch.Tensor:
+                                 rows_per_seq: int = 1,
+                                 slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The paged kernel's function in plain PyTorch: the dense plain version
     over the pages gathered into per-sequence views."""
     scales = ((gather_page_scales(k_scale, page_table),
                gather_page_scales(v_scale, page_table))
-              if k_scale is not None else ())
+              if k_scale is not None else (None, None))
     return decode_attention_plain(q, gather_pages(k_pool, page_table),
                                   gather_pages(v_pool, page_table), cache_len,
-                                  *scales, rows_per_seq=rows_per_seq)
+                                  *scales, rows_per_seq=rows_per_seq, slopes=slopes)
 
 
 def _check_common(name, q, k, v, k_scale, v_scale, tensors):
@@ -228,20 +248,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None,
-                     rows_per_seq: int = 1) -> torch.Tensor:
+                     rows_per_seq: int = 1,
+                     slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [B*R,1,H,hd] against one cache layer k/v_cache [B,Smax,KV,hd]
     whose positions up to each row's frontier already hold the new tokens;
     row r reads sequence r // R (R = ``rows_per_seq``). ``cache_len`` is an
     int for every row, or an int tensor of each row's frontier ([B*R], or [B]
     when R = 1). An int8 cache comes with its fp32 scales [B,KV,Smax] (one
-    layer of the [L,B,KV,Smax] scale caches, read in place). Returns
-    [B*R,1,H,hd].
+    layer of the [L,B,KV,Smax] scale caches, read in place); ``slopes`` are
+    ALiBi's fp32 [H]. Returns [B*R,1,H,hd].
 
     CPU tensors take :func:`decode_attention_plain`; CUDA tensors launch the
     kernel, or raise on what it does not take."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len, k_scale,
-                                      v_scale, rows_per_seq)
+                                      v_scale, rows_per_seq, slopes)
     lib = _build.library()
     rows = q.shape[0]
     B, Smax = k_cache.shape[0], k_cache.shape[1]
@@ -255,6 +276,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         )
     if int8 and (k_scale.shape != (B, KV, Smax) or v_scale.shape != (B, KV, Smax)):
         raise ValueError(f"decode_attention: scales must be [{B}, {KV}, {Smax}]")
+    sl = slopes_ptr("decode_attention", slopes, q)
     code = _build.dtype_code(q.dtype)
     cl_ptr, cl_scalar, cl = None, 0, None
     if isinstance(cache_len, torch.Tensor):
@@ -270,17 +292,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), *common,
             *k_scale.stride()[:2], *v_scale.stride()[:2],
-            1.0 / math.sqrt(hd), code, stream,
+            sl, 1.0 / math.sqrt(hd), code, stream,
         )
         name = "decode_attention_int8"
     else:
         status = lib.dst_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-            *common, 1.0 / math.sqrt(hd), code, stream,
+            *common, sl, 1.0 / math.sqrt(hd), code, stream,
         )
         name = "decode_attention"
     _build.check(status, name)
-    launches[name] += 1
+    launches[name + form_suffix(slopes)] += 1
     return out
 
 
@@ -289,20 +311,22 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            page_table: torch.Tensor,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None,
-                           rows_per_seq: int = 1) -> torch.Tensor:
+                           rows_per_seq: int = 1,
+                           slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [N*R,1,H,hd] against one layer of a page pool k/v_pool
     [P+1,ps,KV,hd] through the page tables ``page_table`` [N, mp] (int32
     physical page per logical page; unmapped entries name the NULL page P,
     which no frontier reaches). Row r reads sequence r // R at its frontier
     ``cache_len`` (an int tensor, [N*R], or [N] when R = 1). An int8 pool
-    comes with its fp32 scale pools [P+1,KV,ps]. Returns [N*R,1,H,hd].
+    comes with its fp32 scale pools [P+1,KV,ps]; ``slopes`` are ALiBi's fp32
+    [H]. Returns [N*R,1,H,hd].
 
     CPU tensors take :func:`paged_decode_attention_plain`; CUDA tensors
     launch the kernel, or raise on what it does not take. The page table's
     entries are not read on the host: each must name a page of the pool."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, cache_len, page_table,
-                                            k_scale, v_scale, rows_per_seq)
+                                            k_scale, v_scale, rows_per_seq, slopes)
     lib = _build.library()
     rows = q.shape[0]
     P1, ps = k_pool.shape[0], k_pool.shape[1]
@@ -323,6 +347,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if not isinstance(cache_len, torch.Tensor):
         cache_len = torch.tensor([int(cache_len)])
     cl, cl_ptr = _frontier(cache_len, rows, q.device)
+    sl = slopes_ptr("paged_decode_attention", slopes, q)
     code = _build.dtype_code(q.dtype)
     out = torch.empty((rows, 1, H, hd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -333,15 +358,15 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), *common,
             *k_scale.stride()[:2], *v_scale.stride()[:2],
-            1.0 / math.sqrt(hd), code, stream,
+            sl, 1.0 / math.sqrt(hd), code, stream,
         )
         name = "paged_decode_attention_int8"
     else:
         status = lib.dst_paged_decode_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
-            *common, 1.0 / math.sqrt(hd), code, stream,
+            *common, sl, 1.0 / math.sqrt(hd), code, stream,
         )
         name = "paged_decode_attention"
     _build.check(status, name)
-    launches[name] += 1
+    launches[name + form_suffix(slopes)] += 1
     return out

@@ -16,7 +16,7 @@ returned loss is a device tensor.
 
 Where the JAX engine traces one program, the port runs eagerly: the
 ``tpu_kernels`` section picks the kernels (flash attention forward and
-backward, the RMSNorm kernels, the fused Adam kernel, the chunked CE) through
+backward, the RMSNorm or LayerNorm kernels, the fused Adam kernel, the chunked CE) through
 scoped selections entered around each step. Everything outside this slice
 raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """

@@ -27,8 +27,9 @@ nothing), the norms the RMSNorm kernel, and the head runs on each slot's
 sampled row only. The arena is updated in place.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: ``serving.spec`` (slot-engine speculative decode) and
-``serving.host_pages`` (KV tiering), A4; ``serving.fleet``, A9; the
+item: ``serving.spec`` (slot-engine speculative decode),
+``serving.host_pages`` (KV tiering) and the GPT-2/BLOOM families (their
+``InferenceEngine.generate`` is ported), A4; ``serving.fleet``, A9; the
 ``steptrace`` and ``healthwatch`` arguments, A10. Also waiting:
 ``trace_export``, ``analytic_streams``, ``parity_pairs``, the page
 export/import of the fleet handoff, ``trace_serving_step`` and MoE serving.
@@ -46,6 +47,7 @@ from ..config import DeepSpeedConfigError, ServingConfig, _parse_dc
 from ..inference.engine import InferenceEngine, _align_cache, init_inference
 from ..models.decoding import (forward_with_cache, init_cache, init_paged_cache,
                                paged_cow_copy, verify_window_rows)
+from ..models.transformer import non_llama_features
 from ..utils.logging import log_dist
 from .metrics import ServingMetrics
 from .request import Request, RequestState
@@ -95,6 +97,11 @@ class ServingEngine:
             later.append("serving.fleet (the replicated serving tier, ROADMAP A9)")
         if steptrace is not None or healthwatch is not None:
             later.append("steptrace / healthwatch (observability, ROADMAP A10)")
+        source = engine if engine is not None else model
+        family = non_llama_features(source.config) if source is not None else []
+        if family:
+            later.append("a GPT-2/BLOOM model (" + ", ".join(family) + "): "
+                         "continuous batching of these families, ROADMAP A4")
         if later:
             raise NotImplementedError(
                 "deepspeed_tpu_torch serving: not yet ported: " + "; ".join(later))

@@ -108,7 +108,14 @@ def test_presets_and_unsupported_families():
         (4096, 32, 32, 8, 128, 14336, 128256, 500000.0)
     assert abs(llama("llama3-8b").num_params() / 1e9 - 8.03) < 0.01
     check_supported(cfg)
-    for bad in (dict(norm="layernorm"), dict(pos_embedding="alibi"),
-                dict(use_bias=True), dict(activation="gelu")):
-        with pytest.raises(NotImplementedError, match="slice 1"):
+    # the GPT-2/BLOOM features are ported (slice 5) and accepted
+    for ok in (dict(norm="layernorm"), dict(pos_embedding="alibi"),
+               dict(pos_embedding="learned"), dict(use_bias=True),
+               dict(activation="gelu"), dict(activation="gelu_new"),
+               dict(tie_embeddings=True), dict(embed_norm=True)):
+        check_supported(TransformerConfig(**ok))
+    # what stays unported still raises
+    for bad in (dict(pos_embedding="none"), dict(norm="batchnorm"),
+                dict(activation="relu")):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
             check_supported(TransformerConfig(**bad))
