@@ -24,10 +24,16 @@ order, any failure exiting non-zero:
    forward at bloom-7b1's prefill, of the flash forward and backward at
    bloom-560m's micro-batch and of the decode kernel at bloom-7b1's decode
    step, and every Llama form with nullptr slopes bitwise equal to slopes of
-   zero): max abs error against a stated tolerance, and the kernel's, plain
-   version's and library call's times (CUDA events, median of single
-   launches with L2 flushed before each) beside the bound, one row per
-   kernel and path; then the other shapes and dtypes the wrappers take;
+   zero; the segment-id, bias + segment and block-sparse forms of the
+   flash forward, dq and dk/dv kernels at training_packed's,
+   training_bloom_packed's and training_sparse's shapes, the dq kernel's
+   dbias of the full positions bias, a "bigbird" layout with segments and
+   other shapes of each form; the broadcast-bias gradient kernel at
+   attention_bias's [1, 16, 2048, 2048] and smaller shapes, each dbias two
+   runs bitwise equal): max abs error against a stated tolerance, and the
+   kernel's, plain version's and library call's times (CUDA events, median
+   of single launches with L2 flushed before each) beside the bound, one row
+   per kernel and path; then the other shapes and dtypes the wrappers take;
 4. serving reference checks: two-layer full-width Llama-3-8B, BLOOM-7B1 and
    GPT-2-XL, kernel path against plain path, prefill and three cached
    decode steps;
@@ -35,7 +41,12 @@ order, any failure exiting non-zero:
    (``llama3-1b``) and BLOOM-560M, the kernel path against the plain path
    (loss, per-leaf gradients, then after three train_batch steps the
    masters' moves, the Adam moments and the grad norm), and ``full`` remat
-   against ``none`` (bitwise);
+   against ``none`` (bitwise); then the same kernel-against-plain check for
+   llama3-1b on packed batches (segment ids and restarted positions), for
+   bloom-560m on packed batches (the positions' dense ALiBi bias) and for
+   llama3-1b under the "fixed" sparse_attention section; and the oracle
+   packed equals unpacked: on two layers of llama3-1b and bloom-560m each
+   document's logits from a packed row equal that document run alone;
 6. the training main path: initialize(llama("llama3-1b")) at full depth, bf16
    over fp32 masters, AdamW, ZeRO 0, micro-batch 4 x 2 accumulation steps of
    2048 tokens, 10 steps on one seeded batch; the loss must be finite and fall;
@@ -89,7 +100,15 @@ order, any failure exiting non-zero:
 14. ``training_bloom``: 6's training path on bloom("bloom-560m") at full
    width and depth: the LayerNorm forward and backward kernels, the ALiBi
    flash forward and backward and fused Adam must have run;
-15. the kernels line (one JSON object, one entry per kernel and main path,
+15. ``training_packed``, ``training_bloom_packed``, ``training_sparse``:
+   6's path on llama3-1b with packed batches (documents of 128-1536 tokens,
+   seeded, the last cut at the row's end), on bloom-560m with the same
+   packing, and on llama3-1b with the "fixed" sparse_attention section; 10
+   steps each, MFU over the visible attention pairs only; the counters must
+   show each path's masked flash forms ran;
+16. ``attention_bias``: the attention op with a learned [1, 16, 2048, 2048]
+   bias, three forward+backward steps; the bias-gradient kernel must run;
+17. the kernels line (one JSON object, one entry per kernel and main path,
    with that path's launches), then the device line (last line).
 """
 
@@ -111,9 +130,11 @@ from deepspeed_tpu_torch.models import bloom, gpt2, llama
 from deepspeed_tpu_torch.models.decoding import (_quantize_kv, _window_rows,
                                                  forward_with_cache, init_cache,
                                                  init_paged_cache)
-from deepspeed_tpu_torch.models.transformer import alibi_slopes, apply
+from deepspeed_tpu_torch.config import SparseAttentionConfig
+from deepspeed_tpu_torch.models.transformer import (alibi_position_bias, alibi_slopes,
+                                                    apply)
 from deepspeed_tpu_torch.ops import cuda as kernels
-from deepspeed_tpu_torch.ops.attention import attention_impl
+from deepspeed_tpu_torch.ops.attention import attention, attention_impl
 from deepspeed_tpu_torch.ops.cuda import _build
 from deepspeed_tpu_torch.ops.cuda import decode_attention as dec
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
@@ -123,6 +144,10 @@ from deepspeed_tpu_torch.ops.cuda import quantized_matmul as qmm
 from deepspeed_tpu_torch.ops.cuda import rmsnorm as rn
 from deepspeed_tpu_torch.ops.normalization import kernel_rmsnorm_scope
 from deepspeed_tpu_torch.ops.quantizer import PackedWeight, pack_quantize_blockwise
+from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
+                                                      BSLongformerSparsityConfig,
+                                                      VariableSparsityConfig,
+                                                      from_ds_config, sparse_layout)
 from deepspeed_tpu_torch.serving import Request, RequestStatus
 from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -188,6 +213,14 @@ KERNELS = {
         "source": "deepspeed_tpu_torch/csrc/layernorm_bwd.cu",
         "replaces": "deepspeed_tpu/ops/pallas/layernorm.py:37",
     },
+    # the segment-id (has_seg), bias + segment (has_bias) and block-sparse
+    # (sparse) forms, flash_attention.py:94-175
+    **{f"{name}{form}": {"source": f"deepspeed_tpu_torch/csrc/{src}",
+                         "replaces": f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}"}
+       for name, src, line in (("flash_attention_fwd", "flash_attention_fwd.cu", 175),
+                               ("flash_attention_bwd_dq", "flash_attention_bwd.cu", 455),
+                               ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 517))
+       for form in ("_seg", "_bias_seg", "_sparse")},
     # the ALiBi forms (has_alibi, flash_attention.py:94-113)
     "flash_attention_fwd_alibi": {
         "source": "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -200,6 +233,11 @@ KERNELS = {
     "flash_attention_bwd_dkv_alibi": {
         "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:517",
+    },
+    # the bias-gradient kernel of a broadcast dense bias
+    "flash_attention_bias_grad": {
+        "source": "deepspeed_tpu_torch/csrc/flash_attention_bias_grad.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:570",
     },
     # the decode kernel with slopes; the TPU package runs these steps on XLA
     # (models/decoding.py:424-438) since its Pallas kernel takes no slope
@@ -233,6 +271,20 @@ GPT2_SERVING_KERNELS = ("flash_attention_fwd", "decode_attention", "layernorm_fw
 BLOOM_TRAINING_KERNELS = ("flash_attention_fwd_alibi", "flash_attention_bwd_dq_alibi",
                           "flash_attention_bwd_dkv_alibi", "layernorm_fwd",
                           "layernorm_bwd", "fused_adam")
+# the packed, positions-bias and block-sparse training paths
+PACKED_KERNELS = ("flash_attention_fwd_seg", "flash_attention_bwd_dq_seg",
+                  "flash_attention_bwd_dkv_seg", "rmsnorm_fwd", "rmsnorm_bwd", "fused_adam")
+BLOOM_PACKED_KERNELS = ("flash_attention_fwd_bias_seg", "flash_attention_bwd_dq_bias_seg",
+                        "flash_attention_bwd_dkv_bias_seg", "layernorm_fwd",
+                        "layernorm_bwd", "fused_adam")
+SPARSE_KERNELS = ("flash_attention_fwd_sparse", "flash_attention_bwd_dq_sparse",
+                  "flash_attention_bwd_dkv_sparse", "rmsnorm_fwd", "rmsnorm_bwd",
+                  "fused_adam")
+# packed documents: lengths uniform in [DOC_MIN, DOC_MAX], seeded
+DOC_MIN, DOC_MAX, PACKED_SEED = 128, 1536, 6
+# DeepSpeed's default sparsity mode at the flash kernels' 128-token block
+SPARSE_SECTION = {"mode": "fixed", "block": 128, "num_local_blocks": 4,
+                  "num_global_blocks": 1}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1150,6 +1202,313 @@ def check_alibi(gen, timer):
             timed["dq"], timed["dkv"], decode)
 
 
+# ---------------------------------------------------------------------------
+# packed sequences, positions as a dense ALiBi bias, block-sparse attention
+# ---------------------------------------------------------------------------
+def packed_rows(rows: int, S: int, seed: int):
+    """Seeded packed rows: documents of lengths uniform in [DOC_MIN, DOC_MAX]
+    concatenated, the last one cut at the row's end. Returns numpy
+    (segment_ids [rows, S] counting up from 0, positions [rows, S] restarting
+    at every document, each row's document lengths)."""
+    rng = np.random.RandomState(seed)
+    seg = np.zeros((rows, S), np.int64)
+    pos = np.zeros((rows, S), np.int64)
+    docs = []
+    for r in range(rows):
+        lens, at = [], 0
+        while at < S:
+            n = min(int(rng.randint(DOC_MIN, DOC_MAX + 1)), S - at)
+            seg[r, at:at + n] = len(lens)
+            pos[r, at:at + n] = np.arange(n)
+            lens.append(n)
+            at += n
+        docs.append(lens)
+    return seg, pos, docs
+
+
+def packed_batch(ids: torch.Tensor, seed: int) -> dict:
+    """A packed batch over token rows ``ids`` [rows, S]: segment ids,
+    positions, and labels the next token inside each document, -1 on its
+    last token (Megatron's reset_position_ids, HF's
+    DataCollatorWithFlattening)."""
+    seg, pos, _ = packed_rows(*ids.shape, seed)
+    seg = torch.from_numpy(seg).to(ids.device)
+    last = torch.ones_like(seg, dtype=torch.bool)
+    last[:, :-1] = seg[:, 1:] != seg[:, :-1]
+    labels = torch.cat([ids[:, 1:], ids[:, :1]], dim=1).masked_fill(last, -1)
+    return {"input_ids": ids, "labels": labels, "segment_ids": seg,
+            "positions": torch.from_numpy(pos).to(ids.device)}
+
+
+def packed_pairs(rows: int, S: int, seed: int) -> float:
+    """Visible causal (query, key) pairs of ``packed_rows``' rows, per head."""
+    return float(sum(n * (n + 1) // 2 for lens in packed_rows(rows, S, seed)[2]
+                     for n in lens))
+
+
+def layout_pairs(layout: np.ndarray, S: int) -> float:
+    """Visible causal (query, key) pairs of one sequence under a causally
+    trimmed block layout, per head."""
+    blk = S // layout.shape[0]
+    return float(sum(blk * (blk + 1) // 2 if i == j else blk * blk
+                     for i, j in zip(*np.nonzero(layout))))
+
+
+def sparse_fixed_layout(S: int) -> np.ndarray:
+    """training_sparse's layout at S: the "fixed" section, causally trimmed."""
+    return sparse_layout(from_ds_config(SparseAttentionConfig(**SPARSE_SECTION)), S, True)
+
+
+def masked_library_mask(S, causal_seg=None, bias=None, layout=None):
+    """The SDPA mask equivalent to a masked form: bool [B|1, 1, S, S] (causal,
+    segments, layout), or with a bias the bf16 float mask [B, H, S, S]
+    (bias where visible, -inf elsewhere)."""
+    vis = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()[None, None]
+    if causal_seg is not None:
+        vis = vis & (causal_seg[:, None, :, None] == causal_seg[:, None, None, :])
+    if layout is not None:
+        vis = vis & fa.layout_mask(layout, S, "cuda")
+    if bias is None:
+        return vis
+    return bias.masked_fill(~vis, float("-inf")).to(BF16)
+
+
+def check_masked_forms(gen, timer):
+    """The segment-id, bias + segment and block-sparse forms of the flash
+    forward, dq and dk/dv kernels at their paths' shapes (training_packed:
+    llama3-1b's B=4 S=2048 H=32 KV=8 D=64 with packed segments;
+    training_bloom_packed: bloom-560m's H=KV=16 with the [4, 16, 2048, 2048]
+    fp32 positions bias and segments; training_sparse: llama3-1b's shape
+    under the "fixed" layout), each against its plain version (the dk/dv
+    kernel on the plain delta), with the dq kernel's dbias output of the
+    full bias (two runs bitwise equal); then a "bigbird" layout (random
+    columns) with segment ids and other shapes. Returns timed rows keyed
+    (kernel, path)."""
+    tol, tol_lse, tol_delta = 2e-2, 1e-3, 1e-4
+    B, S, D = TRAIN_B, TRAIN_S, 64
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=BF16)
+
+    seg_np, pos_np, _ = packed_rows(B, S, PACKED_SEED)
+    seg = torch.from_numpy(seg_np).int().cuda()
+    pos = torch.from_numpy(pos_np).cuda()
+    fixed = sparse_fixed_layout(S)
+    seg_pairs = packed_pairs(B, S, PACKED_SEED)
+    rows = {}
+    for path, H, KV, kw, pairs_bh in (
+            ("training_packed", 32, 8, {"segment_ids": seg}, seg_pairs),
+            ("training_bloom_packed", 16, 16,
+             {"segment_ids": seg,
+              "bias": alibi_position_bias(pos, alibi_slopes(16).cuda())}, seg_pairs),
+            ("training_sparse", 32, 8, {"layout": fixed}, B * layout_pairs(fixed, S))):
+        form = fa.form_suffix(None, kw.get("bias"), kw.get("segment_ids"),
+                              kw.get("layout"))
+        q, k, v, do = rand(B, S, H, D), rand(B, S, KV, D), rand(B, S, KV, D), rand(B, S, H, D)
+        out, lse = fa.flash_attention_fwd(q, k, v, True, **kw)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, True, **kw)
+        errs = {"out": (max_err(out, ref), tol), "lse": (max_err(lse, ref_lse), tol_lse)}
+        del ref, ref_lse
+        emit = "bias" in kw
+        got = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, True, **kw, emit_dbias=emit)
+        want = fa.flash_attention_bwd_dq_plain(q, k, v, out, lse, do, True, **kw,
+                                               emit_dbias=emit)
+        rdelta = want[1]
+        for n, a, w in zip(("dq", "delta", "dbias"), got, want):
+            m = w.float().abs().max().item()
+            errs[n] = (max_err(a, w), (tol_delta if n == "delta" else tol) * m)
+        if emit:
+            again = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, True, **kw,
+                                              emit_dbias=True)[2]
+            same = torch.equal(got[2], again)
+            print(f"flash_attention_bwd_dq{form} dbias [{B}, {H}, {S}, {S}] "
+                  f"{got[2].dtype}: two runs bitwise equal: {same}")
+            require(same, "the dq kernel's dbias differs between two runs")
+            del again
+        del got, want
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, rdelta, do, True, **kw)
+        rdk, rdv = fa.flash_attention_bwd_dkv_plain(q, k, v, lse, rdelta, do, True, **kw)
+        for n, a, w in (("dk", dk, rdk), ("dv", dv, rdv)):
+            errs[n] = (max_err(a, w), tol * w.float().abs().max().item())
+        del dk, dv, rdk, rdv
+        print(f"flash{form} ({path}) B={B} S={S} H={H} KV={KV} D={D} causal: "
+              + ", ".join(f"{n} max_abs_err {e:.3e} (tol {t:.3e})" for n, (e, t) in
+                          errs.items()))
+        for n, (e, t) in errs.items():
+            require(e <= t, f"flash{form} {n} disagrees with its plain version")
+        torch.cuda.empty_cache()
+
+        # timing at the path's shape; SDPA on heads repeated to H (its
+        # memory-efficient kernel takes a mask, not a GQA group)
+        mask = masked_library_mask(S, kw.get("segment_ids"), kw.get("bias"),
+                                   kw.get("layout"))
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+                  for t in (k, v))
+        pairs = pairs_bh * H
+        bias_bytes = 4 * pairs if emit else 0  # the fp32 bias at the visible pairs
+        rows_b = 4 * B * H * S
+        b_fwd = bound(4 * D * pairs, 2 * (2 * q.numel() + k.numel() + v.numel()) + rows_b
+                      + bias_bytes)
+        b_dq = bound(6 * D * pairs, 2 * (3 * q.numel() + k.numel() + v.numel() + q.numel())
+                     + 2 * rows_b + bias_bytes)
+        b_dkv = bound(8 * D * pairs, 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel())
+                      + 2 * rows_b + bias_bytes)
+        shape = (f"B={B} S={S} H={H} KV={KV} D={D} causal {form[1:]} "
+                 f"({pairs_bh:.0f} visible pairs per head)")
+        rows[("flash_attention_fwd" + form, path)] = {
+            "max_abs_err": errs["out"][0],
+            "ms": timer(lambda: fa.flash_attention_fwd(q, k, v, True, **kw)),
+            "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v, True, **kw)),
+            "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask)),
+            "bound_ms": b_fwd[0], "bound_by": b_fwd[1],
+            "shape": shape + " (library: SDPA with the equivalent mask)",
+        }
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        dot = do.transpose(1, 2).contiguous()
+        lib_ms = timer(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dot,
+                                                   retain_graph=True))
+        rows[("flash_attention_bwd_dq" + form, path)] = {
+            "max_abs_err": errs["dq"][0],
+            "ms": timer(lambda: fa.flash_attention_bwd_dq(q, k, v, out, lse, do, True,
+                                                          **kw)),
+            "plain_ms": timer(lambda: fa.flash_attention_bwd_dq_plain(
+                q, k, v, out, lse, do, True, **kw)),
+            "library_ms": lib_ms, "bound_ms": b_dq[0], "bound_by": b_dq[1],
+            "shape": shape + " (library: SDPA backward with the mask, dq+dk+dv)",
+        }
+        rows[("flash_attention_bwd_dkv" + form, path)] = {
+            "max_abs_err": max(errs["dk"][0], errs["dv"][0]),
+            "ms": timer(lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, rdelta, do, True,
+                                                           **kw)),
+            "plain_ms": timer(lambda: fa.flash_attention_bwd_dkv_plain(
+                q, k, v, lse, rdelta, do, True, **kw)),
+            "library_ms": lib_ms, "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
+            "shape": shape + " (library: same call)",
+        }
+        del q, k, v, do, out, lse, qt, kt, vt, qg, kg, vg, lib_out, dot, mask, kw
+        torch.cuda.empty_cache()
+
+    cases = []
+    bigbird = sparse_layout(BigBirdSparsityConfig(block=128), S, True)
+    for B2, S2, H, KV, D2, causal, kw in (
+            (B, S, 32, 8, 64, True, {"layout": bigbird, "segment_ids": seg}),
+            (2, 300, 8, 2, 128, True, {"segment_ids": seg[:2, :300].contiguous()}),
+            (2, 256, 4, 4, 64, False, {"segment_ids": seg[:2, -256:].contiguous()}),
+            (1, 512, 12, 4, 64, True, {"segment_ids": seg[:1, :512].contiguous(),
+                                       "slopes": alibi_slopes(12).cuda()}),
+            (2, 384, 8, 8, 128, False, {"bias": 0.5 * rand(1, 8, 384, 384).float(),
+                                        "segment_ids": seg[:2, 100:484].contiguous()}),
+            (2, 512, 8, 2, 128, False, {"layout": sparse_layout(
+                BSLongformerSparsityConfig(block=128), 512, False)}),
+            (1, 512, 8, 2, 64, True, {"layout": sparse_layout(
+                VariableSparsityConfig(block=256, num_random_blocks=1), 512, True),
+                "slopes": alibi_slopes(8).cuda()})):
+        sl = kw.pop("slopes", None)
+        q, k, v, do = (rand(B2, S2, H, D2), rand(B2, S2, KV, D2), rand(B2, S2, KV, D2),
+                       rand(B2, S2, H, D2))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, sl, **kw)
+        ro, rlse = fa.flash_attention_plain(q, k, v, causal, sl, **kw)
+        form = fa.form_suffix(sl, kw.get("bias"), kw.get("segment_ids"), kw.get("layout"))
+        name = f"flash{form} B={B2} S={S2} H={H} KV={KV} D={D2} causal={causal}"
+        cases.append((name + " out", max_err(o, ro), tol))
+        cases.append((name + " lse", max_err(lse, rlse), tol_lse))
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, sl, **kw,
+                                     bias_grad="bias" in kw)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal, sl, **kw,
+                                            bias_grad="bias" in kw)
+        for n, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+            cases.append((f"{name} {n}", max_err(a, w), tol * w.float().abs().max().item()))
+        del q, k, v, do, o, lse, ro, rlse, got, want
+    for name, err, t in cases:
+        print(f"{name}: max_abs_err {err:.3e} (tol {t:.3e})")
+        require(err <= t, f"{name} disagrees with its plain version")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_bias_grad(gen, timer):
+    """The broadcast-bias gradient kernel: [1, 16, 2048, 2048] fp32 at B=4
+    D=64 causal (the attention_bias path's shape), timed; then [4, 1, S, S]
+    and [1, 1, S, S] at S=512 (causal, with segment ids; bf16 and fp32), and
+    [1, 8, 384, 384] non-causal, each against its plain version on the same
+    delta; two runs of each bitwise equal. Returns the timed row."""
+    tol = 1e-2  # of the largest value: dp and the score from bf16 products
+
+    def rand(*shape, dtype=BF16):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+    def one(B, S, H, KV, bias, causal, seg=None):
+        q, k, v, do = rand(B, S, H, 64), rand(B, S, KV, 64), rand(B, S, KV, 64), rand(B, S, H, 64)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, bias=bias, segment_ids=seg)
+        _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal, bias=bias,
+                                             segment_ids=seg)
+        db = fa.flash_attention_bias_grad(q, k, v, bias, lse, delta, do, causal,
+                                          segment_ids=seg)
+        again = fa.flash_attention_bias_grad(q, k, v, bias, lse, delta, do, causal,
+                                             segment_ids=seg)
+        ref = fa.flash_attention_bias_grad_plain(q, k, v, bias, lse, delta, do, causal,
+                                                 segment_ids=seg)
+        err, m = max_err(db, ref), ref.float().abs().max().item()
+        same = torch.equal(db, again)
+        print(f"flash_attention_bias_grad bias {tuple(bias.shape)} {bias.dtype} B={B} "
+              f"S={S} H={H} KV={KV} causal={causal} segments={seg is not None}: "
+              f"max_abs_err {err:.3e} (tol {tol}*{m:.3e}); two runs bitwise equal {same}")
+        require(err <= tol * m and same, "flash_attention_bias_grad disagrees or is "
+                "not deterministic")
+        return q, k, v, do, o, lse, delta, err
+
+    seg = torch.from_numpy(packed_rows(4, 512, PACKED_SEED)[0]).int().cuda()
+    one(4, 512, 16, 4, 0.3 * rand(4, 1, 512, 512, dtype=torch.float32), True, seg)
+    one(4, 512, 16, 16, 0.3 * rand(1, 1, 512, 512), True, seg)
+    one(2, 384, 8, 2, 0.3 * rand(1, 8, 384, 384, dtype=torch.float32), False)
+    B, S, H = 4, TRAIN_S, 16
+    bias = 0.3 * rand(1, H, S, S, dtype=torch.float32)
+    q, k, v, do, o, lse, delta, err = one(B, S, H, H, bias, True)
+    pairs = B * H * S * (S + 1) / 2
+    nbytes = 2 * 2 * (q.numel() + k.numel()) + 2 * 4 * B * H * S + 4 * H * S * (S + 1) / 2 \
+        + 4 * bias.numel()
+    b_ms, b_by = bound(4 * 64 * pairs, nbytes)
+    from contextlib import nullcontext
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    lib_ms, lib_note = None, "none"
+    vis = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    lib_mask = bias.masked_fill(~vis, float("-inf")).to(BF16).requires_grad_(True)
+    # SDPA's own choice of backend, then its math backend
+    for backend, scope in (("", nullcontext), (", math backend",
+                                                lambda: sdpa_kernel(SDPBackend.MATH))):
+        try:
+            with scope():
+                lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lib_mask)
+                lib_ms = timer(lambda: torch.autograd.grad(lib_out, (lib_mask,), dot,
+                                                           retain_graph=True))
+            lib_note = "SDPA backward wrt a bf16 float mask, all gradients" + backend
+            break
+        except RuntimeError as e:
+            print(f"flash_attention_bias_grad library: SDPA backward wrt a broadcast "
+                  f"mask refused{backend} ({str(e)[:100]})")
+        finally:
+            lib_out = None
+    row = {
+        "max_abs_err": err,
+        "ms": timer(lambda: fa.flash_attention_bias_grad(q, k, v, bias, lse, delta, do)),
+        "plain_ms": timer(lambda: fa.flash_attention_bias_grad_plain(q, k, v, bias, lse,
+                                                                     delta, do)),
+        "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "shape": f"bias [1, {H}, {S}, {S}] fp32, B={B} H={H} D=64 causal (library: "
+                 f"{lib_note})",
+    }
+    del q, k, v, do, o, lse, delta, bias, qt, kt, vt, lib_mask
+    torch.cuda.empty_cache()
+    return row
+
+
 def reference_check(model=None, label: str = "", expect=SERVING_KERNELS):
     """Two-layer full-width ``model`` (Llama-3-8B by default) in bf16: the
     kernel path (flash prefill, decode kernel, RMSNorm or LayerNorm kernel,
@@ -1838,7 +2197,8 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def reference_check_training(model=None, expect=TRAINING_KERNELS, anchored: bool = False,
-                             zero_grad_leaves=()):
+                             zero_grad_leaves=(), batch_fn=None, extra=None,
+                             remat_check: bool = True, label: str = ""):
     """Two-layer full-width ``model`` (llama3-1b by default; bloom-560m for
     training_bloom) in bf16, micro-batch 2 x 2048 tokens, AdamW with weight
     decay 0.1: the kernel path (flash forward and backward, RMSNorm or
@@ -1863,7 +2223,12 @@ def reference_check_training(model=None, expect=TRAINING_KERNELS, anchored: bool
     exact gradient of zero (the key bias: softmax is invariant to a shift
     every key of a row shares): each path's must stay under 1e-4 of the
     global gradient norm, and they are left out of the relative comparisons,
-    where both paths' rounding noise would be compared with itself."""
+    where both paths' rounding noise would be compared with itself.
+
+    ``batch_fn(ids, i)`` makes step i's batch from its token rows (packed
+    batches), ``extra`` adds config sections (the sparse_attention section,
+    which the plain path runs as plain attention under the layout's mask),
+    and ``remat_check=False`` leaves out the remat comparison."""
     tol_loss, tol_grad, steps, wd = 1e-2, 5e-2, 3, 0.1
     # per-leaf relative L2 after three steps, about twice the readings of
     # the H100 run that set them (PERF.md): moves 0.112 (Adam moves an
@@ -1879,12 +2244,14 @@ def reference_check_training(model=None, expect=TRAINING_KERNELS, anchored: bool
                          dtype=torch.float32, device="cuda")
     ids = torch.randint(0, model.config.vocab_size, (steps, 2, TRAIN_S),
                         generator=torch.Generator().manual_seed(1)).cuda()
+    batches = [batch_fn(ids[i], i) if batch_fn else {"input_ids": ids[i]}
+               for i in range(steps)]
 
     def run(kernels_on: bool, remat: str = "none", bf16: bool = True):
-        eng, *_ = initialize(model=model, config=train_config(
-            kernels_on, remat, 2, 2, wd, bf16=bf16, chunked_ce=anchored),
+        eng, *_ = initialize(model=model, config={**train_config(
+            kernels_on, remat, 2, 2, wd, bf16=bf16, chunked_ce=anchored), **(extra or {})},
             model_parameters=params0)
-        mb = {k: t[0] for k, t in eng._prepare_batch({"input_ids": ids[0]}).items()}
+        mb = {k: t[0] for k, t in eng._prepare_batch(batches[0]).items()}
         with eng._kernel_scope():
             loss, _ = eng.model.loss(eng.params, mb, dtype=BF16 if bf16 else torch.float32,
                                      remat_policy=remat)
@@ -1892,7 +2259,7 @@ def reference_check_training(model=None, expect=TRAINING_KERNELS, anchored: bool
         grads = tree_map(lambda p: p.grad, eng.params)
         for p in tree_leaves(eng.params):
             p.grad = None
-        step_losses = torch.stack([eng.train_batch(batch={"input_ids": ids[i]})
+        step_losses = torch.stack([eng.train_batch(batch=batches[i])
                                    for i in range(steps)])
         return {"loss": loss.detach(), "grads": grads, "steps": step_losses,
                 "gnorm": eng.get_global_grad_norm(),
@@ -1951,7 +2318,7 @@ def reference_check_training(model=None, expect=TRAINING_KERNELS, anchored: bool
         i = max(range(len(errs)), key=errs.__getitem__)
         return f"{errs[i]:.3e} ({names[i]})"
 
-    print(f"training reference check ({cfg.name}, 2 layers, full width, 2 x {TRAIN_S} "
+    print(f"training reference check {label}({cfg.name}, 2 layers, full width, 2 x {TRAIN_S} "
           f"tokens, weight decay {wd}): loss kernel {k['loss'].item():.6f} plain "
           f"{p['loss'].item():.6f} (rel {rel_loss:.3e}, tol {tol_loss}); per-leaf grad "
           f"relative L2 max {worst(grad_errs)} (tol {tol_grad})")
@@ -1991,6 +2358,10 @@ def reference_check_training(model=None, expect=TRAINING_KERNELS, anchored: bool
             and max(decay_errs) <= tol_decay,
             f"after {steps} steps: kernel path disagrees with the plain path")
     del p, f32
+    if not remat_check:
+        del k, params0
+        torch.cuda.empty_cache()
+        return
     f = run(True, "full")
     same = torch.equal(f["loss"], k["loss"]) and torch.equal(f["steps"], k["steps"]) and all(
         torch.equal(a, b) for a, b in zip(tree_leaves(f["masters"]), tree_leaves(k["masters"])))
@@ -2001,29 +2372,108 @@ def reference_check_training(model=None, expect=TRAINING_KERNELS, anchored: bool
     torch.cuda.empty_cache()
 
 
-def train_flops(cfg, tokens: int, seq: int) -> float:
-    """6 N per token (forward + backward of every weight) plus causal
-    attention: 4 D flops per visible pair and head forward, 3x with the
-    backward."""
-    pairs_per_seq = seq * (seq + 1) / 2
-    attn = 12 * cfg.hd * cfg.num_heads * cfg.num_layers * (tokens / seq) * pairs_per_seq
+def check_packed_equals_unpacked(model) -> None:
+    """The oracle inside the port: two full-width layers of ``model``
+    (llama3-1b: RoPE at restarted positions and the segment form; bloom-560m:
+    the positions' dense ALiBi bias and the bias + segment form), bf16, kernels
+    on: each document's logits taken from one packed row of 2048 tokens equal
+    that document run alone from position 0 (Llama form, ALiBi form), to a
+    bf16 tolerance, since the rows fall into other tiles."""
+    tol = 2e-2  # relative L2 of a document's logits; the serving reference check's
+    cfg = model.config
+    params = model.init(torch.Generator(device="cuda").manual_seed(2), dtype=BF16,
+                        device="cuda")
+    ids = torch.randint(0, cfg.vocab_size, (1, TRAIN_S),
+                        generator=torch.Generator().manual_seed(2)).cuda()
+    batch = packed_batch(ids, PACKED_SEED + 1)
+    lens = packed_rows(1, TRAIN_S, PACKED_SEED + 1)[2][0]
+    errs = []
+    with torch.inference_mode(), attention_impl("auto"), kernel_rmsnorm_scope(True):
+        kernels.reset_launch_counts()
+        packed = apply(cfg, params, ids, positions=batch["positions"],
+                       segment_ids=batch["segment_ids"])
+        counts = kernels.launch_counts()
+        at = 0
+        for n in lens:
+            alone = apply(cfg, params, ids[:, at:at + n])
+            errs.append(rel_l2(packed[:, at:at + n], alone))
+            at += n
+    form = "_bias_seg" if cfg.pos_embedding == "alibi" else "_seg"
+    print(f"packed equals unpacked ({cfg.name}, 2 layers, full width, bf16): documents "
+          f"{lens}, relative L2 of each document's logits {[f'{e:.3e}' for e in errs]} "
+          f"(tol {tol}); packed run launches flash_attention_fwd{form} "
+          f"{counts['flash_attention_fwd' + form]}")
+    require(max(errs) <= tol and counts["flash_attention_fwd" + form] > 0,
+            f"{cfg.name}: a packed document's logits differ from the document alone")
+    del params, packed
+    torch.cuda.empty_cache()
+
+
+def main_path_attention_bias(steps: int = 3) -> dict:
+    """The one entry that reaches the bias-gradient kernel: the attention op
+    (``ops.attention.attention``, flash) with a learned [1, 16, 2048, 2048]
+    fp32 bias shared by the batch (a T5-style relative bias), B=4 D=64 bf16
+    causal, forward and backward ``steps`` times; the counters, zeroed just
+    before, must show the kernel ran and the plain attention never did."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    B, S, H, D = TRAIN_B, TRAIN_S, 16, 64
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=BF16)
+               .requires_grad_(True) for _ in range(3))
+    bias = (0.3 * torch.randn(1, H, S, S, generator=gen, device="cuda")).requires_grad_(True)
+    kernels.reset_launch_counts()
+    with attention_impl("auto"):
+        for _ in range(steps):
+            out = attention(q, k, v, causal=True, bias=bias)
+            out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    plain = kernels.plain_attention_on_cuda()
+    ok = bool(torch.isfinite(bias.grad).all()) and bias.grad.abs().max().item() > 0
+    print(f"attention_bias path: {steps} forward+backward steps of attention(bias=[1, {H}, "
+          f"{S}, {S}] fp32, requires grad) at B={B} D={D}: bias gradient finite and "
+          f"non-zero {ok}; launches flash_attention_bias_grad "
+          f"{counts['flash_attention_bias_grad']}, flash_attention_fwd_bias "
+          f"{counts['flash_attention_fwd_bias']}; plain attention on the card {plain}")
+    require(ok and counts["flash_attention_bias_grad"] > 0 and sum(plain.values()) == 0,
+            "attention_bias path: the bias-gradient kernel did not run")
+    del q, k, v, bias, out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_flops(cfg, tokens: int, pairs: float) -> float:
+    """6 N per token (forward + backward of every weight) plus attention
+    over the step's ``pairs`` visible (query, key) pairs (causal, inside each
+    segment, in active blocks): 4 D flops per pair and head forward, 3x with
+    the backward."""
+    attn = 12 * cfg.hd * cfg.num_heads * cfg.num_layers * pairs
     return 6 * cfg.num_params() * tokens + attn
 
 
-def main_path_training(model=None, expect=TRAINING_KERNELS, path: str = "training"):
+def main_path_training(model=None, expect=TRAINING_KERNELS, path: str = "training",
+                       packed: bool = False, extra=None, pairs_per_seq=None,
+                       rerun: bool = True):
     """``model`` (llama3-1b by default; bloom-560m for training_bloom) at full
     width and depth, seeded random masters, one seeded batch of 8 x 2048
     tokens (micro-batch 4, 2 accumulation steps), 10 steps; then the same 3
-    first steps from the same seed."""
+    first steps from the same seed (unless ``rerun`` is False). ``packed``
+    packs the rows with seeded documents (segment ids, positions, labels
+    inside each document); ``extra`` adds config sections; MFU counts the
+    visible pairs (``pairs_per_seq`` per row, causal pairs by default, the
+    segments' when packed)."""
     model = model or llama("llama3-1b")
     cfg = model.config
-    steps, tokens = 10, TRAIN_B * TRAIN_ACCUM * TRAIN_S
-    ids = torch.randint(0, cfg.vocab_size, (TRAIN_B * TRAIN_ACCUM, TRAIN_S),
+    steps, rows, tokens = 10, TRAIN_B * TRAIN_ACCUM, TRAIN_B * TRAIN_ACCUM * TRAIN_S
+    ids = torch.randint(0, cfg.vocab_size, (rows, TRAIN_S),
                         generator=torch.Generator().manual_seed(0)).cuda()
-    batch = {"input_ids": ids}
+    batch = packed_batch(ids, PACKED_SEED) if packed else {"input_ids": ids}
+    if packed:
+        pairs = packed_pairs(rows, TRAIN_S, PACKED_SEED)
+    else:
+        pairs = rows * (pairs_per_seq or TRAIN_S * (TRAIN_S + 1) / 2)
 
     def build():
-        eng, *_ = initialize(model=model, config=train_config(True),
+        eng, *_ = initialize(model=model, config={**train_config(True), **(extra or {})},
                              rng=torch.Generator(device="cuda").manual_seed(0))
         return eng
 
@@ -2048,12 +2498,13 @@ def main_path_training(model=None, expect=TRAINING_KERNELS, path: str = "trainin
     counts = kernels.launch_counts()
     losses = [x.item() for x in losses]
     peak = torch.cuda.max_memory_allocated()
-    mfu = train_flops(cfg, tokens, TRAIN_S) / (ms_step / 1e3) / BF16_FLOPS
+    mfu = train_flops(cfg, tokens, pairs) / (ms_step / 1e3) / BF16_FLOPS
     plain = kernels.plain_attention_on_cuda()
     print(f"{path} losses: {losses}")
     print(f"{path}: {ms_step:.2f} ms/step (steps 3-{steps}), "
           f"{tokens / (ms_step / 1e3):.1f} tokens/s, MFU {mfu:.4f} (6 N tokens + "
-          f"attention over {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16), peak memory "
+          f"attention over {pairs:.0f} visible pairs per head and layer, over "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s bf16), peak memory "
           f"{peak / 2**30:.2f} GiB")
     print(f"{path} main path launches ({steps} steps): "
           f"{ {k: counts[k] for k in expect} }; plain attention on the card {plain}")
@@ -2065,6 +2516,8 @@ def main_path_training(model=None, expect=TRAINING_KERNELS, path: str = "trainin
     profile_device(lambda: engine.train_batch(batch=batch), f"one {path} step")
     del engine
     torch.cuda.empty_cache()
+    if not rerun:
+        return counts
     engine = build()
     rerun = [engine.train_batch(batch=batch).item() for _ in range(3)]
     print(f"determinism: 3 steps rerun from the same seed {rerun}, bitwise equal "
@@ -2075,9 +2528,10 @@ def main_path_training(model=None, expect=TRAINING_KERNELS, path: str = "trainin
     return counts
 
 
-# The Llama (slope-free) forms of the attention kernels on seeded inputs,
-# run by ``--baseline`` in this checkout and in an earlier one, each in its
-# own process with its own build: only calls both checkouts' wrappers take.
+# The Llama (slope-free) forms of the attention kernels and the ALiBi forms of
+# the flash kernels on seeded inputs, run by ``--baseline`` in this checkout
+# and in an earlier one, each in its own process with its own build: only
+# calls both checkouts' wrappers take.
 LLAMA_FORMS_SCRIPT = r"""
 import sys
 import torch
@@ -2097,6 +2551,10 @@ for B, S, H, KV, D in ((2, 300, 32, 8, 128), (2, 512, 32, 8, 64), (1, 130, 12, 1
     o, lse = fa.flash_attention_fwd(q, k, v, True)
     outs[f"flash fwd+bwd B={B} S={S} H={H} KV={KV} D={D}"] = [
         o, lse, *fa.flash_attention_bwd(q, k, v, o, lse, do, True)]
+    sl = torch.tensor([2.0 ** (-8 * (i + 1) / H) for i in range(H)], device="cuda")
+    o, lse = fa.flash_attention_fwd(q, k, v, True, sl)
+    outs[f"flash ALiBi fwd+bwd B={B} S={S} H={H} KV={KV} D={D}"] = [
+        o, lse, *fa.flash_attention_bwd(q, k, v, o, lse, do, True, sl)]
 q = r(4, 1, 32, 128)
 kc, vc = r(4, 1024, 8, 128), r(4, 1024, 8, 128)
 fr = torch.tensor([0, 37, 511, 1023], dtype=torch.int32, device="cuda")
@@ -2117,9 +2575,10 @@ torch.save({name: [t.cpu() for t in ts] for name, ts in outs.items()}, sys.argv[
 
 
 def compare_to_baseline(baseline: str) -> None:
-    """The Llama forms of the flash and decode kernels, this checkout's
-    against ``baseline``'s (a checkout of an earlier commit, built in its own
-    tree), on the same seeded inputs: each output must be bitwise equal."""
+    """The Llama forms of the flash and decode kernels and the ALiBi forms of
+    the flash kernels, this checkout's against ``baseline``'s (a checkout of
+    an earlier commit, built in its own tree), on the same seeded inputs: each
+    output must be bitwise equal."""
     import os
     from pathlib import Path
 
@@ -2140,7 +2599,7 @@ def compare_to_baseline(baseline: str) -> None:
     for name in mine:
         same = all(torch.equal(a, b) for a, b in zip(mine[name], base[name]))
         print(f"{name}: bitwise equal to the baseline: {same}")
-        require(same, f"{name}: the Llama form's bits changed against the baseline")
+        require(same, f"{name}: the form's bits changed against the baseline")
 
 
 def main() -> int:
@@ -2179,6 +2638,11 @@ def main() -> int:
     cb = check_paged_decode(gen, timer)
     lnorm = check_layernorm(gen, timer)
     fwd_bloom, fwd_bloom_train, dq_bloom, dkv_bloom, decode_bloom = check_alibi(gen, timer)
+    masked = check_masked_forms(gen, timer)
+    bias_grad = check_bias_grad(gen, timer)
+    rms_bwd, adam = check_rmsnorm_bwd(gen, timer), check_fused_adam(gen, timer)
+    ln_bwd = check_layernorm_bwd(gen, timer)
+    adam_bloom = check_fused_adam(gen, timer, n=250880 * 1024)
     # the quantized serving path runs the bf16 path's requests: its flash,
     # RMSNorm and (int4 engine, draft) dense decode shapes are the same
     rows = [
@@ -2190,10 +2654,10 @@ def main() -> int:
         ("rmsnorm_fwd", "serving", norm["serving"]),
         ("rmsnorm_fwd", "training", norm["training"]),
         ("rmsnorm_fwd", "serving_quantized", norm["serving"]),
-        ("rmsnorm_bwd", "training", check_rmsnorm_bwd(gen, timer)),
+        ("rmsnorm_bwd", "training", rms_bwd),
         ("flash_attention_bwd_dq", "training", dq),
         ("flash_attention_bwd_dkv", "training", dkv),
-        ("fused_adam", "training", check_fused_adam(gen, timer)),
+        ("fused_adam", "training", adam),
         ("quantized_matvec_int8", "serving_quantized", qmv8),
         ("quantized_matvec_int4", "serving_quantized", qmv4),
         ("decode_attention_int8", "serving_quantized", check_decode_int8(gen, timer)),
@@ -2209,15 +2673,27 @@ def main() -> int:
         ("flash_attention_fwd", "serving_gpt2", flash["serving_gpt2"]),
         ("decode_attention", "serving_gpt2", check_decode(gen, timer, H=25, KV=25, D=64)),
         ("layernorm_fwd", "training_bloom", lnorm["training_bloom"]),
-        ("layernorm_bwd", "training_bloom", check_layernorm_bwd(gen, timer)),
+        ("layernorm_bwd", "training_bloom", ln_bwd),
         ("flash_attention_fwd_alibi", "training_bloom", fwd_bloom_train),
         ("flash_attention_bwd_dq_alibi", "training_bloom", dq_bloom),
         ("flash_attention_bwd_dkv_alibi", "training_bloom", dkv_bloom),
-        ("fused_adam", "training_bloom", check_fused_adam(gen, timer, n=250880 * 1024)),
+        ("fused_adam", "training_bloom", adam_bloom),
+        *((name, path, r) for (name, path), r in masked.items()),
+        ("rmsnorm_fwd", "training_packed", norm["training"]),
+        ("rmsnorm_bwd", "training_packed", rms_bwd),
+        ("fused_adam", "training_packed", adam),
+        ("layernorm_fwd", "training_bloom_packed", lnorm["training_bloom"]),
+        ("layernorm_bwd", "training_bloom_packed", ln_bwd),
+        ("fused_adam", "training_bloom_packed", adam_bloom),
+        ("rmsnorm_fwd", "training_sparse", norm["training"]),
+        ("rmsnorm_bwd", "training_sparse", rms_bwd),
+        ("fused_adam", "training_sparse", adam),
+        ("flash_attention_bias_grad", "attention_bias", bias_grad),
     ]
     for name, path, r in rows:
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{name} ({path}) [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+              f"{r['plain_ms']:.4f} ms, library {lib}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     del timer
     torch.cuda.empty_cache()
@@ -2230,6 +2706,24 @@ def main() -> int:
     reference_check_training()
     reference_check_training(bloom("bloom-560m", num_layers=2), BLOOM_TRAINING_KERNELS,
                              anchored=True, zero_grad_leaves=("layers/attn/bk",))
+    # the new paths' checks run the chunked CE on both paths, anchored to an
+    # fp32 run, as BLOOM's: on packed llama3-1b with the dense CE on the plain
+    # path the two grad norms read 1.058e-4 apart (tol 1e-4), 5.9e-6 with the
+    # chunked CE on both (H100 80GB HBM3, 700.00 W)
+    packed_llama = llama("llama3-1b", num_layers=2)
+    reference_check_training(packed_llama, PACKED_KERNELS, anchored=True,
+                             remat_check=False,
+                             batch_fn=lambda ids, i: packed_batch(ids, PACKED_SEED + 10 + i),
+                             label="training_packed ")
+    reference_check_training(bloom("bloom-560m", num_layers=2), BLOOM_PACKED_KERNELS,
+                             anchored=True, zero_grad_leaves=("layers/attn/bk",),
+                             batch_fn=lambda ids, i: packed_batch(ids, PACKED_SEED + 10 + i),
+                             remat_check=False, label="training_bloom_packed ")
+    reference_check_training(packed_llama, SPARSE_KERNELS, anchored=True,
+                             remat_check=False, extra={"sparse_attention": SPARSE_SECTION},
+                             label="training_sparse ")
+    check_packed_equals_unpacked(packed_llama)
+    check_packed_equals_unpacked(bloom("bloom-560m", num_layers=2))
     reference_check_quantized()
     reference_check_serving_cb()
     counts = {"training": main_path_training(), "serving": main_path(),
@@ -2241,7 +2735,18 @@ def main() -> int:
                                                "serving_gpt2"),
               "training_bloom": main_path_training(bloom("bloom-560m"),
                                                    BLOOM_TRAINING_KERNELS,
-                                                   "training_bloom")}
+                                                   "training_bloom"),
+              "training_packed": main_path_training(None, PACKED_KERNELS,
+                                                    "training_packed", packed=True,
+                                                    rerun=False),
+              "training_bloom_packed": main_path_training(
+                  bloom("bloom-560m"), BLOOM_PACKED_KERNELS, "training_bloom_packed",
+                  packed=True, rerun=False),
+              "training_sparse": main_path_training(
+                  None, SPARSE_KERNELS, "training_sparse",
+                  extra={"sparse_attention": SPARSE_SECTION}, rerun=False,
+                  pairs_per_seq=layout_pairs(sparse_fixed_layout(TRAIN_S), TRAIN_S)),
+              "attention_bias": main_path_attention_bias()}
 
     # launches: the row's main path's run, counters zeroed just before it
     line = {"kernels": [

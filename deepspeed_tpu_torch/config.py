@@ -6,11 +6,14 @@ Counterpart of ``deepspeed_tpu/config.py``. It accepts the same
 (``train_batch_size = micro_batch * gradient_accumulation_steps * dp``, dp = 1
 on one device), and types the sections the training step reads: optimizer,
 scheduler, fp16/bf16, ZeRO stage, activation-checkpointing policy, gradient
-clipping, logging, and ``tpu_kernels`` (which kernels replace the plain
+clipping, logging, ``tpu_kernels`` (which kernels replace the plain
 paths; ``"auto"`` resolves on for a CUDA device as the JAX package's does for
-a TPU). It raises :class:`DeepSpeedConfigError` for the same bad inputs as the
-JAX package: a batch-triangle mismatch, fp16 and bf16 both on, a ZeRO stage
-out of range, an unknown remat policy, negative clipping. Every other section
+a TPU) and ``sparse_attention`` (the block-sparse layout of training's
+attention). It raises :class:`DeepSpeedConfigError` for the same bad inputs
+as the JAX package: a batch-triangle mismatch, fp16 and bf16 both on, a ZeRO
+stage out of range, an unknown remat policy, negative clipping, an unknown
+sparse-attention mode or one combined with sequence parallelism or
+random-LTD. Every other section
 is kept raw in :attr:`DeepSpeedConfig.raw`; ``initialize`` refuses the ones a
 later slice ports when they are turned on.
 """
@@ -21,7 +24,7 @@ import copy
 import json
 import os
 from dataclasses import dataclass, field, fields
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -147,6 +150,28 @@ class TpuKernelsConfig:
             fused_ce=res(self.fused_ce),
             ce_chunk=int(self.ce_chunk),
         )
+
+
+@dataclass
+class SparseAttentionConfig:
+    """The "sparse_attention" section (the reference's
+    ``sparsity_config.py`` schemas; JAX ``config.py:958``): the block-sparse
+    layout the training engine's attention runs (``ops/sparse_attention.py``)."""
+
+    mode: str = "none"  # none | dense | fixed | bigbird | bslongformer | variable
+    block: int = 128  # layout block in tokens: a multiple of 128 dividing S
+    num_local_blocks: int = 4
+    num_global_blocks: int = 1
+    num_sliding_window_blocks: int = 3
+    num_random_blocks: int = 1
+    global_block_indices: List[int] = field(default_factory=lambda: [0])
+
+    def validate(self) -> None:
+        modes = ("none", "dense", "fixed", "bigbird", "bslongformer", "variable")
+        if self.mode not in modes:
+            raise DeepSpeedConfigError(
+                f"sparse_attention.mode must be one of {modes}, got {self.mode!r}"
+            )
 
 
 def _check_tristate(name: str, v) -> None:
@@ -325,6 +350,7 @@ class DeepSpeedConfig:
         self.activation_checkpointing = _parse_dc(
             ActivationCheckpointingConfig, d.get("activation_checkpointing"))
         self.tpu_kernels = _parse_dc(TpuKernelsConfig, d.get("tpu_kernels"))
+        self.sparse_attention = _parse_dc(SparseAttentionConfig, d.get("sparse_attention"))
         self._validate()
 
     def resolve_batch_sizes(self, dp_world_size: int) -> None:
@@ -369,6 +395,24 @@ class DeepSpeedConfig:
         if self.gradient_clipping < 0:
             raise DeepSpeedConfigError("gradient_clipping must be >= 0")
         self.activation_checkpointing.validate()
+        self.sparse_attention.validate()
+        # the sections these two rules read stay raw (refused turned on);
+        # the JAX package's texts (config.py:1236-1250)
+        d = self.raw
+        sp = d.get("sequence_parallel") or {}
+        sp_size = int(sp.get("sp_size", d.get("sequence_parallel_size", 1)) or 1)
+        ltd = ((d.get("data_efficiency") or {}).get("data_routing") or {}).get("random_ltd")
+        if self.sparse_attention.mode not in ("none", "dense") and sp_size > 1:
+            raise DeepSpeedConfigError(
+                "sparse_attention is not supported together with sequence "
+                "parallelism (the block layout assumes full-sequence tiles)"
+            )
+        if self.sparse_attention.mode not in ("none", "dense") and (ltd or {}).get("enabled"):
+            raise DeepSpeedConfigError(
+                "sparse_attention is not supported together with random_ltd "
+                "(LTD layers attend over gathered token subsets whose length "
+                "is not block-aligned with the sparse layout)"
+            )
 
     @property
     def compute_dtype(self) -> torch.dtype:

@@ -1,0 +1,265 @@
+// Device helpers shared by the flash attention kernels (flash_attention_fwd.cu,
+// flash_attention_bwd.cu, flash_attention_bias_grad.cu): the mma.sync tile
+// products, operand staging, the ALiBi score, and the masked form's operands
+// (segment ids, a dense additive bias, block-sparse compaction tables).
+//
+// The masked form is one template instantiation per kernel whose masks are
+// read at run time from a Mask; the slope-free (Llama) and ALiBi forms are
+// instantiated without it and keep their code. Its score is pinned with
+// __fmul_rn/__fmaf_rn, so the forward's and the backward's scores are the
+// same bits and p recomputed in a backward kernel is the p whose sum went
+// into the forward's lse:
+//   t = s * scale_log2;  t += bias * log2e;  t -= slope_log2 * |row - key|
+// (the dense bias first, then ALiBi, as _mask_and_bias adds them,
+// deepspeed_tpu/ops/pallas/flash_attention.py:94-113).
+#pragma once
+
+#include "common.cuh"
+
+namespace dst {
+namespace flash {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBlockM = 16 * kWarps;  // rows per block
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, fp32 out.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ float2 unpack(uint32_t u) {
+  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&u);
+  return __bfloat1622float2(h);
+}
+
+// A score with its ALiBi term in the log2 domain: s * scale_log2 rounded,
+// then - slope_log2 * |row - key| by one fused multiply-add. Written with
+// intrinsics so no contraction choice of the compiler can make the forward's
+// and the backward's scores differ.
+__device__ __forceinline__ float alibi_score(float s, float scale_log2,
+                                             float slope_log2, int row, int key) {
+  return __fmaf_rn(-slope_log2, static_cast<float>(abs(row - key)),
+                   __fmul_rn(s, scale_log2));
+}
+
+// A-operand fragments of 16 rows x HD (row-major, k = head dim) straight from
+// device memory: rows row0 and row0 + 8 of a [S, *, HD] slab with row stride
+// ss; rows past S read as zero.
+template <int HD>
+__device__ __forceinline__ void load_rows(uint32_t (&a)[HD / 16][4],
+                                          const __nv_bfloat16* base, long long ss,
+                                          int row0, int row1, int S, int tig) {
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    const int c = ks * 16 + tig * 2;
+    a[ks][0] = row0 < S ? load_pair(base + row0 * ss + c) : 0u;
+    a[ks][1] = row1 < S ? load_pair(base + row1 * ss + c) : 0u;
+    a[ks][2] = row0 < S ? load_pair(base + row0 * ss + c + 8) : 0u;
+    a[ks][3] = row1 < S ? load_pair(base + row1 * ss + c + 8) : 0u;
+  }
+}
+
+// Stage rows [r0, r0 + NR) of two [S, *, HD] slabs into padded shared memory
+// (row stride HD + 8 elements), zero past S.
+template <int HD, int NR>
+__device__ __forceinline__ void stage2(__nv_bfloat16* sa, __nv_bfloat16* sb,
+                                       const __nv_bfloat16* a, long long a_ss,
+                                       const __nv_bfloat16* b, long long b_ss,
+                                       int r0, int S, int tid) {
+  constexpr int kLds = HD + 8;
+  constexpr int kChunks = HD / 8;
+  for (int i = tid; i < NR * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c = (i - r * kChunks) * 8;
+    uint4 av = make_uint4(0u, 0u, 0u, 0u);
+    uint4 bv = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < S) {
+      av = *reinterpret_cast<const uint4*>(a + (long long)(r0 + r) * a_ss + c);
+      bv = *reinterpret_cast<const uint4*>(b + (long long)(r0 + r) * b_ss + c);
+    }
+    *reinterpret_cast<uint4*>(sa + r * kLds + c) = av;
+    *reinterpret_cast<uint4*>(sb + r * kLds + c) = bv;
+  }
+}
+
+// acc[j] = A (16 x HD, fragments a) . B^T where B rows are the NT*8 shared
+// rows of sb (so acc is 16 x NT*8): the score-shaped products q.k, do.v.
+template <int HD, int NT>
+__device__ __forceinline__ void rows_dot_tile(float (&acc)[NT][4],
+                                              const uint32_t (&a)[HD / 16][4],
+                                              const __nv_bfloat16* sb, int g, int tig) {
+  constexpr int kLds = HD + 8;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const __nv_bfloat16* r = sb + (j * 8 + g) * kLds + ks * 16 + tig * 2;
+      mma_16816(acc[j], a[ks], load_pair(r), load_pair(r + 8));
+    }
+  }
+}
+
+// out (16 x HD) += P (16 x NT*8, score fragments, rounded to bf16) . V where
+// V is the NT*8 x HD tile in shared memory: the value-shaped products.
+template <int HD, int NT>
+__device__ __forceinline__ void tile_times_rows(float (&out)[HD / 8][4],
+                                                const float (&p)[NT][4],
+                                                const __nv_bfloat16* sv, int g, int tig) {
+  constexpr int kLds = HD + 8;
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    uint32_t pa[4];
+    pa[0] = pack_f32(p[2 * kk][0], p[2 * kk][1]);
+    pa[1] = pack_f32(p[2 * kk][2], p[2 * kk][3]);
+    pa[2] = pack_f32(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    pa[3] = pack_f32(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      const __nv_bfloat16* vr = sv + (kk * 16 + tig * 2) * kLds + n * 8 + g;
+      const uint32_t b0 = pack_bf16(vr[0], vr[kLds]);
+      const uint32_t b1 = pack_bf16(vr[8 * kLds], vr[9 * kLds]);
+      mma_16816(out[n], pa, b0, b1);
+    }
+  }
+}
+
+// Write a 16 x HD fp32 accumulator (rows row0, row1) as bf16 rows.
+template <int HD>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long ss,
+                                           const float (&acc)[HD / 8][4], int row0,
+                                           int row1, int S, int tig) {
+  if (row0 < S) {
+    __nv_bfloat16* r = base + row0 * ss + tig * 2;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(r + n * 8) = pack_f32(acc[n][0], acc[n][1]);
+  }
+  if (row1 < S) {
+    __nv_bfloat16* r = base + row1 * ss + tig * 2;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(r + n * 8) = pack_f32(acc[n][2], acc[n][3]);
+  }
+}
+
+struct Strides {
+  long long sb, ss, sh;
+};
+
+inline Strides at(const long long* st, int i) {
+  return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+}
+
+// ---------------------------------------------------------------------------
+// The masked form's operands, read at run time
+// ---------------------------------------------------------------------------
+struct Mask {
+  const int* seg;        // [B, S] int32 segment ids, or nullptr
+  const void* bias;      // dense additive bias [B|1, H|1, S, S], or nullptr
+  long long bias_sb;     // its element strides; 0 on a broadcast dim
+  long long bias_sh;
+  long long bias_sq;     // query-row stride (the key stride is 1)
+  int bias_bf16;         // 1: bf16 storage, 0: fp32
+  const int* cols;       // block-sparse table [nb, jmax] (per row of layout
+                         // blocks, its active blocks ascending), or nullptr
+  const int* counts;     // [nb]: active blocks per row
+  int jmax;              // the table's row stride
+  int blk;               // layout block, in tokens (a multiple of 64)
+  void* dbias;           // a dbias output in the bias's dtype, or nullptr
+};
+
+// The C entry points' mask argument: long long[11], in Mask's field order
+// (pointers as integers, 0 for none); nullptr selects an unmasked form.
+inline Mask parse_mask(const long long* m) {
+  Mask k;
+  k.seg = reinterpret_cast<const int*>(m[0]);
+  k.bias = reinterpret_cast<const void*>(m[1]);
+  k.bias_sb = m[2];
+  k.bias_sh = m[3];
+  k.bias_sq = m[4];
+  k.bias_bf16 = static_cast<int>(m[5]);
+  k.cols = reinterpret_cast<const int*>(m[6]);
+  k.counts = reinterpret_cast<const int*>(m[7]);
+  k.jmax = static_cast<int>(m[8]);
+  k.blk = static_cast<int>(m[9]);
+  k.dbias = reinterpret_cast<void*>(m[10]);
+  return k;
+}
+
+// A table's layout block must be a whole number of 64-row tiles, so that no
+// tile straddles two layout blocks.
+inline bool table_ok(const long long* mask) {
+  return mask == nullptr || mask[6] == 0 || (mask[9] > 0 && mask[9] % kBlockM == 0);
+}
+
+__device__ __forceinline__ float load_bias(const Mask& m, long long off) {
+  return m.bias_bf16
+             ? __bfloat162float(static_cast<const __nv_bfloat16*>(m.bias)[off])
+             : static_cast<const float*>(m.bias)[off];
+}
+
+__device__ __forceinline__ void store_dbias(const Mask& m, long long off, float x) {
+  if (m.bias_bf16) {
+    static_cast<__nv_bfloat16*>(m.dbias)[off] = __float2bfloat16(x);
+  } else {
+    static_cast<float*>(m.dbias)[off] = x;
+  }
+}
+
+// The masked form's score (log2 domain): the dense bias, then ALiBi.
+__device__ __forceinline__ float masked_score(float s, float scale_log2, bool has_bias,
+                                              float bias, bool has_alibi,
+                                              float slope_log2, int row, int key) {
+  float t = __fmul_rn(s, scale_log2);
+  if (has_bias) t = __fmaf_rn(bias, kLog2e, t);
+  if (has_alibi) t = __fmaf_rn(-slope_log2, static_cast<float>(abs(row - key)), t);
+  return t;
+}
+
+// Walk the tiles of TILE rows (or keys) that a block of the dense grid
+// visits: [t_begin, t_end) without a table; with one, only the tiles inside
+// the active layout blocks of layout row `line` (those tables list blocks
+// ascending, so the tiles come in the dense walk's order), clipped to
+// [t_begin, t_end). Calls body(t) for each.
+template <int TILE, typename Body>
+__device__ __forceinline__ void for_tiles(const Mask& m, int line, int t_begin,
+                                          int t_end, Body&& body) {
+  if (m.cols == nullptr) {
+    for (int t = t_begin; t < t_end; ++t) body(t);
+    return;
+  }
+  const int per = m.blk / TILE;
+  const int n = m.counts[line];
+  for (int i = 0; i < n; ++i) {
+    const int blk = m.cols[line * m.jmax + i];
+    const int te = min((blk + 1) * per, t_end);
+    for (int t = max(blk * per, t_begin); t < te; ++t) body(t);
+  }
+}
+
+}  // namespace flash
+}  // namespace dst

@@ -1,82 +1,55 @@
 // Flash attention forward (bf16, causal or not, GQA) with mma.sync tensor cores.
 //
 // Replaces deepspeed_tpu/ops/pallas/flash_attention.py:_fwd_kernel (line 175),
-// driven by _flash_fwd (line 334) from flash_attention (line 1011), in the forms
-// the serving prefill and the training step use: causal, grouped-query heads,
-// with or without ALiBi slopes; no segment ids or dense bias.
+// driven by _flash_fwd (line 334) from flash_attention (line 1011), in all its
+// forms: causal, grouped-query heads, ALiBi slopes, segment ids, a dense
+// additive bias and a block-sparse layout.
 //
-// out[b, s, h] = softmax_k(score, causal) @ v with
-// score = q[b, s, h] . k[b, k, kv]^T * scale - slope[h] * |s - k|,
+// out[b, s, h] = softmax_k(score, masks) @ v with
+// score = q[b, s, h] . k[b, k, kv]^T * scale + bias[b, h, s, k] - slope[h] * |s - k|,
 // kv = h / (H / KV); lse[b, h, s] = log sum_k exp(score), kept for a backward.
-// The ALiBi term is _mask_and_bias's (flash_attention.py:94-113), added before
-// the mask; slopes == nullptr (Llama) instantiates the kernel without it, so
-// that form's code and bits are those of the kernel before ALiBi came in.
+// A key is visible when it is inside S, not above the diagonal (causal), in
+// the row's segment (seg[b, s] == seg[b, k]) and in an active block of the
+// layout; _mask_and_bias (flash_attention.py:94-113) applies the same masks.
+// Three instantiations per head dim: slopes == nullptr without a mask (Llama),
+// whose code and bits are those of the kernel before ALiBi came in; ALiBi
+// without a mask; and the masked form, which reads its segment ids, bias,
+// compaction tables and (optional) slopes at run time (flash_attention.cuh).
 //
-// Bound on the H100: operations for long prompts. The causal product is
-// 4 * D flops per visible (query, key) pair, about 2 * B * H * S^2 * D in all,
-// over 989 TFLOP/s of bf16 tensor-core rate; q, k, v and out are read or
-// written once. Design: one 128-thread block (4 warps) per (64-row query tile,
-// head, batch row). Each warp owns 16 query rows and keeps its Q fragments,
-// its 16 x 64 score tile, its fp32 output accumulator and its online-softmax
+// Bound on the H100: operations for long prompts. The product is 4 * D flops
+// per visible (query, key) pair over 989 TFLOP/s of bf16 tensor-core rate;
+// q, k, v and out are read or written once, a dense bias once per visible
+// pair. Design: one 128-thread block (4 warps) per (64-row query tile, head,
+// batch row). Each warp owns 16 query rows and keeps its Q fragments, its
+// 16 x 64 score tile, its fp32 output accumulator and its online-softmax
 // state (max, sum) in registers. Q K^T and P V are mma.sync m16n8k16 bf16
 // products with fp32 accumulation; P is rounded to bf16 for the second
 // product, as the TPU kernel does. K and V tiles of 64 keys are staged in
-// padded shared memory (row stride HD + 8, conflict-free fragment reads). The
-// key loop stops at the diagonal, which is the causal skip the TPU kernel gets
-// from its compaction tables. Heads are addressed through strides, so the model
-// layout [B, S, H, D] is read and written without transposes, and every row
-// and key past S is masked in the kernel: any prompt length runs here, where
-// the TPU entry fell back to XLA for lengths without a 128-aligned tile.
-// The scores live in the log2 domain (s * scale * log2 e), so the ALiBi term is
-// slope * log2 e * |s - k|, computed by alibi_score (the backward kernels in
-// flash_attention_bwd.cu use the same expression, so p recomputed there is the
-// p whose sum went into lse). wgmma, TMA and a pipelined K/V ring are later
-// work.
-#include "common.cuh"
+// padded shared memory (row stride HD + 8, conflict-free fragment reads), the
+// tile's key segment ids beside them. The key loop stops at the diagonal,
+// which is the causal skip the TPU kernel gets from its compaction tables;
+// with a layout it walks only the tiles of each active block (the table is
+// per 64-row query tile's layout row; inactive blocks are never read), which
+// is the TPU kernel's compacted grid (_sparse_step, flash_attention.py:138).
+// A tile the segments mask whole keeps the running max at -inf and is guarded
+// by ms = 0; a row with nothing visible writes lse = -inf. Heads are addressed
+// through strides, so the model layout [B, S, H, D] is read and written
+// without transposes, and every row and key past S is masked in the kernel:
+// any prompt length runs here, where the TPU entry fell back to XLA for
+// lengths without a 128-aligned tile. The scores live in the log2 domain
+// (s * scale * log2 e); alibi_score and masked_score (flash_attention.cuh)
+// pin their rounding, and the backward kernels use the same functions, so p
+// recomputed there is the p whose sum went into lse. wgmma, TMA and a
+// pipelined K/V ring are later work.
+#include "flash_attention.cuh"
+
+using namespace dst::flash;
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockM = 16 * kWarps;  // query rows per block
-constexpr int kBlockN = 64;           // keys per tile
-constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kBlockN = 64;  // keys per tile
 
-// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, fp32 out.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A score with its ALiBi term in the log2 domain: s * scale_log2 rounded,
-// then - slope_log2 * |row - key| by one fused multiply-add. Written with
-// intrinsics so no contraction choice of the compiler can make the forward's
-// and the backward's scores differ.
-__device__ __forceinline__ float alibi_score(float s, float scale_log2,
-                                             float slope_log2, int row, int key) {
-  return __fmaf_rn(-slope_log2, static_cast<float>(abs(row - key)),
-                   __fmul_rn(s, scale_log2));
-}
-
-template <int HD, bool kAlibi>
+template <int HD, bool kAlibi, bool kMasked>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
@@ -84,7 +57,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, const float* __restrict__ slopes,
-    float scale_log2, int causal) {
+    float scale_log2, int causal, Mask mask) {
   constexpr int kLds = HD + 8;           // shared row stride, in elements
   constexpr int kKSteps = HD / 16;       // k-steps of Q K^T
   constexpr int kSTiles = kBlockN / 8;   // n-tiles of the score tile
@@ -92,6 +65,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   constexpr int kChunks = HD / 8;        // 16-byte chunks per K/V row
   __shared__ __align__(16) __nv_bfloat16 sk[kBlockN * kLds];
   __shared__ __align__(16) __nv_bfloat16 sv[kBlockN * kLds];
+  __shared__ int sseg[kMasked ? kBlockN : 1];  // the tile's key segment ids
 
   const int qblock = blockIdx.x;
   const int h = blockIdx.y;
@@ -104,11 +78,21 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int tig = lane & 3;  // thread within the group of four
   const int row0 = qblock * kBlockM + warp * 16 + g;
   const int row1 = row0 + 8;
-  const float slope_log2 = kAlibi ? slopes[h] * 1.4426950408889634f : 0.f;
+  // the masked form takes slopes at run time
+  const bool m_alibi = kMasked && slopes != nullptr;
+  const float slope_log2 = kAlibi || m_alibi ? slopes[h] * 1.4426950408889634f : 0.f;
 
   const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
   const __nv_bfloat16* kb = k + b * k_sb + kvh * k_sh;
   const __nv_bfloat16* vb = v + b * v_sb + kvh * v_sh;
+
+  // the masked form's per-row operands
+  const bool has_seg = kMasked && mask.seg != nullptr;
+  const bool has_bias = kMasked && mask.bias != nullptr;
+  const int* seg_b = has_seg ? mask.seg + (long long)b * S : nullptr;
+  const int seg0 = has_seg && row0 < S ? seg_b[row0] : 0;
+  const int seg1 = has_seg && row1 < S ? seg_b[row1] : 0;
+  const long long bias_bh = has_bias ? b * mask.bias_sb + h * mask.bias_sh : 0;
 
   // Q fragments (A operand) straight from device memory, once per block.
   uint32_t qa[kKSteps][4];
@@ -131,7 +115,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int last_row = (qblock + 1) * kBlockM - 1;
   const int n_tiles = causal ? min(n_all, last_row / kBlockN + 1) : n_all;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  auto tile = [&](int t) {
     const int k0 = t * kBlockN;
     __syncthreads();  // the previous tile is fully consumed
     for (int i = tid; i < kBlockN * kChunks; i += kThreads) {
@@ -145,6 +129,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       }
       *reinterpret_cast<uint4*>(sk + r * kLds + c) = kval;
       *reinterpret_cast<uint4*>(sv + r * kLds + c) = vval;
+    }
+    if constexpr (kMasked) {
+      if (has_seg && tid < kBlockN) sseg[tid] = k0 + tid < S ? seg_b[k0 + tid] : 0;
     }
     __syncthreads();
 
@@ -169,12 +156,24 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + j * 8 + tig * 2 + (e & 1);
         const int row = e < 2 ? row0 : row1;
-        const bool visible = key < S && (!causal || key <= row);
-        if constexpr (kAlibi) {
-          s[j][e] = visible ? alibi_score(s[j][e], scale_log2, slope_log2, row, key)
-                            : -INFINITY;
+        if constexpr (kMasked) {
+          const bool visible = key < S && row < S && (!causal || key <= row) &&
+                               (!has_seg || sseg[key - k0] == (e < 2 ? seg0 : seg1));
+          s[j][e] = visible
+                        ? masked_score(s[j][e], scale_log2, has_bias,
+                                       has_bias ? load_bias(mask, bias_bh +
+                                                                  row * mask.bias_sq + key)
+                                                : 0.f,
+                                       m_alibi, slope_log2, row, key)
+                        : -INFINITY;
         } else {
-          s[j][e] = visible ? s[j][e] * scale_log2 : -INFINITY;
+          const bool visible = key < S && (!causal || key <= row);
+          if constexpr (kAlibi) {
+            s[j][e] = visible ? alibi_score(s[j][e], scale_log2, slope_log2, row, key)
+                              : -INFINITY;
+          } else {
+            s[j][e] = visible ? s[j][e] * scale_log2 : -INFINITY;
+          }
         }
       }
       mt0 = fmaxf(mt0, fmaxf(s[j][0], s[j][1]));
@@ -229,6 +228,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         mma_16816(o[n], pa, b0, b1);
       }
     }
+  };
+
+  if constexpr (kMasked) {
+    for_tiles<kBlockN>(mask, mask.cols ? qblock * kBlockM / mask.blk : 0, 0, n_tiles,
+                       tile);
+  } else {
+    for (int t = 0; t < n_tiles; ++t) tile(t);
   }
 
   // the four threads of a group hold disjoint columns of the same rows
@@ -262,27 +268,33 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
 }
 
-template <int HD, bool kAlibi>
+template <int HD, bool kAlibi, bool kMasked>
 void launch(const void* q, const void* k, const void* v, void* out, void* lse,
             int B, int S, int H, int KV, const long long* st, const float* slopes,
-            float scale_log2, int causal, cudaStream_t stream) {
+            float scale_log2, int causal, const Mask& mask, cudaStream_t stream) {
   dim3 grid((S + kBlockM - 1) / kBlockM, H, B);
-  flash_fwd_kernel<HD, kAlibi><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_kernel<HD, kAlibi, kMasked><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(lse), S, H, KV, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], slopes, scale_log2, causal);
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11], slopes, scale_log2, causal,
+      mask);
 }
 
 template <int HD>
 void launch_form(const void* q, const void* k, const void* v, void* out, void* lse,
                  int B, int S, int H, int KV, const long long* st,
                  const float* slopes, float scale_log2, int causal,
-                 cudaStream_t stream) {
-  if (slopes != nullptr) {
-    launch<HD, true>(q, k, v, out, lse, B, S, H, KV, st, slopes, scale_log2, causal, stream);
+                 const long long* mask, cudaStream_t stream) {
+  if (mask != nullptr) {
+    launch<HD, false, true>(q, k, v, out, lse, B, S, H, KV, st, slopes, scale_log2,
+                            causal, parse_mask(mask), stream);
+  } else if (slopes != nullptr) {
+    launch<HD, true, false>(q, k, v, out, lse, B, S, H, KV, st, slopes, scale_log2,
+                            causal, Mask{}, stream);
   } else {
-    launch<HD, false>(q, k, v, out, lse, B, S, H, KV, st, slopes, scale_log2, causal, stream);
+    launch<HD, false, false>(q, k, v, out, lse, B, S, H, KV, st, slopes, scale_log2,
+                             causal, Mask{}, stream);
   }
 }
 
@@ -292,25 +304,28 @@ void launch_form(const void* q, const void* k, const void* v, void* out, void* l
 // (batch, seq, head) strides with a contiguous last dim; every row start
 // 16-byte aligned. lse: [B, H, S] fp32 contiguous. slopes: fp32 [H] ALiBi
 // slopes on the device, or nullptr for none. scale: softmax scale applied to
-// q . k (1 / sqrt(hd) for the model).
+// q . k (1 / sqrt(hd) for the model). mask: nullptr, or long long[11] naming
+// the masked form's segment ids, bias and compaction tables
+// (flash_attention.cuh:parse_mask; the table is per query layout row).
 extern "C" int dst_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse, int B,
     int S, int H, int KV, int hd, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, const void* slopes, float scale, int causal,
-    void* stream) {
+    const long long* mask, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                             v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
   if (B <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!table_ok(mask)) return static_cast<int>(cudaErrorInvalidValue);
   const float scale_log2 = scale * 1.4426950408889634f;
   const float* sl = static_cast<const float*>(slopes);
   if (hd == 128) {
-    launch_form<128>(q, k, v, out, lse, B, S, H, KV, st, sl, scale_log2, causal, s);
+    launch_form<128>(q, k, v, out, lse, B, S, H, KV, st, sl, scale_log2, causal, mask, s);
   } else if (hd == 64) {
-    launch_form<64>(q, k, v, out, lse, B, S, H, KV, st, sl, scale_log2, causal, s);
+    launch_form<64>(q, k, v, out, lse, B, S, H, KV, st, sl, scale_log2, causal, mask, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -14,7 +14,10 @@ the lookup's and the head's), BLOOM's embedding LayerNorm. What stays
 unported raises ``NotImplementedError`` (see :func:`check_supported`). For
 training, :func:`loss_fn` is the next-token cross-entropy (dense, or
 vocab-chunked under ``ops.cross_entropy.fused_ce_scope``), and :func:`apply`
-can re-run each layer in backward (``remat_policy="full"``).
+can re-run each layer in backward (``remat_policy="full"``). A packed batch's
+``segment_ids`` keep attention inside each document and its ``positions``
+place RoPE and the learned positions (BLOOM's ALiBi then becomes a dense
+bias at those positions), as the JAX ``loss_fn`` passes them.
 """
 
 from __future__ import annotations
@@ -313,9 +316,10 @@ def out_proj(cfg: TransformerConfig, p: Params, out: torch.Tensor) -> torch.Tens
 
 
 def _attention(cfg: TransformerConfig, p: Params, x: torch.Tensor, rope,
-               slopes) -> torch.Tensor:
+               slopes, bias=None, segment_ids=None) -> torch.Tensor:
     q, k, v = _qkv(cfg, p, x, rope)
-    return out_proj(cfg, p, attention(q, k, v, causal=True, alibi_slopes=slopes))
+    return out_proj(cfg, p, attention(q, k, v, causal=True, bias=bias,
+                                      segment_ids=segment_ids, alibi_slopes=slopes))
 
 
 def _act(cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
@@ -369,14 +373,26 @@ def default_positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
+def alibi_position_bias(positions: torch.Tensor, slopes: torch.Tensor) -> torch.Tensor:
+    """fp32 [B, H, S, S] ALiBi bias slope * -|pos_k - pos_q| at given
+    positions [B, S] (JAX ``_attention``'s dense form, ``models/transformer.py
+    :258-266``, the same fp32 operations)."""
+    pos = positions.float()
+    rel = pos[:, None, :] - pos[:, :, None]
+    return slopes.to(pos.device)[None, :, None, None] * (-rel.abs())[:, None, :, :]
+
+
 def _layer(cfg: TransformerConfig, lp: Params, x: torch.Tensor, rope,
-           slopes) -> torch.Tensor:
-    x = x + _attention(cfg, lp["attn"], _norm(cfg, lp["ln1"], x), rope, slopes)
+           slopes, bias=None, segment_ids=None) -> torch.Tensor:
+    x = x + _attention(cfg, lp["attn"], _norm(cfg, lp["ln1"], x), rope, slopes, bias,
+                       segment_ids)
     return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
 
 
 def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
           dtype: Optional[torch.dtype] = None, remat_policy: Optional[str] = None,
+          positions: Optional[torch.Tensor] = None,
+          segment_ids: Optional[torch.Tensor] = None,
           return_hidden: bool = False) -> torch.Tensor:
     """No-cache forward → fp32 logits [B, S, V]; with ``return_hidden`` the
     final normed hidden [B, S, d] instead (the chunked-CE path projects
@@ -385,21 +401,33 @@ def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
     ``dtype`` casts the parameters for compute (the layer stack as a whole,
     as the JAX package does; the embedding rows after the lookup, so the
     table's gradient accumulates in its own dtype). ``remat_policy="full"``
-    re-runs each layer in backward when a gradient is being recorded."""
+    re-runs each layer in backward when a gradient is being recorded.
+    ``positions`` [B, S] (default 0..S-1) place RoPE and the learned
+    positions; given, they turn ALiBi into the dense bias at those positions,
+    made once here and shared by every layer. ``segment_ids`` [B, S] keep
+    attention inside each packed segment (JAX ``apply``, line 548)."""
     check_supported(cfg)
     B, S = input_ids.shape
     cast = (lambda t: t) if dtype is None else (lambda t: cast_floating(t, dtype))
-    positions = default_positions(B, S, input_ids.device)
+    pos_default = positions is None
+    if pos_default:
+        positions = default_positions(B, S, input_ids.device)
     x = embed_tokens(cfg, params, input_ids, positions, cast)
     rope = (rope_tables(positions, cfg.hd, cfg.rope_theta)
             if cfg.pos_embedding == "rope" else None)
     slopes = model_slopes(cfg, x.device)
+    bias = None
+    if slopes is not None and not pos_default:
+        slopes, bias = None, alibi_position_bias(positions, slopes)
+    if segment_ids is not None:  # the kernels' int32 ids, once per forward
+        segment_ids = segment_ids.to(torch.int32).contiguous()
     remat = policy_by_name(remat_policy) if torch.is_grad_enabled() else None
     for lp in unstack_layers(cast(params["layers"]), cfg.num_layers):
         if remat:
-            x = checkpoint(_layer, cfg, lp, x, rope, slopes, use_reentrant=False)
+            x = checkpoint(_layer, cfg, lp, x, rope, slopes, bias, segment_ids,
+                           use_reentrant=False)
         else:
-            x = _layer(cfg, lp, x, rope, slopes)
+            x = _layer(cfg, lp, x, rope, slopes, bias, segment_ids)
     x = _norm(cfg, cast(params["final_norm"]), x)
     if return_hidden:
         return x
@@ -423,9 +451,11 @@ def loss_fn(cfg: TransformerConfig, params: Params, batch: Dict[str, torch.Tenso
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy (fp32); labels < 0 are ignored. Under an
     enabled ``fused_ce_scope`` with a vocab wider than one chunk, the
-    [B, S, V] logits never materialise (``ops/cross_entropy.py``)."""
+    [B, S, V] logits never materialise (``ops/cross_entropy.py``). A packed
+    batch's ``segment_ids`` and ``positions`` go to :func:`apply`."""
     fused_on, chunk = fused_ce_config()
-    kw = dict(dtype=dtype, remat_policy=remat_policy)
+    kw = dict(dtype=dtype, remat_policy=remat_policy, positions=batch.get("positions"),
+              segment_ids=batch.get("segment_ids"))
     # one device never shards the vocab: chunk once it spans more than one
     if fused_on and cfg.vocab_size > chunk:
         x = apply(cfg, params, batch["input_ids"], return_hidden=True, **kw)

@@ -47,12 +47,14 @@ SIGNATURES: Dict[str, List] = {
     "dst_layernorm_bwd_nblocks": [_I],
     "dst_layernorm_bwd": [_P] * 7 + [_I, _I, _F, _I, _I, _P],
     # the attention entry points take their ALiBi slopes (or NULL) as the
-    # pointer before the softmax scale
-    "dst_flash_attention_bwd_dq": [_P] * 8 + [_I] * 5 + [_LP, _P, _F, _I, _P],
-    "dst_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 5 + [_LP, _P, _F, _I, _P],
+    # pointer before the softmax scale; the flash ones their mask array (or
+    # NULL) after the causal flag
+    "dst_flash_attention_bwd_dq": [_P] * 8 + [_I] * 5 + [_LP, _P, _F, _I, _LP, _P],
+    "dst_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 5 + [_LP, _P, _F, _I, _LP, _P],
+    "dst_flash_attention_bias_grad": [_P] * 6 + [_I] * 7 + [_LP, _P, _F, _I, _LP, _P],
     "dst_fused_adam": [_P] * 4 + [_L, _P] + [_F] * 9 + [_I, _P],
     "dst_flash_attention_fwd": (
-        [_P] * 5 + [_I] * 5 + [_L] * 12 + [_P, _F, _I, _P]
+        [_P] * 5 + [_I] * 5 + [_L] * 12 + [_P, _F, _I, _LP, _P]
     ),
     "dst_decode_attention": (
         [_P] * 5 + [_I] * 7 + [_L] * 8 + [_P, _F, _I, _P]

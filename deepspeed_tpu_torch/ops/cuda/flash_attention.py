@@ -1,47 +1,70 @@
 """Flash attention forward and backward: the CUDA kernels
-``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu`` and their
-plain versions.
+``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu`` and
+``csrc/flash_attention_bias_grad.cu`` and their plain versions.
 
 The forward replaces ``deepspeed_tpu/ops/pallas/flash_attention.py:_fwd_kernel``
 (line 175), driven by ``_flash_fwd`` (line 334) from ``flash_attention``
 (line 1011); the backward replaces ``_bwd_dq_kernel`` (line 455) and
-``_bwd_dkv_kernel`` (line 517), driven by ``_flash_bwd`` (line 719). The forms
-are the models': causal, GQA, and with per-head ALiBi slopes ``slopes`` (fp32
-[H]; BLOOM) the term -slope * |q - k| added to each score before the mask
-(``_mask_and_bias``, line 94, in all three kernels); no segment ids or dense
-bias. ``slopes=None`` runs the kernels' Llama instantiation, the code before
-ALiBi came in.
+``_bwd_dkv_kernel`` (line 517), driven by ``_flash_bwd`` (line 719), and
+``_bias_grad_kernel`` (line 570, via ``_bias_grad_call``, line 614). Every
+form of the Pallas kernels is here: causal, GQA, per-head ALiBi slopes
+``slopes`` (fp32 [H]; BLOOM), segment ids ``segment_ids`` (int32 [B, S]:
+packed sequences attend inside their own segment), a dense additive
+``bias`` [B|1, H|1, S, S] (fp32 or bf16; its gradient comes from the dq
+kernel for a full bias, ``emit_dbias``, and from the bias-gradient kernel
+for a broadcast one) and a block-sparse ``layout`` ([S/blk, S/blk] 0/1 at
+``blk`` tokens, a multiple of 128 dividing S: only the active blocks are
+read, through compaction tables made once per layout and device,
+:func:`block_tables`). The terms enter each score as ``_mask_and_bias``
+(line 94) adds them: the bias, then ALiBi, then the causal, segment and
+layout masks. ``slopes`` alone runs the kernels' ALiBi instantiation, nothing
+their Llama one (the code before ALiBi came in); a mask selects the masked
+instantiation, which reads its operands at run time.
 
 Bound on the H100: operations for long sequences, per visible (query, key)
-pair 4 * D flops forward, 6 * D in the dq kernel and 8 * D in the dk/dv
-kernel, over 989 TFLOP/s bf16. Each kernel runs 4-warp blocks of mma.sync
-bf16 tensor-core products with fp32 accumulation and fp32 softmax state in
-registers, loops key (or query) tiles only to (or from) the diagonal, reads
-the model layout [B, S, H, D] through strides (no transposes) and masks ragged
-S itself, so every length runs through it, where the TPU entry fell back to
-XLA without a 128-aligned tile. The dq kernel also writes delta =
-rowsum(dO * O) for the dk/dv kernel, which sums the GQA group in registers
-(no atomics, one write per output).
+pair 4 * D flops forward, 6 * D in the dq kernel, 8 * D in the dk/dv kernel
+and 4 * D per (batch row, head) in the bias-gradient kernel, over 989 TFLOP/s
+bf16. Each kernel runs 4-warp blocks of mma.sync bf16 tensor-core products
+with fp32 accumulation and fp32 softmax state in registers, loops key (or
+query) tiles only to (or from) the diagonal and only through the layout's
+active blocks, reads the model layout [B, S, H, D] through strides (no
+transposes) and masks ragged S itself, so every length runs through it,
+where the TPU entry fell back to XLA without a 128-aligned tile. The dq
+kernel also writes delta = rowsum(dO * O) for the dk/dv kernel, which sums
+the GQA group in registers (no atomics, one write per output); the
+bias-gradient kernel sums the broadcast dims in registers, one write per
+output element.
 """
 
 from __future__ import annotations
 
+import ctypes
+import itertools
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
 
-# kernel launches since the last reset; the ALiBi form counts apart
-launches = {name + form: 0 for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                                        "flash_attention_bwd_dkv")
-            for form in ("", "_alibi")}
+KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# a kernel's forms: its launch counter's suffix names the terms it took
+# (ALiBi, a dense bias, a block-sparse layout, segment ids); a dense bias
+# never combines with a layout
+FORMS = tuple("".join(f"_{p}" for p, on in zip(("alibi", "bias", "sparse", "seg"), bits)
+                      if on)
+              for bits in itertools.product((False, True), repeat=4)
+              if not (bits[1] and bits[2]))
+# kernel launches since the last reset, per kernel and form
+launches = {**{name + form: 0 for name in KERNEL_NAMES for form in FORMS},
+            "flash_attention_bias_grad": 0}
 # calls of the plain attention on CUDA tensors since the last reset
 plain_on_cuda = {"flash_attention_plain": 0}
 
 NEG_INF = -1e30  # the JAX package's mask value (finite: a fully masked row stays finite)
 HEAD_DIMS = (64, 128)
+LAYOUT_BLOCK = 128  # a layout block is a multiple of this many tokens
 
 
 def alibi_bias(slopes: torch.Tensor, S: int, device) -> torch.Tensor:
@@ -52,21 +75,121 @@ def alibi_bias(slopes: torch.Tensor, S: int, device) -> torch.Tensor:
     return slopes.float().to(device)[:, None, None] * rel[None]
 
 
-def _scores(q: torch.Tensor, kf: torch.Tensor, slopes) -> torch.Tensor:
-    """fp32 scores q . k * scale [B,H,S,S] (plus the ALiBi bias) for q
-    [B,S,H,D] and k already repeated over the GQA group."""
+# ---------------------------------------------------------------------------
+# block-sparse layouts
+# ---------------------------------------------------------------------------
+def compact_rows(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """[n, m] 0/1 layout → (idx [n, jmax] int32, counts [n] int32): row r's
+    active column indices, ascending, in idx[r, :counts[r]], the rest
+    repeating the last one (``_compact_rows``, flash_attention.py:69)."""
+    layout = np.asarray(layout)
+    counts = (layout != 0).sum(axis=1).astype(np.int32)
+    jmax = max(int(counts.max(initial=0)), 1)
+    idx = np.zeros((layout.shape[0], jmax), np.int32)
+    for r in range(layout.shape[0]):
+        cols = np.nonzero(layout[r])[0]
+        if len(cols):
+            idx[r, : len(cols)] = cols
+            idx[r, len(cols):] = cols[-1]
+    return idx, counts
+
+
+def check_layout(fn: str, layout: np.ndarray, S: int) -> int:
+    """The layout's block in tokens; raises unless ``layout`` is a square
+    [S/blk, S/blk] table with blk a multiple of 128."""
+    n = layout.shape[0] if layout.ndim == 2 else 0
+    if layout.ndim != 2 or layout.shape[1] != n or n == 0 or S % n \
+            or (S // n) % LAYOUT_BLOCK:
+        raise ValueError(
+            f"{fn}: block layout {tuple(layout.shape)} does not tile seq {S} in "
+            f"square blocks of a multiple of {LAYOUT_BLOCK} tokens"
+        )
+    return S // n
+
+
+_TABLES: Dict[tuple, tuple] = {}
+
+
+def _layout_key(layout: np.ndarray, device) -> tuple:
+    return (layout.shape, np.ascontiguousarray(layout != 0).tobytes(), str(device))
+
+
+def block_tables(layout: np.ndarray, device) -> Tuple[torch.Tensor, ...]:
+    """(kcols, kcounts, qrows, qcounts) int32 on ``device``: the compaction
+    tables of ``layout`` per query row (forward, dq) and per key column
+    (dk/dv), made once per (layout, device) and kept, so a layer call does
+    no host-to-device copy."""
+    key = ("tables",) + _layout_key(layout, device)
+    if key not in _TABLES:
+        tabs = (*compact_rows(layout), *compact_rows(np.asarray(layout).T))
+        _TABLES[key] = tuple(torch.from_numpy(t).to(device) for t in tabs)
+    return _TABLES[key]
+
+
+def layout_mask(layout: np.ndarray, S: int, device) -> torch.Tensor:
+    """bool [S, S]: the layout expanded to tokens (the plain versions' mask),
+    made once per (layout, S, device)."""
+    key = ("mask", S) + _layout_key(layout, device)
+    if key not in _TABLES:
+        blk = S // layout.shape[0]
+        tok = np.kron(np.asarray(layout) != 0, np.ones((blk, blk), bool))
+        _TABLES[key] = torch.from_numpy(tok).to(device)
+    return _TABLES[key]
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+def check_bias(fn: str, bias: torch.Tensor, q: torch.Tensor) -> None:
+    """Raise unless ``bias`` is [B|1, H|1, S, S] for q [B, S, H, D] (the
+    Pallas kernel's in-kernel bias, ``bias_ok``, flash_attention.py:1063)."""
+    B, S, H, _ = q.shape
+    if bias.ndim != 4 or bias.shape[0] not in (1, B) or bias.shape[1] not in (1, H) \
+            or tuple(bias.shape[2:]) != (S, S):
+        raise ValueError(
+            f"{fn}: dense bias shape {tuple(bias.shape)} is not [B|1, H|1, S, S] "
+            f"= [{B}|1, {H}|1, {S}, {S}]"
+        )
+
+
+def _scores(q: torch.Tensor, kf: torch.Tensor, slopes, bias=None) -> torch.Tensor:
+    """fp32 scores q . k * scale [B,H,S,S] (plus the dense bias, then the
+    ALiBi bias) for q [B,S,H,D] and k already repeated over the GQA group."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / math.sqrt(q.shape[-1]))
+    if bias is not None:
+        s = s + bias.float()
     if slopes is not None:
         s = s + alibi_bias(slopes, q.shape[1], q.device)
     return s
 
 
+def _visible(q, causal, segment_ids, layout) -> Optional[torch.Tensor]:
+    """bool [B|1, 1, S, S]: the (query, key) pairs the causal, segment and
+    layout masks keep; None when there is no mask."""
+    S = q.shape[1]
+    vis = torch.ones(S, S, dtype=torch.bool, device=q.device).tril() if causal else None
+    if layout is not None:
+        check_layout("flash_attention_plain", layout, S)
+        tok = layout_mask(layout, S, q.device)
+        vis = tok if vis is None else vis & tok
+    if segment_ids is not None:
+        same = segment_ids[:, :, None] == segment_ids[:, None, :]
+        vis = same if vis is None else vis & same
+    if vis is None:
+        return None
+    return vis.reshape(-1, 1, S, S)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True, slopes: Optional[torch.Tensor] = None
+                          causal: bool = True, slopes: Optional[torch.Tensor] = None,
+                          bias: Optional[torch.Tensor] = None,
+                          segment_ids: Optional[torch.Tensor] = None,
+                          layout: Optional[np.ndarray] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reference GQA attention in fp32: (out [B,S,H,D] in q's dtype,
     lse [B,H,S] fp32). q [B,S,H,D]; k, v [B,S,KV,D]; ``slopes`` the ALiBi
-    slopes [H] or None."""
+    slopes [H], ``bias`` an additive bias broadcastable to [B,H,S,S],
+    ``segment_ids`` [B,S], ``layout`` a block-sparse layout, each or None."""
     B, S, H, D = q.shape
     KV = k.shape[2]
     if H % KV:
@@ -75,16 +198,94 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         plain_on_cuda["flash_attention_plain"] += 1
     kf = k.float().repeat_interleave(H // KV, dim=2)
     vf = v.float().repeat_interleave(H // KV, dim=2)
-    s = _scores(q, kf, slopes)
-    if causal:
-        above = torch.ones(S, k.shape[1], dtype=torch.bool,
-                           device=q.device).triu(1)
-        s = s.masked_fill(above, NEG_INF)
+    s = _scores(q, kf, slopes, bias)
+    vis = _visible(q, causal, segment_ids, layout)
+    if vis is not None:
+        s = s.masked_fill(~vis, NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vf)
     return out.to(q.dtype), lse
 
 
+def _plain_p_dst(q, k, v, lse, delta, do, causal, slopes=None, bias=None,
+                 segment_ids=None, layout=None):
+    """fp32 (p, dst) [B,H,S,S] of the backward, with k/v repeated over the
+    GQA group: p = exp(s - lse) on visible pairs, dst = p (dp - delta) (the
+    score's gradient; ds = dst * scale)."""
+    G = q.shape[2] // k.shape[2]
+    kf = k.float().repeat_interleave(G, dim=2)
+    vf = v.float().repeat_interleave(G, dim=2)
+    p = torch.exp(_scores(q, kf, slopes, bias) - lse[..., None])
+    vis = _visible(q, causal, segment_ids, layout)
+    if vis is not None:
+        p = p.masked_fill(~vis, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
+    return p, p * (dp - delta[..., None])
+
+
+def flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal: bool = True,
+                                 slopes: Optional[torch.Tensor] = None, bias=None,
+                                 segment_ids=None, layout=None, emit_dbias: bool = False):
+    """Reference (dq [B,S,H,D] in q's dtype, delta [B,H,S] fp32) in fp32,
+    delta = rowsum(do * o); with ``emit_dbias`` also the full bias's
+    gradient [B,H,S,S] in the bias's dtype."""
+    G = q.shape[2] // k.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    _, dst = _plain_p_dst(q, k, v, lse, delta, do, causal, slopes, bias, segment_ids,
+                          layout)
+    kf = k.float().repeat_interleave(G, dim=2)
+    dq = torch.einsum("bhqk,bkhd->bqhd", dst * scale, kf).to(q.dtype)
+    if emit_dbias:
+        return dq, delta, dst.to(bias.dtype)
+    return dq, delta
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do, causal: bool = True,
+                                  slopes: Optional[torch.Tensor] = None, bias=None,
+                                  segment_ids=None, layout=None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reference (dk, dv) [B,S,KV,D] in k's dtype, in fp32, each summed over
+    the query heads of its GQA group."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    p, dst = _plain_p_dst(q, k, v, lse, delta, do, causal, slopes, bias, segment_ids,
+                          layout)
+    dk = torch.einsum("bhqk,bqhd->bkhd", dst * (1.0 / math.sqrt(D)), q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    return (dk.reshape(B, S, KV, H // KV, D).sum(3).to(k.dtype),
+            dv.reshape(B, S, KV, H // KV, D).sum(3).to(v.dtype))
+
+
+def flash_attention_bias_grad_plain(q, k, v, bias, lse, delta, do, causal: bool = True,
+                                    slopes: Optional[torch.Tensor] = None,
+                                    segment_ids=None) -> torch.Tensor:
+    """Reference gradient of ``bias`` [B|1, H|1, S, S]: p (dp - delta) summed
+    over the dims the bias broadcasts, in the bias's dtype."""
+    _, dst = _plain_p_dst(q, k, v, lse, delta, do, causal, slopes, bias, segment_ids)
+    dims = [d for d in (0, 1) if bias.shape[d] == 1]
+    return (dst.sum(dims, keepdim=True) if dims else dst).to(bias.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
+                              slopes: Optional[torch.Tensor] = None, bias=None,
+                              segment_ids=None, layout=None, bias_grad: bool = False):
+    """Reference (dq, dk, dv) of :func:`flash_attention_plain` for the
+    upstream gradient ``do``, from the saved ``o`` and ``lse``; with
+    ``bias_grad`` also the bias's gradient."""
+    dq, delta = flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal, slopes, bias,
+                                             segment_ids, layout)
+    grads = (dq, *flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do, causal, slopes,
+                                                bias, segment_ids, layout))
+    if bias_grad:
+        grads += (flash_attention_bias_grad_plain(q, k, v, bias, lse, delta, do, causal,
+                                                  slopes, segment_ids),)
+    return grads
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
 def strides_ok(t: torch.Tensor) -> bool:
     """Whether the kernels can read ``t`` by its strides: a contiguous last
     dim, strides divisible by 8 and a 16-byte aligned start."""
@@ -129,10 +330,14 @@ def _check_inputs(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_strides(fn, name, t)
 
 
-def form_suffix(slopes: Optional[torch.Tensor]) -> str:
-    """The launch counter's suffix of a kernel's form: "_alibi" with
-    slopes."""
-    return "" if slopes is None else "_alibi"
+def form_suffix(slopes: Optional[torch.Tensor], bias=None, segment_ids=None,
+                layout=None) -> str:
+    """The launch counter's suffix of a kernel's form: one ``_alibi``,
+    ``_bias``, ``_sparse``, ``_seg`` for each term it takes, in that order
+    (nothing for the Llama form)."""
+    return "".join(f"_{name}" for name, t in (("alibi", slopes), ("bias", bias),
+                                               ("sparse", layout), ("seg", segment_ids))
+                   if t is not None)
 
 
 def slopes_ptr(fn: str, slopes: Optional[torch.Tensor], q: torch.Tensor):
@@ -150,6 +355,52 @@ def slopes_ptr(fn: str, slopes: Optional[torch.Tensor], q: torch.Tensor):
     return slopes.data_ptr()
 
 
+def mask_array(fn: str, q: torch.Tensor, bias=None, segment_ids=None, layout=None,
+               transposed: bool = False, dbias=None):
+    """The kernels' mask argument (``csrc/flash_attention.cuh:parse_mask``):
+    None for an unmasked form, else a long long[11] naming the segment ids,
+    the bias with its element strides (0 on a broadcast dim) and dtype, the
+    layout's compaction table (per query row, or per key column when
+    ``transposed``) and a dbias output; raises on what the kernels do not
+    take."""
+    if bias is None and segment_ids is None and layout is None:
+        return None
+    B, S, H, _ = q.shape
+    vals = [0] * 11
+    if segment_ids is not None:
+        if segment_ids.shape != (B, S) or segment_ids.dtype != torch.int32 \
+                or segment_ids.device != q.device or not segment_ids.is_contiguous():
+            raise ValueError(
+                f"{fn}: segment ids must be int32 contiguous [{B}, {S}] on "
+                f"{q.device}, got {segment_ids.dtype} {tuple(segment_ids.shape)} on "
+                f"{segment_ids.device}"
+            )
+        vals[0] = segment_ids.data_ptr()
+    if bias is not None:
+        check_bias(fn, bias, q)
+        if bias.dtype not in (torch.float32, torch.bfloat16) \
+                or bias.device != q.device or bias.stride(-1) != 1:
+            raise ValueError(
+                f"{fn}: the bias must be fp32 or bf16 on {q.device} with a contiguous "
+                f"last dim, got {bias.dtype} on {bias.device}, strides {bias.stride()}"
+            )
+        if layout is not None:
+            raise ValueError(f"{fn}: a dense bias does not combine with a block-sparse "
+                             "layout")
+        vals[1] = bias.data_ptr()
+        vals[2:6] = [bias.stride(0) if bias.shape[0] > 1 else 0,
+                     bias.stride(1) if bias.shape[1] > 1 else 0, bias.stride(2),
+                     _build.dtype_code(bias.dtype)]
+    if layout is not None:
+        blk = check_layout(fn, layout, S)
+        kcols, kcounts, qrows, qcounts = block_tables(layout, q.device)
+        cols, counts = (qrows, qcounts) if transposed else (kcols, kcounts)
+        vals[6:10] = [cols.data_ptr(), counts.data_ptr(), cols.shape[1], blk]
+    if dbias is not None:
+        vals[10] = dbias.data_ptr()
+    return (ctypes.c_longlong * 11)(*vals)
+
+
 def _check_rows(fn: str, q: torch.Tensor, **rows: torch.Tensor) -> None:
     """lse / delta: [B, H, S] fp32 contiguous on q's device."""
     B, S, H, _ = q.shape
@@ -163,18 +414,24 @@ def _check_rows(fn: str, q: torch.Tensor, **rows: torch.Tensor) -> None:
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, slopes: Optional[torch.Tensor] = None
+                        causal: bool = True, slopes: Optional[torch.Tensor] = None,
+                        bias: Optional[torch.Tensor] = None,
+                        segment_ids: Optional[torch.Tensor] = None,
+                        layout: Optional[np.ndarray] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B,S,H,D], lse [B,H,S] fp32) for q [B,S,H,D], k/v [B,S,KV,D],
-    with ALiBi when ``slopes`` (fp32 [H]) are given.
+    with ALiBi when ``slopes`` (fp32 [H]) are given, a dense ``bias``
+    [B|1,H|1,S,S], ``segment_ids`` (int32 [B,S]) and a block-sparse
+    ``layout``.
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
     kernel (bf16, head_dim 64 or 128), or raise on what it does not take."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, slopes)
+        return flash_attention_plain(q, k, v, causal, slopes, bias, segment_ids, layout)
     lib = _build.library()
     _check_inputs("flash_attention_fwd", q, k, v)
     sl = slopes_ptr("flash_attention_fwd", slopes, q)
+    mask = mask_array("flash_attention_fwd", q, bias, segment_ids, layout)
     B, S, H, D = q.shape
     KV = k.shape[2]
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -183,105 +440,65 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, S, H, KV, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        sl, 1.0 / math.sqrt(D), int(bool(causal)),
+        sl, 1.0 / math.sqrt(D), int(bool(causal)), mask,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_attention_fwd")
-    launches["flash_attention_fwd" + form_suffix(slopes)] += 1
+    launches["flash_attention_fwd" + form_suffix(slopes, bias, segment_ids, layout)] += 1
     return out, lse
 
 
-def _plain_p_ds(q, k, v, lse, delta, do, causal, slopes=None):
-    """fp32 (p, ds) [B,H,S,S] of the backward, with k/v repeated over the
-    GQA group: p = exp(s - lse) on visible pairs, ds = p (dp - delta) scale,
-    s with the ALiBi bias when ``slopes`` are given."""
-    B, S, H, D = q.shape
-    G = H // k.shape[2]
-    scale = 1.0 / math.sqrt(D)
-    kf = k.float().repeat_interleave(G, dim=2)
-    vf = v.float().repeat_interleave(G, dim=2)
-    p = torch.exp(_scores(q, kf, slopes) - lse[..., None])
-    if causal:
-        above = torch.ones(S, S, dtype=torch.bool, device=q.device).triu(1)
-        p = p.masked_fill(above, 0.0)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
-    return p, p * (dp - delta[..., None]) * scale
-
-
-def flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal: bool = True,
-                                 slopes: Optional[torch.Tensor] = None
-                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Reference (dq [B,S,H,D] in q's dtype, delta [B,H,S] fp32) in fp32,
-    delta = rowsum(do * o)."""
-    G = q.shape[2] // k.shape[2]
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    _, ds = _plain_p_ds(q, k, v, lse, delta, do, causal, slopes)
-    kf = k.float().repeat_interleave(G, dim=2)
-    return torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(q.dtype), delta
-
-
-def flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do, causal: bool = True,
-                                  slopes: Optional[torch.Tensor] = None
-                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Reference (dk, dv) [B,S,KV,D] in k's dtype, in fp32, each summed over
-    the query heads of its GQA group."""
-    B, S, H, D = q.shape
-    KV = k.shape[2]
-    p, ds = _plain_p_ds(q, k, v, lse, delta, do, causal, slopes)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
-    return (dk.reshape(B, S, KV, H // KV, D).sum(3).to(k.dtype),
-            dv.reshape(B, S, KV, H // KV, D).sum(3).to(v.dtype))
-
-
-def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
-                              slopes: Optional[torch.Tensor] = None
-                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Reference (dq, dk, dv) of :func:`flash_attention_plain` for the
-    upstream gradient ``do``, from the saved ``o`` and ``lse``."""
-    dq, delta = flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal, slopes)
-    return (dq, *flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do, causal,
-                                               slopes))
-
-
 def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
-                           slopes: Optional[torch.Tensor] = None
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+                           slopes: Optional[torch.Tensor] = None, bias=None,
+                           segment_ids=None, layout=None, emit_dbias: bool = False):
     """(dq [B,S,H,D], delta [B,H,S] fp32): the dq kernel, which also writes
-    delta for :func:`flash_attention_bwd_dkv`. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    delta for :func:`flash_attention_bwd_dkv`; with ``emit_dbias`` (a full
+    [B,H,S,S] bias) also the bias's gradient in its dtype. CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal, slopes)
+        return flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal, slopes, bias,
+                                            segment_ids, layout, emit_dbias)
     lib = _build.library()
-    _check_inputs("flash_attention_bwd_dq", q, k, v, o=o, do=do)
-    _check_rows("flash_attention_bwd_dq", q, lse=lse)
-    sl = slopes_ptr("flash_attention_bwd_dq", slopes, q)
+    fn = "flash_attention_bwd_dq"
+    _check_inputs(fn, q, k, v, o=o, do=do)
+    _check_rows(fn, q, lse=lse)
+    sl = slopes_ptr(fn, slopes, q)
     B, S, H, D = q.shape
+    dbias = None
+    if emit_dbias:
+        if bias is None or tuple(bias.shape) != (B, H, S, S):
+            raise ValueError(f"{fn}: emit_dbias needs a full [{B}, {H}, {S}, {S}] bias")
+        dbias = torch.empty((B, H, S, S), dtype=bias.dtype, device=q.device)
+    mask = mask_array(fn, q, bias, segment_ids, layout, dbias=dbias)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     status = lib.dst_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H, k.shape[2], D,
         _build.strides_array(q, k, v, o, do, dq), sl, 1.0 / math.sqrt(D),
-        int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream,
+        int(bool(causal)), mask, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(status, "flash_attention_bwd_dq")
-    launches["flash_attention_bwd_dq" + form_suffix(slopes)] += 1
-    return dq, delta
+    _build.check(status, fn)
+    launches[fn + form_suffix(slopes, bias, segment_ids, layout)] += 1
+    return (dq, delta, dbias) if emit_dbias else (dq, delta)
 
 
 def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal: bool = True,
-                            slopes: Optional[torch.Tensor] = None
+                            slopes: Optional[torch.Tensor] = None, bias=None,
+                            segment_ids=None, layout=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [B,S,KV,D], summed over each GQA group: the dk/dv kernel.
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do, causal, slopes)
+        return flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do, causal, slopes,
+                                             bias, segment_ids, layout)
     lib = _build.library()
-    _check_inputs("flash_attention_bwd_dkv", q, k, v, do=do)
-    _check_rows("flash_attention_bwd_dkv", q, lse=lse, delta=delta)
-    sl = slopes_ptr("flash_attention_bwd_dkv", slopes, q)
+    fn = "flash_attention_bwd_dkv"
+    _check_inputs(fn, q, k, v, do=do)
+    _check_rows(fn, q, lse=lse, delta=delta)
+    sl = slopes_ptr(fn, slopes, q)
+    mask = mask_array(fn, q, bias, segment_ids, layout, transposed=True)
     B, S, H, D = q.shape
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
@@ -289,18 +506,59 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal: bool = True,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], D,
         _build.strides_array(q, k, v, do, dk, dv), sl, 1.0 / math.sqrt(D),
-        int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream,
+        int(bool(causal)), mask, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(status, "flash_attention_bwd_dkv")
-    launches["flash_attention_bwd_dkv" + form_suffix(slopes)] += 1
+    _build.check(status, fn)
+    launches[fn + form_suffix(slopes, bias, segment_ids, layout)] += 1
     return dk, dv
 
 
+def flash_attention_bias_grad(q, k, v, bias, lse, delta, do, causal: bool = True,
+                              slopes: Optional[torch.Tensor] = None,
+                              segment_ids=None) -> torch.Tensor:
+    """The gradient of ``bias`` [B|1, H|1, S, S] in its dtype, summed over
+    the dims it broadcasts: the bias-gradient kernel, from the forward's lse
+    and the dq kernel's delta. CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    if q.device.type == "cpu":
+        return flash_attention_bias_grad_plain(q, k, v, bias, lse, delta, do, causal,
+                                               slopes, segment_ids)
+    lib = _build.library()
+    fn = "flash_attention_bias_grad"
+    _check_inputs(fn, q, k, v, do=do)
+    _check_rows(fn, q, lse=lse, delta=delta)
+    sl = slopes_ptr(fn, slopes, q)
+    check_bias(fn, bias, q)
+    B, S, H, D = q.shape
+    Bb, Hb = bias.shape[:2]
+    dbias = torch.empty((Bb, Hb, S, S), dtype=bias.dtype, device=q.device)
+    mask = mask_array(fn, q, bias, segment_ids, dbias=dbias)
+    status = lib.dst_flash_attention_bias_grad(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), B, S, H, k.shape[2], D, Bb, Hb,
+        _build.strides_array(q, k, v, do), sl, 1.0 / math.sqrt(D), int(bool(causal)),
+        mask, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(status, fn)
+    launches[fn] += 1
+    return dbias
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
-                        slopes: Optional[torch.Tensor] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                        slopes: Optional[torch.Tensor] = None, bias=None,
+                        segment_ids=None, layout=None, bias_grad: bool = False):
     """(dq, dk, dv) from the forward's saved ``o`` and ``lse`` (and the
-    slopes it took): the dq kernel, then the dk/dv kernel on the same
-    stream."""
-    dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, causal, slopes)
-    return (dq, *flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal, slopes))
+    terms it took): the dq kernel, then the dk/dv kernel on the same stream.
+    With ``bias_grad`` also the bias's gradient, as ``_flash_bwd`` chooses
+    (flash_attention.py:748): from the dq kernel for a full [B,H,S,S] bias,
+    else from the bias-gradient kernel."""
+    B, S, H, _ = q.shape
+    emit = bias_grad and tuple(bias.shape[:2]) == (B, H)
+    dq, delta, *dbias = flash_attention_bwd_dq(q, k, v, o, lse, do, causal, slopes, bias,
+                                               segment_ids, layout, emit)
+    grads = (dq, *flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal, slopes, bias,
+                                          segment_ids, layout))
+    if bias_grad and not emit:
+        dbias = [flash_attention_bias_grad(q, k, v, bias, lse, delta, do, causal, slopes,
+                                           segment_ids)]
+    return grads + tuple(dbias)

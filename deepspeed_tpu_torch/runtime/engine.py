@@ -17,7 +17,10 @@ returned loss is a device tensor.
 Where the JAX engine traces one program, the port runs eagerly: the
 ``tpu_kernels`` section picks the kernels (flash attention forward and
 backward, the RMSNorm or LayerNorm kernels, the fused Adam kernel, the chunked CE) through
-scoped selections entered around each step. Everything outside this slice
+scoped selections entered around each step; the ``sparse_attention`` section
+swaps in the flash kernels' block-sparse form. A batch may carry
+``segment_ids`` and ``positions`` (packed documents) beside ``input_ids``
+and ``labels``. Everything outside this slice
 raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -36,6 +39,7 @@ from ..models.transformer import check_supported, make_lm_batch
 from ..ops.attention import attention_impl
 from ..ops.cross_entropy import fused_ce_scope
 from ..ops.normalization import kernel_rmsnorm_scope
+from ..ops.sparse_attention import from_ds_config, make_attention_impl
 from ..utils.logging import log_dist
 from ..utils.tree import global_norm, tree_leaves, tree_map, tree_size
 from .activation_checkpointing import policy_by_name
@@ -79,8 +83,6 @@ def unported_features(cfg: DeepSpeedConfig) -> List[str]:
         (any(_enabled((v or {}).get("shared_parameters")) or _enabled(v)
              for v in comp.values() if isinstance(v, dict)),
          "compression training (item 11)"),
-        ((raw.get("sparse_attention") or {}).get("mode", "none") != "none",
-         "sparse attention (item 11)"),
         (cfg.optimizer.type.replace("_", "") in ("onebitadam", "zerooneadam",
                                                  "onebitlamb"),
          "1-bit optimizers (item 11)"),
@@ -155,6 +157,12 @@ class TorchEngine:
                 "or set tpu_kernels.flash_attention to false"
             )
         self.tpu_kernels = tk
+        # training-time block-sparse attention (the "sparse_attention"
+        # section; JAX engine.py:296-319): the flash kernels' block-sparse
+        # form, or its plain version with the flash switch off
+        sp_cfg = from_ds_config(config.sparse_attention)
+        self._sparse_impl = (make_attention_impl(sp_cfg, kernels=tk.flash_attention)
+                             if sp_cfg is not None else None)
         self.lr_schedule = build_schedule(config.scheduler.type,
                                           config.scheduler.params,
                                           config.optimizer.lr)
@@ -189,14 +197,17 @@ class TorchEngine:
         """This engine's kernel selection, scoped to one step."""
         tk = self.tpu_kernels
         stack = ExitStack()
-        stack.enter_context(attention_impl("flash" if tk.flash_attention else "plain"))
+        stack.enter_context(attention_impl(
+            self._sparse_impl if self._sparse_impl is not None
+            else ("flash" if tk.flash_attention else "plain")))
         stack.enter_context(kernel_rmsnorm_scope(tk.fused_rmsnorm))
         stack.enter_context(fused_ce_scope(tk.fused_ce, tk.ce_chunk))
         return stack
 
     def _to_device(self, v) -> torch.Tensor:
-        """Token ids as int64 on the engine's device; a host batch goes
-        through pinned memory so the copy does not wait for the device."""
+        """Token ids (and a packed batch's ``segment_ids`` and ``positions``)
+        as int64 on the engine's device; a host batch goes through pinned
+        memory so the copy does not wait for the device."""
         t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
         t = t.long()
         if t.device == self.device:

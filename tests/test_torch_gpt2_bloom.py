@@ -46,33 +46,9 @@ from deepspeed_tpu_torch.models.decoding import forward_with_cache, init_cache
 from deepspeed_tpu_torch.models.transformer import check_supported, make_lm_batch
 from deepspeed_tpu_torch.ops.attention import attention_impl
 
-from torch_bridge import port_config, to_torch
+from torch_bridge import FAMILIES, V, family_pair, port_config, to_torch
 
 RTOL, ATOL = 1e-4, 1e-5
-V = 256
-FAMILIES = {"gpt2": (jax_gpt2, "gpt2-tiny"), "bloom": (jax_bloom, "bloom-tiny")}
-# leaves the JAX init leaves at zero or one; the others are random already
-PERTURBED = ("bq", "bk", "bv", "bo", "bi", "bias", "scale")
-
-
-def _perturb(tree, r, name=None):
-    if isinstance(tree, dict):
-        return {k: _perturb(v, r, k) for k, v in tree.items()}
-    a = np.array(tree, np.float32)
-    if name in PERTURBED:
-        a = a + 0.1 * r.randn(*a.shape).astype(np.float32)
-    return a
-
-
-def family_pair(family: str, seed: int = 0):
-    """(jax model, jax fp32 params, port model, port fp32 params), the same
-    perturbed weights in both."""
-    make, size = FAMILIES[family]
-    jm = make(size, vocab_size=V, max_seq_len=256)
-    tree = _perturb(jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(seed))),
-                    np.random.RandomState(seed + 1))
-    pm = TransformerModel(port_config(jm.config))
-    return jm, jax.tree.map(jnp.asarray, tree), pm, params_from_numpy(pm.config, tree)
 
 
 def _close(got, want):

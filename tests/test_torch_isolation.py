@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -131,6 +132,22 @@ def test_build_without_nvcc_raises(monkeypatch):
     lambda t: decode_attention.paged_decode_attention(
         t(2, 1, 2, 64), t(5, 4, 2, 64), t(5, 4, 2, 64), t(2),
         torch.zeros(2, 2, dtype=torch.int32, device="meta"), t(5, 2, 4), t(5, 2, 4)),
+    # the masked forms: segment ids, a dense bias (with its dbias), a layout
+    lambda t: flash_attention.flash_attention_fwd(
+        t(1, 8, 2, 64), t(1, 8, 2, 64), t(1, 8, 2, 64),
+        segment_ids=torch.zeros(1, 8, dtype=torch.int32, device="meta")),
+    lambda t: flash_attention.flash_attention_fwd(
+        t(1, 256, 2, 64), t(1, 256, 2, 64), t(1, 256, 2, 64),
+        layout=np.tril(np.ones((2, 2), np.int32))),
+    lambda t: flash_attention.flash_attention_bwd_dq(
+        t(1, 8, 2, 64), t(1, 8, 2, 64), t(1, 8, 2, 64), t(1, 8, 2, 64), t(1, 2, 8),
+        t(1, 8, 2, 64), bias=t(1, 2, 8, 8), emit_dbias=True),
+    lambda t: flash_attention.flash_attention_bwd_dkv(
+        t(1, 8, 2, 64), t(1, 8, 2, 64), t(1, 8, 2, 64), t(1, 2, 8), t(1, 2, 8),
+        t(1, 8, 2, 64), bias=t(1, 1, 8, 8)),
+    lambda t: flash_attention.flash_attention_bias_grad(
+        t(1, 8, 2, 64), t(1, 8, 2, 64), t(1, 8, 2, 64), t(1, 1, 8, 8), t(1, 2, 8),
+        t(1, 2, 8), t(1, 8, 2, 64)),
 ])
 def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch, call):
     """A tensor off the CPU goes to the kernel path; where the kernel cannot
