@@ -30,7 +30,9 @@ order, any failure exiting non-zero:
    dbias of the full positions bias, a "bigbird" layout with segments and
    other shapes of each form; the broadcast-bias gradient kernel at
    attention_bias's [1, 16, 2048, 2048] and smaller shapes, each dbias two
-   runs bitwise equal): max abs error against a stated tolerance, and the
+   runs bitwise equal; the expert form of the matvec at Mixtral-8x7B's
+   banks, int8 and int4, C in {1, 4, 8} rows an expert, each expert bitwise
+   the 2-D kernel on it): max abs error against a stated tolerance, and the
    kernel's, plain version's and library call's times (CUDA events, median
    of single launches with L2 flushed before each) beside the bound, one row
    per kernel and path; then the other shapes and dtypes the wrappers take;
@@ -108,12 +110,31 @@ order, any failure exiting non-zero:
    show each path's masked flash forms ran;
 16. ``attention_bias``: the attention op with a learned [1, 16, 2048, 2048]
    bias, three forward+backward steps; the bias-gradient kernel must run;
-17. the kernels line (one JSON object, one entry per kernel and main path,
+17. the Mixtral reference check: two-layer full-width Mixtral-8x7B with
+   int8 (then int4) weights and the int8 KV cache: one MoE layer on a fixed
+   input, kernel path against the plain fold (rel 1e-3) and the dequantized
+   product (1e-2); then prefill and three cached decode steps, kernel path
+   against plain path, where the first routing difference must be a router
+   near-tie and the tokens before their row's first difference agree;
+18. ``serving_mixtral``: init_inference(mixtral("mixtral-8x7b")) at full
+   width and depth (46.70 B params; weights drawn and packed one layer at a
+   time), int8 weights and the int8 KV cache on the three requests, the
+   resident weights within 2 % of the reckoning (48.42 GB), peak memory, the
+   MoE load, a profiled B=1 generate; between its int8 and int4 halves
+   ``serving_cb_mixtral``: init_serving on the same int8 weights, bf16 KV,
+   the first 6 requests of 11's trace through the contiguous and the paged
+   arena (paged == contiguous bitwise, one step shape, the MoE metrics);
+   then int4 weights (25.20 GB) on the greedy B=1 request. Each run twice
+   with identical tokens, counters zeroed before the second; speculative
+   decode is not driven (with 8 experts a verify window can drop tokens);
+19. the kernels line (one JSON object, one entry per kernel and main path,
    with that path's launches), then the device line (last line).
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import statistics
@@ -126,13 +147,15 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch import init_inference, init_serving, initialize
-from deepspeed_tpu_torch.models import bloom, gpt2, llama
+from deepspeed_tpu_torch.models import bloom, gpt2, llama, mixtral
+from deepspeed_tpu_torch.models import decoding as dec_mod
 from deepspeed_tpu_torch.models.decoding import (_quantize_kv, _window_rows,
                                                  forward_with_cache, init_cache,
                                                  init_paged_cache)
 from deepspeed_tpu_torch.config import SparseAttentionConfig
 from deepspeed_tpu_torch.models.transformer import (alibi_position_bias, alibi_slopes,
-                                                    apply)
+                                                    apply, layer_params)
+from deepspeed_tpu_torch.moe import sharded_moe as smoe
 from deepspeed_tpu_torch.ops import cuda as kernels
 from deepspeed_tpu_torch.ops.attention import attention, attention_impl
 from deepspeed_tpu_torch.ops.cuda import _build
@@ -192,6 +215,16 @@ KERNELS = {
     "quantized_matvec_int4": {
         "source": "deepspeed_tpu_torch/csrc/quantized_matvec.cu",
         "replaces": "deepspeed_tpu/ops/pallas/quantized_matmul.py:38",
+    },
+    # the expert form: the TPU package launches _kernel (:38) once per expert
+    # from _packed_expert_matvec_local (:330)
+    "quantized_matvec_expert_int8": {
+        "source": "deepspeed_tpu_torch/csrc/quantized_matvec.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/quantized_matmul.py:330",
+    },
+    "quantized_matvec_expert_int4": {
+        "source": "deepspeed_tpu_torch/csrc/quantized_matvec.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/quantized_matmul.py:330",
     },
     "decode_attention_int8": {
         "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
@@ -282,6 +315,17 @@ SPARSE_KERNELS = ("flash_attention_fwd_sparse", "flash_attention_bwd_dq_sparse",
                   "fused_adam")
 # packed documents: lengths uniform in [DOC_MIN, DOC_MAX], seeded
 DOC_MIN, DOC_MAX, PACKED_SEED = 128, 1536, 6
+# Mixtral-8x7B: the serving_mixtral path's kernels (int8 engine with the int8
+# KV cache, int4 engine with the bf16 cache), its expert banks (D, N) at the
+# decode step's C = eval_capacity rows an expert, and the serving_cb_mixtral
+# path's (bf16 KV; its 512-row steps multiply the dequantized weights)
+MIXTRAL_KERNELS = ("quantized_matvec_expert_int8", "quantized_matvec_expert_int4",
+                   "quantized_matvec_int8", "quantized_matvec_int4",
+                   "decode_attention_int8", "decode_attention", "flash_attention_fwd",
+                   "rmsnorm_fwd")
+MIXTRAL_BANKS = (("wi/wg", 4096, 14336), ("wo", 14336, 4096))
+MIXTRAL_CB_KERNELS = ("paged_decode_attention", "decode_attention", "rmsnorm_fwd")
+MIXTRAL_CB_REQUESTS = 6  # the prefix of cb_trace: 2961 prompt tokens, 211 new
 # DeepSpeed's default sparsity mode at the flash kernels' 128-token block
 SPARSE_SECTION = {"mode": "fixed", "block": 128, "num_local_blocks": 4,
                   "num_global_blocks": 1}
@@ -464,6 +508,62 @@ def check_quantized_matvec(gen, timer):
                     del wd
             del w, pw
     torch.cuda.empty_cache()
+    return rows[8], rows[4]
+
+
+def check_expert_matvec(gen, timer):
+    """The expert form of the int8 and int4 matvec at Mixtral-8x7B's banks
+    (8 experts; wi/wg [8, 4096, 14336], wo [8, 14336, 4096]) with C in
+    {1, 4, 8} rows an expert (4 is the decode step's eval capacity), against
+    the plain version (fp32 fold x·(q·s) per expert), tolerance two bf16 ulps
+    of the output's largest value; each expert's rows must equal the 2-D
+    kernel on that expert alone, bitwise, and a rerun the first run. Timed at
+    C = 4 for both banks; the library call is torch.bmm on the bank
+    dequantized to bf16. Returns the wi/wg rows (the JSON line's) by width."""
+    rows = {}
+    for bits in (8, 4):
+        for leaf, D, N in MIXTRAL_BANKS:
+            w = (0.02 * torch.randn(8, D, N, generator=gen, device="cuda")).to(BF16)
+            pw = pack_quantize_blockwise(w, bits=bits)
+            del w
+            for C in (1, 4, 8):
+                x = torch.randn(8, C, D, generator=gen, device="cuda", dtype=BF16)
+                out = qmm.packed_expert_matvec(x, pw)
+                ref = qmm.packed_expert_matvec_plain(x, pw)
+                peak = ref.float().abs().max().item()
+                e, tol = max_err(out, ref), 2 * bf16_ulp(peak)
+                alone = all(torch.equal(qmm.packed_matvec(x[i], pw[i]), out[i])
+                            for i in range(8))
+                again = torch.equal(qmm.packed_expert_matvec(x, pw), out)
+                print(f"quantized_matvec_expert int{bits} {leaf} E=8 C={C} D={D} N={N}: "
+                      f"max_abs_err {e:.3e} (tol {tol:.3e}, 2 bf16 ulps of {peak:.3e}); "
+                      f"each expert bitwise the 2-D kernel: {alone}; rerun bitwise: {again}")
+                require(e <= tol, f"expert matvec int{bits} disagrees at {leaf} C={C}")
+                require(alone and again, f"expert matvec int{bits} {leaf} C={C}: an "
+                        "expert differs from the 2-D kernel, or a rerun differs")
+                if C != 4:
+                    continue
+                wd = pw.dequantize()
+                nbytes = pw.nbytes + 2 * x.numel() + 2 * 8 * C * N
+                b_ms, b_by = bound(2 * 8 * C * D * N, nbytes)
+                row = {
+                    "max_abs_err": e,
+                    "ms": timer(lambda: qmm.packed_expert_matvec(x, pw)),
+                    "plain_ms": timer(lambda: qmm.packed_expert_matvec_plain(x, pw)),
+                    "library_ms": timer(lambda: torch.bmm(x, wd)),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "shape": f"E=8 C={C} D={D} N={N} int{bits} (library: torch.bmm on "
+                             "the bank dequantized to bf16)",
+                }
+                del wd
+                print(f"quantized_matvec_expert int{bits} {leaf} C={C}: kernel "
+                      f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+                      f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+                      f"{nbytes / row['ms'] / 1e6:.1f} GB/s")
+                if leaf == "wi/wg":
+                    rows[bits] = row
+            del pw
+            torch.cuda.empty_cache()
     return rows[8], rows[4]
 
 
@@ -2048,16 +2148,18 @@ def serve_cb(srv, trace, label: str):
         require(sched.pool.free_count + sched.pool.live_count == sched.num_pages
                 and all(s is None for s in sched.slots),
                 f"{label}: page pool invariants at the end")
-        for rep in ("cb22", "cb23"):
-            st = states[rep]
-            require(st.cached_tokens == st.prompt_len - 1,
-                    f"{label} {rep}: {st.cached_tokens} cached of {st.prompt_len}, the "
-                    "repeated prompt must skip its prefill")
-        require(m["cow_copies"] >= 1 and m["prefix_hits"] >= 2,
-                f"{label}: prefix reuse and copy-on-write did not happen")
+        if "cb22" in states:  # the whole trace, with its repeats and sharers
+            for rep in ("cb22", "cb23"):
+                st = states[rep]
+                require(st.cached_tokens == st.prompt_len - 1,
+                        f"{label} {rep}: {st.cached_tokens} cached of {st.prompt_len}, "
+                        "the repeated prompt must skip its prefill")
+            require(m["cow_copies"] >= 1 and m["prefix_hits"] >= 2,
+                    f"{label}: prefix reuse and copy-on-write did not happen")
         print(f"serving_cb {label}: pool invariants hold (free {sched.pool.free_count} + "
               f"live {sched.pool.live_count} = {sched.num_pages}; {held} prefix-cache "
-              "references); the two repeats fed only their last prompt token")
+              "references)" + ("; the two repeats fed only their last prompt token"
+                               if "cb22" in states else ""))
     return outs, counts
 
 
@@ -2131,6 +2233,348 @@ def main_path_serving_cb():
     print(f"serving_cb launches (four runs): { {k: totals[k] for k in CB_KERNELS} }")
     del first, engine, engine8
     torch.cuda.empty_cache()
+    return totals
+
+
+@contextlib.contextmanager
+def routing(store: list):
+    """Record every routed MLP call's routing into ``store``, in call order:
+    (router logits [N, E], the expert each token was kept at in each round
+    [N, K] (-1: dropped), the fill of each expert [E], the capacity)."""
+    real = smoe.top_k_gating_indices
+
+    def spy(logits, top_k, capacity, valid=None):
+        out = real(logits, top_k, capacity, valid)
+        kept = torch.where(out[3] > 0, out[2] // capacity, -1)
+        store.append((logits.detach().clone(), kept, out[4]["tokens_per_expert"].clone(),
+                      capacity))
+        return out
+
+    smoe.top_k_gating_indices = spy
+    try:
+        yield
+    finally:
+        smoe.top_k_gating_indices = real
+
+
+def check_moe_layer(cfg, params, wdtype: str) -> None:
+    """One MoE layer (layer 0 of ``params``) on a fixed seeded input of the
+    decode step's shape (B = 4, S = 1: C = 4 rows an expert, the expert
+    kernel's path). The router sees the same input on every path, so all
+    route alike: the kernel path against the plain fold
+    (packed_expert_matvec_plain) within a relative L2 error of 1e-3 (fp32
+    sums in another order, then bf16 roundings), and against the product
+    over the bank dequantized to bf16 (matvec_max_rows_scope(0)) within
+    1e-2 (the weights rounded to bf16 first)."""
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "fp32 matmuls fall to TF32: the router would lose precision")
+    lp = layer_params(params["layers"], 0)["mlp"]
+    x = torch.randn(4, 1, cfg.hidden_size, generator=torch.Generator(device="cuda")
+                    .manual_seed(5), device="cuda", dtype=BF16)
+    kernels.reset_launch_counts()
+    got, gst = smoe.moe_serving_mlp(cfg, lp, x)
+    ran = kernels.launch_counts()[f"quantized_matvec_expert_{wdtype}"]
+    real = smoe.packed_expert_proj
+    smoe.packed_expert_proj = lambda xe, w: qmm.packed_expert_matvec_plain(xe.contiguous(), w)
+    try:
+        fold, fst = smoe.moe_serving_mlp(cfg, lp, x)
+    finally:
+        smoe.packed_expert_proj = real
+    with qmm.matvec_max_rows_scope(0):
+        deq, dst_ = smoe.moe_serving_mlp(cfg, lp, x)
+    same = all(torch.equal(gst["tokens_per_expert"], st["tokens_per_expert"])
+               for st in (fst, dst_))
+    r_fold, r_deq = rel_l2(got, fold), rel_l2(got, deq)
+    print(f"MoE layer ({wdtype} banks, fixed input B=4 S=1, C=4): expert kernel ran "
+          f"{ran}x; same routing on every path: {same}; relative L2 error against the "
+          f"plain fold {r_fold:.3e} (tol 1e-3), against the dequantized product "
+          f"{r_deq:.3e} (tol 1e-2); tokens per expert "
+          f"{gst['tokens_per_expert'].tolist()}")
+    require(ran == 3 and same, f"MoE layer {wdtype}: the kernel did not run, or routing differs")
+    require(r_fold <= 1e-3 and r_deq <= 1e-2, f"MoE layer {wdtype}: kernel path disagrees")
+
+
+def routing_differences(got, want, B: int, S: int, L: int, tol: float):
+    """Where the kernel path routed a token otherwise than the plain path,
+    call by call (the prefill, then one call a decode step, each over the L
+    layers): its ordered top-2 choice flipped, or capacity kept it at other
+    experts. Capacity couples the tokens of a call (Mixtral's 2·2 < 8
+    experts: an expert that fills drops the later tokens' assignments), so
+    after the first difference anything in that call or later may differ.
+    The first call with a difference saw router inputs that differ only by
+    the two paths' numerics; each choice flip there must be a near-tie: the
+    largest difference of the token's router logits between the paths is
+    within ``tol`` of its largest logit (and so the flipped gap, at most
+    twice that difference, is small too). Returns ({row: first position with
+    a difference in any call}, a printable account of the first call)."""
+    first, account = {}, None
+    for c, ((lk, kk, fill, cap), (lp, kp, _, _)) in enumerate(zip(got, want)):
+        step, layer = divmod(c, L)
+        flip = (lk.topk(2, dim=-1).indices != lp.topk(2, dim=-1).indices).any(dim=-1)
+        diff = flip | (kk != kp).any(dim=-1)
+        if not bool(diff.any()):
+            continue
+        where = [(t // S, t % S) if step == 0 else (t, S + step - 1)
+                 for t in range(diff.numel())]
+        if account is None:
+            srt = lp.sort(dim=-1, descending=True).values
+            gap = torch.minimum(srt[:, 0] - srt[:, 1], srt[:, 1] - srt[:, 2])
+            delta, scale = (lk - lp).abs().amax(dim=-1), lp.abs().amax(dim=-1)
+            flips = []
+            for t in flip.nonzero().flatten().tolist():
+                b, pos = where[t]
+                g, d, sc = gap[t].item(), delta[t].item(), scale[t].item()
+                flips.append((f"row {b} pos {pos}", round(g, 5), round(d, 5), round(sc, 3)))
+                require(d <= tol * sc, f"layer {layer} row {b} pos {pos}: routing flipped "
+                        f"on router logits {d:.3e} apart (scale {sc:.3e}): not a near-tie")
+            require(bool(flip.any()), f"layer {layer}: tokens kept at other experts with "
+                    "no choice flip")
+            moved = int((diff & ~flip).sum())
+            account = (f"first difference in layer {layer} "
+                       f"{'prefill' if step == 0 else f'decode step {step}'}: {len(flips)} "
+                       f"choice flips, each a near-tie (where, plain top-3 gap, router "
+                       f"logit difference, largest logit): {flips[:6]}; {moved} tokens kept "
+                       f"elsewhere by capacity ({int((fill >= cap).sum())} experts full at "
+                       f"capacity {cap})")
+        for t in diff.nonzero().flatten().tolist():
+            b, pos = where[t]
+            first[b] = min(first.get(b, pos), pos)
+    return first, account or "no routing difference"
+
+
+def reference_check_mixtral():
+    """Two-layer full-width Mixtral-8x7B with int8 (then int4) weights and
+    the int8 KV cache: first one MoE layer on a fixed input
+    (:func:`check_moe_layer`); then the kernel path (the expert and 2-D
+    matvecs, int8 decode kernel, flash prefill, RMSNorm kernel) against the
+    plain path (the products over the dequantized weights under
+    matvec_max_rows_scope(0), the plain attention and norm) on the same
+    weights, prefill of 160 tokens then three cached decode steps. A router
+    near-tie can flip a token's experts between the paths (one bf16 ulp of
+    hidden state is enough), and capacity then moves other tokens' drops:
+    the first difference must be a near-tie (:func:`routing_differences`),
+    and the logits of the tokens before their row's first routing
+    difference must agree within the tolerance (relative L2); with no
+    difference, all of them."""
+    tol = 2e-2
+    model = mixtral("mixtral-8x7b", num_layers=2)
+    cfg = model.config
+    B, S = 2, 160
+    ids = torch.randint(0, cfg.vocab_size, (B, S + 3),
+                        generator=torch.Generator().manual_seed(1)).cuda()
+    for wdtype in ("int8", "int4"):
+        eng = init_inference(model, dtype=wdtype, kv_cache_dtype="int8",
+                             replace_with_kernel_inject=True, max_tokens=1024,
+                             rng=torch.Generator(device="cuda").manual_seed(1))
+
+        def run():
+            cache = init_cache(cfg, B, 256, BF16, "cuda", quantized=True)
+            logits, _ = forward_with_cache(cfg, eng.params, ids[:, :S], cache, 0)
+            outs = [logits]
+            for pos in range(S, S + 3):
+                logits, _ = forward_with_cache(cfg, eng.params, ids[:, pos:pos + 1],
+                                               cache, pos)
+                outs.append(logits)
+            return torch.cat(outs, dim=1)
+
+        with torch.inference_mode():
+            check_moe_layer(cfg, eng.params, wdtype)
+            got_r, want_r = [], []
+            kernels.reset_launch_counts()
+            with attention_impl("auto"), kernel_rmsnorm_scope(True), routing(got_r):
+                got = run()
+            counts = kernels.launch_counts()
+            with attention_impl("plain"), kernel_rmsnorm_scope(False), \
+                    qmm.matvec_max_rows_scope(0), routing(want_r):
+                want = run()
+        require(bool(torch.isfinite(got).all()), f"non-finite Mixtral {wdtype} logits")
+        require(all(counts[k] > 0 for k in (f"quantized_matvec_expert_{wdtype}",
+                                            f"quantized_matvec_{wdtype}",
+                                            "decode_attention_int8", "flash_attention_fwd",
+                                            "rmsnorm_fwd")),
+                f"Mixtral {wdtype} reference check: a kernel did not run: {counts}")
+        first, account = routing_differences(got_r, want_r, B, S, cfg.num_layers, tol)
+        keep = torch.ones(B, S + 3, dtype=torch.bool, device="cuda")
+        for b, pos in first.items():
+            keep[b, pos:] = False
+        clean = rel_l2(got[keep], want[keep]) if bool(keep.any()) else 0.0
+        print(f"serving_mixtral reference check ({wdtype} weights, int8 KV, 2 layers, full "
+              f"width): relative L2 error kernel vs plain path {rel_l2(got, want):.3e} over "
+              f"all {B * (S + 3)} tokens, {clean:.3e} over the {int(keep.sum())} tokens "
+              f"before their row's first routing difference (tol {tol}); {account}; "
+              f"launches { {k: counts[k] for k in MIXTRAL_KERNELS if counts[k]} }")
+        require(clean <= tol, f"Mixtral {wdtype}: kernel path disagrees with the plain path")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def resident_reckoning(cfg, bits: int) -> float:
+    """Bytes of the packed engine's weights from the config alone: int8 qdata
+    (int4: two values a byte where the contraction has an even number of
+    128-row blocks) and one fp32 scale per block and column of every
+    projection; bf16 embedding, head, router and norms."""
+    L, d, E, f = cfg.num_layers, cfg.hidden_size, cfg.num_experts, cfg.ffn
+    leaves = [(1, d, cfg.num_heads * cfg.hd), (1, d, cfg.kv_heads * cfg.hd),
+              (1, d, cfg.kv_heads * cfg.hd), (1, cfg.num_heads * cfg.hd, d),
+              (E, d, f), (E, d, f), (E, f, d)]
+    total = 0.0
+    for n, i, o in leaves:
+        per_byte = 2 if bits == 4 and (i // 128) % 2 == 0 else 1
+        total += L * n * (i * o / per_byte + 4 * max(i // 128, 1) * o)
+    return total + 2 * (2 * cfg.vocab_size * d + L * (d * E + 2 * d) + d)
+
+
+def moe_load(stats: list) -> str:
+    """The MoE load over a run's routed MLP calls: tokens per expert summed,
+    max/mean imbalance, the mean drop fraction."""
+    hist = torch.stack([st["tokens_per_expert"] for st in stats]).sum(0).tolist()
+    drop = torch.stack([st["drop_fraction"] for st in stats]).mean().item()
+    imb = max(hist) / (sum(hist) / len(hist)) if sum(hist) else 0.0
+    return (f"tokens per expert {hist} over {len(stats)} layer calls, load imbalance "
+            f"{imb:.3f}, mean drop fraction {drop:.4f}")
+
+
+@contextlib.contextmanager
+def moe_stats(store: list):
+    """Keep the stats of every routed MLP call of the cached forwards
+    (device tensors, no host read until the caller's)."""
+    real = dec_mod.moe_serving_mlp
+
+    def spy(*a, **k):
+        out, st = real(*a, **k)
+        store.append(st)
+        return out, st
+
+    dec_mod.moe_serving_mlp = spy
+    try:
+        yield
+    finally:
+        dec_mod.moe_serving_mlp = real
+
+
+def decode_steps(eng, steps: int):
+    """A function running ``steps`` single-token cached forwards of one
+    sequence after a 128-token prefill made here (the same positions on
+    every call: the cache is written in place)."""
+    cfg = eng.config
+    ids = torch.randint(0, cfg.vocab_size, (1, 128 + steps),
+                        generator=torch.Generator().manual_seed(9)).cuda()
+    cache = init_cache(cfg, 1, 256, BF16, "cuda", quantized=eng.kv_cache_quantized)
+    with eng._impl_ctx(), torch.inference_mode():
+        forward_with_cache(cfg, eng.params, ids[:, :128], cache, 0)
+
+    def run():
+        with eng._impl_ctx(), torch.inference_mode():
+            for i in range(steps):
+                forward_with_cache(cfg, eng.params, ids[:, 128 + i:129 + i], cache, 128 + i)
+
+    return run
+
+
+def main_path_serving_mixtral():
+    """Mixtral-8x7B at full width and depth, seeded random weights drawn and
+    packed one layer at a time: the int8 engine with the int8 KV cache on the
+    three serving requests (twice: the second run with the counters zeroed
+    just before it, tokens equal to the first's); the continuous-batching
+    path on the same int8 weights (:func:`main_path_serving_cb_mixtral`);
+    then, the int8 engine freed, the int4 engine on the greedy B=1 request
+    (twice). Speculative decode is not driven: with E = 8 and top-2 a verify
+    window can drop tokens, so its tokens are not promised to be plain
+    greedy's. Returns (serving_mixtral's launches, the int8 and int4 runs
+    summed; serving_cb_mixtral's)."""
+    model = mixtral("mixtral-8x7b")
+    cfg = model.config
+    requests = serving_requests(cfg.vocab_size)
+    counts = {}
+    cb_counts = None
+    for wdtype, reqs in (("int8", requests), ("int4", requests[:1])):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        kv = "int8" if wdtype == "int8" else "auto"
+        eng = init_inference(model, dtype=wdtype, kv_cache_dtype=kv,
+                             replace_with_kernel_inject=True, max_tokens=1024,
+                             rng=torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        got, want = tree_bytes(eng.params), resident_reckoning(cfg, int(wdtype[3:]))
+        print(f"serving_mixtral: {cfg.name} L={cfg.num_layers} d={cfg.hidden_size} "
+              f"E={cfg.num_experts} top-{cfg.moe_top_k} ffn={cfg.ffn} V={cfg.vocab_size} "
+              f"({cfg.num_params() / 1e9:.3f} B params; bf16 would be "
+              f"{2 * cfg.num_params() / 1e9:.2f} GB), depth not cut; {wdtype} weights, "
+              f"{kv} KV; init and pack {time.perf_counter() - t0:.1f} s; weights resident "
+              f"{got / 1e9:.3f} GB against the reckoning {want / 1e9:.3f} GB "
+              f"({got / want - 1:+.4%}); init peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        require(abs(got / want - 1) <= 0.02, f"Mixtral {wdtype}: resident weights "
+                f"{got} B, reckoning {want} B")
+        with torch.inference_mode():
+            t1 = time.perf_counter()
+            first = serve(eng, reqs, report=False)  # first use of every shape
+            print(f"serving_mixtral {wdtype}: first run of the requests "
+                  f"{time.perf_counter() - t1:.2f} s")
+            torch.cuda.reset_peak_memory_stats()
+            stats = []
+            kernels.reset_launch_counts()
+            with moe_stats(stats):
+                second = serve(eng, reqs, report=True, label=f"serving_mixtral {wdtype} ")
+            run = kernels.launch_counts()
+        plain = kernels.plain_attention_on_cuda()
+        print(f"serving_mixtral {wdtype}: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; MoE load: "
+              f"{moe_load(stats)}; launches { {k: run[k] for k in MIXTRAL_KERNELS} }; "
+              f"plain attention on the card {plain}")
+        require(sum(plain.values()) == 0, f"serving_mixtral: plain attention ran {plain}")
+        for (name, _, _), a, b in zip(reqs, first, second):
+            require(torch.equal(a, b), f"serving_mixtral {wdtype} {name}: tokens differ "
+                    "between two runs")
+        print(f"serving_mixtral {wdtype} reruns: identical tokens")
+        for k, v in run.items():
+            counts[k] = counts.get(k, 0) + v
+        profile_device(decode_steps(eng, 8), f"serving_mixtral {wdtype} B=1, 8 decode "
+                       "steps after a 128-token prefill")
+        if wdtype == "int8":
+            cb_counts = main_path_serving_cb_mixtral(model, eng.params)
+        del eng, first, second, stats
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in MIXTRAL_KERNELS:
+        require(counts[name] > 0, f"kernel {name} was not launched on serving_mixtral")
+    return counts, cb_counts
+
+
+def main_path_serving_cb_mixtral(model, params):
+    """init_serving on Mixtral-8x7B's int8 weights (shared, not copied), bf16
+    KV, kernel injection, 8 slots x a 64-token budget, pages of 16 tokens:
+    the first MIXTRAL_CB_REQUESTS requests of the serving_cb trace through
+    the contiguous and the paged arena, each run with the counters zeroed
+    just before it. Each request's tokens must be bitwise equal between the
+    arenas (the steps feed the same tokens, so the capacity-coupled routing
+    is the same); one step shape. Every step sends 512 rows, 32 an expert,
+    through the projections: above the matvec's 8 rows, so each step
+    multiplies the dequantized weights, as the JAX package does."""
+    trace = cb_trace(model.config.vocab_size)[:MIXTRAL_CB_REQUESTS]
+    eng = init_inference(model, dtype="int8", replace_with_kernel_inject=True,
+                         max_tokens=1024, params=params)
+    outs, totals = {}, {}
+    for paged in (False, True):
+        srv = init_serving(serving=cb_serving(paged), engine=eng)
+        label = f"serving_cb_mixtral {'paged' if paged else 'contiguous'} bf16 KV"
+        with torch.inference_mode():
+            outs[paged], counts = serve_cb(srv, trace, label)
+        moe = [ln.strip() for ln in srv.metrics.summary().splitlines() if "moe" in ln]
+        print(f"{label}: step_traces {srv.step_traces}; metrics.summary() {moe} (each "
+              "step multiplies the dequantized weights: 512 rows, 32 an expert)")
+        want = "paged_decode_attention" if paged else "decode_attention"
+        require(counts[want] > 0 and counts["rmsnorm_fwd"] > 0 and srv.metrics.moe_steps > 0,
+                f"{label}: {want} or rmsnorm_fwd not launched, or no MoE step: {counts}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        del srv
+        torch.cuda.empty_cache()
+    diff = [rid for rid in outs[False] if not np.array_equal(outs[False][rid], outs[True][rid])]
+    print(f"serving_cb_mixtral: paged == contiguous bitwise for "
+          f"{len(outs[False]) - len(diff)}/{len(trace)} requests; differ: {diff}")
+    require(not diff, "serving_cb_mixtral: paged and contiguous outputs differ")
+    del eng
     return totals
 
 
@@ -2634,6 +3078,7 @@ def main() -> int:
     flash, norm = check_flash(gen, timer), check_rmsnorm(gen, timer)
     dq, dkv = check_flash_bwd(gen, timer)
     qmv8, qmv4 = check_quantized_matvec(gen, timer)
+    xmv8, xmv4 = check_expert_matvec(gen, timer)
     decode = check_decode(gen, timer)
     cb = check_paged_decode(gen, timer)
     lnorm = check_layernorm(gen, timer)
@@ -2660,7 +3105,7 @@ def main() -> int:
         ("fused_adam", "training", adam),
         ("quantized_matvec_int8", "serving_quantized", qmv8),
         ("quantized_matvec_int4", "serving_quantized", qmv4),
-        ("decode_attention_int8", "serving_quantized", check_decode_int8(gen, timer)),
+        ("decode_attention_int8", "serving_quantized", dec8 := check_decode_int8(gen, timer)),
         ("paged_decode_attention", "serving_cb", cb["paged_decode_attention"]),
         ("paged_decode_attention_int8", "serving_cb", cb["paged_decode_attention_int8"]),
         ("decode_attention", "serving_cb", cb["decode_attention"]),
@@ -2689,6 +3134,19 @@ def main() -> int:
         ("rmsnorm_bwd", "training_sparse", rms_bwd),
         ("fused_adam", "training_sparse", adam),
         ("flash_attention_bias_grad", "attention_bias", bias_grad),
+        # Mixtral-8x7B's attention, norm and head shapes are Llama-3-8B's: its
+        # flash, decode, RMSNorm and 2-D matvec rows are the serving paths'
+        ("quantized_matvec_expert_int8", "serving_mixtral", xmv8),
+        ("quantized_matvec_expert_int4", "serving_mixtral", xmv4),
+        ("quantized_matvec_int8", "serving_mixtral", qmv8),
+        ("quantized_matvec_int4", "serving_mixtral", qmv4),
+        ("decode_attention_int8", "serving_mixtral", dec8),
+        ("decode_attention", "serving_mixtral", decode),
+        ("flash_attention_fwd", "serving_mixtral", flash["serving"]),
+        ("rmsnorm_fwd", "serving_mixtral", norm["serving"]),
+        ("paged_decode_attention", "serving_cb_mixtral", cb["paged_decode_attention"]),
+        ("decode_attention", "serving_cb_mixtral", cb["decode_attention"]),
+        ("rmsnorm_fwd", "serving_cb_mixtral", norm["serving_cb"]),
     ]
     for name, path, r in rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -2726,6 +3184,7 @@ def main() -> int:
     check_packed_equals_unpacked(bloom("bloom-560m", num_layers=2))
     reference_check_quantized()
     reference_check_serving_cb()
+    reference_check_mixtral()
     counts = {"training": main_path_training(), "serving": main_path(),
               "serving_quantized": main_path_quantized(),
               "serving_cb": main_path_serving_cb(),
@@ -2747,6 +3206,7 @@ def main() -> int:
                   extra={"sparse_attention": SPARSE_SECTION}, rerun=False,
                   pairs_per_seq=layout_pairs(sparse_fixed_layout(TRAIN_S), TRAIN_S)),
               "attention_bias": main_path_attention_bias()}
+    counts["serving_mixtral"], counts["serving_cb_mixtral"] = main_path_serving_mixtral()
 
     # launches: the row's main path's run, counters zeroed just before it
     line = {"kernels": [

@@ -2,19 +2,19 @@
 Hopper (H100).
 
 It grows slice by slice beside the JAX package, which stays the reference.
-It serves the Llama, GPT-2 and BLOOM families through ``init_inference`` →
-``InferenceEngine.generate``, Llama also through the continuous-batching
-front door ``init_serving`` → ``ServingEngine``, and trains them on one
-device through ``initialize`` → ``TorchEngine.train_batch``, with
-hand-written CUDA kernels (``ops/cuda``): flash attention forward and
-backward (with ALiBi), decode attention over a contiguous cache and over a
-page pool (with ALiBi), RMSNorm and LayerNorm forward and backward, the
-quantized matvec and the fused Adam update. It imports neither jax nor
-deepspeed_tpu.
+It serves the Llama, Mixtral (MoE at ep = 1), GPT-2 and BLOOM families
+through ``init_inference`` → ``InferenceEngine.generate``, Llama and Mixtral
+also through the continuous-batching front door ``init_serving`` →
+``ServingEngine``, and trains the dense families on one device through
+``initialize`` → ``TorchEngine.train_batch``, with hand-written CUDA kernels
+(``ops/cuda``): flash attention forward and backward (with ALiBi), decode
+attention over a contiguous cache and over a page pool (with ALiBi), RMSNorm
+and LayerNorm forward and backward, the quantized matvec (with its expert
+form) and the fused Adam update. It imports neither jax nor deepspeed_tpu.
 """
 
 from .accelerator import get_accelerator  # noqa: F401
-from .models import bloom, gpt2, llama  # noqa: F401
+from .models import bloom, gpt2, llama, mixtral  # noqa: F401
 
 __version__ = "0.1.0"
 

@@ -2,9 +2,15 @@
 // accumulation, y in x's dtype (bf16).
 //
 // Replaces deepspeed_tpu/ops/pallas/quantized_matmul.py:_kernel (line 38),
-// reached through _packed_matvec (line 89) from packed_proj (line 436); the
-// per-expert entry packed_expert_proj (line 391) runs the same kernel once
-// per expert.
+// reached through _packed_matvec (line 89) from packed_proj (line 436), and
+// its per-expert use: _packed_expert_matvec_local (line 330, from
+// packed_expert_proj, line 391) launches it once per expert of an MoE bank.
+// Here one launch covers every expert: blockIdx.z is the expert, and each
+// expert's rows, weight, scales, output and split scratch sit at a fixed
+// stride (dst_quantized_expert_matvec). The split plan is that of one
+// expert's weight and the fold order is per expert, so each expert's rows are
+// bitwise what the 2-D call gives on that expert alone; 8 experts x 112
+// column tiles x the splits fill the 132 SMs where one expert's tiles do not.
 //
 // Layout (ops/quantizer.py, byte-identical to the JAX package): the
 // contraction dim D = G * Bq is cut into G blocks of Bq rows (Bq = 128, or
@@ -57,6 +63,14 @@ __global__ void __launch_bounds__(kThreads) quantized_matvec_kernel(
   constexpr int kSub = NIB ? 2 : 1;  // dense blocks a byte plane holds
   __shared__ __align__(16) float xs[kChunk][kSub][MAXM];
   __shared__ float red[kWarps][kMChunk][kCols];
+
+  // this block's expert: its slice of every array (expert 0 of a 2-D call)
+  const size_t e = blockIdx.z;
+  x += e * M * D;
+  q += e * Gp * Bq * N;
+  s += e * kSub * Gp * N;
+  out += e * M * N;
+  if (part != nullptr) part += e * gridDim.y * M * N;
 
   const int tid = threadIdx.x;
   const int ct = tid % kColThreads;
@@ -183,22 +197,25 @@ __global__ void __launch_bounds__(kThreads) quantized_matvec_kernel(
   }
 }
 
-// out[i] = sum over splits of part[split, i], in split order
+// out[e, i] = sum over splits of part[e, split, i], in split order
 template <typename T>
 __global__ void __launch_bounds__(kThreads) sum_splits_kernel(
-    const float* __restrict__ part, T* __restrict__ out, int splits, int MN) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= MN) return;
-  float v = part[i];
-  for (int sp = 1; sp < splits; ++sp) v += part[(size_t)sp * MN + i];
+    const float* __restrict__ part, T* __restrict__ out, int splits, int MN,
+    int E) {
+  const size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= (size_t)E * MN) return;
+  const size_t e = i / MN;
+  const float* pe = part + e * splits * MN + (i - e * MN);
+  float v = pe[0];
+  for (int sp = 1; sp < splits; ++sp) v += pe[(size_t)sp * MN];
   out[i] = dst::from_float<T>(v);
 }
 
 template <typename T, int MAXM, bool NIB>
 void launch_main(const void* x, const void* q, const void* s, void* out,
-                 float* part, int M, int D, int N, int Gp, int Bq, int splits,
-                 int per, cudaStream_t stream) {
-  dim3 grid(N / kCols, splits);
+                 float* part, int E, int M, int D, int N, int Gp, int Bq,
+                 int splits, int per, cudaStream_t stream) {
+  dim3 grid(N / kCols, splits, E);
   quantized_matvec_kernel<T, MAXM, NIB><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(q),
       static_cast<const float*>(s), static_cast<T*>(out), part, M, D, N, Gp, Bq,
@@ -207,50 +224,53 @@ void launch_main(const void* x, const void* q, const void* s, void* out,
 
 template <typename T, bool NIB>
 int launch(const void* x, const void* q, const void* s, void* out, void* part,
-           int M, int D, int N, int Gp, int Bq, int splits, int per,
+           int E, int M, int D, int N, int Gp, int Bq, int splits, int per,
            cudaStream_t stream) {
   float* pp = splits > 1 ? static_cast<float*>(part) : nullptr;
   if (M <= 1) {
-    launch_main<T, 1, NIB>(x, q, s, out, pp, M, D, N, Gp, Bq, splits, per, stream);
+    launch_main<T, 1, NIB>(x, q, s, out, pp, E, M, D, N, Gp, Bq, splits, per, stream);
   } else if (M <= 2) {
-    launch_main<T, 2, NIB>(x, q, s, out, pp, M, D, N, Gp, Bq, splits, per, stream);
+    launch_main<T, 2, NIB>(x, q, s, out, pp, E, M, D, N, Gp, Bq, splits, per, stream);
   } else if (M <= 4) {
-    launch_main<T, 4, NIB>(x, q, s, out, pp, M, D, N, Gp, Bq, splits, per, stream);
+    launch_main<T, 4, NIB>(x, q, s, out, pp, E, M, D, N, Gp, Bq, splits, per, stream);
   } else if (M <= 8) {
-    launch_main<T, 8, NIB>(x, q, s, out, pp, M, D, N, Gp, Bq, splits, per, stream);
+    launch_main<T, 8, NIB>(x, q, s, out, pp, E, M, D, N, Gp, Bq, splits, per, stream);
   } else {
-    launch_main<T, 16, NIB>(x, q, s, out, pp, M, D, N, Gp, Bq, splits, per, stream);
+    launch_main<T, 16, NIB>(x, q, s, out, pp, E, M, D, N, Gp, Bq, splits, per, stream);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const int MN = M * N;
-  sum_splits_kernel<T><<<(MN + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      pp, static_cast<T*>(out), splits, MN);
+  const size_t total = (size_t)E * MN;
+  sum_splits_kernel<T><<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0,
+                         stream>>>(pp, static_cast<T*>(out), splits, MN, E);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x: [M, D] contiguous; qdata: int8 [Gp, Bq, N] contiguous (Gp = G, or G / 2
-// nibble planes when nibbles); scale: fp32 [G, 1, N] contiguous; out: [M, N]
-// in x's dtype; part: fp32 [splits, M, N] scratch when splits > 1. Split
-// `sp` owns byte planes [sp * per, min(Gp, (sp + 1) * per)). M is 1 to 16,
-// N a multiple of 128, every pointer 16-byte aligned.
-extern "C" int dst_quantized_matvec(const void* x, const void* q, const void* s,
-                                    void* out, void* part, int M, int D, int N,
-                                    int Gp, int Bq, int nibbles, int splits,
-                                    int per, int dtype, void* stream) {
+// E experts, each contiguous after the other (E = 1: one 2-D weight): x
+// [E, M, D]; qdata int8 [E, Gp, Bq, N] (Gp = G, or G / 2 nibble planes when
+// nibbles); scale fp32 [E, G, 1, N]; out [E, M, N] in x's dtype; part fp32
+// [E, splits, M, N] scratch when splits > 1. Split `sp` owns byte planes
+// [sp * per, min(Gp, (sp + 1) * per)). M is 1 to 16, N a multiple of 128,
+// every expert's slice of every array 16-byte aligned.
+extern "C" int dst_quantized_expert_matvec(int E, const void* x, const void* q,
+                                           const void* s, void* out, void* part,
+                                           int M, int D, int N, int Gp, int Bq,
+                                           int nibbles, int splits, int per,
+                                           int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = nibbles ? 2 * Gp : Gp;
-  if (M < 1 || M > kMaxRows || N <= 0 || N % kCols != 0 || Gp <= 0 ||
-      Bq <= 0 || G * Bq != D || splits < 1 || per < 1 ||
+  if (E < 1 || E > 65535 || M < 1 || M > kMaxRows || N <= 0 || N % kCols != 0 ||
+      Gp <= 0 || Bq <= 0 || G * Bq != D || splits < 1 || per < 1 ||
       (splits - 1) * per >= Gp || splits * per < Gp || dtype != dst::kBFloat16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nibbles) {
-    return launch<__nv_bfloat16, true>(x, q, s, out, part, M, D, N, Gp, Bq,
+    return launch<__nv_bfloat16, true>(x, q, s, out, part, E, M, D, N, Gp, Bq,
                                        splits, per, st);
   }
-  return launch<__nv_bfloat16, false>(x, q, s, out, part, M, D, N, Gp, Bq,
+  return launch<__nv_bfloat16, false>(x, q, s, out, part, E, M, D, N, Gp, Bq,
                                       splits, per, st);
 }

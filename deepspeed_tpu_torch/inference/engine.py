@@ -22,10 +22,17 @@ projections: bf16 compute, the six big projection leaves of every layer
 packed (``ops/quantizer.py``) and streamed by the quantized matvec for up to
 ``matvec_max_rows`` rows (``ops/cuda/quantized_matmul.py``).
 ``kv_cache_dtype="int8"`` stores the KV cache in int8 with one fp32 scale per
-(token, kv head). A ``draft_model`` (a model, or ``"ngram"`` for
-prompt-lookup drafting) makes greedy B = 1 generation speculative: the draft
+(token, kv head). A Mixtral (MoE) model serves at ep = 1: its expert banks
+[L, E, d, f] pack too, and each cached forward routes through
+``moe.sharded_moe.moe_serving_mlp``, whose decode steps stream the banks
+through the expert form of the matvec; the lockstep engine's capacity counts
+the prompt bucket's padding as tokens, as the JAX engine does. A
+``draft_model`` (a model, or ``"ngram"`` for prompt-lookup drafting) makes
+greedy B = 1 generation speculative: the draft
 proposes ``num_draft_tokens`` tokens, the main model verifies the window in
-one forward, and the tokens are those of plain greedy decoding.
+one forward, and the tokens are those of plain greedy decoding (for an MoE
+model only where no verify window can drop a token: ``max(capacity_factor,
+2) · top_k >= num_experts``, which Mixtral-8x7B's 8 experts do not meet).
 
 Numbers that differ from the JAX engine by design: sampled tokens (a seeded
 ``torch.Generator`` replaces threefry keys; greedy tokens are the same), and
@@ -45,7 +52,8 @@ import torch
 
 from ..accelerator import resolve_device
 from ..models.decoding import forward_with_cache, init_cache
-from ..models.transformer import apply, check_supported, non_llama_features
+from ..models.transformer import (apply, check_supported, init_leaf,
+                                  non_llama_features, param_specs)
 from ..ops.attention import attention_impl
 from ..ops.cuda.quantized_matmul import matvec_max_rows_scope
 from ..ops.normalization import kernel_rmsnorm_scope
@@ -136,9 +144,12 @@ def init_inference(
     ``params`` is the port's parameter tree (see ``models.convert`` for the
     JAX bridge; it may hold packed leaves already); without it the weights
     are drawn from ``rng`` (a ``torch.Generator`` on ``device``, seed 0 by
-    default). ``dtype="int8"|"int4"`` means bf16 compute with 8- or 4-bit
-    packed projections; ``matvec_max_rows`` (or ``config={"matvec_max_rows":
-    N}``) sets the row threshold of the quantized matvec. ``device`` defaults
+    default; with quantized weights each projection leaf is drawn and packed
+    one layer at a time, :func:`init_layerwise`, so those draws differ from
+    the bf16 engine's). ``dtype="int8"|"int4"`` means bf16 compute with 8- or
+    4-bit packed projections (MoE expert banks included); ``matvec_max_rows``
+    (or ``config={"matvec_max_rows": N}``) sets the row threshold of the
+    quantized matvec. ``device`` defaults
     to the current CUDA device; with no CUDA device it must be ``"cpu"``.
     Arguments that need a later slice of the port raise
     ``NotImplementedError`` naming it."""
@@ -188,8 +199,10 @@ def init_inference(
 
 def quantize_weights(params, bits: int):
     """Weight-only block quantization of the projection leaves
-    (:data:`QUANTIZED_LEAVES`, stacked [L, in, out]) into packed storage;
-    other leaves, and leaves already packed, pass through."""
+    (:data:`QUANTIZED_LEAVES`: stacked [L, in, out], and MoE expert banks
+    [L, E, in, out]) into packed storage; other leaves (the router, the
+    norms, the residual-MoE branch, the embedding and the head), and leaves
+    already packed, pass through (JAX ``inference/engine.py:388-412``)."""
     def q(tree, name=None):
         if isinstance(tree, dict):
             return {k: q(v, k) for k, v in tree.items()}
@@ -199,6 +212,45 @@ def quantize_weights(params, bits: int):
         return tree
 
     return q(params)
+
+
+def init_layerwise(cfg, generator: torch.Generator, dtype: torch.dtype, device,
+                   bits: Optional[int] = None):
+    """Random parameters of ``cfg`` (the shapes and scales of
+    ``models.transformer.init``) where each projection leaf of
+    :data:`QUANTIZED_LEAVES` is drawn one layer slice at a time and, with
+    ``bits``, packed before the next slice is drawn; without ``bits`` the
+    slices are stacked dense. The packed weights never exist whole in
+    ``dtype``: Mixtral-8x7B's bf16 tree (93 GB) does not fit one 80 GB card,
+    its int8 form (48.4 GB) does.
+
+    The draws follow the tree's order with each such leaf split by layer, so
+    they differ from ``init``'s, which draws each leaf whole; the same seed
+    gives the same tree in both forms of this function."""
+    def make(spec, name=None):
+        if isinstance(spec, dict):
+            return {k: make(v, k) for k, v in spec.items()}
+        shape, std = spec
+        if name not in QUANTIZED_LEAVES or isinstance(std, str) or len(shape) < 3:
+            return init_leaf(shape, std, generator, dtype, device)
+        slices = (init_leaf(shape[1:], std, generator, dtype, device)
+                  for _ in range(shape[0]))
+        if not bits:
+            return torch.stack(list(slices))
+        qdata = scale = nibbles = None
+        for i, w in enumerate(slices):
+            pw = pack_quantize_blockwise(w, bits=bits)
+            if qdata is None:  # the stacked storage, filled layer by layer
+                qdata = torch.empty((shape[0], *pw.qdata.shape), dtype=torch.int8,
+                                    device=device)
+                scale = torch.empty((shape[0], *pw.scale.shape), dtype=torch.float32,
+                                    device=device)
+                nibbles = pw.nibbles
+            qdata[i], scale[i] = pw.qdata, pw.scale
+            del w, pw
+        return PackedWeight(qdata, scale, shape, bits, dtype, nibbles)
+
+    return make(param_specs(cfg))
 
 
 class InferenceEngine:
@@ -251,19 +303,11 @@ class InferenceEngine:
             int(matvec_max_rows) if matvec_max_rows is not None else None
         )
 
-        def impl_scopes():
-            stack = ExitStack()
-            stack.enter_context(matvec_max_rows_scope(self.matvec_max_rows))
-            if kernel_inject:
-                stack.enter_context(attention_impl("auto"))  # flash on CUDA
-                stack.enter_context(kernel_rmsnorm_scope(on_cuda))
-            return stack
-
-        self._impl_ctx = impl_scopes
         if params is None:
             gen = rng if rng is not None else \
                 torch.Generator(device=device).manual_seed(0)
-            params = model.init(gen, dtype=dtype, device=device)
+            params = (init_layerwise(self.config, gen, dtype, device, quantize_bits)
+                      if quantize_bits else model.init(gen, dtype=dtype, device=device))
         params = cast_floating(params, dtype, device)
         if quantize_bits:
             params = quantize_weights(params, quantize_bits)
@@ -303,6 +347,20 @@ class InferenceEngine:
             f"quant={quantize_bits or 'off'}, kv_cache={kv_cache_dtype}, "
             f"device={device}, kernel_inject={kernel_inject}"
         )
+
+    def _impl_ctx(self) -> ExitStack:
+        """The engine's kernel scopes around a forward: its matvec row
+        threshold and, with kernel injection, the flash/decode kernels and the
+        norm kernels on CUDA. A method, not a closure kept on the engine: a
+        closure over ``self`` would make a reference cycle, and a freed
+        engine's weights would stay on the card until the cyclic collector
+        ran."""
+        stack = ExitStack()
+        stack.enter_context(matvec_max_rows_scope(self.matvec_max_rows))
+        if self.kernel_inject:
+            stack.enter_context(attention_impl("auto"))  # flash on CUDA
+            stack.enter_context(kernel_rmsnorm_scope(self.device.type == "cuda"))
+        return stack
 
     # -------------------------------------------------------------- forward
     def forward(self, input_ids) -> torch.Tensor:

@@ -29,6 +29,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..moe.sharded_moe import moe_serving_mlp
 from ..ops.attention import attention, resolve_attention_impl
 from ..ops.cuda.decode_attention import (cached_attention_plain, decode_attention,
                                          decode_attention_plain,
@@ -276,7 +277,8 @@ def forward_with_cache(cfg: TransformerConfig, params: Params,
                        input_ids: torch.Tensor, cache: Cache, cache_len, *,
                        page_table: Optional[torch.Tensor] = None,
                        token_valid: Optional[torch.Tensor] = None,
-                       head_rows: Optional[torch.Tensor] = None):
+                       head_rows: Optional[torch.Tensor] = None,
+                       return_moe_stats: bool = False):
     """Run new tokens [B, S] through all layers against the cache.
 
     ``cache_len`` is the number of tokens already cached: an int shared by
@@ -292,7 +294,15 @@ def forward_with_cache(cfg: TransformerConfig, params: Params,
     A window of S > 1 tokens against a filled cache (a speculative verify)
     runs the head one token at a time: a library GEMM picks its kernel by
     the row count, and one row gives each token the logits single-token
-    decode gives."""
+    decode gives.
+
+    An MoE model's MLP is the routed serving MLP (``moe_serving_mlp``, JAX
+    ``models/decoding.py:498-566``): capacity from ``S`` under
+    ``token_valid`` (the slot engine's token budget), else from ``B·S`` (the
+    lockstep engine, whose padding counts as tokens), padded rows routed to no
+    expert. ``return_moe_stats`` adds a third value: {"tokens_per_expert"
+    [E] summed over the layers, "drop_fraction" averaged over them}, device
+    tensors (None for a dense model)."""
     check_supported(cfg)
     B, S = input_ids.shape
     device = input_ids.device
@@ -308,6 +318,8 @@ def forward_with_cache(cfg: TransformerConfig, params: Params,
     x = embed_tokens(cfg, params, input_ids, positions)
     layers = params["layers"]
     quantized = "k_scale" in cache
+    budget = S if token_valid is not None else B * S
+    moe_stats = []
     for i in range(cfg.num_layers):
         lp = layer_params(layers, i)
         scales = (cache["k_scale"][i], cache["v_scale"][i]) if quantized else ()
@@ -316,13 +328,31 @@ def forward_with_cache(cfg: TransformerConfig, params: Params,
             cache["k"][i], cache["v"][i], cache_len, *scales,
             page_table=page_table, token_valid=token_valid, slopes=slopes,
         )
-        x = x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
+        normed = _norm(cfg, lp["ln2"], x)
+        if cfg.is_moe:
+            m, stats = moe_serving_mlp(cfg, lp["mlp"], normed, token_valid=token_valid,
+                                       budget_tokens=budget)
+            moe_stats.append(stats)
+            x = x + m
+        else:
+            x = x + _mlp(cfg, lp["mlp"], normed)
     if head_rows is not None:
         idx = head_rows.to(device).long()[:, :, None].expand(-1, -1, x.shape[-1])
-        return lm_head_logits(cfg, params, _norm(cfg, params["final_norm"],
-                                                 x.gather(1, idx))), cache
-    x = _norm(cfg, params["final_norm"], x)
-    if S > 1 and not (isinstance(cache_len, int) and cache_len == 0):
-        return torch.cat([lm_head_logits(cfg, params, x[:, s:s + 1])
-                          for s in range(S)], dim=1), cache
-    return lm_head_logits(cfg, params, x), cache
+        logits = lm_head_logits(cfg, params, _norm(cfg, params["final_norm"],
+                                                   x.gather(1, idx)))
+    else:
+        x = _norm(cfg, params["final_norm"], x)
+        if S > 1 and not (isinstance(cache_len, int) and cache_len == 0):
+            logits = torch.cat([lm_head_logits(cfg, params, x[:, s:s + 1])
+                                for s in range(S)], dim=1)
+        else:
+            logits = lm_head_logits(cfg, params, x)
+    if not return_moe_stats:
+        return logits, cache
+    stats = None
+    if moe_stats:
+        stats = {"tokens_per_expert": torch.stack(
+                     [st["tokens_per_expert"] for st in moe_stats]).sum(dim=0),
+                 "drop_fraction": torch.stack(
+                     [st["drop_fraction"] for st in moe_stats]).mean()}
+    return logits, cache, stats

@@ -7,7 +7,10 @@ projection weights [in, out]. The forward is plain functions on tensors with a
 Python loop over the layers where JAX has ``lax.scan``.
 
 The port covers the Llama family (RoPE, RMSNorm, SwiGLU, grouped-query
-attention, no biases, an untied head) and the GPT-2 and BLOOM families:
+attention, no biases, an untied head), Mixtral's routed expert MLP
+(``num_experts > 0``: a router and [L, E, ...] expert banks, evaluated by
+``moe.sharded_moe.moe_layer``; MoE training is not ported) and the GPT-2 and
+BLOOM families:
 LayerNorm with a bias, learned positions or ALiBi slopes, GELU (erf or tanh),
 biases on every projection, a head tied to the token table (its gradient sums
 the lookup's and the head's), BLOOM's embedding LayerNorm. What stays
@@ -60,6 +63,16 @@ class TransformerConfig:
     tie_embeddings: bool = False
     embed_norm: bool = False
     initializer_range: float = 0.02
+    # MoE (Mixtral): >0 experts turns the MLP into a routed expert layer
+    num_experts: int = 0
+    moe_top_k: int = 2
+    moe_dispatch: str = "einsum"  # einsum (one-hot dots) | gather (indexed)
+    moe_capacity_factor: float = 2.0
+    moe_aux_loss_coef: float = 0.01
+    moe_z_loss_coef: float = 1e-3
+    # Residual-MoE (PR-MoE): a dense MLP beside the routed experts, mixed by
+    # a learned per-token 2-way coefficient
+    moe_use_residual: bool = False
     name: str = "transformer"
 
     @property
@@ -74,17 +87,27 @@ class TransformerConfig:
     def ffn(self) -> int:
         return self.intermediate_size or 4 * self.hidden_size
 
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
     def num_params(self) -> int:
         """Analytic parameter count, the JAX package's formula: biases, the
-        LayerNorm bias, learned positions and the embedding norm included."""
+        LayerNorm bias, learned positions, the embedding norm and, for MoE,
+        the experts, the router and the residual branch included."""
         d, v, L = self.hidden_size, self.vocab_size, self.num_layers
         ln_width = 2 * d if self.norm == "layernorm" else d  # scale (+bias)
         qkvo = d * self.num_heads * self.hd * 2 + d * self.kv_heads * self.hd * 2
         mlp = (3 if self.activation == "swiglu" else 2) * d * self.ffn
+        if self.is_moe:
+            dense_mlp = mlp
+            mlp = mlp * self.num_experts + d * self.num_experts  # experts, router
+            if self.moe_use_residual:
+                mlp += dense_mlp + 2 * d  # the residual dense branch and coef
         biases = 0
         if self.use_bias:
             biases += self.num_heads * self.hd + 2 * self.kv_heads * self.hd + d
-            if self.activation != "swiglu":
+            if not self.is_moe and self.activation != "swiglu":
                 biases += self.ffn + d
         per_layer = qkvo + mlp + biases + 2 * ln_width
         embed = v * d + (self.max_seq_len * d if self.pos_embedding == "learned" else 0)
@@ -173,14 +196,40 @@ def param_specs(cfg: TransformerConfig) -> Params:
         for name, width in (("bq", nh * hd), ("bk", nkv * hd), ("bv", nkv * hd),
                             ("bo", d)):
             attn[name] = ((L, width), "zeros")
-    mlp = {"wi": ((L, d, f), std), "wo": ((L, f, d), out_std)}
-    if cfg.activation == "swiglu":
-        mlp["wg"] = ((L, d, f), std)
-    elif cfg.use_bias:
-        mlp["bi"] = ((L, f), "zeros")
-        mlp["bo"] = ((L, d), "zeros")
+    if cfg.is_moe:
+        # the router [L, d, E] and the expert banks [L, E, d, f] / [L, E, f, d]
+        E = cfg.num_experts
+        mlp = {"router": ((L, d, E), std), "wi": ((L, E, d, f), std),
+               "wo": ((L, E, f, d), out_std)}
+        if cfg.activation == "swiglu":
+            mlp["wg"] = ((L, E, d, f), std)
+        if cfg.moe_use_residual:
+            mlp["res_wi"] = ((L, d, f), std)
+            mlp["res_wo"] = ((L, f, d), out_std)
+            if cfg.activation == "swiglu":
+                mlp["res_wg"] = ((L, d, f), std)
+            mlp["coef"] = ((L, d, 2), std)
+    else:
+        mlp = {"wi": ((L, d, f), std), "wo": ((L, f, d), out_std)}
+        if cfg.activation == "swiglu":
+            mlp["wg"] = ((L, d, f), std)
+        elif cfg.use_bias:
+            mlp["bi"] = ((L, f), "zeros")
+            mlp["bo"] = ((L, d), "zeros")
     specs["layers"] = {"ln1": norm((L,)), "ln2": norm((L,)), "attn": attn, "mlp": mlp}
     return specs
+
+
+def init_leaf(shape, std, generator: torch.Generator, dtype: torch.dtype,
+              device) -> torch.Tensor:
+    """One leaf of :func:`param_specs`: ones, zeros, or a normal of std
+    ``std`` drawn from ``generator``."""
+    if std == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if std == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    t = torch.randn(shape, generator=generator, dtype=dtype, device=device)
+    return t.mul_(std)
 
 
 def init(cfg: TransformerConfig, generator: torch.Generator,
@@ -193,13 +242,7 @@ def init(cfg: TransformerConfig, generator: torch.Generator,
     def make(spec):
         if isinstance(spec, dict):
             return {k: make(v) for k, v in spec.items()}
-        shape, std = spec
-        if std == "ones":
-            return torch.ones(shape, dtype=dtype, device=device)
-        if std == "zeros":
-            return torch.zeros(shape, dtype=dtype, device=device)
-        t = torch.randn(shape, generator=generator, dtype=dtype, device=device)
-        return t.mul_(std)
+        return init_leaf(*spec, generator, dtype, device)
 
     return make(param_specs(cfg))
 
@@ -327,9 +370,19 @@ def _act(cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if cfg.activation == "gelu_new" else "none")
 
 
-def _mlp(cfg: TransformerConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def _mlp(cfg: TransformerConfig, p: Params, x: torch.Tensor,
+         aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """SwiGLU MLP, or GELU with its biases; each projection through
-    ``packed_proj``."""
+    ``packed_proj``. An MoE model routes to the expert layer
+    (``moe.sharded_moe.moe_layer``, eval capacity), appending its aux loss
+    to ``aux`` when given."""
+    if cfg.is_moe:
+        from ..moe.sharded_moe import moe_layer
+
+        out, a = moe_layer(cfg, p, x)
+        if aux is not None:
+            aux.append(a)
+        return out
     if cfg.activation == "swiglu":
         return packed_proj(F.silu(packed_proj(x, p["wg"])) * packed_proj(x, p["wi"]),
                            p["wo"])
@@ -383,20 +436,22 @@ def alibi_position_bias(positions: torch.Tensor, slopes: torch.Tensor) -> torch.
 
 
 def _layer(cfg: TransformerConfig, lp: Params, x: torch.Tensor, rope,
-           slopes, bias=None, segment_ids=None) -> torch.Tensor:
+           slopes, bias=None, segment_ids=None, aux=None) -> torch.Tensor:
     x = x + _attention(cfg, lp["attn"], _norm(cfg, lp["ln1"], x), rope, slopes, bias,
                        segment_ids)
-    return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x))
+    return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x), aux)
 
 
 def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
           dtype: Optional[torch.dtype] = None, remat_policy: Optional[str] = None,
           positions: Optional[torch.Tensor] = None,
           segment_ids: Optional[torch.Tensor] = None,
-          return_hidden: bool = False) -> torch.Tensor:
+          return_hidden: bool = False, return_aux: bool = False):
     """No-cache forward → fp32 logits [B, S, V]; with ``return_hidden`` the
     final normed hidden [B, S, d] instead (the chunked-CE path projects
-    chunk by chunk itself).
+    chunk by chunk itself); with ``return_aux`` a pair of that and the MoE
+    aux loss summed over the layers (load balance plus the scaled z-loss,
+    JAX ``apply``'s second value; 0 for a dense model).
 
     ``dtype`` casts the parameters for compute (the layer stack as a whole,
     as the JAX package does; the embedding rows after the lookup, so the
@@ -422,16 +477,19 @@ def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
     if segment_ids is not None:  # the kernels' int32 ids, once per forward
         segment_ids = segment_ids.to(torch.int32).contiguous()
     remat = policy_by_name(remat_policy) if torch.is_grad_enabled() else None
+    aux: List[torch.Tensor] = []
     for lp in unstack_layers(cast(params["layers"]), cfg.num_layers):
         if remat:
-            x = checkpoint(_layer, cfg, lp, x, rope, slopes, bias, segment_ids,
+            x = checkpoint(_layer, cfg, lp, x, rope, slopes, bias, segment_ids, aux,
                            use_reentrant=False)
         else:
-            x = _layer(cfg, lp, x, rope, slopes, bias, segment_ids)
+            x = _layer(cfg, lp, x, rope, slopes, bias, segment_ids, aux)
     x = _norm(cfg, cast(params["final_norm"]), x)
-    if return_hidden:
-        return x
-    return lm_head_logits(cfg, params, x)
+    out = x if return_hidden else lm_head_logits(cfg, params, x)
+    if return_aux:
+        total = torch.stack(aux).sum() if aux else torch.zeros((), device=x.device)
+        return out, total
+    return out
 
 
 def masked_ce(logits: torch.Tensor, labels: torch.Tensor

@@ -68,7 +68,7 @@ SIGNATURES: Dict[str, List] = {
     "dst_paged_decode_attention_int8": (
         [_P] * 8 + [_I] * 7 + [_L] * 12 + [_P, _F, _I, _P]
     ),
-    "dst_quantized_matvec": [_P] * 5 + [_I] * 9 + [_P],
+    "dst_quantized_expert_matvec": [_I] + [_P] * 5 + [_I] * 9 + [_P],
 }
 
 # dtype codes shared with csrc/common.cuh

@@ -2,7 +2,10 @@
 ``csrc/quantized_matvec.cu``, its plain version and the dispatch.
 
 Replaces ``deepspeed_tpu/ops/pallas/quantized_matmul.py:_kernel`` (line 38),
-reached through ``_packed_matvec`` (line 89) from ``packed_proj`` (line 436).
+reached through ``_packed_matvec`` (line 89) from ``packed_proj`` (line 436),
+and its per-expert use (``_packed_expert_matvec_local``, line 330, one launch
+per expert from ``packed_expert_proj``, line 391): here one launch covers
+every expert of a bank (:func:`packed_expert_matvec`).
 Dequantize-then-multiply would write a full-width copy of the weights every
 decode step; the kernel dequantizes in registers, so device memory streams
 only the int8/int4 bytes and the fp32 scales.
@@ -29,7 +32,8 @@ from ..quantizer import PackedWeight
 from . import _build
 
 # kernel launches since the last reset, by weight width
-launches = {"quantized_matvec_int8": 0, "quantized_matvec_int4": 0}
+launches = {"quantized_matvec_int8": 0, "quantized_matvec_int4": 0,
+            "quantized_matvec_expert_int8": 0, "quantized_matvec_expert_int4": 0}
 
 MAX_KERNEL_ROWS = 16  # rows of x the kernel holds
 COLS = 128            # columns of one block's tile
@@ -81,6 +85,63 @@ def split_plan(planes: int, n_tiles: int):
     return -(-planes // per), per
 
 
+def packed_expert_matvec_plain(x3d: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+    """y [E, C, N] = x[e] [C, D] · dequant(w[e]) for every expert of a packed
+    bank (qdata [E, G, B, N]): :func:`packed_matvec_plain`'s fp32 fold,
+    expert by expert."""
+    q = w.unpacked_qdata()
+    wf = (q.float() * w.scale).reshape(q.shape[0], -1, q.shape[-1])
+    return torch.bmm(x3d.float(), wf).to(x3d.dtype)
+
+
+def _launch(x: torch.Tensor, w: PackedWeight, experts: bool) -> torch.Tensor:
+    """Check ``x`` [E, M, D] (or [M, D]) and the packed weight against what
+    the kernel takes, raise on anything else, and launch it: one launch for
+    every expert, ``blockIdx.z`` the expert."""
+    what = "packed_expert_matvec" if experts else "packed_matvec"
+    lib = _build.library()
+    q, s = w.qdata, w.scale
+    lead = 1 if experts else 0
+    if x.ndim != 2 + lead or q.ndim != 3 + lead or s.ndim != 3 + lead:
+        raise ValueError(f"{what}: x {tuple(x.shape)} and qdata {tuple(q.shape)} are not "
+                         + ("an expert bank's [E, C, D] and [E, G, B, N]" if experts
+                            else "one 2-D weight's [M, D] and [G, B, N]"))
+    E = x.shape[0] if experts else 1
+    M, D = x.shape[-2:]
+    Gp, Bq, N = q.shape[-3:]
+    G = s.shape[-3]
+    if not (x.is_cuda and q.device == x.device and s.device == x.device):
+        raise ValueError(f"{what}: x and the weight must be on one CUDA device")
+    if q.dtype != torch.int8 or s.dtype != torch.float32:
+        raise ValueError(f"{what}: qdata {q.dtype} / scale {s.dtype}, want int8 / float32")
+    if not 1 <= M <= MAX_KERNEL_ROWS:
+        raise ValueError(f"{what}: {M} rows, the kernel takes 1 to {MAX_KERNEL_ROWS}")
+    if N % COLS or tuple(s.shape[-3:]) != (G, 1, N) or G * Bq != D \
+            or Gp != (G // 2 if w.nibbles else G) \
+            or (experts and not (q.shape[0] == s.shape[0] == E)):
+        raise ValueError(
+            f"{what}: x {tuple(x.shape)}, qdata {tuple(q.shape)}, scale "
+            f"{tuple(s.shape)} do not fit (N must be a multiple of {COLS})")
+    # the base pointers and, for a bank, every expert's slice
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               and (not experts or t.stride(0) * t.element_size() % 16 == 0)
+               for t in (x, q, s)):
+        raise ValueError(f"{what}: x, qdata and scale must be contiguous and "
+                         "16-byte aligned (each expert's slice too)")
+    splits, per = split_plan(Gp, N // COLS)
+    out = torch.empty(x.shape[:-1] + (N,), dtype=x.dtype, device=x.device)
+    part = torch.empty((E, splits, M, N) if splits > 1 else (0,),
+                       dtype=torch.float32, device=x.device)
+    status = lib.dst_quantized_expert_matvec(
+        E, x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), part.data_ptr(),
+        M, D, N, Gp, Bq, int(w.nibbles), splits, per, _build.dtype_code(x.dtype),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, "quantized_expert_matvec" if experts else "quantized_matvec")
+    launches[f"quantized_matvec_{'expert_' if experts else ''}int{w.bits}"] += 1
+    return out
+
+
 def packed_matvec(x2d: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     """x [M, D] @ w [D, N] for a 2-D packed weight (qdata [G, B, N] or
     nibble planes [G/2, B, N]). A CPU tensor takes
@@ -88,45 +149,32 @@ def packed_matvec(x2d: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     on what it does not take."""
     if x2d.device.type == "cpu":
         return packed_matvec_plain(x2d, w)
-    lib = _build.library()
-    q, s = w.qdata, w.scale
-    M, D = x2d.shape
-    if q.ndim != 3 or s.ndim != 3:
-        raise ValueError(f"packed_matvec: qdata {tuple(q.shape)} is not one 2-D weight")
-    Gp, Bq, N = q.shape
-    G = s.shape[0]
-    if not (x2d.is_cuda and q.device == x2d.device and s.device == x2d.device):
-        raise ValueError("packed_matvec: x and the weight must be on one CUDA device")
-    if q.dtype != torch.int8 or s.dtype != torch.float32:
-        raise ValueError(f"packed_matvec: qdata {q.dtype} / scale {s.dtype}, "
-                         "want int8 / float32")
-    if not 1 <= M <= MAX_KERNEL_ROWS:
-        raise ValueError(f"packed_matvec: {M} rows, the kernel takes 1 to "
-                         f"{MAX_KERNEL_ROWS}")
-    if N % COLS or s.shape != (G, 1, N) or G * Bq != D \
-            or Gp != (G // 2 if w.nibbles else G):
-        raise ValueError(
-            f"packed_matvec: x {tuple(x2d.shape)}, qdata {tuple(q.shape)}, "
-            f"scale {tuple(s.shape)} do not fit (N must be a multiple of {COLS})"
-        )
-    if not (x2d.is_contiguous() and q.is_contiguous() and s.is_contiguous()) \
-            or any(t.data_ptr() % 16 for t in (x2d, q, s)):
-        raise ValueError("packed_matvec: x, qdata and scale must be contiguous "
-                         "and 16-byte aligned")
-    n_tiles = N // COLS
-    splits, per = split_plan(Gp, n_tiles)
-    out = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
-    part = torch.empty((splits, M, N) if splits > 1 else (0,),
-                       dtype=torch.float32, device=x2d.device)
-    status = lib.dst_quantized_matvec(
-        x2d.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-        part.data_ptr(), M, D, N, Gp, Bq, int(w.nibbles), splits, per,
-        _build.dtype_code(x2d.dtype),
-        torch.cuda.current_stream(x2d.device).cuda_stream,
-    )
-    _build.check(status, "quantized_matvec")
-    launches[f"quantized_matvec_int{w.bits}"] += 1
-    return out
+    return _launch(x2d, w, experts=False)
+
+
+def packed_expert_matvec(x3d: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+    """x [E, C, D] @ w [E, D, N] for a packed expert bank (qdata
+    [E, G, B, N]): every expert's matvec in one launch, each expert's rows
+    bitwise what :func:`packed_matvec` gives on that expert alone (the same
+    split plan, the same fold order). A CPU tensor takes
+    :func:`packed_expert_matvec_plain`; a CUDA tensor launches the kernel,
+    or raises on what it does not take."""
+    if x3d.device.type == "cpu":
+        return packed_expert_matvec_plain(x3d, w)
+    return _launch(x3d, w, experts=True)
+
+
+def packed_expert_proj(x: torch.Tensor, w: PackedWeight) -> Optional[torch.Tensor]:
+    """x [E, C, D] @ w [E, D, N] for a packed expert bank through the expert
+    matvec (JAX ``packed_expert_proj``, ``quantized_matmul.py:391``); None
+    when it does not apply, as there: more than :func:`matvec_max_rows` rows
+    an expert, a weight that is not a bank, or N off the 128 grid. The
+    caller then multiplies the dequantized bank."""
+    if w.qdata.ndim != 4 or w.scale.shape[-1] % COLS:
+        return None
+    if x.shape[1] > matvec_max_rows():
+        return None
+    return packed_expert_matvec(x.contiguous(), w)
 
 
 def packed_proj(x: torch.Tensor, w) -> torch.Tensor:

@@ -71,7 +71,8 @@ def unported_features(cfg: DeepSpeedConfig) -> List[str]:
          "pipeline parallelism (item 7)"),
         (int(tp.get("tp_size", tp.get("autotp_size", 1)) or 1) > 1,
          "tensor parallelism (item 7)"),
-        (_enabled(raw.get("moe")), "MoE (item 7)"),
+        (_enabled(raw.get("moe")),
+         "MoE training (ROADMAP A14, MoE training at ep=1; ep > 1 is item 7)"),
         (int(sp.get("sp_size", raw.get("sequence_parallel_size", 1)) or 1) > 1,
          "sequence parallelism (item 7)"),
         (_enabled(raw.get("progressive_layer_drop")),
@@ -125,6 +126,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     cfg = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
     cfg.resolve_batch_sizes(1)
     later += unported_features(cfg)
+    if getattr(getattr(model, "config", None), "num_experts", 0) > 0:
+        later.append("training an MoE model (ROADMAP A14, MoE training at ep=1)")
     if later:
         raise NotImplementedError(
             "deepspeed_tpu_torch trains on one device at ZeRO stage 0 with "

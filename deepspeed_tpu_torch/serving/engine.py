@@ -32,7 +32,13 @@ item: ``serving.spec`` (slot-engine speculative decode),
 ``InferenceEngine.generate`` is ported), A4; ``serving.fleet``, A9; the
 ``steptrace`` and ``healthwatch`` arguments, A10. Also waiting:
 ``trace_export``, ``analytic_streams``, ``parity_pairs``, the page
-export/import of the fleet handoff, ``trace_serving_step`` and MoE serving.
+export/import of the fleet handoff and ``trace_serving_step``.
+
+An MoE model (Mixtral) serves at ep = 1 (``init_inference`` refuses
+``ep_size > 1``): the step's MLP routes the real tokens of the step, padded
+rows to no expert, with capacity from the token budget, and the step's
+expert load counters (``ServingMetrics.on_moe``) come back in the step's one
+host read.
 """
 
 from __future__ import annotations
@@ -244,15 +250,27 @@ class ServingEngine:
                     paged_cow_copy(self._caches, page_table, start_t, views[7])
             valid = torch.arange(W, device=self.device)[None, :] < num_new[:, None]
             rows = verify_window_rows(num_new, spec_t, self.max_draft, W)
-            win, _ = forward_with_cache(self.config, self.engine.params, tokens.long(),
-                                        self._caches, start_t, page_table=page_table,
-                                        token_valid=valid, head_rows=rows)
+            win, _, moe = forward_with_cache(
+                self.config, self.engine.params, tokens.long(), self._caches, start_t,
+                page_table=page_table, token_valid=valid, head_rows=rows,
+                return_moe_stats=True)
             out_tok, n_emit = verify_window(win, tokens, self._seen, num_new, spec_t,
                                             live, rngs, temp, top_k, top_p, penalty,
                                             eos_t, self.max_draft)
-        out = torch.cat([out_tok, n_emit[:, None]], dim=1).cpu().numpy()
-        finished = self.scheduler.complete(plan, out[:, :-1], None, n_emit=out[:, -1])
+            host = [out_tok.reshape(-1), n_emit]
+            if moe is not None:
+                # the MoE counters ride the step's one host read: [E] slot
+                # counts, then the drop fraction's fp32 bits
+                host += [moe["tokens_per_expert"].to(torch.int32),
+                         moe["drop_fraction"].float().reshape(1).view(torch.int32)]
+        out = torch.cat(host).cpu().numpy()
+        kw = out_tok.shape[1]
+        toks, emit = out[:N * kw].reshape(N, kw), out[N * kw:N * kw + N]
+        finished = self.scheduler.complete(plan, toks, None, n_emit=emit)
         self.metrics.on_step()
+        if moe is not None:
+            tail = out[N * kw + N:]
+            self.metrics.on_moe(tail[:-1], float(tail[-1:].view(np.float32)[0]))
         return finished
 
     def run_until_idle(self, max_steps: int = 100_000) -> List[RequestState]:

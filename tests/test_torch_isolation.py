@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import deepspeed_tpu_torch
-from deepspeed_tpu_torch.models import llama
+from deepspeed_tpu_torch.models import llama, mixtral
 from deepspeed_tpu_torch.ops import quantizer
 from deepspeed_tpu_torch.ops.cuda import (_build, decode_attention, flash_attention,
                                          fused_adam, quantized_matmul, rmsnorm)
@@ -30,8 +30,10 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "deepspeed_tpu"
              or m.startswith("deepspeed_tpu."))
-print(len(names), bad)
-sys.exit(1 if bad else 0)
+missing = {"deepspeed_tpu_torch.moe", "deepspeed_tpu_torch.moe.sharded_moe",
+           "deepspeed_tpu_torch.models.mixtral"} - set(names)
+print(len(names), bad, sorted(missing))
+sys.exit(1 if bad or missing else 0)
 """
 
 
@@ -57,6 +59,19 @@ def test_init_inference_needs_a_card_unless_asked_for_cpu(monkeypatch):
     eng = deepspeed_tpu_torch.init_inference(model, dtype=torch.float32,
                                              device="cpu")
     assert eng.device.type == "cpu"
+
+
+def test_moe_init_inference_needs_a_card_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = mixtral("mixtral-tiny", vocab_size=64, max_seq_len=64)
+    for kw in ({}, {"dtype": "int8"}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            deepspeed_tpu_torch.init_inference(model, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deepspeed_tpu_torch.init_serving(model, serving={"paged": True})
+    eng = deepspeed_tpu_torch.init_inference(model, dtype="int8", device="cpu")
+    assert eng.device.type == "cpu"
+    assert eng.params["layers"]["mlp"]["wi"].qdata.device.type == "cpu"
 
 
 def test_init_serving_needs_a_card_unless_asked_for_cpu(monkeypatch):
@@ -124,6 +139,8 @@ def test_build_without_nvcc_raises(monkeypatch):
         t(1, 1, 2, 64), t(1, 8, 2, 64), t(1, 8, 2, 64), 3, t(1, 2, 8), t(1, 2, 8)),
     lambda t: quantized_matmul.packed_proj(t(1, 256), quantizer.PackedWeight(
         t(2, 128, 128), t(2, 1, 128), (256, 128), 8, torch.bfloat16)),
+    lambda t: quantized_matmul.packed_expert_proj(t(4, 2, 256), quantizer.PackedWeight(
+        t(4, 2, 128, 128), t(4, 2, 1, 128), (4, 256, 128), 8, torch.bfloat16)),
     lambda t: decode_attention.decode_attention(t(4, 1, 2, 64), t(2, 8, 2, 64),
                                                 t(2, 8, 2, 64), t(4), rows_per_seq=2),
     lambda t: decode_attention.paged_decode_attention(
