@@ -32,7 +32,12 @@ order, any failure exiting non-zero:
    attention_bias's [1, 16, 2048, 2048] and smaller shapes, each dbias two
    runs bitwise equal; the expert form of the matvec at Mixtral-8x7B's
    banks, int8 and int4, C in {1, 4, 8} rows an expert, each expert bitwise
-   the 2-D kernel on it): max abs error against a stated tolerance, and the
+   the 2-D kernel on it; the offset form of the flash forward, dq and dk/dv
+   kernels at training_sp's hop shape on its diagonal, past and future
+   hops, with ALiBi and segment ids at bloom-560m's width, the unmasked
+   forms at its Ulysses shape, and the ring flash through a one-process
+   loopback ring against the flat kernels on the whole 16,384-token
+   sequence): max abs error against a stated tolerance, and the
    kernel's, plain version's and library call's times (CUDA events, median
    of single launches with L2 flushed before each) beside the bound, one row
    per kernel and path; then the other shapes and dtypes the wrappers take;
@@ -127,7 +132,18 @@ order, any failure exiting non-zero:
    then int4 weights (25.20 GB) on the greedy B=1 request. Each run twice
    with identical tokens, counters zeroed before the second; speculative
    decode is not driven (with 8 experts a verify window can drop tokens);
-19. the kernels line (one JSON object, one entry per kernel and main path,
+19. ``training_sp``: sequence-parallel training through initialize on two
+   ranks spawned on the one card, joined over gloo (NCCL refuses two ranks
+   on one device, so the transport goes through the host; it says so):
+   llama3-1b at full width, 4 of its 16 layers, one seeded sequence of
+   16,384 tokens a step (8,192 a rank), 3 steps in the ring mode and 3 in
+   the Ulysses mode, then sp=1 on this process from the same seed: losses
+   and grad norms within the bf16 tolerance of sp=1, ms/step, tokens/s per
+   rank, peak memory, the device's share of a step and the gloo transport's
+   times; the ranks' counters, zeroed before each mode, must show the offset
+   forms (ring) and the unmasked forms (Ulysses) ran and plain attention on
+   the card never did;
+20. the kernels line (one JSON object, one entry per kernel and main path,
    with that path's launches), then the device line (last line).
 """
 
@@ -157,7 +173,10 @@ from deepspeed_tpu_torch.models.transformer import (alibi_position_bias, alibi_s
                                                     apply, layer_params)
 from deepspeed_tpu_torch.moe import sharded_moe as smoe
 from deepspeed_tpu_torch.ops import cuda as kernels
+from deepspeed_tpu_torch.launcher import launch_local
+from deepspeed_tpu_torch.comm.collectives import all_reduce, ring_shift
 from deepspeed_tpu_torch.ops.attention import attention, attention_impl
+from deepspeed_tpu_torch.ops.ring_flash import Ring, ring_flash_attention_local
 from deepspeed_tpu_torch.ops.cuda import _build
 from deepspeed_tpu_torch.ops.cuda import decode_attention as dec
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
@@ -254,6 +273,13 @@ KERNELS = {
                                ("flash_attention_bwd_dq", "flash_attention_bwd.cu", 455),
                                ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 517))
        for form in ("_seg", "_bias_seg", "_sparse")},
+    # the offset form of ring attention's hops (has_offsets, flash_attention.py:
+    # 94-113, :334, :719; driven by ring_flash.py:_rf_fwd/:_rf_bwd, lines 83, 120)
+    **{f"{name}_offsets": {"source": f"deepspeed_tpu_torch/csrc/{src}",
+                           "replaces": f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}"}
+       for name, src, line in (("flash_attention_fwd", "flash_attention_fwd.cu", 175),
+                               ("flash_attention_bwd_dq", "flash_attention_bwd.cu", 455),
+                               ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 517))},
     # the ALiBi forms (has_alibi, flash_attention.py:94-113)
     "flash_attention_fwd_alibi": {
         "source": "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -326,6 +352,14 @@ MIXTRAL_KERNELS = ("quantized_matvec_expert_int8", "quantized_matvec_expert_int4
 MIXTRAL_BANKS = (("wi/wg", 4096, 14336), ("wo", 14336, 4096))
 MIXTRAL_CB_KERNELS = ("paged_decode_attention", "decode_attention", "rmsnorm_fwd")
 MIXTRAL_CB_REQUESTS = 6  # the prefix of cb_trace: 2961 prompt tokens, 211 new
+# training_sp: llama3-1b at full width, 4 of its 16 layers, one sequence of
+# 16,384 tokens over an sp ring of 2 ranks (8,192 tokens each), 3 steps a mode
+SP_SIZE, SP_SEQ, SP_LAYERS, SP_STEPS = 2, 16384, 4, 3
+SP_RING_KERNELS = ("flash_attention_fwd_offsets", "flash_attention_bwd_dq_offsets",
+                   "flash_attention_bwd_dkv_offsets", "rmsnorm_fwd", "rmsnorm_bwd",
+                   "fused_adam")
+SP_ULYSSES_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv", "rmsnorm_fwd", "rmsnorm_bwd", "fused_adam")
 # DeepSpeed's default sparsity mode at the flash kernels' 128-token block
 SPARSE_SECTION = {"mode": "fixed", "block": 128, "num_local_blocks": 4,
                   "num_global_blocks": 1}
@@ -1529,6 +1563,248 @@ def check_masked_forms(gen, timer):
     return rows
 
 
+def plain_by_heads(kind: str, groups: int, q, k, v, *args, causal=True, slopes=None,
+                   **kw):
+    """The plain version of a flash kernel (``kind`` fwd, dq or dkv; ``args``
+    (o, lse, do) for dq, (lse, delta, do) for dkv) over ``groups`` groups of
+    kv heads with their query heads, put back together: a hop's or a whole
+    sequence's fp32 [B, H, S, S] scores, and the backward's four of them,
+    would not fit the card at once."""
+    KV, G = k.shape[2], q.shape[2] // k.shape[2]
+    n = KV // groups
+
+    def qh(t, j):
+        return t[:, :, j * n * G:(j + 1) * n * G]
+
+    def rh(t, j):
+        return t[:, j * n * G:(j + 1) * n * G]
+
+    def kh(t, j):
+        return t[:, :, j * n:(j + 1) * n]
+
+    parts = []
+    for j in range(groups):
+        sl = None if slopes is None else slopes[j * n * G:(j + 1) * n * G].contiguous()
+        if kind == "fwd":
+            parts.append(fa.flash_attention_plain(qh(q, j), kh(k, j), kh(v, j), causal, sl,
+                                                  **kw))
+        elif kind == "dq":
+            o, lse, do = args
+            parts.append(fa.flash_attention_bwd_dq_plain(
+                qh(q, j), kh(k, j), kh(v, j), qh(o, j), rh(lse, j), qh(do, j), causal, sl,
+                **kw))
+        else:
+            lse, delta, do = args
+            parts.append(fa.flash_attention_bwd_dkv_plain(
+                qh(q, j), kh(k, j), kh(v, j), rh(lse, j), rh(delta, j), qh(do, j), causal,
+                sl, **kw))
+    dims = (2, 2) if kind == "dkv" else (2, 1)
+    return tuple(torch.cat([p[i] for p in parts], dim=d) for i, d in enumerate(dims))
+
+
+def check_offset_forms(gen, timer):
+    """The offset form of the flash forward, dq and dk/dv kernels (a ring
+    hop) at training_sp's hop shape (llama3-1b's 32 query / 8 kv heads of
+    64, B=1, a chunk of 8,192 tokens against a visiting chunk of 8,192) on
+    the diagonal hop, a past hop and a future (empty) hop, each against its
+    plain version (run kv head by kv head) and timed, the past hop as the
+    path's row; the unmasked Llama forms at the Ulysses shape (the whole
+    16,384 tokens on 16 query / 4 kv heads) timed likewise; the offset form
+    with ALiBi and segment ids crossing the chunk edge at bloom-560m's width
+    (16 heads); then the ring flash (``ops/ring_flash.py``) through the
+    one-process loopback ring of 2 against the flat flash kernels on the
+    whole 16,384-token sequence, forward and backward. Returns timed rows
+    keyed by kernel; the plain versions' times are medians of 5 launches."""
+    tol, tol_lse, tol_delta = 2e-2, 1e-3, 1e-4
+    B, S, H, KV, D = 1, SP_SEQ // SP_SIZE, 32, 8, 64
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=BF16)
+
+    def bwd_errs(got, want, names):
+        return {n: (max_err(a, w), (tol_delta if n == "delta" else tol)
+                    * w.float().abs().max().item()) for n, a, w in zip(names, got, want)}
+
+    def plain_timer(fn):  # the plain versions take 80-170 ms a call here
+        return timer(fn, iters=5, warmup=1)
+
+    rows, cases = {}, []
+    q, k, v, do = rand(B, S, H, D), rand(B, S, KV, D), rand(B, S, KV, D), rand(B, S, H, D)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+    for hop, (i, blk) in (("diagonal", (1, 1)), ("past", (1, 0)), ("future", (0, 1))):
+        off = (i * S, blk * S)
+        out, lse = fa.flash_attention_fwd(q, k, v, True, offsets=off)
+        ref, rlse = plain_by_heads("fwd", KV, q, k, v, offsets=off)
+        errs = {"out": (max_err(out, ref), tol), "lse": (max_err(lse, rlse), tol_lse)}
+        del ref, rlse
+        got = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, True, offsets=off)
+        want = plain_by_heads("dq", KV, q, k, v, out, lse, do, offsets=off)
+        errs.update(bwd_errs(got, want, ("dq", "delta")))
+        rdelta = want[1]
+        dkv = fa.flash_attention_bwd_dkv(q, k, v, lse, rdelta, do, True, offsets=off)
+        errs.update(bwd_errs(dkv, plain_by_heads("dkv", KV, q, k, v, lse, rdelta, do,
+                                                 offsets=off), ("dk", "dv")))
+        name = f"flash_offsets {hop} hop (qoff, koff) = {off} B={B} S={S} H={H} KV={KV} D={D}"
+        cases += [(f"{name} {n}", e, t) for n, (e, t) in errs.items()]
+        if hop == "future":  # nothing visible: out 0, lse -1e30, exact zero gradients
+            empty = (not out.any() and bool((lse == -1e30).all()) and not got[0].any()
+                     and not dkv[0].any() and not dkv[1].any())
+            print(f"{name}: out 0, lse -1e30, dq = dk = dv = 0 exactly: {empty}")
+            require(empty, "the future hop's offset form wrote something")
+        # one ring step's hop of each kind timed; the past hop (every pair
+        # visible) is the path's row
+        pairs = B * H * S * (S + 1) / 2 if hop == "diagonal" else (
+            B * H * S * S if hop == "past" else 0)
+        t_fwd = timer(lambda: fa.flash_attention_fwd(q, k, v, True, offsets=off))
+        t_dq = timer(lambda: fa.flash_attention_bwd_dq(q, k, v, out, lse, do, True,
+                                                       offsets=off))
+        t_dkv = timer(lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, rdelta, do, True,
+                                                         offsets=off))
+        print(f"{name}: kernel fwd {t_fwd:.4f} ms, dq {t_dq:.4f} ms, dk/dv {t_dkv:.4f} ms "
+              f"({pairs:.0f} visible pairs)")
+        if hop == "past":
+            rows_b = 4 * B * H * S
+            b_fwd = bound(4 * D * pairs, 2 * (2 * q.numel() + k.numel() + v.numel()) + rows_b)
+            b_dq = bound(6 * D * pairs, 2 * (4 * q.numel() + k.numel() + v.numel())
+                         + 2 * rows_b)
+            b_dkv = bound(8 * D * pairs, 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel())
+                          + 2 * rows_b)
+            shape = (f"B={B} S={S} H={H} KV={KV} D={D} causal, past hop (qoff, koff) = "
+                     f"{off}, every pair visible")
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+            lib_out = F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True)
+            dot = do.transpose(1, 2).contiguous()
+            lib_bwd = timer(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dot,
+                                                        retain_graph=True))
+            rows["flash_attention_fwd_offsets"] = {
+                "max_abs_err": errs["out"][0], "ms": t_fwd,
+                "plain_ms": plain_timer(lambda: plain_by_heads("fwd", KV, q, k, v,
+                                                               offsets=off)),
+                "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, enable_gqa=True)),
+                "bound_ms": b_fwd[0], "bound_by": b_fwd[1],
+                "shape": shape + " (library: SDPA without a mask)"}
+            rows["flash_attention_bwd_dq_offsets"] = {
+                "max_abs_err": errs["dq"][0], "ms": t_dq,
+                "plain_ms": plain_timer(lambda: plain_by_heads("dq", KV, q, k, v, out, lse,
+                                                               do, offsets=off)),
+                "library_ms": lib_bwd, "bound_ms": b_dq[0], "bound_by": b_dq[1],
+                "shape": shape + " (library: SDPA backward, dq+dk+dv)"}
+            rows["flash_attention_bwd_dkv_offsets"] = {
+                "max_abs_err": max(errs["dk"][0], errs["dv"][0]), "ms": t_dkv,
+                "plain_ms": plain_timer(lambda: plain_by_heads("dkv", KV, q, k, v, lse,
+                                                               rdelta, do, offsets=off)),
+                "library_ms": lib_bwd, "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
+                "shape": shape + " (library: same call)"}
+            del qg, kg, vg, lib_out, dot
+        del out, lse, got, want, rdelta, dkv
+        torch.cuda.empty_cache()
+    del qt, kt, vt
+
+    # the unmasked forms under Ulysses: the whole sequence on H/sp heads
+    Hu, KVu = H // SP_SIZE, KV // SP_SIZE
+    uq, uk, uv, udo = (rand(B, SP_SEQ, Hu, D), rand(B, SP_SEQ, KVu, D),
+                       rand(B, SP_SEQ, KVu, D), rand(B, SP_SEQ, Hu, D))
+    out, lse = fa.flash_attention_fwd(uq, uk, uv)
+    ref, rlse = plain_by_heads("fwd", KVu, uq, uk, uv)
+    errs = {"out": (max_err(out, ref), tol), "lse": (max_err(lse, rlse), tol_lse)}
+    del ref, rlse
+    want = plain_by_heads("dq", KVu, uq, uk, uv, out, lse, udo)
+    errs.update(bwd_errs(fa.flash_attention_bwd_dq(uq, uk, uv, out, lse, udo), want,
+                         ("dq", "delta")))
+    rdelta = want[1]
+    del want
+    errs.update(bwd_errs(fa.flash_attention_bwd_dkv(uq, uk, uv, lse, rdelta, udo),
+                         plain_by_heads("dkv", KVu, uq, uk, uv, lse, rdelta, udo),
+                         ("dk", "dv")))
+    name = f"flash (Ulysses) B={B} S={SP_SEQ} H={Hu} KV={KVu} D={D} causal"
+    cases += [(f"{name} {n}", e, t) for n, (e, t) in errs.items()]
+    pairs = B * Hu * SP_SEQ * (SP_SEQ + 1) / 2
+    rows_b = 4 * B * Hu * SP_SEQ
+    ut = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (uq, uk, uv)]
+    lib_out = F.scaled_dot_product_attention(*ut, is_causal=True, enable_gqa=True)
+    udot = udo.transpose(1, 2).contiguous()
+    lib_bwd = timer(lambda: torch.autograd.grad(lib_out, ut, udot, retain_graph=True))
+    shape = f"B={B} S={SP_SEQ} H={Hu} KV={KVu} D={D} causal (Ulysses: H/sp heads)"
+    for kname, e, run, plain, nflops, nbytes, lib in (
+            ("flash_attention_fwd", errs["out"][0],
+             lambda: fa.flash_attention_fwd(uq, uk, uv),
+             lambda: plain_by_heads("fwd", KVu, uq, uk, uv), 4,
+             2 * (2 * uq.numel() + uk.numel() + uv.numel()) + rows_b,
+             timer(lambda: F.scaled_dot_product_attention(
+                 *(t.detach() for t in ut), is_causal=True, enable_gqa=True))),
+            ("flash_attention_bwd_dq", errs["dq"][0],
+             lambda: fa.flash_attention_bwd_dq(uq, uk, uv, out, lse, udo),
+             lambda: plain_by_heads("dq", KVu, uq, uk, uv, out, lse, udo), 6,
+             2 * (4 * uq.numel() + uk.numel() + uv.numel()) + 2 * rows_b, lib_bwd),
+            ("flash_attention_bwd_dkv", max(errs["dk"][0], errs["dv"][0]),
+             lambda: fa.flash_attention_bwd_dkv(uq, uk, uv, lse, rdelta, udo),
+             lambda: plain_by_heads("dkv", KVu, uq, uk, uv, lse, rdelta, udo), 8,
+             2 * (2 * uq.numel() + 2 * uk.numel() + 2 * uv.numel()) + 2 * rows_b,
+             lib_bwd)):
+        b = bound(nflops * D * pairs, nbytes)
+        rows[kname] = {"max_abs_err": e, "ms": timer(run), "plain_ms": plain_timer(plain),
+                       "library_ms": lib, "bound_ms": b[0], "bound_by": b[1],
+                       "shape": shape + (" (library: SDPA)" if nflops == 4 else
+                                         " (library: SDPA backward, dq+dk+dv)")}
+    del uq, uk, uv, udo, out, lse, rdelta, ut, lib_out, udot
+    torch.cuda.empty_cache()
+
+    # the ALiBi + segment offset form at bloom-560m's width, chunks of 1,024
+    Bb, Sb, Hb = 2, 1024, 16
+    seg_np, _, _ = packed_rows(Bb, 2 * Sb, PACKED_SEED)
+    seg = torch.from_numpy(seg_np).int().cuda()
+    sl = alibi_slopes(Hb).cuda()
+    q, k, v, do = (rand(Bb, Sb, Hb, D) for _ in range(4))
+    for hop, (i, blk) in (("diagonal", (1, 1)), ("past", (1, 0)), ("future", (0, 1))):
+        kw = {"segment_ids": (seg[:, i * Sb:(i + 1) * Sb].contiguous(),
+                              seg[:, blk * Sb:(blk + 1) * Sb].contiguous()),
+              "offsets": (i * Sb, blk * Sb)}
+        out, lse = fa.flash_attention_fwd(q, k, v, True, sl, **kw)
+        ref, rlse = fa.flash_attention_plain(q, k, v, True, sl, **kw)
+        errs = {"out": (max_err(out, ref), tol), "lse": (max_err(lse, rlse), tol_lse)}
+        got = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, True, sl, **kw)
+        want = fa.flash_attention_bwd_dq_plain(q, k, v, out, lse, do, True, sl, **kw)
+        errs.update(bwd_errs(got, want, ("dq", "delta")))
+        errs.update(bwd_errs(fa.flash_attention_bwd_dkv(q, k, v, lse, want[1], do, True, sl,
+                                                        **kw),
+                             fa.flash_attention_bwd_dkv_plain(q, k, v, lse, want[1], do,
+                                                              True, sl, **kw), ("dk", "dv")))
+        name = f"flash_alibi_seg_offsets {hop} hop B={Bb} S={Sb} H=KV={Hb} D={D}"
+        cases += [(f"{name} {n}", e, t) for n, (e, t) in errs.items()]
+    for name, err, t in cases:
+        print(f"{name}: max_abs_err {err:.3e} (tol {t:.3e})")
+        require(err <= t, f"{name} disagrees with its plain version")
+    del q, k, v, do, out, lse, ref, rlse, got, want
+    torch.cuda.empty_cache()
+
+    # the ring flash through the loopback ring against the flat kernels
+    q, k, v, do = (rand(1, SP_SEQ, H, D), rand(1, SP_SEQ, KV, D), rand(1, SP_SEQ, KV, D),
+                   rand(1, SP_SEQ, H, D))
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    t0 = time.perf_counter()
+    chunks = [list(t.split(S, dim=1)) for t in leaves]
+    outs = ring_flash_attention_local(*chunks, causal=True, ring=Ring.loopback(SP_SIZE))
+    ring_grads = torch.autograd.grad(outs, leaves, list(do.split(S, dim=1)))
+    torch.cuda.synchronize()
+    t_ring = (time.perf_counter() - t0) * 1e3
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    flat = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    errs = [("out", max_err(torch.cat(outs, dim=1), o), tol)]
+    errs += [(n, max_err(a, w), tol * w.float().abs().max().item())
+             for n, a, w in zip(("dq", "dk", "dv"), ring_grads, flat)]
+    print(f"ring flash, loopback ring of {SP_SIZE} ({t_ring:.1f} ms forward + backward, "
+          f"first call), against the flat kernels on B=1 S={SP_SEQ} H={H} KV={KV} D={D} "
+          f"causal: " + ", ".join(f"{n} max_abs_err {e:.3e} (tol {t:.3e})"
+                                  for n, e, t in errs))
+    for n, e, t in errs:
+        require(e <= t, f"the ring flash's {n} disagrees with the flat kernels")
+    del q, k, v, do, leaves, chunks, outs, ring_grads, o, lse, flat
+    torch.cuda.empty_cache()
+    return rows
+
+
 def check_bias_grad(gen, timer):
     """The broadcast-bias gradient kernel: [1, 16, 2048, 2048] fp32 at B=4
     D=64 causal (the attention_bias path's shape), timed; then [4, 1, S, S]
@@ -2695,7 +2971,7 @@ def reference_check_training(model=None, expect=TRAINING_KERNELS, anchored: bool
         eng, *_ = initialize(model=model, config={**train_config(
             kernels_on, remat, 2, 2, wd, bf16=bf16, chunked_ce=anchored), **(extra or {})},
             model_parameters=params0)
-        mb = {k: t[0] for k, t in eng._prepare_batch(batches[0]).items()}
+        mb = {k: t[0] for k, t in eng._prepare_batch(batches[0])[0].items()}
         with eng._kernel_scope():
             loss, _ = eng.model.loss(eng.params, mb, dtype=BF16 if bf16 else torch.float32,
                                      remat_policy=remat)
@@ -2882,6 +3158,164 @@ def main_path_attention_bias(steps: int = 3) -> dict:
             "attention_bias path: the bias-gradient kernel did not run")
     del q, k, v, bias, out
     torch.cuda.empty_cache()
+    return counts
+
+
+def sp_model():
+    """training_sp's model: llama3-1b at full width, 4 of its 16 layers, its
+    positions taken to the 16,384 tokens of the one sequence."""
+    return llama("llama3-1b", num_layers=SP_LAYERS, max_seq_len=SP_SEQ)
+
+
+def sp_config(mode=None):
+    """The training leg (``train_config``) on one global sequence a step
+    (B=1, no accumulation), in the sp ``mode`` over SP_SIZE ranks, or on one
+    device when ``mode`` is None."""
+    cfg = {**train_config(True, batch=1, micro=1)}
+    if mode is not None:
+        cfg["sequence_parallel"] = {"sp_size": SP_SIZE, "mode": mode}
+    return cfg
+
+
+def sp_steps(engine, batch, steps: int):
+    """``steps`` train_batch calls, each timed on the host clock to its end
+    (the loss's host read); (losses, grad norms, ms per step)."""
+    losses, norms, ms = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(engine.train_batch(batch=batch).item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(engine.get_global_grad_norm())
+    return losses, norms, ms
+
+
+def sp_rank(rank: int, ids: torch.Tensor) -> dict:
+    """One rank of training_sp (run by ``launch_local`` on cuda:0, gloo):
+    ``initialize`` → SP_STEPS train_batch calls in the ring mode, then in the
+    Ulysses mode, each engine from the same seed, the launch counters zeroed
+    just before each mode's steps; then, on the Ulysses engine, one profiled
+    step (device kernel time against the step's wall time) and the gloo
+    transport alone: the gradient all-reduce (the masters' size, fp32) and
+    one ring hop's k/v shift (an 8,192-token chunk of 8 kv heads, bf16)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.set_device(0)
+    batch = {"input_ids": ids}
+    out = {}
+    for mode in ("ring", "ulysses"):
+        engine, *_ = initialize(model=sp_model(), config=sp_config(mode),
+                                rng=torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda:0")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, ms = sp_steps(engine, batch, SP_STEPS)
+        out[mode] = {"losses": losses, "grad_norms": norms, "ms": ms,
+                     "counts": kernels.launch_counts(),
+                     "plain": kernels.plain_attention_on_cuda(),
+                     "peak": torch.cuda.max_memory_allocated()}
+        if mode == "ulysses":
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                engine.train_batch(batch=batch).item()
+            out["device_ms"] = sum(
+                getattr(e, "self_device_time_total", None) or
+                getattr(e, "self_cuda_time_total", 0) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+            world = engine.topology.world_group()
+            # the masters' size: the engine's staging buffer serves it
+            flat = torch.zeros(sum(p.numel() for p in tree_leaves(engine.params)),
+                               device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce(flat, world)
+            torch.cuda.synchronize()
+            out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3
+            kv = [torch.zeros(1, SP_SEQ // SP_SIZE, 8, 64, device="cuda", dtype=BF16)
+                  for _ in range(2)]
+            group = engine.topology.group("sp")
+            ring_shift(kv, group)
+            t0 = time.perf_counter()
+            ring_shift(kv, group)
+            torch.cuda.synchronize()
+            out["shift_ms"] = (time.perf_counter() - t0) * 1e3
+            del flat, kv
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def main_path_training_sp() -> dict:
+    """``training_sp``: sequence-parallel training through ``initialize`` on
+    two ranks (``launch_local``) that share cuda:0 over gloo (NCCL refuses two
+    ranks on one device, so the transport goes through the host; the
+    kernels, the ring schedule, the Ulysses all-to-alls and the gradient
+    all-reduce all run), llama3-1b at full width (4 of 16 layers), one seeded
+    sequence of 16,384 tokens a step, 8,192 a rank: SP_STEPS steps in the
+    ring mode, then in the Ulysses mode, then sp=1 on this process from the
+    same seed and batch. The losses and grad norms of every step must agree
+    within the bf16 tolerance; the ranks' counters, zeroed just before each
+    mode's steps, must show the offset forms (ring) and the unmasked forms
+    (Ulysses) ran and plain attention on the card never did."""
+    model = sp_model()
+    cfg = model.config
+    ids = torch.randint(0, cfg.vocab_size, (1, SP_SEQ),
+                        generator=torch.Generator().manual_seed(0))
+    print(f"training_sp main path: {cfg.name} L={cfg.num_layers} of 16 d={cfg.hidden_size} "
+          f"H={cfg.num_heads} KV={cfg.kv_heads} hd={cfg.hd} ffn={cfg.ffn} V={cfg.vocab_size} "
+          f"({cfg.num_params() / 1e9:.3f} B params), one sequence of {SP_SEQ} tokens over "
+          f"sp={SP_SIZE} ranks; both ranks on cuda:0 ({torch.cuda.get_device_name(0)}), "
+          f"transport gloo through the host (NCCL refuses two ranks on one device)")
+    t0 = time.perf_counter()
+    ranks = launch_local(sp_rank, SP_SIZE, (ids,), backend="gloo")
+    print(f"training_sp: two ranks spawned, initialized and stepped in "
+          f"{time.perf_counter() - t0:.1f} s")
+    engine, *_ = initialize(model=model, config=sp_config(),
+                            rng=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    single = dict(zip(("losses", "grad_norms", "ms"),
+                      sp_steps(engine, {"input_ids": ids.cuda()}, SP_STEPS)))
+    single["peak"] = torch.cuda.max_memory_allocated()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    tol = 1e-2  # bf16: the chunked attention rounds its merged outputs once more
+    counts = {}
+    for mode, expect in (("ring", SP_RING_KERNELS), ("ulysses", SP_ULYSSES_KERNELS)):
+        runs = [r[mode] for r in ranks]
+        steady = max(statistics.mean(r["ms"][1:]) for r in runs)
+        mode_counts = {k: sum(r["counts"][k] for r in runs) for k in runs[0]["counts"]}
+        plain = sum(sum(r["plain"].values()) for r in runs)
+        print(f"training_sp {mode}: losses {runs[0]['losses']} (sp=1 {single['losses']}), "
+              f"grad norms {runs[0]['grad_norms']} (sp=1 {single['grad_norms']}); "
+              f"{steady:.2f} ms/step (steps 2-{SP_STEPS}, the slower rank), "
+              f"{SP_SEQ // SP_SIZE / (steady / 1e3):.1f} tokens/s per rank, "
+              f"{SP_SEQ / (steady / 1e3):.1f} tokens/s on the card; peak memory per rank "
+              + ", ".join(f"{r['peak'] / 2**30:.2f} GiB" for r in runs)
+              + f"; launches (both ranks) { {k: mode_counts[k] for k in expect} }; plain "
+              f"attention on the card {plain}")
+        for r in runs[1:]:
+            require(r["losses"] == runs[0]["losses"], f"training_sp {mode}: ranks disagree")
+        for what in ("losses", "grad_norms"):
+            np.testing.assert_allclose(runs[0][what], single[what], rtol=tol,
+                                       err_msg=f"training_sp {mode} {what} against sp=1")
+        for name in expect:
+            require(mode_counts[name] > 0, f"kernel {name} was not launched on training_sp "
+                                           f"{mode}")
+        require(plain == 0, f"training_sp {mode}: plain attention ran on the card")
+        for k, n in mode_counts.items():
+            counts[k] = counts.get(k, 0) + n
+    r0 = ranks[0]
+    print(f"training_sp sp=1 on one process: {statistics.mean(single['ms'][1:]):.2f} "
+          f"ms/step, {SP_SEQ / (statistics.mean(single['ms'][1:]) / 1e3):.1f} tokens/s, "
+          f"peak memory {single['peak'] / 2**30:.2f} GiB")
+    print(f"training_sp where the step goes (rank 0, Ulysses, one profiled step): device "
+          f"kernels {r0['device_ms']:.2f} ms of {statistics.mean(r0['ulysses']['ms'][1:]):.2f}"
+          f" ms/step; gloo transport alone: the fp32 gradient all-reduce "
+          f"{r0['allreduce_ms']:.2f} ms, one ring hop's k/v shift {r0['shift_ms']:.2f} ms "
+          f"({3 * SP_LAYERS * (SP_SIZE - 1) + SP_LAYERS} shifts a ring step: k/v forward, "
+          f"k/v and dk/dv backward, dk/dv home)")
     return counts
 
 
@@ -3085,6 +3519,7 @@ def main() -> int:
     fwd_bloom, fwd_bloom_train, dq_bloom, dkv_bloom, decode_bloom = check_alibi(gen, timer)
     masked = check_masked_forms(gen, timer)
     bias_grad = check_bias_grad(gen, timer)
+    offsets = check_offset_forms(gen, timer)
     rms_bwd, adam = check_rmsnorm_bwd(gen, timer), check_fused_adam(gen, timer)
     ln_bwd = check_layernorm_bwd(gen, timer)
     adam_bloom = check_fused_adam(gen, timer, n=250880 * 1024)
@@ -3147,6 +3582,13 @@ def main() -> int:
         ("paged_decode_attention", "serving_cb_mixtral", cb["paged_decode_attention"]),
         ("decode_attention", "serving_cb_mixtral", cb["decode_attention"]),
         ("rmsnorm_fwd", "serving_cb_mixtral", norm["serving_cb"]),
+        # training_sp: the offset forms (ring mode's hops; the past hop
+        # timed), the unmasked forms at the Ulysses shape, and llama3-1b's
+        # RMSNorm (8,192 rows a rank of 2,048) and Adam rows
+        *((name, "training_sp", r) for name, r in offsets.items()),
+        ("rmsnorm_fwd", "training_sp", norm["training"]),
+        ("rmsnorm_bwd", "training_sp", rms_bwd),
+        ("fused_adam", "training_sp", adam),
     ]
     for name, path, r in rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -3205,7 +3647,8 @@ def main() -> int:
                   None, SPARSE_KERNELS, "training_sparse",
                   extra={"sparse_attention": SPARSE_SECTION}, rerun=False,
                   pairs_per_seq=layout_pairs(sparse_fixed_layout(TRAIN_S), TRAIN_S)),
-              "attention_bias": main_path_attention_bias()}
+              "attention_bias": main_path_attention_bias(),
+              "training_sp": main_path_training_sp()}
     counts["serving_mixtral"], counts["serving_cb_mixtral"] = main_path_serving_mixtral()
 
     # launches: the row's main path's run, counters zeroed just before it

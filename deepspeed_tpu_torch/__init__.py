@@ -5,9 +5,12 @@ It grows slice by slice beside the JAX package, which stays the reference.
 It serves the Llama, Mixtral (MoE at ep = 1), GPT-2 and BLOOM families
 through ``init_inference`` → ``InferenceEngine.generate``, Llama and Mixtral
 also through the continuous-batching front door ``init_serving`` →
-``ServingEngine``, and trains the dense families on one device through
-``initialize`` → ``TorchEngine.train_batch``, with hand-written CUDA kernels
-(``ops/cuda``): flash attention forward and backward (with ALiBi), decode
+``ServingEngine``, and trains the dense families through ``initialize`` →
+``TorchEngine.train_batch`` on one device or a dp × sp world of
+``torch.distributed`` ranks (``comm``, sequence parallelism by Ulysses or
+ring attention, ``parallel/sequence.py``), with hand-written CUDA kernels
+(``ops/cuda``): flash attention forward and backward (with ALiBi, and the
+ring hops' offset form), decode
 attention over a contiguous cache and over a page pool (with ALiBi), RMSNorm
 and LayerNorm forward and backward, the quantized matvec (with its expert
 form) and the fused Adam update. It imports neither jax nor deepspeed_tpu.

@@ -8,12 +8,14 @@ on one device), and types the sections the training step reads: optimizer,
 scheduler, fp16/bf16, ZeRO stage, activation-checkpointing policy, gradient
 clipping, logging, ``tpu_kernels`` (which kernels replace the plain
 paths; ``"auto"`` resolves on for a CUDA device as the JAX package's does for
-a TPU) and ``sparse_attention`` (the block-sparse layout of training's
-attention). It raises :class:`DeepSpeedConfigError` for the same bad inputs
-as the JAX package: a batch-triangle mismatch, fp16 and bf16 both on, a ZeRO
-stage out of range, an unknown remat policy, negative clipping, an unknown
-sparse-attention mode or one combined with sequence parallelism or
-random-LTD. Every other section
+a TPU), ``sparse_attention`` (the block-sparse layout of training's
+attention) and ``sequence_parallel`` (``sp_size`` and the ``mode``, Ulysses
+or ring; the ``sequence_parallel_size`` shorthand). It raises
+:class:`DeepSpeedConfigError` for the same bad inputs as the JAX package: a
+batch-triangle mismatch, fp16 and bf16 both on, a ZeRO stage out of range, an
+unknown remat policy, negative clipping, an unknown sparse-attention mode or
+one combined with sequence parallelism or random-LTD, and here also an
+unknown sequence-parallel mode or a size below 1. Every other section
 is kept raw in :attr:`DeepSpeedConfig.raw`; ``initialize`` refuses the ones a
 later slice ports when they are turned on.
 """
@@ -172,6 +174,25 @@ class SparseAttentionConfig:
             raise DeepSpeedConfigError(
                 f"sparse_attention.mode must be one of {modes}, got {self.mode!r}"
             )
+
+
+@dataclass
+class SequenceParallelConfig:
+    """The "sequence_parallel" section (JAX ``config.py:906``): the sp
+    degree and how attention crosses the sequence chunks
+    (``parallel/sequence.py``)."""
+
+    sp_size: int = 1
+    mode: str = "ulysses"  # ulysses | ring
+
+    def validate(self) -> None:
+        if self.mode not in ("ulysses", "ring"):
+            raise DeepSpeedConfigError(
+                f"sequence_parallel.mode must be ulysses or ring, got {self.mode!r}")
+        if int(self.sp_size) < 1:
+            raise DeepSpeedConfigError(
+                f"sequence_parallel.sp_size must be >= 1, got {self.sp_size}")
+        self.sp_size = int(self.sp_size)
 
 
 def _check_tristate(name: str, v) -> None:
@@ -351,6 +372,10 @@ class DeepSpeedConfig:
             ActivationCheckpointingConfig, d.get("activation_checkpointing"))
         self.tpu_kernels = _parse_dc(TpuKernelsConfig, d.get("tpu_kernels"))
         self.sparse_attention = _parse_dc(SparseAttentionConfig, d.get("sparse_attention"))
+        sp = dict(d.get("sequence_parallel") or {})
+        if "sequence_parallel_size" in d:  # the shorthand (JAX config.py:1102)
+            sp.setdefault("sp_size", d["sequence_parallel_size"])
+        self.sequence_parallel = _parse_dc(SequenceParallelConfig, sp)
         self._validate()
 
     def resolve_batch_sizes(self, dp_world_size: int) -> None:
@@ -396,13 +421,13 @@ class DeepSpeedConfig:
             raise DeepSpeedConfigError("gradient_clipping must be >= 0")
         self.activation_checkpointing.validate()
         self.sparse_attention.validate()
-        # the sections these two rules read stay raw (refused turned on);
+        self.sequence_parallel.validate()
+        # the section the second rule reads stays raw (refused turned on);
         # the JAX package's texts (config.py:1236-1250)
-        d = self.raw
-        sp = d.get("sequence_parallel") or {}
-        sp_size = int(sp.get("sp_size", d.get("sequence_parallel_size", 1)) or 1)
-        ltd = ((d.get("data_efficiency") or {}).get("data_routing") or {}).get("random_ltd")
-        if self.sparse_attention.mode not in ("none", "dense") and sp_size > 1:
+        ltd = ((self.raw.get("data_efficiency") or {}).get("data_routing")
+               or {}).get("random_ltd")
+        if self.sparse_attention.mode not in ("none", "dense") and \
+                self.sequence_parallel.sp_size > 1:
             raise DeepSpeedConfigError(
                 "sparse_attention is not supported together with sequence "
                 "parallelism (the block layout assumes full-sequence tiles)"

@@ -5,7 +5,11 @@
 //
 // The masked form is one template instantiation per kernel whose masks are
 // read at run time from a Mask; the slope-free (Llama) and ALiBi forms are
-// instantiated without it and keep their code. Its score is pinned with
+// instantiated without it and keep their code. The Mask also carries the
+// offset form of ring attention's hops (flash_attention.py:94-113, has_offsets):
+// the global positions qoff and koff of the local query chunk and of the
+// visiting key chunk, which shift the causal test and the ALiBi distance, and
+// the visiting chunk's own segment ids. Its score is pinned with
 // __fmul_rn/__fmaf_rn, so the forward's and the backward's scores are the
 // same bits and p recomputed in a backward kernel is the p whose sum went
 // into the forward's lse:
@@ -190,9 +194,18 @@ struct Mask {
   int jmax;              // the table's row stride
   int blk;               // layout block, in tokens (a multiple of 64)
   void* dbias;           // a dbias output in the bias's dtype, or nullptr
+  const int* seg_k;      // the keys' [B, S] segment ids when they differ from
+                         // the queries' (a ring hop's visiting chunk), or nullptr
+  int qoff;              // global position of query row 0 (ring hops; else 0)
+  int koff;              // global position of key 0
 };
 
-// The C entry points' mask argument: long long[11], in Mask's field order
+// A row with no visible key: lse = the JAX package's finite mask value
+// (flash_attention.py:57), so a merge by logaddexp and the backward's
+// exp(s - lse) read a number, never -inf - -inf.
+constexpr float kNegInf = -1e30f;
+
+// The C entry points' mask argument: long long[14], in Mask's field order
 // (pointers as integers, 0 for none); nullptr selects an unmasked form.
 inline Mask parse_mask(const long long* m) {
   Mask k;
@@ -207,6 +220,9 @@ inline Mask parse_mask(const long long* m) {
   k.jmax = static_cast<int>(m[8]);
   k.blk = static_cast<int>(m[9]);
   k.dbias = reinterpret_cast<void*>(m[10]);
+  k.seg_k = reinterpret_cast<const int*>(m[11]);
+  k.qoff = static_cast<int>(m[12]);
+  k.koff = static_cast<int>(m[13]);
   return k;
 }
 
@@ -238,6 +254,23 @@ __device__ __forceinline__ float masked_score(float s, float scale_log2, bool ha
   if (has_bias) t = __fmaf_rn(bias, kLog2e, t);
   if (has_alibi) t = __fmaf_rn(-slope_log2, static_cast<float>(abs(row - key)), t);
   return t;
+}
+
+// The causal walk under position offsets: the number of key tiles of TILE
+// keys that rows [.., last_row] see, the keys sitting reach = last_row + qoff
+// - koff positions behind them (0 when the whole chunk lies in the future);
+// with no offsets, the tiles up to the diagonal.
+template <int TILE>
+__device__ __forceinline__ int causal_key_tiles(int last_row, int qoff, int koff,
+                                                int n_all) {
+  const int reach = last_row + qoff - koff;
+  return reach < 0 ? 0 : min(n_all, reach / TILE + 1);
+}
+
+// The first query tile of TILE rows that sees key key0 under the offsets.
+template <int TILE>
+__device__ __forceinline__ int causal_first_query_tile(int key0, int qoff, int koff) {
+  return max(0, key0 + koff - qoff) / TILE;
 }
 
 // Walk the tiles of TILE rows (or keys) that a block of the dense grid

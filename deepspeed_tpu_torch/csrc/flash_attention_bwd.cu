@@ -4,12 +4,18 @@
 // Replaces deepspeed_tpu/ops/pallas/flash_attention.py:_bwd_dq_kernel
 // (line 455) and :_bwd_dkv_kernel (line 517), driven by _flash_bwd (line 719),
 // in all their forms: causal, grouped-query heads, ALiBi slopes, segment ids,
-// a dense additive bias (with the dq kernel's dbias output, emit_dbias) and a
-// block-sparse layout.
+// a dense additive bias (with the dq kernel's dbias output, emit_dbias), a
+// block-sparse layout and the position offsets of ring attention's hops
+// (has_offsets; deepspeed_tpu/ops/pallas/ring_flash.py:_rf_bwd, line 120). A
+// hop's backward reads the ring's final lse, and its dq kernel is given the
+// final output, so the delta it computes is the ring's (the given delta= of
+// _flash_bwd, flash_attention.py:719).
 //
 // With s = q . k * scale + bias - slope[h] * |q - k| (each term only where
 // given), p = exp(s - lse) (the forward's saved lse; p = 0 where the key is
-// masked: causal, segment, layout), dp = do . v and delta = rowsum(do * o):
+// masked: causal, segment, layout; under offsets the global positions q + qoff
+// and k + koff enter the causal test and the ALiBi distance, and the keys'
+// segment ids are the visiting chunk's), dp = do . v and delta = rowsum(do * o):
 //   dst = p * (dp - delta),  ds = dst * scale
 //   dq = sum_k ds K,  dk = sum_q ds^T Q,  dv = sum_q p^T dO,  dbias = dst
 // dk and dv of a kv head sum over the query heads of its group.
@@ -24,14 +30,18 @@
 // the column side, fp32 softmax recompute in registers, the model layout
 // [B, S, H, D] read through strides and ragged S masked in the kernel.
 //   dq: one block per (64 query rows, head, batch row); loops key tiles up to
-//     the diagonal (with a layout, the tiles of the row's active blocks). It
+//     the diagonal (under offsets, to the last tile its rows see: none for a
+//     chunk wholly in the future, whose dq is exactly zero; with a layout, the
+//     tiles of the row's active blocks). It
 //     also computes delta for its rows from do and o and writes it [B, H, S]
 //     for the dk/dv kernel (launched after it on the same stream), so delta
 //     costs no pass of its own. With a dbias output (a full [B, H, S, S]
 //     bias) it writes dst for every pair of its rows, zeros in the tiles its
 //     causal loop skips, as _zero_dbias does (flash_attention.py:505-510).
 //   dk/dv: one block per (64 keys, kv head, batch row); loops the group's
-//     query heads and, for each, the query tiles from the diagonal on (with a
+//     query heads and, for each, the query tiles from the diagonal on (under
+//     offsets, from the first tile that sees its keys, so a future chunk's
+//     dk, dv are exactly zero; with a
 //     layout, the tiles of the active blocks of its key block's column, from
 //     the transposed table as flash_attention.py:1200 builds it). The group
 //     sum and the sum over query tiles stay in fp32 registers: the TPU kernel
@@ -130,10 +140,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const bool has_bias = kMasked && mask.bias != nullptr;
   const bool emit_dbias = kMasked && mask.dbias != nullptr;
   const int* seg_b = has_seg ? mask.seg + (long long)b * S : nullptr;
+  const int* segk_b =
+      has_seg ? (mask.seg_k != nullptr ? mask.seg_k : mask.seg) + (long long)b * S : nullptr;
   const int seg0 = has_seg && row0 < S ? seg_b[row0] : 0;
   const int seg1 = has_seg && row1 < S ? seg_b[row1] : 0;
   const long long bias_bh = has_bias ? b * mask.bias_sb + h * mask.bias_sh : 0;
   const long long dbias_bh = lrow * S;  // the full [B, H, S, S] output
+  const int qoff = kMasked ? mask.qoff : 0;  // ring hops' global positions
+  const int koff = kMasked ? mask.koff : 0;
 
   float acc[HD / 8][4];
 #pragma unroll
@@ -141,13 +155,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 
   const int n_all = (S + kBlockN - 1) / kBlockN;
   const int last_row = (qblock + 1) * kBlockM - 1;
-  const int n_tiles = causal ? min(n_all, last_row / kBlockN + 1) : n_all;
+  const int n_tiles =
+      causal ? causal_key_tiles<kBlockN>(last_row, qoff, koff, n_all) : n_all;
   auto tile = [&](int t) {
     const int k0 = t * kBlockN;
     __syncthreads();  // the previous tile is fully consumed
     stage2<HD, kBlockN>(sk, sv, kb, ks_.ss, vb, vs.ss, k0, S, tid);
     if constexpr (kMasked) {
-      if (has_seg && tid < kBlockN) sseg[tid] = k0 + tid < S ? seg_b[k0 + tid] : 0;
+      if (has_seg && tid < kBlockN) sseg[tid] = k0 + tid < S ? segk_b[k0 + tid] : 0;
     }
     __syncthreads();
 
@@ -164,14 +179,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
         const float dlt = e < 2 ? dl0 : dl1;
         float p = 0.f;
         if constexpr (kMasked) {
-          const bool visible = key < S && row < S && (!causal || key <= row) &&
-                               l != -INFINITY &&
+          const bool visible = key < S && row < S &&
+                               (!causal || key + koff <= row + qoff) && l != -INFINITY &&
                                (!has_seg || sseg[key - k0] == (e < 2 ? seg0 : seg1));
           if (visible) {
             const float bias =
                 has_bias ? load_bias(mask, bias_bh + row * mask.bias_sq + key) : 0.f;
             p = exp2f(masked_score(s[j][e], scale_log2, has_bias, bias, m_alibi,
-                                   slope_log2, row, key) - l);
+                                   slope_log2, row + qoff, key + koff) - l);
           }
           const float dst = p * (dp[j][e] - dlt);
           if (emit_dbias && row < S && key < S) {
@@ -254,8 +269,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const bool has_bias = kMasked && mask.bias != nullptr;
   const bool m_alibi = kMasked && slopes != nullptr;
   const int* seg_b = has_seg ? mask.seg + (long long)b * S : nullptr;
-  const int segk0 = has_seg && key0 < S ? seg_b[key0] : 0;
-  const int segk1 = has_seg && key1 < S ? seg_b[key1] : 0;
+  const int* segk_b =
+      has_seg ? (mask.seg_k != nullptr ? mask.seg_k : mask.seg) + (long long)b * S : nullptr;
+  const int segk0 = has_seg && key0 < S ? segk_b[key0] : 0;
+  const int segk1 = has_seg && key1 < S ? segk_b[key1] : 0;
+  const int qoff = kMasked ? mask.qoff : 0;  // ring hops' global positions
+  const int koff = kMasked ? mask.koff : 0;
 
   float dka[HD / 8][4], dva[HD / 8][4];
 #pragma unroll
@@ -266,7 +285,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 
   const int n_all = (S + kBlockN - 1) / kBlockN;
   // first query tile that sees any key of this block
-  const int t0 = causal ? (kblock * kBlockM) / kBlockN : 0;
+  const int t0 = causal ? causal_first_query_tile<kBlockN>(kblock * kBlockM, qoff, koff) : 0;
   for (int j = 0; j < group; ++j) {
     const int h = kvh * group + j;
     const __nv_bfloat16* qb = q + b * qs.sb + h * qs.sh;
@@ -302,14 +321,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
           const float l = slse[col];
           float p = 0.f;
           if constexpr (kMasked) {
-            const bool visible = query < S && key < S && (!causal || key <= query) &&
+            const bool visible = query < S && key < S &&
+                                 (!causal || key + koff <= query + qoff) &&
                                  l != -INFINITY &&
                                  (!has_seg || sseg[col] == (e < 2 ? segk0 : segk1));
             if (visible) {
               const float bias =
                   has_bias ? load_bias(mask, bias_bh + query * mask.bias_sq + key) : 0.f;
               p = exp2f(masked_score(st[jj][e], scale_log2, has_bias, bias, m_alibi,
-                                     slope_log2, query, key) - l);
+                                     slope_log2, query + qoff, key + koff) - l);
             }
           } else {
             const bool visible = query < S && key < S &&

@@ -3,7 +3,9 @@
 // Replaces deepspeed_tpu/ops/pallas/flash_attention.py:_fwd_kernel (line 175),
 // driven by _flash_fwd (line 334) from flash_attention (line 1011), in all its
 // forms: causal, grouped-query heads, ALiBi slopes, segment ids, a dense
-// additive bias and a block-sparse layout.
+// additive bias, a block-sparse layout and the position offsets of ring
+// attention's hops (has_offsets; the hops are deepspeed_tpu/ops/pallas/
+// ring_flash.py:_rf_fwd, line 83, ported by deepspeed_tpu_torch/ops/ring_flash.py).
 //
 // out[b, s, h] = softmax_k(score, masks) @ v with
 // score = q[b, s, h] . k[b, k, kv]^T * scale + bias[b, h, s, k] - slope[h] * |s - k|,
@@ -11,6 +13,12 @@
 // A key is visible when it is inside S, not above the diagonal (causal), in
 // the row's segment (seg[b, s] == seg[b, k]) and in an active block of the
 // layout; _mask_and_bias (flash_attention.py:94-113) applies the same masks.
+// Under offsets (a ring hop: the local query chunk against a visiting key
+// chunk) the row's and the key's global positions s + qoff and k + koff take
+// their places in the causal test and the ALiBi distance, the keys' segment
+// ids are the visiting chunk's (seg_k), the causal walk stops at the last key
+// tile a row of the block sees (none when the chunk lies wholly in the
+// future: out = 0, lse = -1e30) and a past chunk is walked whole.
 // Three instantiations per head dim: slopes == nullptr without a mask (Llama),
 // whose code and bits are those of the kernel before ALiBi came in; ALiBi
 // without a mask; and the masked form, which reads its segment ids, bias,
@@ -32,7 +40,8 @@
 // per 64-row query tile's layout row; inactive blocks are never read), which
 // is the TPU kernel's compacted grid (_sparse_step, flash_attention.py:138).
 // A tile the segments mask whole keeps the running max at -inf and is guarded
-// by ms = 0; a row with nothing visible writes lse = -inf. Heads are addressed
+// by ms = 0; a row with nothing visible writes out = 0 and lse = -inf (the
+// masked form: -1e30, the JAX package's finite NEG_INF). Heads are addressed
 // through strides, so the model layout [B, S, H, D] is read and written
 // without transposes, and every row and key past S is masked in the kernel:
 // any prompt length runs here, where the TPU entry fell back to XLA for
@@ -90,9 +99,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const bool has_seg = kMasked && mask.seg != nullptr;
   const bool has_bias = kMasked && mask.bias != nullptr;
   const int* seg_b = has_seg ? mask.seg + (long long)b * S : nullptr;
+  const int* segk_b =
+      has_seg ? (mask.seg_k != nullptr ? mask.seg_k : mask.seg) + (long long)b * S : nullptr;
   const int seg0 = has_seg && row0 < S ? seg_b[row0] : 0;
   const int seg1 = has_seg && row1 < S ? seg_b[row1] : 0;
   const long long bias_bh = has_bias ? b * mask.bias_sb + h * mask.bias_sh : 0;
+  const int qoff = kMasked ? mask.qoff : 0;  // ring hops' global positions
+  const int koff = kMasked ? mask.koff : 0;
 
   // Q fragments (A operand) straight from device memory, once per block.
   uint32_t qa[kKSteps][4];
@@ -113,7 +126,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
   const int n_all = (S + kBlockN - 1) / kBlockN;
   const int last_row = (qblock + 1) * kBlockM - 1;
-  const int n_tiles = causal ? min(n_all, last_row / kBlockN + 1) : n_all;
+  const int n_tiles =
+      causal ? causal_key_tiles<kBlockN>(last_row, qoff, koff, n_all) : n_all;
 
   auto tile = [&](int t) {
     const int k0 = t * kBlockN;
@@ -131,7 +145,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       *reinterpret_cast<uint4*>(sv + r * kLds + c) = vval;
     }
     if constexpr (kMasked) {
-      if (has_seg && tid < kBlockN) sseg[tid] = k0 + tid < S ? seg_b[k0 + tid] : 0;
+      if (has_seg && tid < kBlockN) sseg[tid] = k0 + tid < S ? segk_b[k0 + tid] : 0;
     }
     __syncthreads();
 
@@ -157,14 +171,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         const int key = k0 + j * 8 + tig * 2 + (e & 1);
         const int row = e < 2 ? row0 : row1;
         if constexpr (kMasked) {
-          const bool visible = key < S && row < S && (!causal || key <= row) &&
+          const bool visible = key < S && row < S && (!causal || key + koff <= row + qoff) &&
                                (!has_seg || sseg[key - k0] == (e < 2 ? seg0 : seg1));
           s[j][e] = visible
                         ? masked_score(s[j][e], scale_log2, has_bias,
                                        has_bias ? load_bias(mask, bias_bh +
                                                                   row * mask.bias_sq + key)
                                                 : 0.f,
-                                       m_alibi, slope_log2, row, key)
+                                       m_alibi, slope_log2, row + qoff, key + koff)
                         : -INFINITY;
         } else {
           const bool visible = key < S && (!causal || key <= row);
@@ -244,6 +258,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float d0 = l0 == 0.f ? 1.f : l0;
   const float d1 = l1 == 0.f ? 1.f : l1;
+  const float empty_lse = kMasked ? kNegInf : -INFINITY;  // a row with nothing visible
   if (row0 < S) {
     __nv_bfloat16* orow = out + b * o_sb + row0 * o_ss + h * o_sh + tig * 2;
 #pragma unroll
@@ -252,7 +267,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     }
     if (tig == 0) {
       lse[((long long)b * H + h) * S + row0] =
-          l0 == 0.f ? -INFINITY : (m0 + log2f(l0)) * kLn2;
+          l0 == 0.f ? empty_lse : (m0 + log2f(l0)) * kLn2;
     }
   }
   if (row1 < S) {
@@ -263,7 +278,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     }
     if (tig == 0) {
       lse[((long long)b * H + h) * S + row1] =
-          l1 == 0.f ? -INFINITY : (m1 + log2f(l1)) * kLn2;
+          l1 == 0.f ? empty_lse : (m1 + log2f(l1)) * kLn2;
     }
   }
 }
@@ -304,9 +319,10 @@ void launch_form(const void* q, const void* k, const void* v, void* out, void* l
 // (batch, seq, head) strides with a contiguous last dim; every row start
 // 16-byte aligned. lse: [B, H, S] fp32 contiguous. slopes: fp32 [H] ALiBi
 // slopes on the device, or nullptr for none. scale: softmax scale applied to
-// q . k (1 / sqrt(hd) for the model). mask: nullptr, or long long[11] naming
-// the masked form's segment ids, bias and compaction tables
-// (flash_attention.cuh:parse_mask; the table is per query layout row).
+// q . k (1 / sqrt(hd) for the model). mask: nullptr, or long long[14] naming
+// the masked form's segment ids, bias, compaction tables, the keys' segment
+// ids and the position offsets (flash_attention.cuh:parse_mask; the table is
+// per query layout row).
 extern "C" int dst_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse, int B,
     int S, int H, int KV, int hd, long long q_sb, long long q_ss,

@@ -34,12 +34,14 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..comm.collectives import all_gather
 from ..ops.attention import attention
 from ..ops.cross_entropy import chunked_masked_ce, fused_ce_config
 from ..ops.cuda.quantized_matmul import packed_proj
 from ..ops.normalization import layernorm, rmsnorm
 from ..ops.quantizer import cast_floating
 from ..runtime.activation_checkpointing import policy_by_name
+from .sharding import sp_topology
 
 Params = Dict[str, Any]
 
@@ -360,9 +362,16 @@ def out_proj(cfg: TransformerConfig, p: Params, out: torch.Tensor) -> torch.Tens
 
 def _attention(cfg: TransformerConfig, p: Params, x: torch.Tensor, rope,
                slopes, bias=None, segment_ids=None) -> torch.Tensor:
+    """Self-attention of one layer; under a sequence-parallel topology x is
+    this rank's sequence chunk and attention crosses the chunks by the sp
+    mode (``parallel/sequence.py:sp_attention``; JAX ``_attention``, lines
+    268-276)."""
     q, k, v = _qkv(cfg, p, x, rope)
-    return out_proj(cfg, p, attention(q, k, v, causal=True, bias=bias,
-                                      segment_ids=segment_ids, alibi_slopes=slopes))
+    attn = attention
+    if sp_topology() is not None:
+        from ..parallel.sequence import sp_attention as attn
+    return out_proj(cfg, p, attn(q, k, v, causal=True, bias=bias,
+                                 segment_ids=segment_ids, alibi_slopes=slopes))
 
 
 def _act(cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
@@ -460,20 +469,32 @@ def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
     ``positions`` [B, S] (default 0..S-1) place RoPE and the learned
     positions; given, they turn ALiBi into the dense bias at those positions,
     made once here and shared by every layer. ``segment_ids`` [B, S] keep
-    attention inside each packed segment (JAX ``apply``, line 548)."""
+    attention inside each packed segment (JAX ``apply``, line 548).
+
+    Under a sequence-parallel topology (``models.sharding.use_topology``,
+    sp > 1) ``input_ids`` (and ``positions``, ``segment_ids``) are this
+    rank's chunk of the sequence: the default positions are the chunk's
+    global ones (rank * S + 0..S-1), which keep ALiBi as slopes, as the JAX
+    package's default positions of the whole sequence do; given positions
+    make the dense bias over the whole sequence, gathered from the sp
+    group."""
     check_supported(cfg)
     B, S = input_ids.shape
     cast = (lambda t: t) if dtype is None else (lambda t: cast_floating(t, dtype))
+    topo = sp_topology()
     pos_default = positions is None
     if pos_default:
         positions = default_positions(B, S, input_ids.device)
+        if topo is not None:
+            positions = positions + topo.coord("sp") * S
     x = embed_tokens(cfg, params, input_ids, positions, cast)
     rope = (rope_tables(positions, cfg.hd, cfg.rope_theta)
             if cfg.pos_embedding == "rope" else None)
     slopes = model_slopes(cfg, x.device)
     bias = None
     if slopes is not None and not pos_default:
-        slopes, bias = None, alibi_position_bias(positions, slopes)
+        whole = positions if topo is None else all_gather(positions, topo.group("sp"), 1)
+        slopes, bias = None, alibi_position_bias(whole, slopes)
     if segment_ids is not None:  # the kernels' int32 ids, once per forward
         segment_ids = segment_ids.to(torch.int32).contiguous()
     remat = policy_by_name(remat_policy) if torch.is_grad_enabled() else None
@@ -492,25 +513,29 @@ def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
     return out
 
 
-def masked_ce(logits: torch.Tensor, labels: torch.Tensor
+def masked_ce(logits: torch.Tensor, labels: torch.Tensor, denom=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ce, total_valid_tokens) from fp32 logits; labels < 0 ignored (HF
-    -100 style)."""
+    -100 style). A given ``denom`` divides the NLL sum instead of the valid
+    tokens here (a rank's share of a loss over a sharded batch)."""
     mask = (labels >= 0).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
-    denom = mask.sum().clamp(min=1.0)
+    if denom is None:
+        denom = mask.sum().clamp(min=1.0)
     return ((logz - gold) * mask).sum() / denom, denom
 
 
 def loss_fn(cfg: TransformerConfig, params: Params, batch: Dict[str, torch.Tensor],
             *, dtype: Optional[torch.dtype] = torch.bfloat16,
-            remat_policy: Optional[str] = None
+            remat_policy: Optional[str] = None, num_tokens=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy (fp32); labels < 0 are ignored. Under an
     enabled ``fused_ce_scope`` with a vocab wider than one chunk, the
     [B, S, V] logits never materialise (``ops/cross_entropy.py``). A packed
-    batch's ``segment_ids`` and ``positions`` go to :func:`apply`."""
+    batch's ``segment_ids`` and ``positions`` go to :func:`apply`.
+    ``num_tokens``, the valid tokens of a batch sharded over ranks, divides
+    this rank's NLL sum, so the ranks' losses sum to the batch's mean."""
     fused_on, chunk = fused_ce_config()
     kw = dict(dtype=dtype, remat_policy=remat_policy, positions=batch.get("positions"),
               segment_ids=batch.get("segment_ids"))
@@ -518,10 +543,10 @@ def loss_fn(cfg: TransformerConfig, params: Params, batch: Dict[str, torch.Tenso
     if fused_on and cfg.vocab_size > chunk:
         x = apply(cfg, params, batch["input_ids"], return_hidden=True, **kw)
         ce, denom = chunked_masked_ce(x, lm_head_weight(cfg, params), batch["labels"],
-                                      chunk)
+                                      chunk, num_tokens)
     else:
         ce, denom = masked_ce(apply(cfg, params, batch["input_ids"], **kw),
-                              batch["labels"])
+                              batch["labels"], num_tokens)
     return ce, {"lm_loss": ce, "tokens": denom}
 
 

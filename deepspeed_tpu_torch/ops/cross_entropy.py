@@ -100,15 +100,17 @@ class ChunkedNLL(torch.autograd.Function):
 
 
 def chunked_masked_ce(y: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-                      chunk: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
+                      chunk: int = 4096, denom=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked mean NLL over [..., S] tokens; labels < 0 ignored (HF -100).
 
     y [..., S, d]; head [d, V] (the fp32 master: the cast to the compute dtype
     happens inside the chunk products). Returns (ce, total_valid_tokens) with
-    the semantics of ``models.transformer.masked_ce``."""
+    the semantics of ``models.transformer.masked_ce`` (``denom`` given: the
+    NLL sum over it)."""
     d = y.shape[-1]
     labels2 = labels.reshape(-1)
     mask = (labels2 >= 0).float()
     nll = ChunkedNLL.apply(y.reshape(-1, d), head, labels2.clamp(min=0), int(chunk))
-    denom = mask.sum().clamp(min=1.0)
+    if denom is None:
+        denom = mask.sum().clamp(min=1.0)
     return (nll * mask).sum() / denom, denom

@@ -15,7 +15,15 @@ kernel for a full bias, ``emit_dbias``, and from the bias-gradient kernel
 for a broadcast one) and a block-sparse ``layout`` ([S/blk, S/blk] 0/1 at
 ``blk`` tokens, a multiple of 128 dividing S: only the active blocks are
 read, through compaction tables made once per layout and device,
-:func:`block_tables`). The terms enter each score as ``_mask_and_bias``
+:func:`block_tables`), and the position ``offsets`` (qoff, koff) of a ring
+attention hop (``has_offsets``, ``_flash_fwd``'s ``offsets=``, line 334: the
+local query chunk sits at global positions qoff.., the visiting key chunk at
+koff.., which places the causal diagonal and the ALiBi distance; its
+``segment_ids`` may then be a (query ids, key ids) pair, the key chunk's ids
+travelling with it, ``_broadcast_segment_ids``, line 315). A row that sees no
+key (a hop whose chunk lies wholly in the future) gives out = 0 and lse =
+-1e30, the JAX package's finite ``NEG_INF``, in every masked form and plain
+version. The terms enter each score as ``_mask_and_bias``
 (line 94) adds them: the bias, then ALiBi, then the causal, segment and
 layout masks. ``slopes`` alone runs the kernels' ALiBi instantiation, nothing
 their Llama one (the code before ALiBi came in); a mask selects the masked
@@ -49,13 +57,14 @@ import torch
 from . import _build
 
 KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+TERMS = ("alibi", "bias", "sparse", "seg", "offsets")
 # a kernel's forms: its launch counter's suffix names the terms it took
-# (ALiBi, a dense bias, a block-sparse layout, segment ids); a dense bias
-# never combines with a layout
-FORMS = tuple("".join(f"_{p}" for p, on in zip(("alibi", "bias", "sparse", "seg"), bits)
-                      if on)
-              for bits in itertools.product((False, True), repeat=4)
-              if not (bits[1] and bits[2]))
+# (ALiBi, a dense bias, a block-sparse layout, segment ids, ring-hop position
+# offsets); a dense bias never combines with a layout, and offsets with
+# neither
+FORMS = tuple("".join(f"_{p}" for p, on in zip(TERMS, bits) if on)
+              for bits in itertools.product((False, True), repeat=len(TERMS))
+              if not (bits[1] and bits[2]) and not (bits[4] and (bits[1] or bits[2])))
 # kernel launches since the last reset, per kernel and form
 launches = {**{name + form: 0 for name in KERNEL_NAMES for form in FORMS},
             "flash_attention_bias_grad": 0}
@@ -67,11 +76,12 @@ HEAD_DIMS = (64, 128)
 LAYOUT_BLOCK = 128  # a layout block is a multiple of this many tokens
 
 
-def alibi_bias(slopes: torch.Tensor, S: int, device) -> torch.Tensor:
-    """[H, S, S] fp32 ALiBi bias slope * -|q - k| for S queries and keys at
-    positions 0..S-1 (the JAX ``xla_attention``'s dense form)."""
+def alibi_bias(slopes: torch.Tensor, S: int, device, offsets=(0, 0)) -> torch.Tensor:
+    """[H, S, S] fp32 ALiBi bias slope * -|q - k| for S queries at positions
+    qoff..qoff+S-1 and S keys at koff..koff+S-1, ``offsets`` = (qoff, koff)
+    (the JAX ``xla_attention``'s dense form; a ring hop's global positions)."""
     pos = torch.arange(S, dtype=torch.float32, device=device)
-    rel = -(pos[:, None] - pos[None, :]).abs()
+    rel = -((pos[:, None] + offsets[0]) - (pos[None, :] + offsets[1])).abs()
     return slopes.float().to(device)[:, None, None] * rel[None]
 
 
@@ -152,28 +162,46 @@ def check_bias(fn: str, bias: torch.Tensor, q: torch.Tensor) -> None:
         )
 
 
-def _scores(q: torch.Tensor, kf: torch.Tensor, slopes, bias=None) -> torch.Tensor:
+def _offsets(offsets) -> Tuple[int, int]:
+    return (0, 0) if offsets is None else (int(offsets[0]), int(offsets[1]))
+
+
+def _segment_pair(segment_ids):
+    """(query ids, key ids) of ``segment_ids``: one [B, S] tensor for both,
+    or a pair."""
+    if isinstance(segment_ids, (tuple, list)):
+        return tuple(segment_ids)
+    return segment_ids, segment_ids
+
+
+def _scores(q: torch.Tensor, kf: torch.Tensor, slopes, bias=None,
+            offsets=None) -> torch.Tensor:
     """fp32 scores q . k * scale [B,H,S,S] (plus the dense bias, then the
-    ALiBi bias) for q [B,S,H,D] and k already repeated over the GQA group."""
+    ALiBi bias at the ``offsets``' positions) for q [B,S,H,D] and k already
+    repeated over the GQA group."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / math.sqrt(q.shape[-1]))
     if bias is not None:
         s = s + bias.float()
     if slopes is not None:
-        s = s + alibi_bias(slopes, q.shape[1], q.device)
+        s = s + alibi_bias(slopes, q.shape[1], q.device, _offsets(offsets))
     return s
 
 
-def _visible(q, causal, segment_ids, layout) -> Optional[torch.Tensor]:
-    """bool [B|1, 1, S, S]: the (query, key) pairs the causal, segment and
-    layout masks keep; None when there is no mask."""
+def _visible(q, causal, segment_ids, layout, offsets=None) -> Optional[torch.Tensor]:
+    """bool [B|1, 1, S, S]: the (query, key) pairs the causal (at the
+    ``offsets``' global positions), segment and layout masks keep; None when
+    there is no mask."""
     S = q.shape[1]
-    vis = torch.ones(S, S, dtype=torch.bool, device=q.device).tril() if causal else None
+    qoff, koff = _offsets(offsets)
+    vis = (torch.ones(S, S, dtype=torch.bool, device=q.device).tril(qoff - koff)
+           if causal else None)
     if layout is not None:
         check_layout("flash_attention_plain", layout, S)
         tok = layout_mask(layout, S, q.device)
         vis = tok if vis is None else vis & tok
     if segment_ids is not None:
-        same = segment_ids[:, :, None] == segment_ids[:, None, :]
+        seg_q, seg_k = _segment_pair(segment_ids)
+        same = seg_q[:, :, None] == seg_k[:, None, :]
         vis = same if vis is None else vis & same
     if vis is None:
         return None
@@ -183,13 +211,15 @@ def _visible(q, causal, segment_ids, layout) -> Optional[torch.Tensor]:
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, slopes: Optional[torch.Tensor] = None,
                           bias: Optional[torch.Tensor] = None,
-                          segment_ids: Optional[torch.Tensor] = None,
-                          layout: Optional[np.ndarray] = None
+                          segment_ids=None, layout: Optional[np.ndarray] = None,
+                          offsets: Optional[Tuple[int, int]] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reference GQA attention in fp32: (out [B,S,H,D] in q's dtype,
     lse [B,H,S] fp32). q [B,S,H,D]; k, v [B,S,KV,D]; ``slopes`` the ALiBi
     slopes [H], ``bias`` an additive bias broadcastable to [B,H,S,S],
-    ``segment_ids`` [B,S], ``layout`` a block-sparse layout, each or None."""
+    ``segment_ids`` [B,S] (or a (query, key) pair), ``layout`` a block-sparse
+    layout, ``offsets`` a ring hop's (qoff, koff), each or None. A row with
+    no visible key gives out 0 and lse -1e30."""
     B, S, H, D = q.shape
     KV = k.shape[2]
     if H % KV:
@@ -198,25 +228,28 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         plain_on_cuda["flash_attention_plain"] += 1
     kf = k.float().repeat_interleave(H // KV, dim=2)
     vf = v.float().repeat_interleave(H // KV, dim=2)
-    s = _scores(q, kf, slopes, bias)
-    vis = _visible(q, causal, segment_ids, layout)
+    s = _scores(q, kf, slopes, bias, offsets)
+    vis = _visible(q, causal, segment_ids, layout, offsets)
     if vis is not None:
         s = s.masked_fill(~vis, NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vf)
+    p = torch.softmax(s, dim=-1)
+    if vis is not None:  # zero already but on a row that sees no key
+        p = p.masked_fill(~vis, 0.0)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     return out.to(q.dtype), lse
 
 
 def _plain_p_dst(q, k, v, lse, delta, do, causal, slopes=None, bias=None,
-                 segment_ids=None, layout=None):
+                 segment_ids=None, layout=None, offsets=None):
     """fp32 (p, dst) [B,H,S,S] of the backward, with k/v repeated over the
     GQA group: p = exp(s - lse) on visible pairs, dst = p (dp - delta) (the
     score's gradient; ds = dst * scale)."""
     G = q.shape[2] // k.shape[2]
     kf = k.float().repeat_interleave(G, dim=2)
     vf = v.float().repeat_interleave(G, dim=2)
-    p = torch.exp(_scores(q, kf, slopes, bias) - lse[..., None])
-    vis = _visible(q, causal, segment_ids, layout)
+    p = torch.exp(_scores(q, kf, slopes, bias, offsets) - lse[..., None])
+    vis = _visible(q, causal, segment_ids, layout, offsets)
     if vis is not None:
         p = p.masked_fill(~vis, 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
@@ -225,15 +258,17 @@ def _plain_p_dst(q, k, v, lse, delta, do, causal, slopes=None, bias=None,
 
 def flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal: bool = True,
                                  slopes: Optional[torch.Tensor] = None, bias=None,
-                                 segment_ids=None, layout=None, emit_dbias: bool = False):
+                                 segment_ids=None, layout=None, emit_dbias: bool = False,
+                                 offsets=None):
     """Reference (dq [B,S,H,D] in q's dtype, delta [B,H,S] fp32) in fp32,
     delta = rowsum(do * o); with ``emit_dbias`` also the full bias's
-    gradient [B,H,S,S] in the bias's dtype."""
+    gradient [B,H,S,S] in the bias's dtype. A ring hop passes the ring's
+    final ``o`` and ``lse`` with its ``offsets``."""
     G = q.shape[2] // k.shape[2]
     scale = 1.0 / math.sqrt(q.shape[-1])
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     _, dst = _plain_p_dst(q, k, v, lse, delta, do, causal, slopes, bias, segment_ids,
-                          layout)
+                          layout, offsets)
     kf = k.float().repeat_interleave(G, dim=2)
     dq = torch.einsum("bhqk,bkhd->bqhd", dst * scale, kf).to(q.dtype)
     if emit_dbias:
@@ -243,14 +278,14 @@ def flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal: bool = True,
 
 def flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do, causal: bool = True,
                                   slopes: Optional[torch.Tensor] = None, bias=None,
-                                  segment_ids=None, layout=None
+                                  segment_ids=None, layout=None, offsets=None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reference (dk, dv) [B,S,KV,D] in k's dtype, in fp32, each summed over
     the query heads of its GQA group."""
     B, S, H, D = q.shape
     KV = k.shape[2]
     p, dst = _plain_p_dst(q, k, v, lse, delta, do, causal, slopes, bias, segment_ids,
-                          layout)
+                          layout, offsets)
     dk = torch.einsum("bhqk,bqhd->bkhd", dst * (1.0 / math.sqrt(D)), q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     return (dk.reshape(B, S, KV, H // KV, D).sum(3).to(k.dtype),
@@ -331,12 +366,12 @@ def _check_inputs(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def form_suffix(slopes: Optional[torch.Tensor], bias=None, segment_ids=None,
-                layout=None) -> str:
+                layout=None, offsets=None) -> str:
     """The launch counter's suffix of a kernel's form: one ``_alibi``,
-    ``_bias``, ``_sparse``, ``_seg`` for each term it takes, in that order
-    (nothing for the Llama form)."""
-    return "".join(f"_{name}" for name, t in (("alibi", slopes), ("bias", bias),
-                                               ("sparse", layout), ("seg", segment_ids))
+    ``_bias``, ``_sparse``, ``_seg``, ``_offsets`` for each term it takes, in
+    that order (nothing for the Llama form)."""
+    return "".join(f"_{name}" for name, t in zip(TERMS, (slopes, bias, layout,
+                                                         segment_ids, offsets))
                    if t is not None)
 
 
@@ -356,26 +391,32 @@ def slopes_ptr(fn: str, slopes: Optional[torch.Tensor], q: torch.Tensor):
 
 
 def mask_array(fn: str, q: torch.Tensor, bias=None, segment_ids=None, layout=None,
-               transposed: bool = False, dbias=None):
+               transposed: bool = False, dbias=None, offsets=None):
     """The kernels' mask argument (``csrc/flash_attention.cuh:parse_mask``):
-    None for an unmasked form, else a long long[11] naming the segment ids,
-    the bias with its element strides (0 on a broadcast dim) and dtype, the
-    layout's compaction table (per query row, or per key column when
-    ``transposed``) and a dbias output; raises on what the kernels do not
-    take."""
-    if bias is None and segment_ids is None and layout is None:
+    None for an unmasked form, else a long long[14] naming the segment ids
+    (the queries' and, for a pair, the keys'), the bias with its element
+    strides (0 on a broadcast dim) and dtype, the layout's compaction table
+    (per query row, or per key column when ``transposed``), a dbias output
+    and the position offsets; raises on what the kernels do not take."""
+    if bias is None and segment_ids is None and layout is None and offsets is None:
         return None
     B, S, H, _ = q.shape
-    vals = [0] * 11
+    vals = [0] * 14
+    if offsets is not None and (bias is not None or layout is not None):
+        raise ValueError(f"{fn}: position offsets do not combine with a dense bias or a "
+                         "block-sparse layout")
     if segment_ids is not None:
-        if segment_ids.shape != (B, S) or segment_ids.dtype != torch.int32 \
-                or segment_ids.device != q.device or not segment_ids.is_contiguous():
-            raise ValueError(
-                f"{fn}: segment ids must be int32 contiguous [{B}, {S}] on "
-                f"{q.device}, got {segment_ids.dtype} {tuple(segment_ids.shape)} on "
-                f"{segment_ids.device}"
-            )
-        vals[0] = segment_ids.data_ptr()
+        pair = _segment_pair(segment_ids)
+        for ids in pair:
+            if ids.shape != (B, S) or ids.dtype != torch.int32 \
+                    or ids.device != q.device or not ids.is_contiguous():
+                raise ValueError(
+                    f"{fn}: segment ids must be int32 contiguous [{B}, {S}] on "
+                    f"{q.device}, got {ids.dtype} {tuple(ids.shape)} on {ids.device}"
+                )
+        vals[0] = pair[0].data_ptr()
+        if pair[1] is not pair[0]:
+            vals[11] = pair[1].data_ptr()
     if bias is not None:
         check_bias(fn, bias, q)
         if bias.dtype not in (torch.float32, torch.bfloat16) \
@@ -398,7 +439,8 @@ def mask_array(fn: str, q: torch.Tensor, bias=None, segment_ids=None, layout=Non
         vals[6:10] = [cols.data_ptr(), counts.data_ptr(), cols.shape[1], blk]
     if dbias is not None:
         vals[10] = dbias.data_ptr()
-    return (ctypes.c_longlong * 11)(*vals)
+    vals[12:14] = _offsets(offsets)
+    return (ctypes.c_longlong * 14)(*vals)
 
 
 def _check_rows(fn: str, q: torch.Tensor, **rows: torch.Tensor) -> None:
@@ -416,22 +458,25 @@ def _check_rows(fn: str, q: torch.Tensor, **rows: torch.Tensor) -> None:
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, slopes: Optional[torch.Tensor] = None,
                         bias: Optional[torch.Tensor] = None,
-                        segment_ids: Optional[torch.Tensor] = None,
-                        layout: Optional[np.ndarray] = None
+                        segment_ids=None, layout: Optional[np.ndarray] = None,
+                        offsets: Optional[Tuple[int, int]] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B,S,H,D], lse [B,H,S] fp32) for q [B,S,H,D], k/v [B,S,KV,D],
     with ALiBi when ``slopes`` (fp32 [H]) are given, a dense ``bias``
-    [B|1,H|1,S,S], ``segment_ids`` (int32 [B,S]) and a block-sparse
-    ``layout``.
+    [B|1,H|1,S,S], ``segment_ids`` (int32 [B,S], or a (query, key) pair), a
+    block-sparse ``layout`` and a ring hop's position ``offsets`` (qoff,
+    koff).
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
     kernel (bf16, head_dim 64 or 128), or raise on what it does not take."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, slopes, bias, segment_ids, layout)
+        return flash_attention_plain(q, k, v, causal, slopes, bias, segment_ids, layout,
+                                     offsets)
     lib = _build.library()
     _check_inputs("flash_attention_fwd", q, k, v)
     sl = slopes_ptr("flash_attention_fwd", slopes, q)
-    mask = mask_array("flash_attention_fwd", q, bias, segment_ids, layout)
+    mask = mask_array("flash_attention_fwd", q, bias, segment_ids, layout,
+                      offsets=offsets)
     B, S, H, D = q.shape
     KV = k.shape[2]
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -444,20 +489,23 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_attention_fwd")
-    launches["flash_attention_fwd" + form_suffix(slopes, bias, segment_ids, layout)] += 1
+    launches["flash_attention_fwd" + form_suffix(slopes, bias, segment_ids, layout,
+                                                 offsets)] += 1
     return out, lse
 
 
 def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
                            slopes: Optional[torch.Tensor] = None, bias=None,
-                           segment_ids=None, layout=None, emit_dbias: bool = False):
+                           segment_ids=None, layout=None, emit_dbias: bool = False,
+                           offsets: Optional[Tuple[int, int]] = None):
     """(dq [B,S,H,D], delta [B,H,S] fp32): the dq kernel, which also writes
     delta for :func:`flash_attention_bwd_dkv`; with ``emit_dbias`` (a full
-    [B,H,S,S] bias) also the bias's gradient in its dtype. CPU tensors take
+    [B,H,S,S] bias) also the bias's gradient in its dtype. A ring hop passes
+    the ring's final ``o`` and ``lse`` with its ``offsets``. CPU tensors take
     the plain version; CUDA tensors launch the kernel or raise."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal, slopes, bias,
-                                            segment_ids, layout, emit_dbias)
+                                            segment_ids, layout, emit_dbias, offsets)
     lib = _build.library()
     fn = "flash_attention_bwd_dq"
     _check_inputs(fn, q, k, v, o=o, do=do)
@@ -469,7 +517,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
         if bias is None or tuple(bias.shape) != (B, H, S, S):
             raise ValueError(f"{fn}: emit_dbias needs a full [{B}, {H}, {S}, {S}] bias")
         dbias = torch.empty((B, H, S, S), dtype=bias.dtype, device=q.device)
-    mask = mask_array(fn, q, bias, segment_ids, layout, dbias=dbias)
+    mask = mask_array(fn, q, bias, segment_ids, layout, dbias=dbias, offsets=offsets)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     status = lib.dst_flash_attention_bwd_dq(
@@ -479,26 +527,27 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
         int(bool(causal)), mask, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, fn)
-    launches[fn + form_suffix(slopes, bias, segment_ids, layout)] += 1
+    launches[fn + form_suffix(slopes, bias, segment_ids, layout, offsets)] += 1
     return (dq, delta, dbias) if emit_dbias else (dq, delta)
 
 
 def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal: bool = True,
                             slopes: Optional[torch.Tensor] = None, bias=None,
-                            segment_ids=None, layout=None
+                            segment_ids=None, layout=None,
+                            offsets: Optional[Tuple[int, int]] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [B,S,KV,D], summed over each GQA group: the dk/dv kernel.
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do, causal, slopes,
-                                             bias, segment_ids, layout)
+                                             bias, segment_ids, layout, offsets)
     lib = _build.library()
     fn = "flash_attention_bwd_dkv"
     _check_inputs(fn, q, k, v, do=do)
     _check_rows(fn, q, lse=lse, delta=delta)
     sl = slopes_ptr(fn, slopes, q)
-    mask = mask_array(fn, q, bias, segment_ids, layout, transposed=True)
+    mask = mask_array(fn, q, bias, segment_ids, layout, transposed=True, offsets=offsets)
     B, S, H, D = q.shape
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
@@ -509,7 +558,7 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal: bool = True,
         int(bool(causal)), mask, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, fn)
-    launches[fn + form_suffix(slopes, bias, segment_ids, layout)] += 1
+    launches[fn + form_suffix(slopes, bias, segment_ids, layout, offsets)] += 1
     return dk, dv
 
 

@@ -1,10 +1,9 @@
 """Training engine: ``initialize`` → ``TorchEngine.train_batch`` on one CUDA
-device (or the CPU, when asked).
+device (or the CPU, when asked), or on each rank of a dp × sp world.
 
 Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``initialize`` line 62,
-``TpuEngine.train_batch`` line 2168, ``_train_step`` line 2038) for one
-device, ZeRO stage 0, bf16 (or fp32) compute over fp32 master weights, and
-AdamW. A step splits the global batch into ``gradient_accumulation_steps``
+``TpuEngine.train_batch`` line 2168, ``_train_step`` line 2038) at ZeRO stage
+0, bf16 (or fp32) compute over fp32 master weights, and AdamW. A step splits the global batch into ``gradient_accumulation_steps``
 micro-batches; each micro-batch's loss is the mean over its own tokens, and
 its fp32 gradient accumulates in the masters' ``.grad`` (the sum the JAX scan
 carries), scaled by 1/accum at the end (``_compute_grads`` line 1579). Then
@@ -22,6 +21,17 @@ swaps in the flash kernels' block-sparse form. A batch may carry
 ``segment_ids`` and ``positions`` (packed documents) beside ``input_ids``
 and ``labels``. Everything outside this slice
 raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+
+Across ranks (``torch.distributed``, the world laid out dp × sp by
+``comm.MeshTopology``; JAX ``initialize`` lines 133-160), the engine does
+explicitly what the JAX package's SPMD program does for free: the fp32
+masters are broadcast from rank 0; every rank takes the same global batch,
+builds the labels on the whole sequence, then keeps its dp rows and its sp
+chunk of the sequence; each rank's loss is its NLL sum over the micro-batch's
+valid tokens in the whole world, so the ranks' losses sum to the batch mean;
+the gradients are summed over the world before the norm and the clip; and
+``train_batch`` returns the global loss on every rank. Attention crosses the
+sequence chunks by the ``sequence_parallel`` mode (``parallel/sequence.py``).
 """
 
 from __future__ import annotations
@@ -33,8 +43,12 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import comm
 from ..accelerator import resolve_device
+from ..comm.collectives import all_reduce, broadcast
+from ..comm.topology import MeshTopology, ParallelDims
 from ..config import DeepSpeedConfig
+from ..models.sharding import use_topology
 from ..models.transformer import check_supported, make_lm_batch
 from ..ops.attention import attention_impl
 from ..ops.cross_entropy import fused_ce_scope
@@ -58,7 +72,6 @@ def unported_features(cfg: DeepSpeedConfig) -> List[str]:
     zo = raw.get("zero_optimization") or {}
     pipe = raw.get("pipeline") or {}
     tp = raw.get("tensor_parallel") or {}
-    sp = raw.get("sequence_parallel") or {}
     de = raw.get("data_efficiency") or {}
     comp = raw.get("compression_training") or {}
     checks = [
@@ -73,8 +86,6 @@ def unported_features(cfg: DeepSpeedConfig) -> List[str]:
          "tensor parallelism (item 7)"),
         (_enabled(raw.get("moe")),
          "MoE training (ROADMAP A14, MoE training at ep=1; ep > 1 is item 7)"),
-        (int(sp.get("sp_size", raw.get("sequence_parallel_size", 1)) or 1) > 1,
-         "sequence parallelism (item 7)"),
         (_enabled(raw.get("progressive_layer_drop")),
          "progressive layer drop (item 11)"),
         (_enabled(de) or _enabled(raw.get("curriculum_learning"))
@@ -107,7 +118,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     fp32 masters; without it the masters are drawn from ``rng`` (a
     ``torch.Generator`` on ``device``, seeded with the config's ``seed`` by
     default). ``device`` defaults to the current CUDA device; with no CUDA
-    device it must be ``"cpu"``."""
+    device it must be ``"cpu"``. The world is the process group that
+    ``comm.init_distributed`` started (with the caller's backend), laid out
+    dp × sp by the config's ``sequence_parallel.sp_size``; one process
+    without a process group."""
     if config is None:
         config = config_params
     if config is None and args is not None:
@@ -124,7 +138,6 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     if training_data is not None:
         later.append("training_data / the data loader (item 11)")
     cfg = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
-    cfg.resolve_batch_sizes(1)
     later += unported_features(cfg)
     if getattr(getattr(model, "config", None), "num_experts", 0) > 0:
         later.append("training an MoE model (ROADMAP A14, MoE training at ep=1)")
@@ -134,20 +147,33 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
             "bf16/fp32 and AdamW; not yet ported (ROADMAP queue A): "
             + "; ".join(later)
         )
+    sp = cfg.sequence_parallel.sp_size
+    if comm.is_initialized() and comm.get_topology().sp_size == sp:
+        topology = comm.get_topology()
+    else:
+        topology = comm.init_distributed(dims=ParallelDims(sp=sp))
+    cfg.resolve_batch_sizes(topology.data_shard_size)
     engine = TorchEngine(model, cfg, device=resolve_device(device, "initialize"),
-                         model_parameters=model_parameters, rng=rng)
+                         model_parameters=model_parameters, rng=rng, topology=topology)
     return engine, engine, None, engine.lr_scheduler
 
 
 class TorchEngine:
-    """Parity surface of ``TpuEngine`` for one device: train_batch,
-    eval_batch, lr, global_steps, micro_steps, the grad norm."""
+    """Parity surface of ``TpuEngine``: train_batch, eval_batch, lr,
+    global_steps, micro_steps, the grad norm; on one device, or on this
+    rank of ``topology``'s dp × sp world."""
 
     def __init__(self, model, config: DeepSpeedConfig, *, device: torch.device,
-                 model_parameters=None, rng: Optional[torch.Generator] = None):
+                 model_parameters=None, rng: Optional[torch.Generator] = None,
+                 topology: Optional[MeshTopology] = None):
         self.model = model
         self.config = config
         self.device = device
+        self.topology = topology if topology is not None else MeshTopology()
+        self._world = self.topology.world_group()
+        if self.topology.sp_size > 1:
+            # per topology, so two engines with different modes don't fight
+            self.topology.sp_mode = config.sequence_parallel.mode
         check_supported(model.config)
         self.compute_dtype = config.compute_dtype
         self.remat_policy = config.activation_checkpointing.policy
@@ -181,6 +207,8 @@ class TorchEngine:
             gen = rng if rng is not None else \
                 torch.Generator(device=device).manual_seed(config.seed)
             params = model.init(gen, dtype=torch.float32, device=device)
+        if self._world is not None:  # one set of masters: rank 0's
+            self._flat_over_world(tree_leaves(params), lambda f: broadcast(f, self._world, 0))
         self.params = tree_map(lambda t: t.requires_grad_(True), params)
         self.opt_state = self.optimizer.init(self.params)
         self.global_steps = 0
@@ -191,8 +219,8 @@ class TorchEngine:
             f"TorchEngine: {tree_size(self.params) / 1e6:.1f}M params, "
             f"compute {self.compute_dtype}, device {device}, batch "
             f"{config.train_batch_size} = {config.train_micro_batch_size_per_gpu}"
-            f" x {config.gradient_accumulation_steps}, remat "
-            f"{self.remat_policy}, kernels {tk}"
+            f" x {config.gradient_accumulation_steps} x dp {self.topology.dp_size}, "
+            f"{self.topology}, remat {self.remat_policy}, kernels {tk}"
         )
 
     # ------------------------------------------------------------- helpers
@@ -205,6 +233,7 @@ class TorchEngine:
             else ("flash" if tk.flash_attention else "plain")))
         stack.enter_context(kernel_rmsnorm_scope(tk.fused_rmsnorm))
         stack.enter_context(fused_ce_scope(tk.fused_ce, tk.ce_chunk))
+        stack.enter_context(use_topology(self.topology))
         return stack
 
     def _to_device(self, v) -> torch.Tensor:
@@ -223,8 +252,36 @@ class TorchEngine:
         out = {k: self._to_device(v) for k, v in batch.items()}
         return out if "labels" in out else make_lm_batch(out["input_ids"])
 
-    def _prepare_batch(self, batch) -> Dict[str, torch.Tensor]:
-        """Global batch → [accum, micro, ...] tensors on the device."""
+    def _shard(self, batch: Dict[str, torch.Tensor], row_dim: int) -> Dict[str, torch.Tensor]:
+        """This rank's part of a global batch whose rows lie on ``row_dim``
+        and sequence on the next dim: its dp rows, its sp chunk (the JAX
+        batch sharding P(dp, sp)); the whole batch on one device."""
+        topo = self.topology
+        if topo.world_size == 1:
+            return batch
+        dp, sp = topo.dp_size, topo.sp_size
+        out = {}
+        for k, t in batch.items():
+            rows, S = t.shape[row_dim], t.shape[row_dim + 1]
+            if rows % dp or S % sp:
+                raise ValueError(
+                    f"batch field {k!r} of {rows} rows x {S} tokens does not split over "
+                    f"dp={dp} rows and sp={sp} sequence chunks")
+            t = t.narrow(row_dim, topo.coord("dp") * (rows // dp), rows // dp)
+            out[k] = t.narrow(row_dim + 1, topo.coord("sp") * (S // sp), S // sp)
+        return out
+
+    def _num_tokens(self, labels: torch.Tensor, dims) -> Optional[torch.Tensor]:
+        """The valid tokens of the global batch over ``dims``, each rank's CE
+        denominator; None on one device (each loss counts its own)."""
+        if self.topology.world_size == 1:
+            return None
+        return (labels >= 0).sum(dims).float().clamp(min=1.0)
+
+    def _prepare_batch(self, batch):
+        """Global batch → ([accum, micro, ...] tensors on the device, this
+        rank's part; per micro-batch the global count of valid tokens, or
+        None on one device)."""
         accum = self.config.gradient_accumulation_steps
         expect = self.config.train_batch_size
         out = {}
@@ -234,7 +291,16 @@ class TorchEngine:
                     f"batch field {k!r} has batch {t.shape[0]}, config "
                     f"train_batch_size={expect}")
             out[k] = t.reshape(accum, expect // accum, *t.shape[1:])
-        return out
+        return self._shard(out, 1), self._num_tokens(out["labels"], (1, 2))
+
+    @staticmethod
+    def _flat_over_world(leaves: List[torch.Tensor], op) -> None:
+        """``op`` (a collective in place) on ``leaves`` as one flat buffer:
+        one call, and one host buffer where the transport stages."""
+        flat = torch.cat([t.reshape(-1) for t in leaves])
+        op(flat)
+        for t, part in zip(leaves, flat.split([t.numel() for t in leaves])):
+            t.copy_(part.view_as(t))
 
     @staticmethod
     def _next_batch(data_iter):
@@ -251,20 +317,24 @@ class TorchEngine:
             batch = self._next_batch(data_iter)
         cfg = self.config
         t0 = time.perf_counter()
-        prepared = self._prepare_batch(batch)
+        prepared, num_tokens = self._prepare_batch(batch)
         accum = cfg.gradient_accumulation_steps
         t1 = time.perf_counter()
         loss_sum = None
         with self._kernel_scope():
             for i in range(accum):
                 mb = {k: v[i] for k, v in prepared.items()}
-                loss, _ = self.model.loss(self.params, mb, dtype=self.compute_dtype,
-                                          remat_policy=self.remat_policy)
+                loss, _ = self.model.loss(
+                    self.params, mb, dtype=self.compute_dtype, remat_policy=self.remat_policy,
+                    num_tokens=None if num_tokens is None else num_tokens[i])
                 loss.backward()
                 loss = loss.detach()
                 loss_sum = loss if loss_sum is None else loss_sum + loss
         grads = tree_map(lambda p: p.grad, self.params)
         leaves = tree_leaves(grads)
+        if self._world is not None:  # the ranks' shares of the batch's loss, gradient
+            all_reduce(loss_sum, self._world)
+            self._flat_over_world(leaves, lambda f: all_reduce(f, self._world))
         if accum > 1:
             for g in leaves:
                 g.mul_(1.0 / accum)
@@ -300,9 +370,13 @@ class TorchEngine:
         """Loss of a batch dict under the same weights, no gradient."""
         if batch is None:
             batch = self._next_batch(data_iter)
+        full = self._lm_batch(batch)
         with torch.no_grad(), self._kernel_scope():
-            loss, _ = self.model.loss(self.params, self._lm_batch(batch),
-                                      dtype=self.compute_dtype)
+            loss, _ = self.model.loss(self.params, self._shard(full, 0),
+                                      dtype=self.compute_dtype,
+                                      num_tokens=self._num_tokens(full["labels"], (0, 1)))
+        if self._world is not None:
+            all_reduce(loss, self._world)
         return loss
 
     # ----------------------------------------------------------- properties
