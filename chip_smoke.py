@@ -5,15 +5,20 @@
     python3 chip_smoke.py --baseline DIR   # DIR: a checkout of an earlier commit
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
-sm_90a). With ``--baseline DIR`` it only builds both checkouts' kernels and
-checks that the Llama (slope-free) forms of the flash and decode kernels
-give the same bits in both, on the same seeded inputs. Without arguments, in
-order, any failure exiting non-zero:
+sm_90a). With ``--baseline DIR`` it only builds both checkouts' kernels,
+checks on the same seeded inputs that the Llama (slope-free) and ALiBi forms
+of the flash forward and the decode kernels give the same bits in both and
+that the flash backward's dq, dk and dv agree within 2e-2 of the largest
+gradient, then times both checkouts' backward kernels at every PERF.md
+section 6 backward shape in turns and fails if one of this checkout's is
+slower. Without arguments, in order, any failure exiting non-zero:
 
 1. device check: CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them;
 2. build: compiles deepspeed_tpu_torch/csrc/*.cu (one nvcc per source, in
-   parallel) and prints the build seconds and ptxas register counts;
+   parallel) and prints the build seconds and ptxas register counts, then
+   the HGMMA (wgmma) and UTMALDG (TMA load) instructions of each backward
+   kernel instantiation from cuobjdump, each of which must be non-zero;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    each main path gives it (the flash and RMSNorm forwards at the serving
    and at the training shape; the paged and dense decode kernels with 64
@@ -40,7 +45,10 @@ order, any failure exiting non-zero:
    sequence): max abs error against a stated tolerance, and the
    kernel's, plain version's and library call's times (CUDA events, median
    of single launches with L2 flushed before each) beside the bound, one row
-   per kernel and path; then the other shapes and dtypes the wrappers take;
+   per kernel and path; then the other shapes and dtypes the wrappers take,
+   and the backward kernels' tile walk: ragged S at head dims 64 and 128
+   with GQA groups 1, 4 and 8, segment boundaries on and inside tile edges,
+   a future ring hop (gradients exactly zero), two runs bitwise equal;
 4. serving reference checks: two-layer full-width Llama-3-8B, BLOOM-7B1 and
    GPT-2-XL, kernel path against plain path, prefill and three cached
    decode steps;
@@ -153,10 +161,13 @@ import contextlib
 import gc
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -943,6 +954,107 @@ def check_flash_bwd(gen, timer):
         "shape": shape + " (library: SDPA backward, dq+dk+dv)",
     }
     return dq_r, dkv_r
+
+
+def bwd_instruction_counts() -> dict:
+    """HGMMA (wgmma) and UTMALDG (TMA tile load) instructions in each
+    instantiation of the two backward kernels, from ``cuobjdump --dump-sass``
+    of the built object (or, without cuobjdump, the wgmma and
+    cp.async.bulk.tensor lines of their PTX). Keyed "flash_bwd_dq_kernel<64,
+    masked=0>" and so on."""
+    obj = _build.BUILD_DIR / "flash_attention_bwd.o"
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    name_re = re.compile(r"(flash_bwd_(?:dq|dkv)_kernel)ILi(\d+)ELb([01])E")
+    if tool.exists():
+        text = subprocess.run([str(tool), "--dump-sass", str(obj)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        head, marks = "Function : ", ("HGMMA", "UTMALDG")
+    else:
+        ptx = _build.BUILD_DIR / "flash_attention_bwd.ptx"
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS[:4], "-ptx", "-o", str(ptx),
+                        str(_build.CSRC / "flash_attention_bwd.cu")], check=True, timeout=600)
+        text = ptx.read_text()
+        head, marks = ".entry ", ("wgmma.mma_async", "cp.async.bulk.tensor")
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if head in line:
+            m = name_re.search(line)
+            fn = f"{m.group(1)}<{m.group(2)}, masked={m.group(3)}>" if m else None
+            if fn:
+                counts[fn] = {marks[0]: 0, marks[1]: 0}
+        elif fn:
+            for mark in marks:
+                counts[fn][mark] += mark in line
+    return counts
+
+
+def check_bwd_instructions() -> None:
+    """Both backward kernels, in every instantiation, issue wgmma and load
+    their tiles by TMA."""
+    counts = bwd_instruction_counts()
+    for fn, c in sorted(counts.items()):
+        print(f"{fn}: " + ", ".join(f"{k} {n}" for k, n in c.items()))
+    require(len(counts) == 8, f"expected 8 backward kernel instantiations, found {counts}")
+    require(all(n > 0 for c in counts.values() for n in c.values()),
+            "a backward kernel issues no wgmma or no TMA load")
+
+
+def check_bwd_tiles(gen):
+    """The backward kernels' tile walk on the card, each case against the
+    plain version (dq, dk, dv within 2e-2 of the largest gradient, delta
+    1e-4): ragged S (300, 130) at head dims 128 and 64 with GQA groups 1, 4
+    and 8; packed segments with boundaries on tile edges (64, 128, 448) and
+    inside a tile (476), so that tiles are wholly inside one document (full),
+    straddle a boundary (partial) or lie wholly across two documents
+    (skipped); a future ring hop, whose gradients must be exactly zero; and
+    two runs of every case, which must be bitwise equal."""
+    tol, tol_delta = 2e-2, 1e-4
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=BF16)
+
+    docs = [64, 64, 320, 28, 36]
+    seg = torch.tensor(np.repeat(np.arange(len(docs)), docs)[None].repeat(2, 0),
+                       dtype=torch.int32, device="cuda")
+    cases = [("ragged", 2, 300, 8, 8, 128, True, {}),
+             ("ragged", 1, 130, 16, 4, 128, True, {}),
+             ("ragged", 2, 300, 16, 2, 128, False, {}),
+             ("ragged", 1, 130, 8, 1, 64, True, {}),
+             ("ragged", 2, 300, 32, 8, 64, True, {}),
+             ("segments", 2, 512, 8, 2, 64, True, {"segment_ids": seg}),
+             ("segments", 2, 512, 8, 8, 128, True, {"segment_ids": seg}),
+             ("future hop", 1, 512, 8, 2, 64, True, {"offsets": (0, 512)}),
+             ("future hop", 1, 512, 8, 2, 64, True, {"offsets": (0, 512),
+                                                     "segment_ids": seg[:1]})]
+    for label, B, S, H, KV, D, causal, kw in cases:
+        q, k, v, do = rand(B, S, H, D), rand(B, S, KV, D), rand(B, S, KV, D), rand(B, S, H, D)
+        o, lse = fa.flash_attention_plain(q, k, v, causal, **kw)
+        runs = []
+        for _ in range(2):
+            dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal, **kw)
+            runs.append((dq, delta,
+                         *fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal, **kw)))
+        rdq, rdelta = fa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal, **kw)
+        rdk, rdv = fa.flash_attention_bwd_dkv_plain(q, k, v, lse, rdelta, do, causal, **kw)
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        errs = []
+        for n, a, w in zip(("dq", "delta", "dk", "dv"), runs[0], (rdq, rdelta, rdk, rdv)):
+            e, m = max_err(a, w), w.float().abs().max().item()
+            errs.append((n, e, (tol_delta if n == "delta" else tol) * m))
+        name = f"flash_bwd {label} B={B} S={S} H={H} KV={KV} D={D} causal={causal}" + (
+            f" {sorted(kw)}" if kw else "")
+        print(f"{name}: " + ", ".join(f"{n} max_abs_err {e:.3e} (tol {t:.3e})"
+                                      for n, e, t in errs)
+              + f"; two runs bitwise equal: {same}")
+        require(same, f"{name}: two runs differ")
+        for n, e, t in errs:
+            require(e <= t, f"{name}: {n} disagrees with its plain version")
+        if label == "future hop":
+            zero = all(int(torch.count_nonzero(t)) == 0 for t in (runs[0][0], *runs[0][2:]))
+            print(f"{name}: dq, dk, dv exactly zero: {zero}")
+            require(zero, f"{name}: a future hop's gradients are not exactly zero")
+        del q, k, v, do, o, lse, runs
+    torch.cuda.empty_cache()
 
 
 def check_fused_adam(gen, timer, n: int = 16 * 2048 * 8192):
@@ -3409,7 +3521,8 @@ def main_path_training(model=None, expect=TRAINING_KERNELS, path: str = "trainin
 # The Llama (slope-free) forms of the attention kernels and the ALiBi forms of
 # the flash kernels on seeded inputs, run by ``--baseline`` in this checkout
 # and in an earlier one, each in its own process with its own build: only
-# calls both checkouts' wrappers take.
+# calls both checkouts' wrappers take. Each entry is (outputs held bitwise,
+# backward outputs held within BWD_TOL of the largest).
 LLAMA_FORMS_SCRIPT = r"""
 import sys
 import torch
@@ -3427,57 +3540,166 @@ outs = {}
 for B, S, H, KV, D in ((2, 300, 32, 8, 128), (2, 512, 32, 8, 64), (1, 130, 12, 12, 64)):
     q, k, v, do = r(B, S, H, D), r(B, S, KV, D), r(B, S, KV, D), r(B, S, H, D)
     o, lse = fa.flash_attention_fwd(q, k, v, True)
-    outs[f"flash fwd+bwd B={B} S={S} H={H} KV={KV} D={D}"] = [
-        o, lse, *fa.flash_attention_bwd(q, k, v, o, lse, do, True)]
+    outs[f"flash fwd+bwd B={B} S={S} H={H} KV={KV} D={D}"] = (
+        [o, lse], list(fa.flash_attention_bwd(q, k, v, o, lse, do, True)))
     sl = torch.tensor([2.0 ** (-8 * (i + 1) / H) for i in range(H)], device="cuda")
     o, lse = fa.flash_attention_fwd(q, k, v, True, sl)
-    outs[f"flash ALiBi fwd+bwd B={B} S={S} H={H} KV={KV} D={D}"] = [
-        o, lse, *fa.flash_attention_bwd(q, k, v, o, lse, do, True, sl)]
+    outs[f"flash ALiBi fwd+bwd B={B} S={S} H={H} KV={KV} D={D}"] = (
+        [o, lse], list(fa.flash_attention_bwd(q, k, v, o, lse, do, True, sl)))
 q = r(4, 1, 32, 128)
 kc, vc = r(4, 1024, 8, 128), r(4, 1024, 8, 128)
 fr = torch.tensor([0, 37, 511, 1023], dtype=torch.int32, device="cuda")
-outs["decode B=4 frontiers"] = [dec.decode_attention(q, kc, vc, fr), dec.decode_attention(q, kc, vc, 700)]
+outs["decode B=4 frontiers"] = (
+    [dec.decode_attention(q, kc, vc, fr), dec.decode_attention(q, kc, vc, 700)], [])
 k8 = torch.randint(-127, 128, (4, 1024, 8, 128), generator=g, device="cuda").to(torch.int8)
 v8 = torch.randint(-127, 128, (4, 1024, 8, 128), generator=g, device="cuda").to(torch.int8)
 ks, vs = r(4, 8, 1024, dtype=torch.float32).abs() / 100, r(4, 8, 1024, dtype=torch.float32).abs() / 100
-outs["decode int8"] = [dec.decode_attention(q, k8, v8, fr, ks, vs)]
+outs["decode int8"] = ([dec.decode_attention(q, k8, v8, fr, ks, vs)], [])
 table = torch.randperm(256, generator=torch.Generator().manual_seed(5)).int().reshape(4, 64).cuda()
 pool_k, pool_v = r(257, 16, 8, 128), r(257, 16, 8, 128)
 rows = r(4 * 8, 1, 32, 128)
 fr8 = torch.arange(32, dtype=torch.int32, device="cuda") * 31
-outs["paged rows_per_seq=8"] = [dec.paged_decode_attention(rows, pool_k, pool_v, fr8, table,
-                                                           rows_per_seq=8)]
+outs["paged rows_per_seq=8"] = ([dec.paged_decode_attention(rows, pool_k, pool_v, fr8, table,
+                                                            rows_per_seq=8)], [])
 torch.cuda.synchronize()
-torch.save({name: [t.cpu() for t in ts] for name, ts in outs.items()}, sys.argv[1])
+torch.save({name: ([t.cpu() for t in ex], [t.cpu() for t in bw])
+            for name, (ex, bw) in outs.items()}, sys.argv[1])
+"""
+BWD_TOL = 2e-2  # check_flash_bwd's: of the largest gradient
+
+# The backward kernels timed at the shape of each PERF.md section 6 backward
+# row, on inputs made from one seed, run by ``--baseline`` in each checkout:
+# prints one JSON object {form: [dq ms, dk/dv ms]}.
+BWD_TIMES_SCRIPT = r"""
+import json
+import statistics
+import sys
+import numpy as np
+import torch
+from deepspeed_tpu_torch.config import SparseAttentionConfig
+from deepspeed_tpu_torch.models.transformer import alibi_position_bias, alibi_slopes
+from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+from deepspeed_tpu_torch.ops.sparse_attention import from_ds_config, sparse_layout
+
+g = torch.Generator(device="cuda").manual_seed(13)
+flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+
+def r(*shape):
+    return torch.randn(*shape, generator=g, device="cuda", dtype=torch.bfloat16)
+
+
+def timer(fn, iters=20):
+    for _ in range(3):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+B, S = 4, 2048
+rng = np.random.RandomState(6)  # packed documents of 128-1536 tokens
+seg, pos = np.zeros((B, S), np.int64), np.zeros((B, S), np.int64)
+for row in range(B):
+    at, doc = 0, 0
+    while at < S:
+        n = min(int(rng.randint(128, 1537)), S - at)
+        seg[row, at:at + n], pos[row, at:at + n] = doc, np.arange(n)
+        at, doc = at + n, doc + 1
+seg = torch.from_numpy(seg).int().cuda()
+pos = torch.from_numpy(pos).cuda()
+fixed = sparse_layout(from_ds_config(SparseAttentionConfig(
+    mode="fixed", block=128, num_local_blocks=4, num_global_blocks=1)), S, True)
+forms = {
+    "training": (B, S, 32, 8, {}),
+    "training_bloom (ALiBi)": (B, S, 16, 16, {"slopes": alibi_slopes(16).cuda()}),
+    "training_packed (segment ids)": (B, S, 32, 8, {"segment_ids": seg}),
+    "training_bloom_packed (bias + segment ids)": (
+        B, S, 16, 16, {"segment_ids": seg,
+                       "bias": alibi_position_bias(pos, alibi_slopes(16).cuda())}),
+    "training_sparse (block-sparse)": (B, S, 32, 8, {"layout": fixed}),
+    "training_sp ring past hop (offsets)": (1, 8192, 32, 8, {"offsets": (8192, 0)}),
+    "training_sp Ulysses": (1, 16384, 16, 4, {}),
+}
+times = {}
+for name, (b, s, h, kv, kw) in forms.items():
+    q, k, v, do = r(b, s, h, 64), r(b, s, kv, 64), r(b, s, kv, 64), r(b, s, h, 64)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, **kw)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, True, **kw)
+    times[name] = [timer(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, True, **kw)),
+                   timer(lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, True,
+                                                            **kw))]
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+print(json.dumps(times))
 """
 
 
-def compare_to_baseline(baseline: str) -> None:
-    """The Llama forms of the flash and decode kernels and the ALiBi forms of
-    the flash kernels, this checkout's against ``baseline``'s (a checkout of
-    an earlier commit, built in its own tree), on the same seeded inputs: each
-    output must be bitwise equal."""
-    import os
-    from pathlib import Path
+def run_in(tree: Path, script: str, *args: str) -> subprocess.CompletedProcess:
+    """Run ``script`` against the package of checkout ``tree`` (its own build)."""
+    env = {**os.environ, "PYTHONPATH": str(tree)}
+    return subprocess.run([sys.executable, "-c", script, *args], cwd=tree, env=env,
+                          check=True, timeout=900, capture_output=True, text=True)
 
+
+def compare_to_baseline(baseline: str) -> None:
+    """This checkout's attention kernels against ``baseline``'s (a checkout
+    of an earlier commit, built in its own tree), on the same seeded inputs:
+    the flash forward and the decode kernels bitwise, the flash backward's
+    dq, dk and dv within BWD_TOL of the largest gradient (the backward
+    kernels were redesigned: their sums run in another order). Then both
+    checkouts' backward kernels timed at every PERF.md section 6 backward
+    shape, in turns on this card (baseline, this, this, baseline): each of
+    this checkout's must be no slower than the baseline's."""
+    trees = {"this checkout": Path(__file__).resolve().parent,
+             "baseline": Path(baseline).resolve()}
     results = {}
-    for label, tree in (("this checkout", Path(__file__).resolve().parent),
-                        ("baseline", Path(baseline).resolve())):
+    for label, tree in trees.items():
         out = tree / "build" / "llama_forms.pt"
         out.parent.mkdir(parents=True, exist_ok=True)
-        env = {**os.environ, "PYTHONPATH": str(tree)}
         t0 = time.perf_counter()
-        subprocess.run([sys.executable, "-c", LLAMA_FORMS_SCRIPT, str(out)], cwd=tree,
-                       env=env, check=True, timeout=900)
+        run_in(tree, LLAMA_FORMS_SCRIPT, str(out))
         print(f"Llama forms in {label} ({tree}): build and run "
               f"{time.perf_counter() - t0:.1f} s")
         results[label] = torch.load(out)
     mine, base = results["this checkout"], results["baseline"]
     require(set(mine) == set(base), "the two checkouts ran other forms")
     for name in mine:
-        same = all(torch.equal(a, b) for a, b in zip(mine[name], base[name]))
-        print(f"{name}: bitwise equal to the baseline: {same}")
+        (ex, bw), (bex, bbw) = mine[name], base[name]
+        same = all(torch.equal(a, b) for a, b in zip(ex, bex))
+        print(f"{name}: forward/decode bitwise equal to the baseline: {same}")
         require(same, f"{name}: the form's bits changed against the baseline")
+        for n, a, b in zip(("dq", "dk", "dv"), bw, bbw):
+            e, m = max_err(a, b), b.float().abs().max().item()
+            print(f"{name}: {n} max_abs_err against the baseline {e:.3e} "
+                  f"(tol {BWD_TOL}*{m:.3e})")
+            require(e <= BWD_TOL * m, f"{name}: {n} moved beyond tolerance")
+    runs = {label: [] for label in trees}
+    for label in ("baseline", "this checkout", "this checkout", "baseline"):
+        proc = run_in(trees[label], BWD_TIMES_SCRIPT)
+        runs[label].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"backward kernels, ms (median of 20 launches, L2 flushed; each checkout "
+          f"twice, in turns; {smi}):")
+    for form in runs["baseline"][0]:
+        new = [statistics.mean(run[form][i] for run in runs["this checkout"]) for i in (0, 1)]
+        old = [statistics.mean(run[form][i] for run in runs["baseline"]) for i in (0, 1)]
+        print(f"  {form}: dq {new[0]:.4f} (baseline {old[0]:.4f}, runs "
+              f"{[run[form][0] for run in runs['baseline']]} / "
+              f"{[run[form][0] for run in runs['this checkout']]}), dk/dv {new[1]:.4f} "
+              f"(baseline {old[1]:.4f}, runs {[run[form][1] for run in runs['baseline']]} "
+              f"/ {[run[form][1] for run in runs['this checkout']]})")
+        require(new[0] <= old[0] and new[1] <= old[1],
+                f"{form}: a backward kernel is slower than the baseline's")
 
 
 def main() -> int:
@@ -3505,6 +3727,7 @@ def main() -> int:
     for line in _build.ptxas_log().splitlines():
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}")
+    check_bwd_instructions()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer()
@@ -3599,6 +3822,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     check_other_forms(gen)
+    check_bwd_tiles(gen)
     reference_check()
     reference_check(bloom("bloom-7b1", num_layers=2), "serving_bloom ",
                     BLOOM_SERVING_KERNELS)

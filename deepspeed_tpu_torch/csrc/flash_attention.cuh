@@ -1,7 +1,8 @@
-// Device helpers shared by the flash attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu, flash_attention_bias_grad.cu): the mma.sync tile
-// products, operand staging, the ALiBi score, and the masked form's operands
-// (segment ids, a dense additive bias, block-sparse compaction tables).
+// Device helpers shared by the flash attention kernels: the mma.sync tile
+// products and operand staging of flash_attention_fwd.cu and
+// flash_attention_bias_grad.cu, the ALiBi score, and the masked form's
+// operands (segment ids, a dense additive bias, block-sparse compaction
+// tables, ring-hop offsets), which flash_attention_bwd.cu reads too.
 //
 // The masked form is one template instantiation per kernel whose masks are
 // read at run time from a Mask; the slope-free (Llama) and ALiBi forms are
@@ -124,49 +125,6 @@ __device__ __forceinline__ void rows_dot_tile(float (&acc)[NT][4],
       const __nv_bfloat16* r = sb + (j * 8 + g) * kLds + ks * 16 + tig * 2;
       mma_16816(acc[j], a[ks], load_pair(r), load_pair(r + 8));
     }
-  }
-}
-
-// out (16 x HD) += P (16 x NT*8, score fragments, rounded to bf16) . V where
-// V is the NT*8 x HD tile in shared memory: the value-shaped products.
-template <int HD, int NT>
-__device__ __forceinline__ void tile_times_rows(float (&out)[HD / 8][4],
-                                                const float (&p)[NT][4],
-                                                const __nv_bfloat16* sv, int g, int tig) {
-  constexpr int kLds = HD + 8;
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    uint32_t pa[4];
-    pa[0] = pack_f32(p[2 * kk][0], p[2 * kk][1]);
-    pa[1] = pack_f32(p[2 * kk][2], p[2 * kk][3]);
-    pa[2] = pack_f32(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    pa[3] = pack_f32(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      const __nv_bfloat16* vr = sv + (kk * 16 + tig * 2) * kLds + n * 8 + g;
-      const uint32_t b0 = pack_bf16(vr[0], vr[kLds]);
-      const uint32_t b1 = pack_bf16(vr[8 * kLds], vr[9 * kLds]);
-      mma_16816(out[n], pa, b0, b1);
-    }
-  }
-}
-
-// Write a 16 x HD fp32 accumulator (rows row0, row1) as bf16 rows.
-template <int HD>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long ss,
-                                           const float (&acc)[HD / 8][4], int row0,
-                                           int row1, int S, int tig) {
-  if (row0 < S) {
-    __nv_bfloat16* r = base + row0 * ss + tig * 2;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<uint32_t*>(r + n * 8) = pack_f32(acc[n][0], acc[n][1]);
-  }
-  if (row1 < S) {
-    __nv_bfloat16* r = base + row1 * ss + tig * 2;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<uint32_t*>(r + n * 8) = pack_f32(acc[n][2], acc[n][3]);
   }
 }
 

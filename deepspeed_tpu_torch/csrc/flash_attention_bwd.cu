@@ -1,5 +1,7 @@
-// Flash attention backward (bf16, causal or not, GQA) with mma.sync tensor
-// cores: one kernel for dq, one for dk/dv, as the TPU package splits them.
+// Flash attention backward (bf16, causal or not, GQA) for Hopper: wgmma
+// tensor-core products, a TMA-fed ring of tiles and per-tile mask
+// classification; one kernel for dq, one for dk/dv, as the TPU package
+// splits them.
 //
 // Replaces deepspeed_tpu/ops/pallas/flash_attention.py:_bwd_dq_kernel
 // (line 455) and :_bwd_dkv_kernel (line 517), driven by _flash_bwd (line 719),
@@ -22,353 +24,953 @@
 //
 // Bound on the H100: operations at training lengths. The dq kernel does 6 * D
 // flops per visible (query, key) pair (q.k, do.v and ds.K), the dk/dv kernel
-// 8 * D (q.k, do.v, p^T dO, ds^T Q), over 989 TFLOP/s of bf16 tensor-core
-// rate. Design: both kernels follow the forward kernel (flash_attention_fwd.cu):
-// 4 warps per block, each warp owning 16 rows of the tile, mma.sync m16n8k16
-// bf16 products with fp32 accumulation, operand rows from device memory into
-// registers for the row side and 16-byte loads into padded shared memory for
-// the column side, fp32 softmax recompute in registers, the model layout
-// [B, S, H, D] read through strides and ragged S masked in the kernel.
-//   dq: one block per (64 query rows, head, batch row); loops key tiles up to
-//     the diagonal (under offsets, to the last tile its rows see: none for a
-//     chunk wholly in the future, whose dq is exactly zero; with a layout, the
-//     tiles of the row's active blocks). It
-//     also computes delta for its rows from do and o and writes it [B, H, S]
-//     for the dk/dv kernel (launched after it on the same stream), so delta
-//     costs no pass of its own. With a dbias output (a full [B, H, S, S]
-//     bias) it writes dst for every pair of its rows, zeros in the tiles its
-//     causal loop skips, as _zero_dbias does (flash_attention.py:505-510).
-//   dk/dv: one block per (64 keys, kv head, batch row); loops the group's
-//     query heads and, for each, the query tiles from the diagonal on (under
-//     offsets, from the first tile that sees its keys, so a future chunk's
-//     dk, dv are exactly zero; with a
-//     layout, the tiles of the active blocks of its key block's column, from
-//     the transposed table as flash_attention.py:1200 builds it). The group
-//     sum and the sum over query tiles stay in fp32 registers: the TPU kernel
-//     writes per-query-head dk/dv [B, H, S, D] and sums them afterwards; here
-//     each output is written once, with no atomics, so the result does not
-//     depend on the schedule. A dense bias is read at the query head.
-// Each score is recomputed by the function the forward kernel used
-// (alibi_score, masked_score in flash_attention.cuh), so p is the p whose sum
-// went into the saved lse; the slope-free and ALiBi instantiations keep their
-// code from before the masked form came in. wgmma, TMA and pipelined tiles are
-// later work.
+// 8 * D (k.q, v.do, p^T dO, ds^T Q), over 989 TFLOP/s of bf16 tensor-core
+// rate, which only wgmma reaches. Design (flash_attention_sm90.cuh has the
+// building blocks):
+//   Blocks of three warpgroups: two consumers, each owning 64 rows (dq: query
+//   rows; dk/dv: keys) and all their fp32 accumulators in registers, and a
+//   producer whose first warp walks the block's tiles and keeps a ring of
+//   kStages shared-memory stages filled by TMA (full and empty mbarriers);
+//   the producer gives its registers to the consumers (setmaxnreg: 40 and
+//   232, which the 168 a thread of the launch balance exactly). The block's
+//   own rows (dq: Q and dO; dk/dv: K and V) arrive once, by TMA; a tile's
+//   small rows (its segment ids; dk/dv: its lse and delta) by cp.async,
+//   counted on the same full barrier, so the producer never waits on a load.
+//   Every tile sits in shared memory once, as TMA writes it with the 128-byte
+//   swizzle, and is read through two descriptors: K-major for the score
+//   products and MN-major (the transpose bit) for the products that reduce
+//   over its rows. A ring tile is 128 rows for the unmasked form at head dim
+//   64 and 64 otherwise (register room; DqSmem, DkvSmem).
+//   dq: one block per (128 query rows, head, batch row). Per key tile:
+//     S = Q K^T and dP = dO V^T (wgmma, A and B from shared memory), p while
+//     dP is still in the tensor cores, then dst, rounded to bf16 A fragments
+//     in place (the accumulator layout is the A operand's), and dQ += dst K
+//     with K read MN-major, left running while the next tile's score
+//     products are issued (its stage is released once it is done); dQ takes
+//     the softmax scale once, at the end. It also computes delta for its
+//     rows from do and o and writes it [B, H, S] for the dk/dv kernel
+//     (launched after it on the same stream). With a dbias output (a full
+//     [B, H, S, S] bias) it writes dst for every pair of its rows: the
+//     producer then sends every key tile through the ring, and a tile it
+//     skips carries no load and gets zeros, as _zero_dbias does
+//     (flash_attention.py:505-510).
+//   dk/dv: one block per (128 keys, kv head, batch row). Per query tile of
+//     each query head of the group: S^T = K Q^T and dP^T = V dO^T, then P^T
+//     as bf16 fragments and dV += P^T dO while dst^T (from those fragments)
+//     is computed, then dK += dst^T Q, with Q and dO read MN-major. The group
+//     sum and the sum over tiles stay in fp32 registers; each output is
+//     written once, with no atomics, so the result does not depend on the
+//     schedule.
+//   The two consumers take turns to issue their score products (named
+//   barriers), so that one's exponentials run while the other's products
+//   do.
+//   Tile classes: the producer judges each tile against each consumer's 64
+//   rows before it loads it: empty (above the causal diagonal under qoff and
+//   koff, past S, or segment-id ranges that do not meet), full (every pair
+//   visible: below the diagonal, inside S, one segment id on both sides) or
+//   partial. The ranges of every tile are reduced once a block by the
+//   consumers before the walk. An empty tile is never loaded; a full one
+//   takes the epilogue without per-pair tests, which still adds the bias
+//   and ALiBi terms where given; only a partial tile tests each pair. With a
+//   layout the producer walks only the tiles of the active blocks (the
+//   table per query layout row for dq, the transposed one for dk/dv, as
+//   flash_attention.py:1200 builds it). A hop wholly in the future walks
+//   nothing: its dq, dk, dv are exactly zero. Position offsets alone (a
+//   ring hop) run the unmasked instantiation, which reads them too.
+//   Causal grids launch their longest blocks first (dq: the last query
+//   blocks; dk/dv: the first key blocks) so the short ones fill the tail.
+//   Each score is recomputed by the function the forward kernel used
+//   (masked_score in flash_attention.cuh: the dense bias, then ALiBi), so p
+//   is the p whose sum went into the saved lse.
+// Tensors are read through their (batch, seq, head) strides by 4-D tensor
+// maps, so the model layout [B, S, H, D] needs no transpose; TMA fills rows
+// past S with zeros. Head dims 64 and 128 (two 64-column panels).
+#include <climits>
+#include <type_traits>
+
 #include "flash_attention.cuh"
+#include "flash_attention_sm90.cuh"
 
 using namespace dst::flash;
+using namespace dst::sm90;
 
 namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kGroups = 2;              // consumer warpgroups a block
+constexpr int kRows = 64 * kGroups;     // the block's own rows (dq) or keys (dk/dv)
+constexpr int kBwdThreads = 128 * (kGroups + 1);
+constexpr int kStages = 3;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kEmpty = 0, kPartial = 1, kFull = 2;  // tile classes
+
+// The class of the tile [q_lo, q_hi] x [k_lo, k_hi] (queries x keys, both
+// inclusive and possibly past S); qseg and kseg are the [min, max] segment
+// ids of the rows and keys inside S when has_seg.
+__device__ __forceinline__ int tile_class(int q_lo, int q_hi, int k_lo, int k_hi, int S,
+                                          int causal, int qoff, int koff, bool has_seg,
+                                          int2 qseg, int2 kseg) {
+  if (q_lo >= S || k_lo >= S) return kEmpty;
+  if (causal && k_lo + koff > q_hi + qoff) return kEmpty;
+  if (has_seg && (qseg.y < kseg.x || kseg.y < qseg.x)) return kEmpty;
+  const bool full = q_hi < S && k_hi < S && (!causal || k_hi + koff <= q_lo + qoff) &&
+                    (!has_seg || (qseg.x == qseg.y && kseg.x == kseg.y && qseg.x == kseg.x));
+  return full ? kFull : kPartial;
+}
+
+// [min, max] over the warp of the segment ids of the 64 rows at i0 inside S
+// (INT_MAX, INT_MIN for none); each lane's two ids (i0 + lane, + 32) in ids.
+__device__ __forceinline__ int2 seg_range(const int* seg, int i0, int S, int lane,
+                                          int2& ids) {
+  const int a = i0 + lane, b = a + 32;
+  ids.x = a < S ? seg[a] : 0;
+  ids.y = b < S ? seg[b] : 0;
+  int lo = INT_MAX, hi = INT_MIN;
+  if (a < S) lo = hi = ids.x;
+  if (b < S) {
+    lo = min(lo, ids.y);
+    hi = max(hi, ids.y);
+  }
+  return make_int2(__reduce_min_sync(0xffffffffu, lo), __reduce_max_sync(0xffffffffu, hi));
+}
+
+// Call f(test, terms, emit) with compile-time flags for the run-time ones, so
+// each combination gets its own epilogue: test (a partial tile's per-pair
+// tests), terms (a bias or ALiBi term in the score), emit (dst into dbias,
+// only with kMasked; it comes with a bias).
+template <bool kMasked, typename F>
+__device__ __forceinline__ void with_flags(bool full, bool terms, bool emit, F&& f) {
+  auto by_terms = [&](auto test) {
+    if (kMasked && emit) {
+      f(test, std::true_type{}, std::true_type{});
+    } else if (terms) {
+      f(test, std::true_type{}, std::false_type{});
+    } else {
+      f(test, std::false_type{}, std::false_type{});
+    }
+  };
+  if (full) {
+    by_terms(std::false_type{});
+  } else {
+    by_terms(std::true_type{});
+  }
+}
+
+// dbias at off and off + 1; one 8-byte (fp32) or 4-byte (bf16) store when
+// `aligned` (off even).
+__device__ __forceinline__ void store_dbias_pair(const Mask& m, long long off, float x,
+                                                 float y, bool aligned) {
+  if (!aligned) {
+    store_dbias(m, off, x);
+    store_dbias(m, off + 1, y);
+  } else if (m.bias_bf16) {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(m.dbias) + off) =
+        __floats2bfloat162_rn(x, y);
+  } else {
+    *reinterpret_cast<float2*>(static_cast<float*>(m.dbias) + off) = make_float2(x, y);
+  }
+}
+
+// The 1024-aligned start of the dynamic shared memory (the 128-byte swizzle's
+// atoms are 1024-byte aligned).
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                    ~static_cast<uintptr_t>(1023));
+}
+
+// The A fragments of k-step kk (columns 16 kk..16 kk + 15) of an m64nN
+// accumulator, rounded to bf16 (the accumulator's layout is the A operand's).
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N], int kk) {
+  a[0] = pack_f32(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack_f32(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_f32(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_f32(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// d += the RS product of the k-step fragments a over the ROWS x HD tile in
+// panels at b (read MN-major).
+template <int HD, int ROWS>
+__device__ __forceinline__ void rs_product(float (&d)[HD / 2],
+                                           const uint32_t (&a)[ROWS / 16][4], uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < ROWS / 16; ++kk) {
+    if constexpr (HD == 128) {
+      wgmma_rs_n128(d, a[kk], desc_mn(b, ROWS, kk), 1);
+    } else {
+      wgmma_rs_n64(d, a[kk], desc_mn(b, ROWS, kk), 1);
+    }
+  }
+}
+
+// d = the SS product of 64 rows at a (a tile of a_rows rows) and the N rows at
+// b, over the head dim (both K-major).
+template <int HD, int N>
+__device__ __forceinline__ void ss_product(float (&d)[N / 2], uint32_t a, int a_rows,
+                                           int a_row0, uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    if constexpr (N == 128) {
+      wgmma_ss_n128(d, desc_k(a, a_rows, a_row0, ks), desc_k(b, N, 0, ks), ks > 0);
+    } else {
+      wgmma_ss_n64(d, desc_k(a, a_rows, a_row0, ks), desc_k(b, N, 0, ks), ks > 0);
+    }
+  }
+}
+
+// Write an m64nHD accumulator as bf16 rows row0 and row1 (inside S).
+template <int HD>
+__device__ __forceinline__ void store_acc(bf16* base, long long ss, const float (&d)[HD / 2],
+                                          int row0, int row1, int S, int tq) {
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int c = 8 * j + 2 * tq;
+    if (row0 < S) {
+      *reinterpret_cast<uint32_t*>(base + row0 * ss + c) = pack_f32(d[4 * j], d[4 * j + 1]);
+    }
+    if (row1 < S) {
+      *reinterpret_cast<uint32_t*>(base + row1 * ss + c) = pack_f32(d[4 * j + 2], d[4 * j + 3]);
+    }
+  }
+}
+
+// The per-tile [min, max] segment ids of tiles [t_lo, t_hi) of a [S] row into
+// tr[t], and of the 64 rows at own_row into *own (own_row < 0: none), shared
+// by the 8 consumer warps (cw: this warp's index among them); then each warp
+// arrives on the ranges barrier, which the producer waits on before it
+// classifies a tile.
+template <int TILE>
+__device__ __forceinline__ void tile_ranges(const int* tile_seg, int t_lo, int t_hi,
+                                            const int* own_seg, int own_row, int2* own,
+                                            int2* tr, int S, int cw, int lane,
+                                            uint32_t rbar) {
+  int2 ids;
+  if (own_row >= 0) {
+    const int2 r = seg_range(own_seg, own_row, S, lane, ids);
+    if (lane == 0) *own = r;
+  }
+  for (int t = t_lo + cw; t < t_hi; t += 4 * kGroups) {
+    int2 r = make_int2(INT_MAX, INT_MIN);
+#pragma unroll
+    for (int c = 0; c < TILE; c += 64) {
+      const int2 rc = seg_range(tile_seg, t * TILE + c, S, lane, ids);
+      r = make_int2(min(r.x, rc.x), max(r.y, rc.y));
+    }
+    if (lane == 0) tr[t] = r;
+  }
+  __syncwarp();
+  if (lane == 0) mbar_arrive(rbar);
+}
 
 // ---------------------------------------------------------------------------
 // dq (+ delta, + dbias)
 // ---------------------------------------------------------------------------
-template <int HD, bool kAlibi, bool kMasked>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int S, int H,
-    int KV, Strides qs, Strides ks_, Strides vs, Strides os, Strides dos,
-    Strides dqs, const float* __restrict__ slopes, float scale, int causal, Mask mask) {
-  constexpr int kBlockN = HD == 128 ? 32 : 64;  // keys per tile
-  constexpr int kLds = HD + 8;
-  constexpr int kSTiles = kBlockN / 8;
-  __shared__ __align__(16) __nv_bfloat16 sk[kBlockN * kLds];
-  __shared__ __align__(16) __nv_bfloat16 sv[kBlockN * kLds];
-  __shared__ int sseg[kMasked ? kBlockN : 1];  // the tile's key segment ids
+struct DqParams {
+  CUtensorMap q, k, v, dout;  // boxes: kRows rows of q and dout, DqSmem::kBN of k, v
+  const bf16* o;
+  const bf16* dout_ptr;
+  const float* lse;
+  float* delta;
+  bf16* dq;
+  int S, H, KV;
+  Strides os, dos, dqs;
+  const float* slopes;
+  float scale;
+  int causal;
+  Mask mask;
+};
 
-  const int qblock = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
+template <int BN>
+struct DqMeta {     // what the producer tells the consumers of a stage
+  int tile;         // key tile index; -1 ends the walk
+  int cls[kGroups]; // its class for each consumer's rows
+  int seg[BN];      // the tile's key segment ids (cp.async; 0 past S)
+};
+
+// Shared memory: Q, dO; the ring's K, V; its metadata; the barriers; then the
+// segment-id ranges of each consumer's rows, the block's delta rows and the
+// ranges of the key tiles.
+// Keys a ring tile: 128 for the unmasked form at head dim 64 (score tiles of
+// 64 x 128); 64 at head dim 128, where the dQ accumulator takes twice the
+// registers, and for the masked form, whose epilogues spill at 128.
+template <int HD, bool kMasked>
+struct DqSmem {
+  static constexpr int kBN = HD == 64 && !kMasked ? 128 : 64;
+  static constexpr int kQ = kRows * HD * 2;     // Q (and dO) of the block
+  static constexpr int kKV = kBN * HD * 2;      // K (and V) of a stage
+  static constexpr int kMeta = 2 * kQ + kStages * 2 * kKV;
+  static constexpr int kBars =
+      (kMeta + kStages * static_cast<int>(sizeof(DqMeta<kBN>)) + 7) & ~7;
+  static constexpr int kRanges = kBars + (2 * kStages + 2) * 8;
+  static int bytes(int n_tiles) {
+    return kRanges + 8 * (kGroups + n_tiles) + 4 * kRows + 1024;
+  }
+};
+
+template <int HD, bool kMasked>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ DqParams p) {
+  using L = DqSmem<HD, kMasked>;
+  constexpr int BN = L::kBN;
+  using Meta = DqMeta<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = aligned_smem(smem_raw);
+  const uint32_t s_q = smem_addr(sm), s_do = s_q + L::kQ, s_kv = s_q + 2 * L::kQ;
+  Meta* meta = reinterpret_cast<Meta*>(sm + L::kMeta);
+  const uint32_t bars = s_q + L::kBars;  // full[kStages], empty[kStages], qbar, rbar
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (kStages + st); };
+  const uint32_t qbar = bars + 16 * kStages;
+  const uint32_t rbar = qbar + 8;
+  int2* own_seg = reinterpret_cast<int2*>(sm + L::kRanges);  // [kGroups]
+  float* row_delta = reinterpret_cast<float*>(own_seg + kGroups);  // [kRows]
+  int2* tile_seg = reinterpret_cast<int2*>(row_delta + kRows);     // [key tiles]
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int qblock = p.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;  // longest first
+  const int kvh = h / (p.H / p.KV);
+  const int S = p.S;
+  const int row_base = qblock * kRows;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int wg = tid / 128;
   const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int row0 = qblock * kBlockM + warp * 16 + g;
-  const int row1 = row0 + 8;
-
-  const __nv_bfloat16* qb = q + b * qs.sb + h * qs.sh;
-  const __nv_bfloat16* kb = k + b * ks_.sb + kvh * ks_.sh;
-  const __nv_bfloat16* vb = v + b * vs.sb + kvh * vs.sh;
-  const __nv_bfloat16* ob = o + b * os.sb + h * os.sh;
-  const __nv_bfloat16* dob = dout + b * dos.sb + h * dos.sh;
-
-  uint32_t qa[HD / 16][4], da[HD / 16][4];
-  load_rows<HD>(qa, qb, qs.ss, row0, row1, S, tig);
-  load_rows<HD>(da, dob, dos.ss, row0, row1, S, tig);
-
-  // delta = rowsum(do * o): this thread's columns of its two rows, then the
-  // group of four threads that share the rows
-  float dl0 = 0.f, dl1 = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const int c = ks * 16 + tig * 2;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      if (row0 < S) {
-        const float2 d2 = unpack(da[ks][half * 2]);
-        const float2 o2 = unpack(load_pair(ob + row0 * os.ss + c + half * 8));
-        dl0 += d2.x * o2.x + d2.y * o2.y;
-      }
-      if (row1 < S) {
-        const float2 d2 = unpack(da[ks][half * 2 + 1]);
-        const float2 o2 = unpack(load_pair(ob + row1 * os.ss + c + half * 8));
-        dl1 += d2.x * o2.x + d2.y * o2.y;
-      }
-    }
-  }
-  dl0 += __shfl_xor_sync(0xffffffffu, dl0, 1);
-  dl0 += __shfl_xor_sync(0xffffffffu, dl0, 2);
-  dl1 += __shfl_xor_sync(0xffffffffu, dl1, 1);
-  dl1 += __shfl_xor_sync(0xffffffffu, dl1, 2);
-  const long long lrow = ((long long)b * H + h) * S;
-  if (tig == 0) {
-    if (row0 < S) delta[lrow + row0] = dl0;
-    if (row1 < S) delta[lrow + row1] = dl1;
-  }
-  // lse in the log2 domain; a row with nothing visible (lse = -inf) gets p = 0
-  const float lse0 = row0 < S ? lse[lrow + row0] * kLog2e : -INFINITY;
-  const float lse1 = row1 < S ? lse[lrow + row1] * kLog2e : -INFINITY;
-  const float scale_log2 = scale * kLog2e;
-  const bool m_alibi = kMasked && slopes != nullptr;  // the masked form's, at run time
-  const float slope_log2 = kAlibi || m_alibi ? slopes[h] * kLog2e : 0.f;
-
-  // the masked form's per-row operands
+  const Mask& mask = p.mask;
   const bool has_seg = kMasked && mask.seg != nullptr;
   const bool has_bias = kMasked && mask.bias != nullptr;
   const bool emit_dbias = kMasked && mask.dbias != nullptr;
+  const int qoff = mask.qoff;  // ring hops' global positions (0 without a mask)
+  const int koff = mask.koff;
   const int* seg_b = has_seg ? mask.seg + (long long)b * S : nullptr;
   const int* segk_b =
       has_seg ? (mask.seg_k != nullptr ? mask.seg_k : mask.seg) + (long long)b * S : nullptr;
+  const int n_all = (S + BN - 1) / BN;
+  // the key tiles the causal walk reaches; with a dbias output every tile, the
+  // skipped ones carrying zeros
+  const int n_tiles =
+      emit_dbias || !p.causal
+          ? n_all
+          : causal_key_tiles<BN>(row_base + kRows - 1, qoff, koff, n_all);
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 33);  // 32 producer lanes' copies + lane 0's arrival
+      mbar_init(empty(st), 4 * kGroups);
+    }
+    mbar_init(qbar, 1);
+    mbar_init(rbar, 4 * kGroups);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kGroups) {
+    // ---------------- producer ----------------
+    regs_dec<kProducerRegs>();
+    if (tid / 32 != 4 * kGroups) return;
+    if (lane == 0 && n_tiles > 0) {  // a hop wholly in the future loads nothing
+      mbar_arrive_expect_tx(qbar, 2 * tile_bytes<HD, kRows>());
+      tma_rows<HD, kRows>(s_q, &p.q, qbar, row_base, h, b);
+      tma_rows<HD, kRows>(s_do, &p.dout, qbar, row_base, h, b);
+    }
+    if (has_seg) mbar_wait(rbar, 0);
+    Ring<kStages> ring;
+    auto visit = [&](int t) {
+      const int k0 = t * BN;
+      const int2 kseg = has_seg ? tile_seg[t] : make_int2(0, 0);
+      int cls[kGroups];
+      bool any = false;
+#pragma unroll
+      for (int w = 0; w < kGroups; ++w) {
+        const int r0 = row_base + 64 * w;
+        cls[w] = tile_class(r0, r0 + 63, k0, k0 + BN - 1, S, p.causal, qoff, koff,
+                            has_seg, has_seg ? own_seg[w] : kseg, kseg);
+        any |= cls[w] != kEmpty;
+      }
+      if (!any && !emit_dbias) return;
+      const uint32_t fb = full(ring.stage);
+      mbar_wait(empty(ring.stage), ring.phase ^ 1u);
+      Meta& m = meta[ring.stage];
+      if (has_seg) {
+        for (int i = lane; i < BN; i += 32) {
+          const bool in = k0 + i < S;
+          cp_async_4(smem_addr(m.seg + i), segk_b + (in ? k0 + i : 0), in);
+        }
+      }
+      if (lane == 0) {
+        m.tile = t;
+#pragma unroll
+        for (int w = 0; w < kGroups; ++w) m.cls[w] = cls[w];
+        if (any) {
+          const uint32_t sk = s_kv + ring.stage * 2 * L::kKV;
+          mbar_arrive_expect_tx(fb, 2 * tile_bytes<HD, BN>());
+          tma_rows<HD, BN>(sk, &p.k, fb, k0, kvh, b);
+          tma_rows<HD, BN>(sk + L::kKV, &p.v, fb, k0, kvh, b);
+        } else {
+          mbar_arrive(fb);
+        }
+      }
+      cp_async_arrive(fb);
+      ring.next();
+    };
+    if (kMasked && mask.cols != nullptr) {
+      for_tiles<BN>(mask, row_base / mask.blk, 0, n_tiles, visit);
+    } else {
+      for (int t = 0; t < n_tiles; ++t) visit(t);
+    }
+    mbar_wait(empty(ring.stage), ring.phase ^ 1u);
+    if (lane == 0) {
+      meta[ring.stage].tile = -1;
+      mbar_arrive(full(ring.stage));
+    }
+    cp_async_arrive(full(ring.stage));
+    return;
+  }
+
+  // ---------------- consumers ----------------
+  regs_inc<kConsumerRegs>();
+  const int wi = (tid / 32) & 3;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int r_lo = row_base + 64 * wg;
+  const int row0 = r_lo + 16 * wi + g;
+  const int row1 = row0 + 8;
+  if (has_seg) {
+    tile_ranges<BN>(segk_b, 0, n_tiles, seg_b, wi == 0 ? r_lo : -1, own_seg + wg, tile_seg,
+                    S, tid / 32, lane, rbar);
+  }
+
+  // delta = rowsum(do * o): two threads a row, each a half row in 16-byte
+  // loads, summed by the pair and handed to the accumulator layout's threads
+  // through shared memory (named barrier 3 + wg: this warpgroup)
+  const bf16* ob = p.o + b * p.os.sb + h * p.os.sh;
+  const bf16* dob = p.dout_ptr + b * p.dos.sb + h * p.dos.sh;
+  const long long lrow = ((long long)b * p.H + h) * S;
+  {
+    const int it = tid & 127;
+    const int drow = r_lo + it / 2;
+    const int c0 = (it & 1) * (HD / 2);
+    float sum = 0.f;
+    if (drow < S) {
+      const uint4* d4 = reinterpret_cast<const uint4*>(dob + drow * p.dos.ss + c0);
+      const uint4* o4 = reinterpret_cast<const uint4*>(ob + drow * p.os.ss + c0);
+#pragma unroll
+      for (int i = 0; i < HD / 16; ++i) {
+        const uint4 dv = d4[i], ov = o4[i];
+        const uint32_t du[4] = {dv.x, dv.y, dv.z, dv.w}, ou[4] = {ov.x, ov.y, ov.z, ov.w};
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const float2 d2 = unpack(du[w]), o2 = unpack(ou[w]);
+          sum += d2.x * o2.x + d2.y * o2.y;
+        }
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if ((it & 1) == 0) {
+      row_delta[64 * wg + it / 2] = sum;
+      if (drow < S) p.delta[lrow + drow] = sum;
+    }
+    named_sync(3 + wg, 128);
+  }
+  const float dl0 = row_delta[row0 - row_base];
+  const float dl1 = row_delta[row1 - row_base];
+  // lse in the log2 domain; a row past S gets p = 0
+  const float lse0 = row0 < S ? p.lse[lrow + row0] * kLog2e : INFINITY;
+  const float lse1 = row1 < S ? p.lse[lrow + row1] * kLog2e : INFINITY;
+  const float scale_log2 = p.scale * kLog2e;
+  const bool alibi = p.slopes != nullptr;
+  const float slope_log2 = alibi ? p.slopes[h] * kLog2e : 0.f;
   const int seg0 = has_seg && row0 < S ? seg_b[row0] : 0;
   const int seg1 = has_seg && row1 < S ? seg_b[row1] : 0;
   const long long bias_bh = has_bias ? b * mask.bias_sb + h * mask.bias_sh : 0;
   const long long dbias_bh = lrow * S;  // the full [B, H, S, S] output
-  const int qoff = kMasked ? mask.qoff : 0;  // ring hops' global positions
-  const int koff = kMasked ? mask.koff : 0;
 
-  float acc[HD / 8][4];
+  float acc[HD / 2];  // sum of dst K; times the scale at the end
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
 
-  const int n_all = (S + kBlockN - 1) / kBlockN;
-  const int last_row = (qblock + 1) * kBlockM - 1;
-  const int n_tiles =
-      causal ? causal_key_tiles<kBlockN>(last_row, qoff, koff, n_all) : n_all;
-  auto tile = [&](int t) {
-    const int k0 = t * kBlockN;
-    __syncthreads();  // the previous tile is fully consumed
-    stage2<HD, kBlockN>(sk, sv, kb, ks_.ss, vb, vs.ss, k0, S, tid);
-    if constexpr (kMasked) {
-      if (has_seg && tid < kBlockN) sseg[tid] = k0 + tid < S ? segk_b[k0 + tid] : 0;
-    }
-    __syncthreads();
-
-    float s[kSTiles][4], dp[kSTiles][4];
-    rows_dot_tile<HD, kSTiles>(s, qa, sk, g, tig);
-    rows_dot_tile<HD, kSTiles>(dp, da, sv, g, tig);
+  // p (in s) of one tile from the scores s; kTest: a partial tile's per-pair
+  // tests, kTerms: a bias or ALiBi term in the score
+  auto pass_p = [&](auto test, auto terms, auto& s, int k0, const int* kseg) {
+    constexpr bool kTest = decltype(test)::value;
+    constexpr bool kTerms = decltype(terms)::value;
 #pragma unroll
-    for (int j = 0; j < kSTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + tig * 2 + (e & 1);
-        const int row = e < 2 ? row0 : row1;
-        const float l = e < 2 ? lse0 : lse1;
-        const float dlt = e < 2 ? dl0 : dl1;
-        float p = 0.f;
-        if constexpr (kMasked) {
-          const bool visible = key < S && row < S &&
-                               (!causal || key + koff <= row + qoff) && l != -INFINITY &&
-                               (!has_seg || sseg[key - k0] == (e < 2 ? seg0 : seg1));
-          if (visible) {
-            const float bias =
-                has_bias ? load_bias(mask, bias_bh + row * mask.bias_sq + key) : 0.f;
-            p = exp2f(masked_score(s[j][e], scale_log2, has_bias, bias, m_alibi,
-                                   slope_log2, row + qoff, key + koff) - l);
-          }
-          const float dst = p * (dp[j][e] - dlt);
-          if (emit_dbias && row < S && key < S) {
-            store_dbias(mask, dbias_bh + (long long)row * S + key, dst);
-          }
-          s[j][e] = dst * scale;  // ds
+    for (int e = 0; e < BN / 2; ++e) {
+      const bool hi = e & 2;
+      const int row = hi ? row1 : row0;
+      const int key = k0 + 8 * (e >> 2) + 2 * tq + (e & 1);
+      bool vis = true;
+      if constexpr (kTest) {
+        vis = key < S && row < S && (!p.causal || key + koff <= row + qoff) &&
+              (!has_seg || kseg[key - k0] == (hi ? seg1 : seg0));
+      }
+      float pr = 0.f;
+      if (vis) {
+        float t;
+        if constexpr (kTerms) {
+          const float bias =
+              has_bias ? load_bias(mask, bias_bh + row * mask.bias_sq + key) : 0.f;
+          t = masked_score(s[e], scale_log2, has_bias, bias, alibi, slope_log2, row + qoff,
+                           key + koff);
         } else {
-          const bool visible = key < S && row < S && (!causal || key <= row) &&
-                               l != -INFINITY;
-          if constexpr (kAlibi) {
-            if (visible) p = exp2f(alibi_score(s[j][e], scale_log2, slope_log2, row, key) - l);
-          } else {
-            p = visible ? exp2f(s[j][e] * scale_log2 - l) : 0.f;
-          }
-          s[j][e] = p * (dp[j][e] - dlt) * scale;  // ds
+          t = s[e] * scale_log2;
+        }
+        pr = fast_exp2(t - (hi ? lse1 : lse0));
+      }
+      s[e] = pr;
+    }
+  };
+  // dst (in s) from p (in s) and dp; kEmit: dst into dbias (kTest: pairs inside
+  // S), two adjacent keys a store where the row length S keeps them aligned
+  auto pass_ds = [&](auto test, auto emit, auto& s, const auto& dp, int k0) {
+    constexpr bool kTest = decltype(test)::value;
+    constexpr bool kEmit = decltype(emit)::value;
+#pragma unroll
+    for (int e = 0; e < BN / 2; e += 2) {
+      const bool hi = e & 2;
+      const float dl = hi ? dl1 : dl0;
+      s[e] = s[e] * (dp[e] - dl);
+      s[e + 1] = s[e + 1] * (dp[e + 1] - dl);
+      if constexpr (kEmit) {
+        const int row = hi ? row1 : row0;
+        const int key = k0 + 8 * (e >> 2) + 2 * tq;
+        const long long off = dbias_bh + (long long)row * S + key;
+        if (!kTest || (row < S && key + 1 < S)) {
+          store_dbias_pair(mask, off, s[e], s[e + 1], S % 2 == 0);
+        } else if (row < S && key < S) {
+          store_dbias(mask, off, s[e]);
         }
       }
     }
-    tile_times_rows<HD, kSTiles>(acc, s, sk, g, tig);
   };
 
-  if constexpr (kMasked) {
-    for_tiles<kBlockN>(mask, mask.cols ? qblock * kBlockM / mask.blk : 0, 0, n_tiles,
-                       tile);
-    if (emit_dbias) {
-      // the keys past the causal loop's last tile: dst = 0
-      const int kz = n_tiles * kBlockN;
-      const int rz = qblock * kBlockM;
-      const int nz = S - kz;
-      for (int i = tid; nz > 0 && i < kBlockM * nz; i += kThreads) {
-        const int r = rz + i / nz;
-        if (r < S) store_dbias(mask, dbias_bh + (long long)r * S + kz + i % nz, 0.f);
+  // The two consumers take turns to issue their score products (named
+  // barriers 1 and 2), so one's epilogue runs while the other's products do.
+  if (wg == 1) named_arrive(1, 2 * 128);
+  if (n_tiles > 0) mbar_wait(qbar, 0);
+  Ring<kStages> ring;
+  // A tile's last product (dQ += dS K) runs on while the next tile's score
+  // products are issued; its stage is released once it is done.
+  int held = -1;
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  };
+  for (;;) {
+    mbar_wait(full(ring.stage), ring.phase);
+    const Meta& m = meta[ring.stage];
+    const int t = m.tile;
+    if (t < 0) break;
+    const int cls = m.cls[wg];
+    const int k0 = t * BN;
+    const uint32_t a_k = s_kv + ring.stage * 2 * L::kKV;
+    const uint32_t a_v = a_k + L::kKV;
+    named_sync(1 + wg, 2 * 128);
+    if (cls != kEmpty) {
+      float s[BN / 2], dp[BN / 2];
+      wgmma_fence();
+      ss_product<HD, BN>(s, s_q, kRows, 64 * wg, a_k);    // S = Q K^T
+      wgmma_commit();
+      ss_product<HD, BN>(dp, s_do, kRows, 64 * wg, a_v);  // dP = dO V^T
+      wgmma_commit();
+      named_arrive(2 - wg, 2 * 128);
+      wgmma_wait<2>();  // the last tile's dQ product
+      if (held >= 0) release(held);
+      // p while dP is still in the tensor cores, then dst
+      wgmma_wait<1>();
+      fence_regs(s);
+      with_flags<kMasked>(cls == kFull, has_bias || alibi, emit_dbias,
+                          [&](auto test, auto terms, auto) {
+                            pass_p(test, terms, s, k0, m.seg);
+                          });
+      wgmma_wait<0>();
+      fence_regs(dp);
+      with_flags<kMasked>(cls == kFull, has_bias || alibi, emit_dbias,
+                          [&](auto test, auto, auto emit) { pass_ds(test, emit, s, dp, k0); });
+      uint32_t a[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) acc_to_a(a[kk], s, kk);
+      wgmma_fence();
+      rs_product<HD, BN>(acc, a, a_k);  // dQ += dS K, K read MN-major
+      wgmma_commit();
+      held = ring.stage;
+    } else {
+      named_arrive(2 - wg, 2 * 128);
+      wgmma_wait<0>();
+      if (held >= 0) release(held);
+      held = -1;
+      // a tile no pair of these rows sees: dst = 0
+      for (int i = tid & 127; emit_dbias && i < 64 * BN; i += 128) {
+        const int r = r_lo + i / BN;
+        const int key = k0 + i % BN;
+        if (r < S && key < S) store_dbias(mask, dbias_bh + (long long)r * S + key, 0.f);
       }
+      release(ring.stage);
     }
-  } else {
-    for (int t = 0; t < n_tiles; ++t) tile(t);
+    ring.next();
   }
-  store_rows<HD>(dq + b * dqs.sb + h * dqs.sh, dqs.ss, acc, row0, row1, S, tig);
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (wg == 0) named_sync(1, 2 * 128);  // the other's last turn
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] *= p.scale;
+  store_acc<HD>(p.dq + b * p.dqs.sb + h * p.dqs.sh, p.dqs.ss, acc, row0, row1, S, tq);
 }
 
 // ---------------------------------------------------------------------------
 // dk, dv (summed over the GQA group)
 // ---------------------------------------------------------------------------
-template <int HD, bool kAlibi, bool kMasked>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int H,
-    int KV, Strides qs, Strides ks_, Strides vs, Strides dos, Strides dks,
-    Strides dvs, const float* __restrict__ slopes, float scale, int causal, Mask mask) {
-  constexpr int kBlockN = HD == 128 ? 32 : 64;  // queries per tile
-  constexpr int kLds = HD + 8;
-  constexpr int kSTiles = kBlockN / 8;
-  __shared__ __align__(16) __nv_bfloat16 sq[kBlockN * kLds];
-  __shared__ __align__(16) __nv_bfloat16 sdo[kBlockN * kLds];
-  __shared__ float slse[kBlockN];
-  __shared__ float sdelta[kBlockN];
-  __shared__ int sseg[kMasked ? kBlockN : 1];  // the tile's query segment ids
+struct DkvParams {
+  CUtensorMap q, k, v, dout;  // boxes: DkvSmem::kBQ rows of q and dout, kRows of k, v
+  const float* lse;
+  const float* delta;
+  bf16* dk;
+  bf16* dv;
+  int S, H, KV;
+  Strides dks, dvs;
+  const float* slopes;
+  float scale;
+  int causal;
+  Mask mask;
+};
 
-  const int kblock = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int group = H / KV;
+template <int BQ>
+struct DkvMeta {
+  int head;             // the query head of the tile
+  int tile;             // query tile index; -1 ends the walk
+  int cls[kGroups];
+  float lse[BQ];        // the tile's lse and delta rows (cp.async; 0 past S)
+  float delta[BQ];
+  int seg[BQ];          // the tile's query segment ids
+};
+
+// Queries a ring tile: 128 for the unmasked form at head dim 64 (score tiles
+// of 64 x 128, ds taken from the bf16 p so that the score and gradient
+// accumulators fit the registers), else 64, as in dq.
+template <int HD, bool kMasked>
+struct DkvSmem {
+  static constexpr int kBQ = HD == 64 && !kMasked ? 128 : 64;
+  static constexpr int kKV = kRows * HD * 2;    // K (and V) of the block
+  static constexpr int kQ = kBQ * HD * 2;       // Q (and dO) of a stage
+  static constexpr int kMeta = 2 * kKV + kStages * 2 * kQ;
+  static constexpr int kBars =
+      (kMeta + kStages * static_cast<int>(sizeof(DkvMeta<kBQ>)) + 7) & ~7;
+  static constexpr int kRanges = kBars + (2 * kStages + 2) * 8;
+  static int bytes(int n_tiles) { return kRanges + 8 * (kGroups + n_tiles) + 1024; }
+};
+
+template <int HD, bool kMasked>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ DkvParams p) {
+  using L = DkvSmem<HD, kMasked>;
+  constexpr int BQ = L::kBQ;
+  using Meta = DkvMeta<BQ>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = aligned_smem(smem_raw);
+  const uint32_t s_k = smem_addr(sm), s_v = s_k + L::kKV, s_qd = s_k + 2 * L::kKV;
+  Meta* meta = reinterpret_cast<Meta*>(sm + L::kMeta);
+  const uint32_t bars = s_k + L::kBars;  // full[kStages], empty[kStages], kvbar, rbar
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (kStages + st); };
+  const uint32_t kvbar = bars + 16 * kStages;
+  const uint32_t rbar = kvbar + 8;
+  int2* own_seg = reinterpret_cast<int2*>(sm + L::kRanges);  // [kGroups]
+  int2* tile_seg = own_seg + kGroups;                         // [query tiles]
+
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kblock = blockIdx.z;  // causal: the first key blocks are the longest
+  const int group = p.H / p.KV;
+  const int S = p.S;
+  const int key_base = kblock * kRows;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int wg = tid / 128;
   const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int key0 = kblock * kBlockM + warp * 16 + g;  // this thread's key rows
-  const int key1 = key0 + 8;
-
-  uint32_t ka[HD / 16][4], va[HD / 16][4];
-  load_rows<HD>(ka, k + b * ks_.sb + kvh * ks_.sh, ks_.ss, key0, key1, S, tig);
-  load_rows<HD>(va, v + b * vs.sb + kvh * vs.sh, vs.ss, key0, key1, S, tig);
-  const float scale_log2 = scale * kLog2e;
-
-  // the masked form's per-key operands
+  const Mask& mask = p.mask;
   const bool has_seg = kMasked && mask.seg != nullptr;
   const bool has_bias = kMasked && mask.bias != nullptr;
-  const bool m_alibi = kMasked && slopes != nullptr;
+  const int qoff = mask.qoff;
+  const int koff = mask.koff;
   const int* seg_b = has_seg ? mask.seg + (long long)b * S : nullptr;
   const int* segk_b =
       has_seg ? (mask.seg_k != nullptr ? mask.seg_k : mask.seg) + (long long)b * S : nullptr;
+  const int n_all = (S + BQ - 1) / BQ;
+  // first query tile that sees any key of this block
+  const int t0 = p.causal ? causal_first_query_tile<BQ>(key_base, qoff, koff) : 0;
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 33);  // 32 producer lanes' copies + lane 0's arrival
+      mbar_init(empty(st), 4 * kGroups);
+    }
+    mbar_init(kvbar, 1);
+    mbar_init(rbar, 4 * kGroups);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kGroups) {
+    // ---------------- producer ----------------
+    regs_dec<kProducerRegs>();
+    if (tid / 32 != 4 * kGroups) return;
+    if (lane == 0 && t0 < n_all) {  // keys no query sees (a future hop) load nothing
+      mbar_arrive_expect_tx(kvbar, 2 * tile_bytes<HD, kRows>());
+      tma_rows<HD, kRows>(s_k, &p.k, kvbar, key_base, kvh, b);
+      tma_rows<HD, kRows>(s_v, &p.v, kvbar, key_base, kvh, b);
+    }
+    if (has_seg) mbar_wait(rbar, 0);
+    Ring<kStages> ring;
+    for (int j = 0; j < group; ++j) {
+      const int h = kvh * group + j;
+      const long long lrow = ((long long)b * p.H + h) * S;
+      auto visit = [&](int t) {
+        const int q0 = t * BQ;
+        const int2 qseg = has_seg ? tile_seg[t] : make_int2(0, 0);
+        int cls[kGroups];
+        bool any = false;
+#pragma unroll
+        for (int w = 0; w < kGroups; ++w) {
+          const int c0 = key_base + 64 * w;
+          cls[w] = tile_class(q0, q0 + BQ - 1, c0, c0 + 63, S, p.causal, qoff, koff,
+                              has_seg, qseg, has_seg ? own_seg[w] : qseg);
+          any |= cls[w] != kEmpty;
+        }
+        if (!any) return;
+        const uint32_t fb = full(ring.stage);
+        mbar_wait(empty(ring.stage), ring.phase ^ 1u);
+        Meta& m = meta[ring.stage];
+        for (int i = lane; i < BQ; i += 32) {
+          const bool in = q0 + i < S;
+          const long long r = lrow + (in ? q0 + i : 0);
+          cp_async_4(smem_addr(m.lse + i), p.lse + r, in);
+          cp_async_4(smem_addr(m.delta + i), p.delta + r, in);
+          if (has_seg) cp_async_4(smem_addr(m.seg + i), seg_b + (in ? q0 + i : 0), in);
+        }
+        if (lane == 0) {
+          m.head = h;
+          m.tile = t;
+#pragma unroll
+          for (int w = 0; w < kGroups; ++w) m.cls[w] = cls[w];
+          const uint32_t sq = s_qd + ring.stage * 2 * L::kQ;
+          mbar_arrive_expect_tx(fb, 2 * tile_bytes<HD, BQ>());
+          tma_rows<HD, BQ>(sq, &p.q, fb, q0, h, b);
+          tma_rows<HD, BQ>(sq + L::kQ, &p.dout, fb, q0, h, b);
+        }
+        cp_async_arrive(fb);
+        ring.next();
+      };
+      if (kMasked && mask.cols != nullptr) {
+        for_tiles<BQ>(mask, key_base / mask.blk, t0, n_all, visit);
+      } else {
+        for (int t = t0; t < n_all; ++t) visit(t);
+      }
+    }
+    mbar_wait(empty(ring.stage), ring.phase ^ 1u);
+    if (lane == 0) {
+      meta[ring.stage].tile = -1;
+      mbar_arrive(full(ring.stage));
+    }
+    cp_async_arrive(full(ring.stage));
+    return;
+  }
+
+  // ---------------- consumers ----------------
+  regs_inc<kConsumerRegs>();
+  const int wi = (tid / 32) & 3;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int key_lo = key_base + 64 * wg;
+  const int key0 = key_lo + 16 * wi + g;  // this thread's key rows
+  const int key1 = key0 + 8;
+  if (has_seg) {
+    tile_ranges<BQ>(seg_b, t0, n_all, segk_b, wi == 0 ? key_lo : -1, own_seg + wg,
+                       tile_seg, S, tid / 32, lane, rbar);
+  }
+  const float scale_log2 = p.scale * kLog2e;
+  const bool alibi = p.slopes != nullptr;
   const int segk0 = has_seg && key0 < S ? segk_b[key0] : 0;
   const int segk1 = has_seg && key1 < S ? segk_b[key1] : 0;
-  const int qoff = kMasked ? mask.qoff : 0;  // ring hops' global positions
-  const int koff = kMasked ? mask.koff : 0;
 
-  float dka[HD / 8][4], dva[HD / 8][4];
+  float dka[HD / 2], dva[HD / 2];  // dka: sum of dst^T Q, times the scale at the end
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
-  }
+  for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
 
-  const int n_all = (S + kBlockN - 1) / kBlockN;
-  // first query tile that sees any key of this block
-  const int t0 = causal ? causal_first_query_tile<kBlockN>(kblock * kBlockM, qoff, koff) : 0;
-  for (int j = 0; j < group; ++j) {
-    const int h = kvh * group + j;
-    const __nv_bfloat16* qb = q + b * qs.sb + h * qs.sh;
-    const __nv_bfloat16* dob = dout + b * dos.sb + h * dos.sh;
-    const long long lrow = ((long long)b * H + h) * S;
-    const float slope_log2 = kAlibi || m_alibi ? slopes[h] * kLog2e : 0.f;
+  // p^T (in st) of one tile from the scores st; kTest: a partial tile's
+  // per-pair tests, kTerms: a bias or ALiBi term in the score
+  auto pass_p = [&](auto test, auto terms, auto& st, int q0, int h, const Meta& m) {
+    constexpr bool kTest = decltype(test)::value;
+    constexpr bool kTerms = decltype(terms)::value;
+    const float slope_log2 = alibi ? p.slopes[h] * kLog2e : 0.f;
     const long long bias_bh = has_bias ? b * mask.bias_sb + h * mask.bias_sh : 0;
-    auto tile = [&](int t) {
-      const int q0 = t * kBlockN;
-      __syncthreads();  // the previous tile is fully consumed
-      stage2<HD, kBlockN>(sq, sdo, qb, qs.ss, dob, dos.ss, q0, S, tid);
-      for (int i = tid; i < kBlockN; i += kThreads) {
-        const bool in = q0 + i < S;
-        slse[i] = in ? lse[lrow + q0 + i] * kLog2e : -INFINITY;
-        sdelta[i] = in ? delta[lrow + q0 + i] : 0.f;
-        if constexpr (kMasked) {
-          if (has_seg) sseg[i] = in ? seg_b[q0 + i] : 0;
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int c = 8 * j + 2 * tq;
+      float2 l2 = *reinterpret_cast<const float2*>(m.lse + c);
+      l2 = make_float2(l2.x * kLog2e, l2.y * kLog2e);
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4) {
+        const int e = 4 * j + e4;
+        const bool hi = e4 & 2;
+        const int col = c + (e4 & 1);
+        const int query = q0 + col;
+        const int key = hi ? key1 : key0;
+        bool vis = true;
+        if constexpr (kTest) {
+          vis = query < S && key < S && (!p.causal || key + koff <= query + qoff) &&
+                (!has_seg || m.seg[col] == (hi ? segk1 : segk0));
         }
-      }
-      __syncthreads();
-
-      // st = K Q^T (keys x queries), dpt = V dO^T
-      float st[kSTiles][4], dpt[kSTiles][4];
-      rows_dot_tile<HD, kSTiles>(st, ka, sq, g, tig);
-      rows_dot_tile<HD, kSTiles>(dpt, va, sdo, g, tig);
-#pragma unroll
-      for (int jj = 0; jj < kSTiles; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = jj * 8 + tig * 2 + (e & 1);
-          const int query = q0 + col;
-          const int key = e < 2 ? key0 : key1;
-          const float l = slse[col];
-          float p = 0.f;
-          if constexpr (kMasked) {
-            const bool visible = query < S && key < S &&
-                                 (!causal || key + koff <= query + qoff) &&
-                                 l != -INFINITY &&
-                                 (!has_seg || sseg[col] == (e < 2 ? segk0 : segk1));
-            if (visible) {
-              const float bias =
-                  has_bias ? load_bias(mask, bias_bh + query * mask.bias_sq + key) : 0.f;
-              p = exp2f(masked_score(st[jj][e], scale_log2, has_bias, bias, m_alibi,
-                                     slope_log2, query + qoff, key + koff) - l);
-            }
+        float pr = 0.f;
+        if (vis) {
+          float t;
+          if constexpr (kTerms) {
+            const float bias =
+                has_bias ? load_bias(mask, bias_bh + query * mask.bias_sq + key) : 0.f;
+            t = masked_score(st[e], scale_log2, has_bias, bias, alibi, slope_log2,
+                             query + qoff, key + koff);
           } else {
-            const bool visible = query < S && key < S &&
-                                 (!causal || key <= query) && l != -INFINITY;
-            if constexpr (kAlibi) {
-              if (visible) {
-                p = exp2f(alibi_score(st[jj][e], scale_log2, slope_log2, query, key) - l);
-              }
-            } else {
-              p = visible ? exp2f(st[jj][e] * scale_log2 - l) : 0.f;
-            }
+            t = st[e] * scale_log2;
           }
-          st[jj][e] = p;
-          dpt[jj][e] = p * (dpt[jj][e] - sdelta[col]) * scale;  // ds^T
+          pr = fast_exp2(t - ((e4 & 1) ? l2.y : l2.x));
         }
+        st[e] = pr;
       }
-      tile_times_rows<HD, kSTiles>(dva, st, sdo, g, tig);   // dv += p^T dO
-      tile_times_rows<HD, kSTiles>(dka, dpt, sq, g, tig);   // dk += ds^T Q
-    };
-    if constexpr (kMasked) {
-      for_tiles<kBlockN>(mask, mask.cols ? kblock * kBlockM / mask.blk : 0, t0, n_all,
-                         tile);
-    } else {
-      for (int t = t0; t < n_all; ++t) tile(t);
     }
+  };
+  // dst^T (in dpt) from p^T (its bf16 fragments pa) and dp^T
+  auto pass_ds = [&](const auto& pa, auto& dpt, const Meta& m) {
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(m.delta + 8 * j + 2 * tq);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {  // rows key0, key1
+        const float2 p2 = unpack(pa[j / 2][2 * (j & 1) + half]);
+        const int e = 4 * j + 2 * half;
+        dpt[e] = p2.x * (dpt[e] - d2.x);
+        dpt[e + 1] = p2.y * (dpt[e + 1] - d2.y);
+      }
+    }
+  };
+
+  // the consumers take turns to issue their score products, as in dq
+  if (wg == 1) named_arrive(1, 2 * 128);
+  if (t0 < n_all) mbar_wait(kvbar, 0);
+  Ring<kStages> ring;
+  for (;;) {
+    mbar_wait(full(ring.stage), ring.phase);
+    const Meta& m = meta[ring.stage];
+    const int t = m.tile;
+    if (t < 0) break;
+    const int cls = m.cls[wg];
+    const uint32_t a_q = s_qd + ring.stage * 2 * L::kQ;
+    const uint32_t a_do = a_q + L::kQ;
+    named_sync(1 + wg, 2 * 128);
+    if (cls != kEmpty) {
+      float st[BQ / 2], dpt[BQ / 2];
+      wgmma_fence();
+      ss_product<HD, BQ>(st, s_k, kRows, 64 * wg, a_q);    // S^T = K Q^T
+      wgmma_commit();
+      ss_product<HD, BQ>(dpt, s_v, kRows, 64 * wg, a_do);  // dP^T = V dO^T
+      wgmma_commit();
+      named_arrive(2 - wg, 2 * 128);
+      // p^T while dP^T is still in the tensor cores; dV += P^T dO while dst^T
+      // is computed; then dK += dst^T Q
+      wgmma_wait<1>();
+      fence_regs(st);
+      with_flags<false>(cls == kFull, has_bias || alibi, false,
+                        [&](auto test, auto terms, auto) {
+                          pass_p(test, terms, st, t * BQ, m.head, m);
+                        });
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) acc_to_a(pa[kk], st, kk);
+      wgmma_fence();
+      rs_product<HD, BQ>(dva, pa, a_do);  // dV += P^T dO, dO read MN-major
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(dpt);
+      pass_ds(pa, dpt, m);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) acc_to_a(da[kk], dpt, kk);
+      wgmma_fence();
+      rs_product<HD, BQ>(dka, da, a_q);   // dK += dS^T Q, Q read MN-major
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dka);
+      fence_regs(dva);
+    } else {
+      named_arrive(2 - wg, 2 * 128);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(ring.stage));
+    ring.next();
   }
-  store_rows<HD>(dk + b * dks.sb + kvh * dks.sh, dks.ss, dka, key0, key1, S, tig);
-  store_rows<HD>(dv + b * dvs.sb + kvh * dvs.sh, dvs.ss, dva, key0, key1, S, tig);
+  if (wg == 0) named_sync(1, 2 * 128);  // the other's last turn
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dka[i] *= p.scale;
+  store_acc<HD>(p.dk + b * p.dks.sb + kvh * p.dks.sh, p.dks.ss, dka, key0, key1, S, tq);
+  store_acc<HD>(p.dv + b * p.dvs.sb + kvh * p.dvs.sh, p.dvs.ss, dva, key0, key1, S, tq);
+}
+
+// A table's layout block must hold whole blocks of kRows rows.
+bool bwd_table_ok(const long long* mask) {
+  return mask == nullptr || mask[6] == 0 || (mask[9] > 0 && mask[9] % kRows == 0);
+}
+
+// Whether a mask needs the masked instantiation: position offsets alone (a
+// ring hop without segment ids) run the unmasked one, which reads them too.
+bool needs_masked(const Mask& m) {
+  return m.seg != nullptr || m.bias != nullptr || m.cols != nullptr || m.dbias != nullptr;
+}
+
+template <typename Params>
+cudaError_t launch(void (*kernel)(Params), const Params& prm, dim3 grid, int bytes,
+                   cudaStream_t s) {
+  const cudaError_t st =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (st != cudaSuccess) return st;
+  kernel<<<grid, kBwdThreads, bytes, s>>>(prm);
+  return cudaGetLastError();
+}
+
+// The dq kernel's K and V maps (boxes of its ring tile), then the launch.
+template <int HD, bool kMasked>
+cudaError_t launch_dq(DqParams& prm, const void* k, const void* v, int B, int S, int KV,
+                      const long long* st, cudaStream_t s) {
+  using L = DqSmem<HD, kMasked>;
+  const Strides ks = at(st, 1), vs = at(st, 2);
+  if (!encode_rows_map(&prm.k, k, B, S, KV, HD, ks.sb, ks.ss, ks.sh, L::kBN) ||
+      !encode_rows_map(&prm.v, v, B, S, KV, HD, vs.sb, vs.ss, vs.sh, L::kBN))
+    return cudaErrorInvalidValue;
+  const dim3 grid(prm.H, B, (S + kRows - 1) / kRows);
+  return launch(flash_bwd_dq_kernel<HD, kMasked>, prm, grid,
+                L::bytes((S + L::kBN - 1) / L::kBN), s);
+}
+
+// The dk/dv kernel's Q and dO maps (boxes of its ring tile), then the launch.
+template <int HD, bool kMasked>
+cudaError_t launch_dkv(DkvParams& prm, const void* q, const void* dout, int B, int S,
+                       const long long* st, cudaStream_t s) {
+  using L = DkvSmem<HD, kMasked>;
+  const Strides qs = at(st, 0), dos = at(st, 3);
+  if (!encode_rows_map(&prm.q, q, B, S, prm.H, HD, qs.sb, qs.ss, qs.sh, L::kBQ) ||
+      !encode_rows_map(&prm.dout, dout, B, S, prm.H, HD, dos.sb, dos.ss, dos.sh, L::kBQ))
+    return cudaErrorInvalidValue;
+  const dim3 grid(prm.KV, B, (S + kRows - 1) / kRows);
+  return launch(flash_bwd_dkv_kernel<HD, kMasked>, prm, grid,
+                L::bytes((S + L::kBQ - 1) / L::kBQ), s);
 }
 
 }  // namespace
 
 // q, o, do, dq: [B, S, H, hd]; k, v: [B, S, KV, hd], each by its (batch, seq,
 // head) strides (st: 3 per tensor in the order q, k, v, o, do, dq) with a
-// contiguous last dim and 16-byte aligned rows. lse (in), delta (out): [B, H, S]
-// fp32 contiguous. slopes: fp32 [H] ALiBi slopes on the device (those the
-// forward took), or nullptr for none. mask: nullptr, or the forward's masked
-// form (flash_attention.cuh:parse_mask, the table per query layout row),
-// whose dbias slot may name a [B, H, S, S] output in the bias's dtype.
+// contiguous last dim; q, k, v, do are read by TMA (16-byte aligned start and
+// strides). lse (in), delta (out): [B, H, S] fp32 contiguous. slopes: fp32 [H]
+// ALiBi slopes on the device (those the forward took), or nullptr for none.
+// mask: nullptr, or the forward's masked form (flash_attention.cuh:parse_mask,
+// the table per query layout row), whose dbias slot may name a [B, H, S, S]
+// output in the bias's dtype.
 extern "C" int dst_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* delta, void* dq, int B, int S, int H, int KV, int hd,
@@ -376,43 +978,45 @@ extern "C" int dst_flash_attention_bwd_dq(
     const long long* mask, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
-  if (KV <= 0 || H % KV != 0 || !table_ok(mask))
+  if (KV <= 0 || H % KV != 0 || !bwd_table_ok(mask) || (hd != 64 && hd != 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((S + kBlockM - 1) / kBlockM, H, B);
-  using T = __nv_bfloat16;
-  const Mask m = mask != nullptr ? parse_mask(mask) : Mask{};
-#define DQ_ARGS                                                                   \
-  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),   \
-      static_cast<const T*>(o), static_cast<const T*>(dout),                      \
-      static_cast<const float*>(lse), static_cast<float*>(delta),                 \
-      static_cast<T*>(dq), S, H, KV, at(st, 0), at(st, 1), at(st, 2), at(st, 3),  \
-      at(st, 4), at(st, 5), static_cast<const float*>(slopes), scale, causal, m
-  const bool alibi = slopes != nullptr;
-  const bool masked = mask != nullptr;
-  if (hd == 128 && masked) {
-    flash_bwd_dq_kernel<128, false, true><<<grid, kThreads, 0, s>>>(DQ_ARGS);
-  } else if (hd == 128 && alibi) {
-    flash_bwd_dq_kernel<128, true, false><<<grid, kThreads, 0, s>>>(DQ_ARGS);
-  } else if (hd == 128) {
-    flash_bwd_dq_kernel<128, false, false><<<grid, kThreads, 0, s>>>(DQ_ARGS);
-  } else if (hd == 64 && masked) {
-    flash_bwd_dq_kernel<64, false, true><<<grid, kThreads, 0, s>>>(DQ_ARGS);
-  } else if (hd == 64 && alibi) {
-    flash_bwd_dq_kernel<64, true, false><<<grid, kThreads, 0, s>>>(DQ_ARGS);
-  } else if (hd == 64) {
-    flash_bwd_dq_kernel<64, false, false><<<grid, kThreads, 0, s>>>(DQ_ARGS);
+  DqParams prm;
+  const Strides qs = at(st, 0), dos = at(st, 4);
+  if (!encode_rows_map(&prm.q, q, B, S, H, hd, qs.sb, qs.ss, qs.sh, kRows) ||
+      !encode_rows_map(&prm.dout, dout, B, S, H, hd, dos.sb, dos.ss, dos.sh, kRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  prm.o = static_cast<const bf16*>(o);
+  prm.dout_ptr = static_cast<const bf16*>(dout);
+  prm.lse = static_cast<const float*>(lse);
+  prm.delta = static_cast<float*>(delta);
+  prm.dq = static_cast<bf16*>(dq);
+  prm.S = S;
+  prm.H = H;
+  prm.KV = KV;
+  prm.os = at(st, 3);
+  prm.dos = dos;
+  prm.dqs = at(st, 5);
+  prm.slopes = static_cast<const float*>(slopes);
+  prm.scale = scale;
+  prm.causal = causal;
+  prm.mask = mask != nullptr ? parse_mask(mask) : Mask{};
+  const bool masked = needs_masked(prm.mask);
+  cudaError_t r;
+  if (hd == 128) {
+    r = masked ? launch_dq<128, true>(prm, k, v, B, S, KV, st, s)
+               : launch_dq<128, false>(prm, k, v, B, S, KV, st, s);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    r = masked ? launch_dq<64, true>(prm, k, v, B, S, KV, st, s)
+               : launch_dq<64, false>(prm, k, v, B, S, KV, st, s);
   }
-#undef DQ_ARGS
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(r);
 }
 
 // q, do: [B, S, H, hd]; k, v, dk, dv: [B, S, KV, hd], by strides (st: q, k, v,
-// do, dk, dv); lse, delta: [B, H, S] fp32 contiguous (delta from the dq kernel);
-// slopes as for the dq kernel; mask as for the dq kernel but with the
-// transposed table (per key layout column, its active query blocks) and no
-// dbias.
+// do, dk, dv; q, k, v, do read by TMA); lse, delta: [B, H, S] fp32 contiguous
+// (delta from the dq kernel); slopes as for the dq kernel; mask as for the dq
+// kernel but with the transposed table (per key layout column, its active
+// query blocks) and no dbias.
 extern "C" int dst_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
@@ -420,34 +1024,34 @@ extern "C" int dst_flash_attention_bwd_dkv(
     int causal, const long long* mask, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
-  if (KV <= 0 || H % KV != 0 || !table_ok(mask))
+  if (KV <= 0 || H % KV != 0 || !bwd_table_ok(mask) || (hd != 64 && hd != 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((S + kBlockM - 1) / kBlockM, KV, B);
-  using T = __nv_bfloat16;
-  const Mask m = mask != nullptr ? parse_mask(mask) : Mask{};
-#define DKV_ARGS                                                                  \
-  static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),   \
-      static_cast<const T*>(dout), static_cast<const float*>(lse),                \
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), \
-      S, H, KV, at(st, 0), at(st, 1), at(st, 2), at(st, 3), at(st, 4), at(st, 5), \
-      static_cast<const float*>(slopes), scale, causal, m
-  const bool alibi = slopes != nullptr;
-  const bool masked = mask != nullptr;
-  if (hd == 128 && masked) {
-    flash_bwd_dkv_kernel<128, false, true><<<grid, kThreads, 0, s>>>(DKV_ARGS);
-  } else if (hd == 128 && alibi) {
-    flash_bwd_dkv_kernel<128, true, false><<<grid, kThreads, 0, s>>>(DKV_ARGS);
-  } else if (hd == 128) {
-    flash_bwd_dkv_kernel<128, false, false><<<grid, kThreads, 0, s>>>(DKV_ARGS);
-  } else if (hd == 64 && masked) {
-    flash_bwd_dkv_kernel<64, false, true><<<grid, kThreads, 0, s>>>(DKV_ARGS);
-  } else if (hd == 64 && alibi) {
-    flash_bwd_dkv_kernel<64, true, false><<<grid, kThreads, 0, s>>>(DKV_ARGS);
-  } else if (hd == 64) {
-    flash_bwd_dkv_kernel<64, false, false><<<grid, kThreads, 0, s>>>(DKV_ARGS);
+  DkvParams prm;
+  const Strides ks = at(st, 1), vs = at(st, 2);
+  if (!encode_rows_map(&prm.k, k, B, S, KV, hd, ks.sb, ks.ss, ks.sh, kRows) ||
+      !encode_rows_map(&prm.v, v, B, S, KV, hd, vs.sb, vs.ss, vs.sh, kRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  prm.lse = static_cast<const float*>(lse);
+  prm.delta = static_cast<const float*>(delta);
+  prm.dk = static_cast<bf16*>(dk);
+  prm.dv = static_cast<bf16*>(dv);
+  prm.S = S;
+  prm.H = H;
+  prm.KV = KV;
+  prm.dks = at(st, 4);
+  prm.dvs = at(st, 5);
+  prm.slopes = static_cast<const float*>(slopes);
+  prm.scale = scale;
+  prm.causal = causal;
+  prm.mask = mask != nullptr ? parse_mask(mask) : Mask{};
+  const bool masked = needs_masked(prm.mask);
+  cudaError_t r;
+  if (hd == 128) {
+    r = masked ? launch_dkv<128, true>(prm, q, dout, B, S, st, s)
+               : launch_dkv<128, false>(prm, q, dout, B, S, st, s);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    r = masked ? launch_dkv<64, true>(prm, q, dout, B, S, st, s)
+               : launch_dkv<64, false>(prm, q, dout, B, S, st, s);
   }
-#undef DKV_ARGS
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(r);
 }

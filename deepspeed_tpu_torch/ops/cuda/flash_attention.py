@@ -32,16 +32,19 @@ instantiation, which reads its operands at run time.
 Bound on the H100: operations for long sequences, per visible (query, key)
 pair 4 * D flops forward, 6 * D in the dq kernel, 8 * D in the dk/dv kernel
 and 4 * D per (batch row, head) in the bias-gradient kernel, over 989 TFLOP/s
-bf16. Each kernel runs 4-warp blocks of mma.sync bf16 tensor-core products
-with fp32 accumulation and fp32 softmax state in registers, loops key (or
-query) tiles only to (or from) the diagonal and only through the layout's
-active blocks, reads the model layout [B, S, H, D] through strides (no
-transposes) and masks ragged S itself, so every length runs through it,
-where the TPU entry fell back to XLA without a 128-aligned tile. The dq
-kernel also writes delta = rowsum(dO * O) for the dk/dv kernel, which sums
-the GQA group in registers (no atomics, one write per output); the
-bias-gradient kernel sums the broadcast dims in registers, one write per
-output element.
+bf16. The forward and bias-gradient kernels run 4-warp blocks of mma.sync
+bf16 tensor-core products; the dq and dk/dv kernels are written for Hopper
+(wgmma products on tiles that TMA streams through a ring of shared-memory
+stages, read through 4-D tensor maps, :func:`tma_map`; each tile judged
+empty, full or partial against the masks before it is loaded). All keep
+fp32 accumulators and softmax state in registers, loop key (or query) tiles
+only to (or from) the diagonal and only through the layout's active
+blocks, read the model layout [B, S, H, D] through strides (no transposes)
+and handle ragged S themselves, so every length runs through them, where
+the TPU entry fell back to XLA without a 128-aligned tile. The dq kernel
+also writes delta = rowsum(dO * O) for the dk/dv kernel, which sums the GQA
+group in registers (no atomics, one write per output); the bias-gradient
+kernel sums the broadcast dims in registers, one write per output element.
 """
 
 from __future__ import annotations
@@ -336,6 +339,49 @@ def _check_strides(fn: str, name: str, t: torch.Tensor) -> None:
         )
 
 
+TMA_BOX_COLS = 64  # a tile's columns a TMA box: 128 bytes of bf16, the swizzle's span
+TMA_ROWS = 128     # a backward block's own rows (dq: q, do; dk/dv: k, v)
+
+
+def tma_map(fn: str, name: str, t: torch.Tensor, rows: int) -> dict:
+    """The 4-D tensor map the backward kernels read ``t`` [B, S, H, D] (bf16)
+    through: dims (D, S, H, B), byte strides of S, H and B, a box of 64
+    columns x ``rows`` rows, and the start address; the C side
+    (``csrc/flash_attention_sm90.cuh:encode_rows_map``) encodes the same
+    numbers from the strides it is given. Raises on what TMA refuses: a last
+    dim that is not contiguous, a start not 16-byte aligned, a stride that is
+    not a multiple of 16 bytes or not below 2**40 bytes, a dim above 2**32,
+    a head dim that is not whole boxes, a box of more than 256 rows."""
+    B, S, H, D = t.shape
+    esize = t.element_size()
+    strides = tuple(esize * st for st in (t.stride(1), t.stride(2), t.stride(0)))
+    base = t.data_ptr()
+    problems = []
+    if t.stride(3) != 1:
+        problems.append("a last dim that is not contiguous")
+    if base % 16:
+        problems.append(f"a start address {base:#x} not 16-byte aligned")
+    bad = [st for st in strides if st % 16 or not 0 <= st < 2 ** 40]
+    if bad:
+        problems.append(f"byte strides {bad} not multiples of 16 below 2**40")
+    if any(d > 2 ** 32 for d in (D, S, H, B)):
+        problems.append(f"a dim of {(D, S, H, B)} above 2**32")
+    if D % TMA_BOX_COLS or not 0 < rows <= 256:
+        problems.append(f"head dim {D} not whole boxes of {TMA_BOX_COLS} or box rows {rows}")
+    if problems:
+        raise ValueError(f"{fn}: TMA cannot read {name} {tuple(t.shape)}, strides "
+                         f"{t.stride()}: " + "; ".join(problems))
+    return {"dims": (D, S, H, B), "strides": strides, "box": (TMA_BOX_COLS, rows, 1, 1),
+            "base": base}
+
+
+def ring_tile(head_dim: int, masked: bool) -> int:
+    """Rows a tile of a backward kernel's ring (dq: k and v; dk/dv: q and do)
+    and so its map's box: 128 for the unmasked form at head dim 64, else 64
+    (``csrc/flash_attention_bwd.cu:DqSmem``, ``DkvSmem``)."""
+    return 128 if head_dim == 64 and not masked else 64
+
+
 def _check_inputs(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   **more: torch.Tensor) -> None:
     """Raise on what the kernels do not take: q [B,S,H,D], k/v [B,S,KV,D],
@@ -510,6 +556,10 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
     fn = "flash_attention_bwd_dq"
     _check_inputs(fn, q, k, v, o=o, do=do)
     _check_rows(fn, q, lse=lse)
+    tile = ring_tile(q.shape[-1], any(t is not None for t in (bias, segment_ids, layout)))
+    for name, t, rows in (("q", q, TMA_ROWS), ("k", k, tile), ("v", v, tile),
+                          ("do", do, TMA_ROWS)):
+        tma_map(fn, name, t, rows)
     sl = slopes_ptr(fn, slopes, q)
     B, S, H, D = q.shape
     dbias = None
@@ -546,6 +596,10 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal: bool = True,
     fn = "flash_attention_bwd_dkv"
     _check_inputs(fn, q, k, v, do=do)
     _check_rows(fn, q, lse=lse, delta=delta)
+    tile = ring_tile(q.shape[-1], any(t is not None for t in (bias, segment_ids, layout)))
+    for name, t, rows in (("q", q, tile), ("k", k, TMA_ROWS), ("v", v, TMA_ROWS),
+                          ("do", do, tile)):
+        tma_map(fn, name, t, rows)
     sl = slopes_ptr(fn, slopes, q)
     mask = mask_array(fn, q, bias, segment_ids, layout, transposed=True, offsets=offsets)
     B, S, H, D = q.shape
