@@ -1,12 +1,13 @@
 // Device helpers shared by the flash attention kernels: the mma.sync tile
-// products and operand staging of flash_attention_fwd.cu and
-// flash_attention_bias_grad.cu, the ALiBi score, and the masked form's
-// operands (segment ids, a dense additive bias, block-sparse compaction
-// tables, ring-hop offsets), which flash_attention_bwd.cu reads too.
+// products and operand staging of flash_attention_bias_grad.cu, the ALiBi
+// score, and the masked form's operands (segment ids, a dense additive bias,
+// block-sparse compaction tables, ring-hop offsets), which the Hopper forward
+// and backward kernels (flash_attention_fwd.cu, flash_attention_bwd.cu) read
+// too.
 //
 // The masked form is one template instantiation per kernel whose masks are
 // read at run time from a Mask; the slope-free (Llama) and ALiBi forms are
-// instantiated without it and keep their code. The Mask also carries the
+// instantiated without it. The Mask also carries the
 // offset form of ring attention's hops (flash_attention.py:94-113, has_offsets):
 // the global positions qoff and koff of the local query chunk and of the
 // visiting key chunk, which shift the causal test and the ALiBi distance, and
@@ -43,11 +44,6 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
 __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
@@ -182,12 +178,6 @@ inline Mask parse_mask(const long long* m) {
   k.qoff = static_cast<int>(m[12]);
   k.koff = static_cast<int>(m[13]);
   return k;
-}
-
-// A table's layout block must be a whole number of 64-row tiles, so that no
-// tile straddles two layout blocks.
-inline bool table_ok(const long long* mask) {
-  return mask == nullptr || mask[6] == 0 || (mask[9] > 0 && mask[9] % kBlockM == 0);
 }
 
 __device__ __forceinline__ float load_bias(const Mask& m, long long off) {

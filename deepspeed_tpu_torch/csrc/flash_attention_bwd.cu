@@ -25,8 +25,9 @@
 // Bound on the H100: operations at training lengths. The dq kernel does 6 * D
 // flops per visible (query, key) pair (q.k, do.v and ds.K), the dk/dv kernel
 // 8 * D (k.q, v.do, p^T dO, ds^T Q), over 989 TFLOP/s of bf16 tensor-core
-// rate, which only wgmma reaches. Design (flash_attention_sm90.cuh has the
-// building blocks):
+// rate, which only wgmma reaches. Design (flash_attention_sm90.cuh and
+// flash_attention_tiles.cuh have the building blocks, which the forward
+// kernel shares):
 //   Blocks of three warpgroups: two consumers, each owning 64 rows (dq: query
 //   rows; dk/dv: keys) and all their fp32 accumulators in registers, and a
 //   producer whose first warp walks the block's tiles and keeps a ring of
@@ -85,11 +86,7 @@
 // Tensors are read through their (batch, seq, head) strides by 4-D tensor
 // maps, so the model layout [B, S, H, D] needs no transpose; TMA fills rows
 // past S with zeros. Head dims 64 and 128 (two 64-column panels).
-#include <climits>
-#include <type_traits>
-
-#include "flash_attention.cuh"
-#include "flash_attention_sm90.cuh"
+#include "flash_attention_tiles.cuh"
 
 using namespace dst::flash;
 using namespace dst::sm90;
@@ -98,65 +95,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kGroups = 2;              // consumer warpgroups a block
-constexpr int kRows = 64 * kGroups;     // the block's own rows (dq) or keys (dk/dv)
-constexpr int kBwdThreads = 128 * (kGroups + 1);
-constexpr int kStages = 3;
-constexpr int kProducerRegs = 40;
-constexpr int kConsumerRegs = 232;
-constexpr int kEmpty = 0, kPartial = 1, kFull = 2;  // tile classes
-
-// The class of the tile [q_lo, q_hi] x [k_lo, k_hi] (queries x keys, both
-// inclusive and possibly past S); qseg and kseg are the [min, max] segment
-// ids of the rows and keys inside S when has_seg.
-__device__ __forceinline__ int tile_class(int q_lo, int q_hi, int k_lo, int k_hi, int S,
-                                          int causal, int qoff, int koff, bool has_seg,
-                                          int2 qseg, int2 kseg) {
-  if (q_lo >= S || k_lo >= S) return kEmpty;
-  if (causal && k_lo + koff > q_hi + qoff) return kEmpty;
-  if (has_seg && (qseg.y < kseg.x || kseg.y < qseg.x)) return kEmpty;
-  const bool full = q_hi < S && k_hi < S && (!causal || k_hi + koff <= q_lo + qoff) &&
-                    (!has_seg || (qseg.x == qseg.y && kseg.x == kseg.y && qseg.x == kseg.x));
-  return full ? kFull : kPartial;
-}
-
-// [min, max] over the warp of the segment ids of the 64 rows at i0 inside S
-// (INT_MAX, INT_MIN for none); each lane's two ids (i0 + lane, + 32) in ids.
-__device__ __forceinline__ int2 seg_range(const int* seg, int i0, int S, int lane,
-                                          int2& ids) {
-  const int a = i0 + lane, b = a + 32;
-  ids.x = a < S ? seg[a] : 0;
-  ids.y = b < S ? seg[b] : 0;
-  int lo = INT_MAX, hi = INT_MIN;
-  if (a < S) lo = hi = ids.x;
-  if (b < S) {
-    lo = min(lo, ids.y);
-    hi = max(hi, ids.y);
-  }
-  return make_int2(__reduce_min_sync(0xffffffffu, lo), __reduce_max_sync(0xffffffffu, hi));
-}
-
-// Call f(test, terms, emit) with compile-time flags for the run-time ones, so
-// each combination gets its own epilogue: test (a partial tile's per-pair
-// tests), terms (a bias or ALiBi term in the score), emit (dst into dbias,
-// only with kMasked; it comes with a bias).
-template <bool kMasked, typename F>
-__device__ __forceinline__ void with_flags(bool full, bool terms, bool emit, F&& f) {
-  auto by_terms = [&](auto test) {
-    if (kMasked && emit) {
-      f(test, std::true_type{}, std::true_type{});
-    } else if (terms) {
-      f(test, std::true_type{}, std::false_type{});
-    } else {
-      f(test, std::false_type{}, std::false_type{});
-    }
-  };
-  if (full) {
-    by_terms(std::false_type{});
-  } else {
-    by_terms(std::true_type{});
-  }
-}
+constexpr int kStages = 3;  // ring stages
 
 // dbias at off and off + 1; one 8-byte (fp32) or 4-byte (bf16) store when
 // `aligned` (off even).
@@ -170,53 +109,6 @@ __device__ __forceinline__ void store_dbias_pair(const Mask& m, long long off, f
         __floats2bfloat162_rn(x, y);
   } else {
     *reinterpret_cast<float2*>(static_cast<float*>(m.dbias) + off) = make_float2(x, y);
-  }
-}
-
-// The 1024-aligned start of the dynamic shared memory (the 128-byte swizzle's
-// atoms are 1024-byte aligned).
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
-                                    ~static_cast<uintptr_t>(1023));
-}
-
-// The A fragments of k-step kk (columns 16 kk..16 kk + 15) of an m64nN
-// accumulator, rounded to bf16 (the accumulator's layout is the A operand's).
-template <int N>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N], int kk) {
-  a[0] = pack_f32(d[8 * kk + 0], d[8 * kk + 1]);
-  a[1] = pack_f32(d[8 * kk + 2], d[8 * kk + 3]);
-  a[2] = pack_f32(d[8 * kk + 4], d[8 * kk + 5]);
-  a[3] = pack_f32(d[8 * kk + 6], d[8 * kk + 7]);
-}
-
-// d += the RS product of the k-step fragments a over the ROWS x HD tile in
-// panels at b (read MN-major).
-template <int HD, int ROWS>
-__device__ __forceinline__ void rs_product(float (&d)[HD / 2],
-                                           const uint32_t (&a)[ROWS / 16][4], uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < ROWS / 16; ++kk) {
-    if constexpr (HD == 128) {
-      wgmma_rs_n128(d, a[kk], desc_mn(b, ROWS, kk), 1);
-    } else {
-      wgmma_rs_n64(d, a[kk], desc_mn(b, ROWS, kk), 1);
-    }
-  }
-}
-
-// d = the SS product of 64 rows at a (a tile of a_rows rows) and the N rows at
-// b, over the head dim (both K-major).
-template <int HD, int N>
-__device__ __forceinline__ void ss_product(float (&d)[N / 2], uint32_t a, int a_rows,
-                                           int a_row0, uint32_t b) {
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    if constexpr (N == 128) {
-      wgmma_ss_n128(d, desc_k(a, a_rows, a_row0, ks), desc_k(b, N, 0, ks), ks > 0);
-    } else {
-      wgmma_ss_n64(d, desc_k(a, a_rows, a_row0, ks), desc_k(b, N, 0, ks), ks > 0);
-    }
   }
 }
 
@@ -234,34 +126,6 @@ __device__ __forceinline__ void store_acc(bf16* base, long long ss, const float 
       *reinterpret_cast<uint32_t*>(base + row1 * ss + c) = pack_f32(d[4 * j + 2], d[4 * j + 3]);
     }
   }
-}
-
-// The per-tile [min, max] segment ids of tiles [t_lo, t_hi) of a [S] row into
-// tr[t], and of the 64 rows at own_row into *own (own_row < 0: none), shared
-// by the 8 consumer warps (cw: this warp's index among them); then each warp
-// arrives on the ranges barrier, which the producer waits on before it
-// classifies a tile.
-template <int TILE>
-__device__ __forceinline__ void tile_ranges(const int* tile_seg, int t_lo, int t_hi,
-                                            const int* own_seg, int own_row, int2* own,
-                                            int2* tr, int S, int cw, int lane,
-                                            uint32_t rbar) {
-  int2 ids;
-  if (own_row >= 0) {
-    const int2 r = seg_range(own_seg, own_row, S, lane, ids);
-    if (lane == 0) *own = r;
-  }
-  for (int t = t_lo + cw; t < t_hi; t += 4 * kGroups) {
-    int2 r = make_int2(INT_MAX, INT_MIN);
-#pragma unroll
-    for (int c = 0; c < TILE; c += 64) {
-      const int2 rc = seg_range(tile_seg, t * TILE + c, S, lane, ids);
-      r = make_int2(min(r.x, rc.x), max(r.y, rc.y));
-    }
-    if (lane == 0) tr[t] = r;
-  }
-  __syncwarp();
-  if (lane == 0) mbar_arrive(rbar);
 }
 
 // ---------------------------------------------------------------------------
@@ -310,7 +174,7 @@ struct DqSmem {
 };
 
 template <int HD, bool kMasked>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kBlockThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ DqParams p) {
   using L = DqSmem<HD, kMasked>;
   constexpr int BN = L::kBN;
@@ -661,7 +525,7 @@ struct DkvSmem {
 };
 
 template <int HD, bool kMasked>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kBlockThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ DkvParams p) {
   using L = DkvSmem<HD, kMasked>;
   constexpr int BQ = L::kBQ;
@@ -912,27 +776,6 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   store_acc<HD>(p.dv + b * p.dvs.sb + kvh * p.dvs.sh, p.dvs.ss, dva, key0, key1, S, tq);
 }
 
-// A table's layout block must hold whole blocks of kRows rows.
-bool bwd_table_ok(const long long* mask) {
-  return mask == nullptr || mask[6] == 0 || (mask[9] > 0 && mask[9] % kRows == 0);
-}
-
-// Whether a mask needs the masked instantiation: position offsets alone (a
-// ring hop without segment ids) run the unmasked one, which reads them too.
-bool needs_masked(const Mask& m) {
-  return m.seg != nullptr || m.bias != nullptr || m.cols != nullptr || m.dbias != nullptr;
-}
-
-template <typename Params>
-cudaError_t launch(void (*kernel)(Params), const Params& prm, dim3 grid, int bytes,
-                   cudaStream_t s) {
-  const cudaError_t st =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (st != cudaSuccess) return st;
-  kernel<<<grid, kBwdThreads, bytes, s>>>(prm);
-  return cudaGetLastError();
-}
-
 // The dq kernel's K and V maps (boxes of its ring tile), then the launch.
 template <int HD, bool kMasked>
 cudaError_t launch_dq(DqParams& prm, const void* k, const void* v, int B, int S, int KV,
@@ -978,7 +821,7 @@ extern "C" int dst_flash_attention_bwd_dq(
     const long long* mask, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
-  if (KV <= 0 || H % KV != 0 || !bwd_table_ok(mask) || (hd != 64 && hd != 128))
+  if (KV <= 0 || H % KV != 0 || !table_ok(mask) || (hd != 64 && hd != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   DqParams prm;
   const Strides qs = at(st, 0), dos = at(st, 4);
@@ -1024,7 +867,7 @@ extern "C" int dst_flash_attention_bwd_dkv(
     int causal, const long long* mask, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
-  if (KV <= 0 || H % KV != 0 || !bwd_table_ok(mask) || (hd != 64 && hd != 128))
+  if (KV <= 0 || H % KV != 0 || !table_ok(mask) || (hd != 64 && hd != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   DkvParams prm;
   const Strides ks = at(st, 1), vs = at(st, 2);

@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks of the flash attention backward kernels
-// (flash_attention_bwd.cu): mbarriers, TMA tile loads through tensor maps,
-// wgmma shared-memory descriptors and products, and the host-side encoding of
-// the tensor maps. The forward, bias-gradient and decode kernels keep the
-// mma.sync helpers of flash_attention.cuh.
+// Hopper (sm_90a) building blocks of the flash attention forward and
+// backward kernels (flash_attention_fwd.cu, flash_attention_bwd.cu):
+// mbarriers, TMA tile loads through tensor maps, wgmma shared-memory
+// descriptors and products, and the host-side encoding of the tensor maps.
+// The bias-gradient kernel keeps the mma.sync helpers of flash_attention.cuh.
 //
 // Tiles live in shared memory as TMA writes them with the 128-byte swizzle:
 // a [rows, 64] panel of bf16 (128 bytes a row), 16-byte chunk c of row r at
@@ -342,6 +342,36 @@ inline bool encode_rows_map(CUtensorMap* map, const void* base, int B, int S, in
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
             strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a dense additive bias [B|1, H|1, S, S] (fp32 or bf16, the key
+// dim contiguous) by its element strides (sq: query rows; sh, sb: 0 on a
+// broadcast dim): dims (S, S, H or 1, B or 1), byte strides of the query
+// rows, heads and batch rows (a broadcast dim of size 1 gets the next
+// inner one's span), box 128 bytes of keys (32 fp32 or 64 bf16) x rows
+// query rows x 1 x 1, 128-byte swizzle, zeros past S. The wrapper's
+// bias_tma_map (ops/cuda/flash_attention.py) computes and checks the same
+// numbers. False where the driver refuses.
+inline bool encode_bias_map(CUtensorMap* map, const void* base, bool bf16, int B, int S,
+                            int H, long long sb, long long sh, long long sq, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t esize = bf16 ? 2 : 4;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(sh != 0 ? H : 1),
+                              static_cast<cuuint64_t>(sb != 0 ? B : 1)};
+  const cuuint64_t st_q = esize * sq;
+  const cuuint64_t st_h = sh != 0 ? esize * sh : st_q * S;
+  const cuuint64_t st_b = sb != 0 ? esize * sb : st_h * dims[2];
+  const cuuint64_t strides[3] = {st_q, st_h, st_b};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / esize),
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+            4, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -32,19 +32,20 @@ instantiation, which reads its operands at run time.
 Bound on the H100: operations for long sequences, per visible (query, key)
 pair 4 * D flops forward, 6 * D in the dq kernel, 8 * D in the dk/dv kernel
 and 4 * D per (batch row, head) in the bias-gradient kernel, over 989 TFLOP/s
-bf16. The forward and bias-gradient kernels run 4-warp blocks of mma.sync
-bf16 tensor-core products; the dq and dk/dv kernels are written for Hopper
-(wgmma products on tiles that TMA streams through a ring of shared-memory
-stages, read through 4-D tensor maps, :func:`tma_map`; each tile judged
-empty, full or partial against the masks before it is loaded). All keep
-fp32 accumulators and softmax state in registers, loop key (or query) tiles
-only to (or from) the diagonal and only through the layout's active
-blocks, read the model layout [B, S, H, D] through strides (no transposes)
-and handle ragged S themselves, so every length runs through them, where
-the TPU entry fell back to XLA without a 128-aligned tile. The dq kernel
-also writes delta = rowsum(dO * O) for the dk/dv kernel, which sums the GQA
-group in registers (no atomics, one write per output); the bias-gradient
-kernel sums the broadcast dims in registers, one write per output element.
+bf16. The forward, dq and dk/dv kernels are written for Hopper: wgmma
+products on tiles that TMA streams through a ring of shared-memory stages,
+read through 4-D tensor maps (:func:`tma_map`; a dense bias through
+:func:`bias_tma_map`), each tile judged empty, full or partial against the
+masks before it is loaded. The bias-gradient kernel runs 4-warp blocks of
+mma.sync bf16 tensor-core products. All keep fp32 accumulators and softmax
+state in registers, loop key (or query) tiles only to (or from) the
+diagonal and only through the layout's active blocks, read the model layout
+[B, S, H, D] through strides (no transposes) and handle ragged S
+themselves, so every length runs through them, where the TPU entry fell
+back to XLA without a 128-aligned tile. The dq kernel also writes delta =
+rowsum(dO * O) for the dk/dv kernel, which sums the GQA group in registers
+(no atomics, one write per output); the bias-gradient kernel sums the
+broadcast dims in registers, one write per output element.
 """
 
 from __future__ import annotations
@@ -340,11 +341,11 @@ def _check_strides(fn: str, name: str, t: torch.Tensor) -> None:
 
 
 TMA_BOX_COLS = 64  # a tile's columns a TMA box: 128 bytes of bf16, the swizzle's span
-TMA_ROWS = 128     # a backward block's own rows (dq: q, do; dk/dv: k, v)
+TMA_ROWS = 128     # a block's own rows (forward: q; dq: q, do; dk/dv: k, v)
 
 
 def tma_map(fn: str, name: str, t: torch.Tensor, rows: int) -> dict:
-    """The 4-D tensor map the backward kernels read ``t`` [B, S, H, D] (bf16)
+    """The 4-D tensor map the flash kernels read ``t`` [B, S, H, D] (bf16)
     through: dims (D, S, H, B), byte strides of S, H and B, a box of 64
     columns x ``rows`` rows, and the start address; the C side
     (``csrc/flash_attention_sm90.cuh:encode_rows_map``) encodes the same
@@ -376,10 +377,80 @@ def tma_map(fn: str, name: str, t: torch.Tensor, rows: int) -> dict:
 
 
 def ring_tile(head_dim: int, masked: bool) -> int:
-    """Rows a tile of a backward kernel's ring (dq: k and v; dk/dv: q and do)
-    and so its map's box: 128 for the unmasked form at head dim 64, else 64
-    (``csrc/flash_attention_bwd.cu:DqSmem``, ``DkvSmem``)."""
+    """Rows a tile of a flash kernel's ring (forward and dq: k and v; dk/dv:
+    q and do) and so its map's box: 128 for the unmasked forms (Llama,
+    ALiBi, offsets alone) at head dim 64, else 64
+    (``csrc/flash_attention_fwd.cu:FwdSmem``,
+    ``csrc/flash_attention_bwd.cu:DqSmem``, ``DkvSmem``)."""
     return 128 if head_dim == 64 and not masked else 64
+
+
+def bias_tma_map(fn: str, bias: torch.Tensor, B: int, H: int, rows: int = TMA_ROWS) -> dict:
+    """The 4-D tensor map the forward kernel reads a dense ``bias``
+    [B|1, H|1, S, S] (fp32 or bf16) through: dims (S keys, S queries, H or 1,
+    B or 1; a broadcast dim, size 1 or stride 0, is read at coordinate 0),
+    byte strides of the query rows, heads and batch rows (a broadcast dim's
+    is the span of the dims inside it), a box of 128 bytes of keys x
+    ``rows`` query rows, and the start address; the C side
+    (``csrc/flash_attention_sm90.cuh:encode_bias_map``) encodes the same
+    numbers from the mask's strides. Raises on what TMA refuses: a key dim
+    that is not contiguous, a start not 16-byte aligned, a stride that is
+    not a multiple of 16 bytes or not below 2**40 bytes."""
+    S = bias.shape[-1]
+    esize = bias.element_size()
+    sb = bias.stride(0) if bias.shape[0] > 1 else 0
+    sh = bias.stride(1) if bias.shape[1] > 1 else 0
+    dims = (S, S, H if sh else 1, B if sb else 1)
+    st_q = esize * bias.stride(2)
+    st_h = esize * sh if sh else st_q * S
+    st_b = esize * sb if sb else st_h * dims[2]
+    strides = (st_q, st_h, st_b)
+    base = bias.data_ptr()
+    problems = []
+    if bias.stride(3) != 1:
+        problems.append("a key dim that is not contiguous")
+    if base % 16:
+        problems.append(f"a start address {base:#x} not 16-byte aligned")
+    bad = [st for st in strides if st % 16 or not 0 < st < 2 ** 40]
+    if bad:
+        problems.append(f"byte strides {bad} not multiples of 16 below 2**40")
+    if problems:
+        raise ValueError(f"{fn}: TMA cannot read the bias {tuple(bias.shape)}, strides "
+                         f"{bias.stride()}: " + "; ".join(problems))
+    return {"dims": dims, "strides": strides, "box": (128 // esize, rows, 1, 1),
+            "base": base}
+
+
+def tma_bias(bias: torch.Tensor, B: int, H: int) -> torch.Tensor:
+    """``bias`` as the forward kernel reads it: itself where TMA takes its
+    start and strides (:func:`bias_tma_map`), else a copy whose query rows
+    are padded to a multiple of 16 bytes (a ragged S, a strided view), whose
+    [..., :S] view the kernel reads."""
+    try:
+        bias_tma_map("tma_bias", bias, B, H)
+        return bias
+    except ValueError:
+        S = bias.shape[-1]
+        per = 16 // bias.element_size()
+        padded = torch.zeros((*bias.shape[:3], -(-S // per) * per), dtype=bias.dtype,
+                             device=bias.device)
+        padded[..., :S] = bias
+        return padded[..., :S]
+
+
+def fwd_tma_maps(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None, masked: bool = False) -> dict:
+    """The forward kernel's tensor maps, as its host side encodes them: q in
+    boxes of :data:`TMA_ROWS` rows, k and v in boxes of its ring tile
+    (:func:`ring_tile` of the head dim and the form; ``masked``: segment
+    ids, a bias or a layout), a dense ``bias`` through :func:`bias_tma_map`.
+    Raises on a layout TMA refuses."""
+    tile = ring_tile(q.shape[-1], masked or bias is not None)
+    maps = {name: tma_map(fn, name, t, rows)
+            for name, t, rows in (("q", q, TMA_ROWS), ("k", k, tile), ("v", v, tile))}
+    if bias is not None:
+        maps["bias"] = bias_tma_map(fn, bias, q.shape[0], q.shape[2])
+    return maps
 
 
 def _check_inputs(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -519,10 +590,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, causal, slopes, bias, segment_ids, layout,
                                      offsets)
     lib = _build.library()
-    _check_inputs("flash_attention_fwd", q, k, v)
-    sl = slopes_ptr("flash_attention_fwd", slopes, q)
-    mask = mask_array("flash_attention_fwd", q, bias, segment_ids, layout,
-                      offsets=offsets)
+    fn = "flash_attention_fwd"
+    _check_inputs(fn, q, k, v)
+    sl = slopes_ptr(fn, slopes, q)
+    if bias is not None:
+        check_bias(fn, bias, q)
+        bias = tma_bias(bias, q.shape[0], q.shape[2])
+    mask = mask_array(fn, q, bias, segment_ids, layout, offsets=offsets)
+    fwd_tma_maps(fn, q, k, v, bias, any(t is not None for t in (segment_ids, layout)))
     B, S, H, D = q.shape
     KV = k.shape[2]
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -534,9 +609,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sl, 1.0 / math.sqrt(D), int(bool(causal)), mask,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(status, "flash_attention_fwd")
-    launches["flash_attention_fwd" + form_suffix(slopes, bias, segment_ids, layout,
-                                                 offsets)] += 1
+    _build.check(status, fn)
+    launches[fn + form_suffix(slopes, bias, segment_ids, layout, offsets)] += 1
     return out, lse
 
 
