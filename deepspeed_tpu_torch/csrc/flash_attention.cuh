@@ -1,5 +1,6 @@
 // Device helpers shared by the flash attention kernels: the mma.sync tile
-// products and operand staging of flash_attention_bias_grad.cu, the ALiBi
+// products and operand staging of flash_attention_bias_grad.cu (the decode
+// kernel, decode_attention.cu, takes mma_16816 and kLog2e too), the ALiBi
 // score, and the masked form's operands (segment ids, a dense additive bias,
 // block-sparse compaction tables, ring-hop offsets), which the Hopper forward
 // and backward kernels (flash_attention_fwd.cu, flash_attention_bwd.cu) read

@@ -2,7 +2,9 @@
 // backward kernels (flash_attention_fwd.cu, flash_attention_bwd.cu):
 // mbarriers, TMA tile loads through tensor maps, wgmma shared-memory
 // descriptors and products, and the host-side encoding of the tensor maps.
-// The bias-gradient kernel keeps the mma.sync helpers of flash_attention.cuh.
+// The bias-gradient kernel keeps the mma.sync helpers of flash_attention.cuh;
+// the decode kernel (decode_attention.cu) takes those and the cp.async and
+// exp2 helpers here.
 //
 // Tiles live in shared memory as TMA writes them with the 128-byte swizzle:
 // a [rows, 64] panel of bf16 (128 bytes a row), 16-byte chunk c of row r at

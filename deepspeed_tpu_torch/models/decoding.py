@@ -203,9 +203,10 @@ def _window_rows(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     ``token_valid`` is False: a padded row, zeros) through the decode kernel
     with ``rows_per_seq = S``, over the contiguous cache or, with
     ``page_table``, the page pool. ``kernel`` False takes the plain twin.
-    Each row is the kernel's own computation at its position, one block a
-    row, so a speculative verify window (B = 1) gives the bits single-token
-    decode gives, and S = 1 is single-token decode. ``slopes``: ALiBi's,
+    Each row's result depends on its own q, frontier and sequence alone
+    (the kernel's tile schedule is fixed over absolute key positions), so a
+    speculative verify window (B = 1) gives the bits single-token decode
+    gives, and S = 1 is single-token decode. ``slopes``: ALiBi's,
     measured from each row's frontier."""
     B, S, H, hd = q.shape
     frontier = _positions(cache_len, B, S, q.device)

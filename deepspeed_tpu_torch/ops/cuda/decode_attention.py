@@ -28,14 +28,19 @@ slope). Every form takes them; ``slopes=None`` leaves a score's arithmetic as
 it was.
 
 Bound on the H100: bytes, the K and V rows up to each sequence's furthest
-frontier over 3.35 TB/s. One 128-thread block per (kv head, query row) shares
-every K/V tile among the G query heads of the group and loops over key tiles
-up to the row's own frontier, carrying the fp32 online softmax in the block
-(the TPU kernel carried it across a sequential grid axis, which Hopper does
-not have). The paged form changes only where a key position's row is read
-from, so a pool and a contiguous cache holding the same bytes give the same
-bits. At one query row only KV blocks run (8 of 132 SMs for Llama-3-8B):
-split-K is the later fix.
+frontier, once, over 3.35 TB/s; at the serving shapes a launch is latency.
+The kernel holds up to 64 query rows a block (a sequence's rows times the G
+query heads of a kv head), so one K/V tile serves every row of a window and
+every head of the group, scored and applied on the tensor cores (mma.sync,
+bf16 in, fp32 out; the fp32 forms on CUDA cores). The key tiles are split
+over a cluster of 8 blocks, tile t to block t mod 8, and the blocks merge
+their fp32 partials (max, sum, output) through distributed shared memory in
+rank order: one launch, no atomics. Tile size, cluster size and ownership
+are fixed over absolute key positions, and a tile past a row's frontier
+leaves that row exactly as it was, so a row's bits depend on its q, its
+frontier and its sequence's bytes alone: a window row equals single-token
+decode, paged equals contiguous. The paged form changes only where a key
+position's row is read from.
 """
 
 from __future__ import annotations
@@ -238,7 +243,11 @@ def _check_common(name, q, k, v, k_scale, v_scale, tensors):
 
 
 def _frontier(cache_len, rows: int, device):
-    """Per-row int32 frontiers on the device: (tensor, pointer)."""
+    """Per-row int32 frontiers on the device: (tensor, pointer). A contiguous
+    int32 [rows] tensor on the device is taken as it is, with no kernel."""
+    if (cache_len.dtype == torch.int32 and cache_len.device == device
+            and cache_len.numel() == rows and cache_len.is_contiguous()):
+        return cache_len, cache_len.data_ptr()
     cl = cache_len.to(device=device, dtype=torch.int32).reshape(-1)
     cl = cl.expand(rows).contiguous()
     return cl, cl.data_ptr()

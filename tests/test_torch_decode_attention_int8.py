@@ -104,8 +104,8 @@ def test_window_rows_are_single_token_decode(int8):
     """A one-sequence window as decode rows over one cache (rows_per_seq =
     S): row s is the single-token decode at cache_len + s, and the window
     agrees with the plain masked window attention. (Bit for bit is the
-    kernel's property, one block per row; chip_smoke.py checks it on the
-    card.)"""
+    kernel's property, a row's result independent of its tile-mates;
+    chip_smoke.py checks it on the card.)"""
     _, k8, v8, ks, vs, _, _ = _int8_cache(seed=6)
     t = torch.from_numpy
     qw = t(np.random.RandomState(6).randn(1, 4, H, HD).astype(np.float32))
