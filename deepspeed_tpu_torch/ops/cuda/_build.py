@@ -44,7 +44,7 @@ SIGNATURES: Dict[str, List] = {
     "dst_rmsnorm_bwd_nblocks": [_I],
     "dst_rmsnorm_bwd": [_P] * 6 + [_I, _I, _F, _I, _I, _P],
     "dst_layernorm_fwd": [_P] * 4 + [_I, _I, _F, _I, _I, _P],
-    "dst_layernorm_bwd_nblocks": [_I],
+    "dst_layernorm_bwd_nblocks": [_I, _I, _I],
     "dst_layernorm_bwd": [_P] * 7 + [_I, _I, _F, _I, _I, _P],
     # the attention entry points take their ALiBi slopes (or NULL) as the
     # pointer before the softmax scale; the flash ones their mask array (or

@@ -11,9 +11,10 @@ Bound on the H100: bytes. Forward 2 * rows * D * itemsize, backward
 the mean first and the variance as the mean of (x - mean)^2, as the TPU
 kernel does; both read x in its own dtype (bf16 or fp32), compute in fp32 and
 write x's dtype, which fuses the fp32 casts the JAX model wraps around the
-TPU kernel, so each result is the fp32 result rounded once. The backward's
-dscale and dbias are summed over row groups in fp32 partials and a second
-pass, with no atomics: two runs give the same bits.
+TPU kernel, so each result is the fp32 result rounded once. The backward
+runs a warp (up to 8 for the widest rows) per row; its dscale and dbias are
+summed per block in fp32 partial rows and merged column strip by column
+strip in a second pass, with no atomics: two runs give the same bits.
 """
 
 from __future__ import annotations
@@ -105,8 +106,8 @@ def layernorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"layernorm_bwd: D={D} over the kernel's row limit")
     rows = x.numel() // D if D else 0
     dx = torch.empty_like(x)
-    part = torch.empty((2 * lib.dst_layernorm_bwd_nblocks(rows), D),
-                       dtype=torch.float32, device=x.device)
+    part = torch.empty((2 * lib.dst_layernorm_bwd_nblocks(rows, D, _build.dtype_code(x.dtype)),
+                        D), dtype=torch.float32, device=x.device)
     dscale = torch.zeros((D,), dtype=torch.float32, device=x.device)
     dbias = torch.zeros((D,), dtype=torch.float32, device=x.device)
     status = lib.dst_layernorm_bwd(

@@ -18,7 +18,10 @@ are the dense product over the dequantized weight, as the JAX package leaves
 them to XLA. On the card a shape the kernel does not take raises.
 
 Bound on the H100: bytes, every weight byte read once (Llama-3-8B's wi at
-D = 4096, N = 14336 is 58.7 MB int8 + 1.8 MB of scales).
+D = 4096, N = 14336 is 58.7 MB int8 + 1.8 MB of scales). The kernel runs
+its products on the tensor cores and folds each 128-row group as
+(x·q)·s; the splits of the contraction merge inside one launch, through a
+thread-block cluster, so no scratch is allocated here.
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ launches = {"quantized_matvec_int8": 0, "quantized_matvec_int4": 0,
 MAX_KERNEL_ROWS = 16  # rows of x the kernel holds
 COLS = 128            # columns of one block's tile
 TARGET_BLOCKS = 264   # about two blocks per SM on the H100's 132
+MAX_SPLITS = 8        # blocks of a cluster, the portable maximum
+WARPS = 4             # warps of a block, each on its own byte planes
+STEP = 16             # contraction rows of one tensor-core step
 
 # rows at or below this take the matvec; more rows (a prefill) are
 # compute-bound and take the dense product over the dequantized weight
@@ -76,12 +82,17 @@ def packed_matvec_plain(x2d: torch.Tensor, w: PackedWeight) -> torch.Tensor:
 
 def split_plan(planes: int, n_tiles: int):
     """(splits, planes per split) of the contraction for a weight of
-    ``planes`` byte planes and ``n_tiles`` column tiles: enough blocks to
-    fill the card at the narrowest leaf. It depends on the weight's shape
-    only, never on the rows of x, so every row's sums run in the same order
-    whatever M is (a verify window's rows equal single-token decode)."""
-    want = min(planes, max(1, -(-TARGET_BLOCKS // n_tiles)))
+    ``planes`` byte planes and ``n_tiles`` column tiles: about
+    ``TARGET_BLOCKS`` blocks, at most ``MAX_SPLITS`` of them on one tile
+    (the blocks of a cluster, which merge their sums), and above ``WARPS``
+    planes a split a multiple of ``WARPS``, so the warps of a block take
+    equal shares. It depends on the weight's shape only, never on the rows
+    of x, so every row's sums run in the same order whatever M is (a verify
+    window's rows equal single-token decode)."""
+    want = min(planes, MAX_SPLITS, max(1, -(-TARGET_BLOCKS // n_tiles)))
     per = -(-planes // want)
+    if per > WARPS:
+        per = -(-per // WARPS) * WARPS
     return -(-planes // per), per
 
 
@@ -122,6 +133,10 @@ def _launch(x: torch.Tensor, w: PackedWeight, experts: bool) -> torch.Tensor:
         raise ValueError(
             f"{what}: x {tuple(x.shape)}, qdata {tuple(q.shape)}, scale "
             f"{tuple(s.shape)} do not fit (N must be a multiple of {COLS})")
+    if Bq % STEP:
+        raise ValueError(
+            f"{what}: quantization blocks of {Bq} rows (D={D}); the kernel's "
+            f"tensor-core steps take {STEP} rows, so a block must be a multiple of {STEP}")
     # the base pointers and, for a bank, every expert's slice
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                and (not experts or t.stride(0) * t.element_size() % 16 == 0)
@@ -130,10 +145,8 @@ def _launch(x: torch.Tensor, w: PackedWeight, experts: bool) -> torch.Tensor:
                          "16-byte aligned (each expert's slice too)")
     splits, per = split_plan(Gp, N // COLS)
     out = torch.empty(x.shape[:-1] + (N,), dtype=x.dtype, device=x.device)
-    part = torch.empty((E, splits, M, N) if splits > 1 else (0,),
-                       dtype=torch.float32, device=x.device)
     status = lib.dst_quantized_expert_matvec(
-        E, x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), part.data_ptr(),
+        E, x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), None,
         M, D, N, Gp, Bq, int(w.nibbles), splits, per, _build.dtype_code(x.dtype),
         torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -79,8 +79,16 @@ def test_packed_proj_dense_weight_and_unaligned_columns():
 
 
 @pytest.mark.parametrize("planes,tiles", [(32, 8), (32, 112), (16, 112), (112, 32),
-                                          (1, 1), (3, 200), (2, 2)])
+                                          (1, 1), (3, 200), (2, 2), (56, 32), (13, 50),
+                                          (40, 1)])
 def test_split_plan_covers_every_plane(planes, tiles):
+    """Every plane in one split and no split empty; at most a cluster's
+    blocks on a tile; a block's warps take equal shares above WARPS planes;
+    and at least half the blocks the target asks for (rounding a split up to
+    a multiple of WARPS planes gives up no more)."""
     splits, per = pqm.split_plan(planes, tiles)
     assert (splits - 1) * per < planes <= splits * per
-    assert splits * tiles >= min(planes * tiles, pqm.TARGET_BLOCKS) or splits == planes
+    assert 1 <= splits <= pqm.MAX_SPLITS
+    assert per <= pqm.WARPS or per % pqm.WARPS == 0
+    want = min(planes, pqm.MAX_SPLITS, -(-pqm.TARGET_BLOCKS // tiles))
+    assert 2 * splits >= want
