@@ -6,6 +6,7 @@
     python3 chip_smoke.py --decode-breakdown
     python3 chip_smoke.py --matvec-breakdown
     python3 chip_smoke.py --layernorm-breakdown
+    python3 chip_smoke.py --norm-breakdown
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). With ``--baseline DIR`` it only builds both checkouts' kernels,
@@ -13,21 +14,29 @@ checks on the same seeded inputs that the decode kernels agree within 1e-2,
 that the Llama (slope-free) and ALiBi forms of the flash forward agree
 within 2e-2 (out) and 1e-3 (lse), that the flash backward's dq, dk and dv
 agree within 2e-2 of the largest gradient, that the packed matvec agrees
-within two bf16 ulps of its largest value and the LayerNorm backward within
-check_layernorm_bwd's tolerances, then times both checkouts' forward kernel
-at every PERF.md section 6 forward shape, backward kernels at every backward
-shape, decode kernels at every decode shape and the matvec and LayerNorm
-backward at their section 6 rows in turns and fails if one of this
-checkout's forward or decode times is more than 1.0104 times the
-baseline's (the spread of identical code), a backward time more than 1.05
-times, or a matvec or LayerNorm backward time no faster; it also prints the
-kernels each decode wrapper call launches in both and each matvec and
-LayerNorm wrapper's host time a call. ``--matvec-breakdown`` times copies of
-the matvec with its arithmetic cut out, with no expert-skip test, with
-rings of 2, 4 and 8 stages and with one load path (TMA, or per-thread
+within two bf16 ulps of its largest value, the LayerNorm backward within
+check_layernorm_bwd's tolerances and the RMSNorm and LayerNorm forwards
+within two bf16 ulps, then times both checkouts' forward kernel at every
+PERF.md section 6 forward shape, backward kernels at every backward shape,
+decode kernels at every decode shape and the matvec, the LayerNorm backward
+and the norm forwards at their section 6 rows (the forwards also at the
+decode steps' rows) in turns and fails if one of this checkout's times is
+more than FWD_DEC_TIME_SLACK times the baseline's (a backward time:
+BWD_TIME_SLACK; both the spread of identical code), or a norm forward row
+whose baseline reads over twice its byte bound is no faster; it also prints
+the kernels each decode wrapper call launches in both, each matvec, LayerNorm
+and norm forward wrapper's host time a call, and the worst ratio of this
+checkout's time to the baseline's of each kind. ``--matvec-breakdown`` times
+copies of the matvec with its arithmetic cut out, with no expert-skip test,
+with rings of 2, 4 and 8 stages and with one load path (TMA, or per-thread
 cp.async) at every grid at the section 6 matvec shapes and wk/wv;
 ``--layernorm-breakdown`` the LayerNorm backward with its row loads, its dx
-stores or its merge pass cut out at training_bloom's shape.
+stores or its merge pass cut out at training_bloom's shape;
+``--norm-breakdown`` the RMSNorm and LayerNorm forwards with their stores or
+their loads cut out, four vectors a lane, no next-row prefetch, no
+persistence, the weights loaded a row, and as an empty kernel, at the
+prefill, serving_cb, training and decode shapes, beside the library call
+and a copy_ of the same bytes.
 ``--decode-breakdown``
 times copies of the decode kernel with one part cut out (the merge, the tile
 arithmetic, the cache reads, all but the bare grid, the third block an SM,
@@ -45,8 +54,11 @@ arguments, in order, any failure exiting non-zero:
    matvec instantiation from cuobjdump, each of which must be non-zero;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    each main path gives it (the flash and RMSNorm forwards at the serving
-   and at the training shape; the paged and dense decode kernels with 64
-   rows a slot at the continuous-batching step's shape, the paged ones also
+   and at the training shape, the norm forwards also at the decode steps'
+   rows, timed with their wrappers' host us a call, every norm case rerun
+   bitwise and its first, middle and last rows alone bitwise; the paged and
+   dense decode kernels with 64 rows a slot at the continuous-batching
+   step's shape, the paged ones also
    bitwise against the dense ones over the same bytes; the LayerNorm forward
    at bloom-7b1's, gpt2-xl's and bloom-560m's shapes and its backward at
    bloom-560m's, two runs bitwise equal; the ALiBi forms of the flash
@@ -208,6 +220,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -713,12 +726,15 @@ def check_expert_matvec(gen, timer):
             pair_bytes = 2 * pw.nbytes // E + 2 * xs.numel() + 2 * E * C * N
             pb_ms, pb_by = bound(2 * 2 * C * D * N, pair_bytes)
             pair_ms = timer(lambda: qmm.packed_expert_matvec(xs, pw))
+            pair_plain = timer(lambda: qmm.packed_expert_matvec_plain(xs, pw))
+            pair_lib = timer(lambda: torch.bmm(xs, wd))  # the whole bank: bmm skips nothing
             print(f"quantized_matvec_expert int{bits} {leaf} C={C}: kernel "
                   f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
                   f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
                   f"{nbytes / row['ms'] / 1e6:.1f} GB/s; host {row['host_us']:.1f} us a "
                   f"call; 2 of 8 experts routed: {pair_ms:.4f} ms (bound {pb_ms:.4f} ms, "
-                  f"{pb_by}: their bytes)")
+                  f"{pb_by}: their bytes; plain {pair_plain:.4f} ms, library "
+                  f"{pair_lib:.4f} ms)")
             del wd, ref
             if leaf == "wi/wg":
                 rows[bits] = row
@@ -1035,39 +1051,70 @@ def check_decode_edges():
             require(e <= tol and rerun and single and zeros, f"decode edges: window {label}")
 
 
+def norm_agrees(name: str, fn, plain, x: torch.Tensor, atol: float, rtol: float) -> float:
+    """A norm forward against its plain version on x: within atol + rtol *
+    |plain| everywhere, a rerun bitwise equal, and the first, middle and last
+    rows each run alone bitwise their rows of the batch (the sum order is
+    fixed by D). Returns the max abs error."""
+    out, ref = fn(x), plain(x)
+    e = max_err(out, ref)
+    ok = bool(((out.float() - ref.float()).abs() <= atol + rtol * ref.float().abs()).all())
+    same = torch.equal(out, fn(x))
+    picks = sorted({0, x.shape[0] // 2, x.shape[0] - 1})
+    alone = all(torch.equal(out[r:r + 1], fn(x[r:r + 1].clone())) for r in picks)
+    print(f"{name} x {x.dtype} rows={x.shape[0]} D={x.shape[1]}: max_abs_err {e:.3e} "
+          f"(tol {atol} + {rtol}*|ref|); rerun bitwise equal: {same}; rows {picks} "
+          f"alone bitwise: {alone}")
+    require(ok and same and alone, f"{name} disagrees at rows={x.shape[0]} D={x.shape[1]}")
+    return e
+
+
+def norm_row(timer, e: float, fn, plain, library, b_ms: float, b_by: str, shape: str,
+             host: bool = False) -> dict:
+    """One timed row of a norm forward (with host, the wrapper's host us a
+    call too)."""
+    row = {"max_abs_err": e, "ms": timer(fn), "plain_ms": timer(plain),
+           "library_ms": timer(library), "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
+    if host:
+        row["host_us"] = host_us(fn)
+    return row
+
+
 def check_rmsnorm(gen, timer):
     """The RMSNorm forward at the main paths' shapes: serving (the B=4 x
-    512 prefill of hidden 4096, and a decode step's 4 rows), training
-    (the llama3-1b micro-batch's 8192 rows of hidden 2048) and the
-    continuous-batching step (8 slots x 64 rows). Returns one timed row per
-    path."""
+    512 prefill of hidden 4096), training (the llama3-1b micro-batch's 8192
+    rows of hidden 2048), the continuous-batching step (8 slots x 64 rows)
+    and the decode steps' 1 and 4 rows (timed with the wrapper's host us a
+    call); then the fp32 and mixed forms and rows too wide for registers
+    (D = 16384 bf16, 20480 fp32). Returns one timed row per path, and the
+    decode rows under "decode rows=N". The main paths' shapes and the 4
+    decode rows draw from gen, in the order the later checks' draws follow;
+    the rest from a generator of their own."""
     eps = 1e-5
     atol, rtol = 1e-3, 1.6e-2  # two bf16 ulps of the plain result
+    own = torch.Generator(device="cuda").manual_seed(47)
     rows = {}
-    for path, n, D in (("serving", 4 * 512, 4096), (None, 4, 4096),
-                       ("training", TRAIN_B * TRAIN_S, 2048),
-                       ("serving_cb", CB_SLOTS * CB_BUDGET, 4096)):
-        w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(BF16)
-        x = torch.randn(n, D, generator=gen, device="cuda", dtype=BF16)
-        out = rn.rmsnorm_fwd(x, w, eps)
-        ref = rn.rmsnorm_plain(x, w, eps)
-        e = max_err(out, ref)
-        ok = bool(((out.float() - ref.float()).abs()
-                   <= atol + rtol * ref.float().abs()).all())
-        print(f"rmsnorm_fwd rows={n} D={D}: max_abs_err {e:.3e} "
-              f"(tol {atol} + {rtol}*|ref|)")
-        require(ok, f"rmsnorm_fwd disagrees at rows={n} D={D}")
-        if path is None:
-            continue
-        b_ms, b_by = bound(4 * x.numel(), 2 * 2 * x.numel() + 2 * D)
-        rows[path] = {
-            "max_abs_err": e,
-            "ms": timer(lambda: rn.rmsnorm_fwd(x, w, eps)),
-            "plain_ms": timer(lambda: rn.rmsnorm_plain(x, w, eps)),
-            "library_ms": timer(lambda: F.rms_norm(x, (D,), w, eps)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "shape": f"rows={n} D={D} bf16",
-        }
+    for path, n, D, g in (("serving", 4 * 512, 4096, gen), ("decode rows=4", 4, 4096, gen),
+                          ("training", TRAIN_B * TRAIN_S, 2048, gen),
+                          ("serving_cb", CB_SLOTS * CB_BUDGET, 4096, gen),
+                          ("decode rows=1", 1, 4096, own)):
+        w = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(BF16)
+        x = torch.randn(n, D, generator=g, device="cuda", dtype=BF16)
+        fn = lambda t: rn.rmsnorm_fwd(t, w, eps)  # noqa: E731
+        plain = lambda t: rn.rmsnorm_plain(t, w, eps)  # noqa: E731
+        e = norm_agrees("rmsnorm_fwd", fn, plain, x, atol, rtol)
+        rows[path] = norm_row(timer, e, lambda: fn(x), lambda: plain(x),
+                              lambda: F.rms_norm(x, (D,), w, eps),
+                              *bound(4 * x.numel(), 2 * 2 * x.numel() + 2 * D),
+                              f"rows={n} D={D} bf16", host=path.startswith("decode"))
+    for xd, wd, n, D in ((torch.float32, torch.float32, 5, 4096),
+                         (torch.float32, BF16, 300, 2048), (BF16, torch.float32, 4, 4096),
+                         (BF16, BF16, 3, 16384), (torch.float32, torch.float32, 2, 20480)):
+        w = (1 + 0.1 * torch.randn(D, generator=own, device="cuda")).to(wd)
+        x = torch.randn(n, D, generator=own, device="cuda").to(xd)
+        norm_agrees(f"rmsnorm_fwd w {wd}", lambda t: rn.rmsnorm_fwd(t, w, eps),
+                    lambda t: rn.rmsnorm_plain(t, w, eps), x,
+                    *((atol, rtol) if xd == BF16 else (1e-4, 0.0)))
     return rows
 
 
@@ -1516,53 +1563,48 @@ def check_layernorm(gen, timer):
     """The LayerNorm forward at the new paths' shapes: serving_bloom (the B=4
     x 512 prefill of hidden 4096), serving_gpt2 (the same prefill at hidden
     1600), training_bloom (bloom-560m's micro-batch, 8192 rows of hidden 1024)
-    and a decode step's 4 rows; then fp32 rows whose mean is 1000 against
-    their spread of 1 (a one-pass E[x^2] - mean^2 would lose the variance),
-    the fp32 and mixed forms, and a row too wide for registers (D = 20480
-    fp32, three passes). Returns one timed row per path."""
+    and the decode steps' 4 rows of BLOOM and GPT-2 (timed with the wrapper's
+    host us a call); then fp32 rows whose mean is 1000 against their spread
+    of 1 (a one-pass E[x^2] - mean^2 would lose the variance), the fp32 and
+    mixed forms, and a row too wide for registers (D = 20480 fp32, three
+    passes). Returns one timed row per path, and the decode rows under
+    "decode rows=4 D=...". All but the 4 x 1600 rows of bf16 and of mean 1000
+    draw from gen, in the order the later checks' draws follow; those two
+    from a generator of their own."""
     eps = 1e-5
     atol, rtol = 1e-3, 1.6e-2  # bf16: two bf16 ulps of the plain result
     F32 = torch.float32
+    own = torch.Generator(device="cuda").manual_seed(53)
     rows = {}
-    for path, n, D in (("serving_bloom", 4 * 512, 4096), (None, 4, 4096),
-                       ("serving_gpt2", 4 * 512, 1600),
-                       ("training_bloom", TRAIN_B * TRAIN_S, 1024)):
-        w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(BF16)
-        b = (0.1 * torch.randn(D, generator=gen, device="cuda")).to(BF16)
-        x = torch.randn(n, D, generator=gen, device="cuda", dtype=BF16)
-        out = ln.layernorm_fwd(x, w, b, eps)
-        ref = ln.layernorm_plain(x, w, b, eps)
-        e = max_err(out, ref)
-        ok = bool(((out.float() - ref.float()).abs()
-                   <= atol + rtol * ref.float().abs()).all())
-        print(f"layernorm_fwd rows={n} D={D}: max_abs_err {e:.3e} "
-              f"(tol {atol} + {rtol}*|ref|)")
-        require(ok, f"layernorm_fwd disagrees at rows={n} D={D}")
-        if path is None:
-            continue
-        b_ms, b_by = bound(8 * x.numel(), 2 * 2 * x.numel() + 2 * 2 * D)
-        rows[path] = {
-            "max_abs_err": e,
-            "ms": timer(lambda: ln.layernorm_fwd(x, w, b, eps)),
-            "plain_ms": timer(lambda: ln.layernorm_plain(x, w, b, eps)),
-            "library_ms": timer(lambda: F.layer_norm(x, (D,), w, b, eps)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "shape": f"rows={n} D={D} bf16 (library: F.layer_norm)",
-        }
+    for path, n, D, g in (("serving_bloom", 4 * 512, 4096, gen),
+                          ("decode rows=4 D=4096", 4, 4096, gen),
+                          ("serving_gpt2", 4 * 512, 1600, gen),
+                          ("training_bloom", TRAIN_B * TRAIN_S, 1024, gen),
+                          ("decode rows=4 D=1600", 4, 1600, own)):
+        w = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(BF16)
+        b = (0.1 * torch.randn(D, generator=g, device="cuda")).to(BF16)
+        x = torch.randn(n, D, generator=g, device="cuda", dtype=BF16)
+        fn = lambda t: ln.layernorm_fwd(t, w, b, eps)  # noqa: E731
+        plain = lambda t: ln.layernorm_plain(t, w, b, eps)  # noqa: E731
+        e = norm_agrees("layernorm_fwd", fn, plain, x, atol, rtol)
+        rows[path] = norm_row(timer, e, lambda: fn(x), lambda: plain(x),
+                              lambda: F.layer_norm(x, (D,), w, b, eps),
+                              *bound(8 * x.numel(), 2 * 2 * x.numel() + 2 * 2 * D),
+                              f"rows={n} D={D} bf16 (library: F.layer_norm)",
+                              host=path.startswith("decode"))
     # mean 1000: 1e-5 + 4e-7 * |mean| (the fp32 mean is summed in another
     # order, one fp32 ulp at 1000 is 6.1e-5); a one-pass E[x^2] - mean^2
     # loses most of the variance's digits there, far outside
-    for xd, wd, n, D, shift, tol in ((F32, F32, 64, 4096, 1000.0, 4.1e-4),
-                                     (F32, BF16, 5, 1600, 0.0, 1e-4),
-                                     (BF16, F32, 300, 1024, 0.0, 6.25e-2),
-                                     (F32, F32, 3, 20480, 0.0, 1e-4)):
-        x = (shift + torch.randn(n, D, generator=gen, device="cuda")).to(xd)
-        w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(wd)
-        b = (0.1 * torch.randn(D, generator=gen, device="cuda")).to(wd)
-        e = max_err(ln.layernorm_fwd(x, w, b, eps), ln.layernorm_plain(x, w, b, eps))
-        print(f"layernorm_fwd x {xd} w {wd} rows={n} D={D} mean {shift}: "
-              f"max_abs_err {e:.3e} (tol {tol})")
-        require(e <= tol, f"layernorm_fwd x {xd} D={D} mean {shift} disagrees")
+    for xd, wd, n, D, shift, tol, g in ((F32, F32, 64, 4096, 1000.0, 4.1e-4, gen),
+                                        (F32, BF16, 5, 1600, 0.0, 1e-4, gen),
+                                        (BF16, F32, 300, 1024, 0.0, 6.25e-2, gen),
+                                        (F32, F32, 3, 20480, 0.0, 1e-4, gen),
+                                        (F32, F32, 4, 1600, 1000.0, 4.1e-4, own)):
+        x = (shift + torch.randn(n, D, generator=g, device="cuda")).to(xd)
+        w = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(wd)
+        b = (0.1 * torch.randn(D, generator=g, device="cuda")).to(wd)
+        norm_agrees(f"layernorm_fwd w {wd} mean {shift}", lambda t: ln.layernorm_fwd(t, w, b, eps),
+                    lambda t: ln.layernorm_plain(t, w, b, eps), x, tol, 0.0)
     return rows
 
 
@@ -3970,28 +4012,37 @@ torch.save({name: ([t.cpu() for t in ex], [t.cpu() for t in bw])
 BWD_TOL = 2e-2  # check_flash_bwd's: of the largest gradient
 DEC_TOL = 1e-2  # check_decode's: the decode kernels were redesigned, their sums run in another order
 FWD_TOL_OUT, FWD_TOL_LSE = 2e-2, 1e-3  # check_flash's
-# The backward kernels are not redesigned here: each of their times may read
-# up to this factor of the baseline's (two runs of the same code on one card
-# read up to 4.7 % apart)
+# How far an unchanged kernel's time may read from the baseline's: the
+# spread of identical code. Three runs of --baseline against an identical
+# copy of the checkout (one call on an H100 80GB HBM3, 700.00 W) read these
+# worst ratios of the checkout's mean time to the copy's over every row of a
+# kind: forward 1.0054 / 1.0036 / 1.0015, decode 1.0096 / 1.0050 / 1.0163
+# (the int8-cache B=4 row), matvec, LayerNorm backward and norm forwards
+# 1.0009 / 1.0072 / 1.0068; backward 1.0157 / 1.0238 / 1.0081. So every
+# forward, decode, matvec, LayerNorm backward and norm forward time may read
+# up to the worst of the first three kinds, and a backward time up to
+# BWD_TIME_SLACK, which covers both its 1.0238 and the 4.7 % an earlier pair
+# of runs read apart.
 BWD_TIME_SLACK = 1.05
-# The forward and decode times likewise: a checkout's --baseline against an
-# identical copy of itself read its forward and decode rows up to 1.0104x
-# apart (GPT-2's decode row, the worst of 18; H100 80GB HBM3, 700.00 W), so
-# each may read up to this factor of the baseline's
-FWD_DEC_TIME_SLACK = 1.0104
+FWD_DEC_TIME_SLACK = 1.0163
 # The redesigned kernels' outputs against the baseline's: the matvec within
 # two bf16 ulps of the largest value (check_quantized_matvec's), the LayerNorm
 # backward within check_layernorm_bwd's tolerances
 LN_DX_ATOL, LN_DX_RTOL, LN_RED_REL = 1e-3, 1.6e-2, 1e-5
+# The norm forwards' (redesigned: a team of warps a row) against the baseline's:
+# check_rmsnorm's and check_layernorm's two bf16 ulps
+NORM_ATOL, NORM_RTOL = 1e-3, 1.6e-2
 
-# The matvec and LayerNorm backward outputs at the PERF.md section 6 shapes
-# and other forms (M = 5 and 16, Bq = D), run in each checkout by
-# ``--baseline``: saves {form: [outputs]}.
+# The matvec, LayerNorm backward and norm forward outputs at the PERF.md
+# section 6 shapes (the forwards also at the decode steps' rows) and other
+# forms (M = 5 and 16, Bq = D), run in each checkout by ``--baseline``: saves
+# {form: [outputs]}.
 KERNEL_FORMS_SCRIPT = r"""
 import sys
 import torch
 from deepspeed_tpu_torch.ops.cuda import layernorm as ln
 from deepspeed_tpu_torch.ops.cuda import quantized_matmul as qmm
+from deepspeed_tpu_torch.ops.cuda import rmsnorm as rn
 from deepspeed_tpu_torch.ops.quantizer import pack_quantize_blockwise
 
 g = torch.Generator(device="cuda").manual_seed(17)
@@ -4014,6 +4065,16 @@ x = torch.randn(8192, 1024, generator=g, device="cuda", dtype=bf)
 w = (1 + 0.1 * torch.randn(1024, generator=g, device="cuda")).to(bf)
 gg = torch.randn(8192, 1024, generator=g, device="cuda", dtype=bf)
 outs["layernorm_bwd rows=8192 D=1024"] = list(ln.layernorm_bwd(x, w, gg, 1e-5))
+for kind, shapes in (("rmsnorm_fwd", ((2048, 4096), (512, 4096), (8192, 2048), (1, 4096),
+                                      (4, 4096))),
+                     ("layernorm_fwd", ((2048, 4096), (2048, 1600), (8192, 1024), (4, 4096),
+                                        (4, 1600)))):
+    for rows, D in shapes:
+        x = torch.randn(rows, D, generator=g, device="cuda", dtype=bf)
+        w = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(bf)
+        b = (0.1 * torch.randn(D, generator=g, device="cuda")).to(bf)
+        outs[f"{kind} rows={rows} D={D}"] = [
+            rn.rmsnorm_fwd(x, w, 1e-5) if kind == "rmsnorm_fwd" else ln.layernorm_fwd(x, w, b, 1e-5)]
 torch.cuda.synchronize()
 torch.save({name: [t.cpu() for t in ts] for name, ts in outs.items()}, sys.argv[1])
 """
@@ -4233,13 +4294,15 @@ print(json.dumps(times))
 """
 
 
-# The matvec and the LayerNorm backward timed at every PERF.md section 6 row
-# of theirs (and wk/wv, the narrowest leaf), likewise, with each wrapper's
-# host time a call: prints one JSON object {"times": {row: ms}, "host_us":
-# {row: us}}.
+# The matvec, the LayerNorm backward and the norm forwards timed at every
+# PERF.md section 6 row of theirs (and wk/wv, the narrowest leaf; the
+# forwards also at the decode steps' rows), likewise, with each wrapper's host
+# time a call and each norm forward row's byte bound: prints one JSON object
+# {"times": {row: ms}, "host_us": {row: us}, "bounds": {row: ms}}.
 KERNEL_TIMES_SCRIPT = TIMES_PRELUDE + r"""
 from deepspeed_tpu_torch.ops.cuda import layernorm as ln
 from deepspeed_tpu_torch.ops.cuda import quantized_matmul as qmm
+from deepspeed_tpu_torch.ops.cuda import rmsnorm as rn
 from deepspeed_tpu_torch.ops.quantizer import pack_quantize_blockwise
 
 
@@ -4267,9 +4330,21 @@ for bits in (8, 4):
 x, gg = r(8192, 1024), r(8192, 1024)
 w = (1 + 0.1 * torch.randn(1024, generator=g, device="cuda")).to(torch.bfloat16)
 rows["layernorm_bwd rows=8192 D=1024"] = lambda: ln.layernorm_bwd(x, w, gg, 1e-5)
+bounds = {}  # bytes: x read, out written, the weights read (bf16), over 3.35 TB/s
+for kind, shapes, weights in (
+        ("rmsnorm_fwd", ((2048, 4096), (512, 4096), (8192, 2048), (1, 4096), (4, 4096)), 1),
+        ("layernorm_fwd", ((2048, 4096), (2048, 1600), (8192, 1024), (4, 4096), (4, 1600)), 2)):
+    for n, D in shapes:
+        xn = r(n, D)
+        wn = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(torch.bfloat16)
+        bn = (0.1 * torch.randn(D, generator=g, device="cuda")).to(torch.bfloat16)
+        name = f"{kind} rows={n} D={D}"
+        rows[name] = ((lambda xn=xn, wn=wn: rn.rmsnorm_fwd(xn, wn, 1e-5)) if weights == 1 else
+                      (lambda xn=xn, wn=wn, bn=bn: ln.layernorm_fwd(xn, wn, bn, 1e-5)))
+        bounds[name] = (2 * 2 * n * D + weights * 2 * D) / 3.35e12 * 1e3
 times = {name: timer(fn) for name, fn in rows.items()}
 hosts = {name: host_us(fn) for name, fn in rows.items()}
-print(json.dumps({"times": times, "host_us": hosts}))
+print(json.dumps({"times": times, "host_us": hosts, "bounds": bounds}))
 """
 
 
@@ -4350,11 +4425,17 @@ def compare_to_baseline(baseline: str) -> None:
     (baseline, this, this, baseline): each forward and decode time of this
     checkout's must be at most FWD_DEC_TIME_SLACK times the baseline's (the
     spread of identical code), each backward at most BWD_TIME_SLACK times.
-    The packed matvec and the LayerNorm backward (redesigned: the matvec folds
-    (x·q)·s on the tensor cores) are held to the baseline's outputs within
-    two bf16 ulps of the largest value and check_layernorm_bwd's tolerances,
-    and each of their PERF.md section 6 rows (and wk/wv) timed in the same
-    turns must be faster than the baseline's."""
+    The packed matvec and the LayerNorm backward (redesigned: the matvec
+    folds (x·q)·s on the tensor cores) are held to the baseline's outputs
+    within two bf16 ulps of the largest value and check_layernorm_bwd's
+    tolerances, the RMSNorm and LayerNorm forwards (redesigned: a team of
+    warps a row) within two bf16 ulps (check_rmsnorm's), and each of their
+    PERF.md section 6 rows (and wk/wv, and the forwards' decode rows)
+    is timed in the same turns: a forward row whose baseline reads over twice
+    its byte bound must be faster than the baseline's, every other row within
+    FWD_DEC_TIME_SLACK. Last, the worst ratio of this checkout's time to the
+    baseline's over each kind's rows is printed: against an identical copy,
+    the spread the slacks are set from."""
     trees = {"this checkout": Path(__file__).resolve().parent,
              "baseline": Path(baseline).resolve()}
     results, kernel_outs = {}, {}
@@ -4378,6 +4459,14 @@ def compare_to_baseline(baseline: str) -> None:
             print(f"{name}: max_abs_err against the baseline {e:.3e} (tol {tol:.3e}, "
                   "2 bf16 ulps of its largest value)")
             require(e <= tol, f"{name} moved beyond tolerance")
+            continue
+        if name.startswith(("rmsnorm_fwd", "layernorm_fwd")):
+            (a,), (b,) = mine[name], base[name]
+            ok = bool(((a.float() - b.float()).abs()
+                       <= NORM_ATOL + NORM_RTOL * b.float().abs()).all())
+            print(f"{name}: max_abs_err against the baseline {max_err(a, b):.3e} (tol "
+                  f"{NORM_ATOL} + {NORM_RTOL}*|baseline|: {ok})")
+            require(ok, f"{name} moved beyond tolerance")
             continue
         (dx, ds, db), (bdx, bds, bdb) = mine[name], base[name]
         ok_dx = bool(((dx.float() - bdx.float()).abs()
@@ -4459,19 +4548,43 @@ def compare_to_baseline(baseline: str) -> None:
     for call, n in runs[("dec", "this checkout")][0]["launches"].items():
         print(f"  kernels a call, {call}: {n} (baseline "
               f"{runs[('dec', 'baseline')][0]['launches'][call]})")
-    print(f"matvec and LayerNorm backward, ms (median of 20 launches, L2 flushed; each "
-          f"checkout twice, in turns; {smi}; each must be faster than the baseline's):")
+    print(f"matvec, LayerNorm backward and norm forwards, ms (median of 20 launches, L2 "
+          f"flushed; each checkout twice, in turns; {smi}; a norm forward row whose "
+          f"baseline reads over twice its bound must be faster than the baseline's, every "
+          f"other row within {FWD_DEC_TIME_SLACK}x):")
+    bounds = runs[("kernels", "this checkout")][0]["bounds"]
     for form in runs[("kernels", "baseline")][0]["times"]:
         new, old = ([run["times"][form] for run in runs[("kernels", label)]]
                     for label in ("this checkout", "baseline"))
         host_new, host_old = (statistics.mean(run["host_us"][form]
                                               for run in runs[("kernels", label)])
                               for label in ("this checkout", "baseline"))
+        faster = form in bounds and statistics.mean(old) > 2 * bounds[form]
         print(f"  {form}: {statistics.mean(new):.4f} (baseline {statistics.mean(old):.4f}, "
               f"{statistics.mean(old) / statistics.mean(new):.2f}x; runs {old} / {new}); "
-              f"host {host_new:.1f} us a call (baseline {host_old:.1f})")
-        if statistics.mean(new) >= statistics.mean(old):
+              f"host {host_new:.1f} us a call (baseline {host_old:.1f})"
+              + (f"; bound {bounds[form]:.4f}, held to: "
+                 f"{'faster' if faster else f'{FWD_DEC_TIME_SLACK}x'}" if form in bounds else ""))
+        if faster and statistics.mean(new) >= statistics.mean(old):
             slower.append(f"{form}: no faster than the baseline's")
+        elif statistics.mean(new) > FWD_DEC_TIME_SLACK * statistics.mean(old):
+            slower.append(f"{form}: slower than {FWD_DEC_TIME_SLACK}x the baseline's")
+    def series(kind: str, label: str) -> dict:
+        """{row: [ms a turn]} of one kind in one checkout (dq and dk/dv apart)."""
+        out = {}
+        for run in runs[(kind, label)]:
+            for form, v in (run["times"] if kind in ("dec", "kernels") else run).items():
+                for part, t in (((" dq", v[0]), (" dk/dv", v[1])) if kind == "bwd"
+                                else (("", v),)):
+                    out.setdefault(form + part, []).append(t)
+        return out
+
+    worst = {}  # kind: (this checkout's mean / the baseline's, row)
+    for kind in ("fwd", "bwd", "dec", "kernels"):
+        new, old = series(kind, "this checkout"), series(kind, "baseline")
+        worst[kind] = max((statistics.mean(new[f]) / statistics.mean(old[f]), f) for f in old)
+    print("worst this checkout / baseline time: " + "; ".join(
+        f"{kind} {r:.4f} ({row})" for kind, (r, row) in worst.items()))
     steps = {label: json.loads(run_in(trees[label], SERVING_STEPS_SCRIPT).stdout.strip()
                                .splitlines()[-1])
              for label in ("baseline", "this checkout")}
@@ -4519,27 +4632,32 @@ DECODE_VARIANTS = {
 }
 
 
-def variant_libraries(stem: str, variants: dict, entry: str) -> dict:
-    """{variant: ctypes library} of ``variants`` ({name: patch of
-    csrc/<stem>.cu, or None}), each built by nvcc from its patched copy and
-    status.cu into build/<stem>_variants/, all compiles in flight at once;
-    the entry points whose names hold ``entry`` get their argtypes."""
+def variant_libraries(stem: str, variants: dict, entry: str, patched: str = "") -> dict:
+    """{variant: ctypes library} of ``variants`` ({name: patch of the text of
+    csrc/<patched> (default csrc/<stem>.cu), or None}), each built by nvcc
+    from csrc/<stem>.cu beside its patched copy (a header is found there
+    first) and status.cu into build/<stem>_variants/v<i>/, all compiles in
+    flight at once; the entry points whose names hold ``entry`` get their
+    argtypes."""
     import ctypes
-    src = (_build.CSRC / f"{stem}.cu").read_text()
+    patched = patched or f"{stem}.cu"
+    src = (_build.CSRC / patched).read_text()
     out = _build.BUILD_DIR.parent / f"{stem}_variants"
-    out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, (name, patch) in enumerate(variants.items()):
-        (out / f"v{i}.cu").write_text(src if patch is None else patch(src))
+        vdir = out / f"v{i}"
+        vdir.mkdir(parents=True, exist_ok=True)
+        shutil.copy(_build.CSRC / f"{stem}.cu", vdir / f"{stem}.cu")
+        (vdir / patched).write_text(src if patch is None else patch(src))
         procs[name] = (i, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared", "-o",
-             str(out / f"v{i}.so"), str(out / f"v{i}.cu"), str(_build.CSRC / "status.cu")],
+             str(vdir / "variant.so"), str(vdir / f"{stem}.cu"), str(_build.CSRC / "status.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (i, proc) in procs.items():
         log, _ = proc.communicate()
         require(proc.returncode == 0, f"{stem} variant {name} did not build:\n{log[-3000:]}")
-        lib = ctypes.CDLL(str(out / f"v{i}.so"))
+        lib = ctypes.CDLL(str(out / f"v{i}" / "variant.so"))
         for fn, argtypes in _build.SIGNATURES.items():
             if entry in fn:
                 getattr(lib, fn).argtypes = argtypes
@@ -4593,6 +4711,96 @@ LAYERNORM_VARIANTS = {
     "merge pass cut out": _replace_once("  merge_partials_kernel<<<",
                                         "  if (D < 0) merge_partials_kernel<<<"),
 }
+
+
+def _chain(*patches):
+    def patch(text: str) -> str:
+        for p in patches:
+            text = p(text)
+        return text
+    return patch
+
+
+# Copies of csrc/norm_fwd.cuh (the RMSNorm and LayerNorm forwards' shared
+# header) with one part changed, for ``--norm-breakdown``. Cutting a part
+# breaks the output; only the times are read.
+NORM_VARIANTS = {
+    "as built": None,
+    "stores cut out": _replace_once(
+        "        orow[vi] = o;\n      }\n#pragma unroll",
+        "        if (to_float(o.v[0]) != to_float(o.v[0])) orow[vi] = o;\n      }\n#pragma unroll"),
+    "loads cut out (x from the row and lane)": _replace_once(
+        "        if (vi < nvec) px[i] = xr[vi];",
+        "        for (int j = 0; j < N; ++j) px[i].v[j] = from_float<T>(static_cast<float>("
+        "row + vi + j));\n        (void)xr;"),
+    "four vectors a lane (half the warps a row)": _chain(
+        _replace_once("constexpr int kVecs = 2;", "constexpr int kVecs = 4;"),
+        _replace_once("return nvec <= 64 ? 1 : nvec <= 128 ? 2 : nvec <= 256 ? 4 : nvec <= 512 ? 8",
+                      "return nvec <= 128 ? 1 : nvec <= 256 ? 2 : nvec <= 512 ? 4 : nvec <= 1024 ? 8"),
+        _replace_once("         : nvec <= 1024 ? 16 : 0;", "         : 0;")),
+    "no next-row prefetch": _chain(
+        _replace_once("      if (r + stride < rows) load(r + stride, nx);\n", ""),
+        _replace_once("#pragma unroll\n      for (int i = 0; i < kVec; ++i) px[i] = nx[i];",
+                      "      if (r + stride < rows) load(r + stride, px);")),
+    "not persistent (every team's block launched)": _replace_once(
+        "<<<want < resident ? want : resident,", "<<<want,"),
+    "weights loaded a row (not held)": _replace_once(
+        "        XV o;\n#pragma unroll\n        for (int j = 0; j < N; ++j) {\n"
+        "          const float f = to_float(px[i].v[j]);",
+        "        XV o;\n        wv[i] = wr[vi];\n        if constexpr (kLN) bv[i] = br[vi];\n"
+        "#pragma unroll\n        for (int j = 0; j < N; ++j) {\n"
+        "          const float f = to_float(px[i].v[j]);"),
+    "empty kernel (the launch floor)": _replace_once(
+        "  using P = Plan<kRowWarps, kVec>;\n  constexpr int N = 16 / sizeof(T);",
+        "  if (rows > 0) return;\n  using P = Plan<kRowWarps, kVec>;\n"
+        "  constexpr int N = 16 / sizeof(T);"),
+}
+
+
+def norm_breakdown() -> None:
+    """Where the norm forwards' time goes: each of ``NORM_VARIANTS`` timed by
+    ``Timer`` at the main paths' shapes (the serving_cb step, the prefills,
+    training, the decode steps' rows; bf16), in one process on this card,
+    beside the library call and a ``copy_`` of the same bytes (a plain
+    streaming kernel: what reading x and writing out alone costs here)."""
+    _build.library()
+    libs = {"rmsnorm": variant_libraries("rmsnorm", NORM_VARIANTS, "rmsnorm_fwd",
+                                         "norm_fwd.cuh"),
+            "layernorm": variant_libraries("layernorm", NORM_VARIANTS, "layernorm_fwd",
+                                           "norm_fwd.cuh")}
+    gen = torch.Generator(device="cuda").manual_seed(59)
+    timer = Timer()
+    built = _build._lib
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"norm forward breakdown, ms (Timer: median of 20 launches, L2 flushed; {smi}):")
+    for kind, shapes in (("rmsnorm", (("serving_cb", 512, 4096), ("serving prefill", 2048, 4096),
+                                      ("training", 8192, 2048), ("decode", 1, 4096),
+                                      ("decode", 4, 4096))),
+                         ("layernorm", (("serving_bloom prefill", 2048, 4096),
+                                        ("serving_gpt2 prefill", 2048, 1600),
+                                        ("training_bloom", 8192, 1024), ("decode", 4, 4096),
+                                        ("decode", 4, 1600)))):
+        for label, n, D in shapes:
+            x = torch.randn(n, D, generator=gen, device="cuda", dtype=BF16)
+            y = torch.empty_like(x)
+            w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(BF16)
+            b = (0.1 * torch.randn(D, generator=gen, device="cuda")).to(BF16)
+            if kind == "rmsnorm":
+                fn, lib_fn = (lambda: rn.rmsnorm_fwd(x, w)), (lambda: F.rms_norm(x, (D,), w, 1e-5))
+            else:
+                fn = lambda: ln.layernorm_fwd(x, w, b)  # noqa: E731
+                lib_fn = lambda: F.layer_norm(x, (D,), w, b, 1e-5)  # noqa: E731
+            cells = []
+            try:
+                for name, lib in libs[kind].items():
+                    _build._lib = lib
+                    cells.append(f"{name} {timer(fn):.4f}")
+            finally:
+                _build._lib = built
+            cells += [f"library {timer(lib_fn):.4f}", f"copy_ {timer(lambda: y.copy_(x)):.4f}"]
+            print(f"  {kind}_fwd {label} rows={n} D={D}: " + ", ".join(cells))
 
 
 def layernorm_breakdown() -> None:
@@ -4749,8 +4957,11 @@ def main() -> int:
             "count": torch.cuda.device_count(),
         }}))
         return 0
-    if sys.argv[1:] in (["--matvec-breakdown"], ["--layernorm-breakdown"]):
-        matvec_breakdown() if sys.argv[1] == "--matvec-breakdown" else layernorm_breakdown()
+    breakdowns = {"--matvec-breakdown": matvec_breakdown,
+                  "--layernorm-breakdown": layernorm_breakdown,
+                  "--norm-breakdown": norm_breakdown}
+    if len(sys.argv) == 2 and sys.argv[1] in breakdowns:
+        breakdowns[sys.argv[1]]()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
@@ -4866,12 +5077,17 @@ def main() -> int:
         ("rmsnorm_bwd", "training_sp", rms_bwd),
         ("fused_adam", "training_sp", adam),
     ]
-    for name, path, r in rows:
+    # the norms' decode rows are printed beside the main paths' rows; the
+    # kernels line keeps one row per main path
+    decode_rows = [(name, key, r) for name, table in (("rmsnorm_fwd", norm),
+                                                       ("layernorm_fwd", lnorm))
+                   for key, r in table.items() if key.startswith("decode")]
+    for name, path, r in rows + decode_rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         host = f", host {r['host_us']:.1f} us a call" if "host_us" in r else ""
+        b_ms = f"{r['bound_ms']:.4f}" if r["bound_ms"] >= 1e-3 else f"{r['bound_ms']:.2e}"
         print(f"{name} ({path}) [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {lib}, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}){host}")
+              f"{r['plain_ms']:.4f} ms, library {lib}, bound {b_ms} ms ({r['bound_by']}){host}")
     del timer
     torch.cuda.empty_cache()
     lap("kernel checks at the main paths' shapes")

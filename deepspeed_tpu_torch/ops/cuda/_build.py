@@ -178,6 +178,14 @@ def strides_array(*tensors: torch.Tensor):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def stream_handle(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream of t's device, without building
+    a torch.cuda.Stream (the call torch's own generated kernel launchers
+    make; a fraction of torch.cuda.current_stream(...).cuda_stream's host
+    time)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
 def dtype_code(dtype) -> int:
     try:
         return DTYPE_CODES[dtype]

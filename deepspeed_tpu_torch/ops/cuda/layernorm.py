@@ -11,7 +11,9 @@ Bound on the H100: bytes. Forward 2 * rows * D * itemsize, backward
 the mean first and the variance as the mean of (x - mean)^2, as the TPU
 kernel does; both read x in its own dtype (bf16 or fp32), compute in fp32 and
 write x's dtype, which fuses the fp32 casts the JAX model wraps around the
-TPU kernel, so each result is the fp32 result rounded once. The backward
+TPU kernel, so each result is the fp32 result rounded once. The forward
+shares ``csrc/norm_fwd.cuh`` with the RMSNorm forward (a team of warps a row,
+the row in registers, persistent teams; the sum order fixed by D). The backward
 runs a warp (up to 8 for the widest rows) per row; its dscale and dbias are
 summed per block in fp32 partial rows and merged column strip by column
 strip in a second pass, with no atomics: two runs give the same bits.
@@ -68,16 +70,12 @@ def layernorm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         return layernorm_plain(x, scale, bias, eps)
     lib = _build.library()
-    D = _check("layernorm_fwd", x, scale)
-    if bias.shape != scale.shape or bias.dtype != scale.dtype \
-            or bias.device != x.device or not bias.is_contiguous():
-        raise ValueError(f"layernorm_fwd: bias must be contiguous [{D}] like scale")
+    D = _check("layernorm_fwd", x, scale, bias)
     out = torch.empty_like(x)
-    rows = x.numel() // D if D else 0
     status = lib.dst_layernorm_fwd(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), rows, D,
-        float(eps), _build.dtype_code(x.dtype), _build.dtype_code(scale.dtype),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        x.numel() // D if D else 0, D, eps, _build.dtype_code(x.dtype),
+        _build.dtype_code(scale.dtype), _build.stream_handle(x),
     )
     _build.check(status, "layernorm_fwd")
     launches["layernorm_fwd"] += 1

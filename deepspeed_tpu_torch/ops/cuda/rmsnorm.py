@@ -10,8 +10,11 @@ Bound on the H100: bytes. Forward 2 * rows * D * itemsize, backward
 3 * rows * D * itemsize (x and g read, dx written) over 3.35 TB/s. Both read
 x in its own dtype (bf16 or fp32), compute in fp32 and write x's dtype; that
 fuses the fp32 casts the JAX model wraps around the TPU kernel, so each
-result is the fp32 result rounded once. The backward's dscale is summed over
-row groups in fp32 partials and a second pass, with no atomics.
+result is the fp32 result rounded once. The forward shares
+``csrc/norm_fwd.cuh`` with the LayerNorm forward (a team of warps a row, the
+row in registers, persistent teams); its sum order is fixed by D, so a row's
+bits do not depend on the rows beside it. The backward's dscale is summed over row groups in fp32 partials and a
+second pass, with no atomics.
 """
 
 from __future__ import annotations
@@ -48,19 +51,26 @@ def rmsnorm_bwd_plain(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     return dx, (g32 * xhat).sum(dim=0)
 
 
-def _check(name: str, x: torch.Tensor, scale: torch.Tensor) -> int:
-    """Raise on what the kernels do not take; returns D."""
+def _check(name: str, x: torch.Tensor, *weights: torch.Tensor) -> int:
+    """Raise on what the kernels do not take; returns D. Each weight (scale,
+    bias) must start on a whole vector of its values: the forward kernels
+    load the values that meet one 16-byte vector of x at once."""
     D = x.shape[-1]
     vec = 16 // x.element_size()
-    if not (x.is_cuda and scale.device == x.device):
-        raise ValueError(f"{name}: x and scale must be on one CUDA device")
-    if scale.shape != (D,) or not scale.is_contiguous():
-        raise ValueError(f"{name}: scale must be contiguous [{D}]")
-    if not x.is_contiguous() or x.data_ptr() % 16 or D % vec:
+    if not x.is_cuda or not x.is_contiguous() or x.data_ptr() % 16 or D % vec:
         raise ValueError(
-            f"{name}: x must be contiguous, 16-byte aligned, with a last "
-            f"dim divisible by {vec}"
+            f"{name}: x must be a contiguous CUDA tensor, 16-byte aligned, with "
+            f"a last dim divisible by {vec}"
         )
+    device = x.get_device()
+    for t in weights:
+        if t.get_device() != device or t.dim() != 1 or t.shape[0] != D \
+                or not t.is_contiguous() or t.dtype != weights[0].dtype \
+                or t.data_ptr() % min(16, vec * t.element_size()):
+            raise ValueError(
+                f"{name}: scale (and bias) must be contiguous [{D}] of one dtype on "
+                f"x's device, aligned to {min(16, vec * t.element_size())} bytes"
+            )
     return D
 
 
@@ -75,11 +85,10 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
     lib = _build.library()
     D = _check("rmsnorm_fwd", x, scale)
     out = torch.empty_like(x)
-    rows = x.numel() // D if D else 0
     status = lib.dst_rmsnorm_fwd(
-        x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, D, float(eps),
-        _build.dtype_code(x.dtype), _build.dtype_code(scale.dtype),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.numel() // D if D else 0, D,
+        eps, _build.dtype_code(x.dtype), _build.dtype_code(scale.dtype),
+        _build.stream_handle(x),
     )
     _build.check(status, "rmsnorm_fwd")
     launches["rmsnorm_fwd"] += 1
