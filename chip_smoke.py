@@ -7,6 +7,8 @@
     python3 chip_smoke.py --matvec-breakdown
     python3 chip_smoke.py --layernorm-breakdown
     python3 chip_smoke.py --norm-breakdown
+    python3 chip_smoke.py --rmsnorm-bwd-breakdown
+    python3 chip_smoke.py --bias-grad-breakdown
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). With ``--baseline DIR`` it only builds both checkouts' kernels,
@@ -14,18 +16,23 @@ checks on the same seeded inputs that the decode kernels agree within 1e-2,
 that the Llama (slope-free) and ALiBi forms of the flash forward agree
 within 2e-2 (out) and 1e-3 (lse), that the flash backward's dq, dk and dv
 agree within 2e-2 of the largest gradient, that the packed matvec agrees
-within two bf16 ulps of its largest value, the LayerNorm backward within
-check_layernorm_bwd's tolerances and the RMSNorm and LayerNorm forwards
-within two bf16 ulps, then times both checkouts' forward kernel at every
-PERF.md section 6 forward shape, backward kernels at every backward shape,
-decode kernels at every decode shape and the matvec, the LayerNorm backward
-and the norm forwards at their section 6 rows (the forwards also at the
-decode steps' rows) in turns and fails if one of this checkout's times is
-more than FWD_DEC_TIME_SLACK times the baseline's (a backward time:
-BWD_TIME_SLACK; both the spread of identical code), or a norm forward row
-whose baseline reads over twice its byte bound is no faster; it also prints
-the kernels each decode wrapper call launches in both, each matvec, LayerNorm
-and norm forward wrapper's host time a call, and the worst ratio of this
+within two bf16 ulps of its largest value, the LayerNorm and RMSNorm
+backwards within check_layernorm_bwd's and check_rmsnorm_bwd's tolerances,
+the bias gradient within check_bias_grad's 1e-2 of its largest value (at
+attention_bias's shape, at head dim 128 with ALiBi slopes and with a bf16
+bias) and the RMSNorm and LayerNorm forwards within two bf16 ulps, then
+times both checkouts' forward kernel at every PERF.md section 6 forward
+shape, backward kernels at every backward shape, decode kernels at every
+decode shape and the matvec, the LayerNorm and RMSNorm backwards, the bias
+gradient and the norm forwards at their section 6 rows (the forwards also
+at the decode steps' rows) in turns and fails if one of this checkout's
+times is more than FWD_DEC_TIME_SLACK times the baseline's (a backward
+time: BWD_TIME_SLACK; both the spread of identical code), or a row of the
+kernels this tree redesigned (FASTER_ROWS: the RMSNorm backward and the
+bias gradient) whose baseline reads over twice its bound is no faster; it
+also prints the
+kernels each decode wrapper call launches in both, each matvec, norm and
+bias-gradient wrapper's host time a call, and the worst ratio of this
 checkout's time to the baseline's of each kind. ``--matvec-breakdown`` times
 copies of the matvec with its arithmetic cut out, with no expert-skip test,
 with rings of 2, 4 and 8 stages and with one load path (TMA, or per-thread
@@ -36,7 +43,15 @@ stores or its merge pass cut out at training_bloom's shape;
 their loads cut out, four vectors a lane, no next-row prefetch, no
 persistence, the weights loaded a row, and as an empty kernel, at the
 prefill, serving_cb, training and decode shapes, beside the library call
-and a copy_ of the same bytes.
+and a copy_ of the same bytes; ``--rmsnorm-bwd-breakdown`` the RMSNorm
+backward with its row loads, its dx stores, its merge pass or its next-row
+prefetch cut out, two rows ahead, three blocks an SM, four blocks an SM of
+one vector a lane, one vector a lane, and as empty kernels, at the training
+shape, beside a torch.add(x, g) of the same bytes and the library call;
+``--bias-grad-breakdown`` the bias-gradient kernel with its products, its
+epilogue, its pair loads, all three, its bias tile load or its output
+stores cut out, rings of 2 and 1 stages, and as an empty grid, at
+attention_bias's shape.
 ``--decode-breakdown``
 times copies of the decode kernel with one part cut out (the merge, the tile
 arithmetic, the cache reads, all but the bare grid, the third block an SM,
@@ -48,15 +63,21 @@ arguments, in order, any failure exiting non-zero:
    limit as nvidia-smi reports them;
 2. build: compiles deepspeed_tpu_torch/csrc/*.cu (one nvcc per source, in
    parallel) and prints the build seconds and ptxas register counts, then
-   the HGMMA (wgmma) and UTMALDG (TMA load) instructions of each forward
-   and backward flash kernel instantiation and the HMMA (mma.sync)
+   the HGMMA (wgmma) and UTMALDG (TMA load) instructions of each forward,
+   backward and bias-gradient flash kernel instantiation and the HMMA (mma.sync)
    instructions of each bf16 decode kernel instantiation and of each packed
    matvec instantiation from cuobjdump, each of which must be non-zero;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    each main path gives it (the flash and RMSNorm forwards at the serving
    and at the training shape, the norm forwards also at the decode steps'
    rows, timed with their wrappers' host us a call, every norm case rerun
-   bitwise and its first, middle and last rows alone bitwise; the paged and
+   bitwise and its first, middle and last rows alone bitwise; the RMSNorm
+   backward at the training shape (with its wrapper's host us a call, a
+   torch.add(x, g) of the same bytes and the library call in three runs
+   with the kernels it launches), at ragged row counts, on teams of one to
+   sixteen warps, fp32 and mixed forms and the widest rows the wrapper
+   takes (D 16384 bf16, 8192 fp32), each rerun bitwise and its first,
+   middle and last rows alone bitwise their dx in the batch; the paged and
    dense decode kernels with 64 rows a slot at the continuous-batching
    step's shape, the paged ones also
    bitwise against the dense ones over the same bytes; the LayerNorm forward
@@ -74,8 +95,10 @@ arguments, in order, any failure exiting non-zero:
    training_bloom_packed's and training_sparse's shapes, the dq kernel's
    dbias of the full positions bias, a "bigbird" layout with segments and
    other shapes of each form; the broadcast-bias gradient kernel at
-   attention_bias's [1, 16, 2048, 2048] and smaller shapes, each dbias two
-   runs bitwise equal; the packed matvec at Llama-3-8B's leaves and a
+   attention_bias's [1, 16, 2048, 2048] (with its wrapper's host us a
+   call) and smaller shapes: every broadcast shape, bf16 and fp32 biases,
+   segment ids, ALiBi slopes with a bias, head dim 128, ragged S, each
+   dbias two runs bitwise equal; the packed matvec at Llama-3-8B's leaves and a
    Bq = D weight (GPT-2-XL's width), int8 and int4, M in {1, 4, 5, 8, 16},
    each row alone bitwise its row of every multi-row call, and its expert
    form at Mixtral-8x7B's banks and a small Bq = D bank with the same C,
@@ -1118,36 +1141,106 @@ def check_rmsnorm(gen, timer):
     return rows
 
 
-def check_rmsnorm_bwd(gen, timer):
-    """The backward at the training path's shape: the llama3-1b micro-batch's
-    8192 rows of hidden 2048, bf16 x, g and scale."""
-    rows, D, eps = TRAIN_B * TRAIN_S, 2048, 1e-5
-    atol, rtol = 1e-3, 1.6e-2  # dx: two bf16 ulps of the plain result
-    ds_rel = 1e-5  # dscale: fp32 sums over 8192 rows in another order
-    x = torch.randn(rows, D, generator=gen, device="cuda", dtype=BF16)
-    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(BF16)
-    g = torch.randn(rows, D, generator=gen, device="cuda", dtype=BF16)
+def rmsnorm_bwd_agrees(name: str, x, w, g, eps: float, atol: float, rtol: float,
+                       ds_rel: float):
+    """The RMSNorm backward against its plain version on (x, w, g): dx within
+    atol + rtol * |plain| everywhere, dscale within ds_rel of its largest
+    value, a rerun bitwise equal, and the first, middle and last rows each
+    run alone with dx bitwise its row of the batch (a row's sums run in an
+    order fixed by D). Returns (dx, dscale) errors."""
     dx, ds = rn.rmsnorm_bwd(x, w, g, eps)
     rdx, rds = rn.rmsnorm_bwd_plain(x, w, g, eps)
     e_dx, e_ds = max_err(dx, rdx), max_err(ds, rds)
-    ok_dx = bool(((dx.float() - rdx.float()).abs()
-                  <= atol + rtol * rdx.float().abs()).all())
-    print(f"rmsnorm_bwd rows={rows} D={D}: max_abs_err dx {e_dx:.3e} (tol {atol} + "
-          f"{rtol}*|ref|) dscale {e_ds:.3e} (tol {ds_rel}*max|ref| = "
-          f"{ds_rel * rds.abs().max().item():.3e})")
-    require(ok_dx and e_ds <= ds_rel * rds.abs().max().item(),
-            "rmsnorm_bwd disagrees with its plain version")
+    ok_dx = bool(((dx.float() - rdx.float()).abs() <= atol + rtol * rdx.float().abs()).all())
+    tol_ds = ds_rel * rds.abs().max().item()
+    again = rn.rmsnorm_bwd(x, w, g, eps)
+    same = torch.equal(dx, again[0]) and torch.equal(ds, again[1])
+    picks = sorted({0, x.shape[0] // 2, x.shape[0] - 1})
+    alone = all(torch.equal(dx[r:r + 1], rn.rmsnorm_bwd(x[r:r + 1].clone(), w,
+                                                         g[r:r + 1].clone(), eps)[0])
+                for r in picks)
+    print(f"{name} x {x.dtype} w {w.dtype} rows={x.shape[0]} D={x.shape[1]}: max_abs_err "
+          f"dx {e_dx:.3e} (tol {atol} + {rtol}*|ref|) dscale {e_ds:.3e} (tol {ds_rel}*max|ref| "
+          f"= {tol_ds:.3e}); rerun bitwise equal: {same}; rows {picks} alone bitwise: {alone}")
+    require(ok_dx and e_ds <= tol_ds and same and alone,
+            f"{name} disagrees at rows={x.shape[0]} D={x.shape[1]}")
+    return e_dx, e_ds
+
+
+def library_kernels(fn, label: str) -> None:
+    """Print the kernels one call of ``fn`` launches, with their device time
+    from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    print(f"{label}: {sum(e.count for e in dev)} kernels, {sum(us(e) for e in dev):.1f} us "
+          "of device time (profiler): " + "; ".join(
+              f"{e.key[:60]} x{e.count} {us(e):.1f} us" for e in dev))
+
+
+def check_rmsnorm_bwd(gen, timer):
+    """The backward at the training path's shape: the llama3-1b micro-batch's
+    8192 rows of hidden 2048, bf16 x, g and scale (timed, beside a
+    torch.add(x, g) of the same bytes, the wrapper's host us a call, and the
+    library call's time in three runs with the kernels it launches); then,
+    from a generator of their own, ragged row counts, the teams of one to
+    sixteen warps, fp32 and mixed forms and the widest rows the wrapper
+    takes (D 16384 bf16, 8192 fp32). Every case is rerun bitwise and its
+    first, middle and last rows alone bitwise their dx in the batch."""
+    rows, D, eps = TRAIN_B * TRAIN_S, 2048, 1e-5
+    atol, rtol = 1e-3, 1.6e-2  # dx: two bf16 ulps of the plain result
+    ds_rel = 1e-5  # dscale: fp32 sums over the rows in another order
+    x = torch.randn(rows, D, generator=gen, device="cuda", dtype=BF16)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(BF16)
+    g = torch.randn(rows, D, generator=gen, device="cuda", dtype=BF16)
+    e_dx, e_ds = rmsnorm_bwd_agrees("rmsnorm_bwd", x, w, g, eps, atol, rtol, ds_rel)
+    own = torch.Generator(device="cuda").manual_seed(61)
+    F32 = torch.float32
+    for xd, wd, n, Dn in ((BF16, BF16, 1, 2048), (BF16, BF16, 5, 2048), (BF16, BF16, 37, 2048),
+                          (BF16, BF16, 300, 2048), (BF16, BF16, 40, 128),
+                          (BF16, BF16, 300, 4096), (BF16, F32, 33, 8192),
+                          (F32, F32, 300, 1600), (F32, BF16, 7, 4096),
+                          (BF16, BF16, 3, 16384), (BF16, BF16, 130, 16384),
+                          (F32, F32, 5, 8192), (F32, BF16, 70, 8192)):
+        xx = torch.randn(n, Dn, generator=own, device="cuda").to(xd)
+        gg = torch.randn(n, Dn, generator=own, device="cuda").to(xd)
+        ww = (1 + 0.1 * torch.randn(Dn, generator=own, device="cuda")).to(wd)
+        rmsnorm_bwd_agrees("rmsnorm_bwd", xx, ww, gg, eps,
+                           *((atol, rtol) if xd == BF16 else (1e-4, 0.0)), ds_rel)
     xr, wr = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
     lib_out = F.rms_norm(xr, (D,), wr, eps)
+
+    def library():
+        return torch.autograd.grad(lib_out, (xr, wr), g, retain_graph=True)
+
+    lib_runs = [timer(library) for _ in range(3)]
+    print(f"rmsnorm_bwd library (F.rms_norm backward, torch.autograd.grad) rows={rows} D={D}: "
+          f"{lib_runs} ms in three runs (Timer)")
+    library_kernels(library, "rmsnorm_bwd library call")
+    library_kernels(lambda: rn.rmsnorm_bwd(x, w, g, eps), "rmsnorm_bwd wrapper call")
+    y = torch.empty_like(x)
+    add_ms = timer(lambda: torch.add(x, g, out=y))
     b_ms, b_by = bound(10 * x.numel(), 3 * 2 * x.numel() + 2 * D + 4 * D)
+    ms = timer(lambda: rn.rmsnorm_bwd(x, w, g, eps))
+    print(f"rmsnorm_bwd rows={rows} D={D}: kernel {ms:.4f} ms, torch.add(x, g) of the same "
+          f"bytes {add_ms:.4f} ms ({ms / add_ms:.3f}x)")
     return {
         "max_abs_err": max(e_dx, e_ds),
-        "ms": timer(lambda: rn.rmsnorm_bwd(x, w, g, eps)),
+        "ms": ms,
         "plain_ms": timer(lambda: rn.rmsnorm_bwd_plain(x, w, g, eps)),
-        "library_ms": timer(lambda: torch.autograd.grad(
-            lib_out, (xr, wr), g, retain_graph=True)),
+        "library_ms": statistics.median(lib_runs),
         "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"rows={rows} D={D} bf16",
+        "host_us": host_us(lambda: rn.rmsnorm_bwd(x, w, g, eps)),
+        "shape": f"rows={rows} D={D} bf16 (library: F.rms_norm backward, median of three "
+                 "runs)",
     }
 
 
@@ -1242,23 +1335,26 @@ def count_marks(text: str, head: str, marks, name_of) -> dict:
 
 def flash_instruction_counts() -> dict:
     """HGMMA (wgmma) and UTMALDG (TMA tile load) instructions in each
-    instantiation of the flash forward and the two backward kernels, from
-    ``cuobjdump --dump-sass`` of the built objects (or, without cuobjdump,
-    the wgmma and cp.async.bulk.tensor lines of their PTX). Keyed
-    "flash_fwd_kernel<64, alibi=0, masked=0>", "flash_bwd_dq_kernel<64,
-    masked=0>" and so on."""
+    instantiation of the flash forward, the two backward kernels and the
+    bias-gradient kernel, from ``cuobjdump --dump-sass`` of the built objects
+    (or, without cuobjdump, the wgmma and cp.async.bulk.tensor lines of their
+    PTX). Keyed "flash_fwd_kernel<64, alibi=0, masked=0>",
+    "flash_bwd_dq_kernel<64, masked=0>", "flash_bias_grad_kernel<64>" and so
+    on."""
     name_re = re.compile(
-        r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E(?:Lb([01])E)?Lb([01])E")
+        r"(flash_(?:fwd|bwd_dq|bwd_dkv|bias_grad)_kernel)ILi(\d+)E(?:(?:Lb([01])E)?Lb([01])E)?")
 
     def name_of(line):
         m = name_re.search(line)
         if not m:
             return None
+        if m.group(4) is None:
+            return f"{m.group(1)}<{m.group(2)}>"
         alibi = f"alibi={m.group(3)}, " if m.group(3) is not None else ""
         return f"{m.group(1)}<{m.group(2)}, {alibi}masked={m.group(4)}>"
 
     counts = {}
-    for stem in ("flash_attention_fwd", "flash_attention_bwd"):
+    for stem in ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_bias_grad"):
         counts.update(count_marks(*object_listing(
             stem, ("wgmma.mma_async", "cp.async.bulk.tensor"), ("HGMMA", "UTMALDG")),
             name_of))
@@ -1309,15 +1405,17 @@ def check_matvec_instructions() -> None:
 
 
 def check_flash_instructions() -> None:
-    """The flash forward (Llama, ALiBi and masked forms) and both backward
-    kernels, in every instantiation at head dims 64 and 128, issue wgmma and
-    load their tiles by TMA."""
+    """The flash forward (Llama, ALiBi and masked forms), both backward
+    kernels and the bias-gradient kernel, in every instantiation at head dims
+    64 and 128, issue wgmma and load their tiles by TMA."""
     counts = flash_instruction_counts()
     for fn, c in sorted(counts.items()):
         print(f"{fn}: " + ", ".join(f"{k} {n}" for k, n in c.items()))
     n_fwd = sum(fn.startswith("flash_fwd") for fn in counts)
-    require(n_fwd == 6 and len(counts) == 14,
-            f"expected 6 forward and 8 backward kernel instantiations, found {counts}")
+    n_bg = sum(fn.startswith("flash_bias_grad") for fn in counts)
+    require(n_fwd == 6 and n_bg == 2 and len(counts) == 16,
+            f"expected 6 forward, 8 backward and 2 bias-gradient kernel instantiations, "
+            f"found {counts}")
     require(all(n > 0 for c in counts.values() for n in c.values()),
             "a flash kernel issues no wgmma or no TMA load")
 
@@ -2356,39 +2454,59 @@ def check_offset_forms(gen, timer):
 
 def check_bias_grad(gen, timer):
     """The broadcast-bias gradient kernel: [1, 16, 2048, 2048] fp32 at B=4
-    D=64 causal (the attention_bias path's shape), timed; then [4, 1, S, S]
-    and [1, 1, S, S] at S=512 (causal, with segment ids; bf16 and fp32), and
-    [1, 8, 384, 384] non-causal, each against its plain version on the same
-    delta; two runs of each bitwise equal. Returns the timed row."""
+    D=64 causal (the attention_bias path's shape), timed with the wrapper's
+    host us a call; then [4, 1, S, S] and [1, 1, S, S] at S=512 (causal,
+    with segment ids; bf16 and fp32), and [1, 8, 384, 384] non-causal; then,
+    from a generator of their own, head dim 128 (a ragged S of 320, and a
+    bf16 [B, 1, 300, 300] bias with segment ids, non-causal: rows not whole
+    16-byte chunks), ALiBi slopes with an fp32 bias, a bf16 [1, 16, 512, 512]
+    bias, and ALiBi with segment ids on [1, 1, 320, 320] at a GQA group of
+    4; each against its plain version on the same delta, two runs bitwise
+    equal. Returns the timed row."""
     tol = 1e-2  # of the largest value: dp and the score from bf16 products
 
-    def rand(*shape, dtype=BF16):
-        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+    def one(B, S, H, KV, bias, causal, seg=None, D=64, slopes=None, rng=gen):
+        def rand(*shape):
+            return torch.randn(*shape, generator=rng, device="cuda", dtype=BF16)
 
-    def one(B, S, H, KV, bias, causal, seg=None):
-        q, k, v, do = rand(B, S, H, 64), rand(B, S, KV, 64), rand(B, S, KV, 64), rand(B, S, H, 64)
-        o, lse = fa.flash_attention_fwd(q, k, v, causal, bias=bias, segment_ids=seg)
-        _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal, bias=bias,
+        q, k, v, do = rand(B, S, H, D), rand(B, S, KV, D), rand(B, S, KV, D), rand(B, S, H, D)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, slopes, bias=bias, segment_ids=seg)
+        _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal, slopes, bias=bias,
                                              segment_ids=seg)
-        db = fa.flash_attention_bias_grad(q, k, v, bias, lse, delta, do, causal,
+        db = fa.flash_attention_bias_grad(q, k, v, bias, lse, delta, do, causal, slopes,
                                           segment_ids=seg)
-        again = fa.flash_attention_bias_grad(q, k, v, bias, lse, delta, do, causal,
+        again = fa.flash_attention_bias_grad(q, k, v, bias, lse, delta, do, causal, slopes,
                                              segment_ids=seg)
         ref = fa.flash_attention_bias_grad_plain(q, k, v, bias, lse, delta, do, causal,
-                                                 segment_ids=seg)
+                                                 slopes, segment_ids=seg)
         err, m = max_err(db, ref), ref.float().abs().max().item()
         same = torch.equal(db, again)
         print(f"flash_attention_bias_grad bias {tuple(bias.shape)} {bias.dtype} B={B} "
-              f"S={S} H={H} KV={KV} causal={causal} segments={seg is not None}: "
-              f"max_abs_err {err:.3e} (tol {tol}*{m:.3e}); two runs bitwise equal {same}")
+              f"S={S} H={H} KV={KV} D={D} causal={causal} segments={seg is not None} "
+              f"ALiBi={slopes is not None}: max_abs_err {err:.3e} (tol {tol}*{m:.3e}); "
+              f"two runs bitwise equal {same}")
         require(err <= tol * m and same, "flash_attention_bias_grad disagrees or is "
                 "not deterministic")
         return q, k, v, do, o, lse, delta, err
+
+    def rand(*shape, dtype=BF16, rng=gen):
+        return torch.randn(*shape, generator=rng, device="cuda", dtype=dtype)
 
     seg = torch.from_numpy(packed_rows(4, 512, PACKED_SEED)[0]).int().cuda()
     one(4, 512, 16, 4, 0.3 * rand(4, 1, 512, 512, dtype=torch.float32), True, seg)
     one(4, 512, 16, 16, 0.3 * rand(1, 1, 512, 512), True, seg)
     one(2, 384, 8, 2, 0.3 * rand(1, 8, 384, 384, dtype=torch.float32), False)
+    own = torch.Generator(device="cuda").manual_seed(67)
+    f32 = torch.float32
+    one(2, 320, 8, 2, 0.3 * rand(1, 8, 320, 320, dtype=f32, rng=own), True, D=128, rng=own)
+    seg300 = torch.from_numpy(packed_rows(2, 300, PACKED_SEED + 1)[0]).int().cuda()
+    one(2, 300, 8, 8, 0.3 * rand(2, 1, 300, 300, rng=own), False, seg300, D=128, rng=own)
+    one(2, 512, 16, 4, 0.3 * rand(1, 16, 512, 512, dtype=f32, rng=own), True,
+        slopes=alibi_slopes(16).cuda(), rng=own)
+    one(4, 512, 16, 16, 0.3 * rand(1, 16, 512, 512, rng=own), True, rng=own)
+    seg320 = torch.from_numpy(packed_rows(3, 320, PACKED_SEED + 2)[0]).int().cuda()
+    one(3, 320, 4, 1, 0.3 * rand(1, 1, 320, 320, dtype=f32, rng=own), False, seg320,
+        slopes=alibi_slopes(4).cuda(), rng=own)
     B, S, H = 4, TRAIN_S, 16
     bias = 0.3 * rand(1, H, S, S, dtype=torch.float32)
     q, k, v, do, o, lse, delta, err = one(B, S, H, H, bias, True)
@@ -2423,6 +2541,8 @@ def check_bias_grad(gen, timer):
     row = {
         "max_abs_err": err,
         "ms": timer(lambda: fa.flash_attention_bias_grad(q, k, v, bias, lse, delta, do)),
+        "host_us": host_us(lambda: fa.flash_attention_bias_grad(q, k, v, bias, lse, delta,
+                                                                do), calls=50),
         "plain_ms": timer(lambda: fa.flash_attention_bias_grad_plain(q, k, v, bias, lse,
                                                                      delta, do)),
         "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -4032,14 +4152,27 @@ LN_DX_ATOL, LN_DX_RTOL, LN_RED_REL = 1e-3, 1.6e-2, 1e-5
 # The norm forwards' (redesigned: a team of warps a row) against the baseline's:
 # check_rmsnorm's and check_layernorm's two bf16 ulps
 NORM_ATOL, NORM_RTOL = 1e-3, 1.6e-2
+# The RMSNorm backward and the bias gradient (redesigned: their sums run in
+# another order) against the baseline's: check_rmsnorm_bwd's dx tolerance
+# (the LayerNorm backward's, LN_DX_*) and dscale within LN_RED_REL of its
+# largest value; check_bias_grad's 1e-2 of the largest dbias
+BIAS_GRAD_TOL = 1e-2
+# The rows of the kernels this tree redesigned last: where the baseline's
+# time reads over twice the row's bound, this tree's must be faster; every
+# other row (kernels the baseline already had in this form) is held to
+# FWD_DEC_TIME_SLACK, the spread of identical code
+FASTER_ROWS = ("rmsnorm_bwd", "flash_attention_bias_grad")
 
-# The matvec, LayerNorm backward and norm forward outputs at the PERF.md
-# section 6 shapes (the forwards also at the decode steps' rows) and other
-# forms (M = 5 and 16, Bq = D), run in each checkout by ``--baseline``: saves
+# The matvec, norm forward and backward and bias-gradient outputs at the
+# PERF.md section 6 shapes (the forwards also at the decode steps' rows) and
+# other forms (M = 5 and 16, Bq = D; the RMSNorm backward at ragged rows and
+# its widest D; the bias gradient at head dim 128 with ALiBi slopes and with
+# a bf16 bias), run in each checkout by ``--baseline``: saves
 # {form: [outputs]}.
 KERNEL_FORMS_SCRIPT = r"""
 import sys
 import torch
+from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 from deepspeed_tpu_torch.ops.cuda import layernorm as ln
 from deepspeed_tpu_torch.ops.cuda import quantized_matmul as qmm
 from deepspeed_tpu_torch.ops.cuda import rmsnorm as rn
@@ -4075,6 +4208,24 @@ for kind, shapes in (("rmsnorm_fwd", ((2048, 4096), (512, 4096), (8192, 2048), (
         b = (0.1 * torch.randn(D, generator=g, device="cuda")).to(bf)
         outs[f"{kind} rows={rows} D={D}"] = [
             rn.rmsnorm_fwd(x, w, 1e-5) if kind == "rmsnorm_fwd" else ln.layernorm_fwd(x, w, b, 1e-5)]
+for rows, D in ((8192, 2048), (37, 2048), (3, 16384)):
+    x = torch.randn(rows, D, generator=g, device="cuda", dtype=bf)
+    w = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(bf)
+    gg = torch.randn(rows, D, generator=g, device="cuda", dtype=bf)
+    outs[f"rmsnorm_bwd rows={rows} D={D}"] = list(rn.rmsnorm_bwd(x, w, gg, 1e-5))
+for B, S, H, KV, D, shape, dt, causal, alibi in (
+        (4, 2048, 16, 16, 64, (1, 16), torch.float32, True, False),
+        (2, 320, 8, 2, 128, (1, 8), torch.float32, True, True),
+        (4, 512, 16, 16, 64, (1, 16), bf, True, False)):
+    q, k, v, do = (torch.randn(B, S, h, D, generator=g, device="cuda", dtype=bf)
+                   for h in (H, KV, KV, H))
+    bias = (0.3 * torch.randn(*shape, S, S, generator=g, device="cuda")).to(dt)
+    sl = torch.tensor([2.0 ** (-8 * (i + 1) / H) for i in range(H)], device="cuda") if alibi else None
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, sl, bias=bias)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal, sl, bias=bias)
+    outs[f"flash_attention_bias_grad bias {list(bias.shape)} {dt} B={B} D={D} ALiBi={alibi}"] = [
+        fa.flash_attention_bias_grad(q, k, v, bias, lse, delta, do, causal, sl)]
+    del q, k, v, do, bias, o, lse, delta
 torch.cuda.synchronize()
 torch.save({name: [t.cpu() for t in ts] for name, ts in outs.items()}, sys.argv[1])
 """
@@ -4294,11 +4445,12 @@ print(json.dumps(times))
 """
 
 
-# The matvec, the LayerNorm backward and the norm forwards timed at every
-# PERF.md section 6 row of theirs (and wk/wv, the narrowest leaf; the
-# forwards also at the decode steps' rows), likewise, with each wrapper's host
-# time a call and each norm forward row's byte bound: prints one JSON object
-# {"times": {row: ms}, "host_us": {row: us}, "bounds": {row: ms}}.
+# The matvec, the LayerNorm and RMSNorm backwards, the bias gradient and the
+# norm forwards timed at every PERF.md section 6 row of theirs (and wk/wv,
+# the narrowest leaf; the forwards also at the decode steps' rows), likewise,
+# with each wrapper's host time a call and the byte bound of each norm row
+# and of the bias gradient: prints one JSON object {"times": {row: ms},
+# "host_us": {row: us}, "bounds": {row: ms}}.
 KERNEL_TIMES_SCRIPT = TIMES_PRELUDE + r"""
 from deepspeed_tpu_torch.ops.cuda import layernorm as ln
 from deepspeed_tpu_torch.ops.cuda import quantized_matmul as qmm
@@ -4342,6 +4494,21 @@ for kind, shapes, weights in (
         rows[name] = ((lambda xn=xn, wn=wn: rn.rmsnorm_fwd(xn, wn, 1e-5)) if weights == 1 else
                       (lambda xn=xn, wn=wn, bn=bn: ln.layernorm_fwd(xn, wn, bn, 1e-5)))
         bounds[name] = (2 * 2 * n * D + weights * 2 * D) / 3.35e12 * 1e3
+xb, gb = r(8192, 2048), r(8192, 2048)
+wb = (1 + 0.1 * torch.randn(2048, generator=g, device="cuda")).to(torch.bfloat16)
+name = "rmsnorm_bwd rows=8192 D=2048"
+rows[name] = lambda: rn.rmsnorm_bwd(xb, wb, gb, 1e-5)
+bounds[name] = (3 * 2 * 8192 * 2048 + 2 * 2048 + 4 * 2048) / 3.35e12 * 1e3
+qa, ka, va, doa = r(B, S, 16, 64), r(B, S, 16, 64), r(B, S, 16, 64), r(B, S, 16, 64)
+bias_a = 0.3 * torch.randn(1, 16, S, S, generator=g, device="cuda")
+oa, lse_a = fa.flash_attention_fwd(qa, ka, va, True, bias=bias_a)
+_, delta_a = fa.flash_attention_bwd_dq(qa, ka, va, oa, lse_a, doa, True, bias=bias_a)
+name = "flash_attention_bias_grad bias [1, 16, 2048, 2048] fp32 B=4 D=64 causal"
+rows[name] = lambda: fa.flash_attention_bias_grad(qa, ka, va, bias_a, lse_a, delta_a, doa)
+# bytes: the four [B, S, H, D] bf16 tensors, lse and delta, the visible half of
+# dbias written and the bias read whole (chip_smoke.check_bias_grad's count)
+bounds[name] = (2 * 4 * qa.numel() + 2 * 4 * B * 16 * S + 4 * 16 * S * (S + 1) / 2
+                + 4 * bias_a.numel()) / 3.35e12 * 1e3
 times = {name: timer(fn) for name, fn in rows.items()}
 hosts = {name: host_us(fn) for name, fn in rows.items()}
 print(json.dumps({"times": times, "host_us": hosts, "bounds": bounds}))
@@ -4429,11 +4596,14 @@ def compare_to_baseline(baseline: str) -> None:
     folds (x·q)·s on the tensor cores) are held to the baseline's outputs
     within two bf16 ulps of the largest value and check_layernorm_bwd's
     tolerances, the RMSNorm and LayerNorm forwards (redesigned: a team of
-    warps a row) within two bf16 ulps (check_rmsnorm's), and each of their
+    warps a row) within two bf16 ulps (check_rmsnorm's), the RMSNorm backward
+    (redesigned: a team of warps a row) within check_rmsnorm_bwd's
+    tolerances and the bias gradient (redesigned: wgmma, output tile
+    stationary) within BIAS_GRAD_TOL of its largest value, and each of their
     PERF.md section 6 rows (and wk/wv, and the forwards' decode rows)
-    is timed in the same turns: a forward row whose baseline reads over twice
-    its byte bound must be faster than the baseline's, every other row within
-    FWD_DEC_TIME_SLACK. Last, the worst ratio of this checkout's time to the
+    is timed in the same turns: a row of FASTER_ROWS whose baseline reads
+    over twice its bound must be faster than the baseline's, every other
+    row within FWD_DEC_TIME_SLACK. Last, the worst ratio of this checkout's time to the
     baseline's over each kind's rows is printed: against an identical copy,
     the spread the slacks are set from."""
     trees = {"this checkout": Path(__file__).resolve().parent,
@@ -4451,8 +4621,26 @@ def compare_to_baseline(baseline: str) -> None:
         run_in(tree, KERNEL_FORMS_SCRIPT, str(out))
         kernel_outs[label] = torch.load(out)
     mine, base = kernel_outs["this checkout"], kernel_outs["baseline"]
-    require(set(mine) == set(base), "the two checkouts ran other matvec / LayerNorm forms")
+    require(set(mine) == set(base), "the two checkouts ran other matvec / norm / bias-gradient "
+            "forms")
     for name in mine:
+        if name.startswith("flash_attention_bias_grad"):
+            (a,), (b,) = mine[name], base[name]
+            e, m = max_err(a, b), b.float().abs().max().item()
+            print(f"{name}: max_abs_err against the baseline {e:.3e} (tol {BIAS_GRAD_TOL}*"
+                  f"{m:.3e})")
+            require(e <= BIAS_GRAD_TOL * m, f"{name} moved beyond tolerance")
+            continue
+        if name.startswith("rmsnorm_bwd"):
+            (dx, ds), (bdx, bds) = mine[name], base[name]
+            ok_dx = bool(((dx.float() - bdx.float()).abs()
+                          <= LN_DX_ATOL + LN_DX_RTOL * bdx.float().abs()).all())
+            e_ds, t_ds = max_err(ds, bds), LN_RED_REL * bds.abs().max().item()
+            print(f"{name}: dx max_abs_err against the baseline {max_err(dx, bdx):.3e} (tol "
+                  f"{LN_DX_ATOL} + {LN_DX_RTOL}*|baseline|: {ok_dx}); dscale {e_ds:.3e} (tol "
+                  f"{t_ds:.3e})")
+            require(ok_dx and e_ds <= t_ds, f"{name} moved beyond tolerance")
+            continue
         if name.startswith("matvec"):
             (a,), (b,) = mine[name], base[name]
             e, tol = max_err(a, b), 2 * bf16_ulp(b.float().abs().max().item())
@@ -4548,10 +4736,10 @@ def compare_to_baseline(baseline: str) -> None:
     for call, n in runs[("dec", "this checkout")][0]["launches"].items():
         print(f"  kernels a call, {call}: {n} (baseline "
               f"{runs[('dec', 'baseline')][0]['launches'][call]})")
-    print(f"matvec, LayerNorm backward and norm forwards, ms (median of 20 launches, L2 "
-          f"flushed; each checkout twice, in turns; {smi}; a norm forward row whose "
-          f"baseline reads over twice its bound must be faster than the baseline's, every "
-          f"other row within {FWD_DEC_TIME_SLACK}x):")
+    print(f"matvec, norm forwards and backwards and the bias gradient, ms (median of 20 "
+          f"launches, L2 flushed; each checkout twice, in turns; {smi}; a row of "
+          f"{', '.join(FASTER_ROWS)} whose baseline reads over twice its bound must be "
+          f"faster than the baseline's, every other row within {FWD_DEC_TIME_SLACK}x):")
     bounds = runs[("kernels", "this checkout")][0]["bounds"]
     for form in runs[("kernels", "baseline")][0]["times"]:
         new, old = ([run["times"][form] for run in runs[("kernels", label)]]
@@ -4559,7 +4747,7 @@ def compare_to_baseline(baseline: str) -> None:
         host_new, host_old = (statistics.mean(run["host_us"][form]
                                               for run in runs[("kernels", label)])
                               for label in ("this checkout", "baseline"))
-        faster = form in bounds and statistics.mean(old) > 2 * bounds[form]
+        faster = form.startswith(FASTER_ROWS) and statistics.mean(old) > 2 * bounds[form]
         print(f"  {form}: {statistics.mean(new):.4f} (baseline {statistics.mean(old):.4f}, "
               f"{statistics.mean(old) / statistics.mean(new):.2f}x; runs {old} / {new}); "
               f"host {host_new:.1f} us a call (baseline {host_old:.1f})"
@@ -4755,6 +4943,154 @@ NORM_VARIANTS = {
         "  if (rows > 0) return;\n  using P = Plan<kRowWarps, kVec>;\n"
         "  constexpr int N = 16 / sizeof(T);"),
 }
+
+
+# Copies of csrc/rmsnorm_bwd.cu with one part cut out or one choice changed,
+# for ``--rmsnorm-bwd-breakdown``. Cutting a part breaks the output; only the
+# times are read.
+RMSNORM_BWD_VARIANTS = {
+    "as built": None,
+    "row loads cut out (x, g from the row and lane)": _replace_once(
+        "      if (vi < nvec) {\n        ax[i] = xr[vi];\n        ag[i] = gr[vi];\n      }",
+        "      for (int j = 0; j < N; ++j) {\n"
+        "        ax[i].v[j] = dst::from_float<T>(static_cast<float>(row + vi + j));\n"
+        "        ag[i].v[j] = dst::from_float<T>(static_cast<float>(row - vi - j));\n"
+        "      }\n      (void)xr;\n      (void)gr;"),
+    "dx stores cut out": _replace_once(
+        "      dxr[vi] = o;", "      if (dst::to_float(o.v[0]) == 12345.f) dxr[vi] = o;"),
+    "merge pass cut out": _replace_once("  merge_partials_kernel<<<",
+                                        "  if (D < 0) merge_partials_kernel<<<"),
+    "no next-row prefetch": _replace_once("constexpr int kRowsAhead = 1;",
+                                          "constexpr int kRowsAhead = 0;"),
+    "two rows ahead": _replace_once("constexpr int kRowsAhead = 1;",
+                                    "constexpr int kRowsAhead = 2;"),
+    "three blocks an SM (grid cap 396)": _replace_once("kThreads <= 256 ? 2 : 1",
+                                                       "kThreads <= 256 ? 3 : 1"),
+    "four blocks an SM, one vector a lane": _chain(
+        _replace_once("kThreads <= 256 ? 2 : 1", "kThreads <= 256 ? 4 : 1"),
+        _replace_once("constexpr int kLaneVecs = 2;", "constexpr int kLaneVecs = 1;")),
+    "one vector a lane (twice the warps a row)": _replace_once(
+        "constexpr int kLaneVecs = 2;", "constexpr int kLaneVecs = 1;"),
+    "empty kernels (the launch floor)": _chain(
+        _replace_once("  using P = Plan<kRowWarps, kVec>;\n  constexpr int N = 16 / sizeof(T);",
+                      "  if (rows > 0) return;\n  using P = Plan<kRowWarps, kVec>;\n"
+                      "  constexpr int N = 16 / sizeof(T);"),
+        _replace_once("  __shared__ float lanes[kMergeLanes][kMergeCols];",
+                      "  if (nblocks >= 0) return;\n"
+                      "  __shared__ float lanes[kMergeLanes][kMergeCols];")),
+}
+
+# Copies of csrc/flash_attention_bias_grad.cu with one part cut out or the
+# ring's depth changed, for ``--bias-grad-breakdown``; only the times are read.
+_BG_PRODUCTS = _replace_once(
+    "        wgmma_fence();\n"
+    "        ss_product<HD, BN>(s, st, kRows, r_lo, st + 2 * L::kQ);          // S = Q K^T\n"
+    "        wgmma_commit();\n"
+    "        ss_product<HD, BN>(dp, st + L::kQ, kRows, r_lo, st + 2 * L::kQ + L::kKV);"
+    "  // dP = dO V^T\n"
+    "        wgmma_commit();\n",
+    "        for (int e = 0; e < BN / 2; ++e) s[e] = dp[e] = static_cast<float>(e);\n")
+_BG_EPILOGUE = _replace_once(
+    "        if (cls == kFull) {\n          pass_p(std::false_type{});\n        } else {\n"
+    "          pass_p(std::true_type{});\n        }\n",
+    "        (void)pass_p;\n")
+_BG_PAIR_LOADS = _replace_once(
+    "            mbar_arrive_expect_tx(fb, pair_bytes);\n"
+    "            tma_rows<HD, kRows>(st, &p.q, fb, row_base, h, b);\n"
+    "            tma_rows<HD, kRows>(st + L::kQ, &p.dout, fb, row_base, h, b);\n"
+    "            tma_rows<HD, BN>(st + 2 * L::kQ, &p.k, fb, k0, kvh, b);\n"
+    "            tma_rows<HD, BN>(st + 2 * L::kQ + L::kKV, &p.v, fb, k0, kvh, b);\n",
+    "            mbar_arrive(fb);\n            (void)st;\n            (void)kvh;\n"
+    "            (void)pair_bytes;\n")
+BIAS_GRAD_VARIANTS = {
+    "as built": None,
+    "products cut out (no wgmma)": _BG_PRODUCTS,
+    "epilogue cut out (p not formed: acc += s (dp - delta))": _BG_EPILOGUE,
+    "pair loads cut out (q, do, k, v not loaded)": _BG_PAIR_LOADS,
+    "the walk alone (pair loads, products and epilogue cut out)": _chain(
+        _BG_PAIR_LOADS, _BG_PRODUCTS, _BG_EPILOGUE),
+    "bias tile load cut out": _chain(
+        _replace_once("        mbar_arrive_expect_tx(fb, bias_bytes);\n",
+                      "        mbar_arrive(fb);\n"),
+        _replace_once("        for (int c = 0; c < BN; c += box_keys) {",
+                      "        for (int c = 0; c < 0; c += box_keys) {")),
+    "output stores cut out": _replace_once(
+        "        *reinterpret_cast<uint4*>(at) = v;",
+        "        if (v.x == 0x12345678u) *reinterpret_cast<uint4*>(at) = v;"),
+    "ring of 2 stages": _replace_once("kStages = HD == 64 ? 3 : 2;", "kStages = HD == 64 ? 2 : 2;"),
+    "ring of 1 stage": _replace_once("kStages = HD == 64 ? 3 : 2;", "kStages = HD == 64 ? 1 : 2;"),
+    "empty grid (the launch floor)": _replace_once(
+        "  using L = BgSmem<HD>;\n  constexpr int BN = L::kBN;",
+        "  if (p.n_tiles >= 0) return;\n  using L = BgSmem<HD>;\n  constexpr int BN = L::kBN;"),
+}
+
+
+def rmsnorm_bwd_breakdown() -> None:
+    """Where the RMSNorm backward's time goes: each of
+    ``RMSNORM_BWD_VARIANTS`` timed by ``Timer`` at the training path's shape
+    (8192 rows of 2048, bf16), in one process on this card, beside a
+    torch.add(x, g) of the same bytes (x and g read, one tensor of x's size
+    written) and the library call."""
+    _build.library()
+    libs = variant_libraries("rmsnorm_bwd", RMSNORM_BWD_VARIANTS, "rmsnorm_bwd")
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    timer = Timer()
+    rows, D = TRAIN_B * TRAIN_S, 2048
+    x = torch.randn(rows, D, generator=gen, device="cuda", dtype=BF16)
+    g = torch.randn(rows, D, generator=gen, device="cuda", dtype=BF16)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(BF16)
+    y = torch.empty_like(x)
+    xr, wr = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    lib_out = F.rms_norm(xr, (D,), wr, 1e-5)
+    built = _build._lib
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"rmsnorm_bwd breakdown, rows={rows} D={D} bf16, ms (Timer: median of 20 launches, "
+          f"L2 flushed; {smi}):")
+    try:
+        for name, lib in libs.items():
+            _build._lib = lib
+            print(f"  {name}: {timer(lambda: rn.rmsnorm_bwd(x, w, g)):.4f}")
+    finally:
+        _build._lib = built
+    print(f"  torch.add(x, g) of the same bytes: {timer(lambda: torch.add(x, g, out=y)):.4f}")
+    print(f"  library (F.rms_norm backward): "
+          f"{timer(lambda: torch.autograd.grad(lib_out, (xr, wr), g, retain_graph=True)):.4f}")
+
+
+def bias_grad_breakdown() -> None:
+    """Where the bias-gradient kernel's time goes: each of
+    ``BIAS_GRAD_VARIANTS`` timed by ``Timer`` at the attention_bias path's
+    shape ([1, 16, 2048, 2048] fp32 bias, B=4 D=64 causal), in one process
+    on this card."""
+    _build.library()
+    libs = variant_libraries("flash_attention_bias_grad", BIAS_GRAD_VARIANTS,
+                             "flash_attention_bias_grad")
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    timer = Timer()
+    B, S, H, D = TRAIN_B, TRAIN_S, 16, 64
+
+    def rand(*shape, dtype=BF16):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+    q, k, v, do = rand(B, S, H, D), rand(B, S, H, D), rand(B, S, H, D), rand(B, S, H, D)
+    bias = 0.3 * rand(1, H, S, S, dtype=torch.float32)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, bias=bias)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, True, bias=bias)
+    built = _build._lib
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"flash_attention_bias_grad breakdown, bias [1, {H}, {S}, {S}] fp32, B={B} D={D} "
+          f"causal, ms (Timer: median of 20 launches, L2 flushed; {smi}):")
+    try:
+        for name, lib in libs.items():
+            _build._lib = lib
+            print(f"  {name}: "
+                  f"{timer(lambda: fa.flash_attention_bias_grad(q, k, v, bias, lse, delta, do)):.4f}")
+    finally:
+        _build._lib = built
 
 
 def norm_breakdown() -> None:
@@ -4959,7 +5295,9 @@ def main() -> int:
         return 0
     breakdowns = {"--matvec-breakdown": matvec_breakdown,
                   "--layernorm-breakdown": layernorm_breakdown,
-                  "--norm-breakdown": norm_breakdown}
+                  "--norm-breakdown": norm_breakdown,
+                  "--rmsnorm-bwd-breakdown": rmsnorm_bwd_breakdown,
+                  "--bias-grad-breakdown": bias_grad_breakdown}
     if len(sys.argv) == 2 and sys.argv[1] in breakdowns:
         breakdowns[sys.argv[1]]()
         print(json.dumps({"ok": True, "device": {

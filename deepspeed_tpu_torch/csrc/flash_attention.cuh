@@ -1,10 +1,8 @@
-// Device helpers shared by the flash attention kernels: the mma.sync tile
-// products and operand staging of flash_attention_bias_grad.cu (the decode
-// kernel, decode_attention.cu, takes mma_16816 and kLog2e too), the ALiBi
-// score, and the masked form's operands (segment ids, a dense additive bias,
-// block-sparse compaction tables, ring-hop offsets), which the Hopper forward
-// and backward kernels (flash_attention_fwd.cu, flash_attention_bwd.cu) read
-// too.
+// Device helpers shared by the flash attention kernels (flash_attention_fwd.cu,
+// flash_attention_bwd.cu, flash_attention_bias_grad.cu): bf16 packing, the
+// ALiBi score, and the masked form's operands (segment ids, a dense additive
+// bias, block-sparse compaction tables, ring-hop offsets); and the mma.sync
+// product and kLog2e, which the decode kernel (decode_attention.cu) takes.
 //
 // The masked form is one template instantiation per kernel whose masks are
 // read at run time from a Mask; the slope-free (Llama) and ALiBi forms are
@@ -26,9 +24,6 @@
 namespace dst {
 namespace flash {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockM = 16 * kWarps;  // rows per block
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -47,10 +42,6 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ float2 unpack(uint32_t u) {
   __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&u);
   return __bfloat1622float2(h);
@@ -64,65 +55,6 @@ __device__ __forceinline__ float alibi_score(float s, float scale_log2,
                                              float slope_log2, int row, int key) {
   return __fmaf_rn(-slope_log2, static_cast<float>(abs(row - key)),
                    __fmul_rn(s, scale_log2));
-}
-
-// A-operand fragments of 16 rows x HD (row-major, k = head dim) straight from
-// device memory: rows row0 and row0 + 8 of a [S, *, HD] slab with row stride
-// ss; rows past S read as zero.
-template <int HD>
-__device__ __forceinline__ void load_rows(uint32_t (&a)[HD / 16][4],
-                                          const __nv_bfloat16* base, long long ss,
-                                          int row0, int row1, int S, int tig) {
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const int c = ks * 16 + tig * 2;
-    a[ks][0] = row0 < S ? load_pair(base + row0 * ss + c) : 0u;
-    a[ks][1] = row1 < S ? load_pair(base + row1 * ss + c) : 0u;
-    a[ks][2] = row0 < S ? load_pair(base + row0 * ss + c + 8) : 0u;
-    a[ks][3] = row1 < S ? load_pair(base + row1 * ss + c + 8) : 0u;
-  }
-}
-
-// Stage rows [r0, r0 + NR) of two [S, *, HD] slabs into padded shared memory
-// (row stride HD + 8 elements), zero past S.
-template <int HD, int NR>
-__device__ __forceinline__ void stage2(__nv_bfloat16* sa, __nv_bfloat16* sb,
-                                       const __nv_bfloat16* a, long long a_ss,
-                                       const __nv_bfloat16* b, long long b_ss,
-                                       int r0, int S, int tid) {
-  constexpr int kLds = HD + 8;
-  constexpr int kChunks = HD / 8;
-  for (int i = tid; i < NR * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i - r * kChunks) * 8;
-    uint4 av = make_uint4(0u, 0u, 0u, 0u);
-    uint4 bv = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) {
-      av = *reinterpret_cast<const uint4*>(a + (long long)(r0 + r) * a_ss + c);
-      bv = *reinterpret_cast<const uint4*>(b + (long long)(r0 + r) * b_ss + c);
-    }
-    *reinterpret_cast<uint4*>(sa + r * kLds + c) = av;
-    *reinterpret_cast<uint4*>(sb + r * kLds + c) = bv;
-  }
-}
-
-// acc[j] = A (16 x HD, fragments a) . B^T where B rows are the NT*8 shared
-// rows of sb (so acc is 16 x NT*8): the score-shaped products q.k, do.v.
-template <int HD, int NT>
-__device__ __forceinline__ void rows_dot_tile(float (&acc)[NT][4],
-                                              const uint32_t (&a)[HD / 16][4],
-                                              const __nv_bfloat16* sb, int g, int tig) {
-  constexpr int kLds = HD + 8;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const __nv_bfloat16* r = sb + (j * 8 + g) * kLds + ks * 16 + tig * 2;
-      mma_16816(acc[j], a[ks], load_pair(r), load_pair(r + 8));
-    }
-  }
 }
 
 struct Strides {

@@ -128,20 +128,6 @@ struct FwdSmem {
   static int bytes(int n_tiles) { return kRanges + 8 * (kGroups + n_tiles) + 1024; }
 };
 
-// The bias pair (key, key + 1), key even, of row r of a stage's bias tile:
-// kRows rows in panels of 128 bytes a row (32 fp32 or 64 bf16 keys), as TMA
-// writes them with the 128-byte swizzle.
-__device__ __forceinline__ float2 bias_pair(const uint8_t* tile, int r, int key, bool bf16) {
-  if (bf16) {
-    const int at = (key >> 6) * (kRows * 128) + r * 128 +
-                   ((((key & 63) >> 3) ^ (r & 7)) << 4) + ((key & 7) << 1);
-    return unpack(*reinterpret_cast<const uint32_t*>(tile + at));
-  }
-  const int at = (key >> 5) * (kRows * 128) + r * 128 +
-                 ((((key & 31) >> 2) ^ (r & 7)) << 4) + ((key & 3) << 2);
-  return *reinterpret_cast<const float2*>(tile + at);
-}
-
 template <int HD, bool kAlibi, bool kMasked>
 __global__ void __launch_bounds__(kBlockThreads, 1)
     flash_fwd_kernel(const __grid_constant__ FwdParams p) {

@@ -1,10 +1,10 @@
-// Hopper (sm_90a) building blocks of the flash attention forward and
-// backward kernels (flash_attention_fwd.cu, flash_attention_bwd.cu):
-// mbarriers, TMA tile loads through tensor maps, wgmma shared-memory
-// descriptors and products, and the host-side encoding of the tensor maps.
-// The bias-gradient kernel keeps the mma.sync helpers of flash_attention.cuh;
-// the decode kernel (decode_attention.cu) takes those and the cp.async and
-// exp2 helpers here.
+// Hopper (sm_90a) building blocks of the flash attention forward, backward
+// and bias-gradient kernels (flash_attention_fwd.cu, flash_attention_bwd.cu,
+// flash_attention_bias_grad.cu): mbarriers, TMA tile loads through tensor
+// maps, wgmma shared-memory descriptors and products, and the host-side
+// encoding of the tensor maps. The decode kernel (decode_attention.cu) takes
+// the mma.sync helpers of flash_attention.cuh and the cp.async and exp2
+// helpers here.
 //
 // Tiles live in shared memory as TMA writes them with the 128-byte swizzle:
 // a [rows, 64] panel of bf16 (128 bytes a row), 16-byte chunk c of row r at
@@ -210,6 +210,21 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32, fp32) = scale_d * d + A (64 x 16) . B (16 x 32), both in
+// shared memory, K-major.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

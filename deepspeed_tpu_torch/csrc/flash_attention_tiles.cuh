@@ -1,13 +1,16 @@
 // The tile machinery that the Hopper flash attention kernels share: the
-// forward (flash_attention_fwd.cu) and the dq and dk/dv kernels
-// (flash_attention_bwd.cu). Each runs blocks of three warpgroups: two
+// forward (flash_attention_fwd.cu), the dq and dk/dv kernels
+// (flash_attention_bwd.cu) and the bias-gradient kernel
+// (flash_attention_bias_grad.cu). Each runs blocks of three warpgroups: two
 // consumers, each owning 64 of the block's kRows rows, and a producer whose
-// first warp walks the block's tiles, judges each against each consumer's
-// rows (tile_class) and keeps a ring of shared-memory stages filled by TMA.
-// This header holds that walk's pieces: the block shape and register split,
-// the tile classes and the segment-id range reduction they read, the
+// first warp walks the block's tiles (the bias gradient: the (batch row,
+// head) pairs of its output tiles), judges each against each consumer's rows
+// (tile_class) and keeps a ring of shared-memory stages filled by TMA. This
+// header holds that walk's pieces: the block shape and register split, the
+// tile classes and the segment-id range reduction they read, the
 // compile-time flags of a tile's epilogue, the wgmma products over whole
-// tiles, the layout-table check and the launch.
+// tiles, the addressing of a dense bias tile, the layout-table check and the
+// launch.
 #pragma once
 
 #include <climits>
@@ -150,11 +153,33 @@ __device__ __forceinline__ void ss_product(float (&d)[N / 2], uint32_t a, int a_
     if constexpr (N == 128) {
       sm90::wgmma_ss_n128(d, sm90::desc_k(a, a_rows, a_row0, ks), sm90::desc_k(b, N, 0, ks),
                           ks > 0);
+    } else if constexpr (N == 32) {
+      sm90::wgmma_ss_n32(d, sm90::desc_k(a, a_rows, a_row0, ks), sm90::desc_k(b, N, 0, ks),
+                         ks > 0);
     } else {
       sm90::wgmma_ss_n64(d, sm90::desc_k(a, a_rows, a_row0, ks), sm90::desc_k(b, N, 0, ks),
                          ks > 0);
     }
   }
+}
+
+// The byte offset of element (r, key) of a dense bias tile of kRows rows in
+// shared memory, as TMA writes it: panels of 128 bytes a row (32 fp32 or 64
+// bf16 keys) with the 128-byte swizzle, one panel after another.
+__device__ __forceinline__ int bias_offset(int r, int key, bool bf16) {
+  if (bf16) {
+    return (key >> 6) * (kRows * 128) + r * 128 + ((((key & 63) >> 3) ^ (r & 7)) << 4) +
+           ((key & 7) << 1);
+  }
+  return (key >> 5) * (kRows * 128) + r * 128 + ((((key & 31) >> 2) ^ (r & 7)) << 4) +
+         ((key & 3) << 2);
+}
+
+// The bias pair (key, key + 1), key even, of row r of a bias tile.
+__device__ __forceinline__ float2 bias_pair(const uint8_t* tile, int r, int key, bool bf16) {
+  const uint8_t* at = tile + bias_offset(r, key, bf16);
+  return bf16 ? unpack(*reinterpret_cast<const uint32_t*>(at))
+              : *reinterpret_cast<const float2*>(at);
 }
 
 // A table's layout block must hold whole blocks of kRows rows, so that no

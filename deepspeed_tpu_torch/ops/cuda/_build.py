@@ -41,7 +41,7 @@ _LP = ctypes.POINTER(ctypes.c_longlong)  # a strides array
 # ctypes never cuts a 64-bit address to an int)
 SIGNATURES: Dict[str, List] = {
     "dst_rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
-    "dst_rmsnorm_bwd_nblocks": [_I],
+    "dst_rmsnorm_bwd_nblocks": [_I, _I, _I],
     "dst_rmsnorm_bwd": [_P] * 6 + [_I, _I, _F, _I, _I, _P],
     "dst_layernorm_fwd": [_P] * 4 + [_I, _I, _F, _I, _I, _P],
     "dst_layernorm_bwd_nblocks": [_I, _I, _I],

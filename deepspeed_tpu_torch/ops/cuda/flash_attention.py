@@ -30,15 +30,17 @@ their Llama one (the code before ALiBi came in); a mask selects the masked
 instantiation, which reads its operands at run time.
 
 Bound on the H100: operations for long sequences, per visible (query, key)
-pair 4 * D flops forward, 6 * D in the dq kernel, 8 * D in the dk/dv kernel
-and 4 * D per (batch row, head) in the bias-gradient kernel, over 989 TFLOP/s
-bf16. The forward, dq and dk/dv kernels are written for Hopper: wgmma
-products on tiles that TMA streams through a ring of shared-memory stages,
-read through 4-D tensor maps (:func:`tma_map`; a dense bias through
-:func:`bias_tma_map`), each tile judged empty, full or partial against the
-masks before it is loaded. The bias-gradient kernel runs 4-warp blocks of
-mma.sync bf16 tensor-core products. All keep fp32 accumulators and softmax
-state in registers, loop key (or query) tiles only to (or from) the
+pair 4 * D flops forward, 6 * D in the dq kernel and 8 * D in the dk/dv
+kernel, over 989 TFLOP/s bf16; the bias-gradient kernel's 4 * D per visible
+pair and (batch row, head) is below its bytes (the bias read, dbias written
+once). All four kernels are written for Hopper: wgmma products on tiles
+that TMA streams through a ring of shared-memory stages, read through 4-D
+tensor maps (:func:`tma_map`; a dense bias through :func:`bias_tma_map`),
+each tile judged empty, full or partial against the masks before it is
+loaded; the bias-gradient kernel holds its output tile (:func:`bias_grad_tile`
+keys by 128 query rows) in registers while it walks the (batch row, head)
+pairs that read it. All keep fp32 accumulators and softmax state in
+registers, loop key (or query) tiles only to (or from) the
 diagonal and only through the layout's active blocks, read the model layout
 [B, S, H, D] through strides (no transposes) and handle ragged S
 themselves, so every length runs through them, where the TPU entry fell
@@ -385,6 +387,14 @@ def ring_tile(head_dim: int, masked: bool) -> int:
     return 128 if head_dim == 64 and not masked else 64
 
 
+def bias_grad_tile(head_dim: int) -> int:
+    """Keys of the bias-gradient kernel's output tile of 128 query rows,
+    and so the box of its k and v maps: 64 at head dim 64, 32 at 128, where
+    a ring stage's 128 rows of q and do take twice the shared memory
+    (``csrc/flash_attention_bias_grad.cu:BgSmem``)."""
+    return 64 if head_dim == 64 else 32
+
+
 def bias_tma_map(fn: str, bias: torch.Tensor, B: int, H: int, rows: int = TMA_ROWS) -> dict:
     """The 4-D tensor map the forward kernel reads a dense ``bias``
     [B|1, H|1, S, S] (fp32 or bf16) through: dims (S keys, S queries, H or 1,
@@ -708,13 +718,18 @@ def flash_attention_bias_grad(q, k, v, bias, lse, delta, do, causal: bool = True
     check_bias(fn, bias, q)
     B, S, H, D = q.shape
     Bb, Hb = bias.shape[:2]
+    bias = tma_bias(bias, B, H)
+    tile = bias_grad_tile(D)
+    for name, t, rows in (("q", q, TMA_ROWS), ("k", k, tile), ("v", v, tile),
+                          ("do", do, TMA_ROWS)):
+        tma_map(fn, name, t, rows)
     dbias = torch.empty((Bb, Hb, S, S), dtype=bias.dtype, device=q.device)
     mask = mask_array(fn, q, bias, segment_ids, dbias=dbias)
     status = lib.dst_flash_attention_bias_grad(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), B, S, H, k.shape[2], D, Bb, Hb,
         _build.strides_array(q, k, v, do), sl, 1.0 / math.sqrt(D), int(bool(causal)),
-        mask, torch.cuda.current_stream(q.device).cuda_stream,
+        mask, _build.stream_handle(q),
     )
     _build.check(status, fn)
     launches[fn] += 1

@@ -13,8 +13,10 @@ fuses the fp32 casts the JAX model wraps around the TPU kernel, so each
 result is the fp32 result rounded once. The forward shares
 ``csrc/norm_fwd.cuh`` with the LayerNorm forward (a team of warps a row, the
 row in registers, persistent teams); its sum order is fixed by D, so a row's
-bits do not depend on the rows beside it. The backward's dscale is summed over row groups in fp32 partials and a
-second pass, with no atomics.
+bits do not depend on the rows beside it. The backward holds its rows in the
+same team layout and sum order; its dscale is summed by each lane over its
+rows, by each block over its teams into an fp32 partial row, and by a second
+pass over the partial rows: an order fixed by rows and D, with no atomics.
 """
 
 from __future__ import annotations
@@ -101,7 +103,7 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     upstream gradient g (x's shape and dtype).
 
     A CPU tensor takes :func:`rmsnorm_bwd_plain`; a CUDA tensor launches the
-    kernel (D at most 2048 * 16 / itemsize), or raises."""
+    kernel (D at most 2048 * 16 / itemsize: 32 KB a row), or raises."""
     if x.device.type == "cpu":
         return rmsnorm_bwd_plain(x, scale, g, eps)
     lib = _build.library()
@@ -115,15 +117,15 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     if D * x.element_size() > 2048 * 16:
         raise ValueError(f"rmsnorm_bwd: D={D} over the kernel's row limit")
     rows = x.numel() // D if D else 0
+    code = _build.dtype_code(x.dtype)
     dx = torch.empty_like(x)
-    part = torch.empty((lib.dst_rmsnorm_bwd_nblocks(rows), D),
+    part = torch.empty((lib.dst_rmsnorm_bwd_nblocks(rows, D, code), D),
                        dtype=torch.float32, device=x.device)
-    dscale = torch.zeros((D,), dtype=torch.float32, device=x.device)
+    dscale = torch.empty((D,), dtype=torch.float32, device=x.device)  # written whole
     status = lib.dst_rmsnorm_bwd(
         x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        part.data_ptr(), dscale.data_ptr(), rows, D, float(eps),
-        _build.dtype_code(x.dtype), _build.dtype_code(scale.dtype),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        part.data_ptr(), dscale.data_ptr(), rows, D, float(eps), code,
+        _build.dtype_code(scale.dtype), _build.stream_handle(x),
     )
     _build.check(status, "rmsnorm_bwd")
     launches["rmsnorm_bwd"] += 1
