@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --baseline DIR   # DIR: a checkout of an earlier commit
+    python3 chip_smoke.py --bwd-baseline DIR   # the flash backward alone, PR 8's on
     python3 chip_smoke.py --decode-breakdown
     python3 chip_smoke.py --matvec-breakdown
     python3 chip_smoke.py --layernorm-breakdown
@@ -51,7 +52,11 @@ shape, beside a torch.add(x, g) of the same bytes and the library call;
 ``--bias-grad-breakdown`` the bias-gradient kernel with its products, its
 epilogue, its pair loads, all three, its bias tile load or its output
 stores cut out, rings of 2 and 1 stages, and as an empty grid, at
-attention_bias's shape.
+attention_bias's shape. ``--bwd-baseline DIR`` times only the flash
+backward's dq and dk/dv kernels of both checkouts at every backward shape
+(Mixtral's head dim 128 among them) in the same turns, each held to
+BWD_TIME_SLACK times the baseline's: its calls are those every checkout
+from PR 8's on takes.
 ``--decode-breakdown``
 times copies of the decode kernel with one part cut out (the merge, the tile
 arithmetic, the cache reads, all but the bare grid, the third block an SM,
@@ -147,7 +152,9 @@ arguments, in order, any failure exiting non-zero:
    ms/step, tokens/s, MFU and peak memory; a profiled step (device busy share,
    top kernels); the launch counters, zeroed just before, must show every
    training kernel ran; then 3 steps rerun from the same seed must give
-   bitwise-equal losses;
+   bitwise-equal losses, and 3 more through DeepSpeed's loop
+   (``engine(mb)``, ``engine.backward(loss)``, ``engine.step()``) the same
+   losses and, bitwise, the rerun's masters (training_bloom likewise);
 7. the serving main path: init_inference(llama("llama3-8b"), bf16, kernel
    injection, max_tokens=1024) with seeded random weights at full depth, and
    generate on three requests; the launch counters, zeroed just before, must
@@ -231,7 +238,18 @@ arguments, in order, any failure exiting non-zero:
    times; the ranks' counters, zeroed before each mode, must show the offset
    forms (ring) and the unmasked forms (Ulysses) ran and plain attention on
    the card never did;
-20. the kernels line (one JSON object, one entry per kernel and main path,
+20. ``training_mixtral``: initialize(mixtral("mixtral-8x7b", num_layers=2))
+   at full width (3.165 B params; two of 32 layers, as the fp32 state takes
+   16 B a parameter), bf16 over fp32 masters, AdamW through fused Adam,
+   the ``moe`` section at ep 1, the "einsum" dispatch, micro-batch 4 x 2
+   accumulation steps of 2048 tokens, 6 steps: the loss finite and falling,
+   the aux loss finite; ms/step, tokens/s, MFU over the active parameters
+   (attention, router, norms, head, two experts of eight), peak memory, the
+   last step's tokens per expert and drop fraction, a profiled step; the
+   counters must show the flash forward, dq and dk/dv at head dim 128, both
+   RMSNorm kernels and fused Adam ran (each checked and timed at this
+   path's shapes in 3, beside the others);
+21. the kernels line (one JSON object, one entry per kernel and main path,
    with that path's launches), then the device line (last line).
 """
 
@@ -452,6 +470,10 @@ SP_RING_KERNELS = ("flash_attention_fwd_offsets", "flash_attention_bwd_dq_offset
                    "fused_adam")
 SP_ULYSSES_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                       "flash_attention_bwd_dkv", "rmsnorm_fwd", "rmsnorm_bwd", "fused_adam")
+# training_mixtral: Mixtral-8x7B at full width, 2 of its 32 layers, llama3-1b's
+# batch (micro-batch 4 x 2048, 2 micro-batches), 6 steps
+MIXTRAL_TRAIN_LAYERS, MIXTRAL_TRAIN_STEPS = 2, 6
+MIXTRAL_TRAIN_KERNELS = TRAINING_KERNELS
 # DeepSpeed's default sparsity mode at the flash kernels' 128-token block
 SPARSE_SECTION = {"mode": "fixed", "block": 128, "num_local_blocks": 4,
                   "num_global_blocks": 1}
@@ -503,47 +525,56 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def flash_fwd_case(gen, timer, path, B: int, S: int, H: int, KV: int, D: int):
+    """The flash forward, causal, on one seeded draw against its plain
+    version; timed (with SDPA as the library call) when ``path`` names the
+    main path whose shape this is."""
+    tol_out, tol_lse = 2e-2, 1e-3
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=BF16)
+    k = torch.randn(B, S, KV, D, generator=gen, device="cuda", dtype=BF16)
+    v = torch.randn(B, S, KV, D, generator=gen, device="cuda", dtype=BF16)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=True)
+    e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
+    print(f"flash_attention_fwd B={B} S={S} H={H} KV={KV} D={D}: "
+          f"max_abs_err out {e_out:.3e} (tol {tol_out}) lse {e_lse:.3e} "
+          f"(tol {tol_lse})")
+    require(e_out <= tol_out and e_lse <= tol_lse,
+            f"flash_attention_fwd disagrees at B={B} S={S} D={D}")
+    del out, lse, ref, ref_lse
+    if path is None:
+        return None
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = B * H * S * (S + 1) / 2
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * B * H * S
+    b_ms, b_by = bound(4 * D * pairs, nbytes)
+    row = {
+        "max_abs_err": e_out,
+        "ms": timer(lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
+        "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v, causal=True)),
+        "library_ms": timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": f"B={B} S={S} H={H} KV={KV} D={D} causal",
+    }
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
 def check_flash(gen, timer):
     """The flash forward at the main paths' shapes: serving (Llama-3-8B
     prefill, head_dim 128, S up to the 512 bucket), training (llama3-1b
     micro-batch 4 x 2048, head_dim 64) and serving_gpt2 (GPT-2-XL's B=4 x 512
     prefill, 25 heads of 64). Returns one timed row per path."""
-    tol_out, tol_lse = 2e-2, 1e-3
     rows = {}
-    # (path timed at this shape or None, B, S, H, KV, D)
     for path, B, S, H, KV, D in ((None, 2, 512, 32, 8, 128), (None, 2, 160, 32, 8, 128),
                                  ("serving", 4, 512, 32, 8, 128),
                                  ("training", TRAIN_B, TRAIN_S, 32, 8, 64),
                                  ("serving_gpt2", 4, 512, 25, 25, 64)):
-        q = torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=BF16)
-        k = torch.randn(B, S, KV, D, generator=gen, device="cuda", dtype=BF16)
-        v = torch.randn(B, S, KV, D, generator=gen, device="cuda", dtype=BF16)
-        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-        ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=True)
-        e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
-        print(f"flash_attention_fwd B={B} S={S} H={H} KV={KV} D={D}: "
-              f"max_abs_err out {e_out:.3e} (tol {tol_out}) lse {e_lse:.3e} "
-              f"(tol {tol_lse})")
-        require(e_out <= tol_out and e_lse <= tol_lse,
-                f"flash_attention_fwd disagrees at B={B} S={S} D={D}")
-        del out, lse, ref, ref_lse
-        if path is None:
-            continue
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        pairs = B * H * S * (S + 1) / 2
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * B * H * S
-        b_ms, b_by = bound(4 * D * pairs, nbytes)
-        rows[path] = {
-            "max_abs_err": e_out,
-            "ms": timer(lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
-            "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v, causal=True)),
-            "library_ms": timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "shape": f"B={B} S={S} H={H} KV={KV} D={D} causal",
-        }
-        del q, k, v, qt, kt, vt
-        torch.cuda.empty_cache()
+        row = flash_fwd_case(gen, timer, path, B, S, H, KV, D)
+        if row is not None:
+            rows[path] = row
     return rows
 
 
@@ -1244,11 +1275,12 @@ def check_rmsnorm_bwd(gen, timer):
     }
 
 
-def check_flash_bwd(gen, timer):
-    """The dq and dk/dv kernels at the training path's shape (llama3-1b,
-    micro-batch 4 x 2048, 32 query / 8 kv heads of 64), causal. The dk/dv
-    kernel gets the plain version's delta, so each kernel is held alone."""
-    B, S, H, KV, D = TRAIN_B, TRAIN_S, 32, 8, 64
+def check_flash_bwd(gen, timer, D: int = 64):
+    """The dq and dk/dv kernels at a training path's shape (micro-batch 4 x
+    2048, 32 query / 8 kv heads: llama3-1b's of 64 by default, Mixtral's of
+    128 with ``D=128``), causal. The dk/dv kernel gets the plain version's
+    delta, so each kernel is held alone."""
+    B, S, H, KV = TRAIN_B, TRAIN_S, 32, 8
     tol = 2e-2  # of the largest gradient: p and ds round to bf16 before the products
     tol_delta = 1e-4  # of the largest delta: an fp32 row sum in another order
 
@@ -2447,7 +2479,32 @@ def check_offset_forms(gen, timer):
                                   for n, e, t in errs))
     for n, e, t in errs:
         require(e <= t, f"the ring flash's {n} disagrees with the flat kernels")
-    del q, k, v, do, leaves, chunks, outs, ring_grads, o, lse, flat
+
+    def ring_step():
+        parts = [list(t.split(S, dim=1)) for t in leaves]
+        o = ring_flash_attention_local(*parts, causal=True, ring=Ring.loopback(SP_SIZE))
+        return torch.autograd.grad(o, leaves, list(do.split(S, dim=1)))
+
+    # the bound: the sum of its hops' (two diagonal, a past and a future hop),
+    # forward, dq and dk/dv each
+    hop_bytes = (2 * (2 * q.numel() // 2 + k.numel() // 2 + v.numel() // 2) + 4 * H * S,
+                 2 * (4 * q.numel() // 2 + k.numel() // 2 + v.numel() // 2) + 8 * H * S,
+                 2 * (2 * q.numel() // 2 + 2 * k.numel() // 2 + 2 * v.numel() // 2)
+                 + 8 * H * S)
+    ring_bound = sum(bound(f * D * pairs, nb)[0]
+                     for pairs in (H * S * (S + 1) / 2, H * S * (S + 1) / 2, H * S * S, 0)
+                     for f, nb in zip((4, 6, 8), hop_bytes))
+    ft = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*ft, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib_ms = (timer(lambda: F.scaled_dot_product_attention(*(t.detach() for t in ft),
+                                                           is_causal=True, enable_gqa=True))
+              + timer(lambda: torch.autograd.grad(lib_out, ft, dot, retain_graph=True)))
+    print(f"ring flash, loopback ring of {SP_SIZE}, B=1 S={SP_SEQ} H={H} KV={KV} D={D} "
+          f"causal, forward + backward: {timer(ring_step, iters=5, warmup=1):.4f} ms "
+          f"(Timer, median of 5), bound {ring_bound:.4f} ms (the sum of its hops' bounds), "
+          f"library {lib_ms:.4f} ms (SDPA forward + backward of the flat sequence)")
+    del q, k, v, do, leaves, chunks, outs, ring_grads, o, lse, flat, ft, lib_out, dot
     torch.cuda.empty_cache()
     return rows
 
@@ -3191,8 +3248,8 @@ def routing(store: list):
     [N, K] (-1: dropped), the fill of each expert [E], the capacity)."""
     real = smoe.top_k_gating_indices
 
-    def spy(logits, top_k, capacity, valid=None):
-        out = real(logits, top_k, capacity, valid)
+    def spy(logits, top_k, capacity, *args, **kw):
+        out = real(logits, top_k, capacity, *args, **kw)
         kept = torch.where(out[3] > 0, out[2] // capacity, -1)
         store.append((logits.detach().clone(), kept, out[4]["tokens_per_expert"].clone(),
                       capacity))
@@ -3646,7 +3703,7 @@ def reference_check_training(model=None, expect=TRAINING_KERNELS, anchored: bool
         eng, *_ = initialize(model=model, config={**train_config(
             kernels_on, remat, 2, 2, wd, bf16=bf16, chunked_ce=anchored), **(extra or {})},
             model_parameters=params0)
-        mb = {k: t[0] for k, t in eng._prepare_batch(batches[0])[0].items()}
+        mb = {k: t[0] for k, t in eng.prepare_batch(batches[0]).items()}
         with eng._kernel_scope():
             loss, _ = eng.model.loss(eng.params, mb, dtype=BF16 if bf16 else torch.float32,
                                      remat_policy=remat)
@@ -4073,10 +4130,188 @@ def main_path_training(model=None, expect=TRAINING_KERNELS, path: str = "trainin
         return counts
     engine = build()
     rerun = [engine.train_batch(batch=batch).item() for _ in range(3)]
+    masters = [t.detach().cpu() for t in tree_leaves(engine.params)]
     print(f"determinism: 3 steps rerun from the same seed {rerun}, bitwise equal "
           f"to the first run: {rerun == losses[:3]}")
     require(rerun == losses[:3], "the rerun from the same seed gave other losses")
     del engine
+    torch.cuda.empty_cache()
+    # the same 3 steps through DeepSpeed's loop: engine(mb), backward, step
+    engine = build()
+    looped = []
+    for _ in range(3):
+        for i in range(TRAIN_ACCUM):
+            mb = {k: v[i * TRAIN_B:(i + 1) * TRAIN_B] for k, v in batch.items()}
+            engine.backward(engine(mb))
+        looped.append(engine.step().item())
+    same = all(torch.equal(a, b.detach().cpu())
+               for a, b in zip(masters, tree_leaves(engine.params)))
+    print(f"the loop (engine(mb), engine.backward(loss), engine.step()), 3 steps from the "
+          f"same seed: losses {looped}, bitwise equal to train_batch's: "
+          f"{looped == losses[:3]}; masters after 3 steps bitwise equal to the "
+          f"train_batch rerun's: {same}")
+    require(looped == losses[:3] and same,
+            "the forward/backward/step loop differs from train_batch")
+    del engine, masters
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mixtral_active_params(cfg) -> int:
+    """The parameters a token's forward runs through: all but the token table
+    and the experts it is not routed to (E - top_k of each layer's E)."""
+    bank = (3 if cfg.activation == "swiglu" else 2) * cfg.hidden_size * cfg.ffn
+    return (cfg.num_params() - cfg.vocab_size * cfg.hidden_size
+            - cfg.num_layers * (cfg.num_experts - cfg.moe_top_k) * bank)
+
+
+@contextlib.contextmanager
+def moe_gating_stats(store: list):
+    """Keep every one-hot gating call's tokens per expert and drop fraction
+    (device tensors, no host read until the caller's)."""
+    real = smoe.top_k_gating
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        store.append({n: out[2][n] for n in ("tokens_per_expert", "drop_fraction")})
+        return out
+
+    smoe.top_k_gating = spy
+    try:
+        yield
+    finally:
+        smoe.top_k_gating = real
+
+
+def check_mixtral_training_shapes(timer) -> dict:
+    """The kernels of training_mixtral at its shapes, from a generator of
+    their own: the flash forward, dq and dk/dv at the micro-batch (4 x 2048,
+    32 query / 8 kv heads of 128, causal), the RMSNorm forward and backward
+    on its 8192 rows of 4096, and fused Adam on its largest leaf (the stacked
+    expert bank, 2 x 8 x 4096 x 14336 fp32). Returns a timed row per kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    rows = {"flash_attention_fwd": flash_fwd_case(gen, timer, "training_mixtral", TRAIN_B,
+                                                  TRAIN_S, 32, 8, 128)}
+    rows["flash_attention_bwd_dq"], rows["flash_attention_bwd_dkv"] = check_flash_bwd(
+        gen, timer, D=128)
+    n, D, eps = TRAIN_B * TRAIN_S, 4096, 1e-5
+    atol, rtol = 1e-3, 1.6e-2  # two bf16 ulps of the plain result
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(BF16)
+    x = torch.randn(n, D, generator=gen, device="cuda", dtype=BF16)
+    g = torch.randn(n, D, generator=gen, device="cuda", dtype=BF16)
+    fn = lambda t: rn.rmsnorm_fwd(t, w, eps)  # noqa: E731
+    plain = lambda t: rn.rmsnorm_plain(t, w, eps)  # noqa: E731
+    e = norm_agrees("rmsnorm_fwd", fn, plain, x, atol, rtol)
+    rows["rmsnorm_fwd"] = norm_row(timer, e, lambda: fn(x), lambda: plain(x),
+                                   lambda: F.rms_norm(x, (D,), w, eps),
+                                   *bound(4 * x.numel(), 2 * 2 * x.numel() + 2 * D),
+                                   f"rows={n} D={D} bf16")
+    e_dx, e_ds = rmsnorm_bwd_agrees("rmsnorm_bwd", x, w, g, eps, atol, rtol, 1e-5)
+    xr, wr = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    lib_out = F.rms_norm(xr, (D,), wr, eps)
+    b_ms, b_by = bound(10 * x.numel(), 3 * 2 * x.numel() + 2 * D + 4 * D)
+    rows["rmsnorm_bwd"] = {
+        "max_abs_err": max(e_dx, e_ds), "ms": timer(lambda: rn.rmsnorm_bwd(x, w, g, eps)),
+        "plain_ms": timer(lambda: rn.rmsnorm_bwd_plain(x, w, g, eps)),
+        "library_ms": timer(lambda: torch.autograd.grad(lib_out, (xr, wr), g,
+                                                        retain_graph=True)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": f"rows={n} D={D} bf16 (library: F.rms_norm backward)"}
+    del x, g, xr, wr, lib_out
+    torch.cuda.empty_cache()
+    rows["fused_adam"] = check_fused_adam(gen, timer, n=2 * 8 * 4096 * 14336)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def main_path_training_mixtral() -> dict:
+    """``initialize(mixtral("mixtral-8x7b", num_layers=2))`` at full width
+    (depth cut from 32: the fp32 masters, gradients and Adam moments take 16
+    bytes a parameter, 50.6 GB at two layers, 97 GB at four), seeded random
+    masters, bf16 over fp32 masters, AdamW through fused Adam, ZeRO 0, the
+    ``moe`` section at ep 1, the model's default "einsum" dispatch; one seeded
+    batch of 8 x 2048 tokens (micro-batch 4, 2 accumulation steps), 6 steps.
+    The loss must be finite and fall, the aux loss finite, and every training
+    kernel launched; prints ms/step, tokens/s, MFU over the active
+    parameters, peak memory, the last step's tokens per expert and drop
+    fraction, and a profiled step."""
+    model = mixtral("mixtral-8x7b", num_layers=MIXTRAL_TRAIN_LAYERS)
+    cfg = model.config
+    steps, rows, tokens = MIXTRAL_TRAIN_STEPS, TRAIN_B * TRAIN_ACCUM, TRAIN_B * TRAIN_ACCUM * TRAIN_S
+    ids = torch.randint(0, cfg.vocab_size, (rows, TRAIN_S),
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    batch = {"input_ids": ids}
+    active = mixtral_active_params(cfg)
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=model,
+                            config={**train_config(True), "moe": {"enabled": True, "ep_size": 1}},
+                            rng=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    capacity = smoe.train_capacity(cfg, TRAIN_B * TRAIN_S)
+    print(f"training_mixtral main path: {cfg.name} L={cfg.num_layers} (cut from 32: fp32 "
+          f"masters, gradients and Adam moments at 16 B a parameter take "
+          f"{16 * cfg.num_params() / 1e9:.1f} GB at two layers) d={cfg.hidden_size} "
+          f"H={cfg.num_heads} KV={cfg.kv_heads} hd={cfg.hd} ffn={cfg.ffn} "
+          f"E={cfg.num_experts} top-{cfg.moe_top_k} V={cfg.vocab_size} "
+          f"({cfg.num_params() / 1e9:.3f} B params, {active / 1e9:.3f} B active a token), "
+          f"dispatch {cfg.moe_dispatch}, training capacity {capacity} an expert "
+          f"({cfg.num_experts * capacity} expert rows a micro-batch for "
+          f"{cfg.moe_top_k * TRAIN_B * TRAIN_S} assignments); init "
+          f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+          f"allocated")
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, aux, stats = [], [], []
+    with moe_gating_stats(stats):
+        for i in range(steps):
+            losses.append(engine.train_batch(batch=batch))
+            aux.append(engine._metrics["moe_aux_loss"])
+            if i == 0:
+                torch.cuda.synchronize()
+                peak_first = torch.cuda.max_memory_allocated()
+            if i == 1:  # the first two steps warm up cuBLAS and the allocator
+                torch.cuda.synchronize()
+                t_warm = time.perf_counter()
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t_warm) * 1e3 / (steps - 2)
+    counts = kernels.launch_counts()
+    losses, aux = [x.item() for x in losses], [x.item() for x in aux]
+    peak = torch.cuda.max_memory_allocated()
+    pairs = rows * TRAIN_S * (TRAIN_S + 1) / 2
+    flops = 6 * active * tokens + 12 * cfg.hd * cfg.num_heads * cfg.num_layers * pairs
+    mfu = flops / (ms_step / 1e3) / BF16_FLOPS
+    # dispatch and combine products a layer and micro-batch: 2 N E C D each,
+    # forward 2, backward 3 (tokens' and combine's and expert outputs' gradients)
+    onehot = 5 * 2 * TRAIN_B * TRAIN_S * cfg.num_experts * capacity * cfg.hidden_size \
+        * cfg.num_layers * TRAIN_ACCUM
+    last = stats[-cfg.num_layers * TRAIN_ACCUM:]  # the last step's gating calls
+    per_expert = torch.stack([m["tokens_per_expert"] for m in last]).sum(0).tolist()
+    drop = torch.stack([m["drop_fraction"] for m in last]).mean().item()
+    plain = kernels.plain_attention_on_cuda()
+    print(f"training_mixtral losses: {losses}")
+    print(f"training_mixtral aux losses (summed over the layers, before the 0.01 "
+          f"coefficient): {aux}")
+    print(f"training_mixtral: {ms_step:.2f} ms/step (steps 3-{steps}), "
+          f"{tokens / (ms_step / 1e3):.1f} tokens/s, MFU {mfu:.4f} (6 x {active / 1e9:.3f} B "
+          f"active params x tokens + attention over the causal pairs, over "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s bf16; not counted as model flops: the one-hot "
+          f"dispatch/combine products, {onehot / 1e12:.1f} TFLOP a step, and the expert "
+          f"rows past the routed ones at capacity), peak memory {peak / 2**30:.2f} GiB "
+          f"({peak_first / 2**30:.2f} GiB after the first step)")
+    print(f"training_mixtral last step: tokens per expert {per_expert} (both layers and "
+          f"micro-batches), drop fraction {drop:.4f}")
+    print(f"training_mixtral main path launches ({steps} steps): "
+          f"{ {k: counts[k] for k in MIXTRAL_TRAIN_KERNELS} }; plain attention on the card "
+          f"{plain}")
+    require(all(math.isfinite(x) for x in losses), "non-finite training_mixtral loss")
+    require(all(math.isfinite(x) for x in aux), "non-finite training_mixtral aux loss")
+    require(losses[-1] < losses[0], f"training_mixtral loss did not fall: {losses}")
+    for name in MIXTRAL_TRAIN_KERNELS:
+        require(counts[name] > 0, f"kernel {name} was not launched on the training_mixtral path")
+    require(sum(plain.values()) == 0, f"training_mixtral: plain attention ran on the card {plain}")
+    profile_device(lambda: engine.train_batch(batch=batch), "one training_mixtral step")
+    del engine, stats, last
+    gc.collect()
     torch.cuda.empty_cache()
     return counts
 
@@ -4298,23 +4533,25 @@ fixed = sparse_layout(from_ds_config(SparseAttentionConfig(
 """
 
 # The backward kernels timed at the shape of each PERF.md section 6 backward
-# row, on inputs made from one seed, run by ``--baseline`` in each checkout:
-# prints one JSON object {form: [dq ms, dk/dv ms]}.
+# row, on inputs made from one seed, run by ``--baseline`` and
+# ``--bwd-baseline`` in each checkout: prints one JSON object {form: [dq ms,
+# dk/dv ms]}.
 BWD_TIMES_SCRIPT = TIMES_PRELUDE + r"""
 forms = {
-    "training": (B, S, 32, 8, {}),
-    "training_bloom (ALiBi)": (B, S, 16, 16, {"slopes": alibi_slopes(16).cuda()}),
-    "training_packed (segment ids)": (B, S, 32, 8, {"segment_ids": seg}),
+    "training": (B, S, 32, 8, 64, {}),
+    "training_bloom (ALiBi)": (B, S, 16, 16, 64, {"slopes": alibi_slopes(16).cuda()}),
+    "training_packed (segment ids)": (B, S, 32, 8, 64, {"segment_ids": seg}),
     "training_bloom_packed (bias + segment ids)": (
-        B, S, 16, 16, {"segment_ids": seg,
-                       "bias": alibi_position_bias(pos, alibi_slopes(16).cuda())}),
-    "training_sparse (block-sparse)": (B, S, 32, 8, {"layout": fixed}),
-    "training_sp ring past hop (offsets)": (1, 8192, 32, 8, {"offsets": (8192, 0)}),
-    "training_sp Ulysses": (1, 16384, 16, 4, {}),
+        B, S, 16, 16, 64, {"segment_ids": seg,
+                           "bias": alibi_position_bias(pos, alibi_slopes(16).cuda())}),
+    "training_sparse (block-sparse)": (B, S, 32, 8, 64, {"layout": fixed}),
+    "training_sp ring past hop (offsets)": (1, 8192, 32, 8, 64, {"offsets": (8192, 0)}),
+    "training_sp Ulysses": (1, 16384, 16, 4, 64, {}),
+    "training_mixtral (head dim 128)": (B, S, 32, 8, 128, {}),
 }
 times = {}
-for name, (b, s, h, kv, kw) in forms.items():
-    q, k, v, do = r(b, s, h, 64), r(b, s, kv, 64), r(b, s, kv, 64), r(b, s, h, 64)
+for name, (b, s, h, kv, d, kw) in forms.items():
+    q, k, v, do = r(b, s, h, d), r(b, s, kv, d), r(b, s, kv, d), r(b, s, h, d)
     o, lse = fa.flash_attention_fwd(q, k, v, True, **kw)
     _, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, True, **kw)
     times[name] = [timer(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, True, **kw)),
@@ -4784,6 +5021,42 @@ def compare_to_baseline(baseline: str) -> None:
               f"device {new['device_ms']:.3f} ms (baseline {old['device_ms']:.3f}), of it the "
               f"matvec {new['matvec_ms']:.3f} ms (baseline {old['matvec_ms']:.3f}); "
               f"{new['launches']:.1f} launches (baseline {old['launches']:.1f})")
+    require(not slower, "; ".join(slower))
+
+
+def compare_bwd_to_baseline(baseline: str) -> None:
+    """Both checkouts' flash backward kernels, dq and dk/dv, at every PERF.md
+    section 6 backward shape (head dim 128 at training_mixtral's among them),
+    timed in turns on this card (baseline, this, this, baseline); each of
+    this checkout's times must be at most BWD_TIME_SLACK times the
+    baseline's. Only calls every checkout since the offset form took
+    (PR 8's on) are made, so an older checkout's backward can be timed
+    beside this one's."""
+    trees = {"this checkout": Path(__file__).resolve().parent,
+             "baseline": Path(baseline).resolve()}
+    runs = {label: [] for label in trees}
+    for label in ("baseline", "this checkout", "this checkout", "baseline"):
+        t0 = time.perf_counter()
+        proc = run_in(trees[label], BWD_TIMES_SCRIPT)
+        runs[label].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(f"backward times in {label} ({trees[label]}): {time.perf_counter() - t0:.1f} s "
+              "with its build")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"backward kernels, ms (median of 20 launches, L2 flushed; each checkout twice, "
+          f"in turns; {smi}; held to {BWD_TIME_SLACK}x the baseline's):")
+    slower = []
+    for form in runs["baseline"][0]:
+        new, old = ([statistics.mean(run[form][i] for run in runs[label]) for i in (0, 1)]
+                    for label in ("this checkout", "baseline"))
+        print(f"  {form}: dq {new[0]:.4f} (baseline {old[0]:.4f}, {old[0] / new[0]:.2f}x), "
+              f"dk/dv {new[1]:.4f} (baseline {old[1]:.4f}, {old[1] / new[1]:.2f}x); runs "
+              f"{[run[form] for run in runs['baseline']]} / "
+              f"{[run[form] for run in runs['this checkout']]}")
+        if new[0] > BWD_TIME_SLACK * old[0] or new[1] > BWD_TIME_SLACK * old[1]:
+            slower.append(f"{form}: a backward kernel is slower than {BWD_TIME_SLACK}x the "
+                          "baseline's")
     require(not slower, "; ".join(slower))
 
 
@@ -5305,8 +5578,9 @@ def main() -> int:
             "count": torch.cuda.device_count(),
         }}))
         return 0
-    if len(sys.argv) == 3 and sys.argv[1] == "--baseline":
-        compare_to_baseline(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] in ("--baseline", "--bwd-baseline"):
+        (compare_to_baseline if sys.argv[1] == "--baseline"
+         else compare_bwd_to_baseline)(sys.argv[2])
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
@@ -5348,6 +5622,7 @@ def main() -> int:
     rms_bwd, adam = check_rmsnorm_bwd(gen, timer), check_fused_adam(gen, timer)
     ln_bwd = check_layernorm_bwd(gen, timer)
     adam_bloom = check_fused_adam(gen, timer, n=250880 * 1024)
+    mix = check_mixtral_training_shapes(timer)
     # the quantized serving path runs the bf16 path's requests: its flash,
     # RMSNorm and (int4 engine, draft) dense decode shapes are the same
     rows = [
@@ -5414,6 +5689,9 @@ def main() -> int:
         ("rmsnorm_fwd", "training_sp", norm["training"]),
         ("rmsnorm_bwd", "training_sp", rms_bwd),
         ("fused_adam", "training_sp", adam),
+        # training_mixtral: Mixtral-8x7B's micro-batch (head dim 128), its
+        # 8192 x 4096 norm rows and its largest leaf
+        *((name, "training_mixtral", r) for name, r in mix.items()),
     ]
     # the norms' decode rows are printed beside the main paths' rows; the
     # kernels line keeps one row per main path
@@ -5483,6 +5761,7 @@ def main() -> int:
             pairs_per_seq=layout_pairs(sparse_fixed_layout(TRAIN_S), TRAIN_S)),
         "attention_bias": main_path_attention_bias,
         "training_sp": main_path_training_sp,
+        "training_mixtral": main_path_training_mixtral,
     }
     counts = {}
     for path, run in paths.items():

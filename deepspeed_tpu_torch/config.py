@@ -9,8 +9,9 @@ scheduler, fp16/bf16, ZeRO stage, activation-checkpointing policy, gradient
 clipping, logging, ``tpu_kernels`` (which kernels replace the plain
 paths; ``"auto"`` resolves on for a CUDA device as the JAX package's does for
 a TPU), ``sparse_attention`` (the block-sparse layout of training's
-attention) and ``sequence_parallel`` (``sp_size`` and the ``mode``, Ulysses
-or ring; the ``sequence_parallel_size`` shorthand). It raises
+attention), ``sequence_parallel`` (``sp_size`` and the ``mode``, Ulysses
+or ring; the ``sequence_parallel_size`` shorthand) and ``moe`` (with its
+``overlap_a2a`` subsection, a bool or "auto" spelling normalised). It raises
 :class:`DeepSpeedConfigError` for the same bad inputs as the JAX package: a
 batch-triangle mismatch, fp16 and bf16 both on, a ZeRO stage out of range, an
 unknown remat policy, negative clipping, an unknown sparse-attention mode or
@@ -195,6 +196,51 @@ class SequenceParallelConfig:
         self.sp_size = int(self.sp_size)
 
 
+@dataclass
+class MoEOverlapA2AConfig:
+    """"moe.overlap_a2a" (JAX ``config.py:307``): the expert exchange
+    decomposed into chunked ring hops at ep > 1. At ep = 1 there is no
+    exchange: ``initialize`` logs the knob turned on and ignores it."""
+
+    enabled: Any = False  # bool | "auto"
+    chunks: int = 1
+    bidirectional: bool = False
+
+    def validate(self) -> None:
+        _check_tristate("moe.overlap_a2a.enabled", self.enabled)
+        if int(self.chunks) < 1:
+            raise DeepSpeedConfigError(
+                f"moe.overlap_a2a.chunks must be >= 1, got {self.chunks}")
+
+
+@dataclass
+class MoEConfig:
+    """The "moe" section (JAX ``config.py:338``). ``initialize`` reads only
+    ``enabled``, ``ep_size`` and ``overlap_a2a``, as the JAX engine does: the
+    model's own ``moe_*`` fields set top-k, capacity and the loss
+    coefficients."""
+
+    enabled: bool = False
+    ep_size: int = 1
+    num_experts: int = 1
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    eval_capacity_factor: float = 2.0
+    min_capacity: int = 4
+    aux_loss_coef: float = 0.01
+    z_loss_coef: float = 1e-3
+    drop_tokens: bool = True
+    use_residual: bool = False
+    overlap_a2a: MoEOverlapA2AConfig = field(default_factory=MoEOverlapA2AConfig)
+
+    def __post_init__(self):
+        # the nested section arrives as a dict, or as a bare bool / "auto"
+        if isinstance(self.overlap_a2a, bool) or self.overlap_a2a == AUTO:
+            self.overlap_a2a = MoEOverlapA2AConfig(enabled=self.overlap_a2a)
+        elif isinstance(self.overlap_a2a, dict):
+            self.overlap_a2a = _parse_dc(MoEOverlapA2AConfig, self.overlap_a2a)
+
+
 def _check_tristate(name: str, v) -> None:
     if v not in (True, False, AUTO):
         raise DeepSpeedConfigError(f"{name} must be true|false|\"auto\", got {v!r}")
@@ -376,6 +422,7 @@ class DeepSpeedConfig:
         if "sequence_parallel_size" in d:  # the shorthand (JAX config.py:1102)
             sp.setdefault("sp_size", d["sequence_parallel_size"])
         self.sequence_parallel = _parse_dc(SequenceParallelConfig, sp)
+        self.moe = _parse_dc(MoEConfig, d.get("moe"))
         self._validate()
 
     def resolve_batch_sizes(self, dp_world_size: int) -> None:
@@ -422,6 +469,7 @@ class DeepSpeedConfig:
         self.activation_checkpointing.validate()
         self.sparse_attention.validate()
         self.sequence_parallel.validate()
+        self.moe.overlap_a2a.validate()
         # the section the second rule reads stays raw (refused turned on);
         # the JAX package's texts (config.py:1236-1250)
         ltd = ((self.raw.get("data_efficiency") or {}).get("data_routing")

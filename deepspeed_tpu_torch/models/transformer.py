@@ -8,15 +8,16 @@ Python loop over the layers where JAX has ``lax.scan``.
 
 The port covers the Llama family (RoPE, RMSNorm, SwiGLU, grouped-query
 attention, no biases, an untied head), Mixtral's routed expert MLP
-(``num_experts > 0``: a router and [L, E, ...] expert banks, evaluated by
-``moe.sharded_moe.moe_layer``; MoE training is not ported) and the GPT-2 and
-BLOOM families:
+(``num_experts > 0``: a router and [L, E, ...] expert banks, routed by
+``moe.sharded_moe.moe_layer`` at the training or the eval capacity) and the
+GPT-2 and BLOOM families:
 LayerNorm with a bias, learned positions or ALiBi slopes, GELU (erf or tanh),
 biases on every projection, a head tied to the token table (its gradient sums
 the lookup's and the head's), BLOOM's embedding LayerNorm. What stays
 unported raises ``NotImplementedError`` (see :func:`check_supported`). For
 training, :func:`loss_fn` is the next-token cross-entropy (dense, or
-vocab-chunked under ``ops.cross_entropy.fused_ce_scope``), and :func:`apply`
+vocab-chunked under ``ops.cross_entropy.fused_ce_scope``), plus the MoE aux
+loss times ``moe_aux_loss_coef`` for an MoE model, and :func:`apply`
 can re-run each layer in backward (``remat_policy="full"``). A packed batch's
 ``segment_ids`` keep attention inside each document and its ``positions``
 place RoPE and the learned positions (BLOOM's ALiBi then becomes a dense
@@ -380,15 +381,15 @@ def _act(cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp(cfg: TransformerConfig, p: Params, x: torch.Tensor,
-         aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+         aux: Optional[List[torch.Tensor]] = None, train: bool = False) -> torch.Tensor:
     """SwiGLU MLP, or GELU with its biases; each projection through
     ``packed_proj``. An MoE model routes to the expert layer
-    (``moe.sharded_moe.moe_layer``, eval capacity), appending its aux loss
-    to ``aux`` when given."""
+    (``moe.sharded_moe.moe_layer``, at the training capacity when
+    ``train``), appending its aux loss to ``aux`` when given."""
     if cfg.is_moe:
         from ..moe.sharded_moe import moe_layer
 
-        out, a = moe_layer(cfg, p, x)
+        out, a = moe_layer(cfg, p, x, train=train)
         if aux is not None:
             aux.append(a)
         return out
@@ -445,16 +446,16 @@ def alibi_position_bias(positions: torch.Tensor, slopes: torch.Tensor) -> torch.
 
 
 def _layer(cfg: TransformerConfig, lp: Params, x: torch.Tensor, rope,
-           slopes, bias=None, segment_ids=None, aux=None) -> torch.Tensor:
+           slopes, bias=None, segment_ids=None, aux=None, train=False) -> torch.Tensor:
     x = x + _attention(cfg, lp["attn"], _norm(cfg, lp["ln1"], x), rope, slopes, bias,
                        segment_ids)
-    return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x), aux)
+    return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x), aux, train)
 
 
 def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
           dtype: Optional[torch.dtype] = None, remat_policy: Optional[str] = None,
           positions: Optional[torch.Tensor] = None,
-          segment_ids: Optional[torch.Tensor] = None,
+          segment_ids: Optional[torch.Tensor] = None, train: bool = False,
           return_hidden: bool = False, return_aux: bool = False):
     """No-cache forward → fp32 logits [B, S, V]; with ``return_hidden`` the
     final normed hidden [B, S, d] instead (the chunked-CE path projects
@@ -470,6 +471,7 @@ def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
     positions; given, they turn ALiBi into the dense bias at those positions,
     made once here and shared by every layer. ``segment_ids`` [B, S] keep
     attention inside each packed segment (JAX ``apply``, line 548).
+    ``train`` routes an MoE model's tokens at the training capacity.
 
     Under a sequence-parallel topology (``models.sharding.use_topology``,
     sp > 1) ``input_ids`` (and ``positions``, ``segment_ids``) are this
@@ -502,9 +504,9 @@ def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
     for lp in unstack_layers(cast(params["layers"]), cfg.num_layers):
         if remat:
             x = checkpoint(_layer, cfg, lp, x, rope, slopes, bias, segment_ids, aux,
-                           use_reentrant=False)
+                           train, use_reentrant=False)
         else:
-            x = _layer(cfg, lp, x, rope, slopes, bias, segment_ids, aux)
+            x = _layer(cfg, lp, x, rope, slopes, bias, segment_ids, aux, train)
     x = _norm(cfg, cast(params["final_norm"]), x)
     out = x if return_hidden else lm_head_logits(cfg, params, x)
     if return_aux:
@@ -527,7 +529,7 @@ def masked_ce(logits: torch.Tensor, labels: torch.Tensor, denom=None
 
 
 def loss_fn(cfg: TransformerConfig, params: Params, batch: Dict[str, torch.Tensor],
-            *, dtype: Optional[torch.dtype] = torch.bfloat16,
+            *, dtype: Optional[torch.dtype] = torch.bfloat16, train: bool = True,
             remat_policy: Optional[str] = None, num_tokens=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy (fp32); labels < 0 are ignored. Under an
@@ -535,19 +537,25 @@ def loss_fn(cfg: TransformerConfig, params: Params, batch: Dict[str, torch.Tenso
     [B, S, V] logits never materialise (``ops/cross_entropy.py``). A packed
     batch's ``segment_ids`` and ``positions`` go to :func:`apply`.
     ``num_tokens``, the valid tokens of a batch sharded over ranks, divides
-    this rank's NLL sum, so the ranks' losses sum to the batch's mean."""
+    this rank's NLL sum, so the ranks' losses sum to the batch's mean.
+
+    An MoE model's loss is ``ce + moe_aux_loss_coef · aux`` (JAX ``loss_fn``,
+    lines 603 and 612), ``aux`` the layers' summed aux losses, with ``train``
+    picking the training capacity. The metrics are ``lm_loss`` (the CE),
+    ``moe_aux_loss`` (0 for a dense model) and ``tokens``."""
     fused_on, chunk = fused_ce_config()
     kw = dict(dtype=dtype, remat_policy=remat_policy, positions=batch.get("positions"),
-              segment_ids=batch.get("segment_ids"))
+              segment_ids=batch.get("segment_ids"), train=train, return_aux=True)
     # one device never shards the vocab: chunk once it spans more than one
     if fused_on and cfg.vocab_size > chunk:
-        x = apply(cfg, params, batch["input_ids"], return_hidden=True, **kw)
+        x, aux = apply(cfg, params, batch["input_ids"], return_hidden=True, **kw)
         ce, denom = chunked_masked_ce(x, lm_head_weight(cfg, params), batch["labels"],
                                       chunk, num_tokens)
     else:
-        ce, denom = masked_ce(apply(cfg, params, batch["input_ids"], **kw),
-                              batch["labels"], num_tokens)
-    return ce, {"lm_loss": ce, "tokens": denom}
+        logits, aux = apply(cfg, params, batch["input_ids"], **kw)
+        ce, denom = masked_ce(logits, batch["labels"], num_tokens)
+    total = ce + cfg.moe_aux_loss_coef * aux if cfg.is_moe else ce
+    return total, {"lm_loss": ce, "moe_aux_loss": aux, "tokens": denom}
 
 
 def make_lm_batch(input_ids: torch.Tensor, pad_id: int = -1) -> Dict[str, torch.Tensor]:

@@ -1,4 +1,5 @@
-"""Mixture-of-experts layer for inference on one device (ep = 1).
+"""Mixture-of-experts layer on one device (ep = 1), for training and
+inference.
 
 Counterpart of ``deepspeed_tpu/moe/sharded_moe.py`` (TopKGate + MOELayer of
 DeepSpeed): softmax gates, top-k experts per token, each token's slot in its
@@ -11,18 +12,22 @@ diverge.
 What the JAX module adds for an expert-parallel mesh is left out here: the
 ``ep`` sharding constraints, the decomposed all-to-all overlap of
 ``moe.overlap_a2a`` and the decode-shaped a2a ring of serving. At ep = 1
-each of them is the identity, and the port serves on one device.
+each of them is the identity.
 
-The port evaluates only (``train=False``): router noise, the training
-capacity rule and the aux and z losses in the training loss come with MoE
-training (ROADMAP queue A, "MoE training at ep = 1"). Gating stays on the
-device: nothing here reads a value back to the host.
+Training (``moe_layer(train=True)``) takes the training capacity rule
+(:func:`train_capacity`) and is differentiable in both forms: gradients
+reach the router through the softmax gates in the combine weights, the gate
+fraction of the load-balance loss and the z-loss; the one-hot choices carry
+none. Router noise is drawn only when a caller passes ``noise_std > 0`` and a
+generator with ``train=True``; ``moe_layer`` passes no ``noise_std``, as the
+JAX package does, so it never draws. Gating stays on the device: nothing
+here reads a value back to the host.
 
 Expert banks may be packed int8/int4 (``ops/quantizer.PackedWeight``,
-[E, G, B, N] a layer): :func:`_expert_proj` streams them through the expert
-form of the quantized matvec kernel when each expert has at most
-``matvec_max_rows`` rows, and multiplies the dequantized bank otherwise, as
-the JAX package does.
+[E, G, B, N] a layer), for inference only: :func:`_expert_proj` streams them
+through the expert form of the quantized matvec kernel when each expert has
+at most ``matvec_max_rows`` rows, and multiplies the dequantized bank
+otherwise, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -40,10 +45,17 @@ DISPATCH_FORMS = ("einsum", "gather")
 
 
 def _gating_rounds(logits: torch.Tensor, top_k: int, capacity: int,
-                   valid: Optional[torch.Tensor] = None):
+                   rng: Optional[torch.Generator] = None, train: bool = False,
+                   noise_std: float = 0.0, valid: Optional[torch.Tensor] = None):
     """The top-k selection loop shared by both dispatch forms: per round
     (expert idx [N], slot position [N], keep mask [N], raw gate [N]), plus
     the aux metrics.
+
+    Router noise (normal, ``noise_std``, drawn from ``rng`` on the logits'
+    device) is added only when ``train and noise_std > 0 and rng is not
+    None``; otherwise no draw is made and the generator's state is left as
+    it was, so gating without noise is the same with and without a
+    generator.
 
     ``valid`` ([N] bool) is the serving engine's null-expert contract: rows
     marked invalid (padded chunk tails, idle slots) never enter the
@@ -52,11 +64,14 @@ def _gating_rounds(logits: torch.Tensor, top_k: int, capacity: int,
     depend on how full the step is. Their logits are zeroed (not -inf), so
     no NaN can leak out of a padded row's hidden state."""
     N, E = logits.shape
+    if train and noise_std > 0.0 and rng is not None:
+        logits = logits + torch.randn(logits.shape, generator=rng, dtype=logits.dtype,
+                                      device=logits.device) * noise_std
     if valid is not None:
         logits = torch.where(valid[:, None], logits, 0.0)
     gates = torch.softmax(logits, dim=-1)  # [N, E]
     fill = torch.zeros(E, dtype=torch.int32, device=logits.device)
-    masked_gates = gates
+    masked_gates = gates.detach()  # picks the experts: no gradient
     me = gates.mean(dim=0)  # gate fraction per expert
     ce_acc = torch.zeros(E, dtype=torch.float32, device=logits.device)
     kept_total = torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -99,56 +114,73 @@ def _gating_rounds(logits: torch.Tensor, top_k: int, capacity: int,
     return rounds, metrics
 
 
-def top_k_gating(logits: torch.Tensor, top_k: int, capacity: int,
-                 valid: Optional[torch.Tensor] = None):
-    """(dispatch [N, E, C] fp32 0/1, combine [N, E, C] fp32, metrics): the
-    one-hot form, combine weights renormalised over each token's kept
-    experts (the reference's top-2 behaviour)."""
-    N, E = logits.shape
-    rounds, metrics = _gating_rounds(logits, top_k, capacity, valid)
-    combine = torch.zeros((N, E, capacity), dtype=torch.float32, device=logits.device)
-    dispatch = torch.zeros((N, E, capacity), dtype=torch.bool, device=logits.device)
+def _token_slots(rounds, capacity: int):
+    """Each token's slots, one column a round, [N, K] each: the flat slot
+    e·C + c (0 for a dropped or invalid token), whether it was kept, and its
+    combine weight: the kept gates renormalised over the token's kept
+    experts, 0 where dropped (the reference's top-2 behaviour)."""
+    slots, kept, w_raw = [], [], []
     for idx, pos_tok, keep, gate_val in rounds:
-        onehot = F.one_hot(idx, E).float()
-        # a dropped token points at the extra column C, cut off below
-        pos_oh = F.one_hot(torch.where(keep, pos_tok, capacity).long(),
-                           capacity + 1)[:, :capacity].float()
-        contrib = onehot[:, :, None] * pos_oh[:, None, :]  # [N, E, C]
-        combine = combine + contrib * gate_val[:, None, None] * keep[:, None, None]
-        dispatch = dispatch | ((contrib > 0) & keep[:, None, None])
-    denom = combine.sum(dim=(1, 2), keepdim=True)
-    combine = torch.where(denom > 0, combine / denom.clamp_min(1e-9), combine)
-    return dispatch.float(), combine, metrics
+        flat = idx * capacity + pos_tok.clamp_max(capacity - 1).long()
+        slots.append(torch.where(keep, flat, 0))
+        kept.append(keep)
+        w_raw.append(gate_val * keep)
+    w = torch.stack(w_raw, dim=1)
+    denom = w.sum(dim=1, keepdim=True)
+    w = torch.where(denom > 0, w / denom.clamp_min(1e-9), w)
+    return torch.stack(slots, dim=1), torch.stack(kept, dim=1), w
+
+
+def top_k_gating(logits: torch.Tensor, top_k: int, capacity: int,
+                 rng: Optional[torch.Generator] = None, train: bool = False,
+                 noise_std: float = 0.0, valid: Optional[torch.Tensor] = None,
+                 dtype: torch.dtype = torch.float32):
+    """(dispatch [N, E, C] 0/1, combine [N, E, C], metrics) in ``dtype``: the
+    one-hot form. A kept token's (e, c) entry of combine is its weight of
+    :func:`_token_slots`, every other entry 0: the JAX package's sum of
+    one-hot products then division by the row sum, written as one
+    ``scatter_add`` a table (a dropped token adds 0 at slot 0). The values
+    are the JAX tables' cast to ``dtype``; a bf16 table is made without the
+    fp32 [N, E, C] tensors the products would need."""
+    N, E = logits.shape
+    rounds, metrics = _gating_rounds(logits, top_k, capacity, rng, train, noise_std, valid)
+    slots, kept, w = _token_slots(rounds, capacity)
+    zeros = torch.zeros((N, E * capacity), dtype=dtype, device=logits.device)
+    dispatch = zeros.scatter_add(1, slots, kept.to(dtype))
+    combine = zeros.scatter_add(1, slots, w.to(dtype))
+    return (dispatch.view(N, E, capacity), combine.view(N, E, capacity), metrics)
 
 
 def top_k_gating_indices(logits: torch.Tensor, top_k: int, capacity: int,
-                         valid: Optional[torch.Tensor] = None):
+                         rng: Optional[torch.Generator] = None, train: bool = False,
+                         noise_std: float = 0.0, valid: Optional[torch.Tensor] = None):
     """The index-table form of :func:`top_k_gating`, from the same loop:
     (tok_of_slot [E, C] int32, slot_valid [E, C] bool, slot_of_tok [N, K]
     flat e·C + c, w_of_tok [N, K] fp32, metrics). Dropped and invalid
     tokens write an extra dummy slot, cut off at the end, and point their
     gather at slot 0 with weight 0."""
     N, E = logits.shape
-    rounds, metrics = _gating_rounds(logits, top_k, capacity, valid)
+    rounds, metrics = _gating_rounds(logits, top_k, capacity, rng, train, noise_std, valid)
+    slot_of_tok, kept, w = _token_slots(rounds, capacity)
     dev = logits.device
+    # kept tokens own distinct slots; only the dummy slot sees repeats
+    # (scatter_, not index assignment: that reads back to the host on CUDA)
+    target = torch.where(kept, slot_of_tok, E * capacity).reshape(-1)
+    tok = torch.arange(N, dtype=torch.int32, device=dev)[:, None].expand(N, top_k)
     tok_flat = torch.zeros(E * capacity + 1, dtype=torch.int32, device=dev)
     valid_flat = torch.zeros(E * capacity + 1, dtype=torch.bool, device=dev)
-    arange_n = torch.arange(N, dtype=torch.int32, device=dev)
-    slot_of_tok, w_raw = [], []
-    for idx, pos_tok, keep, gate_val in rounds:
-        flat = idx * capacity + pos_tok.clamp_max(capacity - 1).long()
-        target = torch.where(keep, flat, E * capacity)
-        # kept tokens own distinct slots; only the dummy slot sees repeats
-        # (scatter_, not index assignment: that reads back to the host on CUDA)
-        tok_flat.scatter_(0, target, arange_n)
-        valid_flat.scatter_(0, target, True)
-        slot_of_tok.append(torch.where(keep, flat, 0))
-        w_raw.append(gate_val * keep)
-    w = torch.stack(w_raw, dim=1)  # [N, K]
-    denom = w.sum(dim=1, keepdim=True)
-    w = torch.where(denom > 0, w / denom.clamp_min(1e-9), w)
+    tok_flat.scatter_(0, target, tok.reshape(-1))
+    valid_flat.scatter_(0, target, True)
     return (tok_flat[:-1].reshape(E, capacity), valid_flat[:-1].reshape(E, capacity),
-            torch.stack(slot_of_tok, dim=1), w, metrics)
+            slot_of_tok, w, metrics)
+
+
+def train_capacity(cfg, n_tokens: int) -> int:
+    """Per-expert capacity in training: ``max(4, ceil(capacity_factor ·
+    top_k · n_tokens / E))`` (JAX ``moe_layer``, lines 311-314); tokens over
+    it are dropped."""
+    return max(4, int(math.ceil(cfg.moe_capacity_factor * cfg.moe_top_k * n_tokens
+                                / cfg.num_experts)))
 
 
 def eval_capacity(cfg, n_tokens: int) -> int:
@@ -201,19 +233,22 @@ def _residual_mix(cfg, p: Dict, x: torch.Tensor, out: torch.Tensor) -> torch.Ten
     return dense * coef[..., 0:1] + out * coef[..., 1:2]
 
 
-def moe_layer(cfg, p: Dict, x: torch.Tensor, train: bool = False):
-    """Routed expert MLP at eval capacity: x [B, S, D] → (out [B, S, D],
-    aux loss, the load-balance loss plus the z-loss scaled by
-    ``moe_z_loss_coef / moe_aux_loss_coef``, as JAX's ``moe_layer``).
-    ``cfg.moe_dispatch`` picks the one-hot or the gather form."""
-    if train:
-        raise NotImplementedError(
-            "deepspeed_tpu_torch: MoE training (router noise, the training "
-            "capacity and the aux losses in the loss) is not ported yet: "
-            "ROADMAP queue A, 'MoE training at ep = 1'")
+def moe_layer(cfg, p: Dict, x: torch.Tensor, rng: Optional[torch.Generator] = None,
+              train: bool = False):
+    """Routed expert MLP: x [B, S, D] → (out [B, S, D], aux loss, the
+    load-balance loss plus the z-loss scaled by ``moe_z_loss_coef /
+    moe_aux_loss_coef``, as JAX's ``moe_layer``). ``train`` picks the
+    training capacity (:func:`train_capacity`) over the eval one; the noise
+    generator ``rng`` goes to the gating without a ``noise_std``, so no noise
+    is drawn (JAX lines 342-348). ``cfg.moe_dispatch`` picks the one-hot or
+    the gather form. Packed expert banks serve only: training one raises."""
     B, S, D = x.shape
-    E, N = cfg.num_experts, B * S
-    capacity = eval_capacity(cfg, N)
+    E, N, K = cfg.num_experts, B * S, cfg.moe_top_k
+    if train and any(isinstance(p.get(k), PackedWeight) for k in ("wi", "wg", "wo")):
+        raise NotImplementedError(
+            "deepspeed_tpu_torch: packed int8/int4 expert banks are for inference; "
+            "train the bf16/fp32 banks")
+    capacity = train_capacity(cfg, N) if train else eval_capacity(cfg, N)
     dispatch_mode = getattr(cfg, "moe_dispatch", "einsum")
     if dispatch_mode not in DISPATCH_FORMS:
         raise ValueError(f"moe_dispatch {dispatch_mode!r} (must be 'einsum' or 'gather')")
@@ -221,18 +256,18 @@ def moe_layer(cfg, p: Dict, x: torch.Tensor, train: bool = False):
     router_logits = tokens.float() @ p["router"].float()
     if dispatch_mode == "gather":
         tok_of_slot, slot_valid, slot_of_tok, w_of_tok, metrics = top_k_gating_indices(
-            router_logits, cfg.moe_top_k, capacity)
+            router_logits, K, capacity, rng, train)
         expert_in = tokens[tok_of_slot.reshape(-1).long()].reshape(E, capacity, D) \
             * slot_valid[..., None].to(x.dtype)
         expert_out = _expert_ffn(cfg, p, expert_in)
         picked = expert_out.reshape(E * capacity, D)[slot_of_tok.reshape(-1)]
-        out = (picked.reshape(N, cfg.moe_top_k, D)
-               * w_of_tok[..., None].to(x.dtype)).sum(dim=1)
+        out = (picked.reshape(N, K, D) * w_of_tok[..., None].to(x.dtype)).sum(dim=1)
     else:
-        dispatch, combine, metrics = top_k_gating(router_logits, cfg.moe_top_k, capacity)
-        expert_in = torch.einsum("nec,nd->ecd", dispatch.to(x.dtype), tokens)
+        dispatch, combine, metrics = top_k_gating(router_logits, K, capacity, rng, train,
+                                                  dtype=x.dtype)
+        expert_in = torch.einsum("nec,nd->ecd", dispatch, tokens)
         expert_out = _expert_ffn(cfg, p, expert_in)
-        out = torch.einsum("nec,ecd->nd", combine.to(x.dtype), expert_out)
+        out = torch.einsum("nec,ecd->nd", combine, expert_out)
     aux = metrics["aux_loss"] + (cfg.moe_z_loss_coef
                                  / max(cfg.moe_aux_loss_coef, 1e-9)) * metrics["z_loss"]
     out = out.reshape(B, S, D)
@@ -268,7 +303,7 @@ def moe_serving_mlp(cfg, p: Dict, x: torch.Tensor,
     valid = token_valid.reshape(N) if token_valid is not None else None
     router_logits = tokens.float() @ p["router"].float()
     tok_of_slot, slot_valid, slot_of_tok, w_of_tok, metrics = top_k_gating_indices(
-        router_logits, K, capacity, valid)
+        router_logits, K, capacity, valid=valid)
     expert_in = tokens[tok_of_slot.reshape(-1).long()].reshape(E, capacity, D) \
         * slot_valid[..., None].to(x.dtype)
     expert_out = _expert_ffn(cfg, p, expert_in)

@@ -3,7 +3,9 @@ device (or the CPU, when asked), or on each rank of a dp × sp world.
 
 Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``initialize`` line 62,
 ``TpuEngine.train_batch`` line 2168, ``_train_step`` line 2038) at ZeRO stage
-0, bf16 (or fp32) compute over fp32 master weights, and AdamW. A step splits the global batch into ``gradient_accumulation_steps``
+0, bf16 (or fp32) compute over fp32 master weights, and the optimizers of
+``runtime/optimizers.py``. An MoE model (Mixtral) trains at ep = 1, its loss
+carrying the aux term. A step splits the global batch into ``gradient_accumulation_steps``
 micro-batches; each micro-batch's loss is the mean over its own tokens, and
 its fp32 gradient accumulates in the masters' ``.grad`` (the sum the JAX scan
 carries), scaled by 1/accum at the end (``_compute_grads`` line 1579). Then
@@ -12,6 +14,15 @@ the optimizer update in place (line 1973), all on the device: the step reads
 nothing back to the host except at a ``steps_per_print`` boundary (or every
 step under ``wall_clock_breakdown``, whose device timer has to wait). The
 returned loss is a device tensor.
+
+Beside ``train_batch`` the engine has DeepSpeed's imperative loop
+(``engine(batch)``, ``engine.backward(loss)``, ``engine.step()``; JAX lines
+2757-2807): ``forward`` gives a micro-batch's loss without a gradient,
+``backward`` buffers the micro-batch, and ``step`` at the accumulation
+boundary feeds the buffered micro-batches, concatenated, to ``train_batch``,
+so the loop's update is ``train_batch``'s on the same global batch, bit for
+bit. ``prepare_batch`` stages a global batch on the device once and
+``train_batch_chain`` runs several steps (JAX lines 2141, 2448).
 
 Where the JAX engine traces one program, the port runs eagerly: the
 ``tpu_kernels`` section picks the kernels (flash attention forward and
@@ -37,7 +48,7 @@ sequence chunks by the ``sequence_parallel`` mode (``parallel/sequence.py``).
 from __future__ import annotations
 
 import time
-from contextlib import ExitStack
+from contextlib import ExitStack, contextmanager
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -84,8 +95,8 @@ def unported_features(cfg: DeepSpeedConfig) -> List[str]:
          "pipeline parallelism (item 7)"),
         (int(tp.get("tp_size", tp.get("autotp_size", 1)) or 1) > 1,
          "tensor parallelism (item 7)"),
-        (_enabled(raw.get("moe")),
-         "MoE training (ROADMAP A14, MoE training at ep=1; ep > 1 is item 7)"),
+        (cfg.moe.enabled and int(cfg.moe.ep_size) > 1,
+         f"expert parallelism, moe.ep_size {cfg.moe.ep_size} (ROADMAP A7/A9)"),
         (_enabled(raw.get("progressive_layer_drop")),
          "progressive layer drop (item 11)"),
         (_enabled(de) or _enabled(raw.get("curriculum_learning"))
@@ -139,27 +150,47 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         later.append("training_data / the data loader (item 11)")
     cfg = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
     later += unported_features(cfg)
-    if getattr(getattr(model, "config", None), "num_experts", 0) > 0:
-        later.append("training an MoE model (ROADMAP A14, MoE training at ep=1)")
     if later:
         raise NotImplementedError(
-            "deepspeed_tpu_torch trains on one device at ZeRO stage 0 with "
-            "bf16/fp32 and AdamW; not yet ported (ROADMAP queue A): "
-            + "; ".join(later)
+            "deepspeed_tpu_torch trains at ZeRO stage 0 with bf16/fp32; not yet "
+            "ported (ROADMAP queue A): " + "; ".join(later)
         )
     sp = cfg.sequence_parallel.sp_size
     if comm.is_initialized() and comm.get_topology().sp_size == sp:
         topology = comm.get_topology()
     else:
         topology = comm.init_distributed(dims=ParallelDims(sp=sp))
+    is_moe = bool(getattr(getattr(model, "config", None), "is_moe", False))
+    if is_moe and topology.world_size > 1:
+        raise NotImplementedError(
+            "deepspeed_tpu_torch trains an MoE model on one rank: capacity and "
+            "slots count the whole batch's tokens, which dp or sp > 1 split "
+            "(ROADMAP A7)")
+    if cfg.moe.overlap_a2a.enabled:
+        # JAX engine.py:356-362: at ep = 1 there is no exchange to overlap
+        log_dist("moe.overlap_a2a: "
+                 + ("ep_size == 1 on this topology" if is_moe else "model is not MoE")
+                 + " - no expert exchange to decompose, knob ignored")
     cfg.resolve_batch_sizes(topology.data_shard_size)
     engine = TorchEngine(model, cfg, device=resolve_device(device, "initialize"),
                          model_parameters=model_parameters, rng=rng, topology=topology)
     return engine, engine, None, engine.lr_scheduler
 
 
+class PreparedBatch(dict):
+    """A global batch staged on the engine's device (:meth:`TorchEngine.
+    prepare_batch`): {field: [accum, micro, ...] tensor, this rank's part},
+    and ``num_tokens``, per micro-batch the global count of valid tokens
+    (None on one device)."""
+
+    def __init__(self, fields: Dict[str, torch.Tensor], num_tokens: Optional[torch.Tensor]):
+        super().__init__(fields)
+        self.num_tokens = num_tokens
+
+
 class TorchEngine:
-    """Parity surface of ``TpuEngine``: train_batch, eval_batch, lr,
+    """Parity surface of ``TpuEngine``: train_batch, train_batch_chain,
+    prepare_batch, eval_batch, the forward/backward/step loop, lr,
     global_steps, micro_steps, the grad norm; on one device, or on this
     rank of ``topology``'s dp × sp world."""
 
@@ -213,6 +244,10 @@ class TorchEngine:
         self.opt_state = self.optimizer.init(self.params)
         self.global_steps = 0
         self.micro_steps = 0
+        self.training = True
+        self._micro_buffer: List[Any] = []
+        self._pending_batch = None
+        self.last_chain_metrics: Optional[Dict[str, torch.Tensor]] = None
         self._metrics: Dict[str, Any] = {}
         self._timings: Dict[str, float] = {}
         log_dist(
@@ -278,11 +313,14 @@ class TorchEngine:
             return None
         return (labels >= 0).sum(dims).float().clamp(min=1.0)
 
-    def _prepare_batch(self, batch):
-        """Global batch → ([accum, micro, ...] tensors on the device, this
-        rank's part; per micro-batch the global count of valid tokens, or
-        None on one device)."""
+    def _prepare_batch(self, batch) -> PreparedBatch:
+        """Global batch → :class:`PreparedBatch`; a prepared one passes
+        through as it is."""
         accum = self.config.gradient_accumulation_steps
+        if isinstance(batch, PreparedBatch):
+            if batch["input_ids"].shape[0] != accum or batch["input_ids"].device != self.device:
+                raise ValueError("a batch prepared for another accumulation or device")
+            return batch
         expect = self.config.train_batch_size
         out = {}
         for k, t in self._lm_batch(batch).items():
@@ -291,7 +329,7 @@ class TorchEngine:
                     f"batch field {k!r} has batch {t.shape[0]}, config "
                     f"train_batch_size={expect}")
             out[k] = t.reshape(accum, expect // accum, *t.shape[1:])
-        return self._shard(out, 1), self._num_tokens(out["labels"], (1, 2))
+        return PreparedBatch(self._shard(out, 1), self._num_tokens(out["labels"], (1, 2)))
 
     @staticmethod
     def _flat_over_world(leaves: List[torch.Tensor], op) -> None:
@@ -317,23 +355,34 @@ class TorchEngine:
             batch = self._next_batch(data_iter)
         cfg = self.config
         t0 = time.perf_counter()
-        prepared, num_tokens = self._prepare_batch(batch)
+        prepared = self._prepare_batch(batch)
+        num_tokens = prepared.num_tokens
         accum = cfg.gradient_accumulation_steps
         t1 = time.perf_counter()
-        loss_sum = None
+        loss_sum = m_sum = None
         with self._kernel_scope():
             for i in range(accum):
                 mb = {k: v[i] for k, v in prepared.items()}
-                loss, _ = self.model.loss(
-                    self.params, mb, dtype=self.compute_dtype, remat_policy=self.remat_policy,
+                loss, m = self.model.loss(
+                    self.params, mb, dtype=self.compute_dtype, train=True,
+                    remat_policy=self.remat_policy,
                     num_tokens=None if num_tokens is None else num_tokens[i])
                 loss.backward()
                 loss = loss.detach()
+                m = {k: v.detach() for k, v in m.items()}
                 loss_sum = loss if loss_sum is None else loss_sum + loss
+                m_sum = m if m_sum is None else {k: m_sum[k] + v for k, v in m.items()}
+        # the model's metrics over the micro-batches: counts ("tokens") summed,
+        # the rest the mean (JAX _compute_grads)
+        shares = [k for k in m_sum if k != "tokens"]
         grads = tree_map(lambda p: p.grad, self.params)
         leaves = tree_leaves(grads)
         if self._world is not None:  # the ranks' shares of the batch's loss, gradient
             all_reduce(loss_sum, self._world)
+            if shares:
+                total = torch.stack([m_sum[k] for k in shares])
+                all_reduce(total, self._world)
+                m_sum.update(zip(shares, total.unbind()))
             self._flat_over_world(leaves, lambda f: all_reduce(f, self._world))
         if accum > 1:
             for g in leaves:
@@ -350,7 +399,8 @@ class TorchEngine:
         self.global_steps += 1
         self.micro_steps += accum
         loss = loss_sum / accum
-        self._metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        self._metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
+                         **{k: v if k == "tokens" else v / accum for k, v in m_sum.items()}}
         if cfg.wall_clock_breakdown:
             t2 = time.perf_counter()
             if self.device.type == "cuda":
@@ -361,23 +411,122 @@ class TorchEngine:
         if self.global_steps % cfg.steps_per_print == 0:
             msg = (f"step {self.global_steps}: loss={float(loss):.4f} "
                    f"lr={lr:.3e} gnorm={float(gnorm):.3f}")
+            if "moe_aux_loss" in self._metrics and self.model.config.is_moe:
+                msg += f" moe_aux={float(self._metrics['moe_aux_loss']):.4f}"
             if self._timings:
                 msg += " " + " ".join(f"{k}={v:.2f}ms" for k, v in self._timings.items())
             log_dist(msg)
         return loss
 
-    def eval_batch(self, data_iter=None, batch=None) -> torch.Tensor:
-        """Loss of a batch dict under the same weights, no gradient."""
-        if batch is None:
-            batch = self._next_batch(data_iter)
+    def train_batch_chain(self, batch=None, data_iter=None, steps: int = 1) -> torch.Tensor:
+        """``steps`` optimizer steps (JAX line 2448): on ``batch`` each time,
+        staged on the device once (:meth:`prepare_batch`), or on the next
+        ``steps`` batches of ``data_iter``. Returns the stacked losses
+        [steps]; the stacked metrics land in ``last_chain_metrics``. The
+        steps are ``train_batch`` calls, bit for bit."""
+        if steps < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
+        if batch is None and data_iter is None:
+            raise ValueError("train_batch_chain needs batch or data_iter")
+        if batch is not None:
+            batch = self.prepare_batch(batch)
+        losses, metrics = [], []
+        for _ in range(steps):
+            losses.append(self.train_batch(data_iter=data_iter, batch=batch))
+            metrics.append(self._metrics)
+        self.last_chain_metrics = {
+            k: torch.stack([m[k] for m in metrics]) if isinstance(metrics[0][k], torch.Tensor)
+            else torch.tensor([m[k] for m in metrics]) for k in metrics[0]}
+        return torch.stack(losses)
+
+    def prepare_batch(self, batch) -> PreparedBatch:
+        """Stage a global batch on the engine's device in the layout
+        ``train_batch`` takes (JAX line 2141); ``train_batch`` takes the
+        result without a second upload."""
+        return self._prepare_batch(batch)
+
+    def _loss_no_grad(self, batch, train: bool) -> torch.Tensor:
         full = self._lm_batch(batch)
         with torch.no_grad(), self._kernel_scope():
             loss, _ = self.model.loss(self.params, self._shard(full, 0),
-                                      dtype=self.compute_dtype,
+                                      dtype=self.compute_dtype, train=train,
                                       num_tokens=self._num_tokens(full["labels"], (0, 1)))
         if self._world is not None:
             all_reduce(loss, self._world)
         return loss
+
+    def eval_batch(self, data_iter=None, batch=None) -> torch.Tensor:
+        """Loss of a batch dict under the same weights, no gradient (an MoE
+        model at the eval capacity)."""
+        if batch is None:
+            batch = self._next_batch(data_iter)
+        return self._loss_no_grad(batch, train=False)
+
+    # ------------------------------------------- the imperative training loop
+    def forward(self, batch) -> torch.Tensor:
+        """``engine(batch)``: the micro-batch's loss in the engine's mode,
+        without a gradient; in train mode the batch is held for
+        :meth:`backward` (JAX line 2757)."""
+        if self.training:
+            self._pending_batch = batch
+        return self._loss_no_grad(batch, train=self.training)
+
+    __call__ = forward
+
+    def backward(self, loss=None, batch=None):
+        """Buffer the micro-batch of the last :meth:`forward` (or ``batch``);
+        the forward and backward run at the boundary inside :meth:`step`
+        (JAX line 2781)."""
+        mb = batch if batch is not None else self._pending_batch
+        if mb is None:
+            raise ValueError("backward() without a pending forward batch")
+        self._micro_buffer.append(mb)
+        self._pending_batch = None
+        return loss
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        return len(self._micro_buffer) >= self.config.gradient_accumulation_steps
+
+    def step(self) -> Optional[torch.Tensor]:
+        """At the accumulation boundary, one ``train_batch`` over the buffered
+        micro-batches, concatenated in order (the token-weighted loss sees the
+        whole global batch); its loss, or None between boundaries (JAX line
+        2794)."""
+        if not self.is_gradient_accumulation_boundary():
+            return None
+        buffered, self._micro_buffer = self._micro_buffer, []
+        merged = {k: torch.cat([self._to_device(mb[k]) for mb in buffered])
+                  for k in buffered[0]}
+        return self.train_batch(batch=merged)
+
+    @property
+    def module(self):
+        """The wrapped model (DeepSpeedEngine.module)."""
+        return self.model
+
+    def train(self, mode: bool = True):
+        """Set the mode :meth:`forward` runs in (an MoE model's capacity rule;
+        whether the batch is held for :meth:`backward`)."""
+        self.training = bool(mode)
+        return self
+
+    def eval(self):
+        return self.train(False)
+
+    def zero_grad(self, set_to_none: bool = True):
+        """Nothing to clear: gradients live only inside a step, which drops
+        them at its end."""
+
+    @contextmanager
+    def no_sync(self):
+        """DeepSpeedEngine.no_sync: the gradient sum over the world runs once
+        at the boundary, so there is nothing to defer; refused under ZeRO >= 2
+        as the reference refuses it (JAX line 2913)."""
+        if self.config.zero_config.stage >= 2:
+            raise RuntimeError(
+                "no_sync is not supported with ZeRO stage >= 2 "
+                "(gradient reduce-scatter is the partitioning step)")
+        yield
 
     # ----------------------------------------------------------- properties
     @property
@@ -394,3 +543,11 @@ class TorchEngine:
     def get_global_grad_norm(self) -> float:
         g = self._metrics.get("grad_norm")
         return float(g) if g is not None else 0.0
+
+    @property
+    def train_micro_batch_size_per_gpu(self) -> int:
+        return self.config.train_micro_batch_size_per_gpu
+
+    @property
+    def gradient_accumulation_steps(self) -> int:
+        return self.config.gradient_accumulation_steps

@@ -72,4 +72,4 @@ def test_three_steps_match_optax_chain(fused):
 
 def test_other_optimizers_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_optimizer(OptimizerConfig(type="lion"), lambda s: 1e-3)
+        build_optimizer(OptimizerConfig(type="onebitadam"), lambda s: 1e-3)

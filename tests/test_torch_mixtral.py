@@ -253,10 +253,11 @@ def test_refusals(pair):
     _, _, pm, _ = pair
     with pytest.raises(NotImplementedError, match="ep_size=2"):
         deepspeed_tpu_torch.init_inference(pm, ep_size=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        deepspeed_tpu_torch.initialize(model=pm, config={"train_batch_size": 2},
-                                       device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="A7/A9"):
+        deepspeed_tpu_torch.initialize(
+            model=pm, device="cpu",
+            config={"train_batch_size": 2, "moe": {"enabled": True, "ep_size": 2}})
+    with pytest.raises(NotImplementedError, match="A7/A9"):
         deepspeed_tpu_torch.initialize(
             model=llama("llama-tiny"), device="cpu",
-            config={"train_batch_size": 2, "moe": {"enabled": True}})
+            config={"train_batch_size": 2, "moe": {"enabled": True, "ep_size": 2}})

@@ -5,7 +5,8 @@ renormalised weights and the losses within rtol 1e-6), with and without the
 null-expert ``valid`` mask, under forced capacity overflow and with tied
 logits; ``eval_capacity``; ``moe_layer`` at eval in both dispatch forms and
 with the residual branch, and ``moe_serving_mlp`` under ``token_valid``,
-outputs within rtol 1e-5 / atol 1e-6 (fp32 sums in another order)."""
+outputs within rtol 1e-5 / atol 1e-6 (fp32 sums in another order); what
+``moe_layer`` refuses."""
 
 import dataclasses
 
@@ -19,6 +20,7 @@ from deepspeed_tpu.models import mixtral as jmixtral
 from deepspeed_tpu.moe import sharded_moe as jmoe
 from deepspeed_tpu_torch.models import TransformerModel
 from deepspeed_tpu_torch.moe import sharded_moe as pmoe
+from deepspeed_tpu_torch.ops.quantizer import pack_quantize_blockwise
 
 from torch_bridge import port_config
 
@@ -147,10 +149,15 @@ def test_moe_layer_eval_matches_jax(form):
 
 
 def test_moe_layer_refuses_training():
+    """Training a packed int8 expert bank raises (the banks are for
+    inference); an unknown ``moe_dispatch`` raises in training and at eval."""
     _, _, pcfg, pp = _layer()
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        pmoe.moe_layer(pcfg, pp, torch.zeros(1, 2, 128), train=True)
+    packed = {**pp, "wi": pack_quantize_blockwise(pp["wi"], bits=8)}
+    with pytest.raises(NotImplementedError, match="packed int8/int4 expert banks"):
+        pmoe.moe_layer(pcfg, packed, torch.zeros(1, 2, 128), train=True)
     bad = dataclasses.replace(pcfg, moe_dispatch="scatter")
+    with pytest.raises(ValueError, match="moe_dispatch"):
+        pmoe.moe_layer(bad, pp, torch.zeros(1, 2, 128), train=True)
     with pytest.raises(ValueError, match="moe_dispatch"):
         pmoe.moe_layer(bad, pp, torch.zeros(1, 2, 128))
 
