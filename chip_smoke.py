@@ -10,6 +10,7 @@
     python3 chip_smoke.py --norm-breakdown
     python3 chip_smoke.py --rmsnorm-bwd-breakdown
     python3 chip_smoke.py --bias-grad-breakdown
+    python3 chip_smoke.py --io-probe
 
 Run from the root of a checkout on a machine with one CUDA card (Hopper,
 sm_90a). With ``--baseline DIR`` it only builds both checkouts' kernels,
@@ -52,7 +53,9 @@ shape, beside a torch.add(x, g) of the same bytes and the library call;
 ``--bias-grad-breakdown`` the bias-gradient kernel with its products, its
 epilogue, its pair loads, all three, its bias tile load or its output
 stores cut out, rings of 2 and 1 stages, and as an empty grid, at
-attention_bias's shape. ``--bwd-baseline DIR`` times only the flash
+attention_bias's shape. ``--io-probe`` times the checkpoint phase's
+filesystem and host (np.save and np.load of 4 GiB, pinning 1 GiB, a 1 GiB
+copy off the card). ``--bwd-baseline DIR`` times only the flash
 backward's dq and dk/dv kernels of both checkouts at every backward shape
 (Mixtral's head dim 128 among them) in the same turns, each held to
 BWD_TIME_SLACK times the baseline's: its calls are those every checkout
@@ -65,7 +68,11 @@ one bf16 term and the flash ALiBi forward on another draw give. Without
 arguments, in order, any failure exiting non-zero:
 
 1. device check: CUDA must be available; prints the card's name and power
-   limit as nvidia-smi reports them;
+   limit as nvidia-smi reports them, the host's MemTotal and MemAvailable
+   (/proc/meminfo) and the free bytes of the filesystem the checkpoint phase
+   writes to, and the host's cores (the driver's H100 box: MemTotal
+   108,447,924,224 bytes, 101.0 GiB, of it 96.5 GiB available at the start;
+   80,209,420,288 bytes free on its root filesystem, a 9p mount; 8 cores);
 2. build: compiles deepspeed_tpu_torch/csrc/*.cu (one nvcc per source, in
    parallel) and prints the build seconds and ptxas register counts, then
    the HGMMA (wgmma) and UTMALDG (TMA load) instructions of each forward,
@@ -155,6 +162,22 @@ arguments, in order, any failure exiting non-zero:
    bitwise-equal losses, and 3 more through DeepSpeed's loop
    (``engine(mb)``, ``engine.backward(loss)``, ``engine.step()``) the same
    losses and, bitwise, the rerun's masters (training_bloom likewise);
+6b. ``checkpoint`` (run after the loop over the other main paths, before
+   ``serving_mixtral``): 6's model (llama3-1b at full width and depth, its
+   config and batch, ``checkpoint: {async_save: true, keep_last: 2}``): 2
+   steps, a sync save_checkpoint (bytes, seconds, GB/s), 2 more steps, an
+   async save (the fence ms, the writer's seconds); the engine freed, a
+   fresh one (other masters) loads the step-2 tag (seconds) and runs steps
+   3-4 with the counters zeroed just before: the losses bitwise the
+   uninterrupted run's, every training kernel launched, the masters and Adam
+   moments bitwise the step-4 tag's leaf by leaf; then ``checkpoint_serving``:
+   init_inference(checkpoint=DIR) serves the three requests with the tokens
+   of init_inference(params=) on the same masters, bitwise, its counters
+   (zeroed before it) showing the serving kernels ran; save_16bit_model (a
+   3.0 GB file) read back equal to the masters' bf16 cast under the HF
+   names. The tags live under ``ckpts/`` in the checkout and are deleted at
+   the end; the phase fails naming the shortfall if the disk or the host
+   memory is too small for two tags and a pinned snapshot;
 7. the serving main path: init_inference(llama("llama3-8b"), bf16, kernel
    injection, max_tokens=1024) with seeded random weights at full depth, and
    generate on three requests; the launch counters, zeroed just before, must
@@ -296,6 +319,11 @@ from deepspeed_tpu_torch.ops.cuda import quantized_matmul as qmm
 from deepspeed_tpu_torch.ops.cuda import rmsnorm as rn
 from deepspeed_tpu_torch.ops.normalization import kernel_rmsnorm_scope
 from deepspeed_tpu_torch.ops.quantizer import PackedWeight, pack_quantize_blockwise
+from deepspeed_tpu_torch.integrations.hf import export_hf_state_dict, read_safetensors
+from deepspeed_tpu_torch.runtime.checkpointing import (_assemble_leaf, _match_leaves,
+                                                       _stored_names)
+from deepspeed_tpu_torch.runtime.ckpt import reset_preempt_handler
+from deepspeed_tpu_torch.runtime.ckpt.manifest import read_manifest
 from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
                                                       BSLongformerSparsityConfig,
                                                       VariableSparsityConfig,
@@ -4316,6 +4344,279 @@ def main_path_training_mixtral() -> dict:
     return counts
 
 
+# the checkpoint phase: llama3-1b's tags go under the checkout (ckpts/ is
+# git-ignored) and are deleted at the phase's end
+CKPT_DIR = Path(__file__).resolve().parent / "ckpts" / "chip_smoke_checkpoint"
+
+
+def host_memory() -> dict:
+    """MemTotal and MemAvailable from /proc/meminfo, in bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(value.split()[0]) * 1024
+    return out
+
+
+def filesystem_type(path: Path) -> str:
+    """The type of the mount that holds ``path`` (from /proc/mounts)."""
+    target, best, kind = str(path.resolve()), "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            point, fstype = line.split()[1:3]
+            inside = target == point or target.startswith(point.rstrip("/") + "/")
+            if inside and len(point) > len(best):
+                best, kind = point, fstype
+    return kind
+
+
+def disk_free(path: Path) -> int:
+    """Free bytes of the filesystem that holds ``path`` (or its nearest
+    existing parent)."""
+    while not path.exists():
+        path = path.parent
+    return shutil.disk_usage(path).free
+
+
+def io_probe() -> None:
+    """``--io-probe``: the rates the checkpoint phase stands on, on its
+    filesystem and host: 4 GiB written with ``np.save`` (into the page
+    cache), then ``os.sync``, then read back with ``np.load``; 1 GiB of pinned
+    host memory allocated; 1 GiB copied off the card into it."""
+    a = np.random.default_rng(0).random(1 << 28, dtype=np.float32)  # 1 GiB
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        for i in range(4):
+            np.save(CKPT_DIR / f"probe{i}.npy", a)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        os.sync()
+        sync_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(4):
+            np.load(CKPT_DIR / f"probe{i}.npy")
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    pinned = torch.empty(1 << 28, dtype=torch.float32, pin_memory=True)
+    pin_s = time.perf_counter() - t0
+    src = torch.randn(1 << 28, device="cuda")
+    torch.cuda.synchronize()
+    copies = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pinned.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        copies.append(time.perf_counter() - t0)
+    print(f"io probe under {CKPT_DIR.parent}: np.save 4 GiB {save_s:.2f} s, then os.sync "
+          f"{sync_s:.2f} s; np.load 4 GiB {load_s:.2f} s; pinning 1 GiB {pin_s:.2f} s; "
+          f"1 GiB off the card into it {[round(c, 4) for c in copies]} s")
+
+
+def check_checkpoint_serving_shapes(timer) -> dict:
+    """The serving kernels at llama3-1b's shapes (the checkpoint phase serves
+    its checkpoint): the flash forward on the B=4 x 512 prefill (32 query and
+    8 kv heads of 64), the decode kernel at the B=4 decode step over a
+    1024-token cache, the RMSNorm forward on the prefill's 2048 rows of 2048;
+    from a generator of their own. Returns a timed row per kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    rows = {"flash_attention_fwd": flash_fwd_case(gen, timer, "checkpoint_serving", 4, 512,
+                                                  32, 8, 64),
+            "decode_attention": check_decode(gen, timer, H=32, KV=8, D=64)}
+    n, D, eps = 4 * 512, 2048, 1e-5
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(BF16)
+    x = torch.randn(n, D, generator=gen, device="cuda", dtype=BF16)
+    fn = lambda t: rn.rmsnorm_fwd(t, w, eps)  # noqa: E731
+    plain = lambda t: rn.rmsnorm_plain(t, w, eps)  # noqa: E731
+    e = norm_agrees("rmsnorm_fwd", fn, plain, x, 1e-3, 1.6e-2)
+    rows["rmsnorm_fwd"] = norm_row(timer, e, lambda: fn(x), lambda: plain(x),
+                                   lambda: F.rms_norm(x, (D,), w, eps),
+                                   *bound(4 * x.numel(), 2 * 2 * x.numel() + 2 * D),
+                                   f"rows={n} D={D} bf16")
+    return rows
+
+
+def tag_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def state_differs_from_tag(engine, tag_dir: Path) -> tuple:
+    """Each tensor of the engine's masters and optimizer state against the
+    leaf of the same name in ``tag_dir`` (``torch.equal`` on the host), and
+    each update count against the tag's. Returns ({name: max abs difference}
+    of the leaves that differ, the number of leaves)."""
+    meta = read_manifest(str(tag_dir.parent), tag_dir.name)
+    differ, total = {}, 0
+    for comp in ("params", "opt_state"):
+        named = engine.checkpoint_components()[comp]
+        for name, leaf, entries in _match_leaves(named, str(tag_dir / comp), True,
+                                                 _stored_names(meta, comp)):
+            stored = torch.from_numpy(np.asarray(_assemble_leaf(entries), order="C"))
+            mine = leaf.detach().cpu() if torch.is_tensor(leaf) else torch.from_numpy(leaf)
+            if not torch.equal(mine, stored):
+                differ[comp + name] = (mine.double() - stored.double()).abs().max().item()
+            total += 1
+    return differ, total
+
+
+def main_path_checkpoint() -> tuple:
+    """Checkpointing on one device at full width and depth: ``llama3-1b``
+    with ``training``'s config (bf16 over fp32 masters, AdamW through fused
+    Adam, micro-batch 4 x 2 accumulation steps of 2048 tokens, the seeded
+    batch) and ``checkpoint: {async_save: true, keep_last: 2}``. Two steps,
+    a sync save (its bytes, seconds, GB/s), two more steps, an async save
+    (the fence the loop waits for, then the writer's seconds); the engine
+    freed, a fresh one (other random masters) loads the step-2 tag and runs
+    steps 3-4 with the counters zeroed just before: the losses bitwise the
+    uninterrupted run's, every training kernel launched, and its masters and
+    Adam moments bitwise the async step-4 tag's, leaf by leaf. Then
+    ``init_inference(checkpoint=DIR)`` (the step-4 tag) against
+    ``init_inference(params=)`` of the same masters, bf16, kernel injection:
+    the three serving requests' tokens bitwise equal, the serving kernels
+    launched (counters zeroed before the checkpoint engine's run); and
+    ``save_16bit_model``, every tensor read back equal to the masters' bf16
+    cast under its HF name. Fails naming the shortfall when the box lacks the
+    disk or host memory. The directory is deleted at the end. Returns the
+    counts of the resumed steps and of the checkpoint engine's serving."""
+    model = llama("llama3-1b")
+    cfg = model.config
+    n = cfg.num_params()
+    state = 3 * 4 * n  # a tag: the fp32 masters and two Adam moments
+    need_disk = 2 * state + 2 * n + (1 << 30)
+    # the pinned snapshot generation, one leaf assembled by the loader, and
+    # the process around them
+    need_host = state + (16 << 30)
+    free, mem = disk_free(CKPT_DIR), host_memory()
+    print(f"checkpoint phase: {cfg.name} ({n / 1e9:.3f} B params), a tag "
+          f"{state / 1e9:.2f} GB; needs {need_disk / 1e9:.2f} GB of disk ({free / 1e9:.2f} GB "
+          f"free under {CKPT_DIR.parent}) and {need_host / 2**30:.1f} GiB of host memory "
+          f"({mem['MemAvailable'] / 2**30:.1f} GiB available)")
+    require(free >= need_disk, f"checkpoint phase: {free / 1e9:.2f} GB of disk free under "
+            f"{CKPT_DIR.parent}, {need_disk / 1e9:.2f} GB needed (two llama3-1b tags and "
+            f"the 16-bit export)")
+    require(mem["MemAvailable"] >= need_host, f"checkpoint phase: "
+            f"{mem['MemAvailable'] / 2**30:.1f} GiB of host memory available, "
+            f"{need_host / 2**30:.1f} GiB needed (a pinned snapshot of the whole state)")
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_B * TRAIN_ACCUM, TRAIN_S),
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    batch = {"input_ids": ids}
+    config = {**train_config(True), "checkpoint": {"async_save": True, "keep_last": 2}}
+
+    def build(seed: int):
+        eng, *_ = initialize(model=model, config=config,
+                             rng=torch.Generator(device="cuda").manual_seed(seed))
+        return eng
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        engine = build(0)
+        losses = [engine.train_batch(batch=batch).item() for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path2 = Path(engine.save_checkpoint(str(CKPT_DIR), async_save=False))
+        sync_s = time.perf_counter() - t0
+        guard = engine._ckpt_guard()
+        nbytes = tag_bytes(path2)
+        print(f"checkpoint sync save (step 2): {nbytes} bytes in {sync_s:.2f} s, "
+              f"{nbytes / sync_s / 1e9:.3f} GB/s (of it the files and the commit "
+              f"{guard.last_write_s:.2f} s; the rest the snapshot into newly pinned "
+              f"host buffers)")
+        losses += [engine.train_batch(batch=batch).item() for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path4 = Path(engine.save_checkpoint(str(CKPT_DIR)))  # async: the config's
+        fence_ms = (time.perf_counter() - t0) * 1e3
+        guard.fence()
+        print(f"checkpoint async save (step 4): the fence {fence_ms:.1f} ms (the snapshot "
+              f"into the sync save's pinned buffers, reused), the writer "
+              f"{guard.last_write_s:.2f} s ({tag_bytes(path4) / guard.last_write_s / 1e9:.3f} "
+              f"GB/s) behind it")
+        require(path4.name == "global_step4" and path2.exists(),
+                f"checkpoint tags: {sorted(p.name for p in CKPT_DIR.iterdir())}")
+        engine.destroy()
+        del engine, guard
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        resumed = build(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed.load_checkpoint(str(CKPT_DIR), tag="global_step2")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        print(f"checkpoint load (step 2) into a fresh engine: {load_s:.2f} s, "
+              f"{nbytes / load_s / 1e9:.3f} GB/s")
+        require(resumed.global_steps == 2, f"resumed at step {resumed.global_steps}")
+        kernels.reset_launch_counts()
+        again = [resumed.train_batch(batch=batch).item() for _ in range(2)]
+        counts = kernels.launch_counts()
+        plain = kernels.plain_attention_on_cuda()
+        differ, total = state_differs_from_tag(resumed, path4)
+        print(f"checkpoint resume: steps 3-4 losses {again}, the uninterrupted run's "
+              f"{losses[2:]}, bitwise equal: {again == losses[2:]}; masters and Adam state "
+              f"bitwise the async step-4 tag's in {total - len(differ)} of {total} leaves "
+              f"(differing: {differ}); launches "
+              f"{ {k: counts[k] for k in TRAINING_KERNELS} }")
+        require(all(math.isfinite(x) for x in losses), "non-finite checkpoint-phase loss")
+        require(again == losses[2:], "the resumed steps' losses differ from the run's")
+        require(not differ, "the resumed state differs from the step-4 tag")
+        for name in TRAINING_KERNELS:
+            require(counts[name] > 0, f"kernel {name} was not launched on the resumed steps")
+        require(sum(plain.values()) == 0, f"checkpoint: plain attention on the card {plain}")
+
+        requests = serving_requests(cfg.vocab_size)
+        kw = dict(dtype=BF16, replace_with_kernel_inject=True, max_tokens=1024)
+        direct = init_inference(model, params=tree_map(lambda t: t.detach(), resumed.params),
+                                **kw)
+        want = serve(direct, requests, report=False)
+        del direct
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = init_inference(model, checkpoint=str(CKPT_DIR), **kw)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        got = serve(served, requests, report=True, label="checkpoint ")
+        serving_counts = kernels.launch_counts()
+        del served
+        same_tokens = [torch.equal(a, b) for a, b in zip(got, want)]
+        print(f"init_inference(checkpoint=) {init_s:.2f} s (the step-4 masters from disk, "
+              f"cast to bf16); tokens bitwise those of init_inference(params=) on the same "
+              f"masters: {same_tokens}; launches "
+              f"{ {k: serving_counts[k] for k in SERVING_KERNELS} }")
+        require(all(same_tokens), "init_inference(checkpoint=) serves other tokens")
+        for name in SERVING_KERNELS:
+            require(serving_counts[name] > 0,
+                    f"kernel {name} was not launched serving the checkpoint")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exported = Path(resumed.save_16bit_model(str(CKPT_DIR / "export")))
+        export_s = time.perf_counter() - t0
+        back = read_safetensors(str(exported))
+        flat = export_hf_state_dict(resumed.params, cfg, "llama")
+        equal = [k for k, t in flat.items()
+                 if torch.equal(torch.from_numpy(back[k]), t.detach().to(BF16).float().cpu())]
+        print(f"save_16bit_model: {exported.stat().st_size} bytes in {export_s:.2f} s, "
+              f"{len(equal)} of {len(flat)} tensors read back equal to the masters' bf16 "
+              f"cast under their HF names (names equal: {list(back) == list(flat)})")
+        require(list(back) == list(flat) and len(equal) == len(flat),
+                "the 16-bit export differs from the masters' bf16 cast")
+        del back, flat, resumed
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        reset_preempt_handler()  # restore the SIGTERM handler the saves chained
+        gc.collect()
+        torch.cuda.empty_cache()
+        if hasattr(torch._C, "_host_emptyCache"):  # the snapshot's pinned blocks
+            torch._C._host_emptyCache()
+    return counts, serving_counts
+
+
 # The Llama (slope-free) forms of the attention kernels and the ALiBi forms of
 # the flash kernels on seeded inputs, run by ``--baseline`` in this checkout
 # and in an earlier one, each in its own process with its own build: only
@@ -5559,6 +5860,11 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+    mem = host_memory()
+    print(f"host memory: MemTotal {mem['MemTotal']} bytes ({mem['MemTotal'] / 2**30:.1f} GiB), "
+          f"MemAvailable {mem['MemAvailable']} bytes ({mem['MemAvailable'] / 2**30:.1f} GiB); "
+          f"disk: {disk_free(CKPT_DIR)} bytes free under {CKPT_DIR.parent} (the checkpoint "
+          f"phase's filesystem, {filesystem_type(CKPT_DIR.parent)}); {os.cpu_count()} cores")
     if sys.argv[1:] == ["--decode-breakdown"]:
         decode_breakdown()
         print(json.dumps({"ok": True, "device": {
@@ -5566,7 +5872,8 @@ def main() -> int:
             "count": torch.cuda.device_count(),
         }}))
         return 0
-    breakdowns = {"--matvec-breakdown": matvec_breakdown,
+    breakdowns = {"--io-probe": io_probe,
+                  "--matvec-breakdown": matvec_breakdown,
                   "--layernorm-breakdown": layernorm_breakdown,
                   "--norm-breakdown": norm_breakdown,
                   "--rmsnorm-bwd-breakdown": rmsnorm_bwd_breakdown,
@@ -5623,6 +5930,7 @@ def main() -> int:
     ln_bwd = check_layernorm_bwd(gen, timer)
     adam_bloom = check_fused_adam(gen, timer, n=250880 * 1024)
     mix = check_mixtral_training_shapes(timer)
+    ckpt_serving = check_checkpoint_serving_shapes(timer)
     # the quantized serving path runs the bf16 path's requests: its flash,
     # RMSNorm and (int4 engine, draft) dense decode shapes are the same
     rows = [
@@ -5692,6 +6000,15 @@ def main() -> int:
         # training_mixtral: Mixtral-8x7B's micro-batch (head dim 128), its
         # 8192 x 4096 norm rows and its largest leaf
         *((name, "training_mixtral", r) for name, r in mix.items()),
+        # checkpoint: the resumed llama3-1b steps (training's shapes), and the
+        # serving of its checkpoint (llama3-1b's serving shapes)
+        ("flash_attention_fwd", "checkpoint", flash["training"]),
+        ("flash_attention_bwd_dq", "checkpoint", dq),
+        ("flash_attention_bwd_dkv", "checkpoint", dkv),
+        ("rmsnorm_fwd", "checkpoint", norm["training"]),
+        ("rmsnorm_bwd", "checkpoint", rms_bwd),
+        ("fused_adam", "checkpoint", adam),
+        *((name, "checkpoint_serving", r) for name, r in ckpt_serving.items()),
     ]
     # the norms' decode rows are printed beside the main paths' rows; the
     # kernels line keeps one row per main path
@@ -5767,6 +6084,8 @@ def main() -> int:
     for path, run in paths.items():
         counts[path] = run()
         lap(path)
+    counts["checkpoint"], counts["checkpoint_serving"] = main_path_checkpoint()
+    lap("checkpoint")
     counts["serving_mixtral"], counts["serving_cb_mixtral"] = main_path_serving_mixtral()
     lap("serving_mixtral and serving_cb_mixtral")
 

@@ -13,9 +13,13 @@ ring attention, ``parallel/sequence.py``), with hand-written CUDA kernels
 ring hops' offset form), decode
 attention over a contiguous cache and over a page pool (with ALiBi), RMSNorm
 and LayerNorm forward and backward, the quantized matvec (with its expert
-form) and the fused Adam update. It imports neither jax nor deepspeed_tpu.
+form) and the fused Adam update. ``TorchEngine.save_checkpoint`` /
+``load_checkpoint`` and ``init_inference(checkpoint=)`` read and write the JAX
+package's checkpoint layout, and ``zero`` assembles a checkpoint's fp32
+weights. It imports neither jax nor deepspeed_tpu.
 """
 
+from . import zero  # noqa: F401
 from .accelerator import get_accelerator  # noqa: F401
 from .models import bloom, gpt2, llama, mixtral  # noqa: F401
 

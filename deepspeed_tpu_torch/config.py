@@ -10,13 +10,15 @@ clipping, logging, ``tpu_kernels`` (which kernels replace the plain
 paths; ``"auto"`` resolves on for a CUDA device as the JAX package's does for
 a TPU), ``sparse_attention`` (the block-sparse layout of training's
 attention), ``sequence_parallel`` (``sp_size`` and the ``mode``, Ulysses
-or ring; the ``sequence_parallel_size`` shorthand) and ``moe`` (with its
-``overlap_a2a`` subsection, a bool or "auto" spelling normalised). It raises
+or ring; the ``sequence_parallel_size`` shorthand), ``moe`` (with its
+``overlap_a2a`` subsection, a bool or "auto" spelling normalised) and
+``checkpoint`` (the async save, ``keep_last``, the preemption save). It raises
 :class:`DeepSpeedConfigError` for the same bad inputs as the JAX package: a
 batch-triangle mismatch, fp16 and bf16 both on, a ZeRO stage out of range, an
 unknown remat policy, negative clipping, an unknown sparse-attention mode or
 one combined with sequence parallelism or random-LTD, and here also an
-unknown sequence-parallel mode or a size below 1. Every other section
+unknown sequence-parallel mode or a size below 1, and a checkpoint engine
+other than "native". Every other section
 is kept raw in :attr:`DeepSpeedConfig.raw`; ``initialize`` refuses the ones a
 later slice ports when they are turned on.
 """
@@ -153,6 +155,40 @@ class TpuKernelsConfig:
             fused_ce=res(self.fused_ce),
             ce_chunk=int(self.ce_chunk),
         )
+
+
+@dataclass
+class CheckpointConfig:
+    """The "checkpoint" section (JAX ``config.py:913``): ``async_save`` (the
+    write overlaps the next steps; the snapshot fence is the only synchronous
+    cost), ``keep_last`` (the newest N committed tags, 0 keeps all) and
+    ``on_preempt`` ("save": SIGTERM commits a final sync save). ``engine`` is
+    "native" (shard ``.npy`` files); "orbax" is refused: Orbax is a JAX
+    library and no torch reader of its format exists. JAX's
+    ``save_interval_steps`` is accepted and ignored: only its analysis
+    pricing reads it, which the port does not have."""
+
+    engine: str = "native"
+    async_save: bool = False
+    keep_last: int = 0
+    on_preempt: str = "save"
+
+    def validate(self) -> None:
+        if self.engine == "orbax":
+            raise DeepSpeedConfigError(
+                "checkpoint.engine 'orbax' is not available in deepspeed_tpu_torch: "
+                "Orbax is a JAX library and no torch reader of its format exists; "
+                "use 'native' (the shard .npy layout both packages read)")
+        if self.engine != "native":
+            raise DeepSpeedConfigError(
+                f"checkpoint.engine must be 'native' or 'orbax', got {self.engine!r}")
+        if self.keep_last < 0:
+            raise DeepSpeedConfigError(
+                f"checkpoint.keep_last must be >= 0, got {self.keep_last}")
+        if self.on_preempt not in ("save", "none"):
+            raise DeepSpeedConfigError(
+                f"checkpoint.on_preempt must be 'save' or 'none', got "
+                f"{self.on_preempt!r}")
 
 
 @dataclass
@@ -423,6 +459,7 @@ class DeepSpeedConfig:
             sp.setdefault("sp_size", d["sequence_parallel_size"])
         self.sequence_parallel = _parse_dc(SequenceParallelConfig, sp)
         self.moe = _parse_dc(MoEConfig, d.get("moe"))
+        self.checkpoint = _parse_dc(CheckpointConfig, d.get("checkpoint"))
         self._validate()
 
     def resolve_batch_sizes(self, dp_world_size: int) -> None:
@@ -470,6 +507,7 @@ class DeepSpeedConfig:
         self.sparse_attention.validate()
         self.sequence_parallel.validate()
         self.moe.overlap_a2a.validate()
+        self.checkpoint.validate()
         # the section the second rule reads stays raw (refused turned on);
         # the JAX package's texts (config.py:1236-1250)
         ltd = ((self.raw.get("data_efficiency") or {}).get("data_routing")

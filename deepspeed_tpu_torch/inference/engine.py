@@ -61,7 +61,7 @@ from ..ops.quantizer import PackedWeight, cast_floating, pack_quantize_blockwise
 from ..serving.spec import (clamp_advance_at_eos, longest_accepted_prefix,
                             ngram_propose)
 from ..utils.logging import log_dist
-from ..utils.tree import tree_size
+from ..utils.tree import tree_map, tree_size
 
 NEG_INF = -1e30
 # the projection leaves weight-only quantization packs
@@ -151,7 +151,9 @@ def init_inference(
     (or ``config={"matvec_max_rows": N}``) sets the row threshold of the
     quantized matvec. ``device`` defaults
     to the current CUDA device; with no CUDA device it must be ``"cpu"``.
-    Arguments that need a later slice of the port raise
+    ``checkpoint`` is an engine checkpoint directory (its newest tag; either
+    package's): its fp32 masters are served, cast and packed as ``params``
+    would be. Arguments that need a later slice of the port raise
     ``NotImplementedError`` naming it."""
     if config:
         if matvec_max_rows is None and "matvec_max_rows" in config:
@@ -168,8 +170,6 @@ def init_inference(
         later.append(f"tp_size={tp_size} (tensor parallelism)")
     if ep_size > 1:
         later.append(f"ep_size={ep_size} (MoE expert parallelism)")
-    if checkpoint is not None:
-        later.append("checkpoint= loading")
     if later:
         raise NotImplementedError(
             "deepspeed_tpu_torch serves on one device; not yet ported: "
@@ -177,6 +177,15 @@ def init_inference(
         )
     if kwargs:
         log_dist(f"init_inference: ignoring unsupported arguments {sorted(kwargs)}")
+    if checkpoint is not None:
+        # JAX inference/engine.py:138-146: the params component, by name, into
+        # the model's tree; the serving cast and packing then run as for params=
+        if params is not None:
+            raise ValueError("pass either checkpoint= or params=, not both")
+        from ..runtime.checkpointing import load_params
+
+        params = load_params(checkpoint, tree_map(lambda spec: spec[0],
+                                                  param_specs(model.config)))
     if dtype in ("int8", torch.int8):
         dtype, quantize_bits = torch.bfloat16, quantize_bits or 8
     elif dtype == "int4":

@@ -24,6 +24,14 @@ so the loop's update is ``train_batch``'s on the same global batch, bit for
 bit. ``prepare_batch`` stages a global batch on the device once and
 ``train_batch_chain`` runs several steps (JAX lines 2141, 2448).
 
+Checkpointing (JAX lines 2870-3010): ``save_checkpoint`` / ``load_checkpoint``
+write and read the JAX package's layout under its leaf names
+(``runtime/ckpt``: the fp32 masters, the optimizer state under the optax
+chain's names, the static loss scale of a bf16/fp32 run, the counters), sync
+or with ``checkpoint.async_save`` behind a snapshot fence, so either package
+resumes the other's checkpoints; ``save_16bit_model`` writes one bf16
+safetensors file under the HF names (``integrations/hf.py``).
+
 Where the JAX engine traces one program, the port runs eagerly: the
 ``tpu_kernels`` section picks the kernels (flash attention forward and
 backward, the RMSNorm or LayerNorm kernels, the fused Adam kernel, the chunked CE) through
@@ -66,8 +74,9 @@ from ..ops.cross_entropy import fused_ce_scope
 from ..ops.normalization import kernel_rmsnorm_scope
 from ..ops.sparse_attention import from_ds_config, make_attention_impl
 from ..utils.logging import log_dist
-from ..utils.tree import global_norm, tree_leaves, tree_map, tree_size
+from ..utils.tree import global_norm, tree_items, tree_leaves, tree_map, tree_size
 from .activation_checkpointing import policy_by_name
+from .checkpointing import _barrier, _is_writer
 from .lr_schedules import build_schedule
 from .optimizers import build_optimizer
 
@@ -244,6 +253,8 @@ class TorchEngine:
         self.opt_state = self.optimizer.init(self.params)
         self.global_steps = 0
         self.micro_steps = 0
+        self.skipped_steps = 0  # no fp16 overflow skips on the ported path
+        self._checkpoint_guard = None
         self.training = True
         self._micro_buffer: List[Any] = []
         self._pending_batch = None
@@ -527,6 +538,140 @@ class TorchEngine:
                 "no_sync is not supported with ZeRO stage >= 2 "
                 "(gradient reduce-scatter is the partitioning step)")
         yield
+
+    # --------------------------------------------------------- checkpointing
+    def rng_key(self) -> List[int]:
+        """The metadata's ``rng``: ``jax.random.PRNGKey(seed)`` of the
+        config's seed as two uint32 words, which the JAX package's loader
+        reads as its engine key. The port draws nothing from a key after
+        ``initialize`` (its masters come from a ``torch.Generator``), so a
+        resumed run continues the same whatever key is stored."""
+        seed = self.config.seed
+        return [(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF]
+
+    def checkpoint_components(self) -> Dict[str, List]:
+        """The checkpoint's components as named leaves, each in the JAX
+        engine's flatten order: ``params`` the fp32 masters, ``opt_state``
+        the optimizer's state under the optax chain's names with its update
+        counts (``global_steps``), ``loss_scale`` the static state of a
+        bf16/fp32 run (JAX ``precision.py:init_loss_scale`` with fp16 off:
+        scale 1, no good steps, the configured hysteresis)."""
+        return {
+            "params": tree_items(self.params, sort_keys=True),
+            "opt_state": self.optimizer.state_items(self.opt_state, self.global_steps),
+            "loss_scale": [
+                (".scale", np.asarray(1.0, np.float32)),
+                (".good_steps", np.asarray(0, np.int32)),
+                (".hysteresis_left", np.asarray(self.config.fp16.hysteresis, np.int32)),
+            ],
+        }
+
+    def check_restored(self, restored: Dict[str, Dict[str, np.ndarray]],
+                       meta: Dict[str, Any]) -> None:
+        """Refuse a checkpoint this engine cannot continue: an optimizer
+        update count other than the manifest's ``global_steps`` (Adam's bias
+        correction and the lr schedule run on the engine's step count), or a
+        loss scale that is not the static state (an fp16 run's)."""
+        steps = int(meta["global_steps"])
+        for name, count in restored.get("opt_state", {}).items():
+            if int(count) != steps:
+                raise ValueError(
+                    f"checkpoint optimizer count {name} = {int(count)} != global_steps "
+                    f"{steps}: this engine cannot resume a state whose updates and "
+                    f"steps differ (fp16 skipped steps?)")
+        ls = restored.get("loss_scale", {})
+        scale, good = ls.get(".scale"), ls.get(".good_steps")
+        if (scale is not None and float(scale) != 1.0) or (good is not None and int(good) != 0):
+            raise NotImplementedError(
+                f"the checkpoint's loss scale (scale {scale}, good steps {good}) is a "
+                f"dynamic fp16 scaler's; deepspeed_tpu_torch trains bf16/fp32 without "
+                f"one: fp16 and its loss scaler are ROADMAP queue A item A6")
+
+    def _ckpt_guard(self):
+        """This engine's CheckpointGuard (pinned snapshot buffers on a card)."""
+        if self._checkpoint_guard is None:
+            from .ckpt import CheckpointGuard
+
+            self._checkpoint_guard = CheckpointGuard(pin=self.device.type == "cuda")
+        return self._checkpoint_guard
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None, async_save=None) -> str:
+        """Parity: DeepSpeedEngine.save_checkpoint (JAX line 2946). Writes
+        ``save_dir/tag`` (``global_step{N}`` by default): sync, or with
+        ``async_save`` (default: the config's ``checkpoint.async_save``) the
+        files on a writer thread after a snapshot fence, the next step free
+        to run. The first save arms the SIGTERM handler that commits a final
+        save (``checkpoint.on_preempt``). Only rank 0 writes; every rank
+        calls. Returns the tag's directory."""
+        from .ckpt import install_preempt_handler
+        from .ckpt import save_checkpoint as _save
+
+        ckpt_cfg = self.config.checkpoint
+        if async_save is None:
+            async_save = bool(ckpt_cfg.async_save)
+        if ckpt_cfg.on_preempt == "save":
+            install_preempt_handler(self, save_dir)
+        return _save(self, save_dir, self._ckpt_guard(), tag=tag,
+                     client_state=client_state or {}, async_save=async_save)
+
+    def load_checkpoint(self, load_dir, tag=None, strict: bool = True):
+        """Parity: DeepSpeedEngine.load_checkpoint (JAX line 2980): the
+        newest committed tag (or ``tag``) copied into the masters and the
+        optimizer state in place, the counters restored; a checkpoint of the
+        JAX package, from any mesh or ZeRO stage, loads too. ``strict=False``
+        keeps the current value of a missing or reshaped leaf. Returns
+        ``(path, client_state)``, ``(None, {})`` when nothing is committed."""
+        from .ckpt import load_checkpoint as _load
+
+        if self._checkpoint_guard is not None:
+            self._checkpoint_guard.fence()  # never read a tag still being written
+        return _load(self, load_dir, tag=tag, strict=strict)
+
+    def save_16bit_model(self, save_dir, save_filename: str = "model.safetensors") -> str:
+        """Parity: DeepSpeedEngine.save_16bit_model (JAX line 2870): the
+        masters in bf16 (round to nearest even, on the device) in one
+        safetensors file, no optimizer state, under the HF names for the
+        llama/mistral, gpt2, bloom and mixtral families and the keystr names
+        otherwise. The family is the one the config's name starts with, so
+        the ``llama3-*`` presets export under the HF Llama names, where the
+        JAX package, which takes the name up to its first "-", writes keystr
+        names for them. Only rank 0 writes. Returns the file's path."""
+        import os
+
+        from ..integrations.hf import HF_FAMILIES, export_hf_state_dict, write_safetensors
+
+        name = str(getattr(self.model.config, "name", "")).lower()
+        fam = next((f for f in HF_FAMILIES if name.startswith(f)), name.split("-")[0])
+        with torch.no_grad():
+            if fam in HF_FAMILIES:
+                flat = export_hf_state_dict(self.params, self.model.config, fam)
+                log_dist(f"save_16bit_model: HF state_dict names ({fam})")
+            else:
+                flat = dict(tree_items(self.params, sort_keys=True))
+                log_dist(f"save_16bit_model: family {fam!r} has no HF exporter; writing "
+                         "internal keystr names (same-framework reload only)")
+            flat = {k: v.detach().to(torch.bfloat16) if v.is_floating_point() else v.detach()
+                    for k, v in flat.items()}
+        path = os.path.join(save_dir, save_filename)
+        if _is_writer():
+            os.makedirs(save_dir, exist_ok=True)
+            write_safetensors(path, flat)
+        _barrier("save_16bit_model")
+        return path
+
+    def destroy(self) -> None:
+        """Parity: DeepSpeedEngine.destroy: land an in-flight async save (a
+        writer failure is logged, teardown does not raise) and drop the
+        state, so the device memory can be reused; the SIGTERM handler
+        forgets the engine."""
+        from .ckpt import unregister_preempt
+
+        if self._checkpoint_guard is not None:
+            self._checkpoint_guard.drain()
+            self._checkpoint_guard = None
+        unregister_preempt(self)
+        self.params = self.opt_state = None
+        self._micro_buffer, self._pending_batch, self._metrics = [], None, {}
 
     # ----------------------------------------------------------- properties
     @property

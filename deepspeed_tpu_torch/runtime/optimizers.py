@@ -22,17 +22,24 @@ line 101), that is p ← p − lr·(u + wd·p), u being
 
 Gradients arrive fp32 and are multiplied by the engine's clip factor (a device
 scalar) first. The 1-bit optimizers (``ops/onebit.py``) are not ported.
+
+A checkpoint stores the state under the chain's own leaf names (the
+``jax.tree_util.keystr`` paths of the optax state, e.g. ``[0][0].mu['embed']
+['tok']`` for AdamW), so that either package resumes the other's:
+:meth:`Optimizer.state_items` names each slot's leaves and the chain's update
+counts (int32 scalars, the number of updates done: the engine's step count).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import OptimizerConfig
 from ..ops.cuda.fused_adam import adam_update, adam_update_plain
-from ..utils.tree import tree_leaves, tree_map
+from ..utils.tree import tree_items, tree_leaves, tree_map
 
 ADAM_NAMES = ("adam", "adamw", "fusedadam")
 OPTIMIZER_NAMES = ADAM_NAMES + ("lion", "adagrad", "lamb", "fusedlamb", "sgd")
@@ -48,6 +55,9 @@ class Optimizer:
     leaf's update direction u in :meth:`direction`."""
 
     slots: tuple = ()
+    # the optax chain's state in its flatten order: ("count", path) for an
+    # update count, (slot, path) for a slot's tree under that path
+    chain: tuple = ()
 
     def __init__(self, cfg: OptimizerConfig, lr_schedule: Callable[[int], float]):
         self.b1, self.b2 = cfg.betas
@@ -80,11 +90,26 @@ class Optimizer:
         """``add_decayed_weights``: u + wd·p."""
         return u + self.weight_decay * p
 
+    def state_items(self, state, count: int) -> List[Tuple[str, object]]:
+        """The state as the optax chain's named leaves, in its flatten order
+        (each slot's tree with its dict keys sorted): each update count an
+        int32 scalar holding ``count``, each slot leaf the tensor itself."""
+        out: List[Tuple[str, object]] = []
+        for kind, path in self.chain:
+            if kind == "count":
+                out.append((path, np.asarray(count, np.int32)))
+            else:
+                out.extend((path + name, t) for name, t in tree_items(state[kind], True))
+        return out
+
 
 class AdamW(Optimizer):
     """AdamW; the update of a leaf is one fused kernel launch when ``fused``."""
 
     slots = ("mu", "nu")
+    # chain(chain(scale_by_adam, add_decayed_weights, scale), schedule)
+    chain = (("count", "[0][0].count"), ("mu", "[0][0].mu"), ("nu", "[0][0].nu"),
+             ("count", "[1].count"))
 
     def __init__(self, cfg: OptimizerConfig, lr_schedule: Callable[[int], float],
                  fused: bool):
@@ -106,6 +131,8 @@ class AdamW(Optimizer):
 
 class Lion(Optimizer):
     slots = ("mu",)
+    # chain(scale_by_lion, add_decayed_weights, scale, schedule)
+    chain = (("count", "[0].count"), ("mu", "[0].mu"), ("count", "[3].count"))
 
     def direction(self, p, g, state, t):
         (m,) = state
@@ -116,6 +143,8 @@ class Lion(Optimizer):
 
 class Adagrad(Optimizer):
     slots = ("sum_of_squares",)
+    # chain(scale_by_rss, add_decayed_weights, scale, schedule)
+    chain = (("sum_of_squares", "[0].sum_of_squares"), ("count", "[3].count"))
 
     def __init__(self, cfg: OptimizerConfig, lr_schedule: Callable[[int], float]):
         super().__init__(cfg, lr_schedule)
@@ -132,6 +161,10 @@ class Adagrad(Optimizer):
 
 class Lamb(Optimizer):
     slots = ("mu", "nu")
+    # chain(scale_by_adam, add_decayed_weights, scale_by_trust_ratio, scale,
+    # schedule)
+    chain = (("count", "[0].count"), ("mu", "[0].mu"), ("nu", "[0].nu"),
+             ("count", "[4].count"))
 
     def direction(self, p, g, state, t):
         m, v = state
@@ -152,6 +185,8 @@ class SGD(Optimizer):
         super().__init__(cfg, lr_schedule)
         self.momentum = float(cfg.params.get("momentum", 0.0))
         self.slots = ("trace",) if self.momentum else ()
+        # chain(trace or identity, add_decayed_weights, scale, schedule)
+        self.chain = (("trace", "[0].trace"),) * bool(self.momentum) + (("count", "[3].count"),)
 
     def direction(self, p, g, state, t):
         if not self.momentum:

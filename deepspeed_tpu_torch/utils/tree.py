@@ -6,7 +6,7 @@ is ``ops.quantizer.cast_floating``.
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, List
+from typing import Callable, Iterator, List, Tuple
 
 import torch
 
@@ -28,6 +28,29 @@ def _iter_leaves(tree) -> Iterator[torch.Tensor]:
             yield from _iter_leaves(v)
     else:
         yield tree
+
+
+def tree_items(tree, sort_keys: bool = False) -> List[Tuple[str, object]]:
+    """(name, leaf) pairs of a nested dict, each name the one
+    ``jax.tree_util.keystr`` gives the leaf's path (``['layers']['mlp']['wg']``).
+    In ``tree_leaves`` order, or with ``sort_keys`` in the order
+    ``jax.tree_util`` flattens a dict (its keys sorted)."""
+    out: List[Tuple[str, object]] = []
+
+    def walk(node, prefix: str) -> None:
+        if isinstance(node, dict):
+            for k in (sorted(node) if sort_keys else node):
+                walk(node[k], f"{prefix}[{k!r}]")
+        else:
+            out.append((prefix, node))
+
+    walk(tree, "")
+    return out
+
+
+def tree_paths(tree, sort_keys: bool = False) -> List[str]:
+    """The keystr names of :func:`tree_items`."""
+    return [name for name, _ in tree_items(tree, sort_keys)]
 
 
 def tree_size(tree) -> int:

@@ -143,7 +143,7 @@ def test_sampling_is_seeded(engines):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(tp_size=2), dict(ep_size=2), dict(checkpoint="ckpt"),
+    dict(tp_size=2), dict(ep_size=2), dict(tensor_parallel={"tp_size": 2}),
     dict(tensor_parallel={"tp_size": 1, "overlap_comm": True}),
 ])
 def test_later_slice_arguments_raise(engines, kw):

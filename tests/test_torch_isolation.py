@@ -31,7 +31,11 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "deepspeed_tpu"
              or m.startswith("deepspeed_tpu."))
 missing = {"deepspeed_tpu_torch.moe", "deepspeed_tpu_torch.moe.sharded_moe",
-           "deepspeed_tpu_torch.models.mixtral"} - set(names)
+           "deepspeed_tpu_torch.models.mixtral", "deepspeed_tpu_torch.runtime.ckpt",
+           "deepspeed_tpu_torch.runtime.ckpt.async_writer",
+           "deepspeed_tpu_torch.runtime.ckpt.load",
+           "deepspeed_tpu_torch.runtime.checkpointing", "deepspeed_tpu_torch.zero",
+           "deepspeed_tpu_torch.integrations.hf"} - set(names)
 print(len(names), bad, sorted(missing))
 sys.exit(1 if bad or missing else 0)
 """

@@ -1,7 +1,8 @@
 """Rank functions of the sequence-parallel tests (tests/test_torch_sequence_parallel.py,
-tests/test_torch_ring_flash.py), run by ``deepspeed_tpu_torch.launcher.launch_local``
-in spawned processes: this module imports only torch and the port, so a rank
-starts without jax."""
+tests/test_torch_ring_flash.py) and of the checkpointing test over ranks
+(tests/test_torch_checkpointing.py), run by
+``deepspeed_tpu_torch.launcher.launch_local`` in spawned processes: this module
+imports only torch and the port, so a rank starts without jax."""
 
 import numpy as np
 import torch
@@ -37,6 +38,40 @@ def train_rank(rank, runs):
             "eval": eng.eval_batch(batch=run["batches"][0]).item(),
             "params": params_to_numpy(eng.params) if rank == 0 else None}
     return out
+
+
+def checkpoint_rank(rank, run, directory, npz):
+    """A dp world's save and resume: every rank trains one step from the
+    masters and calls ``save_checkpoint`` (rank 0 writes), trains a second
+    step, then a fresh engine of other masters loads the checkpoint and trains
+    the second step again. Rank 0 then runs the ``zero_to_fp32.py`` the save
+    dropped into ``directory``, with jax and the JAX package made unimportable.
+    Returns the second step's loss, uninterrupted and resumed."""
+    import runpy
+    import sys
+
+    model = TransformerModel(TransformerConfig(**run["model"]))
+
+    def engine(**kw):
+        return deepspeed_tpu_torch.initialize(model=model, config=run["config"],
+                                              device="cpu", **kw)[0]
+
+    eng = engine(model_parameters=params_from_numpy(model.config, run["tree"]))
+    first, second = run["batches"]
+    eng.train_batch(batch=first)
+    eng.save_checkpoint(directory)
+    want = eng.train_batch(batch=second).item()
+    fresh = engine(rng=torch.Generator().manual_seed(9))
+    fresh.load_checkpoint(directory)
+    got = fresh.train_batch(batch=second).item()
+    if rank == 0:
+        sys.modules["jax"] = sys.modules["deepspeed_tpu"] = None
+        argv, sys.argv = sys.argv, ["zero_to_fp32.py", directory, npz]
+        try:
+            runpy.run_path(f"{directory}/zero_to_fp32.py", run_name="__main__")
+        finally:
+            sys.argv = argv
+    return want, got
 
 
 def attention_rank(rank, sp, cases):
