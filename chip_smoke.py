@@ -178,6 +178,31 @@ arguments, in order, any failure exiting non-zero:
    names. The tags live under ``ckpts/`` in the checkout and are deleted at
    the end; the phase fails naming the shortfall if the disk or the host
    memory is too small for two tags and a pinned snapshot;
+6c. ``offload`` (after ``checkpoint``): 6's model, config and batch (3
+   steps) through ``initialize`` in five engines: stage 0 (the reference),
+   stage 3, stage 3 + ``offload_optimizer: cpu`` (the layer stream double
+   buffered, as always on a card), stage 3 + ``offload_param: cpu`` +
+   ``offload_optimizer: cpu``, and stage 2 + ``offload_optimizer: nvme`` under
+   ``ckpts/`` (2 steps); each engine's losses bitwise the reference's, its
+   masters and every Adam moment byte for byte the reference's after its
+   last step (the reference's copies kept on the card; bucketed names
+   mapped to the resident ones), its counters (zeroed before its steps)
+   showing every training kernel ran and fused Adam once per stacked leaf
+   per layer plus once per other leaf a step; per engine step ms, peak and
+   resident device memory, host bytes, the stream's bytes and GB/s each way
+   and the forward's copy of host masters (NVMe: the disk's read and write
+   GB/s). Fails naming the shortfall when
+   the box lacks the host memory or the disk;
+6d. ``training_8b_offload``: Llama-3-8B's width at 2 layers, stage 0 against
+   stage 3 + ``offload_optimizer: cpu``, 2 steps, bitwise as in 6c; then
+   ``llama("llama3-8b")`` at full width and depth (OFFLOAD_8B_LAYERS),
+   stage 3 + ``offload_optimizer: cpu``, remat
+   ``full``, bf16 over fp32 masters, AdamW on fused Adam, micro-batch 1 x 2048
+   x 2 accumulation, 3 seeded steps: finite losses, the counters showing the
+   flash, RMSNorm and per-slice fused Adam launches; step ms and its split
+   (forward+backward, update, the stream's copy-in, update and copy-out
+   device ms), tokens/s, MFU, peak device memory, host bytes, a profiled
+   step. MemAvailable is checked before anything is pinned;
 7. the serving main path: init_inference(llama("llama3-8b"), bf16, kernel
    injection, max_tokens=1024) with seeded random weights at full depth, and
    generate on three requests; the launch counters, zeroed just before, must
@@ -502,6 +527,11 @@ SP_ULYSSES_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
 # batch (micro-batch 4 x 2048, 2 micro-batches), 6 steps
 MIXTRAL_TRAIN_LAYERS, MIXTRAL_TRAIN_STEPS = 2, 6
 MIXTRAL_TRAIN_KERNELS = TRAINING_KERNELS
+# offload: llama3-1b's training batch through six ZeRO/offload engines;
+# training_8b_offload: Llama-3-8B, micro-batch 1 x 2048 x 2 accumulation
+OFFLOAD_STEPS, OFFLOAD_NVME_STEPS, OFFLOAD_8B_STEPS = 3, 2, 3
+OFFLOAD_8B_LAYERS = 32  # full depth
+OFFLOAD_8B_B = 1
 # DeepSpeed's default sparsity mode at the flash kernels' 128-token block
 SPARSE_SECTION = {"mode": "fixed", "block": 128, "num_local_blocks": 4,
                   "num_global_blocks": 1}
@@ -1303,12 +1333,12 @@ def check_rmsnorm_bwd(gen, timer):
     }
 
 
-def check_flash_bwd(gen, timer, D: int = 64):
-    """The dq and dk/dv kernels at a training path's shape (micro-batch 4 x
-    2048, 32 query / 8 kv heads: llama3-1b's of 64 by default, Mixtral's of
-    128 with ``D=128``), causal. The dk/dv kernel gets the plain version's
-    delta, so each kernel is held alone."""
-    B, S, H, KV = TRAIN_B, TRAIN_S, 32, 8
+def check_flash_bwd(gen, timer, D: int = 64, B: int = TRAIN_B):
+    """The dq and dk/dv kernels at a training path's shape (micro-batch
+    ``B`` x 2048, 32 query / 8 kv heads: llama3-1b's of 64 by default,
+    Mixtral's and Llama-3-8B's of 128 with ``D=128``), causal. The dk/dv
+    kernel gets the plain version's delta, so each kernel is held alone."""
+    S, H, KV = TRAIN_S, 32, 8
     tol = 2e-2  # of the largest gradient: p and ds round to bf16 before the products
     tol_delta = 1e-4  # of the largest delta: an fp32 row sum in another order
 
@@ -4217,12 +4247,28 @@ def check_mixtral_training_shapes(timer) -> dict:
     32 query / 8 kv heads of 128, causal), the RMSNorm forward and backward
     on its 8192 rows of 4096, and fused Adam on its largest leaf (the stacked
     expert bank, 2 x 8 x 4096 x 14336 fp32). Returns a timed row per kernel."""
-    gen = torch.Generator(device="cuda").manual_seed(73)
-    rows = {"flash_attention_fwd": flash_fwd_case(gen, timer, "training_mixtral", TRAIN_B,
-                                                  TRAIN_S, 32, 8, 128)}
+    return check_hd128_training_shapes(timer, "training_mixtral", TRAIN_B,
+                                       2 * 8 * 4096 * 14336, 73)
+
+
+def check_8b_offload_shapes(timer) -> dict:
+    """The kernels of training_8b_offload at its shapes: Llama-3-8B's
+    micro-batch of 1 x 2048 (32 query / 8 kv heads of 128), its 2048 rows of
+    4096, and fused Adam on a layer slot's largest slice (the MLP's
+    4096 x 14336 fp32), from a generator of their own."""
+    return check_hd128_training_shapes(timer, "training_8b_offload", OFFLOAD_8B_B,
+                                       4096 * 14336, 79)
+
+
+def check_hd128_training_shapes(timer, path: str, B: int, adam_n: int, seed: int) -> dict:
+    """A head-dim-128 training path's kernels at micro-batch ``B`` x 2048:
+    the flash forward, dq and dk/dv, the RMSNorm forward and backward on its
+    rows of 4096, fused Adam on ``adam_n`` fp32 elements. A timed row each."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = {"flash_attention_fwd": flash_fwd_case(gen, timer, path, B, TRAIN_S, 32, 8, 128)}
     rows["flash_attention_bwd_dq"], rows["flash_attention_bwd_dkv"] = check_flash_bwd(
-        gen, timer, D=128)
-    n, D, eps = TRAIN_B * TRAIN_S, 4096, 1e-5
+        gen, timer, D=128, B=B)
+    n, D, eps = B * TRAIN_S, 4096, 1e-5
     atol, rtol = 1e-3, 1.6e-2  # two bf16 ulps of the plain result
     w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(BF16)
     x = torch.randn(n, D, generator=gen, device="cuda", dtype=BF16)
@@ -4247,7 +4293,7 @@ def check_mixtral_training_shapes(timer) -> dict:
         "shape": f"rows={n} D={D} bf16 (library: F.rms_norm backward)"}
     del x, g, xr, wr, lib_out
     torch.cuda.empty_cache()
-    rows["fused_adam"] = check_fused_adam(gen, timer, n=2 * 8 * 4096 * 14336)
+    rows["fused_adam"] = check_fused_adam(gen, timer, n=adam_n)
     torch.cuda.empty_cache()
     return rows
 
@@ -4615,6 +4661,305 @@ def main_path_checkpoint() -> tuple:
         if hasattr(torch._C, "_host_emptyCache"):  # the snapshot's pinned blocks
             torch._C._host_emptyCache()
     return counts, serving_counts
+
+
+# ------------------------------------------------ offload (ZeRO at world 1)
+def offload_config(zero: dict, remat: str = "none", micro: int = TRAIN_B) -> dict:
+    """training's config (bf16 over fp32 masters, AdamW on fused Adam) with
+    ``zero`` as its ZeRO section and the step's breakdown on (the offloaded
+    step's halves and its layer stream's device ms)."""
+    return {**train_config(True, remat=remat, batch=micro * TRAIN_ACCUM, micro=micro),
+            "zero_optimization": zero, "wall_clock_breakdown": True}
+
+
+def resident_name(name: str) -> str:
+    """A bucketed optimizer leaf's name in the resident layout
+    (``['layers'][0][0].mu['attn']['wq']`` → ``[0][0].mu['layers']['attn']['wq']``)."""
+    for group, prefix in (("['layers']", "['layers']"), ("['rest']", "")):
+        if name.startswith(group):
+            rest = name[len(group):]
+            at = rest.find("['")
+            return rest if at < 0 else rest[:at] + prefix + rest[at:]
+    return name
+
+
+def engine_state(engine) -> dict:
+    """{resident name: tensor} of an engine's masters and optimizer tensors
+    (its own storage: the card, pinned host memory, or swapped in)."""
+    comps = engine.checkpoint_components()
+    out = {f"params{n}": t for n, t in comps["params"]}
+    out.update({resident_name(n): t for n, t in comps["opt_state"] if torch.is_tensor(t)})
+    return out
+
+
+def state_differs(engine, reference: dict) -> list:
+    """The leaves whose bytes differ from ``reference`` (copies on the card
+    or the host), each compared byte for byte on the card; an NVMe engine's
+    state is swapped in for the comparison and out again."""
+    engine._swap_in_opt()
+    try:
+        got = engine_state(engine)
+        require(set(got) == set(reference), f"state names differ: {sorted(set(got) ^ set(reference))[:4]}")
+        differ = []
+        for name, ref in reference.items():
+            t = got[name].to("cuda", non_blocking=True)
+            r = ref.to("cuda", non_blocking=True)
+            if not torch.equal(t.view(torch.int32), r.view(torch.int32)):
+                differ.append(name)
+            del t, r
+        return differ
+    finally:
+        engine._swap_out_opt()
+
+
+def adam_launches_a_step(engine) -> int:
+    """Fused Adam launches an update takes: one per leaf resident, one per
+    stacked leaf per layer plus one per other leaf when bucketed."""
+    layers = tree_leaves(engine.params["layers"])
+    rest = len(tree_leaves(engine.params)) - len(layers)
+    if engine._bucketed is None:
+        return len(layers) + rest
+    return len(layers) * int(layers[0].shape[0]) + rest
+
+
+def run_offload_form(label: str, model, zero: dict, batch: dict, steps: int,
+                     reference=None, remat: str = "none", micro: int = TRAIN_B,
+                     snapshot_at=None) -> tuple:
+    """One engine of the offload phases: ``steps`` seeded steps with the
+    counters zeroed before them; prints its numbers; holds its losses and
+    state to ``reference`` (losses, {steps: state}) when given; with
+    ``snapshot_at`` keeps a host copy of its state after that step. Returns
+    (losses, counts, engine, info)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=model, config=offload_config(zero, remat, micro),
+                            rng=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    losses, ms, timings, snapshot = [], [], [], None
+    for i in range(steps):
+        t0 = time.perf_counter()
+        losses.append(engine.train_batch(batch=batch))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        timings.append(dict(engine._timings))
+        if snapshot_at == i + 1:  # outside the timed steps' numbers
+            snapshot = {k: t.detach().cpu() for k, t in engine_state(engine).items()}
+    counts = kernels.launch_counts()
+    losses = [x.item() for x in losses]
+    resident = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    stream = engine.offload_stream
+    last = timings[-1]
+    line = (f"{label}: init {init_s:.1f} s; step ms {[round(x, 1) for x in ms]}; peak "
+            f"{peak} bytes ({peak / 2**30:.2f} GiB), resident between steps {resident} bytes "
+            f"({resident / 2**30:.2f} GiB); host bytes {engine.host_state_bytes()}")
+    if stream is not None:
+        line += (f"; the update's stream {stream['bytes_in']} bytes in, {stream['bytes_out']} "
+                 f"out a step ({stream['device']}, slots {stream['slots']}, slot "
+                 f"{stream['slot_bytes']} bytes); the forward's copy of host masters "
+                 f"{stream['forward_bytes_in']} bytes in")
+    if "stream_copy_in" in last:
+        gbs_in = stream["bytes_in"] / last["stream_copy_in"] / 1e6
+        gbs_out = stream["bytes_out"] / last["stream_copy_out"] / 1e6
+        line += (f"; last step: fwd+bwd {last['fwd_bwd']:.1f} ms, update {last['update']:.1f} "
+                 f"ms, the stream's device ms copy in {last['stream_copy_in']:.1f} "
+                 f"({gbs_in:.2f} GB/s), update {last['stream_update']:.1f}, copy out "
+                 f"{last['stream_copy_out']:.1f} ({gbs_out:.2f} GB/s)")
+    print(line)
+    expect = {name: counts[name] for name in TRAINING_KERNELS}
+    print(f"{label} losses {losses}; launches {expect}; fused Adam "
+          f"{adam_launches_a_step(engine)} a step expected")
+    require(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss")
+    for name in TRAINING_KERNELS:
+        require(counts[name] > 0, f"{label}: kernel {name} was not launched")
+    require(counts["fused_adam"] == steps * adam_launches_a_step(engine),
+            f"{label}: fused Adam launched {counts['fused_adam']} times, "
+            f"{steps * adam_launches_a_step(engine)} expected")
+    require(sum(kernels.plain_attention_on_cuda().values()) == 0,
+            f"{label}: plain attention ran on the card")
+    if reference is not None:
+        want, states = reference
+        state = states[steps]
+        differ = state_differs(engine, state)
+        print(f"{label}: losses bitwise the reference's: {losses == want[:steps]}; masters and "
+              f"optimizer state byte for byte the reference's in {len(state) - len(differ)} "
+              f"of {len(state)} leaves (differing: {differ[:4]})")
+        require(losses == want[:steps], f"{label}: losses differ from the resident run's")
+        require(not differ, f"{label}: state differs from the resident run's")
+    return losses, counts, engine, {"ms": ms, "timings": timings, "peak": peak,
+                                    "resident": resident, "snapshot": snapshot}
+
+
+def free_engine(engine, label: str = "") -> None:
+    """Destroy ``engine`` and print the host memory left: its pinned state
+    goes back to the box."""
+    engine.destroy()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rss = next(int(line.split()[1]) * 1024 for line in open("/proc/self/status")
+               if line.startswith("VmRSS"))
+    print(f"{label} freed: MemAvailable {host_memory()['MemAvailable'] / 2**30:.1f} GiB, "
+          f"this process's resident set {rss / 2**30:.1f} GiB")
+
+
+def require_host(label: str, need: int, wait_s: float = 60.0) -> None:
+    """Fail unless MemAvailable covers ``need``. Page-locked memory freed a
+    moment ago comes back to MemAvailable over seconds (the driver unpins
+    it behind the free: 4 GiB freed read 3.9 GB short at once, H100 box), so
+    a shortfall is polled for up to ``wait_s`` first."""
+    t0 = time.perf_counter()
+    mem = host_memory()["MemAvailable"]
+    while mem < need and time.perf_counter() - t0 < wait_s:
+        time.sleep(1.0)
+        mem = host_memory()["MemAvailable"]
+    print(f"{label}: needs {need / 2**30:.1f} GiB of host memory, "
+          f"{mem / 2**30:.1f} GiB available (after {time.perf_counter() - t0:.1f} s)")
+    require(mem >= need, f"{label}: {mem / 2**30:.1f} GiB of host memory available, "
+            f"{need / 2**30:.1f} GiB needed")
+
+
+def main_path_offload() -> dict:
+    """ZeRO stages and offload at world 1 on llama3-1b at full width and
+    depth, training's config and batch: the five engines of 6c. Returns the
+    counts of the optimizer-offload engine's run (the path the kernels line
+    reads)."""
+    model = llama("llama3-1b")
+    cfg = model.config
+    n = cfg.num_params()
+    swap = CKPT_DIR.parent / "chip_smoke_offload"
+    need_disk = 2 * 4 * n + (1 << 30)  # the Adam moments' files
+    free = disk_free(swap)
+    print(f"offload phase: {cfg.name} ({n / 1e9:.3f} B params); the NVMe engine's files "
+          f"{2 * 4 * n / 1e9:.2f} GB, {free / 1e9:.2f} GB free under {swap.parent}")
+    require(free >= need_disk, f"offload phase: {free / 1e9:.2f} GB of disk free under "
+            f"{swap.parent}, {need_disk / 1e9:.2f} GB needed")
+    # the largest engine's host state: two generations of the NVMe engine's moments
+    require_host("offload phase", 2 * 2 * 4 * n + (8 << 30))
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_B * TRAIN_ACCUM, TRAIN_S),
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    batch = {"input_ids": ids}
+    cpu = {"device": "cpu"}
+    forms = [
+        ("stage 3", {"stage": 3}, OFFLOAD_STEPS),
+        ("stage 3 + offload_optimizer cpu", {"stage": 3, "offload_optimizer": cpu},
+         OFFLOAD_STEPS),
+        ("stage 3 + offload_param cpu + offload_optimizer cpu",
+         {"stage": 3, "offload_param": cpu, "offload_optimizer": cpu}, OFFLOAD_STEPS),
+        ("stage 2 + offload_optimizer nvme",
+         {"stage": 2, "offload_optimizer": {"device": "nvme", "nvme_path": str(swap)}},
+         OFFLOAD_NVME_STEPS),
+    ]
+    counts = None
+    engine = None
+    shutil.rmtree(swap, ignore_errors=True)
+    try:
+        # the reference's state after the NVMe engine's last step, on the host,
+        # and after its own, on the card
+        losses, _, engine, info = run_offload_form(
+            "offload stage 0 (reference)", model, {"stage": 0}, batch, OFFLOAD_STEPS,
+            snapshot_at=OFFLOAD_NVME_STEPS)
+        reference = (losses, {OFFLOAD_NVME_STEPS: info["snapshot"], OFFLOAD_STEPS: {
+            k: t.detach().clone() for k, t in engine_state(engine).items()}})
+        del info
+        free_engine(engine, "offload stage 0 (reference)")
+        for label, zero, steps in forms:
+            _, c, engine, _ = run_offload_form(f"offload {label}", model, zero, batch, steps,
+                                               reference)
+            if engine._swapper is not None:
+                sw = engine._swapper
+                sw.wait_pending("opt_state")
+                print(f"offload {label}: the disk (a {filesystem_type(swap.parent)} mount) "
+                      f"read {sw.bytes_read} bytes in {sw.read_s:.2f} s "
+                      f"({sw.bytes_read / sw.read_s / 1e9:.3f} GB/s, from submit to landing, "
+                      f"partly under forward and backward) and wrote {sw.bytes_written} bytes "
+                      f"in {sw.write_s:.2f} s ({sw.bytes_written / sw.write_s / 1e9:.3f} GB/s, "
+                      f"the submits and the waits)")
+                files = sorted(p.name for p in (swap / "zero_opt_swap").glob("*.bin"))
+                require(engine.opt_state is None and files,
+                        "offload: the NVMe engine's state is not on disk between steps")
+                del sw  # its pool's pinned buffers go with the engine
+            if label == "stage 3 + offload_optimizer cpu":
+                counts = c
+            free_engine(engine, f"offload {label}")
+            engine = None
+        del reference
+    finally:
+        if engine is not None:
+            engine.destroy()
+        shutil.rmtree(swap, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
+
+
+def main_path_training_8b_offload() -> dict:
+    """6d: Llama-3-8B's width at 2 layers, resident against the
+    double-buffered cpu offload (bitwise), then Llama-3-8B at
+    OFFLOAD_8B_LAYERS layers on the double-buffered cpu offload. Returns
+    the full-depth run's counts."""
+    micro = OFFLOAD_8B_B
+    rows, tokens = micro * TRAIN_ACCUM, micro * TRAIN_ACCUM * TRAIN_S
+    zero = {"stage": 3, "offload_optimizer": {"device": "cpu"}}
+    two = llama("llama3-8b", num_layers=2)
+    ids = torch.randint(0, two.config.vocab_size, (rows, TRAIN_S),
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    batch = {"input_ids": ids}
+    engine = None
+    try:
+        require_host("training_8b_offload (2 layers)", 2 * 4 * two.config.num_params() + (8 << 30))
+        losses, _, engine, _ = run_offload_form(
+            "training_8b_offload 2 layers, stage 0 (reference)", two, {"stage": 0}, batch, 2,
+            remat="full", micro=micro)
+        reference = (losses, {2: {k: t.detach().clone()
+                                  for k, t in engine_state(engine).items()}})
+        free_engine(engine, "training_8b_offload 2 layers, stage 0")
+        _, _, engine, _ = run_offload_form(
+            "training_8b_offload 2 layers, stage 3 + offload_optimizer cpu",
+            two, zero, batch, 2, reference, remat="full", micro=micro)
+        free_engine(engine, "training_8b_offload 2 layers, offloaded")
+        engine = None
+        del reference
+
+        model = llama("llama3-8b", num_layers=OFFLOAD_8B_LAYERS)
+        cfg = model.config
+        n = cfg.num_params()
+        moments = 2 * 4 * n
+        print(f"training_8b_offload: {cfg.name} L={cfg.num_layers} (of 32) d={cfg.hidden_size} "
+              f"H={cfg.num_heads} KV={cfg.kv_heads} hd={cfg.hd} ffn={cfg.ffn} "
+              f"V={cfg.vocab_size} ({n / 1e9:.3f} B params); fp32 masters {4 * n / 1e9:.1f} GB "
+              f"and gradients {4 * n / 1e9:.1f} GB on the card, Adam moments "
+              f"{moments / 1e9:.1f} GB pinned on the host")
+        require_host("training_8b_offload", moments + (8 << 30))
+        _, counts, engine, info = run_offload_form(
+            "training_8b_offload", model, zero, batch, OFFLOAD_8B_STEPS, remat="full",
+            micro=micro)
+        steady = info["ms"][1:]
+        ms_step = statistics.mean(steady)
+        pairs = rows * TRAIN_S * (TRAIN_S + 1) / 2
+        mfu = train_flops(cfg, tokens, pairs) / (ms_step / 1e3) / BF16_FLOPS
+        last = info["timings"][-1]
+        print(f"training_8b_offload: {ms_step:.1f} ms/step (steps 2-{OFFLOAD_8B_STEPS}), "
+              f"{tokens / (ms_step / 1e3):.1f} tokens/s, MFU {mfu:.4f}; split of the last step: "
+              f"forward+backward {last['fwd_bwd']:.1f} ms, update {last['update']:.1f} ms "
+              f"(device: copy in {last['stream_copy_in']:.1f}, Adam {last['stream_update']:.1f}, "
+              f"copy out {last['stream_copy_out']:.1f} ms, on three streams); peak "
+              f"{info['peak'] / 2**30:.2f} GiB, resident {info['resident'] / 2**30:.2f} GiB, "
+              f"host {engine.host_state_bytes()} bytes")
+        for name in TRAINING_KERNELS:
+            require(counts[name] > 0, f"training_8b_offload: {name} was not launched")
+        profile_device(lambda: engine.train_batch(batch=batch), "one training_8b_offload step")
+        free_engine(engine, "training_8b_offload")
+        engine = None
+    finally:
+        if engine is not None:
+            engine.destroy()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
 
 
 # The Llama (slope-free) forms of the attention kernels and the ALiBi forms of
@@ -5931,6 +6276,10 @@ def main() -> int:
     adam_bloom = check_fused_adam(gen, timer, n=250880 * 1024)
     mix = check_mixtral_training_shapes(timer)
     ckpt_serving = check_checkpoint_serving_shapes(timer)
+    # the offloaded update's launches: a layer slot's largest slice (llama3-1b's
+    # MLP, 2048 x 8192; Llama-3-8B's, 4096 x 14336, with that path's shapes)
+    adam_slice = check_fused_adam(gen, timer, n=2048 * 8192)
+    o8 = check_8b_offload_shapes(timer)
     # the quantized serving path runs the bf16 path's requests: its flash,
     # RMSNorm and (int4 engine, draft) dense decode shapes are the same
     rows = [
@@ -6009,6 +6358,14 @@ def main() -> int:
         ("rmsnorm_bwd", "checkpoint", rms_bwd),
         ("fused_adam", "checkpoint", adam),
         *((name, "checkpoint_serving", r) for name, r in ckpt_serving.items()),
+        # offload: llama3-1b's training shapes, fused Adam on layer slices
+        ("flash_attention_fwd", "offload", flash["training"]),
+        ("flash_attention_bwd_dq", "offload", dq),
+        ("flash_attention_bwd_dkv", "offload", dkv),
+        ("rmsnorm_fwd", "offload", norm["training"]),
+        ("rmsnorm_bwd", "offload", rms_bwd),
+        ("fused_adam", "offload", adam_slice),
+        *((name, "training_8b_offload", r) for name, r in o8.items()),
     ]
     # the norms' decode rows are printed beside the main paths' rows; the
     # kernels line keeps one row per main path
@@ -6086,6 +6443,10 @@ def main() -> int:
         lap(path)
     counts["checkpoint"], counts["checkpoint_serving"] = main_path_checkpoint()
     lap("checkpoint")
+    counts["offload"] = main_path_offload()
+    lap("offload")
+    counts["training_8b_offload"] = main_path_training_8b_offload()
+    lap("training_8b_offload")
     counts["serving_mixtral"], counts["serving_cb_mixtral"] = main_path_serving_mixtral()
     lap("serving_mixtral and serving_cb_mixtral")
 

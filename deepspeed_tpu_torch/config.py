@@ -34,6 +34,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from .runtime.activation_checkpointing import KNOWN_POLICIES
+from .utils.logging import log_dist
 
 AUTO = "auto"
 
@@ -104,15 +105,54 @@ class BF16Config:
 
 
 @dataclass
+class OffloadConfig:
+    """The "offload_optimizer" / "offload_param" subsections (JAX
+    ``config.py:110``). The port accepts and ignores ``buffer_count``,
+    ``buffer_size`` and ``max_in_cpu``: its swap buffers are one pooled
+    generation of the state's own leaves."""
+
+    device: str = "none"  # none | cpu | nvme
+    nvme_path: Optional[str] = None
+    pin_memory: bool = True
+
+    @property
+    def enabled(self) -> bool:
+        return self.device not in ("none", None)
+
+
+@dataclass
 class ZeroConfig:
-    """The "zero_optimization" stage; the rest of the section stays raw."""
+    """The "zero_optimization" section's stage and offload (JAX
+    ``config.py:126``). The port accepts and ignores ``sub_group_size`` (the
+    offloaded update steps one layer at a time by construction, as the JAX
+    package's does) and ``offload_double_buffer`` / ``sub_group_prefetch``
+    (the layer stream is double buffered on a card and serial on the CPU,
+    bitwise equal). The wire, prefetch, ZeRO++ and MiCS knobs stay raw until
+    ZeRO over ranks reads them."""
 
     stage: int = 0
+    offload_optimizer: OffloadConfig = field(default_factory=OffloadConfig)
+    offload_param: OffloadConfig = field(default_factory=OffloadConfig)
+
+    def __post_init__(self):
+        for name in ("offload_optimizer", "offload_param"):
+            v = getattr(self, name)
+            if not isinstance(v, OffloadConfig):
+                setattr(self, name, _parse_dc(OffloadConfig, v))
 
     def validate(self) -> None:
+        """JAX ``ZeroConfig.validate`` (``config.py:199-210``)."""
         if self.stage not in (0, 1, 2, 3):
             raise DeepSpeedConfigError(
                 f"zero_optimization.stage must be 0-3, got {self.stage}")
+        for off in (self.offload_optimizer, self.offload_param):
+            if off.device not in ("none", "cpu", "nvme", None):
+                raise DeepSpeedConfigError(
+                    f"offload device must be none|cpu|nvme, got {off.device}")
+            if off.device == "nvme" and not off.nvme_path:
+                raise DeepSpeedConfigError("nvme offload requires nvme_path")
+        if self.offload_param.enabled and self.stage != 3:
+            raise DeepSpeedConfigError("offload_param requires ZeRO stage 3")
 
 
 @dataclass
@@ -449,7 +489,12 @@ class DeepSpeedConfig:
         )
         self.fp16 = _parse_dc(FP16Config, d.get("fp16"))
         self.bf16 = _parse_dc(BF16Config, d.get("bf16"))
-        self.zero_config = _parse_dc(ZeroConfig, d.get("zero_optimization"))
+        zo = d.get("zero_optimization") or {}
+        for knob in ("offload_double_buffer", "sub_group_prefetch"):
+            if knob in zo:
+                log_dist(f"zero_optimization.{knob} is ignored: the offloaded layer "
+                         f"stream is double buffered on a card and serial on the CPU")
+        self.zero_config = _parse_dc(ZeroConfig, zo)
         self.activation_checkpointing = _parse_dc(
             ActivationCheckpointingConfig, d.get("activation_checkpointing"))
         self.tpu_kernels = _parse_dc(TpuKernelsConfig, d.get("tpu_kernels"))

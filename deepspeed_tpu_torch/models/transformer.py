@@ -259,17 +259,65 @@ def layer_params(layers: Params, i: int) -> Params:
     }
 
 
-def unstack_layers(layers: Params, num_layers: int) -> List[Params]:
-    """Every layer's parameters, by one ``unbind`` per stacked tensor: its
-    backward stacks the L layer gradients once, where L views ``v[i]``
-    would each scatter into a zeroed [L, ...] gradient."""
-    def split(tree):
-        if isinstance(tree, dict):
-            parts = {k: split(v) for k, v in tree.items()}
-            return [{k: p[i] for k, p in parts.items()} for i in range(num_layers)]
-        return tree.unbind(0)
+class _LayerSlice(torch.autograd.Function):
+    """Layer ``i``'s slice of a stacked [L, ...] leaf that needs its
+    gradient, cast to ``dtype`` (a view of the leaf when no cast is needed);
+    the slice's gradient lands in place in the leaf's ``.grad[i]`` (a zero
+    [L, ...] gradient made at the first slice a backward reaches), so neither
+    an [L, ...] cast of the stack nor an [L, ...] stack of the layers'
+    gradients ever exists beside it. The arithmetic is a cast per element and
+    a sum of each layer's gradient into zero (then into the earlier
+    micro-batches' sum), element for element the whole-stack cast's and the
+    stacked gradient's.
 
-    return split(layers)
+    The gradient reaches ``.grad`` only: ``loss.backward()`` is the one way
+    to differentiate through it. ``torch.autograd.grad`` over the leaf,
+    ``create_graph``, and hooks on the leaf would each miss it, so its
+    backward refuses them."""
+
+    @staticmethod
+    def forward(ctx, stacked, i, dtype):
+        ctx.stacked, ctx.i = stacked, i
+        s = stacked.detach()[i]
+        return s if dtype is None or dtype == s.dtype else s.to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, i = ctx.stacked, ctx.i
+        try:
+            to_grad = torch._C._will_engine_execute_node(ctx.next_functions[0][0])
+        except RuntimeError:  # torch.autograd.grad is running
+            to_grad = False
+        if not to_grad or torch.is_grad_enabled() or w._backward_hooks \
+                or getattr(w, "_post_accumulate_grad_hooks", None):
+            raise RuntimeError(
+                "a stacked layer parameter's gradient lands in its .grad in place "
+                "(models/transformer.py:_LayerSlice): differentiate with "
+                "loss.backward(), without create_graph and without hooks on the "
+                "parameter, not with torch.autograd.grad")
+        with torch.no_grad():
+            if w.grad is None:
+                w.grad = torch.zeros_like(w)
+            w.grad[i] += g.to(w.dtype)
+        return None, None, None
+
+
+def layer_slice(layers: Params, i: int, dtype: Optional[torch.dtype] = None) -> Params:
+    """Layer ``i``'s parameters cast to ``dtype`` (None keeps each leaf's):
+    a stacked leaf that needs its gradient goes through :class:`_LayerSlice`
+    (its gradient lands in the stacked ``.grad`` in place); any other is
+    ``v[i]`` cast (a PackedWeight leaf's layer slice as it is). Called
+    inside a checkpointed layer, the cast slice is
+    recomputed in backward rather than kept."""
+    def one(v):
+        if isinstance(v, dict):
+            return {k: one(x) for k, x in v.items()}
+        if isinstance(v, torch.Tensor) and v.requires_grad and v.is_leaf \
+                and torch.is_grad_enabled():
+            return _LayerSlice.apply(v, i, dtype if v.is_floating_point() else None)
+        return v[i] if dtype is None else cast_floating(v[i], dtype)
+
+    return one(layers)
 
 
 # -----------------------------------------------------------------------------
@@ -452,6 +500,11 @@ def _layer(cfg: TransformerConfig, lp: Params, x: torch.Tensor, rope,
     return x + _mlp(cfg, lp["mlp"], _norm(cfg, lp["ln2"], x), aux, train)
 
 
+def _stacked_layer(cfg: TransformerConfig, layers: Params, i: int, dtype, x, *rest):
+    """Layer ``i`` read from the stacked ``layers``, its slice cast inside."""
+    return _layer(cfg, layer_slice(layers, i, dtype), x, *rest)
+
+
 def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
           dtype: Optional[torch.dtype] = None, remat_policy: Optional[str] = None,
           positions: Optional[torch.Tensor] = None,
@@ -463,10 +516,16 @@ def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
     aux loss summed over the layers (load balance plus the scaled z-loss,
     JAX ``apply``'s second value; 0 for a dense model).
 
-    ``dtype`` casts the parameters for compute (the layer stack as a whole,
-    as the JAX package does; the embedding rows after the lookup, so the
-    table's gradient accumulates in its own dtype). ``remat_policy="full"``
+    ``dtype`` casts the parameters for compute (each layer's slice of the
+    stack inside that layer, element for element the JAX package's cast of
+    the whole stack; the embedding rows after the lookup, so the table's
+    gradient accumulates in its own dtype). ``remat_policy="full"``
     re-runs each layer in backward when a gradient is being recorded.
+
+    The gradient of a stacked ``layers`` leaf that needs one lands in that
+    leaf's ``.grad`` in place, layer by layer (:class:`_LayerSlice`): take it
+    with ``loss.backward()``; ``torch.autograd.grad`` over such a leaf,
+    ``create_graph`` and hooks on it are refused in backward.
     ``positions`` [B, S] (default 0..S-1) place RoPE and the learned
     positions; given, they turn ALiBi into the dense bias at those positions,
     made once here and shared by every layer. ``segment_ids`` [B, S] keep
@@ -501,12 +560,13 @@ def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
         segment_ids = segment_ids.to(torch.int32).contiguous()
     remat = policy_by_name(remat_policy) if torch.is_grad_enabled() else None
     aux: List[torch.Tensor] = []
-    for lp in unstack_layers(cast(params["layers"]), cfg.num_layers):
+    for i in range(cfg.num_layers):
         if remat:
-            x = checkpoint(_layer, cfg, lp, x, rope, slopes, bias, segment_ids, aux,
-                           train, use_reentrant=False)
+            x = checkpoint(_stacked_layer, cfg, params["layers"], i, dtype, x, rope, slopes,
+                           bias, segment_ids, aux, train, use_reentrant=False)
         else:
-            x = _layer(cfg, lp, x, rope, slopes, bias, segment_ids, aux, train)
+            x = _stacked_layer(cfg, params["layers"], i, dtype, x, rope, slopes, bias,
+                               segment_ids, aux, train)
     x = _norm(cfg, cast(params["final_norm"]), x)
     out = x if return_hidden else lm_head_logits(cfg, params, x)
     if return_aux:

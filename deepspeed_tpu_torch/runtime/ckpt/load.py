@@ -39,6 +39,7 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
             return None, {}
     path = _manifest.require_committed(load_dir, tag)
     meta = _manifest.read_manifest(load_dir, tag)
+    engine.check_layout(meta)
     components = engine.checkpoint_components()
 
     # every leaf of every component matched and checked from the file names

@@ -2,9 +2,13 @@
 device (or the CPU, when asked), or on each rank of a dp × sp world.
 
 Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``initialize`` line 62,
-``TpuEngine.train_batch`` line 2168, ``_train_step`` line 2038) at ZeRO stage
-0, bf16 (or fp32) compute over fp32 master weights, and the optimizers of
-``runtime/optimizers.py``. An MoE model (Mixtral) trains at ep = 1, its loss
+``TpuEngine.train_batch`` line 2168, ``_train_step`` line 2038): bf16 (or
+fp32) compute over fp32 master weights and the optimizers of
+``runtime/optimizers.py``; on one rank any ZeRO stage (nothing to partition:
+stage 0's step) and optimizer/parameter offload (lines 639-720: the
+optimizer state in host memory stepped a layer at a time,
+``runtime/bucketed_opt.py``, or on NVMe between steps,
+``runtime/swap_tensor.py``; the masters in host memory under stage 3). An MoE model (Mixtral) trains at ep = 1, its loss
 carrying the aux term. A step splits the global batch into ``gradient_accumulation_steps``
 micro-batches; each micro-batch's loss is the mean over its own tokens, and
 its fp32 gradient accumulates in the masters' ``.grad`` (the sum the JAX scan
@@ -55,6 +59,7 @@ sequence chunks by the ``sequence_parallel`` mode (``parallel/sequence.py``).
 
 from __future__ import annotations
 
+import os
 import time
 from contextlib import ExitStack, contextmanager
 from typing import Any, Dict, List, Optional
@@ -76,30 +81,46 @@ from ..ops.sparse_attention import from_ds_config, make_attention_impl
 from ..utils.logging import log_dist
 from ..utils.tree import global_norm, tree_items, tree_leaves, tree_map, tree_size
 from .activation_checkpointing import policy_by_name
+from .bucketed_opt import BucketedOptimizer, _nbytes, bucketed_applicable
 from .checkpointing import _barrier, _is_writer
 from .lr_schedules import build_schedule
 from .optimizers import build_optimizer
+from .swap_tensor import TensorSwapper, host_empty
 
 
 def _enabled(section: Any) -> bool:
     return isinstance(section, dict) and bool(section.get("enabled"))
 
 
+def planned_world(cfg: DeepSpeedConfig) -> int:
+    """The number of ranks ``initialize`` will train on, known before it
+    starts the world: the started process group's, else the launcher's
+    ``WORLD_SIZE``, else one rank per sequence-parallel chunk."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return max(int(os.environ.get("WORLD_SIZE", "1") or 1), cfg.sequence_parallel.sp_size)
+
+
 def unported_features(cfg: DeepSpeedConfig) -> List[str]:
     """The features a config turns on that a later slice of the port
-    brings, each with its ROADMAP queue A item."""
+    brings, each with its ROADMAP queue A item. ZeRO stages and offload run
+    on one rank; over ranks they are item 7.2."""
     raw = cfg.raw
-    zo = raw.get("zero_optimization") or {}
+    zc = cfg.zero_config
     pipe = raw.get("pipeline") or {}
     tp = raw.get("tensor_parallel") or {}
     de = raw.get("data_efficiency") or {}
     comp = raw.get("compression_training") or {}
+    world = planned_world(cfg)
     checks = [
         (cfg.fp16.enabled, "fp16 and its loss scaler (item 6)"),
-        (cfg.zero_config.stage > 0, f"ZeRO stage {cfg.zero_config.stage} (item 7)"),
-        (any((zo.get(k) or {}).get("device", "none") not in ("none", None)
-             for k in ("offload_optimizer", "offload_param")),
-         "optimizer/parameter offload, NVMe included (item 7)"),
+        (world > 1 and zc.stage > 0,
+         f"ZeRO stage {zc.stage} (item 7) over {world} ranks: stages run on one rank"),
+        (world > 1 and (zc.offload_optimizer.enabled or zc.offload_param.enabled),
+         f"optimizer/parameter offload, NVMe included (item 7) over {world} ranks: "
+         f"offload runs on one rank"),
         (int(pipe.get("stages", pipe.get("num_stages", 1)) or 1) > 1,
          "pipeline parallelism (item 7)"),
         (int(tp.get("tp_size", tp.get("autotp_size", 1)) or 1) > 1,
@@ -161,8 +182,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     later += unported_features(cfg)
     if later:
         raise NotImplementedError(
-            "deepspeed_tpu_torch trains at ZeRO stage 0 with bf16/fp32; not yet "
-            "ported (ROADMAP queue A): " + "; ".join(later)
+            "deepspeed_tpu_torch trains with bf16/fp32, ZeRO stages and offload on "
+            "one rank; not yet ported (ROADMAP queue A): " + "; ".join(later)
         )
     sp = cfg.sequence_parallel.sp_size
     if comm.is_initialized() and comm.get_topology().sp_size == sp:
@@ -249,8 +270,7 @@ class TorchEngine:
             params = model.init(gen, dtype=torch.float32, device=device)
         if self._world is not None:  # one set of masters: rank 0's
             self._flat_over_world(tree_leaves(params), lambda f: broadcast(f, self._world, 0))
-        self.params = tree_map(lambda t: t.requires_grad_(True), params)
-        self.opt_state = self.optimizer.init(self.params)
+        self._setup_state(params)
         self.global_steps = 0
         self.micro_steps = 0
         self.skipped_steps = 0  # no fp16 overflow skips on the ported path
@@ -268,6 +288,135 @@ class TorchEngine:
             f" x {config.gradient_accumulation_steps} x dp {self.topology.dp_size}, "
             f"{self.topology}, remat {self.remat_policy}, kernels {tk}"
         )
+
+    def _setup_state(self, params) -> None:
+        """The masters and the optimizer state, placed by the ZeRO section
+        (JAX ``engine.py:639-720``). At one rank a stage partitions nothing,
+        so stages 1-3 train as stage 0, bit for bit. ``offload_optimizer``:
+        ``cpu`` keeps the state in host memory (page-locked on a card) and
+        steps it a layer at a time (``bucketed_opt.py``); ``nvme`` keeps it in
+        files under ``nvme_path/zero_opt_swap`` between steps (``TensorSwapper``;
+        the resident layout, read back while forward and backward run and
+        written behind the update). ``offload_param`` (stage 3) keeps the fp32
+        masters in host memory: forward and backward read a device copy, the
+        update streams them beside the state."""
+        zc = self.config.zero_config
+        off_opt, off_par = zc.offload_optimizer, zc.offload_param
+        on_cuda = self.device.type == "cuda"
+        if zc.stage > 0:
+            log_dist(f"ZeRO stage {zc.stage} on one rank: nothing to partition, the step "
+                     f"is stage 0's")
+        if off_par.device == "nvme":
+            log_dist("offload_param.device=nvme: params stage in pinned host memory (disk "
+                     "swap applies to optimizer state via offload_optimizer.device=nvme)")
+        self._param_offload = off_par.enabled
+        self._bucketed: Optional[BucketedOptimizer] = None
+        self._swapper: Optional[TensorSwapper] = None
+        if off_opt.device == "cpu":
+            if not bucketed_applicable(params):
+                raise ValueError("offload_optimizer.device cpu steps the stacked 'layers' "
+                                 "group a layer at a time; this model's parameters have none")
+            self._bucketed = BucketedOptimizer(
+                self.optimizer, pin=on_cuda and off_opt.pin_memory, offload_param=self._param_offload)
+            self.opt_state = self._bucketed.init(params)
+            self._bucketed.timing = self.config.wall_clock_breakdown
+        else:
+            self.opt_state = self.optimizer.init(params)
+        if off_opt.device == "nvme":
+            self._swapper = TensorSwapper(
+                os.path.join(off_opt.nvme_path, "zero_opt_swap"), reuse_buffers=on_cuda,
+                pin=on_cuda and off_opt.pin_memory)
+            self._swapped_bytes = sum(_nbytes(t) for t in tree_leaves(self.opt_state))
+            self._swapper.swap_out("opt_state", self.opt_state)  # on disk between steps
+            self.opt_state = None
+        if self._param_offload:
+            pin = on_cuda and off_par.pin_memory
+            self.params = tree_map(lambda t: host_empty(t.shape, t.dtype, pin).copy_(t), params)
+        else:
+            self.params = tree_map(lambda t: t.requires_grad_(True), params)
+        self.offload_stream = self._offload_stream()
+
+    def _offload_stream(self) -> Optional[Dict[str, Any]]:
+        """The bytes one step moves between host (or disk) and device (JAX
+        ``_compute_offload_stream``): the update's ``bytes_in`` and
+        ``bytes_out``, ``slot_bytes`` (one layer of the stacked group),
+        ``slots``, ``layers``, ``double_buffer``; beside JAX's fields
+        ``forward_bytes_in`` (under ``offload_param`` the device copy of the
+        masters that forward and backward read) and ``device``; None when
+        nothing is offloaded."""
+        fwd = sum(_nbytes(t) for t in tree_leaves(self.params)) if self._param_offload else 0
+        if self._bucketed is not None:
+            return {**self._bucketed.stream_bytes(
+                self.opt_state, self.params if self._param_offload else None),
+                "forward_bytes_in": fwd, "device": "cpu"}
+        swapped = self._swapped_bytes if self._swapper is not None else 0
+        if not swapped + fwd:
+            return None
+        return {"bytes_in": swapped, "bytes_out": swapped + fwd, "slot_bytes": swapped + fwd,
+                "slots": 1, "layers": 0, "double_buffer": False, "forward_bytes_in": fwd,
+                "device": "nvme" if self._swapper is not None else "cpu"}
+
+    @property
+    def offloaded(self) -> bool:
+        """Whether any state rests off the device (host memory or disk)."""
+        return self._bucketed is not None or self._swapper is not None or self._param_offload
+
+    def host_state_bytes(self) -> int:
+        """Host bytes the engine's offloaded state holds: the bucketed state,
+        the host masters, the swapper's buffers."""
+        total = 0
+        if self._bucketed is not None and self.opt_state is not None:
+            total += sum(_nbytes(t) for t in tree_leaves(self.opt_state))
+        if self._param_offload and self.params is not None:
+            total += sum(_nbytes(t) for t in tree_leaves(self.params))
+        if self._swapper is not None:
+            total += self._swapper.held_bytes()
+        return total
+
+    def _step_params(self, grad: bool):
+        """The masters forward and backward read: the device masters, or
+        under ``offload_param`` a device copy of the host masters (JAX
+        ``_device_params``), a leaf needing its gradient when ``grad``."""
+        if not self._param_offload:
+            return self.params
+        return tree_map(lambda h: h.to(self.device, non_blocking=True, copy=True)
+                        .requires_grad_(grad), self.params)
+
+    def _quiesce(self) -> None:
+        """Wait for the copies into host memory still in flight (the offloaded
+        update's), before the host reads that memory."""
+        if self.offloaded and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _update(self, params, grads, clip) -> None:
+        """The optimizer half of the step (JAX ``_apply_update``)."""
+        if self._bucketed is not None:
+            self._bucketed.step(params, grads, self.opt_state, self.global_steps, clip,
+                                host_params=self.params if self._param_offload else None)
+            return
+        if self._swapper is not None:  # its reads were started before forward
+            self.opt_state = self._swapper.swap_in("opt_state", device=self.device)
+        self.optimizer.step(params, grads, self.opt_state, self.global_steps, clip)
+        if self._param_offload:
+            with torch.no_grad():
+                for h, d in zip(tree_leaves(self.params), tree_leaves(params)):
+                    h.copy_(d, non_blocking=True)
+        if self._swapper is not None:
+            # the writes run on the aio threads behind the rest of this step;
+            # the next train_batch's prefetch waits for them before its reads
+            self._swapper.swap_out("opt_state", self.opt_state, blocking=False)
+            self.opt_state = None
+
+    def _swap_in_opt(self) -> None:
+        """NVMe: the state back on the device (a no-op when resident)."""
+        if self._swapper is not None and self.opt_state is None:
+            self.opt_state = self._swapper.swap_in("opt_state", device=self.device)
+
+    def _swap_out_opt(self) -> None:
+        """NVMe: the state to disk and off the device (blocking)."""
+        if self._swapper is not None and self.opt_state is not None:
+            self._swapper.swap_out("opt_state", self.opt_state)
+            self.opt_state = None
 
     # ------------------------------------------------------------- helpers
     def _kernel_scope(self) -> ExitStack:
@@ -293,6 +442,10 @@ class TorchEngine:
         if self.device.type == "cuda" and t.device.type == "cpu":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _lm_batch(self, batch) -> Dict[str, torch.Tensor]:
         out = {k: self._to_device(v) for k, v in batch.items()}
@@ -370,12 +523,17 @@ class TorchEngine:
         num_tokens = prepared.num_tokens
         accum = cfg.gradient_accumulation_steps
         t1 = time.perf_counter()
+        if self._swapper is not None and self.opt_state is None:
+            # NVMe: the state's reads run on the aio threads under forward and
+            # backward (JAX train_batch's swap-in between its two programs)
+            self._swapper.prefetch("opt_state", device=self.device)
+        params = self._step_params(True)
         loss_sum = m_sum = None
         with self._kernel_scope():
             for i in range(accum):
                 mb = {k: v[i] for k, v in prepared.items()}
                 loss, m = self.model.loss(
-                    self.params, mb, dtype=self.compute_dtype, train=True,
+                    params, mb, dtype=self.compute_dtype, train=True,
                     remat_policy=self.remat_policy,
                     num_tokens=None if num_tokens is None else num_tokens[i])
                 loss.backward()
@@ -386,7 +544,11 @@ class TorchEngine:
         # the model's metrics over the micro-batches: counts ("tokens") summed,
         # the rest the mean (JAX _compute_grads)
         shares = [k for k in m_sum if k != "tokens"]
-        grads = tree_map(lambda p: p.grad, self.params)
+        breakdown = cfg.wall_clock_breakdown and self.offloaded
+        if breakdown:
+            self._sync()
+            t_fb = time.perf_counter()
+        grads = tree_map(lambda p: p.grad, params)
         leaves = tree_leaves(grads)
         if self._world is not None:  # the ranks' shares of the batch's loss, gradient
             all_reduce(loss_sum, self._world)
@@ -402,10 +564,10 @@ class TorchEngine:
         clip = None
         if cfg.gradient_clipping > 0:
             clip = torch.clamp(cfg.gradient_clipping / (gnorm + 1e-6), max=1.0)
-        self.optimizer.step(self.params, grads, self.opt_state, self.global_steps,
-                            clip)
-        for p in tree_leaves(self.params):
+        self._update(params, grads, clip)
+        for p in tree_leaves(params):
             p.grad = None
+        del grads, leaves, params
         lr = self.lr_schedule(self.global_steps)
         self.global_steps += 1
         self.micro_steps += accum
@@ -414,11 +576,16 @@ class TorchEngine:
                          **{k: v if k == "tokens" else v / accum for k, v in m_sum.items()}}
         if cfg.wall_clock_breakdown:
             t2 = time.perf_counter()
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync()
+            t3 = time.perf_counter()
             self._timings = {"batch_prep": (t1 - t0) * 1e3,
                              "step_dispatch": (t2 - t1) * 1e3,
-                             "step_device": (time.perf_counter() - t2) * 1e3}
+                             "step_device": (t3 - t2) * 1e3}
+            if breakdown:  # the offloaded step's halves, and the layer stream's device ms
+                self._timings.update({"fwd_bwd": (t_fb - t1) * 1e3, "update": (t3 - t_fb) * 1e3})
+                if self._bucketed is not None:
+                    self._timings.update({f"stream_{k}": v
+                                          for k, v in self._bucketed.last_ms.items()})
         if self.global_steps % cfg.steps_per_print == 0:
             msg = (f"step {self.global_steps}: loss={float(loss):.4f} "
                    f"lr={lr:.3e} gnorm={float(gnorm):.3f}")
@@ -459,7 +626,7 @@ class TorchEngine:
     def _loss_no_grad(self, batch, train: bool) -> torch.Tensor:
         full = self._lm_batch(batch)
         with torch.no_grad(), self._kernel_scope():
-            loss, _ = self.model.loss(self.params, self._shard(full, 0),
+            loss, _ = self.model.loss(self._step_params(False), self._shard(full, 0),
                                       dtype=self.compute_dtype, train=train,
                                       num_tokens=self._num_tokens(full["labels"], (0, 1)))
         if self._world is not None:
@@ -556,9 +723,16 @@ class TorchEngine:
         counts (``global_steps``), ``loss_scale`` the static state of a
         bf16/fp32 run (JAX ``precision.py:init_loss_scale`` with fp16 off:
         scale 1, no good steps, the configured hysteresis)."""
+        if self._swapper is not None and self.opt_state is None:
+            raise RuntimeError("the NVMe-offloaded optimizer state is on disk: "
+                               "save_checkpoint / load_checkpoint swap it in first")
+        self._quiesce()  # the offloaded update's copies into host memory have landed
+        opt = (self._bucketed.state_items(self.opt_state, self.global_steps)
+               if self._bucketed is not None
+               else self.optimizer.state_items(self.opt_state, self.global_steps))
         return {
             "params": tree_items(self.params, sort_keys=True),
-            "opt_state": self.optimizer.state_items(self.opt_state, self.global_steps),
+            "opt_state": opt,
             "loss_scale": [
                 (".scale", np.asarray(1.0, np.float32)),
                 (".good_steps", np.asarray(0, np.int32)),
@@ -574,9 +748,10 @@ class TorchEngine:
         loss scale that is not the static state (an fp16 run's)."""
         steps = int(meta["global_steps"])
         for name, count in restored.get("opt_state", {}).items():
-            if int(count) != steps:
+            count = np.asarray(count)  # a bucketed state's ['layers'] counts are [L]
+            if np.any(count != steps):
                 raise ValueError(
-                    f"checkpoint optimizer count {name} = {int(count)} != global_steps "
+                    f"checkpoint optimizer count {name} = {count.tolist()} != global_steps "
                     f"{steps}: this engine cannot resume a state whose updates and "
                     f"steps differ (fp16 skipped steps?)")
         ls = restored.get("loss_scale", {})
@@ -586,6 +761,26 @@ class TorchEngine:
                 f"the checkpoint's loss scale (scale {scale}, good steps {good}) is a "
                 f"dynamic fp16 scaler's; deepspeed_tpu_torch trains bf16/fp32 without "
                 f"one: fp16 and its loss scaler are ROADMAP queue A item A6")
+
+    def check_layout(self, meta: Dict[str, Any]) -> None:
+        """Refuse a checkpoint whose optimizer state is laid out otherwise
+        than this engine's: the bucketed per-layer state of an
+        ``offload_optimizer: cpu`` run (``['rest']`` / ``['layers']``, the
+        JAX package's too) and the resident one (one optax chain over the
+        whole tree) hold the same numbers under other names and shapes."""
+        names = (meta.get("components", {}).get("opt_state") or {}).get("leaf_names")
+        if not names:
+            return
+        stored = all(n.startswith(("['rest']", "['layers']")) for n in names)
+        mine = self._bucketed is not None
+        if stored != mine:
+            def layout(bucketed):
+                return ("the bucketed per-layer layout ({'rest', 'layers'}, of an "
+                        "offload_optimizer cpu run)" if bucketed
+                        else "the resident layout (one optax chain over the whole tree)")
+            raise ValueError(f"checkpoint optimizer state is in {layout(stored)}; this "
+                             f"engine's is in {layout(mine)}: set offload_optimizer as "
+                             f"the saving run did")
 
     def _ckpt_guard(self):
         """This engine's CheckpointGuard (pinned snapshot buffers on a card)."""
@@ -611,8 +806,12 @@ class TorchEngine:
             async_save = bool(ckpt_cfg.async_save)
         if ckpt_cfg.on_preempt == "save":
             install_preempt_handler(self, save_dir)
-        return _save(self, save_dir, self._ckpt_guard(), tag=tag,
-                     client_state=client_state or {}, async_save=async_save)
+        self._swap_in_opt()  # NVMe: swap in, save, swap out (JAX lines 2966-2976)
+        try:
+            return _save(self, save_dir, self._ckpt_guard(), tag=tag,
+                         client_state=client_state or {}, async_save=async_save)
+        finally:
+            self._swap_out_opt()
 
     def load_checkpoint(self, load_dir, tag=None, strict: bool = True):
         """Parity: DeepSpeedEngine.load_checkpoint (JAX line 2980): the
@@ -625,7 +824,11 @@ class TorchEngine:
 
         if self._checkpoint_guard is not None:
             self._checkpoint_guard.fence()  # never read a tag still being written
-        return _load(self, load_dir, tag=tag, strict=strict)
+        self._swap_in_opt()  # the loader fills the state in place
+        try:
+            return _load(self, load_dir, tag=tag, strict=strict)
+        finally:
+            self._swap_out_opt()
 
     def save_16bit_model(self, save_dir, save_filename: str = "model.safetensors") -> str:
         """Parity: DeepSpeedEngine.save_16bit_model (JAX line 2870): the
@@ -642,6 +845,7 @@ class TorchEngine:
 
         name = str(getattr(self.model.config, "name", "")).lower()
         fam = next((f for f in HF_FAMILIES if name.startswith(f)), name.split("-")[0])
+        self._quiesce()
         with torch.no_grad():
             if fam in HF_FAMILIES:
                 flat = export_hf_state_dict(self.params, self.model.config, fam)
@@ -670,6 +874,11 @@ class TorchEngine:
             self._checkpoint_guard.drain()
             self._checkpoint_guard = None
         unregister_preempt(self)
+        if self._swapper is not None:
+            self._swapper.release("opt_state")
+            self._swapper.close()
+            self._swapper = None
+        self._quiesce()
         self.params = self.opt_state = None
         self._micro_buffer, self._pending_batch, self._metrics = [], None, {}
 

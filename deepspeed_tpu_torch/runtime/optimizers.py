@@ -65,8 +65,10 @@ class Optimizer:
         self.weight_decay = cfg.weight_decay
         self.lr_schedule = lr_schedule
 
+    slot_fill = 0.0  # every slot's initial value
+
     def init_slot(self, p: torch.Tensor) -> torch.Tensor:
-        return torch.zeros_like(p, dtype=torch.float32)
+        return torch.full_like(p, self.slot_fill, dtype=torch.float32)
 
     def init(self, params) -> Dict[str, object]:
         return {name: tree_map(self.init_slot, params) for name in self.slots}
@@ -78,28 +80,40 @@ class Optimizer:
              clip: Optional[torch.Tensor] = None) -> None:
         """Update ``params`` and ``state`` in place from ``grads`` (a tree of
         fp32 tensors), each grad multiplied by ``clip`` (a device scalar)."""
-        lr = self.lr_schedule(step)
         slot_leaves = [tree_leaves(state[name]) for name in self.slots]
         with torch.no_grad():
             for i, (p, g) in enumerate(zip(tree_leaves(params), tree_leaves(grads))):
-                gf = g.float() if clip is None else g.float() * clip
-                u = self.direction(p, gf, [leaves[i] for leaves in slot_leaves], step + 1)
-                p.sub_(self.decayed(u, p) * lr)
+                self.update_leaf(p, g, [leaves[i] for leaves in slot_leaves], step, clip)
+
+    def update_leaf(self, p: torch.Tensor, g: torch.Tensor, slots: List[torch.Tensor],
+                    step: int, clip: Optional[torch.Tensor] = None) -> None:
+        """One leaf's update in place on ``p`` and its ``slots`` (in
+        ``self.slots`` order): a whole leaf, or one layer's slice of a stacked
+        leaf (``runtime/bucketed_opt.py``), where a norm-taking transform
+        (lamb's trust ratio) sees the slice, as the JAX package's per-layer
+        scan does."""
+        gf = g.float() if clip is None else g.float() * clip
+        u = self.direction(p, gf, slots, step + 1)
+        p.sub_(self.decayed(u, p) * self.lr_schedule(step))
 
     def decayed(self, u: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
         """``add_decayed_weights``: u + wd·p."""
         return u + self.weight_decay * p
 
-    def state_items(self, state, count: int) -> List[Tuple[str, object]]:
+    def state_items(self, state, count: int, prefix: str = "",
+                    counts_shape: tuple = ()) -> List[Tuple[str, object]]:
         """The state as the optax chain's named leaves, in its flatten order
         (each slot's tree with its dict keys sorted): each update count an
-        int32 scalar holding ``count``, each slot leaf the tensor itself."""
+        int32 scalar holding ``count`` (``counts_shape`` () or, under a
+        bucketed state's ``layers``, [L]), each slot leaf the tensor itself,
+        every name behind ``prefix``."""
         out: List[Tuple[str, object]] = []
         for kind, path in self.chain:
             if kind == "count":
-                out.append((path, np.asarray(count, np.int32)))
+                out.append((prefix + path, np.full(counts_shape, count, np.int32)))
             else:
-                out.extend((path + name, t) for name, t in tree_items(state[kind], True))
+                out.extend((prefix + path + name, t)
+                           for name, t in tree_items(state[kind], True))
         return out
 
 
@@ -116,17 +130,12 @@ class AdamW(Optimizer):
         super().__init__(cfg, lr_schedule)
         self.fused = fused
 
-    def step(self, params, grads, state, step: int,
-             clip: Optional[torch.Tensor] = None) -> None:
+    def update_leaf(self, p, g, slots, step: int, clip=None) -> None:
         t = step + 1
-        update = adam_update if self.fused else adam_update_plain
-        kw = dict(lr=self.lr_schedule(step), b1=self.b1, b2=self.b2, eps=self.eps,
-                  wd=self.weight_decay, bc1=1.0 - self.b1 ** t,
-                  bc2=1.0 - self.b2 ** t, clip=clip)
-        with torch.no_grad():
-            for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                                  tree_leaves(state["mu"]), tree_leaves(state["nu"])):
-                update(p, g, m, v, **kw)
+        m, v = slots
+        (adam_update if self.fused else adam_update_plain)(
+            p, g, m, v, lr=self.lr_schedule(step), b1=self.b1, b2=self.b2, eps=self.eps,
+            wd=self.weight_decay, bc1=1.0 - self.b1 ** t, bc2=1.0 - self.b2 ** t, clip=clip)
 
 
 class Lion(Optimizer):
@@ -148,10 +157,7 @@ class Adagrad(Optimizer):
 
     def __init__(self, cfg: OptimizerConfig, lr_schedule: Callable[[int], float]):
         super().__init__(cfg, lr_schedule)
-        self.initial = float(cfg.params.get("initial_accumulator_value", 0.1))
-
-    def init_slot(self, p):
-        return torch.full_like(p, self.initial, dtype=torch.float32)
+        self.slot_fill = float(cfg.params.get("initial_accumulator_value", 0.1))
 
     def direction(self, p, g, state, t):
         (s,) = state

@@ -138,7 +138,7 @@ def test_data_iter_and_labels():
 
 
 @pytest.mark.parametrize("extra,match", [
-    ({"zero_optimization": {"stage": 2}}, "ZeRO stage 2"),
+    ({"pipeline": {"stages": 2}}, "pipeline parallelism"),
     ({"fp16": {"enabled": True}}, "fp16"),
     ({"optimizer": {"type": "onebitlamb", "params": {}}}, "1-bit optimizers"),
     ({"activation_checkpointing": {"policy": "dots_flash"}}, "dots_flash"),
