@@ -230,7 +230,7 @@ arguments, in order, any failure exiting non-zero:
 11. the continuous-batching main path (``serving_cb``): init_serving on
    Llama-3-8B at full depth, bf16 weights, kernel injection, 8 slots x a
    64-token budget, pages of 16 tokens, max_tokens 1024; a seeded trace of
-   24 requests (prompts of 16-700 tokens, 16-64 new tokens, half sampled, six
+   24 requests (prompts of 16-700 tokens, 8-32 new tokens, half sampled, six
    sharing a 250-token prefix, two repeating an earlier prompt) through the
    contiguous and the paged arena with bf16 and with int8 KV: outputs equal
    bitwise between the arenas per request, one step shape, the page pool's
@@ -270,7 +270,7 @@ arguments, in order, any failure exiting non-zero:
    resident weights within 2 % of the reckoning (48.42 GB), peak memory, the
    MoE load, a profiled B=1 generate; between its int8 and int4 halves
    ``serving_cb_mixtral``: init_serving on the same int8 weights, bf16 KV,
-   the first 6 requests of 11's trace through the contiguous and the paged
+   the first 4 requests of 11's trace through the contiguous and the paged
    arena (paged == contiguous bitwise, one step shape, the MoE metrics);
    then int4 weights (25.20 GB) on the greedy B=1 request. Each run twice
    with identical tokens, counters zeroed before the second; speculative
@@ -285,7 +285,19 @@ arguments, in order, any failure exiting non-zero:
    rank, peak memory, the device's share of a step and the gloo transport's
    times; the ranks' counters, zeroed before each mode, must show the offset
    forms (ring) and the unmasked forms (Ulysses) ran and plain attention on
-   the card never did;
+   the card never did; then ``training_zero`` in the same world, at dp=2 and
+   sp 1 (a row of 8,192 tokens a rank): ZeRO stages 0, 1 and 2 from one
+   seed, 3 steps each, and stage 0 once more with its clipping norm summed
+   in stage 2's order (each leaf's two parts' squares, then the leaves);
+   stage 1 bitwise stage 0 and stage 2 bitwise that witness (losses, grad
+   norms and masters, both ranks), stage 2's first loss bitwise stage 0's
+   and its first grad norm within 1e-6, each rank's ``state_bytes()`` (read
+   from the live tensors) showing the moments split at stage 1 and the
+   gradients too at stage 2 beside the gradients' transient bytes and its
+   ``max_memory_allocated``, fused Adam once a part a step, the flash and
+   RMSNorm kernels, no plain attention; ms a step per stage and the
+   host-staged reduce-scatter and all-gather (each kernel of the path
+   checked and timed at its shapes in 3, fused Adam on the largest part);
 20. ``training_mixtral``: initialize(mixtral("mixtral-8x7b", num_layers=2))
    at full width (3.165 B params; two of 32 layers, as the fp32 state takes
    16 B a parameter), bf16 over fp32 masters, AdamW through fused Adam,
@@ -332,7 +344,8 @@ from deepspeed_tpu_torch.models.transformer import (alibi_position_bias, alibi_s
 from deepspeed_tpu_torch.moe import sharded_moe as smoe
 from deepspeed_tpu_torch.ops import cuda as kernels
 from deepspeed_tpu_torch.launcher import launch_local
-from deepspeed_tpu_torch.comm.collectives import all_reduce, ring_shift
+from deepspeed_tpu_torch.comm.collectives import (all_gather, all_reduce, reduce_scatter,
+                                                  ring_shift)
 from deepspeed_tpu_torch.ops.attention import attention, attention_impl
 from deepspeed_tpu_torch.ops.ring_flash import Ring, ring_flash_attention_local
 from deepspeed_tpu_torch.ops.cuda import _build
@@ -349,6 +362,7 @@ from deepspeed_tpu_torch.runtime.checkpointing import (_assemble_leaf, _match_le
                                                        _stored_names)
 from deepspeed_tpu_torch.runtime.ckpt import reset_preempt_handler
 from deepspeed_tpu_torch.runtime.ckpt.manifest import read_manifest
+from deepspeed_tpu_torch.runtime.zero import shard_plan
 from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
                                                       BSLongformerSparsityConfig,
                                                       VariableSparsityConfig,
@@ -514,7 +528,9 @@ MIXTRAL_KERNELS = ("quantized_matvec_expert_int8", "quantized_matvec_expert_int4
                    "rmsnorm_fwd")
 MIXTRAL_BANKS = (("wi/wg", 4096, 14336, 8), ("wo", 14336, 4096, 8))
 MIXTRAL_CB_KERNELS = ("paged_decode_attention", "decode_attention", "rmsnorm_fwd")
-MIXTRAL_CB_REQUESTS = 6  # the prefix of cb_trace: 2961 prompt tokens, 211 new
+MIXTRAL_CB_REQUESTS = 4  # the prefix of cb_trace: 1806 prompt tokens, 73 new
+# the speculative serving runs' new tokens (B=1 greedy, P=100)
+SPEC_NEW = 16
 # training_sp: llama3-1b at full width, 4 of its 16 layers, one sequence of
 # 16,384 tokens over an sp ring of 2 ranks (8,192 tokens each), 3 steps a mode
 SP_SIZE, SP_SEQ, SP_LAYERS, SP_STEPS = 2, 16384, 4, 3
@@ -523,6 +539,13 @@ SP_RING_KERNELS = ("flash_attention_fwd_offsets", "flash_attention_bwd_dq_offset
                    "fused_adam")
 SP_ULYSSES_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                       "flash_attention_bwd_dkv", "rmsnorm_fwd", "rmsnorm_bwd", "fused_adam")
+# training_zero: training_sp's model and step over dp=SP_SIZE ranks (sp 1, one
+# row of 8,192 tokens a rank), from the same seed: ZeRO stages 0, 1, 2 and the
+# witness "0 parts" (stage 0, its norm summed in stage 2's order)
+ZERO_LEGS = (0, "0 parts", 1, 2)
+ZERO_KERNELS = TRAINING_KERNELS
+# stage 2's first grad norm (the same gradients, summed in another order)
+ZERO_NORM_RTOL = 1e-6
 # training_mixtral: Mixtral-8x7B at full width, 2 of its 32 layers, llama3-1b's
 # batch (micro-batch 4 x 2048, 2 micro-batches), 6 steps
 MIXTRAL_TRAIN_LAYERS, MIXTRAL_TRAIN_STEPS = 2, 6
@@ -583,10 +606,12 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def flash_fwd_case(gen, timer, path, B: int, S: int, H: int, KV: int, D: int):
+def flash_fwd_case(gen, timer, path, B: int, S: int, H: int, KV: int, D: int,
+                   plain_iters: int = 20):
     """The flash forward, causal, on one seeded draw against its plain
     version; timed (with SDPA as the library call) when ``path`` names the
-    main path whose shape this is."""
+    main path whose shape this is (the plain version over ``plain_iters``
+    launches)."""
     tol_out, tol_lse = 2e-2, 1e-3
     q = torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=BF16)
     k = torch.randn(B, S, KV, D, generator=gen, device="cuda", dtype=BF16)
@@ -609,7 +634,8 @@ def flash_fwd_case(gen, timer, path, B: int, S: int, H: int, KV: int, D: int):
     row = {
         "max_abs_err": e_out,
         "ms": timer(lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
-        "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v, causal=True)),
+        "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                          iters=plain_iters),
         "library_ms": timer(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -1333,12 +1359,14 @@ def check_rmsnorm_bwd(gen, timer):
     }
 
 
-def check_flash_bwd(gen, timer, D: int = 64, B: int = TRAIN_B):
+def check_flash_bwd(gen, timer, D: int = 64, B: int = TRAIN_B, S: int = TRAIN_S,
+                    plain_iters: int = 20):
     """The dq and dk/dv kernels at a training path's shape (micro-batch
-    ``B`` x 2048, 32 query / 8 kv heads: llama3-1b's of 64 by default,
+    ``B`` x ``S``, 32 query / 8 kv heads: llama3-1b's of 64 by default,
     Mixtral's and Llama-3-8B's of 128 with ``D=128``), causal. The dk/dv
-    kernel gets the plain version's delta, so each kernel is held alone."""
-    S, H, KV = TRAIN_S, 32, 8
+    kernel gets the plain version's delta, so each kernel is held alone;
+    the plain versions are timed over ``plain_iters`` launches."""
+    H, KV = 32, 8
     tol = 2e-2  # of the largest gradient: p and ds round to bf16 before the products
     tol_delta = 1e-4  # of the largest delta: an fp32 row sum in another order
 
@@ -1378,7 +1406,8 @@ def check_flash_bwd(gen, timer, D: int = 64, B: int = TRAIN_B):
     dq_r = {
         "max_abs_err": errs["dq"][0],
         "ms": timer(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do)),
-        "plain_ms": timer(lambda: fa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do)),
+        "plain_ms": timer(lambda: fa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do),
+                          iters=plain_iters),
         "library_ms": lib_ms, "bound_ms": b_dq[0], "bound_by": b_dq[1],
         "shape": shape + " (library: SDPA backward, dq+dk+dv)",
     }
@@ -1386,7 +1415,8 @@ def check_flash_bwd(gen, timer, D: int = 64, B: int = TRAIN_B):
         "max_abs_err": max(errs["dk"][0], errs["dv"][0]),
         "ms": timer(lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, rdelta, do)),
         "plain_ms": timer(lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, lse,
-                                                                   rdelta, do)),
+                                                                   rdelta, do),
+                          iters=plain_iters),
         "library_ms": lib_ms, "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
         "shape": shape + " (library: SDPA backward, dq+dk+dv)",
     }
@@ -2720,13 +2750,13 @@ def serving_requests(V: int):
     """The three serving requests: (name, prompt, generate arguments)."""
     host = torch.Generator().manual_seed(0)
     return [
-        ("greedy B=1 P=100 new=32", torch.randint(0, V, (1, 100), generator=host),
+        ("greedy B=1 P=100 new=16", torch.randint(0, V, (1, 100), generator=host),
+         dict(max_new_tokens=16)),
+        ("greedy B=4 P=512 new=32", torch.randint(0, V, (4, 512), generator=host),
          dict(max_new_tokens=32)),
-        ("greedy B=4 P=512 new=64", torch.randint(0, V, (4, 512), generator=host),
-         dict(max_new_tokens=64)),
-        ("sampled B=2 P=37 new=16 T=0.8 top_k=50 top_p=0.9",
+        ("sampled B=2 P=37 new=8 T=0.8 top_k=50 top_p=0.9",
          torch.randint(0, V, (2, 37), generator=host),
-         dict(max_new_tokens=16, temperature=0.8, top_k=50, top_p=0.9)),
+         dict(max_new_tokens=8, temperature=0.8, top_k=50, top_p=0.9)),
     ]
 
 
@@ -2992,9 +3022,10 @@ def main_path_quantized():
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     requests = serving_requests(V)
     B, P = requests[1][1].shape
-    slots = 2 * cfg.num_layers * B * cfg.kv_heads * (P + requests[1][2]["max_new_tokens"])
+    new = requests[1][2]["max_new_tokens"]
+    slots = 2 * cfg.num_layers * B * cfg.kv_heads * (P + new)
     kv8, kv16 = slots * (cfg.hd + 4), slots * cfg.hd * 2
-    print(f"KV cache for B={B} P={P} (+64): int8 {kv8 / 1e6:.1f} MB (values and one "
+    print(f"KV cache for B={B} P={P} (+{new}): int8 {kv8 / 1e6:.1f} MB (values and one "
           f"fp32 scale per token and head) against bf16 {kv16 / 1e6:.1f} MB, "
           f"{kv8 / kv16:.3f}x")
     greedy = requests[0]
@@ -3008,22 +3039,23 @@ def main_path_quantized():
         outs = serve(eng8, requests, report, "int8+int8-KV ")
         outs += serve(eng4, requests[:1], report, "int4 ")
         for label, eng, plain_eng, prompt in spec_runs:
-            plain = plain_eng.generate(prompt, max_new_tokens=32)
+            plain = plain_eng.generate(prompt, max_new_tokens=SPEC_NEW)
             plain_ms = plain_eng.last_generate_stats["decode_ms"]
-            got = eng.generate(prompt, max_new_tokens=32, num_draft_tokens=4)
+            got = eng.generate(prompt, max_new_tokens=SPEC_NEW, num_draft_tokens=4)
             st = eng.last_generate_stats
             if report:
                 print(f"speculative (int8 weights, {label}, num_draft_tokens = 4, "
-                      f"window k = 5) B=1 P=100 new=32: {eng.last_spec_rounds} rounds for 31 tokens, "
+                      f"window k = 5) B=1 P=100 new={SPEC_NEW}: {eng.last_spec_rounds} "
+                      f"rounds for {SPEC_NEW - 1} tokens, "
                       f"{st['decode_ms']:.2f} ms after the prefill (plain greedy "
                       f"{plain_ms:.2f} ms); tokens equal to plain greedy: "
                       f"{torch.equal(plain, got)}")
             first_mismatch_is_near_tie(plain_eng, plain, got, 100,
                                        f"speculative ({label})")
             outs += [plain, got]
-        require(selfd.last_spec_rounds == math.ceil(31 / 5),
+        require(selfd.last_spec_rounds == math.ceil((SPEC_NEW - 1) / 5),
                 f"self-drafted speculative decode took {selfd.last_spec_rounds} "
-                f"rounds, want {math.ceil(31 / 5)} (every proposal accepted)")
+                f"rounds, want {math.ceil((SPEC_NEW - 1) / 5)} (every proposal accepted)")
         return outs
 
     with torch.inference_mode():
@@ -3103,7 +3135,7 @@ def reference_check_serving_cb():
 def cb_trace(V: int, seed: int = 7):
     """The serving_cb trace, 24 requests (id, prompt, max_new_tokens,
     sampling arguments, id that must have finished first): prompts of 16-700
-    tokens, 16-64 new tokens, odd requests sampled (T 0.8, top-k 50, top-p
+    tokens, 8-32 new tokens, odd requests sampled (T 0.8, top-k 50, top-p
     0.9); requests 0, 12, 14, 16, 18 and 20 share a 250-token prefix (not a
     multiple of the 16-token page, so a sharer diverges inside a shared page
     and copies it); requests 22 and 23 repeat the prompts of 1 and 2 once
@@ -3120,7 +3152,7 @@ def cb_trace(V: int, seed: int = 7):
         else:
             prompt = r.randint(0, V, r.randint(16, 701))
         kw = dict(temperature=0.8, top_k=50, top_p=0.9) if i % 2 else {}
-        out.append((f"cb{i}", prompt, 16 if i == 0 else int(r.randint(16, 65)), kw, None))
+        out.append((f"cb{i}", prompt, 8 if i == 0 else int(r.randint(8, 33)), kw, None))
     for j, i in enumerate((1, 2)):
         _, prompt, new, kw, _ = out[i]
         out.append((f"cb{22 + j}", prompt, new, kw, f"cb{i}"))
@@ -4033,10 +4065,102 @@ def sp_rank(rank: int, ids: torch.Tensor) -> dict:
         del engine
         gc.collect()
         torch.cuda.empty_cache()
+    out["zero"] = zero_steps(rank, ids.view(SP_SIZE, SP_SEQ // SP_SIZE))
     return out
 
 
-def main_path_training_sp() -> dict:
+def zero_config(stage: int) -> dict:
+    """training_zero's leg: training_sp's (bf16 over fp32 masters, AdamW,
+    clipping 1.0) with weight decay 0.01, one row a rank over dp=SP_SIZE
+    ranks, ZeRO ``stage``."""
+    cfg = train_config(True, batch=SP_SIZE, micro=1, weight_decay=0.01)
+    cfg["zero_optimization"] = {"stage": stage}
+    return cfg
+
+
+def parts_norm(leaves):
+    """The global norm of the whole gradients ``leaves`` summed as stage 2
+    over SP_SIZE ranks sums it (``ZeroPartition.square_sums``): each sharded
+    leaf's parts' squares added in rank order (the all-reduce of two terms),
+    a replicated leaf's whole, then the [1, leaves] sums and the root."""
+    plans = [shard_plan([t.shape for t in leaves], SP_SIZE, r) for r in range(SP_SIZE)]
+    sq = []
+    for i, t in enumerate(leaves):
+        s = (plans[0][i].part(t) if plans[0][i].sharded else t).float().square().sum()
+        for plan in plans[1:] if plans[0][i].sharded else ():
+            s = s + plan[i].part(t).float().square().sum()
+        sq.append(s)
+    return torch.stack([torch.stack(sq)]).sum().sqrt()
+
+
+def zero_steps(rank: int, ids: torch.Tensor) -> dict:
+    """training_zero on this rank of training_sp's world (now dp=SP_SIZE at
+    sp 1): per leg of ZERO_LEGS an engine from the same seed, SP_STEPS
+    train_batch calls on the same global batch ``ids`` [SP_SIZE, 8192], the
+    launch counters zeroed just before them; the losses, grad norms, ms a
+    step, counts, peak memory, ``state_bytes()``, the leaves and the
+    partition's parts. The "0 parts" leg is stage 0 with the engine's
+    ``global_norm`` replaced by :func:`parts_norm`. The masters of stage 0
+    and of that witness are kept on the host; each later leg's are compared
+    with them on the card (the largest gap; bitwise where it is 0: the
+    masters are finite). On the stage-2 engine, the gloo
+    transport alone: the reduce-scatter of the masters' size and the
+    all-gather of one rank's half, each staged through the host."""
+    from deepspeed_tpu_torch.runtime import engine as engine_module
+
+    batch = {"input_ids": ids}
+    out, ref = {}, {}
+    for leg in ZERO_LEGS:
+        stage = 0 if leg == "0 parts" else leg
+        engine, *_ = initialize(model=sp_model(), config=zero_config(stage),
+                                rng=torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda:0")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        norm = engine_module.global_norm
+        if leg == "0 parts":
+            engine_module.global_norm = parts_norm
+        try:
+            losses, norms, ms = sp_steps(engine, batch, SP_STEPS)
+        finally:
+            engine_module.global_norm = norm
+        masters = tree_leaves(engine.params)
+        plan = shard_plan([p.shape for p in masters], SP_SIZE if stage else 1, rank)
+        run = {"losses": losses, "grad_norms": norms, "ms": ms,
+               "counts": kernels.launch_counts(), "plain": kernels.plain_attention_on_cuda(),
+               "peak": torch.cuda.max_memory_allocated(), "bytes": engine.state_bytes(),
+               "leaves": len(masters), "sharded": sum(e.sharded for e in plan),
+               "largest_part": max(e.size for e in plan)}
+        with torch.no_grad():
+            for name, want in ref.items():  # each host leaf back on the card in turn
+                gaps = [(p - r.cuda()).abs().max().item() for p, r in zip(masters, want)]
+                run[f"bitwise {name}"] = all(g == 0 for g in gaps)
+                run[f"max_gap {name}"] = max(gaps)
+        if stage == 0:
+            ref[leg] = [p.detach().cpu() for p in masters]
+        if stage == 2:
+            group = engine.topology.group("dp")
+            n = sum(p.numel() for p in masters)
+            flat = torch.zeros(n - n % SP_SIZE, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            half = reduce_scatter(flat, group)
+            torch.cuda.synchronize()
+            run["reduce_scatter_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            all_gather(half, group)
+            torch.cuda.synchronize()
+            run["all_gather_ms"] = (time.perf_counter() - t0) * 1e3
+            del flat, half
+        out[leg] = run
+        del engine, masters
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def main_path_training_sp() -> tuple:
     """``training_sp``: sequence-parallel training through ``initialize`` on
     two ranks (``launch_local``) that share cuda:0 over gloo (NCCL refuses two
     ranks on one device, so the transport goes through the host; the
@@ -4047,7 +4171,9 @@ def main_path_training_sp() -> dict:
     same seed and batch. The losses and grad norms of every step must agree
     within the bf16 tolerance; the ranks' counters, zeroed just before each
     mode's steps, must show the offset forms (ring) and the unmasked forms
-    (Ulysses) ran and plain attention on the card never did."""
+    (Ulysses) ran and plain attention on the card never did. Then
+    ``training_zero`` in the same world (``zero_steps``; its counts are the
+    second of the two returned)."""
     model = sp_model()
     cfg = model.config
     ids = torch.randint(0, cfg.vocab_size, (1, SP_SEQ),
@@ -4106,7 +4232,86 @@ def main_path_training_sp() -> dict:
           f"{r0['allreduce_ms']:.2f} ms, one ring hop's k/v shift {r0['shift_ms']:.2f} ms "
           f"({3 * SP_LAYERS * (SP_SIZE - 1) + SP_LAYERS} shifts a ring step: k/v forward, "
           f"k/v and dk/dv backward, dk/dv home)")
-    return counts
+    return counts, training_zero(ranks)
+
+
+def training_zero(ranks) -> dict:
+    """``training_zero``: ZeRO stages 0, 1 and 2 over the two ranks of
+    training_sp's world (``zero_steps``), llama3-1b at full width, 4 of 16
+    layers, a global batch of 2 x 8,192 tokens, and the witness "0 parts"
+    (stage 0, its clipping norm summed in stage 2's order). Stage 1 must be
+    stage 0 bit for bit, and stage 2 the witness bit for bit (losses, grad
+    norms and masters, both ranks), stage 2's first loss stage 0's and its
+    first grad norm within ZERO_NORM_RTOL of stage 0's (before any update
+    the runs differ in the norm's order alone); each rank's
+    ``state_bytes()``, read from the live tensors, must show the moments
+    split at stage 1 and the gradients too at stage 2; fused Adam launched
+    once a part a step on each rank (every leaf splits), the flash and
+    RMSNorm kernels in forward and backward, plain attention never. Returns
+    the counts of the stage-2 run, both ranks."""
+    runs = {leg: [r["zero"][leg] for r in ranks] for leg in ZERO_LEGS}
+    gb = 1e9
+    for leg in ZERO_LEGS:
+        rs = runs[leg]
+        steady = max(statistics.mean(r["ms"][1:]) for r in rs)
+        b = rs[0]["bytes"]
+        against = "; ".join(
+            f"masters against {k}: bitwise {[r[f'bitwise {k}'] for r in rs]}, max gap "
+            f"{max(r[f'max_gap {k}'] for r in rs):.3e}"
+            for k in (0, "0 parts") if f"bitwise {k}" in rs[0])
+        print(f"training_zero {'stage ' + str(leg) if leg != '0 parts' else leg}: losses "
+              f"{rs[0]['losses']}, grad norms {rs[0]['grad_norms']}; {steady:.2f} ms/step "
+              f"(steps 2-{SP_STEPS}, the slower rank), {SP_SEQ / (steady / 1e3):.1f} tokens/s "
+              f"on the card; per rank state_bytes masters {b['masters'] / gb:.3f} GB, "
+              f"optimizer {b['optimizer'] / gb:.3f} GB, gradients {b['gradients'] / gb:.3f} "
+              f"GB, total {b['total'] / gb:.3f} GB, gradients alive at the collective "
+              f"{b['gradients_transient'] / gb:.3f} GB; max_memory_allocated per rank "
+              + ", ".join(f"{r['peak'] / 2**30:.2f} GiB" for r in rs)
+              + f"; {rs[0]['sharded']} of {rs[0]['leaves']} leaves sharded, the largest part "
+              f"{rs[0]['largest_part']} elements; launches (both ranks) "
+              f"{ {k: sum(r['counts'][k] for r in rs) for k in ZERO_KERNELS} }"
+              + (f"; {against}" if against else ""))
+        for r in rs:
+            require(r["losses"] == rs[0]["losses"], f"training_zero {leg}: ranks disagree")
+            require(r["bytes"] == b, f"training_zero {leg}: ranks' state bytes differ")
+            require(r["counts"]["fused_adam"] == SP_STEPS * r["leaves"],
+                    f"training_zero {leg}: fused Adam launched "
+                    f"{r['counts']['fused_adam']} times, not once a part a step")
+            require(sum(r["plain"].values()) == 0,
+                    f"training_zero {leg}: plain attention ran on the card")
+            for name in ZERO_KERNELS:
+                require(r["counts"][name] > 0, f"kernel {name} was not launched on "
+                                               f"training_zero {leg}")
+        if leg in (1, 2):
+            require(rs[0]["sharded"] == rs[0]["leaves"],
+                    f"training_zero stage {leg}: a leaf stayed replicated")
+    b0, b1, b2 = (runs[s][0]["bytes"] for s in (0, 1, 2))
+    half_opt, half_grad = b0["optimizer"] // 2, b0["gradients"] // 2
+    require((b1["masters"], b1["optimizer"], b1["gradients"])
+            == (b0["masters"], half_opt, b0["gradients"]),
+            "training_zero: stage 1's state bytes do not show the moments split")
+    require((b2["masters"], b2["optimizer"], b2["gradients"])
+            == (b0["masters"], half_opt, half_grad),
+            "training_zero: stage 2's state bytes do not show the gradients split")
+    for name, stage, base in (("stage 1", 1, 0), ("stage 2", 2, "0 parts")):
+        for r, want in zip(runs[stage], runs[base]):
+            require(r[f"bitwise {base}"] and r["losses"] == want["losses"]
+                    and r["grad_norms"] == want["grad_norms"],
+                    f"training_zero: {name} is not {base} bit for bit (max gap "
+                    f"{r[f'max_gap {base}']:.3e})")
+    s0 = runs[0][0]
+    for r in runs[2]:
+        require(r["losses"][0] == s0["losses"][0], "training_zero: stage 2's first loss "
+                                                   "is not stage 0's")
+        require(abs(r["grad_norms"][0] / s0["grad_norms"][0] - 1) <= ZERO_NORM_RTOL,
+                f"training_zero: stage 2's first grad norm {r['grad_norms'][0]} is not "
+                f"stage 0's {s0['grad_norms'][0]} within {ZERO_NORM_RTOL}")
+    r2 = runs[2][0]
+    print(f"training_zero gloo transport alone (rank 0, staged through the host): the "
+          f"reduce-scatter of {r2['bytes']['masters'] / gb:.3f} GB of fp32 "
+          f"{r2['reduce_scatter_ms']:.2f} ms, the all-gather of a rank's half "
+          f"{r2['all_gather_ms']:.2f} ms")
+    return {k: sum(r["counts"][k] for r in runs[2]) for k in runs[2][0]["counts"]}
 
 
 def train_flops(cfg, tokens: int, pairs: float) -> float:
@@ -4247,8 +4452,18 @@ def check_mixtral_training_shapes(timer) -> dict:
     32 query / 8 kv heads of 128, causal), the RMSNorm forward and backward
     on its 8192 rows of 4096, and fused Adam on its largest leaf (the stacked
     expert bank, 2 x 8 x 4096 x 14336 fp32). Returns a timed row per kernel."""
-    return check_hd128_training_shapes(timer, "training_mixtral", TRAIN_B,
-                                       2 * 8 * 4096 * 14336, 73)
+    return check_training_shapes(timer, "training_mixtral", TRAIN_B, 2 * 8 * 4096 * 14336, 73)
+
+
+def check_zero_shapes(timer) -> dict:
+    """The kernels of training_zero at its shapes: a rank's micro-batch of
+    1 x 8,192 tokens (llama3-1b's 32 query / 8 kv heads of 64), its 8,192
+    rows of 2,048, and fused Adam on the largest part a rank updates (half
+    the token table, 128,256 x 2,048 / 2 fp32), from a generator of their
+    own; the flash plain versions, 80-170 ms a call at 8,192 tokens, timed over
+    5 launches, as check_offset_forms times them."""
+    return check_training_shapes(timer, "training_zero", 1, 128256 * 2048 // SP_SIZE, 83,
+                                 hd=64, S=SP_SEQ // SP_SIZE, D=2048, plain_iters=5)
 
 
 def check_8b_offload_shapes(timer) -> dict:
@@ -4256,19 +4471,23 @@ def check_8b_offload_shapes(timer) -> dict:
     micro-batch of 1 x 2048 (32 query / 8 kv heads of 128), its 2048 rows of
     4096, and fused Adam on a layer slot's largest slice (the MLP's
     4096 x 14336 fp32), from a generator of their own."""
-    return check_hd128_training_shapes(timer, "training_8b_offload", OFFLOAD_8B_B,
-                                       4096 * 14336, 79)
+    return check_training_shapes(timer, "training_8b_offload", OFFLOAD_8B_B, 4096 * 14336, 79)
 
 
-def check_hd128_training_shapes(timer, path: str, B: int, adam_n: int, seed: int) -> dict:
-    """A head-dim-128 training path's kernels at micro-batch ``B`` x 2048:
-    the flash forward, dq and dk/dv, the RMSNorm forward and backward on its
-    rows of 4096, fused Adam on ``adam_n`` fp32 elements. A timed row each."""
+def check_training_shapes(timer, path: str, B: int, adam_n: int, seed: int,
+                          hd: int = 128, S: int = TRAIN_S, D: int = 4096,
+                          plain_iters: int = 20) -> dict:
+    """A training path's kernels at micro-batch ``B`` x ``S`` (32 query / 8
+    kv heads of ``hd``; Llama-3-8B's and Mixtral's of 128 by default): the
+    flash forward, dq and dk/dv, the RMSNorm forward and backward on its
+    rows of ``D``, fused Adam on ``adam_n`` fp32 elements. A timed row each
+    (the flash plain versions over ``plain_iters`` launches)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    rows = {"flash_attention_fwd": flash_fwd_case(gen, timer, path, B, TRAIN_S, 32, 8, 128)}
+    rows = {"flash_attention_fwd": flash_fwd_case(gen, timer, path, B, S, 32, 8, hd,
+                                                  plain_iters)}
     rows["flash_attention_bwd_dq"], rows["flash_attention_bwd_dkv"] = check_flash_bwd(
-        gen, timer, D=128, B=B)
-    n, D, eps = B * TRAIN_S, 4096, 1e-5
+        gen, timer, D=hd, B=B, S=S, plain_iters=plain_iters)
+    n, eps = B * S, 1e-5
     atol, rtol = 1e-3, 1.6e-2  # two bf16 ulps of the plain result
     w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(BF16)
     x = torch.randn(n, D, generator=gen, device="cuda", dtype=BF16)
@@ -6280,6 +6499,7 @@ def main() -> int:
     # MLP, 2048 x 8192; Llama-3-8B's, 4096 x 14336, with that path's shapes)
     adam_slice = check_fused_adam(gen, timer, n=2048 * 8192)
     o8 = check_8b_offload_shapes(timer)
+    zero = check_zero_shapes(timer)
     # the quantized serving path runs the bf16 path's requests: its flash,
     # RMSNorm and (int4 engine, draft) dense decode shapes are the same
     rows = [
@@ -6366,6 +6586,9 @@ def main() -> int:
         ("rmsnorm_bwd", "offload", rms_bwd),
         ("fused_adam", "offload", adam_slice),
         *((name, "training_8b_offload", r) for name, r in o8.items()),
+        # training_zero: a rank's row of 8,192 tokens; fused Adam on its
+        # largest part
+        *((name, "training_zero", r) for name, r in zero.items()),
     ]
     # the norms' decode rows are printed beside the main paths' rows; the
     # kernels line keeps one row per main path
@@ -6434,13 +6657,17 @@ def main() -> int:
             extra={"sparse_attention": SPARSE_SECTION}, rerun=False,
             pairs_per_seq=layout_pairs(sparse_fixed_layout(TRAIN_S), TRAIN_S)),
         "attention_bias": main_path_attention_bias,
-        "training_sp": main_path_training_sp,
-        "training_mixtral": main_path_training_mixtral,
     }
     counts = {}
     for path, run in paths.items():
         counts[path] = run()
         lap(path)
+    # training_zero runs in training_sp's world; both before training_mixtral,
+    # whose blocks this process's allocator keeps cached beside the two ranks
+    counts["training_sp"], counts["training_zero"] = main_path_training_sp()
+    lap("training_sp and training_zero")
+    counts["training_mixtral"] = main_path_training_mixtral()
+    lap("training_mixtral")
     counts["checkpoint"], counts["checkpoint_serving"] = main_path_checkpoint()
     lap("checkpoint")
     counts["offload"] = main_path_offload()

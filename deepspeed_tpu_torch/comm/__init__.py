@@ -22,7 +22,7 @@ import torch.distributed as dist
 from ..utils.logging import log_dist
 from . import collectives  # noqa: F401
 from .collectives import (all_gather, all_reduce, all_to_all, broadcast,  # noqa: F401
-                          ring_shift)
+                          reduce_scatter, ring_shift)
 from .topology import AXIS_ORDER, MeshTopology, ParallelDims  # noqa: F401
 
 _TOPOLOGY: Optional[MeshTopology] = None

@@ -1,17 +1,19 @@
 """Collectives over ``torch.distributed`` process groups.
 
 Counterpart of ``deepspeed_tpu/comm/collectives.py`` (``all_reduce`` line 55,
-``all_gather`` line 76, ``broadcast`` line 82, ``all_to_all`` line 93,
-``permute`` line 111). The JAX package runs them inside ``shard_map`` over a
-mesh axis name; here each takes the process group of that axis
-(``MeshTopology.group``). A group whose backend is gloo carries host tensors
-only, so CUDA tensors are staged through host buffers explicitly (decided by
-the group's backend, never by trying): gloo is the transport of a CPU world,
-and of ranks that share one card, where NCCL refuses two ranks on a device.
+``reduce_scatter`` line 69, ``all_gather`` line 76, ``broadcast`` line 82,
+``all_to_all`` line 93, ``permute`` line 111). The JAX package runs them
+inside ``shard_map`` over a mesh axis name; here each takes the process group
+of that axis (``MeshTopology.group``). A group whose backend is gloo carries
+host tensors only, so CUDA tensors are staged through host buffers
+explicitly (decided by the group's backend, never by trying): gloo is the
+transport of a CPU world, and of ranks that share one card, where NCCL
+refuses two ranks on a device.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -33,13 +35,14 @@ def _staged(group, t: torch.Tensor) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def _pinned(t: torch.Tensor) -> torch.Tensor:
-    """A pinned host buffer shaped like ``t``, kept per (dtype, size): the
-    engine stages the same flat gradient buffer every step."""
-    key = (t.dtype, t.numel())
+def _pinned(shape, dtype: torch.dtype) -> torch.Tensor:
+    """A pinned host buffer of ``shape``, kept per (dtype, size): the engine
+    stages the same flat buffers every step."""
+    numel = math.prod(shape)
+    key = (dtype, numel)
     if key not in _PINNED:
-        _PINNED[key] = torch.empty(t.numel(), dtype=t.dtype, pin_memory=True)
-    return _PINNED[key].view(t.shape)
+        _PINNED[key] = torch.empty(numel, dtype=dtype, pin_memory=True)
+    return _PINNED[key].view(shape)
 
 
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
@@ -51,7 +54,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     if red is None:
         raise ValueError(f"unsupported reduce op {op}")
     if _staged(group, x):
-        h = _pinned(x)
+        h = _pinned(x.shape, x.dtype)
         h.copy_(x)
         dist.all_reduce(h, red, group)
         x.copy_(h)
@@ -67,7 +70,7 @@ def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
         return x
     root = dist.get_global_rank(group, src)
     if _staged(group, x):
-        h = _pinned(x)
+        h = _pinned(x.shape, x.dtype)
         h.copy_(x)
         dist.broadcast(h, root, group)
         x.copy_(h)
@@ -76,20 +79,52 @@ def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
     return x
 
 
+def _staged_io(group, src: torch.Tensor, out_shape):
+    """A collective's input and output: ``src`` and a new tensor beside it,
+    or both in pinned host buffers where the group stages; and whether it
+    stages."""
+    if not _staged(group, src):
+        return src, torch.empty(out_shape, dtype=src.dtype, device=src.device), False
+    return (_pinned(src.shape, src.dtype).copy_(src), _pinned(out_shape, src.dtype), True)
+
+
+def _landed(out: torch.Tensor, dim: int, device, staged: bool) -> torch.Tensor:
+    """A collective's output with its blocks back on ``dim``, contiguous, on
+    ``device``."""
+    out = out.movedim(0, dim)
+    if staged:
+        out = out.to(device)
+    return out.contiguous() if dim else out
+
+
 def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Parity: deepspeed.comm.all_gather_into_tensor (tiled): the members'
-    tensors concatenated along ``dim`` in member order. No gradient."""
+    tensors concatenated along ``dim`` in member order, in one call. No
+    gradient."""
     n = group_size(group)
     if n == 1:
         return x
-    src = x.detach().contiguous()
-    staged = _staged(group, src)
-    if staged:
-        src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group)
-    out = torch.cat(parts, dim=dim)
-    return out.to(x.device) if staged else out
+    src = x.detach().movedim(dim, 0).contiguous()
+    src, out, staged = _staged_io(group, src, (n * src.shape[0], *src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    return _landed(out, dim, x.device, staged)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Parity: deepspeed.comm.reduce_scatter_tensor (JAX ``reduce_scatter``,
+    tiled, summed): the members' tensors summed, member i keeping block i of
+    ``dim`` cut into one block a member, in one call. Raises when the group
+    does not divide the size of ``dim``. No gradient."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of size {x.shape[dim]} does not "
+                         f"split over {n} members")
+    src = x.detach().movedim(dim, 0).contiguous()
+    src, out, staged = _staged_io(group, src, (src.shape[0] // n, *src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, dist.ReduceOp.SUM, group=group)
+    return _landed(out, dim, x.device, staged)
 
 
 def _all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:

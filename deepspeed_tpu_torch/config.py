@@ -127,12 +127,34 @@ class ZeroConfig:
     offloaded update steps one layer at a time by construction, as the JAX
     package's does) and ``offload_double_buffer`` / ``sub_group_prefetch``
     (the layer stream is double buffered on a card and serial on the CPU,
-    bitwise equal). The wire, prefetch, ZeRO++ and MiCS knobs stay raw until
-    ZeRO over ranks reads them."""
+    bitwise equal). The wire knobs are read (JAX ``config.py:163-196``):
+    stages 1 and 2 over ranks move fp32 only, so ``initialize`` refuses
+    another resolved codec there; the prefetch, hpZ and MiCS knobs stay raw
+    until stage 3 over ranks reads them."""
 
     stage: int = 0
     offload_optimizer: OffloadConfig = field(default_factory=OffloadConfig)
     offload_param: OffloadConfig = field(default_factory=OffloadConfig)
+    zero_quantized_weights: bool = False
+    zero_quantized_gradients: bool = False
+    grad_wire: str = "auto"  # auto | fp32 | bf16 | int8 | int4
+    param_wire: str = "auto"
+
+    WIRE_CODECS = ("auto", "fp32", "bf16", "int8", "int4")
+
+    def resolved_grad_wire(self) -> str:
+        """The gradient reduce-scatter's codec: "auto" is int8 under
+        ``zero_quantized_gradients``, else fp32."""
+        if self.grad_wire != "auto":
+            return self.grad_wire
+        return "int8" if self.zero_quantized_gradients else "fp32"
+
+    def resolved_param_wire(self) -> str:
+        """The stage-3 parameter gather's codec: "auto" is int8 under
+        ``zero_quantized_weights``, else fp32."""
+        if self.param_wire != "auto":
+            return self.param_wire
+        return "int8" if self.zero_quantized_weights else "fp32"
 
     def __post_init__(self):
         for name in ("offload_optimizer", "offload_param"):
@@ -141,7 +163,7 @@ class ZeroConfig:
                 setattr(self, name, _parse_dc(OffloadConfig, v))
 
     def validate(self) -> None:
-        """JAX ``ZeroConfig.validate`` (``config.py:199-210``)."""
+        """JAX ``ZeroConfig.validate`` (``config.py:199-236``)."""
         if self.stage not in (0, 1, 2, 3):
             raise DeepSpeedConfigError(
                 f"zero_optimization.stage must be 0-3, got {self.stage}")
@@ -153,6 +175,22 @@ class ZeroConfig:
                 raise DeepSpeedConfigError("nvme offload requires nvme_path")
         if self.offload_param.enabled and self.stage != 3:
             raise DeepSpeedConfigError("offload_param requires ZeRO stage 3")
+        if (self.zero_quantized_weights or self.zero_quantized_gradients) and self.stage != 3:
+            raise DeepSpeedConfigError(
+                "zero_quantized_weights/gradients (ZeRO++) require stage 3")
+        for knob in ("grad_wire", "param_wire"):
+            if getattr(self, knob) not in self.WIRE_CODECS:
+                raise DeepSpeedConfigError(
+                    f"zero_optimization.{knob} must be one of {self.WIRE_CODECS}, "
+                    f"got {getattr(self, knob)!r}")
+        if self.resolved_grad_wire() != "fp32" and self.stage < 1:
+            raise DeepSpeedConfigError(
+                "zero_optimization.grad_wire requires ZeRO stage >= 1 (stage 0 has "
+                "no gradient reduce-scatter to compress)")
+        if self.resolved_param_wire() != "fp32" and self.stage != 3:
+            raise DeepSpeedConfigError(
+                "zero_optimization.param_wire requires ZeRO stage 3 (below it "
+                "parameters are never gathered over a wire)")
 
 
 @dataclass

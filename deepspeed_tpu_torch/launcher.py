@@ -24,9 +24,9 @@ from . import comm
 
 
 def _rank_main(rank: int, fn: Callable, world_size: int, backend: str, workdir: str,
-               args: Sequence[Any]) -> None:
-    # the ranks share the host's cores: no rank spins on all of them
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
+               threads: int, args: Sequence[Any]) -> None:
+    # the ranks share the caller's cores: no rank spins on all of them
+    torch.set_num_threads(threads)
     if backend == "nccl":  # one card a rank, as NCCL requires
         torch.cuda.set_device(rank % torch.cuda.device_count())
     comm.init_distributed(dist_backend=backend,
@@ -47,8 +47,10 @@ def launch_local(fn: Callable, world_size: int, args: Sequence[Any] = (),
     module-level function). Raises if any rank fails; every rank process has
     ended when it returns."""
     backend = backend or comm.default_backend()
+    threads = max(1, torch.get_num_threads() // world_size)  # the caller's share, split
     with tempfile.TemporaryDirectory(prefix="dstorch_world_") as workdir:
-        mp.start_processes(_rank_main, args=(fn, world_size, backend, workdir, tuple(args)),
+        mp.start_processes(_rank_main,
+                           args=(fn, world_size, backend, workdir, threads, tuple(args)),
                            nprocs=world_size, join=True, start_method="spawn")
         return [torch.load(os.path.join(workdir, f"result{r}.pt"), weights_only=False)
                 for r in range(world_size)]

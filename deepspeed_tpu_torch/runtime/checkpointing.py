@@ -60,7 +60,8 @@ def world_size() -> int:
 
 
 def _is_writer() -> bool:
-    """Only rank 0 writes files; at ZeRO 0 every rank holds the whole state."""
+    """Only rank 0 writes files, of whole leaves (a state sharded over dp
+    ranks is gathered whole before the snapshot)."""
     import torch.distributed as dist
 
     return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0

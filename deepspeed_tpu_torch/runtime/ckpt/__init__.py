@@ -1,9 +1,12 @@
-"""Checkpointing on one device: the snapshot pipeline and its async writer
+"""Checkpointing: the snapshot pipeline and its async writer
 (:mod:`.async_writer`), the commit rule (:mod:`.manifest`: a tag is visible
-to restore iff its manifest landed) and the restore (:mod:`.load`).
+to restore iff its manifest landed) and the restore (:mod:`.load`), of whole
+leaves (a state split over dp ranks is gathered before the write, and each
+rank keeps its part of a loaded leaf).
 
-Counterpart of ``deepspeed_tpu/runtime/ckpt``; the restore onto a sharded
-target (``reshard.py``) comes with ZeRO over ranks (ROADMAP A7).
+Counterpart of ``deepspeed_tpu/runtime/ckpt``; per-rank files and the
+overlap reads of ``reshard.py`` come with stage 3 over ranks (ROADMAP A7
+item 2b).
 """
 
 from .async_writer import (CheckpointGuard, install_preempt_handler,

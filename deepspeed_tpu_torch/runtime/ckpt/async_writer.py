@@ -20,7 +20,10 @@ background save fails the run, it never silently drops a restore point. A
 sync save is the same writer run inline, so its files are byte for byte an
 async save's. On more than one rank every save is sync (the commit needs a
 barrier a background thread cannot own) and only rank 0 snapshots and
-writes: at ZeRO 0 every rank holds the whole state.
+writes, whole leaves: the masters are whole on every rank, and under ZeRO
+stages 1 and 2 each leaf of the optimizer state split over the ranks
+(``runtime.zero.ShardedLeaf``) is gathered whole, one leaf at a time, every
+rank taking part, and rank 0 copies it into its snapshot before the next.
 """
 
 from __future__ import annotations
@@ -39,13 +42,18 @@ from ..checkpointing import (_COMPONENTS, _SHARD_FMT, _ZERO_TO_FP32_SCRIPT, Name
                              _barrier, _clean_component_dir, _full_token, _is_writer,
                              numpy_dtype, world_size)
 from ..swap_tensor import PinnedBufferPool
+from ..zero import ShardedLeaf
 from . import manifest as _manifest
 
 
-def _snapshot(components: Dict[str, NamedLeaves], pool: PinnedBufferPool):
+def _snapshot(components: Dict[str, NamedLeaves], pool: PinnedBufferPool,
+              writer: bool = True):
     """Copy every leaf of ``components`` into pool buffers: every copy is
     started first (``non_blocking`` from the card into pinned memory), then
-    one synchronisation. Returns ``(entries_by_comp, metas, bufs)``:
+    one synchronisation. A :class:`ShardedLeaf` is gathered whole first, on
+    every rank (``writer`` False: a rank that only takes part in the
+    gathers), and dropped once its copy is queued, so a rank holds one
+    gathered leaf at a time. Returns ``(entries_by_comp, metas, bufs)``:
     per component ``[(filename, numpy view)]`` for the writer and its
     manifest record."""
     entries_by_comp: Dict[str, list] = {}
@@ -55,6 +63,11 @@ def _snapshot(components: Dict[str, NamedLeaves], pool: PinnedBufferPool):
     for comp, named in components.items():
         entries, shapes, dtypes, shards = [], [], [], {}
         for i, (name, leaf) in enumerate(named):
+            if isinstance(leaf, ShardedLeaf):
+                with torch.no_grad():
+                    leaf = leaf.whole()
+            if not writer:
+                continue
             src = leaf.detach() if isinstance(leaf, torch.Tensor) else torch.as_tensor(leaf)
             numpy_dtype(src.dtype)  # refuse a dtype numpy cannot hold, before any copy
             buf = pool.take(src.shape, src.dtype)
@@ -67,6 +80,7 @@ def _snapshot(components: Dict[str, NamedLeaves], pool: PinnedBufferPool):
             dtypes.append(str(numpy_dtype(src.dtype)))
             shards[str(i)] = [token]
             bufs.append(buf)
+            del src, leaf  # a gathered leaf goes before the next is gathered
         entries_by_comp[comp] = entries
         metas[comp] = {
             "num_leaves": len(named),
@@ -229,8 +243,10 @@ def save_checkpoint(engine, save_dir: str, guard: CheckpointGuard,
         _clean_component_dir(cdir)  # the stale generation out first
     entries_by_comp: Dict[str, list] = {}
     bufs: List[torch.Tensor] = []
+    # every rank: the leaves split over dp ranks are gathered one at a time
+    entries_by_comp, metas, bufs = _snapshot(engine.checkpoint_components(), guard._pool,
+                                             writer)
     if writer:
-        entries_by_comp, metas, bufs = _snapshot(engine.checkpoint_components(), guard._pool)
         meta["components"] = metas
         guard.rotate(bufs)
 

@@ -1,13 +1,14 @@
-"""Restore an engine from a committed checkpoint, on one device.
+"""Restore an engine from a committed checkpoint.
 
-Counterpart of ``deepspeed_tpu/runtime/ckpt/reshard.py:205 load_checkpoint``
-where the target is one device (or ranks that each hold the whole state, at
-ZeRO 0): each leaf is assembled whole from whatever rectangles are on disk,
-so a checkpoint of any mesh or ZeRO stage loads, the JAX package's included,
-and the older ``metadata.json`` without ``manifest_version`` too. Each leaf
-is matched by its stored name and copied in place into the engine's tensor,
-on its device. The overlap reads that restore onto a sharded target come
-with ZeRO over ranks (ROADMAP A7).
+Counterpart of ``deepspeed_tpu/runtime/ckpt/reshard.py:205 load_checkpoint``:
+each leaf is assembled whole from whatever rectangles are on disk, so a
+checkpoint of any mesh or ZeRO stage loads, the JAX package's included, and
+the older ``metadata.json`` without ``manifest_version`` too. Each leaf is
+matched by its stored name and copied in place into the engine's tensor, on
+its device; under ZeRO stages 1 and 2 over dp ranks a sharded state leaf
+(``runtime.zero.ShardedLeaf``) keeps this rank's part of it. The overlap
+reads that would read only a rank's rectangle come with stage 3 over ranks
+(ROADMAP A7 item 2b).
 """
 
 from __future__ import annotations
@@ -20,7 +21,10 @@ import torch
 
 from ...utils.logging import log_dist
 from ..checkpointing import _assemble_leaf, _barrier, _match_leaves, _stored_names
+from ..zero import ShardedLeaf
 from . import manifest as _manifest
+
+_TENSOR_LEAVES = (torch.Tensor, ShardedLeaf)  # copied into; the rest the engine checks
 
 
 def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
@@ -51,12 +55,12 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     # which the engine checks before any tensor changes
     engine.check_restored(
         {comp: {name: _assemble_leaf(entries) for name, leaf, entries in leaves
-                if entries is not None and not isinstance(leaf, torch.Tensor)}
+                if entries is not None and not isinstance(leaf, _TENSOR_LEAVES)}
          for comp, leaves in matched.items()}, meta)
     with torch.no_grad():  # then the tensors, one leaf in host memory at a time
         for leaves in matched.values():
             for _, leaf, entries in leaves:
-                if entries is not None and isinstance(leaf, torch.Tensor):
+                if entries is not None and isinstance(leaf, _TENSOR_LEAVES):
                     arr = np.asarray(_assemble_leaf(entries), order="C")
                     leaf.copy_(torch.from_numpy(arr).to(leaf.dtype))
     engine.global_steps = int(meta["global_steps"])

@@ -55,6 +55,15 @@ valid tokens in the whole world, so the ranks' losses sum to the batch mean;
 the gradients are summed over the world before the norm and the clip; and
 ``train_batch`` returns the global loss on every rank. Attention crosses the
 sequence chunks by the ``sequence_parallel`` mode (``parallel/sequence.py``).
+ZeRO stages 1 and 2 over the dp ranks (at sp_size 1; JAX ``zero_specs``) keep
+the masters whole and split the rest (``runtime/zero/partition.py``): each
+rank holds the optimizer state of its parts of the masters and updates only
+those parts (one fused Adam launch a part on a card), then one all-gather
+gives every rank the whole masters. Stage 1 sums the gradients over the
+world as stage 0 does, so its step is stage 0's bit for bit; stage 2
+reduce-scatters them, each rank keeping its parts' sums, and takes the
+norm from the parts' sums of squares (one all-reduce). A checkpoint holds
+whole leaves, gathered before rank 0 writes them.
 """
 
 from __future__ import annotations
@@ -86,6 +95,7 @@ from .checkpointing import _barrier, _is_writer
 from .lr_schedules import build_schedule
 from .optimizers import build_optimizer
 from .swap_tensor import TensorSwapper, host_empty
+from .zero import ShardedLeaf, ZeroPartition, storage_bytes
 
 
 def _enabled(section: Any) -> bool:
@@ -105,8 +115,9 @@ def planned_world(cfg: DeepSpeedConfig) -> int:
 
 def unported_features(cfg: DeepSpeedConfig) -> List[str]:
     """The features a config turns on that a later slice of the port
-    brings, each with its ROADMAP queue A item. ZeRO stages and offload run
-    on one rank; over ranks they are item 7.2."""
+    brings, each with its ROADMAP queue A item. ZeRO stages 1 and 2 run over
+    dp ranks (item 7.2a); stage 3, offload, a stage beside sequence
+    parallelism and the quantized wires over ranks are item 7.2b."""
     raw = cfg.raw
     zc = cfg.zero_config
     pipe = raw.get("pipeline") or {}
@@ -114,13 +125,23 @@ def unported_features(cfg: DeepSpeedConfig) -> List[str]:
     de = raw.get("data_efficiency") or {}
     comp = raw.get("compression_training") or {}
     world = planned_world(cfg)
+    sp = cfg.sequence_parallel.sp_size
+    wire = zc.resolved_grad_wire()  # param_wire is fp32 below stage 3 (config.py)
     checks = [
         (cfg.fp16.enabled, "fp16 and its loss scaler (item 6)"),
-        (world > 1 and zc.stage > 0,
-         f"ZeRO stage {zc.stage} (item 7) over {world} ranks: stages run on one rank"),
+        (world > 1 and zc.stage == 3,
+         f"ZeRO stage 3 (item 7) over {world} ranks: the parameter gather on use and "
+         f"the layer prefetch are item 7.2b; stages 1 and 2 run over dp ranks"),
+        (world > 1 and 0 < zc.stage < 3 and sp > 1,
+         f"ZeRO stage {zc.stage} (item 7) with sequence parallelism (sp_size {sp}): "
+         f"stages over ranks with sp > 1 are item 7.2b; stages 1 and 2 run over dp "
+         f"ranks at sp_size 1"),
+        (world > 1 and 0 < zc.stage < 3 and wire != "fp32",
+         f"ZeRO stage {zc.stage} over {world} ranks with grad_wire {wire} (item 7.2b, "
+         f"the comm/wires.py codecs): stages 1 and 2 move fp32"),
         (world > 1 and (zc.offload_optimizer.enabled or zc.offload_param.enabled),
          f"optimizer/parameter offload, NVMe included (item 7) over {world} ranks: "
-         f"offload runs on one rank"),
+         f"offload runs on one rank; over ranks it is item 7.2b"),
         (int(pipe.get("stages", pipe.get("num_stages", 1)) or 1) > 1,
          "pipeline parallelism (item 7)"),
         (int(tp.get("tp_size", tp.get("autotp_size", 1)) or 1) > 1,
@@ -182,8 +203,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     later += unported_features(cfg)
     if later:
         raise NotImplementedError(
-            "deepspeed_tpu_torch trains with bf16/fp32, ZeRO stages and offload on "
-            "one rank; not yet ported (ROADMAP queue A): " + "; ".join(later)
+            "deepspeed_tpu_torch trains with bf16/fp32, ZeRO stages 1 and 2 over dp "
+            "ranks, every stage and offload on one rank; not yet ported (ROADMAP "
+            "queue A): " + "; ".join(later)
         )
     sp = cfg.sequence_parallel.sp_size
     if comm.is_initialized() and comm.get_topology().sp_size == sp:
@@ -195,7 +217,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         raise NotImplementedError(
             "deepspeed_tpu_torch trains an MoE model on one rank: capacity and "
             "slots count the whole batch's tokens, which dp or sp > 1 split "
-            "(ROADMAP A7)")
+            "(ROADMAP item 7.2b)")
     if cfg.moe.overlap_a2a.enabled:
         # JAX engine.py:356-362: at ep = 1 there is no exchange to overlap
         log_dist("moe.overlap_a2a: "
@@ -273,6 +295,7 @@ class TorchEngine:
         self._setup_state(params)
         self.global_steps = 0
         self.micro_steps = 0
+        self._grad_bytes = (0, 0)  # state_bytes: the last update's gradients, transient
         self.skipped_steps = 0  # no fp16 overflow skips on the ported path
         self._checkpoint_guard = None
         self.training = True
@@ -291,8 +314,11 @@ class TorchEngine:
 
     def _setup_state(self, params) -> None:
         """The masters and the optimizer state, placed by the ZeRO section
-        (JAX ``engine.py:639-720``). At one rank a stage partitions nothing,
-        so stages 1-3 train as stage 0, bit for bit. ``offload_optimizer``:
+        (JAX ``engine.py:521``, ``:639-720``). Over dp ranks, stages 1 and 2
+        keep on each rank the optimizer state of its parts of the masters
+        only (``runtime/zero/partition.py``); the masters stay whole. At one
+        rank a stage partitions nothing, so stages 1-3 train as stage 0, bit
+        for bit. ``offload_optimizer``:
         ``cpu`` keeps the state in host memory (page-locked on a card) and
         steps it a layer at a time (``bucketed_opt.py``); ``nvme`` keeps it in
         files under ``nvme_path/zero_opt_swap`` between steps (``TensorSwapper``;
@@ -303,7 +329,14 @@ class TorchEngine:
         zc = self.config.zero_config
         off_opt, off_par = zc.offload_optimizer, zc.offload_param
         on_cuda = self.device.type == "cuda"
-        if zc.stage > 0:
+        self._partition: Optional[ZeroPartition] = None
+        if zc.stage > 0 and self.topology.dp_size > 1:
+            self._partition = ZeroPartition([t.shape for t in tree_leaves(params)],
+                                            self.topology.group("dp"))
+            part = self._partition
+            log_dist(f"ZeRO stage {zc.stage} over dp {part.dp}: {len(part.sharded)} leaves "
+                     f"sharded, {len(part.replicated)} replicated")
+        elif zc.stage > 0:
             log_dist(f"ZeRO stage {zc.stage} on one rank: nothing to partition, the step "
                      f"is stage 0's")
         if off_par.device == "nvme":
@@ -320,6 +353,9 @@ class TorchEngine:
                 self.optimizer, pin=on_cuda and off_opt.pin_memory, offload_param=self._param_offload)
             self.opt_state = self._bucketed.init(params)
             self._bucketed.timing = self.config.wall_clock_breakdown
+        elif self._partition is not None:
+            parts = iter(self._partition.parts(tree_leaves(params)))
+            self.opt_state = self.optimizer.init(tree_map(lambda _: next(parts), params))
         else:
             self.opt_state = self.optimizer.init(params)
         if off_opt.device == "nvme":
@@ -373,6 +409,30 @@ class TorchEngine:
             total += self._swapper.held_bytes()
         return total
 
+    def state_bytes(self) -> Dict[str, int]:
+        """This rank's device bytes of the training state, each read from the
+        live tensors: the fp32 ``masters``, the optimizer state
+        (``optimizer``; under ZeRO over dp ranks this rank's parts), the
+        ``gradients`` the last update read (whole, or at stage 2 over ranks
+        this rank's parts of the summed gradients; 0 before the first step)
+        and ``total``, their sum. Beside them ``gradients_transient``: the
+        gradient bytes alive at once at the last step's gradient collective,
+        the whole gradients that backward left, the collective's buffer and
+        what it returned (at stage 2 as at stage 0: the whole gradients
+        stand until the reduce-scatter). Offloaded state counts in
+        :meth:`host_state_bytes` instead."""
+        masters = 0 if self._param_offload else sum(_nbytes(t) for t in tree_leaves(self.params))
+        resident = self._bucketed is None and self._swapper is None
+        optimizer = sum(_nbytes(t) for t in tree_leaves(self.opt_state)) if resident else 0
+        grads, transient = self._grad_bytes
+        return {"masters": masters, "optimizer": optimizer, "gradients": grads,
+                "total": masters + optimizer + grads, "gradients_transient": transient}
+
+    @property
+    def _stage2(self) -> bool:
+        """Gradients sharded over dp ranks (ZeRO stage 2)."""
+        return self._partition is not None and self.config.zero_config.stage >= 2
+
     def _step_params(self, grad: bool):
         """The masters forward and backward read: the device masters, or
         under ``offload_param`` a device copy of the host masters (JAX
@@ -406,6 +466,19 @@ class TorchEngine:
             # the next train_batch's prefetch waits for them before its reads
             self._swapper.swap_out("opt_state", self.opt_state, blocking=False)
             self.opt_state = None
+
+    def _update_parts(self, params, grads: List[torch.Tensor], clip) -> None:
+        """ZeRO stages 1 and 2 over dp ranks: the optimizer on this rank's
+        parts of the masters (from the whole summed gradients at stage 1,
+        from this rank's parts of them at stage 2), then every rank's parts
+        all-gathered into the whole masters of every rank."""
+        part = self._partition
+        leaves = tree_leaves(params)
+        self.optimizer.step_leaves(
+            part.parts(leaves), grads if self._stage2 else part.parts(grads),
+            self.optimizer.slot_leaves(self.opt_state), self.global_steps, clip, partition=part)
+        with torch.no_grad():
+            part.gather_(leaves)
 
     def _swap_in_opt(self) -> None:
         """NVMe: the state back on the device (a no-op when resident)."""
@@ -496,13 +569,15 @@ class TorchEngine:
         return PreparedBatch(self._shard(out, 1), self._num_tokens(out["labels"], (1, 2)))
 
     @staticmethod
-    def _flat_over_world(leaves: List[torch.Tensor], op) -> None:
+    def _flat_over_world(leaves: List[torch.Tensor], op) -> int:
         """``op`` (a collective in place) on ``leaves`` as one flat buffer:
-        one call, and one host buffer where the transport stages."""
+        one call, and one host buffer where the transport stages. Returns
+        the flat buffer's bytes."""
         flat = torch.cat([t.reshape(-1) for t in leaves])
         op(flat)
         for t, part in zip(leaves, flat.split([t.numel() for t in leaves])):
             t.copy_(part.view_as(t))
+        return flat.nbytes
 
     @staticmethod
     def _next_batch(data_iter):
@@ -550,21 +625,36 @@ class TorchEngine:
             t_fb = time.perf_counter()
         grads = tree_map(lambda p: p.grad, params)
         leaves = tree_leaves(grads)
+        transient = storage_bytes(leaves)  # the whole gradients backward left
         if self._world is not None:  # the ranks' shares of the batch's loss, gradient
             all_reduce(loss_sum, self._world)
             if shares:
                 total = torch.stack([m_sum[k] for k in shares])
                 all_reduce(total, self._world)
                 m_sum.update(zip(shares, total.unbind()))
-            self._flat_over_world(leaves, lambda f: all_reduce(f, self._world))
+            if self._stage2:  # this rank's parts of the sum; the whole gradients go
+                leaves = self._partition.reduce_scatter_grads(leaves)
+                transient += self._partition.send_bytes + storage_bytes(leaves)
+                for p in tree_leaves(params):
+                    p.grad = None
+                grads = None
+            else:
+                transient += self._flat_over_world(leaves, lambda f: all_reduce(f, self._world))
+        self._grad_bytes = (storage_bytes(leaves), transient)
         if accum > 1:
             for g in leaves:
                 g.mul_(1.0 / accum)
-        gnorm = global_norm(leaves)
+        if self._stage2:
+            gnorm = self._partition.square_sums(leaves).sum().sqrt()
+        else:
+            gnorm = global_norm(leaves)
         clip = None
         if cfg.gradient_clipping > 0:
             clip = torch.clamp(cfg.gradient_clipping / (gnorm + 1e-6), max=1.0)
-        self._update(params, grads, clip)
+        if self._partition is not None:
+            self._update_parts(params, leaves, clip)
+        else:
+            self._update(params, grads, clip)
         for p in tree_leaves(params):
             p.grad = None
         del grads, leaves, params
@@ -722,7 +812,10 @@ class TorchEngine:
         the optimizer's state under the optax chain's names with its update
         counts (``global_steps``), ``loss_scale`` the static state of a
         bf16/fp32 run (JAX ``precision.py:init_loss_scale`` with fp16 off:
-        scale 1, no good steps, the configured hysteresis)."""
+        scale 1, no good steps, the configured hysteresis). Under ZeRO over
+        dp ranks a sharded state leaf is a :class:`ShardedLeaf` (the whole
+        leaf's shape; a copy into it keeps this rank's part, and its
+        ``whole()`` gathers it, every rank together)."""
         if self._swapper is not None and self.opt_state is None:
             raise RuntimeError("the NVMe-offloaded optimizer state is on disk: "
                                "save_checkpoint / load_checkpoint swap it in first")
@@ -730,6 +823,8 @@ class TorchEngine:
         opt = (self._bucketed.state_items(self.opt_state, self.global_steps)
                if self._bucketed is not None
                else self.optimizer.state_items(self.opt_state, self.global_steps))
+        if self._partition is not None:
+            opt = self._sharded_state(opt)
         return {
             "params": tree_items(self.params, sort_keys=True),
             "opt_state": opt,
@@ -739,6 +834,18 @@ class TorchEngine:
                 (".hysteresis_left", np.asarray(self.config.fp16.hysteresis, np.int32)),
             ],
         }
+
+    def _slot_parts(self):
+        """Per slot, its leaves in ``tree_leaves`` order (each aligned with
+        the partition's plan)."""
+        return [tree_leaves(self.opt_state[name]) for name in self.optimizer.slots]
+
+    def _sharded_state(self, named: List) -> List:
+        part = self._partition
+        entry = {id(t): e for parts in self._slot_parts() for t, e in zip(parts, part.plan)}
+        return [(n, ShardedLeaf(t, entry[id(t)], part.group)
+                 if isinstance(t, torch.Tensor) and entry[id(t)].sharded else t)
+                for n, t in named]
 
     def check_restored(self, restored: Dict[str, Dict[str, np.ndarray]],
                        meta: Dict[str, Any]) -> None:

@@ -80,10 +80,24 @@ class Optimizer:
              clip: Optional[torch.Tensor] = None) -> None:
         """Update ``params`` and ``state`` in place from ``grads`` (a tree of
         fp32 tensors), each grad multiplied by ``clip`` (a device scalar)."""
-        slot_leaves = [tree_leaves(state[name]) for name in self.slots]
+        self.step_leaves(tree_leaves(params), tree_leaves(grads), self.slot_leaves(state),
+                         step, clip)
+
+    def slot_leaves(self, state) -> List[List[torch.Tensor]]:
+        """Per leaf of the masters, its slots' tensors in ``self.slots`` order."""
+        per_slot = [tree_leaves(state[name]) for name in self.slots]
+        return [list(s) for s in zip(*per_slot)] if per_slot else []
+
+    def step_leaves(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+                    slots: List[List[torch.Tensor]], step: int,
+                    clip: Optional[torch.Tensor] = None, partition=None) -> None:
+        """:meth:`step` on lists of leaves: whole leaves, or under ZeRO over
+        dp ranks (``partition``, a ``runtime.zero.ZeroPartition``) this
+        rank's parts of them. Every transform but lamb's trust ratio is
+        elementwise, so a part's update is the whole leaf's on its elements."""
         with torch.no_grad():
-            for i, (p, g) in enumerate(zip(tree_leaves(params), tree_leaves(grads))):
-                self.update_leaf(p, g, [leaves[i] for leaves in slot_leaves], step, clip)
+            for i, (p, g) in enumerate(zip(params, grads)):
+                self.update_leaf(p, g, slots[i] if slots else [], step, clip)
 
     def update_leaf(self, p: torch.Tensor, g: torch.Tensor, slots: List[torch.Tensor],
                     step: int, clip: Optional[torch.Tensor] = None) -> None:
@@ -172,18 +186,41 @@ class Lamb(Optimizer):
     chain = (("count", "[0].count"), ("mu", "[0].mu"), ("nu", "[0].nu"),
              ("count", "[4].count"))
 
-    def direction(self, p, g, state, t):
+    def decayed_adam(self, p, g, state, t):
+        """The direction before the trust ratio: Adam's, plus the decay."""
         m, v = state
         m.copy_(g * (1.0 - self.b1) + m * self.b1)
         v.copy_(g * g * (1.0 - self.b2) + v * self.b2)
         u = (m / (1.0 - self.b1 ** t)) / (torch.sqrt(v / (1.0 - self.b2 ** t)) + self.eps)
-        u = u + self.weight_decay * p
-        p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
-        trust = torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
-        return u * trust
+        return u + self.weight_decay * p
+
+    @staticmethod
+    def trust(u, p_norm, u_norm):
+        return u * torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
+
+    def direction(self, p, g, state, t):
+        u = self.decayed_adam(p, g, state, t)
+        return self.trust(u, torch.linalg.vector_norm(p), torch.linalg.vector_norm(u))
 
     def decayed(self, u, p):
         return u  # the decay went in before the trust ratio
+
+    def step_leaves(self, params, grads, slots, step, clip=None, partition=None) -> None:
+        """Over dp ranks the trust ratio needs each leaf's two norms whole:
+        every part's direction first, then one all-reduce of the parts' sums
+        of squares (``ZeroPartition.square_sums``), then the updates. The
+        sum's order differs from the whole leaf's, so this matches stage 0
+        within rounding, not bit for bit."""
+        if partition is None or not partition.sharded:
+            return super().step_leaves(params, grads, slots, step, clip)
+        lr = self.lr_schedule(step)
+        with torch.no_grad():
+            us = [self.decayed_adam(p, g.float() if clip is None else g.float() * clip,
+                                    slots[i], step + 1)
+                  for i, (p, g) in enumerate(zip(params, grads))]
+            norms = partition.square_sums(params, us).sqrt()
+            for i, (p, u) in enumerate(zip(params, us)):
+                p.sub_(self.trust(u, norms[0, i], norms[1, i]) * lr)
 
 
 class SGD(Optimizer):

@@ -5,7 +5,8 @@ Counterpart of ``deepspeed_tpu/zero.py:70-140`` (and DeepSpeed's
 checkpoint, assembled from its shard files of any mesh or ZeRO stage,
 without an engine. Every checkpoint root carries a ``zero_to_fp32.py`` that
 calls :func:`convert_zero_checkpoint_to_fp32_state_dict`. The ZeRO-3 shims
-(``Init``, ``GatheredParameters``) come with ZeRO over ranks (ROADMAP A7).
+(``Init``, ``GatheredParameters``) come with stage 3 over ranks (ROADMAP A7
+item 2b).
 
     python -m deepspeed_tpu_torch.zero <checkpoint_dir> <output.npz> [tag]
 """

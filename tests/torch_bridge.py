@@ -3,6 +3,7 @@ tiny GPT-2 and BLOOM, built in both packages with the same weights (the JAX
 init, bridged through ``deepspeed_tpu_torch.models.convert.params_from_numpy``)."""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +15,21 @@ from deepspeed_tpu.models import gpt2 as jax_gpt2
 from deepspeed_tpu.models import llama as jax_llama
 from deepspeed_tpu_torch.models import TransformerConfig, TransformerModel
 from deepspeed_tpu_torch.models.convert import params_from_numpy
+
+
+def _cap_threads_under_xdist() -> None:
+    """Under pytest-xdist the workers share the host's cores: each takes its
+    share for torch's intra-op threads (at 6 workers on 8 cores, one), where
+    torch's default of every core each made the small ops of the mirror and
+    tiny-model tests spin against one another. Every worker collects every
+    test file, so this import caps the worker before any test runs. The
+    spawned ranks of ``launcher.launch_local`` split the cap again."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0") or 0)
+    if workers > 1:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+
+
+_cap_threads_under_xdist()
 
 TINY = dict(vocab_size=256, max_seq_len=512, hidden_size=128, num_layers=2,
             num_heads=4, num_kv_heads=2, intermediate_size=256)

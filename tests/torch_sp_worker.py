@@ -1,20 +1,26 @@
 """Rank functions of the sequence-parallel tests (tests/test_torch_sequence_parallel.py,
-tests/test_torch_ring_flash.py) and of the checkpointing test over ranks
-(tests/test_torch_checkpointing.py), run by
+tests/test_torch_ring_flash.py), of the checkpointing test over ranks
+(tests/test_torch_checkpointing.py) and of ZeRO over dp ranks
+(tests/test_torch_zero_dp.py), run by
 ``deepspeed_tpu_torch.launcher.launch_local`` in spawned processes: this module
 imports only torch and the port, so a rank starts without jax."""
+
+import weakref
 
 import numpy as np
 import torch
 
 import deepspeed_tpu_torch
-from deepspeed_tpu_torch.comm import get_topology, init_distributed
+from deepspeed_tpu_torch.comm import all_gather, get_topology, init_distributed, reduce_scatter
 from deepspeed_tpu_torch.comm.topology import ParallelDims
 from deepspeed_tpu_torch.models import TransformerConfig, TransformerModel
 from deepspeed_tpu_torch.models.convert import params_from_numpy, params_to_numpy
 from deepspeed_tpu_torch.models.sharding import use_topology
 from deepspeed_tpu_torch.ops.attention import attention, attention_impl
 from deepspeed_tpu_torch.parallel.sequence import ring_attention, ulysses_attention
+from deepspeed_tpu_torch.runtime import engine as engine_module
+from deepspeed_tpu_torch.runtime.zero import ShardedLeaf, shard_plan
+from deepspeed_tpu_torch.utils.tree import tree_map
 
 
 def train_rank(rank, runs):
@@ -72,6 +78,121 @@ def checkpoint_rank(rank, run, directory, npz):
         finally:
             sys.argv = argv
     return want, got
+
+
+def _masters(eng):
+    """The masters as numpy copies (``params_to_numpy`` views CPU tensors,
+    which the next step updates in place)."""
+    return params_to_numpy(tree_map(lambda t: t.detach().clone(), eng.params))
+
+
+def _numpy_state(eng):
+    """The engine's masters and optimizer state by checkpoint name, whole
+    (gathered over the dp ranks: every rank calls)."""
+    comps = eng.checkpoint_components()
+    return {n: (t.detach().numpy().copy() if torch.is_tensor(t)
+                else t.whole().numpy() if isinstance(t, ShardedLeaf) else np.asarray(t))
+            for comp in ("params", "opt_state") for n, t in comps[comp]}
+
+
+def _counting_gathers(fn):
+    """Run ``fn`` with ``ShardedLeaf.whole`` counted: (the gathers, the most
+    gathered leaves alive at once, each gather's own result included)."""
+    whole, alive, most = ShardedLeaf.whole, [], [0]
+
+    def counted(leaf):
+        t = whole(leaf)
+        alive.append(weakref.ref(t))
+        most[0] = max(most[0], sum(r() is not None for r in alive))
+        return t
+
+    ShardedLeaf.whole = counted
+    try:
+        fn()
+    finally:
+        ShardedLeaf.whole = whole
+    return len(alive), most[0]
+
+
+def parts_norm(leaves, dp=2):
+    """The global norm of the whole gradients ``leaves`` summed as stage 2
+    over ``dp`` ranks sums it (``ZeroPartition.square_sums``): each sharded
+    leaf's parts' squares added in rank order, a replicated leaf's whole,
+    then the [1, leaves] sums and the root."""
+    plans = [shard_plan([t.shape for t in leaves], dp, r) for r in range(dp)]
+    sq = []
+    for i, t in enumerate(leaves):
+        s = (plans[0][i].part(t) if plans[0][i].sharded else t).float().square().sum()
+        for plan in plans[1:] if plans[0][i].sharded else ():
+            s = s + plan[i].part(t).float().square().sum()
+        sq.append(s)
+    return torch.stack([torch.stack(sq)]).sum().sqrt()
+
+
+def zero_rank(rank, runs, moe_config):
+    """ZeRO over this world's dp ranks. Each run, a dict of ``label``,
+    ``model`` (TransformerConfig fields), ``tree`` (numpy masters),
+    ``config`` and ``batches``, and optionally ``load`` (a checkpoint
+    directory loaded before the batches), ``parts_norm`` (the engine's
+    ``global_norm`` replaced by :func:`parts_norm` for the run), ``save`` (a
+    directory saved to after them) and ``after`` (batches trained after the save; with
+    ``resume`` also by a fresh engine that loads the save). Returns per
+    label the losses, grad norms, ``state_bytes()``, the whole state and the
+    masters after the batches, the ``after`` losses, the masters at the end
+    (``final``) and the resumed run's state, losses and final masters. Last, ``moe``: the
+    refusal of an MoE model over the world (``moe_config``), and
+    ``collectives``: ``comm.reduce_scatter`` and ``all_gather`` along dim 1
+    of a [4, 6] tensor, and the reduce-scatter's refusal of 3 elements."""
+    out = {}
+    for run in runs:
+        model = TransformerModel(TransformerConfig(**run["model"]))
+
+        def engine(**kw):
+            return deepspeed_tpu_torch.initialize(model=model, config=run["config"],
+                                                  device="cpu", **kw)[0]
+
+        eng = engine(model_parameters=params_from_numpy(model.config, run["tree"]))
+        if run.get("load"):
+            eng.load_checkpoint(run["load"])
+        res = {"losses": [], "grad_norms": []}
+        norm = engine_module.global_norm
+        if run.get("parts_norm"):
+            engine_module.global_norm = parts_norm
+        try:
+            for batch in run["batches"]:
+                res["losses"].append(eng.train_batch(batch=batch).item())
+                res["grad_norms"].append(eng.get_global_grad_norm())
+        finally:
+            engine_module.global_norm = norm
+        res["state_bytes"] = eng.state_bytes()
+        res["state"] = _numpy_state(eng)
+        res["params"] = _masters(eng)
+        if run.get("save"):
+            res["save_gathers"] = _counting_gathers(lambda: eng.save_checkpoint(run["save"]))
+        res["after"] = [eng.train_batch(batch=b).item() for b in run.get("after", [])]
+        res["final"] = _masters(eng)
+        if run.get("resume"):
+            fresh = engine(rng=torch.Generator().manual_seed(9))
+            fresh.load_checkpoint(run["save"])
+            res["resumed_state"] = _numpy_state(fresh)
+            res["resumed"] = [fresh.train_batch(batch=b).item() for b in run["after"]]
+            res["resumed_params"] = _masters(fresh)
+        out[run["label"]] = res
+    world = get_topology().world_group()
+    x = torch.arange(24.0).view(4, 6) + 100.0 * rank
+    out["collectives"] = {"reduce_scatter": reduce_scatter(x, world, dim=1).numpy(),
+                          "all_gather": all_gather(x, world, dim=1).numpy()}
+    try:
+        reduce_scatter(torch.ones(3), world)
+    except ValueError as e:
+        out["collectives"]["refused"] = str(e)
+    try:
+        moe = TransformerModel(TransformerConfig(**moe_config["model"]))
+        deepspeed_tpu_torch.initialize(model=moe, config=moe_config["config"], device="cpu")
+        out["moe"] = None
+    except NotImplementedError as e:
+        out["moe"] = str(e)
+    return out
 
 
 def attention_rank(rank, sp, cases):
