@@ -279,25 +279,30 @@ arguments, in order, any failure exiting non-zero:
    ranks spawned on the one card, joined over gloo (NCCL refuses two ranks
    on one device, so the transport goes through the host; it says so):
    llama3-1b at full width, 4 of its 16 layers, one seeded sequence of
-   16,384 tokens a step (8,192 a rank), 3 steps in the ring mode and 3 in
+   16,384 tokens a step (8,192 a rank), 2 steps in the ring mode and 2 in
    the Ulysses mode, then sp=1 on this process from the same seed: losses
    and grad norms within the bf16 tolerance of sp=1, ms/step, tokens/s per
    rank, peak memory, the device's share of a step and the gloo transport's
    times; the ranks' counters, zeroed before each mode, must show the offset
    forms (ring) and the unmasked forms (Ulysses) ran and plain attention on
    the card never did; then ``training_zero`` in the same world, at dp=2 and
-   sp 1 (a row of 8,192 tokens a rank): ZeRO stages 0, 1 and 2 from one
-   seed, 3 steps each, and stage 0 once more with its clipping norm summed
-   in stage 2's order (each leaf's two parts' squares, then the leaves);
-   stage 1 bitwise stage 0 and stage 2 bitwise that witness (losses, grad
-   norms and masters, both ranks), stage 2's first loss bitwise stage 0's
-   and its first grad norm within 1e-6, each rank's ``state_bytes()`` (read
-   from the live tensors) showing the moments split at stage 1 and the
-   gradients too at stage 2 beside the gradients' transient bytes and its
-   ``max_memory_allocated``, fused Adam once a part a step, the flash and
-   RMSNorm kernels, no plain attention; ms a step per stage and the
-   host-staged reduce-scatter and all-gather (each kernel of the path
-   checked and timed at its shapes in 3, fused Adam on the largest part);
+   sp 1 (a row of 8,192 tokens a rank): ZeRO stages 0, 1, 2 and 3 (the
+   default persistence threshold) from one seed, 2 steps each, stage 3 again
+   with ``stage3_layer_prefetch``, and stage 0 twice more with its clipping
+   norm summed in stage 2's and in stage 3's order (each leaf's two parts'
+   squares, then the leaves); stage 1 bitwise stage 0, stage 2 bitwise the
+   first witness and both stage-3 legs bitwise the second (losses, grad
+   norms and masters, both ranks, stage 3's gathered whole), stages 2 and
+   3's first loss bitwise stage 0's and first grad norm within 1e-6, each
+   rank's ``state_bytes()`` (read from the live tensors) showing the moments
+   split at stage 1, the gradients too at stage 2 and at stage 3 the plan's
+   bytes, below stage 2's, beside the gradients' transient bytes, the gather
+   counters and ``max_memory_allocated``, fused Adam once a part a step,
+   the flash and RMSNorm kernels, no plain attention; ms a step per stage
+   and the host-staged reduce-scatter and all-gather (each kernel of the
+   path checked and timed at its shapes in 3, fused Adam on the largest
+   part; stage 3's rows, ``training_zero3``, with fused Adam on a layer
+   part);
 20. ``training_mixtral``: initialize(mixtral("mixtral-8x7b", num_layers=2))
    at full width (3.165 B params; two of 32 layers, as the fp32 state takes
    16 B a parameter), bf16 over fp32 masters, AdamW through fused Adam,
@@ -340,7 +345,7 @@ from deepspeed_tpu_torch.models.decoding import (_quantize_kv, _window_rows,
                                                  init_paged_cache)
 from deepspeed_tpu_torch.config import SparseAttentionConfig
 from deepspeed_tpu_torch.models.transformer import (alibi_position_bias, alibi_slopes,
-                                                    apply, layer_params)
+                                                    apply, layer_params, param_specs)
 from deepspeed_tpu_torch.moe import sharded_moe as smoe
 from deepspeed_tpu_torch.ops import cuda as kernels
 from deepspeed_tpu_torch.launcher import launch_local
@@ -362,7 +367,8 @@ from deepspeed_tpu_torch.runtime.checkpointing import (_assemble_leaf, _match_le
                                                        _stored_names)
 from deepspeed_tpu_torch.runtime.ckpt import reset_preempt_handler
 from deepspeed_tpu_torch.runtime.ckpt.manifest import read_manifest
-from deepspeed_tpu_torch.runtime.zero import shard_plan
+from deepspeed_tpu_torch.runtime.zero import shard_plan, stage3_plan
+from deepspeed_tpu_torch.utils.tree import tree_items
 from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
                                                       BSLongformerSparsityConfig,
                                                       VariableSparsityConfig,
@@ -532,17 +538,24 @@ MIXTRAL_CB_REQUESTS = 4  # the prefix of cb_trace: 1806 prompt tokens, 73 new
 # the speculative serving runs' new tokens (B=1 greedy, P=100)
 SPEC_NEW = 16
 # training_sp: llama3-1b at full width, 4 of its 16 layers, one sequence of
-# 16,384 tokens over an sp ring of 2 ranks (8,192 tokens each), 3 steps a mode
-SP_SIZE, SP_SEQ, SP_LAYERS, SP_STEPS = 2, 16384, 4, 3
+# 16,384 tokens over an sp ring of 2 ranks (8,192 tokens each), 2 steps a mode
+# and a training_zero leg (the phase's gloo transport takes seconds a step)
+SP_SIZE, SP_SEQ, SP_LAYERS, SP_STEPS = 2, 16384, 4, 2
 SP_RING_KERNELS = ("flash_attention_fwd_offsets", "flash_attention_bwd_dq_offsets",
                    "flash_attention_bwd_dkv_offsets", "rmsnorm_fwd", "rmsnorm_bwd",
                    "fused_adam")
 SP_ULYSSES_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                       "flash_attention_bwd_dkv", "rmsnorm_fwd", "rmsnorm_bwd", "fused_adam")
 # training_zero: training_sp's model and step over dp=SP_SIZE ranks (sp 1, one
-# row of 8,192 tokens a rank), from the same seed: ZeRO stages 0, 1, 2 and the
-# witness "0 parts" (stage 0, its norm summed in stage 2's order)
-ZERO_LEGS = (0, "0 parts", 1, 2)
+# row of 8,192 tokens a rank), from the same seed: ZeRO stages 0, 1, 2, 3 (the
+# default persistence threshold: the norm scales stay whole), 3 with the layer
+# prefetch, and the witnesses "0 parts" and "0 parts3" (stage 0, its norm
+# summed in stage 2's and in stage 3's order)
+ZERO_LEGS = (0, "0 parts", 1, 2, "0 parts3", 3, "3 prefetch")
+ZERO_STAGE = {0: 0, "0 parts": 0, 1: 1, 2: 2, "0 parts3": 0, 3: 3, "3 prefetch": 3}
+ZERO3_THRESHOLD = 10**5  # stage3_param_persistence_threshold's default
+# the stage-0 legs whose masters each leg is compared with
+ZERO_REFS = {1: (0,), 2: (0, "0 parts"), 3: (0, "0 parts3"), "3 prefetch": (0, "0 parts3")}
 ZERO_KERNELS = TRAINING_KERNELS
 # stage 2's first grad norm (the same gradients, summed in another order)
 ZERO_NORM_RTOL = 1e-6
@@ -4069,28 +4082,60 @@ def sp_rank(rank: int, ids: torch.Tensor) -> dict:
     return out
 
 
-def zero_config(stage: int) -> dict:
+def zero_config(stage: int, prefetch: bool = False) -> dict:
     """training_zero's leg: training_sp's (bf16 over fp32 masters, AdamW,
     clipping 1.0) with weight decay 0.01, one row a rank over dp=SP_SIZE
-    ranks, ZeRO ``stage``."""
+    ranks, ZeRO ``stage`` (with ``stage3_layer_prefetch`` when
+    ``prefetch``)."""
     cfg = train_config(True, batch=SP_SIZE, micro=1, weight_decay=0.01)
     cfg["zero_optimization"] = {"stage": stage}
+    if prefetch:
+        cfg["zero_optimization"]["stage3_layer_prefetch"] = True
     return cfg
 
 
-def parts_norm(leaves):
+def zero3_stacked(model) -> list:
+    """Each master leaf's membership of the stacked layers group, in
+    ``tree_leaves`` order (stage 3's plan cuts those within each layer)."""
+    shapes = {n: s for n, (s, _) in tree_items(param_specs(model.config))}
+    return [n.startswith("['layers']") for n in shapes]
+
+
+def parts_norm(leaves, stacked=None):
     """The global norm of the whole gradients ``leaves`` summed as stage 2
     over SP_SIZE ranks sums it (``ZeroPartition.square_sums``): each sharded
     leaf's parts' squares added in rank order (the all-reduce of two terms),
-    a replicated leaf's whole, then the [1, leaves] sums and the root."""
-    plans = [shard_plan([t.shape for t in leaves], SP_SIZE, r) for r in range(SP_SIZE)]
+    a replicated leaf's whole, then the [1, leaves] sums and the root. With
+    ``stacked``, as stage 3 at ZERO3_THRESHOLD sums it: the leaves held as
+    parts split (each part contiguous, as the engine holds it), the
+    persistent ones whole."""
+    shapes = [t.shape for t in leaves]
+    if stacked is None:
+        plans = [[(e, e.sharded) for e in shard_plan(shapes, SP_SIZE, r)]
+                 for r in range(SP_SIZE)]
+    else:
+        plans = [stage3_plan(shapes, stacked, SP_SIZE, r, ZERO3_THRESHOLD)
+                 for r in range(SP_SIZE)]
     sq = []
     for i, t in enumerate(leaves):
-        s = (plans[0][i].part(t) if plans[0][i].sharded else t).float().square().sum()
-        for plan in plans[1:] if plans[0][i].sharded else ():
-            s = s + plan[i].part(t).float().square().sum()
+        split = plans[0][i][1]
+        s = (plans[0][i][0].part(t).contiguous() if split else t).float().square().sum()
+        for plan in plans[1:] if split else ():
+            s = s + plan[i][0].part(t).contiguous().float().square().sum()
         sq.append(s)
     return torch.stack([torch.stack(sq)]).sum().sqrt()
+
+
+def zero_plan_bytes(shapes, stacked, stage: int, rank: int) -> dict:
+    """The bytes of this rank's masters, AdamW moments and gradients that
+    the stage's plan gives (fp32): at stage 3 the held leaves' parts and the
+    persistent leaves whole, their moments split as at stage 1."""
+    if stage != 3:
+        return {}
+    plan = stage3_plan(shapes, stacked, SP_SIZE, rank, ZERO3_THRESHOLD)
+    held = sum(4 * (e.size if h else math.prod(e.shape)) for e, h in plan)
+    return {"masters": held, "optimizer": 2 * 4 * sum(e.size for e, _ in plan),
+            "gradients": held}
 
 
 def zero_steps(rank: int, ids: torch.Tensor) -> dict:
@@ -4098,21 +4143,27 @@ def zero_steps(rank: int, ids: torch.Tensor) -> dict:
     sp 1): per leg of ZERO_LEGS an engine from the same seed, SP_STEPS
     train_batch calls on the same global batch ``ids`` [SP_SIZE, 8192], the
     launch counters zeroed just before them; the losses, grad norms, ms a
-    step, counts, peak memory, ``state_bytes()``, the leaves and the
-    partition's parts. The "0 parts" leg is stage 0 with the engine's
-    ``global_norm`` replaced by :func:`parts_norm`. The masters of stage 0
-    and of that witness are kept on the host; each later leg's are compared
-    with them on the card (the largest gap; bitwise where it is 0: the
-    masters are finite). On the stage-2 engine, the gloo
-    transport alone: the reduce-scatter of the masters' size and the
-    all-gather of one rank's half, each staged through the host."""
+    step, counts, peak memory, ``state_bytes()`` and the plan's, the leaves
+    and the partition's parts, and at stage 3 the last step's gather
+    counters. The "0 parts" and "0 parts3" legs are stage 0 with the
+    engine's ``global_norm`` replaced by :func:`parts_norm` in stage 2's and
+    stage 3's order. The masters of the stage-0 legs are kept on the host;
+    each later leg's (at stage 3 gathered whole) are compared with them on
+    the card (the largest gap; bitwise where it is 0: the masters are
+    finite). On the stage-2 engine, the gloo transport alone: the
+    reduce-scatter of the masters' size and the all-gather of one rank's
+    half, each staged through the host."""
+    import functools
+
     from deepspeed_tpu_torch.runtime import engine as engine_module
 
     batch = {"input_ids": ids}
     out, ref = {}, {}
+    stacked = zero3_stacked(sp_model())
     for leg in ZERO_LEGS:
-        stage = 0 if leg == "0 parts" else leg
-        engine, *_ = initialize(model=sp_model(), config=zero_config(stage),
+        stage = ZERO_STAGE[leg]
+        engine, *_ = initialize(model=sp_model(),
+                                config=zero_config(stage, prefetch=leg == "3 prefetch"),
                                 rng=torch.Generator(device="cuda").manual_seed(0),
                                 device="cuda:0")
         torch.cuda.synchronize()
@@ -4121,19 +4172,35 @@ def zero_steps(rank: int, ids: torch.Tensor) -> dict:
         norm = engine_module.global_norm
         if leg == "0 parts":
             engine_module.global_norm = parts_norm
+        elif leg == "0 parts3":
+            engine_module.global_norm = functools.partial(parts_norm, stacked=stacked)
         try:
             losses, norms, ms = sp_steps(engine, batch, SP_STEPS)
         finally:
             engine_module.global_norm = norm
-        masters = tree_leaves(engine.params)
-        plan = shard_plan([p.shape for p in masters], SP_SIZE if stage else 1, rank)
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        masters = tree_leaves(engine.whole_params())  # stage 3: gathered for the comparison
+        shapes = [p.shape for p in masters]
+        if stage == 3:
+            plan = [e for e, _ in stage3_plan(shapes, stacked, SP_SIZE, rank, ZERO3_THRESHOLD)]
+        else:
+            plan = shard_plan(shapes, SP_SIZE if stage else 1, rank)
         run = {"losses": losses, "grad_norms": norms, "ms": ms,
-               "counts": kernels.launch_counts(), "plain": kernels.plain_attention_on_cuda(),
-               "peak": torch.cuda.max_memory_allocated(), "bytes": engine.state_bytes(),
+               "counts": counts, "plain": kernels.plain_attention_on_cuda(),
+               "peak": peak, "bytes": engine.state_bytes(),
+               "plan_bytes": zero_plan_bytes(shapes, stacked, stage, rank),
                "leaves": len(masters), "sharded": sum(e.sharded for e in plan),
                "largest_part": max(e.size for e in plan)}
+        g = engine.last_gather
+        if g is not None:
+            run["gather"] = {"held": len(engine._partition.gathered),
+                             "peak_layers": g.peak_layers,
+                             "peak_layers_backward": g.peak_layers_backward,
+                             "gathers": g.gathers, "gather_ms": g.gather_s * 1e3}
         with torch.no_grad():
-            for name, want in ref.items():  # each host leaf back on the card in turn
+            for name in ZERO_REFS.get(leg, ()):  # each host leaf back on the card in turn
+                want = ref[name]
                 gaps = [(p - r.cuda()).abs().max().item() for p, r in zip(masters, want)]
                 run[f"bitwise {name}"] = all(g == 0 for g in gaps)
                 run[f"max_gap {name}"] = max(gaps)
@@ -4154,7 +4221,7 @@ def zero_steps(rank: int, ids: torch.Tensor) -> dict:
             run["all_gather_ms"] = (time.perf_counter() - t0) * 1e3
             del flat, half
         out[leg] = run
-        del engine, masters
+        del engine, masters, g  # the gather scope holds the masters' parts
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -4172,8 +4239,8 @@ def main_path_training_sp() -> tuple:
     within the bf16 tolerance; the ranks' counters, zeroed just before each
     mode's steps, must show the offset forms (ring) and the unmasked forms
     (Ulysses) ran and plain attention on the card never did. Then
-    ``training_zero`` in the same world (``zero_steps``; its counts are the
-    second of the two returned)."""
+    ``training_zero`` in the same world (``zero_steps``; the counts of its
+    stage-2 and stage-3 legs are the second and third returned)."""
     model = sp_model()
     cfg = model.config
     ids = torch.randint(0, cfg.vocab_size, (1, SP_SEQ),
@@ -4205,7 +4272,7 @@ def main_path_training_sp() -> tuple:
         plain = sum(sum(r["plain"].values()) for r in runs)
         print(f"training_sp {mode}: losses {runs[0]['losses']} (sp=1 {single['losses']}), "
               f"grad norms {runs[0]['grad_norms']} (sp=1 {single['grad_norms']}); "
-              f"{steady:.2f} ms/step (steps 2-{SP_STEPS}, the slower rank), "
+              f"{steady:.2f} ms/step (step 2, the slower rank), "
               f"{SP_SEQ // SP_SIZE / (steady / 1e3):.1f} tokens/s per rank, "
               f"{SP_SEQ / (steady / 1e3):.1f} tokens/s on the card; peak memory per rank "
               + ", ".join(f"{r['peak'] / 2**30:.2f} GiB" for r in runs)
@@ -4232,23 +4299,26 @@ def main_path_training_sp() -> tuple:
           f"{r0['allreduce_ms']:.2f} ms, one ring hop's k/v shift {r0['shift_ms']:.2f} ms "
           f"({3 * SP_LAYERS * (SP_SIZE - 1) + SP_LAYERS} shifts a ring step: k/v forward, "
           f"k/v and dk/dv backward, dk/dv home)")
-    return counts, training_zero(ranks)
+    return (counts, *training_zero(ranks))
 
 
-def training_zero(ranks) -> dict:
-    """``training_zero``: ZeRO stages 0, 1 and 2 over the two ranks of
-    training_sp's world (``zero_steps``), llama3-1b at full width, 4 of 16
-    layers, a global batch of 2 x 8,192 tokens, and the witness "0 parts"
-    (stage 0, its clipping norm summed in stage 2's order). Stage 1 must be
-    stage 0 bit for bit, and stage 2 the witness bit for bit (losses, grad
-    norms and masters, both ranks), stage 2's first loss stage 0's and its
-    first grad norm within ZERO_NORM_RTOL of stage 0's (before any update
-    the runs differ in the norm's order alone); each rank's
+def training_zero(ranks) -> tuple:
+    """``training_zero``: ZeRO stages 0-3 over the two ranks of training_sp's
+    world (``zero_steps``), llama3-1b at full width, 4 of 16 layers, a global
+    batch of 2 x 8,192 tokens, stage 3 with the layer prefetch, and the
+    witnesses "0 parts" and "0 parts3" (stage 0, its clipping norm summed in
+    stage 2's and stage 3's order). Stage 1 must be stage 0 bit for bit,
+    stage 2 "0 parts" bit for bit, and stage 3 and its prefetch leg "0
+    parts3" bit for bit (losses, grad norms and masters, both ranks, the
+    stage-3 masters gathered whole), stages 2 and 3's first loss stage 0's
+    and their first grad norm within ZERO_NORM_RTOL of stage 0's (before any
+    update the runs differ in the norm's order alone); each rank's
     ``state_bytes()``, read from the live tensors, must show the moments
-    split at stage 1 and the gradients too at stage 2; fused Adam launched
-    once a part a step on each rank (every leaf splits), the flash and
-    RMSNorm kernels in forward and backward, plain attention never. Returns
-    the counts of the stage-2 run, both ranks."""
+    split at stage 1, the gradients too at stage 2, and at stage 3 the plan's
+    bytes, below stage 2's; fused Adam launched once a part a step on each
+    rank (every leaf's moments split), the flash and RMSNorm kernels in
+    forward and backward, plain attention never. Returns the counts of the
+    stage-2 and the stage-3 runs, both ranks."""
     runs = {leg: [r["zero"][leg] for r in ranks] for leg in ZERO_LEGS}
     gb = 1e9
     for leg in ZERO_LEGS:
@@ -4258,10 +4328,17 @@ def training_zero(ranks) -> dict:
         against = "; ".join(
             f"masters against {k}: bitwise {[r[f'bitwise {k}'] for r in rs]}, max gap "
             f"{max(r[f'max_gap {k}'] for r in rs):.3e}"
-            for k in (0, "0 parts") if f"bitwise {k}" in rs[0])
-        print(f"training_zero {'stage ' + str(leg) if leg != '0 parts' else leg}: losses "
+            for k in ZERO_REFS.get(leg, ()))
+        g = rs[0].get("gather")
+        if g is not None:
+            against += (
+                f"; {g['held']} of {rs[0]['leaves']} masters held as parts; the last step's "
+                f"layer gathers {g['gathers']}, host ms waiting on them "
+                f"{[round(r['gather']['gather_ms'], 2) for r in rs]}, most layers' slices "
+                f"alive {g['peak_layers']} (in backward {g['peak_layers_backward']})")
+        print(f"training_zero {'stage ' + str(leg) if isinstance(leg, int) else leg}: losses "
               f"{rs[0]['losses']}, grad norms {rs[0]['grad_norms']}; {steady:.2f} ms/step "
-              f"(steps 2-{SP_STEPS}, the slower rank), {SP_SEQ / (steady / 1e3):.1f} tokens/s "
+              f"(step 2, the slower rank), {SP_SEQ / (steady / 1e3):.1f} tokens/s "
               f"on the card; per rank state_bytes masters {b['masters'] / gb:.3f} GB, "
               f"optimizer {b['optimizer'] / gb:.3f} GB, gradients {b['gradients'] / gb:.3f} "
               f"GB, total {b['total'] / gb:.3f} GB, gradients alive at the collective "
@@ -4282,9 +4359,18 @@ def training_zero(ranks) -> dict:
             for name in ZERO_KERNELS:
                 require(r["counts"][name] > 0, f"kernel {name} was not launched on "
                                                f"training_zero {leg}")
-        if leg in (1, 2):
+        if leg in (1, 2, 3, "3 prefetch"):
             require(rs[0]["sharded"] == rs[0]["leaves"],
                     f"training_zero stage {leg}: a leaf stayed replicated")
+        if ZERO_STAGE[leg] == 3:
+            for r in rs:
+                require({k: r["bytes"][k] for k in r["plan_bytes"]} == r["plan_bytes"],
+                        f"training_zero {leg}: state bytes {r['bytes']} are not the plan's "
+                        f"{r['plan_bytes']}")
+                most = 3 if leg == "3 prefetch" else 2
+                require(r["gather"]["peak_layers"] <= most,
+                        f"training_zero {leg}: {r['gather']['peak_layers']} layers' gathered "
+                        f"slices alive at once (at most {most})")
     b0, b1, b2 = (runs[s][0]["bytes"] for s in (0, 1, 2))
     half_opt, half_grad = b0["optimizer"] // 2, b0["gradients"] // 2
     require((b1["masters"], b1["optimizer"], b1["gradients"])
@@ -4293,25 +4379,33 @@ def training_zero(ranks) -> dict:
     require((b2["masters"], b2["optimizer"], b2["gradients"])
             == (b0["masters"], half_opt, half_grad),
             "training_zero: stage 2's state bytes do not show the gradients split")
-    for name, stage, base in (("stage 1", 1, 0), ("stage 2", 2, "0 parts")):
+    for leg in (3, "3 prefetch"):
+        b3 = runs[leg][0]["bytes"]
+        require(b3["total"] < b2["total"] and b3["masters"] < b2["masters"],
+                f"training_zero {leg}: state bytes {b3} not below stage 2's {b2}")
+    for name, stage, base in (("stage 1", 1, 0), ("stage 2", 2, "0 parts"),
+                              ("stage 3", 3, "0 parts3"),
+                              ("stage 3 prefetch", "3 prefetch", "0 parts3")):
         for r, want in zip(runs[stage], runs[base]):
             require(r[f"bitwise {base}"] and r["losses"] == want["losses"]
                     and r["grad_norms"] == want["grad_norms"],
                     f"training_zero: {name} is not {base} bit for bit (max gap "
                     f"{r[f'max_gap {base}']:.3e})")
     s0 = runs[0][0]
-    for r in runs[2]:
-        require(r["losses"][0] == s0["losses"][0], "training_zero: stage 2's first loss "
-                                                   "is not stage 0's")
-        require(abs(r["grad_norms"][0] / s0["grad_norms"][0] - 1) <= ZERO_NORM_RTOL,
-                f"training_zero: stage 2's first grad norm {r['grad_norms'][0]} is not "
-                f"stage 0's {s0['grad_norms'][0]} within {ZERO_NORM_RTOL}")
+    for stage in (2, 3, "3 prefetch"):
+        for r in runs[stage]:
+            require(r["losses"][0] == s0["losses"][0], f"training_zero: stage {stage}'s "
+                                                       f"first loss is not stage 0's")
+            require(abs(r["grad_norms"][0] / s0["grad_norms"][0] - 1) <= ZERO_NORM_RTOL,
+                    f"training_zero: stage {stage}'s first grad norm {r['grad_norms'][0]} is "
+                    f"not stage 0's {s0['grad_norms'][0]} within {ZERO_NORM_RTOL}")
     r2 = runs[2][0]
     print(f"training_zero gloo transport alone (rank 0, staged through the host): the "
           f"reduce-scatter of {r2['bytes']['masters'] / gb:.3f} GB of fp32 "
           f"{r2['reduce_scatter_ms']:.2f} ms, the all-gather of a rank's half "
           f"{r2['all_gather_ms']:.2f} ms")
-    return {k: sum(r["counts"][k] for r in runs[2]) for k in runs[2][0]["counts"]}
+    return tuple({k: sum(r["counts"][k] for r in runs[leg]) for k in runs[leg][0]["counts"]}
+                 for leg in (2, 3))
 
 
 def train_flops(cfg, tokens: int, pairs: float) -> float:
@@ -6500,6 +6594,9 @@ def main() -> int:
     adam_slice = check_fused_adam(gen, timer, n=2048 * 8192)
     o8 = check_8b_offload_shapes(timer)
     zero = check_zero_shapes(timer)
+    # training_zero's stage 3: fused Adam on a stacked layer part, each of 4
+    # layers' run of the MLP weight (4 x 2048 x 8192 / 2 fp32)
+    adam_zero3 = check_fused_adam(gen, timer, n=SP_LAYERS * 2048 * 8192 // SP_SIZE)
     # the quantized serving path runs the bf16 path's requests: its flash,
     # RMSNorm and (int4 engine, draft) dense decode shapes are the same
     rows = [
@@ -6589,6 +6686,9 @@ def main() -> int:
         # training_zero: a rank's row of 8,192 tokens; fused Adam on its
         # largest part
         *((name, "training_zero", r) for name, r in zero.items()),
+        # training_zero's stage 3: the same shapes; fused Adam on a layer part
+        *((name, "training_zero3", r if name != "fused_adam" else adam_zero3)
+          for name, r in zero.items()),
     ]
     # the norms' decode rows are printed beside the main paths' rows; the
     # kernels line keeps one row per main path
@@ -6664,7 +6764,8 @@ def main() -> int:
         lap(path)
     # training_zero runs in training_sp's world; both before training_mixtral,
     # whose blocks this process's allocator keeps cached beside the two ranks
-    counts["training_sp"], counts["training_zero"] = main_path_training_sp()
+    counts["training_sp"], counts["training_zero"], counts["training_zero3"] = \
+        main_path_training_sp()
     lap("training_sp and training_zero")
     counts["training_mixtral"] = main_path_training_mixtral()
     lap("training_mixtral")

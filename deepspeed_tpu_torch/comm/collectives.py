@@ -19,7 +19,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-_PINNED: Dict[Tuple[torch.dtype, int], torch.Tensor] = {}
+_PINNED: Dict[Tuple[torch.dtype, int, str], torch.Tensor] = {}
 
 
 def group_size(group) -> int:
@@ -35,11 +35,13 @@ def _staged(group, t: torch.Tensor) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def _pinned(shape, dtype: torch.dtype) -> torch.Tensor:
-    """A pinned host buffer of ``shape``, kept per (dtype, size): the engine
-    stages the same flat buffers every step."""
+def _pinned(shape, dtype: torch.dtype, slot: str = "") -> torch.Tensor:
+    """A pinned host buffer of ``shape``, kept per (dtype, size, ``slot``):
+    the engine stages the same flat buffers every step; an asynchronous
+    collective takes a slot of its own, which no blocking one touches while
+    it is in flight."""
     numel = math.prod(shape)
-    key = (dtype, numel)
+    key = (dtype, numel, slot)
     if key not in _PINNED:
         _PINNED[key] = torch.empty(numel, dtype=dtype, pin_memory=True)
     return _PINNED[key].view(shape)
@@ -108,6 +110,42 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     src, out, staged = _staged_io(group, src, (n * src.shape[0], *src.shape[1:]))
     dist.all_gather_into_tensor(out, src, group=group)
     return _landed(out, dim, x.device, staged)
+
+
+class PendingGather:
+    """An all-gather in flight (:func:`all_gather_async`): :meth:`wait`
+    returns what :func:`all_gather` of the same tensor along dim 0 returns."""
+
+    def __init__(self, work, out: torch.Tensor, device, staged: bool, src: torch.Tensor):
+        self._work, self._out, self._device, self._staged = work, out, device, staged
+        self._src = src  # the input stays alive until the collective has read it
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = self._src = None
+        return self._out.to(self._device) if self._staged else self._out
+
+
+def all_gather_async(x: torch.Tensor, group, slot: str = "async") -> PendingGather:
+    """:func:`all_gather` along dim 0 started with ``async_op``: the call
+    returns once the input is staged (a card's tensor is copied into a
+    pinned host buffer of its own ``slot`` first, where the group stages),
+    and the transfer runs on the backend's thread until :meth:`PendingGather.
+    wait`. One gather a slot may be in flight."""
+    n = group_size(group)
+    if n == 1:
+        return PendingGather(None, x, x.device, False, x)
+    src = x.detach().contiguous()
+    shape = (n * src.shape[0], *src.shape[1:])
+    staged = _staged(group, src)
+    if staged:
+        src = _pinned(src.shape, src.dtype, slot + ".in").copy_(src)
+        out = _pinned(shape, src.dtype, slot + ".out")
+    else:
+        out = torch.empty(shape, dtype=src.dtype, device=src.device)
+    work = dist.all_gather_into_tensor(out, src, group=group, async_op=True)
+    return PendingGather(work, out, x.device, staged, src)
 
 
 def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:

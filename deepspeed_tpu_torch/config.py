@@ -128,13 +128,26 @@ class ZeroConfig:
     package's does) and ``offload_double_buffer`` / ``sub_group_prefetch``
     (the layer stream is double buffered on a card and serial on the CPU,
     bitwise equal). The wire knobs are read (JAX ``config.py:163-196``):
-    stages 1 and 2 over ranks move fp32 only, so ``initialize`` refuses
-    another resolved codec there; the prefetch, hpZ and MiCS knobs stay raw
-    until stage 3 over ranks reads them."""
+    the stages over ranks move fp32 only, so ``initialize`` refuses another
+    resolved codec there. The stage-3 knobs (JAX ``config.py:154-161``):
+    ``stage3_param_persistence_threshold`` (a leaf of fewer elements stays
+    whole), ``stage3_layer_prefetch`` (alias ``zero3_prefetch``; true, false
+    or "auto", which resolves off as the JAX package's empty knob table does;
+    ignored with a log line below stage 3) and
+    ``stage3_gather_16bit_weights_on_model_save`` (read; ``save_16bit_model``
+    gathers at stage 3 whatever its value, as the JAX package's does).
+    ``zero_hpz_partition_size`` and ``mics_shard_size`` shard over an
+    ``fsdp`` axis, which the port's dp x sp topology has none of: logged and
+    ignored, as JAX's ``data_axes`` ignores them on a dp-only mesh."""
 
     stage: int = 0
     offload_optimizer: OffloadConfig = field(default_factory=OffloadConfig)
     offload_param: OffloadConfig = field(default_factory=OffloadConfig)
+    stage3_param_persistence_threshold: int = 10**5
+    stage3_layer_prefetch: Any = False  # bool | "auto"
+    stage3_gather_16bit_weights_on_model_save: bool = False
+    zero_hpz_partition_size: int = 1
+    mics_shard_size: int = -1
     zero_quantized_weights: bool = False
     zero_quantized_gradients: bool = False
     grad_wire: str = "auto"  # auto | fp32 | bf16 | int8 | int4
@@ -156,11 +169,18 @@ class ZeroConfig:
             return self.param_wire
         return "int8" if self.zero_quantized_weights else "fp32"
 
+    @property
+    def layer_prefetch(self) -> bool:
+        """``stage3_layer_prefetch`` resolved: "auto" is off."""
+        return self.stage3_layer_prefetch is True
+
     def __post_init__(self):
         for name in ("offload_optimizer", "offload_param"):
             v = getattr(self, name)
             if not isinstance(v, OffloadConfig):
                 setattr(self, name, _parse_dc(OffloadConfig, v))
+        if not isinstance(self.stage3_layer_prefetch, str):  # JSON 0/1
+            self.stage3_layer_prefetch = bool(self.stage3_layer_prefetch)
 
     def validate(self) -> None:
         """JAX ``ZeroConfig.validate`` (``config.py:199-236``)."""
@@ -178,6 +198,11 @@ class ZeroConfig:
         if (self.zero_quantized_weights or self.zero_quantized_gradients) and self.stage != 3:
             raise DeepSpeedConfigError(
                 "zero_quantized_weights/gradients (ZeRO++) require stage 3")
+        if not isinstance(self.stage3_layer_prefetch, bool) \
+                and self.stage3_layer_prefetch != AUTO:
+            raise DeepSpeedConfigError(
+                f"zero_optimization.stage3_layer_prefetch must be true, false or "
+                f"\"auto\", got {self.stage3_layer_prefetch!r}")
         for knob in ("grad_wire", "param_wire"):
             if getattr(self, knob) not in self.WIRE_CODECS:
                 raise DeepSpeedConfigError(
@@ -527,12 +552,22 @@ class DeepSpeedConfig:
         )
         self.fp16 = _parse_dc(FP16Config, d.get("fp16"))
         self.bf16 = _parse_dc(BF16Config, d.get("bf16"))
-        zo = d.get("zero_optimization") or {}
+        zo = dict(d.get("zero_optimization") or {})
         for knob in ("offload_double_buffer", "sub_group_prefetch"):
             if knob in zo:
                 log_dist(f"zero_optimization.{knob} is ignored: the offloaded layer "
                          f"stream is double buffered on a card and serial on the CPU")
+        if "zero3_prefetch" in zo:  # the alias (JAX config.py:1071)
+            zo.setdefault("stage3_layer_prefetch", zo.pop("zero3_prefetch"))
         self.zero_config = _parse_dc(ZeroConfig, zo)
+        zc = self.zero_config
+        if zc.stage3_layer_prefetch is not False and zc.stage != 3:
+            log_dist(f"zero_optimization.stage3_layer_prefetch: stage {zc.stage} has no "
+                     f"parameter gathers to prefetch, knob ignored")
+        for knob, off in (("zero_hpz_partition_size", 1), ("mics_shard_size", -1)):
+            if getattr(zc, knob) not in (off, 0, None):
+                log_dist(f"zero_optimization.{knob}: shards over an fsdp axis; this dp x sp "
+                         f"topology has none (as on a dp-only JAX mesh), knob ignored")
         self.activation_checkpointing = _parse_dc(
             ActivationCheckpointingConfig, d.get("activation_checkpointing"))
         self.tpu_kernels = _parse_dc(TpuKernelsConfig, d.get("tpu_kernels"))

@@ -42,6 +42,7 @@ from ..ops.cuda.quantized_matmul import packed_proj
 from ..ops.normalization import layernorm, rmsnorm
 from ..ops.quantizer import cast_floating
 from ..runtime.activation_checkpointing import policy_by_name
+from ..runtime.zero.prefetch import gather_scope
 from .sharding import sp_topology
 
 Params = Dict[str, Any]
@@ -306,12 +307,19 @@ def layer_slice(layers: Params, i: int, dtype: Optional[torch.dtype] = None) -> 
     """Layer ``i``'s parameters cast to ``dtype`` (None keeps each leaf's):
     a stacked leaf that needs its gradient goes through :class:`_LayerSlice`
     (its gradient lands in the stacked ``.grad`` in place); any other is
-    ``v[i]`` cast (a PackedWeight leaf's layer slice as it is). Called
-    inside a checkpointed layer, the cast slice is
+    ``v[i]`` cast (a PackedWeight leaf's layer slice as it is). Under a ZeRO
+    stage-3 gather scope (``runtime/zero/prefetch.py``) a leaf held as this
+    rank's part is layer ``i`` gathered from every rank's part, all such
+    leaves in one call. Called inside a checkpointed layer, the cast slice is
     recomputed in backward rather than kept."""
+    scope = gather_scope()
+    gathered = scope.layer(i, dtype) if scope is not None and scope.layer_idx else {}
+
     def one(v):
         if isinstance(v, dict):
             return {k: one(x) for k, x in v.items()}
+        if id(v) in gathered:
+            return gathered[id(v)]
         if isinstance(v, torch.Tensor) and v.requires_grad and v.is_leaf \
                 and torch.is_grad_enabled():
             return _LayerSlice.apply(v, i, dtype if v.is_floating_point() else None)
@@ -464,6 +472,20 @@ def embed_tokens(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor
     return x
 
 
+def whole_params(params: Params, paths) -> Params:
+    """``params`` with the leaves under ``paths`` (key tuples) gathered
+    whole under a ZeRO stage-3 gather scope, for their use (the token table,
+    the head, positions, the norms outside the layers); ``params`` itself
+    otherwise."""
+    scope = gather_scope()
+    return params if scope is None else scope.whole(params, paths)
+
+
+def head_path(cfg: TransformerConfig) -> Tuple[str, ...]:
+    """Where the head's weight lives: the token table when tied."""
+    return ("embed", "tok") if cfg.tie_embeddings else ("lm_head",)
+
+
 def lm_head_weight(cfg: TransformerConfig, params: Params) -> torch.Tensor:
     """[d, V] head: the token table's transpose when tied, else
     ``lm_head``."""
@@ -548,7 +570,8 @@ def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
         positions = default_positions(B, S, input_ids.device)
         if topo is not None:
             positions = positions + topo.coord("sp") * S
-    x = embed_tokens(cfg, params, input_ids, positions, cast)
+    x = embed_tokens(cfg, whole_params(params, [("embed",), ("embed_norm",)]), input_ids,
+                     positions, cast)
     rope = (rope_tables(positions, cfg.hd, cfg.rope_theta)
             if cfg.pos_embedding == "rope" else None)
     slopes = model_slopes(cfg, x.device)
@@ -560,6 +583,7 @@ def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
         segment_ids = segment_ids.to(torch.int32).contiguous()
     remat = policy_by_name(remat_policy) if torch.is_grad_enabled() else None
     aux: List[torch.Tensor] = []
+    scope = gather_scope()
     for i in range(cfg.num_layers):
         if remat:
             x = checkpoint(_stacked_layer, cfg, params["layers"], i, dtype, x, rope, slopes,
@@ -567,8 +591,11 @@ def apply(cfg: TransformerConfig, params: Params, input_ids: torch.Tensor, *,
         else:
             x = _stacked_layer(cfg, params["layers"], i, dtype, x, rope, slopes, bias,
                                segment_ids, aux, train)
-    x = _norm(cfg, cast(params["final_norm"]), x)
-    out = x if return_hidden else lm_head_logits(cfg, params, x)
+        if scope is not None:  # a stage-3 layer's gathered slices released
+            x = scope.layer_done(i, x, saved=not remat)
+    x = _norm(cfg, cast(whole_params(params, [("final_norm",)])["final_norm"]), x)
+    out = x if return_hidden else lm_head_logits(
+        cfg, whole_params(params, [head_path(cfg)]), x)
     if return_aux:
         total = torch.stack(aux).sum() if aux else torch.zeros((), device=x.device)
         return out, total
@@ -609,8 +636,8 @@ def loss_fn(cfg: TransformerConfig, params: Params, batch: Dict[str, torch.Tenso
     # one device never shards the vocab: chunk once it spans more than one
     if fused_on and cfg.vocab_size > chunk:
         x, aux = apply(cfg, params, batch["input_ids"], return_hidden=True, **kw)
-        ce, denom = chunked_masked_ce(x, lm_head_weight(cfg, params), batch["labels"],
-                                      chunk, num_tokens)
+        head = lm_head_weight(cfg, whole_params(params, [head_path(cfg)]))
+        ce, denom = chunked_masked_ce(x, head, batch["labels"], chunk, num_tokens)
     else:
         logits, aux = apply(cfg, params, batch["input_ids"], **kw)
         ce, denom = masked_ce(logits, batch["labels"], num_tokens)

@@ -62,8 +62,15 @@ those parts (one fused Adam launch a part on a card), then one all-gather
 gives every rank the whole masters. Stage 1 sums the gradients over the
 world as stage 0 does, so its step is stage 0's bit for bit; stage 2
 reduce-scatters them, each rank keeping its parts' sums, and takes the
-norm from the parts' sums of squares (one all-reduce). A checkpoint holds
-whole leaves, gathered before rank 0 writes them.
+norm from the parts' sums of squares (one all-reduce). Stage 3 (JAX
+``engine.py:521-572``) shards the masters too: each rank holds its part of
+every leaf of ``stage3_param_persistence_threshold`` elements or more (a
+stacked layer leaf cut within each layer), gathers each layer's weights on
+use and releases them after (``runtime/zero/prefetch.py``, with the optional
+one-layer-ahead prefetch), reduce-scatters the layer gradients in backward
+and the embedding's and head's after it, all-reduces the persistent leaves'
+gradients, and updates its parts with nothing to gather after. A checkpoint
+holds whole leaves, gathered before rank 0 writes them.
 """
 
 from __future__ import annotations
@@ -96,6 +103,7 @@ from .lr_schedules import build_schedule
 from .optimizers import build_optimizer
 from .swap_tensor import TensorSwapper, host_empty
 from .zero import ShardedLeaf, ZeroPartition, storage_bytes
+from .zero.prefetch import GatherScope, use_gather
 
 
 def _enabled(section: Any) -> bool:
@@ -116,8 +124,8 @@ def planned_world(cfg: DeepSpeedConfig) -> int:
 def unported_features(cfg: DeepSpeedConfig) -> List[str]:
     """The features a config turns on that a later slice of the port
     brings, each with its ROADMAP queue A item. ZeRO stages 1 and 2 run over
-    dp ranks (item 7.2a); stage 3, offload, a stage beside sequence
-    parallelism and the quantized wires over ranks are item 7.2b."""
+    dp ranks (item 7.2a), stage 3 too (item 7.2b); offload, a stage beside
+    sequence parallelism and the quantized wires over ranks are item 7.2c."""
     raw = cfg.raw
     zc = cfg.zero_config
     pipe = raw.get("pipeline") or {}
@@ -126,22 +134,23 @@ def unported_features(cfg: DeepSpeedConfig) -> List[str]:
     comp = raw.get("compression_training") or {}
     world = planned_world(cfg)
     sp = cfg.sequence_parallel.sp_size
-    wire = zc.resolved_grad_wire()  # param_wire is fp32 below stage 3 (config.py)
+    wire = zc.resolved_grad_wire()
+    pwire = zc.resolved_param_wire()  # fp32 below stage 3 (config.py)
     checks = [
         (cfg.fp16.enabled, "fp16 and its loss scaler (item 6)"),
-        (world > 1 and zc.stage == 3,
-         f"ZeRO stage 3 (item 7) over {world} ranks: the parameter gather on use and "
-         f"the layer prefetch are item 7.2b; stages 1 and 2 run over dp ranks"),
-        (world > 1 and 0 < zc.stage < 3 and sp > 1,
+        (world > 1 and zc.stage > 0 and sp > 1,
          f"ZeRO stage {zc.stage} (item 7) with sequence parallelism (sp_size {sp}): "
-         f"stages over ranks with sp > 1 are item 7.2b; stages 1 and 2 run over dp "
+         f"stages over ranks with sp > 1 are item 7.2c; stages 1-3 run over dp "
          f"ranks at sp_size 1"),
-        (world > 1 and 0 < zc.stage < 3 and wire != "fp32",
-         f"ZeRO stage {zc.stage} over {world} ranks with grad_wire {wire} (item 7.2b, "
-         f"the comm/wires.py codecs): stages 1 and 2 move fp32"),
+        (world > 1 and zc.stage > 0 and wire != "fp32",
+         f"ZeRO stage {zc.stage} over {world} ranks with grad_wire {wire} (item 7.2c, "
+         f"the comm/wires.py codecs): the stages over ranks move fp32"),
+        (world > 1 and zc.stage == 3 and pwire != "fp32",
+         f"ZeRO stage 3 over {world} ranks with param_wire {pwire} (item 7.2c, the "
+         f"comm/wires.py codecs): stage 3 gathers the compute dtype"),
         (world > 1 and (zc.offload_optimizer.enabled or zc.offload_param.enabled),
          f"optimizer/parameter offload, NVMe included (item 7) over {world} ranks: "
-         f"offload runs on one rank; over ranks it is item 7.2b"),
+         f"offload runs on one rank; over ranks it is item 7.2c"),
         (int(pipe.get("stages", pipe.get("num_stages", 1)) or 1) > 1,
          "pipeline parallelism (item 7)"),
         (int(tp.get("tp_size", tp.get("autotp_size", 1)) or 1) > 1,
@@ -203,7 +212,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     later += unported_features(cfg)
     if later:
         raise NotImplementedError(
-            "deepspeed_tpu_torch trains with bf16/fp32, ZeRO stages 1 and 2 over dp "
+            "deepspeed_tpu_torch trains with bf16/fp32, ZeRO stages 1-3 over dp "
             "ranks, every stage and offload on one rank; not yet ported (ROADMAP "
             "queue A): " + "; ".join(later)
         )
@@ -217,7 +226,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         raise NotImplementedError(
             "deepspeed_tpu_torch trains an MoE model on one rank: capacity and "
             "slots count the whole batch's tokens, which dp or sp > 1 split "
-            "(ROADMAP item 7.2b)")
+            "(ROADMAP item 7.2c)")
     if cfg.moe.overlap_a2a.enabled:
         # JAX engine.py:356-362: at ep = 1 there is no exchange to overlap
         log_dist("moe.overlap_a2a: "
@@ -295,6 +304,7 @@ class TorchEngine:
         self._setup_state(params)
         self.global_steps = 0
         self.micro_steps = 0
+        self.last_gather: Optional[GatherScope] = None  # the last stage-3 step's scope
         self._grad_bytes = (0, 0)  # state_bytes: the last update's gradients, transient
         self.skipped_steps = 0  # no fp16 overflow skips on the ported path
         self._checkpoint_guard = None
@@ -305,7 +315,7 @@ class TorchEngine:
         self._metrics: Dict[str, Any] = {}
         self._timings: Dict[str, float] = {}
         log_dist(
-            f"TorchEngine: {tree_size(self.params) / 1e6:.1f}M params, "
+            f"TorchEngine: {self._num_params / 1e6:.1f}M params, "
             f"compute {self.compute_dtype}, device {device}, batch "
             f"{config.train_batch_size} = {config.train_micro_batch_size_per_gpu}"
             f" x {config.gradient_accumulation_steps} x dp {self.topology.dp_size}, "
@@ -316,7 +326,9 @@ class TorchEngine:
         """The masters and the optimizer state, placed by the ZeRO section
         (JAX ``engine.py:521``, ``:639-720``). Over dp ranks, stages 1 and 2
         keep on each rank the optimizer state of its parts of the masters
-        only (``runtime/zero/partition.py``); the masters stay whole. At one
+        only (``runtime/zero/partition.py``); the masters stay whole. Stage 3
+        keeps of each leaf over the persistence threshold only this rank's
+        part, the master cut from the broadcast whole one. At one
         rank a stage partitions nothing, so stages 1-3 train as stage 0, bit
         for bit. ``offload_optimizer``:
         ``cpu`` keeps the state in host memory (page-locked on a card) and
@@ -330,12 +342,23 @@ class TorchEngine:
         off_opt, off_par = zc.offload_optimizer, zc.offload_param
         on_cuda = self.device.type == "cuda"
         self._partition: Optional[ZeroPartition] = None
+        self._num_params = tree_size(params)
+        # each leaf's membership of the stacked layers group (tree_leaves order)
+        self._stacked = [n.startswith("['layers']") for n, _ in tree_items(params)]
         if zc.stage > 0 and self.topology.dp_size > 1:
-            self._partition = ZeroPartition([t.shape for t in tree_leaves(params)],
-                                            self.topology.group("dp"))
+            stage3 = zc.stage == 3
+            self._partition = ZeroPartition(
+                [t.shape for t in tree_leaves(params)], self.topology.group("dp"),
+                stacked=self._stacked if stage3 else None,
+                threshold=zc.stage3_param_persistence_threshold)
             part = self._partition
             log_dist(f"ZeRO stage {zc.stage} over dp {part.dp}: {len(part.sharded)} leaves "
-                     f"sharded, {len(part.replicated)} replicated")
+                     f"sharded, {len(part.replicated)} replicated"
+                     + (f", {len(part.gathered)} masters held as parts (threshold "
+                        f"{zc.stage3_param_persistence_threshold})" if stage3 else ""))
+            if stage3:  # the whole masters go: each rank keeps its parts
+                cut = iter(part.cut(tree_leaves(params)))
+                params = tree_map(lambda _: next(cut), params)
         elif zc.stage > 0:
             log_dist(f"ZeRO stage {zc.stage} on one rank: nothing to partition, the step "
                      f"is stage 0's")
@@ -411,16 +434,19 @@ class TorchEngine:
 
     def state_bytes(self) -> Dict[str, int]:
         """This rank's device bytes of the training state, each read from the
-        live tensors: the fp32 ``masters``, the optimizer state
+        live tensors: the fp32 ``masters`` (at stage 3 over ranks this rank's
+        parts, and the persistent leaves whole), the optimizer state
         (``optimizer``; under ZeRO over dp ranks this rank's parts), the
-        ``gradients`` the last update read (whole, or at stage 2 over ranks
-        this rank's parts of the summed gradients; 0 before the first step)
-        and ``total``, their sum. Beside them ``gradients_transient``: the
-        gradient bytes alive at once at the last step's gradient collective,
-        the whole gradients that backward left, the collective's buffer and
-        what it returned (at stage 2 as at stage 0: the whole gradients
-        stand until the reduce-scatter). Offloaded state counts in
-        :meth:`host_state_bytes` instead."""
+        ``gradients`` the last update read (whole, or at stages 2 and 3 over
+        ranks this rank's parts of the summed gradients; 0 before the first
+        step) and ``total``, their sum. Beside them ``gradients_transient``:
+        the gradient bytes alive at once at the last step's gradient
+        collective, the whole gradients that backward left, the collective's
+        buffer and what it returned (at stage 2 as at stage 0: the whole
+        gradients stand until the reduce-scatter; at stage 3 the most at any
+        of its collectives: the parts' gradients so far, one layer's whole
+        gradient or the embedding's and head's, and the call's buffers).
+        Offloaded state counts in :meth:`host_state_bytes` instead."""
         masters = 0 if self._param_offload else sum(_nbytes(t) for t in tree_leaves(self.params))
         resident = self._bucketed is None and self._swapper is None
         optimizer = sum(_nbytes(t) for t in tree_leaves(self.opt_state)) if resident else 0
@@ -430,8 +456,22 @@ class TorchEngine:
 
     @property
     def _stage2(self) -> bool:
-        """Gradients sharded over dp ranks (ZeRO stage 2)."""
-        return self._partition is not None and self.config.zero_config.stage >= 2
+        """Gradients reduce-scattered after backward (ZeRO stage 2 over dp ranks)."""
+        return self._partition is not None and self.config.zero_config.stage == 2
+
+    @property
+    def _stage3(self) -> bool:
+        """Masters sharded and gathered on use (ZeRO stage 3 over dp ranks)."""
+        return self._partition is not None and self.config.zero_config.stage == 3
+
+    def _gather_scope(self, params) -> Optional[GatherScope]:
+        """A new stage-3 gather scope over the masters ``params`` (None below
+        stage 3); the last one stays in ``last_gather`` with its counters."""
+        if not self._stage3:
+            return None
+        self.last_gather = GatherScope(self._partition, tree_leaves(params), self._stacked,
+                                       prefetch=self.config.zero_config.layer_prefetch)
+        return self.last_gather
 
     def _step_params(self, grad: bool):
         """The masters forward and backward read: the device masters, or
@@ -468,10 +508,12 @@ class TorchEngine:
             self.opt_state = None
 
     def _update_parts(self, params, grads: List[torch.Tensor], clip) -> None:
-        """ZeRO stages 1 and 2 over dp ranks: the optimizer on this rank's
-        parts of the masters (from the whole summed gradients at stage 1,
-        from this rank's parts of them at stage 2), then every rank's parts
-        all-gathered into the whole masters of every rank."""
+        """ZeRO over dp ranks: the optimizer on this rank's parts of the
+        masters (from the whole summed gradients at stage 1, from this rank's
+        parts of them at stage 2; at stage 3 the held parts from their
+        parts, the persistent leaves as at stage 1), then every rank's parts
+        of the whole masters all-gathered into them (none at stage 3 but the
+        persistent ones)."""
         part = self._partition
         leaves = tree_leaves(params)
         self.optimizer.step_leaves(
@@ -492,10 +534,12 @@ class TorchEngine:
             self.opt_state = None
 
     # ------------------------------------------------------------- helpers
-    def _kernel_scope(self) -> ExitStack:
-        """This engine's kernel selection, scoped to one step."""
+    def _kernel_scope(self, gather: Optional[GatherScope] = None) -> ExitStack:
+        """This engine's kernel selection, scoped to one step, with the
+        stage-3 ``gather`` scope entered when given."""
         tk = self.tpu_kernels
         stack = ExitStack()
+        stack.enter_context(use_gather(gather))
         stack.enter_context(attention_impl(
             self._sparse_impl if self._sparse_impl is not None
             else ("flash" if tk.flash_attention else "plain")))
@@ -604,14 +648,19 @@ class TorchEngine:
             self._swapper.prefetch("opt_state", device=self.device)
         params = self._step_params(True)
         loss_sum = m_sum = None
-        with self._kernel_scope():
+        gather = self._gather_scope(params)
+        with self._kernel_scope(gather):
             for i in range(accum):
                 mb = {k: v[i] for k, v in prepared.items()}
                 loss, m = self.model.loss(
                     params, mb, dtype=self.compute_dtype, train=True,
                     remat_policy=self.remat_policy,
                     num_tokens=None if num_tokens is None else num_tokens[i])
+                if gather is not None:  # its prefetch runs the layers backwards
+                    gather.backward = True
                 loss.backward()
+                if gather is not None:
+                    gather.backward = False
                 loss = loss.detach()
                 m = {k: v.detach() for k, v in m.items()}
                 loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -623,9 +672,13 @@ class TorchEngine:
         if breakdown:
             self._sync()
             t_fb = time.perf_counter()
-        grads = tree_map(lambda p: p.grad, params)
-        leaves = tree_leaves(grads)
-        transient = storage_bytes(leaves)  # the whole gradients backward left
+        if gather is not None:  # the layers' parts came in backward; the rest now
+            leaves, grads = gather.reduce_grads(), None
+            transient = gather.transient
+        else:
+            grads = tree_map(lambda p: p.grad, params)
+            leaves = tree_leaves(grads)
+            transient = storage_bytes(leaves)  # the whole gradients backward left
         if self._world is not None:  # the ranks' shares of the batch's loss, gradient
             all_reduce(loss_sum, self._world)
             if shares:
@@ -638,7 +691,7 @@ class TorchEngine:
                 for p in tree_leaves(params):
                     p.grad = None
                 grads = None
-            else:
+            elif gather is None:
                 transient += self._flat_over_world(leaves, lambda f: all_reduce(f, self._world))
         self._grad_bytes = (storage_bytes(leaves), transient)
         if accum > 1:
@@ -646,6 +699,9 @@ class TorchEngine:
                 g.mul_(1.0 / accum)
         if self._stage2:
             gnorm = self._partition.square_sums(leaves).sum().sqrt()
+        elif self._stage3 and self._partition.gathered:
+            gnorm = self._partition.square_sums(
+                leaves, sharded=self._partition.gathered).sum().sqrt()
         else:
             gnorm = global_norm(leaves)
         clip = None
@@ -715,8 +771,9 @@ class TorchEngine:
 
     def _loss_no_grad(self, batch, train: bool) -> torch.Tensor:
         full = self._lm_batch(batch)
-        with torch.no_grad(), self._kernel_scope():
-            loss, _ = self.model.loss(self._step_params(False), self._shard(full, 0),
+        params = self._step_params(False)
+        with torch.no_grad(), self._kernel_scope(self._gather_scope(params)):
+            loss, _ = self.model.loss(params, self._shard(full, 0),
                                       dtype=self.compute_dtype, train=train,
                                       num_tokens=self._num_tokens(full["labels"], (0, 1)))
         if self._world is not None:
@@ -813,9 +870,10 @@ class TorchEngine:
         counts (``global_steps``), ``loss_scale`` the static state of a
         bf16/fp32 run (JAX ``precision.py:init_loss_scale`` with fp16 off:
         scale 1, no good steps, the configured hysteresis). Under ZeRO over
-        dp ranks a sharded state leaf is a :class:`ShardedLeaf` (the whole
-        leaf's shape; a copy into it keeps this rank's part, and its
-        ``whole()`` gathers it, every rank together)."""
+        dp ranks a sharded state leaf, and at stage 3 a master held as its
+        part, is a :class:`ShardedLeaf` (the whole leaf's shape; a copy into
+        it keeps this rank's part, and its ``whole()`` gathers it, every rank
+        together)."""
         if self._swapper is not None and self.opt_state is None:
             raise RuntimeError("the NVMe-offloaded optimizer state is on disk: "
                                "save_checkpoint / load_checkpoint swap it in first")
@@ -825,8 +883,9 @@ class TorchEngine:
                else self.optimizer.state_items(self.opt_state, self.global_steps))
         if self._partition is not None:
             opt = self._sharded_state(opt)
+        held = self._held_masters()
         return {
-            "params": tree_items(self.params, sort_keys=True),
+            "params": [(n, held.get(id(t), t)) for n, t in tree_items(self.params, True)],
             "opt_state": opt,
             "loss_scale": [
                 (".scale", np.asarray(1.0, np.float32)),
@@ -937,6 +996,31 @@ class TorchEngine:
         finally:
             self._swap_out_opt()
 
+    def _held_masters(self) -> Dict[int, ShardedLeaf]:
+        """Stage 3 over ranks: each master held as this rank's part, by the
+        part's id, as a :class:`ShardedLeaf` (empty below stage 3)."""
+        if not self._stage3:
+            return {}
+        part, leaves = self._partition, tree_leaves(self.params)
+        return {id(leaves[i]): ShardedLeaf(leaves[i], part.plan[i], part.group)
+                for i in part.gathered}
+
+    def whole_params(self, dtype: Optional[torch.dtype] = None):
+        """The whole fp32 masters as a tree: at stage 3 over ranks each held
+        part gathered a leaf at a time (every rank calls), each leaf cast to
+        ``dtype`` right after its gather when given; else the masters
+        themselves."""
+        held = self._held_masters()
+        if not held:
+            return self.params
+
+        def whole(t):
+            w = held[id(t)].whole() if id(t) in held else t
+            return w if dtype is None else w.to(dtype)
+
+        it = iter([whole(t) for t in tree_leaves(self.params)])
+        return tree_map(lambda _: next(it), self.params)
+
     def save_16bit_model(self, save_dir, save_filename: str = "model.safetensors") -> str:
         """Parity: DeepSpeedEngine.save_16bit_model (JAX line 2870): the
         masters in bf16 (round to nearest even, on the device) in one
@@ -945,7 +1029,11 @@ class TorchEngine:
         otherwise. The family is the one the config's name starts with, so
         the ``llama3-*`` presets export under the HF Llama names, where the
         JAX package, which takes the name up to its first "-", writes keystr
-        names for them. Only rank 0 writes. Returns the file's path."""
+        names for them. At stage 3 over ranks each held leaf is gathered and
+        cast to bf16 in turn (every rank calls; the export only moves
+        elements, so the file is stage 0's byte for byte), whatever
+        ``stage3_gather_16bit_weights_on_model_save`` says, as the JAX
+        package's. Only rank 0 writes. Returns the file's path."""
         import os
 
         from ..integrations.hf import HF_FAMILIES, export_hf_state_dict, write_safetensors
@@ -954,11 +1042,12 @@ class TorchEngine:
         fam = next((f for f in HF_FAMILIES if name.startswith(f)), name.split("-")[0])
         self._quiesce()
         with torch.no_grad():
+            params = self.whole_params(torch.bfloat16)  # stage 3: one leaf at a time
             if fam in HF_FAMILIES:
-                flat = export_hf_state_dict(self.params, self.model.config, fam)
+                flat = export_hf_state_dict(params, self.model.config, fam)
                 log_dist(f"save_16bit_model: HF state_dict names ({fam})")
             else:
-                flat = dict(tree_items(self.params, sort_keys=True))
+                flat = dict(tree_items(params, sort_keys=True))
                 log_dist(f"save_16bit_model: family {fam!r} has no HF exporter; writing "
                          "internal keystr names (same-framework reload only)")
             flat = {k: v.detach().to(torch.bfloat16) if v.is_floating_point() else v.detach()

@@ -278,15 +278,19 @@ def test_partition_offsets_are_aligned():
 
 # ---------------------------------------------------------- refusals
 @pytest.mark.parametrize("zero,extra,match", [
-    ({"stage": 3}, {}, "ZeRO stage 3 \\(item 7\\) over 2 ranks.*item 7.2b"),
+    ({"stage": 3, "param_wire": "int8"}, {}, "param_wire int8 \\(item 7.2c"),
     ({"stage": 2, "offload_optimizer": {"device": "cpu"}}, {},
-     "offload, NVMe included \\(item 7\\) over 2 ranks.*item 7.2b"),
+     "offload, NVMe included \\(item 7\\) over 2 ranks.*item 7.2c"),
     ({"stage": 1, "offload_optimizer": {"device": "nvme", "nvme_path": "/nonexistent"}}, {},
      "offload, NVMe included \\(item 7\\) over 2 ranks"),
     ({"stage": 1}, {"sequence_parallel": {"sp_size": 2, "mode": "ring"}},
-     "ZeRO stage 1 \\(item 7\\) with sequence parallelism.*item 7.2b"),
-    ({"stage": 2, "grad_wire": "int8"}, {}, "grad_wire int8 \\(item 7.2b"),
-    ({"stage": 1, "grad_wire": "bf16"}, {}, "grad_wire bf16 \\(item 7.2b"),
+     "ZeRO stage 1 \\(item 7\\) with sequence parallelism.*item 7.2c"),
+    ({"stage": 2, "grad_wire": "int8"}, {}, "grad_wire int8 \\(item 7.2c"),
+    ({"stage": 1, "grad_wire": "bf16"}, {}, "grad_wire bf16 \\(item 7.2c"),
+    ({"stage": 3}, {"sequence_parallel": {"sp_size": 2, "mode": "ulysses"}},
+     "ZeRO stage 3 \\(item 7\\) with sequence parallelism.*item 7.2c"),
+    ({"stage": 3, "offload_param": {"device": "cpu"}}, {},
+     "offload, NVMe included \\(item 7\\) over 2 ranks.*item 7.2c"),
 ])
 def test_still_refused_over_ranks(monkeypatch, zero, extra, match):
     monkeypatch.setenv("WORLD_SIZE", "2")
@@ -332,7 +336,7 @@ def test_collectives_over_the_world(world):
 def test_moe_over_ranks_refused(world):
     for r in world["ranks"]:
         assert r["moe"] is not None and "MoE model on one rank" in r["moe"] \
-            and "item 7.2b" in r["moe"]
+            and "item 7.2c" in r["moe"]
 
 
 # --------------------------------------------------------- checkpoints

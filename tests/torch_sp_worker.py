@@ -1,10 +1,11 @@
 """Rank functions of the sequence-parallel tests (tests/test_torch_sequence_parallel.py,
 tests/test_torch_ring_flash.py), of the checkpointing test over ranks
 (tests/test_torch_checkpointing.py) and of ZeRO over dp ranks
-(tests/test_torch_zero_dp.py), run by
+(tests/test_torch_zero_dp.py, tests/test_torch_zero3.py), run by
 ``deepspeed_tpu_torch.launcher.launch_local`` in spawned processes: this module
 imports only torch and the port, so a rank starts without jax."""
 
+import functools
 import weakref
 
 import numpy as np
@@ -19,8 +20,9 @@ from deepspeed_tpu_torch.models.sharding import use_topology
 from deepspeed_tpu_torch.ops.attention import attention, attention_impl
 from deepspeed_tpu_torch.parallel.sequence import ring_attention, ulysses_attention
 from deepspeed_tpu_torch.runtime import engine as engine_module
-from deepspeed_tpu_torch.runtime.zero import ShardedLeaf, shard_plan
-from deepspeed_tpu_torch.utils.tree import tree_map
+from deepspeed_tpu_torch.runtime.zero import ShardedLeaf, shard_plan, stage3_plan
+from deepspeed_tpu_torch.utils.tree import tree_items, tree_map
+from deepspeed_tpu_torch.zero import GatheredParameters
 
 
 def train_rank(rank, runs):
@@ -81,9 +83,10 @@ def checkpoint_rank(rank, run, directory, npz):
 
 
 def _masters(eng):
-    """The masters as numpy copies (``params_to_numpy`` views CPU tensors,
-    which the next step updates in place)."""
-    return params_to_numpy(tree_map(lambda t: t.detach().clone(), eng.params))
+    """The whole masters as numpy copies (``params_to_numpy`` views CPU
+    tensors, which the next step updates in place; at stage 3 the held parts
+    are gathered: every rank calls)."""
+    return params_to_numpy(tree_map(lambda t: t.detach().clone(), eng.whole_params()))
 
 
 def _numpy_state(eng):
@@ -114,17 +117,25 @@ def _counting_gathers(fn):
     return len(alive), most[0]
 
 
-def parts_norm(leaves, dp=2):
+def parts_norm(leaves, dp=2, stacked=None, threshold=0):
     """The global norm of the whole gradients ``leaves`` summed as stage 2
     over ``dp`` ranks sums it (``ZeroPartition.square_sums``): each sharded
     leaf's parts' squares added in rank order, a replicated leaf's whole,
-    then the [1, leaves] sums and the root."""
-    plans = [shard_plan([t.shape for t in leaves], dp, r) for r in range(dp)]
+    then the [1, leaves] sums and the root. With ``stacked`` (each leaf's
+    membership of the layers group), as stage 3 at ``threshold`` sums it: the
+    leaves held as parts split, each part contiguous as the engine holds it,
+    the persistent ones whole."""
+    shapes = [t.shape for t in leaves]
+    if stacked is None:
+        plans = [[(e, e.sharded) for e in shard_plan(shapes, dp, r)] for r in range(dp)]
+    else:
+        plans = [stage3_plan(shapes, stacked, dp, r, threshold) for r in range(dp)]
     sq = []
     for i, t in enumerate(leaves):
-        s = (plans[0][i].part(t) if plans[0][i].sharded else t).float().square().sum()
-        for plan in plans[1:] if plans[0][i].sharded else ():
-            s = s + plan[i].part(t).float().square().sum()
+        split = plans[0][i][1]
+        s = (plans[0][i][0].part(t).contiguous() if split else t).float().square().sum()
+        for plan in plans[1:] if split else ():
+            s = s + plan[i][0].part(t).contiguous().float().square().sum()
         sq.append(s)
     return torch.stack([torch.stack(sq)]).sum().sqrt()
 
@@ -143,41 +154,7 @@ def zero_rank(rank, runs, moe_config):
     refusal of an MoE model over the world (``moe_config``), and
     ``collectives``: ``comm.reduce_scatter`` and ``all_gather`` along dim 1
     of a [4, 6] tensor, and the reduce-scatter's refusal of 3 elements."""
-    out = {}
-    for run in runs:
-        model = TransformerModel(TransformerConfig(**run["model"]))
-
-        def engine(**kw):
-            return deepspeed_tpu_torch.initialize(model=model, config=run["config"],
-                                                  device="cpu", **kw)[0]
-
-        eng = engine(model_parameters=params_from_numpy(model.config, run["tree"]))
-        if run.get("load"):
-            eng.load_checkpoint(run["load"])
-        res = {"losses": [], "grad_norms": []}
-        norm = engine_module.global_norm
-        if run.get("parts_norm"):
-            engine_module.global_norm = parts_norm
-        try:
-            for batch in run["batches"]:
-                res["losses"].append(eng.train_batch(batch=batch).item())
-                res["grad_norms"].append(eng.get_global_grad_norm())
-        finally:
-            engine_module.global_norm = norm
-        res["state_bytes"] = eng.state_bytes()
-        res["state"] = _numpy_state(eng)
-        res["params"] = _masters(eng)
-        if run.get("save"):
-            res["save_gathers"] = _counting_gathers(lambda: eng.save_checkpoint(run["save"]))
-        res["after"] = [eng.train_batch(batch=b).item() for b in run.get("after", [])]
-        res["final"] = _masters(eng)
-        if run.get("resume"):
-            fresh = engine(rng=torch.Generator().manual_seed(9))
-            fresh.load_checkpoint(run["save"])
-            res["resumed_state"] = _numpy_state(fresh)
-            res["resumed"] = [fresh.train_batch(batch=b).item() for b in run["after"]]
-            res["resumed_params"] = _masters(fresh)
-        out[run["label"]] = res
+    out = {run["label"]: zero_run(run) for run in runs}
     world = get_topology().world_group()
     x = torch.arange(24.0).view(4, 6) + 100.0 * rank
     out["collectives"] = {"reduce_scatter": reduce_scatter(x, world, dim=1).numpy(),
@@ -193,6 +170,73 @@ def zero_rank(rank, runs, moe_config):
     except NotImplementedError as e:
         out["moe"] = str(e)
     return out
+
+
+def zero_run(run):
+    """One run of :func:`zero_rank` / :func:`zero3_rank` on this rank's
+    world. ``parts_norm``: True for stage 2's order, or the persistence
+    threshold of stage 3's order. Beside :func:`zero_rank`'s keys, ``save16``
+    (a directory ``save_16bit_model`` writes to after the batches),
+    ``gathered`` (the masters ``zero.GatheredParameters`` yields) and, at
+    stage 3, ``gather``: the last step's gather scope counters."""
+    model = TransformerModel(TransformerConfig(**run["model"]))
+
+    def engine(**kw):
+        return deepspeed_tpu_torch.initialize(model=model, config=run["config"],
+                                              device="cpu", **kw)[0]
+
+    if run["tree"] is None:  # masters drawn from a seed
+        eng = engine(rng=torch.Generator().manual_seed(0))
+    else:
+        eng = engine(model_parameters=params_from_numpy(model.config, run["tree"]))
+    if run.get("load"):
+        eng.load_checkpoint(run["load"])
+    res = {"losses": [], "grad_norms": []}
+    norm = engine_module.global_norm
+    pn = run.get("parts_norm")
+    if pn is True:
+        engine_module.global_norm = parts_norm
+    elif pn is not None and pn is not False:
+        stacked = [n.startswith("['layers']") for n, _ in tree_items(eng.params)]
+        engine_module.global_norm = functools.partial(parts_norm, stacked=stacked,
+                                                      threshold=pn)
+    try:
+        for batch in run["batches"]:
+            res["losses"].append(eng.train_batch(batch=batch).item())
+            res["grad_norms"].append(eng.get_global_grad_norm())
+    finally:
+        engine_module.global_norm = norm
+    res["state_bytes"] = eng.state_bytes()
+    g = eng.last_gather
+    if g is not None:
+        res["gather"] = {"peak_layers": g.peak_layers, "gathers": g.gathers,
+                         "peak_layers_backward": g.peak_layers_backward,
+                         "held": list(eng._partition.gathered)}
+    res["state"] = _numpy_state(eng)
+    res["params"] = _masters(eng)
+    if run.get("gathered"):
+        with GatheredParameters(eng) as whole:
+            res["gathered"] = params_to_numpy(whole)
+    res["eval"] = eng.eval_batch(batch=run["batches"][0]).item() if run["batches"] else None
+    if run.get("save16"):
+        eng.save_16bit_model(run["save16"])
+    if run.get("save"):
+        res["save_gathers"] = _counting_gathers(lambda: eng.save_checkpoint(run["save"]))
+    res["after"] = [eng.train_batch(batch=b).item() for b in run.get("after", [])]
+    res["final"] = _masters(eng)
+    if run.get("resume"):
+        fresh = engine(rng=torch.Generator().manual_seed(9))
+        fresh.load_checkpoint(run["save"])
+        res["resumed_state"] = _numpy_state(fresh)
+        res["resumed"] = [fresh.train_batch(batch=b).item() for b in run["after"]]
+        res["resumed_params"] = _masters(fresh)
+    return res
+
+
+def zero3_rank(rank, runs):
+    """ZeRO stage 3 over this world's dp ranks: :func:`zero_run` of each
+    run, by label."""
+    return {run["label"]: zero_run(run) for run in runs}
 
 
 def attention_rank(rank, sp, cases):
