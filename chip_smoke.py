@@ -139,7 +139,12 @@ arguments, in order, any failure exiting non-zero:
    8, windows whose rows are bitwise their single-token decode in bf16 and
    int8, dense and paged, a row tile all padding), every case run twice,
    bitwise equal; each decode row also prints its wrapper's host time a
-   call;
+   call; the fp16 forms (the Llama form of the flash forward, dq and dk/dv
+   at training_fp16's micro-batch and at Llama-3-8B's heads, the RMSNorm
+   forward and backward on its 8192 rows of 2048) within an eighth of the
+   bf16 forms' tolerances, timed likewise (SDPA and ``F.rms_norm`` in fp16
+   the library calls), and an overflow kept visible (a RMSNorm row and dq
+   elements past 65,504 give inf or NaN, never a clamped value);
 4. serving reference checks: two-layer full-width Llama-3-8B, BLOOM-7B1 and
    GPT-2-XL, kernel path against plain path, prefill and three cached
    decode steps;
@@ -203,6 +208,15 @@ arguments, in order, any failure exiting non-zero:
    (forward+backward, update, the stream's copy-in, update and copy-out
    device ms), tokens/s, MFU, peak device memory, host bytes, a profiled
    step. MemAvailable is checked before anything is pinned;
+6e. ``training_fp16`` (after 6): 6's model, masters, batch and 10 steps in
+   fp16 with the default dynamic loss scaler: no step skipped, the first
+   loss within 2e-4 of 6's (bf16) from the same masters (6 runs first), ms/step and MFU,
+   the counters showing the fp16 forms of the flash forward, dq and dk/dv
+   and of both RMSNorm kernels and fused Adam ran and plain attention never
+   did; then a leg of 3 steps at initial_scale_power 32, where the head's
+   fp16 gradient overflows every step: each step skipped, the masters, Adam
+   moments and update count hashing as before it, the scale read after
+   each step 2**32 (the hysteresis), 2**31, 2**30, the lr unmoved;
 7. the serving main path: init_inference(llama("llama3-8b"), bf16, kernel
    injection, max_tokens=1024) with seeded random weights at full depth, and
    generate on three requests; the launch counters, zeroed just before, must
@@ -270,7 +284,7 @@ arguments, in order, any failure exiting non-zero:
    resident weights within 2 % of the reckoning (48.42 GB), peak memory, the
    MoE load, a profiled B=1 generate; between its int8 and int4 halves
    ``serving_cb_mixtral``: init_serving on the same int8 weights, bf16 KV,
-   the first 4 requests of 11's trace through the contiguous and the paged
+   the first 2 requests of 11's trace through the contiguous and the paged
    arena (paged == contiguous bitwise, one step shape, the MoE metrics);
    then int4 weights (25.20 GB) on the greedy B=1 request. Each run twice
    with identical tokens, counters zeroed before the second; speculative
@@ -481,6 +495,17 @@ KERNELS = {
         "source": "deepspeed_tpu_torch/csrc/flash_attention_bias_grad.cu",
         "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:570",
     },
+    # the fp16 Llama forms of the flash kernels and the fp16 RMSNorm kernels
+    # (fp16 training with the dynamic loss scaler; the Pallas kernels are
+    # dtype-generic)
+    **{f"{name}_f16": {"source": f"deepspeed_tpu_torch/csrc/{src}",
+                       "replaces": f"deepspeed_tpu/ops/pallas/{line}"}
+       for name, src, line in (
+           ("flash_attention_fwd", "flash_attention_fwd_f16.cu", "flash_attention.py:175"),
+           ("flash_attention_bwd_dq", "flash_attention_bwd_f16.cu", "flash_attention.py:455"),
+           ("flash_attention_bwd_dkv", "flash_attention_bwd_f16.cu", "flash_attention.py:517"),
+           ("rmsnorm_fwd", "rmsnorm_f16.cu", "rmsnorm.py:23"),
+           ("rmsnorm_bwd", "rmsnorm_bwd_f16.cu", "rmsnorm.py:30"))},
     # the decode kernel with slopes; the TPU package runs these steps on XLA
     # (models/decoding.py:424-438) since its Pallas kernel takes no slope
     "decode_attention_alibi": {
@@ -500,6 +525,28 @@ TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                     "fused_adam")
 # the training main path: llama3-1b micro-batch 4 x 2048 tokens, 2 micro-batches
 TRAIN_B, TRAIN_S, TRAIN_ACCUM, TRAIN_LR = 4, 2048, 2, 1e-4
+# training_fp16: the training path in fp16 with the dynamic loss scaler (its
+# defaults: 2**16, window 1000, hysteresis 2); the fp16 forms of the flash
+# and RMSNorm kernels, fused Adam on the fp32 masters as in bf16
+TRAINING_FP16_KERNELS = ("flash_attention_fwd_f16", "flash_attention_bwd_dq_f16",
+                         "flash_attention_bwd_dkv_f16", "rmsnorm_fwd_f16",
+                         "rmsnorm_bwd_f16", "fused_adam")
+FP16_SECTIONS = {"bf16": {"enabled": False}, "fp16": {"enabled": True}}
+# the forced-overflow leg: at 2**32 the head's fp16 logits gradient, about the
+# scale over a micro-batch's 8,192 tokens (2**19), passes 65,504
+FP16_OVERFLOW_POWER, FP16_OVERFLOW_STEPS = 32, 3
+# the fp16 forms' tolerances against their plain versions: an eighth of the
+# bf16 forms' (fp16 has 3 more mantissa bits): the flash output 2e-2 / 8, the
+# flash gradients 2e-2 / 8 of the largest, RMSNorm two fp16 ulps (2 * 2**-10
+# relative, atol 1e-3 / 8)
+FP16_TOL_OUT, FP16_TOL_BWD = 2.5e-3, 2.5e-3
+FP16_NORM_ATOL, FP16_NORM_RTOL = 1.25e-4, 2e-3
+# the first loss of training_fp16 against training's (bf16, the same masters):
+# about 8x the gap measured on the H100 (2.376e-5: the loss, 0.4 above ln V,
+# moves with what the attention computes; bf16's activations round at 2**-8)
+FP16_FIRST_LOSS_RTOL = 2e-4
+# each main training path's first loss, by path (set as the paths run)
+FIRST_LOSS: dict = {}
 # the continuous-batching main path: slots x token budget of the one step
 CB_SLOTS, CB_BUDGET, CB_PAGE = 8, 64, 16
 # a contiguous-arena slot: max_tokens 1024 + the budget, rounded up to 128
@@ -534,7 +581,7 @@ MIXTRAL_KERNELS = ("quantized_matvec_expert_int8", "quantized_matvec_expert_int4
                    "rmsnorm_fwd")
 MIXTRAL_BANKS = (("wi/wg", 4096, 14336, 8), ("wo", 14336, 4096, 8))
 MIXTRAL_CB_KERNELS = ("paged_decode_attention", "decode_attention", "rmsnorm_fwd")
-MIXTRAL_CB_REQUESTS = 4  # the prefix of cb_trace: 1806 prompt tokens, 73 new
+MIXTRAL_CB_REQUESTS = 2  # the prefix of cb_trace: 537 prompt tokens, 20 new
 # the speculative serving runs' new tokens (B=1 greedy, P=100)
 SPEC_NEW = 16
 # training_sp: llama3-1b at full width, 4 of its 16 layers, one sequence of
@@ -620,19 +667,20 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def flash_fwd_case(gen, timer, path, B: int, S: int, H: int, KV: int, D: int,
-                   plain_iters: int = 20):
+                   plain_iters: int = 20, dtype=BF16):
     """The flash forward, causal, on one seeded draw against its plain
     version; timed (with SDPA as the library call) when ``path`` names the
     main path whose shape this is (the plain version over ``plain_iters``
-    launches)."""
-    tol_out, tol_lse = 2e-2, 1e-3
-    q = torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=BF16)
-    k = torch.randn(B, S, KV, D, generator=gen, device="cuda", dtype=BF16)
-    v = torch.randn(B, S, KV, D, generator=gen, device="cuda", dtype=BF16)
+    launches). ``dtype`` float16: the fp16 Llama form, its output held to an
+    eighth of bf16's tolerance (3 more mantissa bits)."""
+    tol_out, tol_lse = (2e-2 if dtype == BF16 else FP16_TOL_OUT), 1e-3
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=dtype)
+    k = torch.randn(B, S, KV, D, generator=gen, device="cuda", dtype=dtype)
+    v = torch.randn(B, S, KV, D, generator=gen, device="cuda", dtype=dtype)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=True)
     e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
-    print(f"flash_attention_fwd B={B} S={S} H={H} KV={KV} D={D}: "
+    print(f"flash_attention_fwd {dtype} B={B} S={S} H={H} KV={KV} D={D}: "
           f"max_abs_err out {e_out:.3e} (tol {tol_out}) lse {e_lse:.3e} "
           f"(tol {tol_lse})")
     require(e_out <= tol_out and e_lse <= tol_lse,
@@ -652,7 +700,7 @@ def flash_fwd_case(gen, timer, path, B: int, S: int, H: int, KV: int, D: int,
         "library_ms": timer(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "shape": f"B={B} S={S} H={H} KV={KV} D={D} causal",
+        "shape": f"B={B} S={S} H={H} KV={KV} D={D} causal" + ("" if dtype == BF16 else " fp16"),
     }
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
@@ -1373,18 +1421,20 @@ def check_rmsnorm_bwd(gen, timer):
 
 
 def check_flash_bwd(gen, timer, D: int = 64, B: int = TRAIN_B, S: int = TRAIN_S,
-                    plain_iters: int = 20):
+                    plain_iters: int = 20, dtype=BF16):
     """The dq and dk/dv kernels at a training path's shape (micro-batch
     ``B`` x ``S``, 32 query / 8 kv heads: llama3-1b's of 64 by default,
     Mixtral's and Llama-3-8B's of 128 with ``D=128``), causal. The dk/dv
     kernel gets the plain version's delta, so each kernel is held alone;
-    the plain versions are timed over ``plain_iters`` launches."""
+    the plain versions are timed over ``plain_iters`` launches. ``dtype``
+    float16: the fp16 Llama forms, held to an eighth of bf16's tolerance."""
     H, KV = 32, 8
-    tol = 2e-2  # of the largest gradient: p and ds round to bf16 before the products
+    # of the largest gradient: p and ds round to bf16 (fp16) before the products
+    tol = 2e-2 if dtype == BF16 else FP16_TOL_BWD
     tol_delta = 1e-4  # of the largest delta: an fp32 row sum in another order
 
     def rand(*shape):
-        return torch.randn(*shape, generator=gen, device="cuda", dtype=BF16)
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
 
     q, k, v, do = rand(B, S, H, D), rand(B, S, KV, D), rand(B, S, KV, D), rand(B, S, H, D)
     o, lse = fa.flash_attention_fwd(q, k, v)
@@ -1395,7 +1445,7 @@ def check_flash_bwd(gen, timer, D: int = 64, B: int = TRAIN_B, S: int = TRAIN_S,
     errs = {name: (max_err(a, r), r.float().abs().max().item())
             for name, a, r in (("dq", dq, rdq), ("delta", delta, rdelta),
                                ("dk", dk, rdk), ("dv", dv, rdv))}
-    print(f"flash_attention_bwd B={B} S={S} H={H} KV={KV} D={D} causal: "
+    print(f"flash_attention_bwd {dtype} B={B} S={S} H={H} KV={KV} D={D} causal: "
           + ", ".join(f"{n} max_abs_err {e:.3e} (max|ref| {m:.3e})"
                       for n, (e, m) in errs.items())
           + f"; tol {tol}*max|ref| ({tol_delta} for delta)")
@@ -1415,7 +1465,7 @@ def check_flash_bwd(gen, timer, D: int = 64, B: int = TRAIN_B, S: int = TRAIN_S,
     dot = do.transpose(1, 2).contiguous()
     lib_ms = timer(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
                                                retain_graph=True))
-    shape = f"B={B} S={S} H={H} KV={KV} D={D} causal"
+    shape = f"B={B} S={S} H={H} KV={KV} D={D} causal" + ("" if dtype == BF16 else " fp16")
     dq_r = {
         "max_abs_err": errs["dq"][0],
         "ms": timer(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do)),
@@ -1473,9 +1523,10 @@ def flash_instruction_counts() -> dict:
     (or, without cuobjdump, the wgmma and cp.async.bulk.tensor lines of their
     PTX). Keyed "flash_fwd_kernel<64, alibi=0, masked=0>",
     "flash_bwd_dq_kernel<64, masked=0>", "flash_bias_grad_kernel<64>" and so
-    on."""
+    on, the fp16 instantiations with ", fp16" at the end."""
     name_re = re.compile(
-        r"(flash_(?:fwd|bwd_dq|bwd_dkv|bias_grad)_kernel)ILi(\d+)E(?:(?:Lb([01])E)?Lb([01])E)?")
+        r"(flash_(?:fwd|bwd_dq|bwd_dkv|bias_grad)_kernel)ILi(\d+)E(?:(?:Lb([01])E)?Lb([01])E)?"
+        r"(6__half)?")
 
     def name_of(line):
         m = name_re.search(line)
@@ -1484,10 +1535,12 @@ def flash_instruction_counts() -> dict:
         if m.group(4) is None:
             return f"{m.group(1)}<{m.group(2)}>"
         alibi = f"alibi={m.group(3)}, " if m.group(3) is not None else ""
-        return f"{m.group(1)}<{m.group(2)}, {alibi}masked={m.group(4)}>"
+        f16 = ", fp16" if m.group(5) else ""
+        return f"{m.group(1)}<{m.group(2)}, {alibi}masked={m.group(4)}{f16}>"
 
     counts = {}
-    for stem in ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_bias_grad"):
+    for stem in ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_bias_grad",
+                 "flash_attention_fwd_f16", "flash_attention_bwd_f16"):
         counts.update(count_marks(*object_listing(
             stem, ("wgmma.mma_async", "cp.async.bulk.tensor"), ("HGMMA", "UTMALDG")),
             name_of))
@@ -1540,15 +1593,17 @@ def check_matvec_instructions() -> None:
 def check_flash_instructions() -> None:
     """The flash forward (Llama, ALiBi and masked forms), both backward
     kernels and the bias-gradient kernel, in every instantiation at head dims
-    64 and 128, issue wgmma and load their tiles by TMA."""
+    64 and 128, and the fp16 Llama forms of the forward and both backward
+    kernels, issue wgmma and load their tiles by TMA."""
     counts = flash_instruction_counts()
     for fn, c in sorted(counts.items()):
         print(f"{fn}: " + ", ".join(f"{k} {n}" for k, n in c.items()))
     n_fwd = sum(fn.startswith("flash_fwd") for fn in counts)
     n_bg = sum(fn.startswith("flash_bias_grad") for fn in counts)
-    require(n_fwd == 6 and n_bg == 2 and len(counts) == 16,
-            f"expected 6 forward, 8 backward and 2 bias-gradient kernel instantiations, "
-            f"found {counts}")
+    n_f16 = sum(fn.endswith(", fp16>") for fn in counts)
+    require(n_fwd == 8 and n_bg == 2 and n_f16 == 6 and len(counts) == 22,
+            f"expected 8 forward (2 fp16), 12 backward (4 fp16) and 2 bias-gradient kernel "
+            f"instantiations, found {counts}")
     require(all(n > 0 for c in counts.values() for n in c.values()),
             "a flash kernel issues no wgmma or no TMA load")
 
@@ -4464,6 +4519,7 @@ def main_path_training(model=None, expect=TRAINING_KERNELS, path: str = "trainin
     ms_step = (time.perf_counter() - t_warm) * 1e3 / (steps - 2)
     counts = kernels.launch_counts()
     losses = [x.item() for x in losses]
+    FIRST_LOSS[path] = losses[0]
     peak = torch.cuda.max_memory_allocated()
     mfu = train_flops(cfg, tokens, pairs) / (ms_step / 1e3) / BF16_FLOPS
     plain = kernels.plain_attention_on_cuda()
@@ -4475,6 +4531,19 @@ def main_path_training(model=None, expect=TRAINING_KERNELS, path: str = "trainin
           f"{peak / 2**30:.2f} GiB")
     print(f"{path} main path launches ({steps} steps): "
           f"{ {k: counts[k] for k in expect} }; plain attention on the card {plain}")
+    if engine.fp16_enabled:
+        first, bf16 = losses[0], FIRST_LOSS.get("training")
+        require(bf16 is not None, f"{path} compares its first loss with the training "
+                "path's: run training before it")
+        print(f"{path}: loss scale after {steps} steps {engine.loss_scale} (the default "
+              f"scaler: 2**16, window 1000, hysteresis 2), skipped steps "
+              f"{engine.skipped_steps}; first loss {first} beside the bf16 path's {bf16} "
+              f"from the same seeded masters (relative difference "
+              f"{abs(first - bf16) / bf16:.3e}, tol {FP16_FIRST_LOSS_RTOL})")
+        require(engine.skipped_steps == 0, f"{path}: {engine.skipped_steps} steps overflowed "
+                "at the default scale")
+        require(abs(first - bf16) <= FP16_FIRST_LOSS_RTOL * bf16,
+                f"{path}: first loss {first} far from the bf16 path's {bf16}")
     require(all(math.isfinite(x) for x in losses), f"non-finite {path} loss")
     require(losses[-1] < losses[0], f"{path} loss did not fall: {losses}")
     for name in expect:
@@ -4511,6 +4580,166 @@ def main_path_training(model=None, expect=TRAINING_KERNELS, path: str = "trainin
             "the forward/backward/step loop differs from train_batch")
     del engine, masters
     torch.cuda.empty_cache()
+    return counts
+
+
+def check_fp16_forms(timer) -> tuple:
+    """The fp16 forms at their path's shapes, from a generator of their own,
+    each against its plain version within an eighth of the bf16 form's
+    tolerance and timed as the bf16 rows are (the bound's bytes are bf16's:
+    both 2 bytes; fp16's tensor-core rate is bf16's): the flash forward, dq
+    and dk/dv in the Llama form at training_fp16's micro-batch (B=4 S=2048,
+    32 query / 8 kv heads of 64) and at Llama-3-8B's heads (B=1, hd 128),
+    SDPA in fp16 the library call; the RMSNorm forward and backward on
+    training_fp16's 8192 rows of 2048, ``F.rms_norm`` in fp16 the library
+    call. Returns (the rows of training_fp16, keyed by kernel; the hd-128
+    rows, printed beside them)."""
+    gen = torch.Generator(device="cuda").manual_seed(89)
+    F16 = torch.float16
+    main, extra = {}, {}
+    for D, B, into in ((64, TRAIN_B, main), (128, 1, extra)):
+        into["flash_attention_fwd_f16"] = flash_fwd_case(gen, timer, "training_fp16", B,
+                                                         TRAIN_S, 32, 8, D, dtype=F16)
+        into["flash_attention_bwd_dq_f16"], into["flash_attention_bwd_dkv_f16"] = \
+            check_flash_bwd(gen, timer, D=D, B=B, S=TRAIN_S, dtype=F16)
+    n, D, eps = TRAIN_B * TRAIN_S, 2048, 1e-5
+    atol, rtol = FP16_NORM_ATOL, FP16_NORM_RTOL
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(F16)
+    x = torch.randn(n, D, generator=gen, device="cuda", dtype=F16)
+    g = torch.randn(n, D, generator=gen, device="cuda", dtype=F16)
+    fn = lambda t: rn.rmsnorm_fwd(t, w, eps)  # noqa: E731
+    plain = lambda t: rn.rmsnorm_plain(t, w, eps)  # noqa: E731
+    e = norm_agrees("rmsnorm_fwd (fp16)", fn, plain, x, atol, rtol)
+    main["rmsnorm_fwd_f16"] = norm_row(timer, e, lambda: fn(x), lambda: plain(x),
+                                       lambda: F.rms_norm(x, (D,), w, eps),
+                                       *bound(4 * x.numel(), 2 * 2 * x.numel() + 2 * D),
+                                       f"rows={n} D={D} fp16")
+    e_dx, e_ds = rmsnorm_bwd_agrees("rmsnorm_bwd (fp16)", x, w, g, eps, atol, rtol, 1e-5)
+    xr, wr = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    lib_out = F.rms_norm(xr, (D,), wr, eps)
+    b_ms, b_by = bound(10 * x.numel(), 3 * 2 * x.numel() + 2 * D + 4 * D)
+    main["rmsnorm_bwd_f16"] = {
+        "max_abs_err": max(e_dx, e_ds), "ms": timer(lambda: rn.rmsnorm_bwd(x, w, g, eps)),
+        "plain_ms": timer(lambda: rn.rmsnorm_bwd_plain(x, w, g, eps)),
+        "library_ms": timer(lambda: torch.autograd.grad(lib_out, (xr, wr), g,
+                                                        retain_graph=True)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": f"rows={n} D={D} fp16 (library: F.rms_norm backward)"}
+    del x, g, xr, wr, lib_out
+    torch.cuda.empty_cache()
+    return main, extra
+
+
+def check_fp16_overflow() -> None:
+    """The fp16 forms round to nearest, never clamping (the .satfinite
+    forms), so an overflow reaches the loss scaler as inf or NaN: a RMSNorm
+    row whose result passes 65,504 (one non-zero element: xhat = sqrt(D) =
+    45.25, times a scale of 2,000) gives inf; the dq kernel on gradients
+    large enough that the fp32 plain result passes 65,504 gives a non-finite
+    value at each of those elements (dst, rounded to fp16 before dS K as the
+    Pallas kernel rounds it, may overflow first: inf, or inf * 0 = NaN)."""
+    F16 = torch.float16
+    gen = torch.Generator(device="cuda").manual_seed(91)
+    D = 2048
+    x = torch.zeros(1, D, device="cuda", dtype=F16)
+    x[0, 0] = 1.0
+    out = rn.rmsnorm_fwd(x, torch.full((D,), 2000.0, device="cuda", dtype=F16))
+    print(f"rmsnorm_fwd (fp16), one element of 1 in a row of {D}, scale 2000 (fp32 result "
+          f"{math.sqrt(D) * 2000:.1f}): {out[0, :2].tolist()}")
+    require(bool(torch.isinf(out[0, 0])) and out[0, 1].item() == 0.0,
+            "rmsnorm_fwd (fp16) does not give inf past 65,504")
+    B, S, H, KV, Dh = 1, 256, 8, 2, 64
+    q = torch.randn(B, S, H, Dh, generator=gen, device="cuda", dtype=F16)
+    k = 4 * torch.randn(B, S, KV, Dh, generator=gen, device="cuda", dtype=F16)
+    v = torch.randn(B, S, KV, Dh, generator=gen, device="cuda", dtype=F16)
+    do = (2e4 * torch.randn(B, S, H, Dh, generator=gen, device="cuda").clamp(-3, 3)).to(F16)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    dq, _ = fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
+    ref, _ = fa.flash_attention_bwd_dq_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                             do.float())
+    over = ref.abs() > 65504 * 1.01
+    print(f"flash_attention_bwd_dq (fp16), do of up to 6e4: {int(over.sum())} elements of "
+          f"the fp32 plain dq past 65,504 (largest {ref.abs().max().item():.1f}); the "
+          f"kernel's dq non-finite at {int((~torch.isfinite(dq[over])).sum())} of them, "
+          f"{int((~torch.isfinite(dq)).sum())} of {dq.numel()} in all")
+    require(bool(over.any()) and not bool(torch.isfinite(dq[over]).any()),
+            "flash_attention_bwd_dq (fp16) hides an overflow")
+
+
+HASH_CHUNK = 1 << 24  # elements a hashing pass takes
+
+
+def state_hash(engine) -> str:
+    """A hash of the engine's masters, optimizer state and update count,
+    computed on the card: each fp32 leaf's bits as int32, times a fixed
+    random odd int64 weight per position (in chunks of HASH_CHUNK), summed
+    with int64 wraparound; the per-leaf sums then through sha256 on the
+    host. Any flipped bit changes its leaf's sum."""
+    import hashlib
+    w = torch.randint(-2**62, 2**62, (HASH_CHUNK,), device="cuda", dtype=torch.int64,
+                      generator=torch.Generator(device="cuda").manual_seed(97)) | 1
+    sums = []
+    for t in tree_leaves(engine.params) + tree_leaves(engine.opt_state):
+        flat = t.detach().reshape(-1).view(torch.int32)
+        acc = torch.zeros((), dtype=torch.int64, device="cuda")
+        for s in range(0, flat.numel(), HASH_CHUNK):
+            c = flat[s:s + HASH_CHUNK]
+            acc += (c.long() * w[:c.numel()]).sum()
+        sums.append(acc)
+    h = hashlib.sha256(torch.stack(sums).cpu().numpy().tobytes())
+    h.update(str(engine.update_count).encode())
+    return h.hexdigest()
+
+
+def fp16_overflow_leg() -> None:
+    """training_fp16's forced-overflow leg: llama3-1b at full width and
+    depth from training's seeded masters and batch, fp16 with the scaler at
+    2**FP16_OVERFLOW_POWER, FP16_OVERFLOW_STEPS steps. The head's fp16
+    logits gradient (about the scale over a micro-batch's 8,192 tokens,
+    2**19) overflows every step, so each step is skipped: the masters, the
+    Adam moments and the update count hash as before the step; the scale
+    read after each step is 2**32 (the hysteresis absorbs the first), then
+    2**31, 2**30; the lr does not move."""
+    model = llama("llama3-1b")
+    ids = torch.randint(0, model.config.vocab_size, (TRAIN_B * TRAIN_ACCUM, TRAIN_S),
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    config = {**train_config(True), **FP16_SECTIONS,
+              "fp16": {"enabled": True, "initial_scale_power": FP16_OVERFLOW_POWER}}
+    engine, *_ = initialize(model=model, config=config,
+                            rng=torch.Generator(device="cuda").manual_seed(0))
+    h0, lr0 = state_hash(engine), engine.lr
+    scales, flags, lrs, same = [], [], [], []
+    for _ in range(FP16_OVERFLOW_STEPS):
+        loss = engine.train_batch(batch={"input_ids": ids}).item()
+        scales.append(engine.loss_scale)
+        flags.append(engine._metrics["overflow"])
+        lrs.append(engine._metrics["lr"])
+        same.append(state_hash(engine) == h0)
+        require(math.isfinite(loss), "the overflow leg's loss (forward only) is not finite")
+    want = [2.0 ** (FP16_OVERFLOW_POWER - i) for i in range(FP16_OVERFLOW_STEPS)]
+    print(f"training_fp16 overflow leg (initial_scale_power {FP16_OVERFLOW_POWER}, "
+          f"{FP16_OVERFLOW_STEPS} steps): overflow {flags}, scale read after each step "
+          f"{scales} (expected {want}), skipped_steps {engine.skipped_steps}, global_steps "
+          f"{engine.global_steps}, lr {lrs} (before: {lr0}, after: {engine.lr}); masters, "
+          f"Adam moments and update count hash as before each step: {same} ({h0[:16]})")
+    require(all(flags) and scales == want and engine.skipped_steps == FP16_OVERFLOW_STEPS,
+            f"the overflow leg: overflow {flags}, scales {scales}, expected {want}")
+    require(all(same), "a skipped fp16 step changed the masters or the optimizer state")
+    require(all(x == lrs[0] for x in lrs) and engine.lr == lr0,
+            "the lr moved over skipped steps")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def main_path_training_fp16() -> dict:
+    """training_fp16: the training main path (llama3-1b at full width and
+    depth, training's seeded masters and batch, 10 steps, ms a step and MFU)
+    in fp16 with the default dynamic loss scaler, no step skipped; then
+    :func:`fp16_overflow_leg`. Returns the main run's counts."""
+    counts = main_path_training(None, TRAINING_FP16_KERNELS, "training_fp16",
+                                extra=FP16_SECTIONS, rerun=False)
+    fp16_overflow_leg()
     return counts
 
 
@@ -6055,10 +6284,10 @@ DECODE_VARIANTS = {
 def variant_libraries(stem: str, variants: dict, entry: str, patched: str = "") -> dict:
     """{variant: ctypes library} of ``variants`` ({name: patch of the text of
     csrc/<patched> (default csrc/<stem>.cu), or None}), each built by nvcc
-    from csrc/<stem>.cu beside its patched copy (a header is found there
-    first) and status.cu into build/<stem>_variants/v<i>/, all compiles in
-    flight at once; the entry points whose names hold ``entry`` get their
-    argtypes."""
+    from csrc/<stem>.cu (and csrc/<stem>_f16.cu, its fp16 entry, where there
+    is one) beside its patched copy (a header is found there first) and
+    status.cu into build/<stem>_variants/v<i>/, all compiles in flight at
+    once; the entry points whose names hold ``entry`` get their argtypes."""
     import ctypes
     patched = patched or f"{stem}.cu"
     src = (_build.CSRC / patched).read_text()
@@ -6067,11 +6296,14 @@ def variant_libraries(stem: str, variants: dict, entry: str, patched: str = "") 
     for i, (name, patch) in enumerate(variants.items()):
         vdir = out / f"v{i}"
         vdir.mkdir(parents=True, exist_ok=True)
-        shutil.copy(_build.CSRC / f"{stem}.cu", vdir / f"{stem}.cu")
+        units = [f"{stem}.cu"] + [f"{stem}_f16.cu"] * (_build.CSRC / f"{stem}_f16.cu").exists()
+        for unit in units:
+            shutil.copy(_build.CSRC / unit, vdir / unit)
         (vdir / patched).write_text(src if patch is None else patch(src))
         procs[name] = (i, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared", "-o",
-             str(vdir / "variant.so"), str(vdir / f"{stem}.cu"), str(_build.CSRC / "status.cu")],
+             str(vdir / "variant.so"), *(str(vdir / u) for u in units),
+             str(_build.CSRC / "status.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (i, proc) in procs.items():
@@ -6264,7 +6496,8 @@ def rmsnorm_bwd_breakdown() -> None:
     torch.add(x, g) of the same bytes (x and g read, one tensor of x's size
     written) and the library call."""
     _build.library()
-    libs = variant_libraries("rmsnorm_bwd", RMSNORM_BWD_VARIANTS, "rmsnorm_bwd")
+    libs = variant_libraries("rmsnorm_bwd", RMSNORM_BWD_VARIANTS, "rmsnorm_bwd",
+                             patched="rmsnorm_bwd.cuh")
     gen = torch.Generator(device="cuda").manual_seed(71)
     timer = Timer()
     rows, D = TRAIN_B * TRAIN_S, 2048
@@ -6597,6 +6830,10 @@ def main() -> int:
     # training_zero's stage 3: fused Adam on a stacked layer part, each of 4
     # layers' run of the MLP weight (4 x 2048 x 8192 / 2 fp32)
     adam_zero3 = check_fused_adam(gen, timer, n=SP_LAYERS * 2048 * 8192 // SP_SIZE)
+    # training_fp16: the fp16 forms at its shapes (and the flash forms at
+    # Llama-3-8B's heads, printed beside them), overflows visible
+    f16, f16_hd128 = check_fp16_forms(timer)
+    check_fp16_overflow()
     # the quantized serving path runs the bf16 path's requests: its flash,
     # RMSNorm and (int4 engine, draft) dense decode shapes are the same
     rows = [
@@ -6689,12 +6926,17 @@ def main() -> int:
         # training_zero's stage 3: the same shapes; fused Adam on a layer part
         *((name, "training_zero3", r if name != "fused_adam" else adam_zero3)
           for name, r in zero.items()),
+        # training_fp16: the fp16 forms at the training shapes; fused Adam on
+        # the fp32 masters from fp32 gradients, as in bf16
+        *((name, "training_fp16", r) for name, r in f16.items()),
+        ("fused_adam", "training_fp16", adam),
     ]
     # the norms' decode rows are printed beside the main paths' rows; the
     # kernels line keeps one row per main path
     decode_rows = [(name, key, r) for name, table in (("rmsnorm_fwd", norm),
                                                        ("layernorm_fwd", lnorm))
                    for key, r in table.items() if key.startswith("decode")]
+    decode_rows += [(name, "Llama-3-8B's heads, fp16", r) for name, r in f16_hd128.items()]
     for name, path, r in rows + decode_rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         host = f", host {r['host_us']:.1f} us a call" if "host_us" in r else ""
@@ -6739,7 +6981,8 @@ def main() -> int:
     reference_check_mixtral()
     lap("other forms, tile edges and reference checks")
     paths = {
-        "training": main_path_training, "serving": main_path,
+        "training": main_path_training, "training_fp16": main_path_training_fp16,
+        "serving": main_path,
         "serving_quantized": main_path_quantized, "serving_cb": main_path_serving_cb,
         "serving_bloom": lambda: main_path_family(bloom("bloom-7b1"), 3,
                                                   BLOOM_SERVING_KERNELS, "serving_bloom"),

@@ -97,6 +97,18 @@ class FP16Config:
     consecutive_hysteresis: bool = False
     min_loss_scale: float = 1.0
 
+    @property
+    def dynamic(self) -> bool:
+        return self.loss_scale == 0.0
+
+    @property
+    def initial_scale(self) -> float:
+        """The static ``loss_scale``, or 2**initial_scale_power (JAX
+        ``config.py:96``)."""
+        if not self.dynamic:
+            return float(self.loss_scale)
+        return float(2.0 ** self.initial_scale_power)
+
 
 @dataclass
 class BF16Config:
@@ -137,8 +149,12 @@ class ZeroConfig:
     ``stage3_gather_16bit_weights_on_model_save`` (read; ``save_16bit_model``
     gathers at stage 3 whatever its value, as the JAX package's does).
     ``zero_hpz_partition_size`` and ``mics_shard_size`` shard over an
-    ``fsdp`` axis, which the port's dp x sp topology has none of: logged and
-    ignored, as JAX's ``data_axes`` ignores them on a dp-only mesh."""
+    ``fsdp`` axis: the JAX ``initialize`` builds a dp x fsdp topology of that
+    size when it makes the topology itself (``runtime/engine.py:135-138``,
+    ``:149-152``) and cuts the stage-3 masters over fsdp only. The port's dp x
+    sp world has no fsdp axis: ``initialize`` refuses them over ranks (ROADMAP
+    item 7.2c); on one rank, where there is nothing to shard, they are logged
+    and ignored."""
 
     stage: int = 0
     offload_optimizer: OffloadConfig = field(default_factory=OffloadConfig)
@@ -566,8 +582,8 @@ class DeepSpeedConfig:
                      f"parameter gathers to prefetch, knob ignored")
         for knob, off in (("zero_hpz_partition_size", 1), ("mics_shard_size", -1)):
             if getattr(zc, knob) not in (off, 0, None):
-                log_dist(f"zero_optimization.{knob}: shards over an fsdp axis; this dp x sp "
-                         f"topology has none (as on a dp-only JAX mesh), knob ignored")
+                log_dist(f"zero_optimization.{knob}: shards over an fsdp axis, which one "
+                         f"rank does not have, knob ignored (refused over ranks)")
         self.activation_checkpointing = _parse_dc(
             ActivationCheckpointingConfig, d.get("activation_checkpointing"))
         self.tpu_kernels = _parse_dc(TpuKernelsConfig, d.get("tpu_kernels"))

@@ -1,5 +1,6 @@
 // Device helpers shared by the flash attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu, flash_attention_bias_grad.cu): bf16 packing, the
+// flash_attention_bwd.cu, flash_attention_bias_grad.cu): bf16 and fp16
+// packing, the
 // ALiBi score, and the masked form's operands (segment ids, a dense additive
 // bias, block-sparse compaction tables, ring-hop offsets); and the mma.sync
 // product and kLog2e, which the decode kernel (decode_attention.cu) takes.
@@ -18,6 +19,8 @@
 // (the dense bias first, then ALiBi, as _mask_and_bias adds them,
 // deepspeed_tpu/ops/pallas/flash_attention.py:94-113).
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -45,6 +48,30 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
 __device__ __forceinline__ float2 unpack(uint32_t u) {
   __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&u);
   return __bfloat1622float2(h);
+}
+
+// Two fp32 values rounded to a pair of T (bf16 or fp16) in one register, and
+// back. The fp16 rounding is cvt.rn.f16x2.f32: +-inf past 65504, never the
+// .satfinite clamp, so an overflow reaches the loss scaler as the Pallas
+// kernel's does.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    return pack_f32(lo, hi);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 h = *reinterpret_cast<__half2*>(&u);
+    return __half22float2(h);
+  } else {
+    return unpack(u);
+  }
 }
 
 // A score with its ALiBi term in the log2 domain: s * scale_log2 rounded,

@@ -119,46 +119,47 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
 }
 
 // The A fragments of k-step kk (columns 16 kk..16 kk + 15) of an m64nN
-// accumulator, rounded to bf16 (the accumulator's layout is the A operand's).
-template <int N>
+// accumulator, rounded to T (bf16 by default, or fp16; the accumulator's
+// layout is the A operand's).
+template <typename T = __nv_bfloat16, int N>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N], int kk) {
-  a[0] = pack_f32(d[8 * kk + 0], d[8 * kk + 1]);
-  a[1] = pack_f32(d[8 * kk + 2], d[8 * kk + 3]);
-  a[2] = pack_f32(d[8 * kk + 4], d[8 * kk + 5]);
-  a[3] = pack_f32(d[8 * kk + 6], d[8 * kk + 7]);
+  a[0] = pack2<T>(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack2<T>(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack2<T>(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack2<T>(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
 // d += the RS product of the k-step fragments a over the ROWS x HD tile in
-// panels at b (read MN-major).
-template <int HD, int ROWS>
+// panels at b (read MN-major), operands of type T.
+template <int HD, int ROWS, typename T = __nv_bfloat16>
 __device__ __forceinline__ void rs_product(float (&d)[HD / 2],
                                            const uint32_t (&a)[ROWS / 16][4], uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < ROWS / 16; ++kk) {
     if constexpr (HD == 128) {
-      sm90::wgmma_rs_n128(d, a[kk], sm90::desc_mn(b, ROWS, kk), 1);
+      sm90::wgmma_rs_n128<T>(d, a[kk], sm90::desc_mn(b, ROWS, kk), 1);
     } else {
-      sm90::wgmma_rs_n64(d, a[kk], sm90::desc_mn(b, ROWS, kk), 1);
+      sm90::wgmma_rs_n64<T>(d, a[kk], sm90::desc_mn(b, ROWS, kk), 1);
     }
   }
 }
 
 // d = the SS product of 64 rows at a (a tile of a_rows rows) and the N rows at
-// b, over the head dim (both K-major).
-template <int HD, int N>
+// b, over the head dim (both K-major), operands of type T.
+template <int HD, int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void ss_product(float (&d)[N / 2], uint32_t a, int a_rows,
                                            int a_row0, uint32_t b) {
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks) {
     if constexpr (N == 128) {
-      sm90::wgmma_ss_n128(d, sm90::desc_k(a, a_rows, a_row0, ks), sm90::desc_k(b, N, 0, ks),
-                          ks > 0);
+      sm90::wgmma_ss_n128<T>(d, sm90::desc_k(a, a_rows, a_row0, ks),
+                             sm90::desc_k(b, N, 0, ks), ks > 0);
     } else if constexpr (N == 32) {
-      sm90::wgmma_ss_n32(d, sm90::desc_k(a, a_rows, a_row0, ks), sm90::desc_k(b, N, 0, ks),
-                         ks > 0);
+      sm90::wgmma_ss_n32<T>(d, sm90::desc_k(a, a_rows, a_row0, ks),
+                            sm90::desc_k(b, N, 0, ks), ks > 0);
     } else {
-      sm90::wgmma_ss_n64(d, sm90::desc_k(a, a_rows, a_row0, ks), sm90::desc_k(b, N, 0, ks),
-                         ks > 0);
+      sm90::wgmma_ss_n64<T>(d, sm90::desc_k(a, a_rows, a_row0, ks),
+                            sm90::desc_k(b, N, 0, ks), ks > 0);
     }
   }
 }

@@ -15,7 +15,8 @@
 
 // x, out: [rows, D] contiguous, 16-byte aligned, D a multiple of 16 / sizeof(T).
 // w: [D], aligned to its values of one vector of x (16 bytes, or 8 for bf16 w
-// of fp32 x). x_dtype / w_dtype: dst::DType codes.
+// of fp32 x). x_dtype / w_dtype: dst::DType codes, bf16 or fp32 (fp16 is
+// dst_rmsnorm_fwd_f16, rmsnorm_f16.cu).
 extern "C" int dst_rmsnorm_fwd(const void* x, const void* w, void* out, int rows,
                                int D, float eps, int x_dtype, int w_dtype,
                                void* stream) {

@@ -305,8 +305,9 @@ class InferenceEngine:
         on_cuda = device.type == "cuda"
         if on_cuda and dtype != torch.bfloat16:
             raise NotImplementedError(
-                "the CUDA attention kernels take bfloat16; "
-                f"got dtype={dtype} (serve other dtypes with device='cpu')"
+                "the CUDA serving kernels take bfloat16; "
+                f"got dtype={dtype} (serve other dtypes with device='cpu'; fp16 "
+                "serving, the decode kernels' fp16 forms, is ROADMAP A6 part 2)"
             )
         self.matvec_max_rows = (
             int(matvec_max_rows) if matvec_max_rows is not None else None

@@ -43,6 +43,10 @@ SIGNATURES: Dict[str, List] = {
     "dst_rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
     "dst_rmsnorm_bwd_nblocks": [_I, _I, _I],
     "dst_rmsnorm_bwd": [_P] * 6 + [_I, _I, _F, _I, _I, _P],
+    # the fp16 entries (rmsnorm, flash's Llama form) take the others' arguments
+    # less the dtype codes
+    "dst_rmsnorm_fwd_f16": [_P, _P, _P, _I, _I, _F, _P],
+    "dst_rmsnorm_bwd_f16": [_P] * 6 + [_I, _I, _F, _P],
     "dst_layernorm_fwd": [_P] * 4 + [_I, _I, _F, _I, _I, _P],
     "dst_layernorm_bwd_nblocks": [_I, _I, _I],
     "dst_layernorm_bwd": [_P] * 7 + [_I, _I, _F, _I, _I, _P],
@@ -56,6 +60,11 @@ SIGNATURES: Dict[str, List] = {
     "dst_flash_attention_fwd": (
         [_P] * 5 + [_I] * 5 + [_L] * 12 + [_P, _F, _I, _LP, _P]
     ),
+    "dst_flash_attention_fwd_f16": (
+        [_P] * 5 + [_I] * 5 + [_L] * 12 + [_P, _F, _I, _LP, _P]
+    ),
+    "dst_flash_attention_bwd_dq_f16": [_P] * 8 + [_I] * 5 + [_LP, _P, _F, _I, _LP, _P],
+    "dst_flash_attention_bwd_dkv_f16": [_P] * 8 + [_I] * 5 + [_LP, _P, _F, _I, _LP, _P],
     "dst_decode_attention": (
         [_P] * 5 + [_I] * 7 + [_L] * 8 + [_P, _F, _I, _P]
     ),
@@ -72,7 +81,7 @@ SIGNATURES: Dict[str, List] = {
 }
 
 # dtype codes shared with csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -186,7 +195,16 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def dtype_code(dtype) -> int:
+# where the fp16 forms of the other kernels come
+FP16_LATER = ("ROADMAP A6 part 2 (fp16 LayerNorm, ALiBi, the masked and offset "
+              "flash forms, the bias gradient, decode)")
+
+
+def dtype_code(dtype, fp16: bool = False) -> int:
+    """The dtype's code; float16 only for a kernel with an fp16 form
+    (``fp16``), else the refusal names where those forms come."""
+    if dtype == torch.float16 and not fp16:
+        raise NotImplementedError(f"no fp16 form of this CUDA kernel: {FP16_LATER}")
     try:
         return DTYPE_CODES[dtype]
     except KeyError:

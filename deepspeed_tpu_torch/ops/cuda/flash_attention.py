@@ -29,6 +29,14 @@ layout masks. ``slopes`` alone runs the kernels' ALiBi instantiation, nothing
 their Llama one (the code before ALiBi came in); a mask selects the masked
 instantiation, which reads its operands at run time.
 
+The Llama form (no slopes, bias, segment ids, layout or offsets) also has
+an fp16 instantiation of each of the three kernels, for fp16 training
+(``csrc/flash_attention_fwd_f16.cu``, ``csrc/flash_attention_bwd_f16.cu``:
+separate C entries, the same kernels with fp16 operands, P and dS rounded to
+fp16 as the Pallas kernels round them to the inputs' dtype, an overflow kept
+as inf); counted under ``*_f16``. An fp16 tensor in any other form raises,
+naming ROADMAP A6 part 2.
+
 Bound on the H100: operations for long sequences, per visible (query, key)
 pair 4 * D flops forward, 6 * D in the dq kernel and 8 * D in the dk/dv
 kernel, over 989 TFLOP/s bf16; the bias-gradient kernel's 4 * D per visible
@@ -71,8 +79,10 @@ TERMS = ("alibi", "bias", "sparse", "seg", "offsets")
 FORMS = tuple("".join(f"_{p}" for p, on in zip(TERMS, bits) if on)
               for bits in itertools.product((False, True), repeat=len(TERMS))
               if not (bits[1] and bits[2]) and not (bits[4] and (bits[1] or bits[2])))
-# kernel launches since the last reset, per kernel and form
+# kernel launches since the last reset, per kernel and form; "_f16": the
+# fp16 Llama form (csrc/flash_attention_fwd_f16.cu, _bwd_f16.cu)
 launches = {**{name + form: 0 for name in KERNEL_NAMES for form in FORMS},
+            **{name + "_f16": 0 for name in KERNEL_NAMES},
             "flash_attention_bias_grad": 0}
 # calls of the plain attention on CUDA tensors since the last reset
 plain_on_cuda = {"flash_attention_plain": 0}
@@ -466,15 +476,16 @@ def fwd_tma_maps(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _check_inputs(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   **more: torch.Tensor) -> None:
     """Raise on what the kernels do not take: q [B,S,H,D], k/v [B,S,KV,D],
-    bf16 on one CUDA device, D 64 or 128; ``more`` are q-shaped."""
+    bf16 (or fp16) on one CUDA device, D 64 or 128; ``more`` are q-shaped."""
     B, S, H, D = q.shape
     KV = k.shape[2]
     named = {"q": q, "k": k, "v": v, **more}
     if not all(t.is_cuda and t.device == q.device for t in named.values()):
         raise ValueError(f"{fn}: {', '.join(named)} must be on one CUDA device")
-    if any(t.dtype != torch.bfloat16 for t in named.values()):
+    if q.dtype not in (torch.bfloat16, torch.float16) \
+            or any(t.dtype != q.dtype for t in named.values()):
         raise ValueError(
-            f"{fn}: the kernel takes bfloat16, got "
+            f"{fn}: the kernel takes bfloat16 (or float16), one dtype, got "
             + "/".join(str(t.dtype) for t in named.values())
         )
     if k.shape != (B, S, KV, D) or v.shape != k.shape \
@@ -492,11 +503,29 @@ def _check_inputs(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_strides(fn, name, t)
 
 
+def _entry(lib, fn: str, q: torch.Tensor, *terms):
+    """The C entry of the kernel ``fn`` for q's dtype: the bf16 one, or for
+    fp16 the Llama form's, which takes none of ``terms`` (slopes, a bias,
+    segment ids, a layout, offsets: their fp16 forms are ROADMAP A6 part 2)."""
+    if q.dtype != torch.float16:
+        return getattr(lib, f"dst_{fn}")
+    taken = [name for name, t in zip(("slopes", "a dense bias", "segment ids", "a layout",
+                                      "position offsets"), terms) if t is not None]
+    if taken:
+        raise NotImplementedError(
+            f"{fn}: the fp16 kernel has the Llama form only, not {', '.join(taken)}: "
+            f"{_build.FP16_LATER}")
+    return getattr(lib, f"dst_{fn}_f16")
+
+
 def form_suffix(slopes: Optional[torch.Tensor], bias=None, segment_ids=None,
-                layout=None, offsets=None) -> str:
+                layout=None, offsets=None, dtype=torch.bfloat16) -> str:
     """The launch counter's suffix of a kernel's form: one ``_alibi``,
     ``_bias``, ``_sparse``, ``_seg``, ``_offsets`` for each term it takes, in
-    that order (nothing for the Llama form)."""
+    that order (nothing for the Llama form); ``_f16`` for the fp16 Llama
+    form."""
+    if dtype == torch.float16:
+        return "_f16"
     return "".join(f"_{name}" for name, t in zip(TERMS, (slopes, bias, layout,
                                                          segment_ids, offsets))
                    if t is not None)
@@ -595,13 +624,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     koff).
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
-    kernel (bf16, head_dim 64 or 128), or raise on what it does not take."""
+    kernel (bf16, or fp16 in the Llama form: no slopes, bias, segment ids,
+    layout or offsets; head_dim 64 or 128), or raise on what it does not
+    take."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, slopes, bias, segment_ids, layout,
                                      offsets)
     lib = _build.library()
     fn = "flash_attention_fwd"
     _check_inputs(fn, q, k, v)
+    entry = _entry(lib, fn, q, slopes, bias, segment_ids, layout, offsets)
     sl = slopes_ptr(fn, slopes, q)
     if bias is not None:
         check_bias(fn, bias, q)
@@ -612,7 +644,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KV = k.shape[2]
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    status = lib.dst_flash_attention_fwd(
+    status = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, S, H, KV, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
@@ -620,7 +652,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, fn)
-    launches[fn + form_suffix(slopes, bias, segment_ids, layout, offsets)] += 1
+    launches[fn + form_suffix(slopes, bias, segment_ids, layout, offsets, q.dtype)] += 1
     return out, lse
 
 
@@ -639,6 +671,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
     lib = _build.library()
     fn = "flash_attention_bwd_dq"
     _check_inputs(fn, q, k, v, o=o, do=do)
+    entry = _entry(lib, fn, q, slopes, bias, segment_ids, layout, offsets)
     _check_rows(fn, q, lse=lse)
     tile = ring_tile(q.shape[-1], any(t is not None for t in (bias, segment_ids, layout)))
     for name, t, rows in (("q", q, TMA_ROWS), ("k", k, tile), ("v", v, tile),
@@ -654,14 +687,14 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
     mask = mask_array(fn, q, bias, segment_ids, layout, dbias=dbias, offsets=offsets)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    status = lib.dst_flash_attention_bwd_dq(
+    status = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H, k.shape[2], D,
         _build.strides_array(q, k, v, o, do, dq), sl, 1.0 / math.sqrt(D),
         int(bool(causal)), mask, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, fn)
-    launches[fn + form_suffix(slopes, bias, segment_ids, layout, offsets)] += 1
+    launches[fn + form_suffix(slopes, bias, segment_ids, layout, offsets, q.dtype)] += 1
     return (dq, delta, dbias) if emit_dbias else (dq, delta)
 
 
@@ -679,6 +712,7 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal: bool = True,
     lib = _build.library()
     fn = "flash_attention_bwd_dkv"
     _check_inputs(fn, q, k, v, do=do)
+    entry = _entry(lib, fn, q, slopes, bias, segment_ids, layout, offsets)
     _check_rows(fn, q, lse=lse, delta=delta)
     tile = ring_tile(q.shape[-1], any(t is not None for t in (bias, segment_ids, layout)))
     for name, t, rows in (("q", q, tile), ("k", k, TMA_ROWS), ("v", v, TMA_ROWS),
@@ -689,14 +723,14 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal: bool = True,
     B, S, H, D = q.shape
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    status = lib.dst_flash_attention_bwd_dkv(
+    status = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], D,
         _build.strides_array(q, k, v, do, dk, dv), sl, 1.0 / math.sqrt(D),
         int(bool(causal)), mask, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, fn)
-    launches[fn + form_suffix(slopes, bias, segment_ids, layout, offsets)] += 1
+    launches[fn + form_suffix(slopes, bias, segment_ids, layout, offsets, q.dtype)] += 1
     return dk, dv
 
 
@@ -713,6 +747,8 @@ def flash_attention_bias_grad(q, k, v, bias, lse, delta, do, causal: bool = True
     lib = _build.library()
     fn = "flash_attention_bias_grad"
     _check_inputs(fn, q, k, v, do=do)
+    if q.dtype == torch.float16:
+        raise NotImplementedError(f"{fn}: no fp16 form: {_build.FP16_LATER}")
     _check_rows(fn, q, lse=lse, delta=delta)
     sl = slopes_ptr(fn, slopes, q)
     check_bias(fn, bias, q)

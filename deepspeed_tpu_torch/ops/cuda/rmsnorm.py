@@ -8,8 +8,11 @@ the backward replaces ``_bwd_kernel`` (line 30), reached through ``_run_bwd``
 
 Bound on the H100: bytes. Forward 2 * rows * D * itemsize, backward
 3 * rows * D * itemsize (x and g read, dx written) over 3.35 TB/s. Both read
-x in its own dtype (bf16 or fp32), compute in fp32 and write x's dtype; that
-fuses the fp32 casts the JAX model wraps around the TPU kernel, so each
+x in its own dtype (bf16 or fp32, or fp16 with an fp16 scale: the fp16
+forms, the entries ``dst_rmsnorm_{fwd,bwd}_f16`` of ``csrc/rmsnorm_f16.cu``
+and ``csrc/rmsnorm_bwd_f16.cu``, picked here by x's dtype as the flash
+wrapper picks its fp16 entries, counted as ``rmsnorm_fwd_f16`` /
+``rmsnorm_bwd_f16``), compute in fp32 and write x's dtype; that fuses the fp32 casts the JAX model wraps around the TPU kernel, so each
 result is the fp32 result rounded once. The forward shares
 ``csrc/norm_fwd.cuh`` with the LayerNorm forward (a team of warps a row, the
 row in registers, persistent teams); its sum order is fixed by D, so a row's
@@ -27,8 +30,8 @@ import torch
 
 from . import _build
 
-# kernel launches since the last reset
-launches = {"rmsnorm_fwd": 0, "rmsnorm_bwd": 0}
+# kernel launches since the last reset; "_f16": the fp16 forms (fp16 x and scale)
+launches = {"rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "rmsnorm_fwd_f16": 0, "rmsnorm_bwd_f16": 0}
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -53,10 +56,19 @@ def rmsnorm_bwd_plain(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     return dx, (g32 * xhat).sum(dim=0)
 
 
+def _f16(x: torch.Tensor) -> str:
+    """The launch counter's suffix of x's form: "_f16" for fp16."""
+    return "_f16" if x.dtype == torch.float16 else ""
+
+
 def _check(name: str, x: torch.Tensor, *weights: torch.Tensor) -> int:
     """Raise on what the kernels do not take; returns D. Each weight (scale,
     bias) must start on a whole vector of its values: the forward kernels
     load the values that meet one 16-byte vector of x at once."""
+    if x.dtype == torch.float16 and any(t.dtype != torch.float16 for t in weights):
+        raise NotImplementedError(
+            f"{name}: fp16 x takes an fp16 scale (the fp16 model's pair); other "
+            f"mixes are {_build.FP16_LATER}")
     D = x.shape[-1]
     vec = 16 // x.element_size()
     if not x.is_cuda or not x.is_contiguous() or x.data_ptr() % 16 or D % vec:
@@ -87,13 +99,18 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
     lib = _build.library()
     D = _check("rmsnorm_fwd", x, scale)
     out = torch.empty_like(x)
-    status = lib.dst_rmsnorm_fwd(
-        x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.numel() // D if D else 0, D,
-        eps, _build.dtype_code(x.dtype), _build.dtype_code(scale.dtype),
-        _build.stream_handle(x),
-    )
+    rows = x.numel() // D if D else 0
+    if x.dtype == torch.float16:
+        status = lib.dst_rmsnorm_fwd_f16(x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                                         rows, D, eps, _build.stream_handle(x))
+    else:
+        status = lib.dst_rmsnorm_fwd(
+            x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, D, eps,
+            _build.dtype_code(x.dtype), _build.dtype_code(scale.dtype),
+            _build.stream_handle(x),
+        )
     _build.check(status, "rmsnorm_fwd")
-    launches["rmsnorm_fwd"] += 1
+    launches["rmsnorm_fwd" + _f16(x)] += 1
     return out
 
 
@@ -117,16 +134,18 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     if D * x.element_size() > 2048 * 16:
         raise ValueError(f"rmsnorm_bwd: D={D} over the kernel's row limit")
     rows = x.numel() // D if D else 0
-    code = _build.dtype_code(x.dtype)
+    code = _build.dtype_code(x.dtype, fp16=True)
     dx = torch.empty_like(x)
     part = torch.empty((lib.dst_rmsnorm_bwd_nblocks(rows, D, code), D),
                        dtype=torch.float32, device=x.device)
     dscale = torch.empty((D,), dtype=torch.float32, device=x.device)  # written whole
-    status = lib.dst_rmsnorm_bwd(
-        x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        part.data_ptr(), dscale.data_ptr(), rows, D, float(eps), code,
-        _build.dtype_code(scale.dtype), _build.stream_handle(x),
-    )
+    ptrs = (x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(), part.data_ptr(),
+            dscale.data_ptr(), rows, D, float(eps))
+    if x.dtype == torch.float16:
+        status = lib.dst_rmsnorm_bwd_f16(*ptrs, _build.stream_handle(x))
+    else:
+        status = lib.dst_rmsnorm_bwd(*ptrs, code, _build.dtype_code(scale.dtype),
+                                     _build.stream_handle(x))
     _build.check(status, "rmsnorm_bwd")
-    launches["rmsnorm_bwd"] += 1
+    launches["rmsnorm_bwd" + _f16(x)] += 1
     return dx, dscale

@@ -5,8 +5,7 @@ leaves (a state split over dp ranks is gathered before the write, and each
 rank keeps its part of a loaded leaf).
 
 Counterpart of ``deepspeed_tpu/runtime/ckpt``; per-rank files and the
-overlap reads of ``reshard.py`` come with stage 3 over ranks (ROADMAP A7
-item 2b).
+overlap reads of ``reshard.py`` are ROADMAP A7 item 2c-4.
 """
 
 from .async_writer import (CheckpointGuard, install_preempt_handler,

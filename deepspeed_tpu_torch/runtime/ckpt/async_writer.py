@@ -183,7 +183,7 @@ def _build_meta(engine, tag: str, client_state: Dict[str, Any]) -> Dict[str, Any
         "global_steps": engine.global_steps,
         "micro_steps": engine.micro_steps,
         "skipped_steps": engine.skipped_steps,
-        "step": engine.global_steps,
+        "step": engine.update_count,  # the updates done: global less skipped
         "rng": engine.rng_key(),
         "client_state": client_state or {},
         "zero_stage": engine.config.zero_config.stage,

@@ -7,8 +7,7 @@ the older ``metadata.json`` without ``manifest_version`` too. Each leaf is
 matched by its stored name and copied in place into the engine's tensor, on
 its device; under ZeRO stages 1 and 2 over dp ranks a sharded state leaf
 (``runtime.zero.ShardedLeaf``) keeps this rank's part of it. The overlap
-reads that would read only a rank's rectangle come with stage 3 over ranks
-(ROADMAP A7 item 2b).
+reads that would read only a rank's rectangle are ROADMAP A7 item 2c-4.
 """
 
 from __future__ import annotations
@@ -53,10 +52,10 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
                for comp, named in components.items()}
     # then the host-side leaves (the optimizer's update counts, the loss scale),
     # which the engine checks before any tensor changes
-    engine.check_restored(
-        {comp: {name: _assemble_leaf(entries) for name, leaf, entries in leaves
-                if entries is not None and not isinstance(leaf, _TENSOR_LEAVES)}
-         for comp, leaves in matched.items()}, meta)
+    host = {comp: {name: _assemble_leaf(entries) for name, leaf, entries in leaves
+                   if entries is not None and not isinstance(leaf, _TENSOR_LEAVES)}
+            for comp, leaves in matched.items()}
+    engine.check_restored(host, meta)
     with torch.no_grad():  # then the tensors, one leaf in host memory at a time
         for leaves in matched.values():
             for _, leaf, entries in leaves:
@@ -66,6 +65,7 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     engine.global_steps = int(meta["global_steps"])
     engine.micro_steps = int(meta["micro_steps"])
     engine.skipped_steps = int(meta.get("skipped_steps", 0))
+    engine.restore_loss_scale(host.get("loss_scale", {}))
     log_dist(f"loaded checkpoint {path} (step {meta['global_steps']}; saved at ZeRO "
              f"stage {meta.get('zero_stage')} on {meta.get('world_size')} device(s), "
              f"manifest version {meta.get('manifest_version', 'none')})")

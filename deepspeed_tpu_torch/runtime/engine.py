@@ -2,8 +2,8 @@
 device (or the CPU, when asked), or on each rank of a dp × sp world.
 
 Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``initialize`` line 62,
-``TpuEngine.train_batch`` line 2168, ``_train_step`` line 2038): bf16 (or
-fp32) compute over fp32 master weights and the optimizers of
+``TpuEngine.train_batch`` line 2168, ``_train_step`` line 2038): bf16, fp16
+or fp32 compute over fp32 master weights and the optimizers of
 ``runtime/optimizers.py``; on one rank any ZeRO stage (nothing to partition:
 stage 0's step) and optimizer/parameter offload (lines 639-720: the
 optimizer state in host memory stepped a layer at a time,
@@ -17,7 +17,17 @@ the global norm, the clip factor min(1, clip / (norm + 1e-6)) (line 1953), and
 the optimizer update in place (line 1973), all on the device: the step reads
 nothing back to the host except at a ``steps_per_print`` boundary (or every
 step under ``wall_clock_breakdown``, whose device timer has to wait). The
-returned loss is a device tensor.
+returned loss is a device tensor. Under fp16 (``runtime/precision.py``,
+JAX lines 1567-1630, 1942-1984, 2309-2319) each micro-batch's loss is
+multiplied by the dynamic loss scale in fp32 before backward; after the
+gradients' sum over the world they are multiplied by 1/scale (by
+1/(accum·scale) after the micro-batches' fp32 sum); one flag, any
+non-finite element of any rank's gradients (a max over the world), is the
+step's one host read; on overflow no optimizer runs (masters, state and
+counts stay as they were, no all-gather), ``global_steps`` advances and
+``skipped_steps`` counts; the scale moves by the reference rules, and the
+lr and the optimizers' counts read the un-skipped steps
+(:attr:`TorchEngine.update_count`).
 
 Beside ``train_batch`` the engine has DeepSpeed's imperative loop
 (``engine(batch)``, ``engine.backward(loss)``, ``engine.step()``; JAX lines
@@ -31,7 +41,7 @@ bit. ``prepare_batch`` stages a global batch on the device once and
 Checkpointing (JAX lines 2870-3010): ``save_checkpoint`` / ``load_checkpoint``
 write and read the JAX package's layout under its leaf names
 (``runtime/ckpt``: the fp32 masters, the optimizer state under the optax
-chain's names, the static loss scale of a bf16/fp32 run, the counters), sync
+chain's names, the loss scaler's state, the counters), sync
 or with ``checkpoint.async_save`` behind a snapshot fence, so either package
 resumes the other's checkpoints; ``save_16bit_model`` writes one bf16
 safetensors file under the HF names (``integrations/hf.py``).
@@ -101,6 +111,7 @@ from .bucketed_opt import BucketedOptimizer, _nbytes, bucketed_applicable
 from .checkpointing import _barrier, _is_writer
 from .lr_schedules import build_schedule
 from .optimizers import build_optimizer
+from .precision import LossScaleState, init_loss_scale, unscale_, update_loss_scale
 from .swap_tensor import TensorSwapper, host_empty
 from .zero import ShardedLeaf, ZeroPartition, storage_bytes
 from .zero.prefetch import GatherScope, use_gather
@@ -125,7 +136,9 @@ def unported_features(cfg: DeepSpeedConfig) -> List[str]:
     """The features a config turns on that a later slice of the port
     brings, each with its ROADMAP queue A item. ZeRO stages 1 and 2 run over
     dp ranks (item 7.2a), stage 3 too (item 7.2b); offload, a stage beside
-    sequence parallelism and the quantized wires over ranks are item 7.2c."""
+    sequence parallelism, the quantized wires and the fsdp knobs over ranks
+    are item 7.2c. fp16 trains at every stage on one rank and over dp ranks
+    (item 6, part 1); with offload or sp > 1 it is part 2."""
     raw = cfg.raw
     zc = cfg.zero_config
     pipe = raw.get("pipeline") or {}
@@ -136,8 +149,15 @@ def unported_features(cfg: DeepSpeedConfig) -> List[str]:
     sp = cfg.sequence_parallel.sp_size
     wire = zc.resolved_grad_wire()
     pwire = zc.resolved_param_wire()  # fp32 below stage 3 (config.py)
+    off = zc.offload_optimizer.enabled or zc.offload_param.enabled
     checks = [
-        (cfg.fp16.enabled, "fp16 and its loss scaler (item 6)"),
+        (cfg.fp16.enabled and off,
+         "fp16 with optimizer/parameter offload (ROADMAP A6 part 2): the offloaded "
+         "update is the per-layer bucketed stream, which the JAX package turns off "
+         "under fp16 (its overflow skip selects over the whole state)"),
+        (cfg.fp16.enabled and sp > 1,
+         f"fp16 with sequence parallelism, sp_size {sp} (ROADMAP A6 part 2: the ring "
+         f"and Ulysses hops need the offset flash forms in fp16)"),
         (world > 1 and zc.stage > 0 and sp > 1,
          f"ZeRO stage {zc.stage} (item 7) with sequence parallelism (sp_size {sp}): "
          f"stages over ranks with sp > 1 are item 7.2c; stages 1-3 run over dp "
@@ -148,7 +168,13 @@ def unported_features(cfg: DeepSpeedConfig) -> List[str]:
         (world > 1 and zc.stage == 3 and pwire != "fp32",
          f"ZeRO stage 3 over {world} ranks with param_wire {pwire} (item 7.2c, the "
          f"comm/wires.py codecs): stage 3 gathers the compute dtype"),
-        (world > 1 and (zc.offload_optimizer.enabled or zc.offload_param.enabled),
+        (world > 1 and (zc.zero_hpz_partition_size not in (0, 1, None)
+                        or zc.mics_shard_size not in (-1, 0, None)),
+         f"zero_hpz_partition_size {zc.zero_hpz_partition_size} / mics_shard_size "
+         f"{zc.mics_shard_size} over {world} ranks (item 7.2c): the JAX package then "
+         f"builds a dp x fsdp topology and cuts the stage-3 masters over fsdp only; the "
+         f"port's dp x sp world has no fsdp axis"),
+        (world > 1 and off,
          f"optimizer/parameter offload, NVMe included (item 7) over {world} ranks: "
          f"offload runs on one rank; over ranks it is item 7.2c"),
         (int(pipe.get("stages", pipe.get("num_stages", 1)) or 1) > 1,
@@ -212,7 +238,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     later += unported_features(cfg)
     if later:
         raise NotImplementedError(
-            "deepspeed_tpu_torch trains with bf16/fp32, ZeRO stages 1-3 over dp "
+            "deepspeed_tpu_torch trains with bf16, fp16 or fp32, ZeRO stages 1-3 over dp "
             "ranks, every stage and offload on one rank; not yet ported (ROADMAP "
             "queue A): " + "; ".join(later)
         )
@@ -272,16 +298,25 @@ class TorchEngine:
         policy_by_name(self.remat_policy)  # raises for a policy not ported
         on_cuda = device.type == "cuda"
         tk = config.tpu_kernels.resolve(on_cuda)
-        if on_cuda and tk.flash_attention and self.compute_dtype != torch.bfloat16:
+        if on_cuda and tk.flash_attention and self.compute_dtype == torch.float32:
             raise NotImplementedError(
-                "the CUDA flash-attention kernels take bfloat16: enable bf16, "
-                "or set tpu_kernels.flash_attention to false"
+                "the CUDA flash-attention kernels take bfloat16 or float16: enable bf16 "
+                "or fp16, or set tpu_kernels.flash_attention to false"
             )
+        self.fp16_enabled = config.fp16.enabled
         self.tpu_kernels = tk
         # training-time block-sparse attention (the "sparse_attention"
         # section; JAX engine.py:296-319): the flash kernels' block-sparse
         # form, or its plain version with the flash switch off
         sp_cfg = from_ds_config(config.sparse_attention)
+        if on_cuda and self.fp16_enabled and (model.config.norm != "rmsnorm"
+                                              or sp_cfg is not None):
+            raise NotImplementedError(
+                f"fp16 on a CUDA device with a {model.config.norm} model"
+                + (" and a sparse_attention section" if sp_cfg is not None else "")
+                + ": the fp16 forms of the LayerNorm, ALiBi and masked flash kernels "
+                  "are ROADMAP A6 part 2; fp16 trains the Llama family (and Mixtral "
+                  "at ep 1) on the card")
         self._sparse_impl = (make_attention_impl(sp_cfg, kernels=tk.flash_attention)
                              if sp_cfg is not None else None)
         self.lr_schedule = build_schedule(config.scheduler.type,
@@ -306,7 +341,8 @@ class TorchEngine:
         self.micro_steps = 0
         self.last_gather: Optional[GatherScope] = None  # the last stage-3 step's scope
         self._grad_bytes = (0, 0)  # state_bytes: the last update's gradients, transient
-        self.skipped_steps = 0  # no fp16 overflow skips on the ported path
+        self.skipped_steps = 0  # fp16 steps whose gradients overflowed
+        self._loss_scale = init_loss_scale(config.fp16, self.fp16_enabled)
         self._checkpoint_guard = None
         self.training = True
         self._micro_buffer: List[Any] = []
@@ -488,15 +524,16 @@ class TorchEngine:
         if self.offloaded and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _update(self, params, grads, clip) -> None:
-        """The optimizer half of the step (JAX ``_apply_update``)."""
+    def _update(self, params, grads, clip, step: int) -> None:
+        """The optimizer half of the step (JAX ``_apply_update``), its lr and
+        counts those of update ``step``."""
         if self._bucketed is not None:
-            self._bucketed.step(params, grads, self.opt_state, self.global_steps, clip,
+            self._bucketed.step(params, grads, self.opt_state, step, clip,
                                 host_params=self.params if self._param_offload else None)
             return
         if self._swapper is not None:  # its reads were started before forward
             self.opt_state = self._swapper.swap_in("opt_state", device=self.device)
-        self.optimizer.step(params, grads, self.opt_state, self.global_steps, clip)
+        self.optimizer.step(params, grads, self.opt_state, step, clip)
         if self._param_offload:
             with torch.no_grad():
                 for h, d in zip(tree_leaves(self.params), tree_leaves(params)):
@@ -507,7 +544,7 @@ class TorchEngine:
             self._swapper.swap_out("opt_state", self.opt_state, blocking=False)
             self.opt_state = None
 
-    def _update_parts(self, params, grads: List[torch.Tensor], clip) -> None:
+    def _update_parts(self, params, grads: List[torch.Tensor], clip, step: int) -> None:
         """ZeRO over dp ranks: the optimizer on this rank's parts of the
         masters (from the whole summed gradients at stage 1, from this rank's
         parts of them at stage 2; at stage 3 the held parts from their
@@ -518,9 +555,30 @@ class TorchEngine:
         leaves = tree_leaves(params)
         self.optimizer.step_leaves(
             part.parts(leaves), grads if self._stage2 else part.parts(grads),
-            self.optimizer.slot_leaves(self.opt_state), self.global_steps, clip, partition=part)
+            self.optimizer.slot_leaves(self.opt_state), step, clip, partition=part)
         with torch.no_grad():
             part.gather_(leaves)
+
+    @property
+    def update_count(self) -> int:
+        """The optimizer updates done: the steps less the fp16 overflow skips
+        (JAX's ``state.step``, ``new_step`` at line 2027), which the lr
+        schedule and every optimizer's counts read."""
+        return self.global_steps - self.skipped_steps
+
+    def _unscale(self, leaves: List[torch.Tensor], scale, accum: int) -> bool:
+        """fp16: the gradients (this rank's, after their sum over the world)
+        times 1/scale, or 1/(accum * scale) after the micro-batches' fp32
+        sum, the factor computed in fp32 (JAX lines 1597-1598, 1629-1630),
+        and whether any element of any rank's gradients is not finite (one
+        flag, the max over the world, read on the host: the step's one
+        sync)."""
+        one = np.float32(1.0)
+        inv = float(one / scale if accum == 1 else one / (np.float32(accum) * scale))
+        flag = unscale_(leaves, inv).to(self.device)
+        if self._world is not None:
+            all_reduce(flag, self._world, op="max")
+        return bool(flag.item())
 
     def _swap_in_opt(self) -> None:
         """NVMe: the state back on the device (a no-op when resident)."""
@@ -648,6 +706,7 @@ class TorchEngine:
             self._swapper.prefetch("opt_state", device=self.device)
         params = self._step_params(True)
         loss_sum = m_sum = None
+        scale = self._loss_scale.scale
         gather = self._gather_scope(params)
         with self._kernel_scope(gather):
             for i in range(accum):
@@ -658,7 +717,8 @@ class TorchEngine:
                     num_tokens=None if num_tokens is None else num_tokens[i])
                 if gather is not None:  # its prefetch runs the layers backwards
                     gather.backward = True
-                loss.backward()
+                # fp16: the loss times the scale in fp32 (JAX _loss_for, line 1567)
+                (loss * float(scale) if self.fp16_enabled else loss).backward()
                 if gather is not None:
                     gather.backward = False
                 loss = loss.detach()
@@ -694,7 +754,10 @@ class TorchEngine:
             elif gather is None:
                 transient += self._flat_over_world(leaves, lambda f: all_reduce(f, self._world))
         self._grad_bytes = (storage_bytes(leaves), transient)
-        if accum > 1:
+        overflow = False
+        if self.fp16_enabled:
+            overflow = self._unscale(leaves, scale, accum)
+        elif accum > 1:
             for g in leaves:
                 g.mul_(1.0 / accum)
         if self._stage2:
@@ -707,18 +770,27 @@ class TorchEngine:
         clip = None
         if cfg.gradient_clipping > 0:
             clip = torch.clamp(cfg.gradient_clipping / (gnorm + 1e-6), max=1.0)
-        if self._partition is not None:
-            self._update_parts(params, leaves, clip)
-        else:
-            self._update(params, grads, clip)
+        step = self.update_count
+        if not overflow:  # a skipped step leaves the masters and optimizer state as they were
+            if self._partition is not None:
+                self._update_parts(params, leaves, clip, step)
+            else:
+                self._update(params, grads, clip, step)
         for p in tree_leaves(params):
             p.grad = None
         del grads, leaves, params
-        lr = self.lr_schedule(self.global_steps)
+        lr = self.lr_schedule(step)
         self.global_steps += 1
         self.micro_steps += accum
+        self._loss_scale = update_loss_scale(self._loss_scale, overflow, cfg.fp16,
+                                             self.fp16_enabled)
+        if overflow:
+            self.skipped_steps += 1
+            log_dist(f"step {self.global_steps}: fp16 overflow, skipping update (new scale "
+                     f"{float(self._loss_scale.scale)})")
         loss = loss_sum / accum
-        self._metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
+        self._metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr, "overflow": overflow,
+                         "loss_scale": float(self._loss_scale.scale),
                          **{k: v if k == "tokens" else v / accum for k, v in m_sum.items()}}
         if cfg.wall_clock_breakdown:
             t2 = time.perf_counter()
@@ -867,9 +939,10 @@ class TorchEngine:
         """The checkpoint's components as named leaves, each in the JAX
         engine's flatten order: ``params`` the fp32 masters, ``opt_state``
         the optimizer's state under the optax chain's names with its update
-        counts (``global_steps``), ``loss_scale`` the static state of a
-        bf16/fp32 run (JAX ``precision.py:init_loss_scale`` with fp16 off:
-        scale 1, no good steps, the configured hysteresis). Under ZeRO over
+        counts (:attr:`update_count`), ``loss_scale`` the scaler's live state
+        (JAX ``precision.py:LossScaleState``: under fp16 the dynamic scale, its
+        good steps and hysteresis left; a bf16/fp32 run's stays scale 1, no
+        good steps, the configured hysteresis). Under ZeRO over
         dp ranks a sharded state leaf, and at stage 3 a master held as its
         part, is a :class:`ShardedLeaf` (the whole leaf's shape; a copy into
         it keeps this rank's part, and its ``whole()`` gathers it, every rank
@@ -878,20 +951,16 @@ class TorchEngine:
             raise RuntimeError("the NVMe-offloaded optimizer state is on disk: "
                                "save_checkpoint / load_checkpoint swap it in first")
         self._quiesce()  # the offloaded update's copies into host memory have landed
-        opt = (self._bucketed.state_items(self.opt_state, self.global_steps)
+        opt = (self._bucketed.state_items(self.opt_state, self.update_count)
                if self._bucketed is not None
-               else self.optimizer.state_items(self.opt_state, self.global_steps))
+               else self.optimizer.state_items(self.opt_state, self.update_count))
         if self._partition is not None:
             opt = self._sharded_state(opt)
         held = self._held_masters()
         return {
             "params": [(n, held.get(id(t), t)) for n, t in tree_items(self.params, True)],
             "opt_state": opt,
-            "loss_scale": [
-                (".scale", np.asarray(1.0, np.float32)),
-                (".good_steps", np.asarray(0, np.int32)),
-                (".hysteresis_left", np.asarray(self.config.fp16.hysteresis, np.int32)),
-            ],
+            "loss_scale": [(f".{k}", np.asarray(v)) for k, v in self._loss_scale._asdict().items()],
         }
 
     def _slot_parts(self):
@@ -908,25 +977,33 @@ class TorchEngine:
 
     def check_restored(self, restored: Dict[str, Dict[str, np.ndarray]],
                        meta: Dict[str, Any]) -> None:
-        """Refuse a checkpoint this engine cannot continue: an optimizer
-        update count other than the manifest's ``global_steps`` (Adam's bias
-        correction and the lr schedule run on the engine's step count), or a
-        loss scale that is not the static state (an fp16 run's)."""
-        steps = int(meta["global_steps"])
+        """Refuse a checkpoint this engine cannot continue: a manifest whose
+        ``step`` (the updates done, JAX's ``state.step``; older manifests
+        without it: ``global_steps - skipped_steps``) is not its
+        ``global_steps`` less its ``skipped_steps``, or an optimizer update
+        count other than that ``step`` (Adam's bias correction and the lr
+        schedule run on it)."""
+        done = int(meta["global_steps"]) - int(meta.get("skipped_steps", 0))
+        step = int(meta.get("step", done))
+        if step != done:
+            raise ValueError(
+                f"checkpoint step {step} (the optimizer's update count) != global_steps "
+                f"{meta['global_steps']} - skipped_steps {meta.get('skipped_steps', 0)}")
         for name, count in restored.get("opt_state", {}).items():
             count = np.asarray(count)  # a bucketed state's ['layers'] counts are [L]
-            if np.any(count != steps):
+            if np.any(count != step):
                 raise ValueError(
-                    f"checkpoint optimizer count {name} = {count.tolist()} != global_steps "
-                    f"{steps}: this engine cannot resume a state whose updates and "
-                    f"steps differ (fp16 skipped steps?)")
-        ls = restored.get("loss_scale", {})
-        scale, good = ls.get(".scale"), ls.get(".good_steps")
-        if (scale is not None and float(scale) != 1.0) or (good is not None and int(good) != 0):
-            raise NotImplementedError(
-                f"the checkpoint's loss scale (scale {scale}, good steps {good}) is a "
-                f"dynamic fp16 scaler's; deepspeed_tpu_torch trains bf16/fp32 without "
-                f"one: fp16 and its loss scaler are ROADMAP queue A item A6")
+                    f"checkpoint optimizer count {name} = {count.tolist()} != step "
+                    f"{step}: this engine cannot resume a state whose updates and "
+                    f"steps differ")
+
+    def restore_loss_scale(self, leaves: Dict[str, np.ndarray]) -> None:
+        """The scaler's state from a checkpoint's ``loss_scale`` leaves (a
+        leaf missing keeps its value); under bf16/fp32 it is kept, not
+        applied, as the JAX package's scaler update is a no-op there."""
+        cur = self._loss_scale._asdict()
+        self._loss_scale = LossScaleState(**{
+            k: type(v)(leaves[f".{k}"]) if f".{k}" in leaves else v for k, v in cur.items()})
 
     def check_layout(self, meta: Dict[str, Any]) -> None:
         """Refuse a checkpoint whose optimizer state is laid out otherwise
@@ -1081,14 +1158,15 @@ class TorchEngine:
     # ----------------------------------------------------------- properties
     @property
     def lr(self) -> float:
-        return float(self.lr_schedule(self.global_steps))
+        return float(self.lr_schedule(self.update_count))
 
     def get_lr(self):
         return [self.lr]
 
     @property
     def loss_scale(self) -> float:
-        return 1.0  # no fp16 loss scaling on the ported path
+        """The live loss scale (1 unless fp16, or a restored fp16 state)."""
+        return float(self._loss_scale.scale)
 
     def get_global_grad_norm(self) -> float:
         g = self._metrics.get("grad_norm")

@@ -497,14 +497,25 @@ def test_strict_false_refusals_and_orbax(tmp_path):
 
 
 def test_fp16_loss_scale_is_refused(tmp_path):
+    """Once refused, a dynamic fp16 scaler's state now loads: the stored
+    scale, good steps and hysteresis become the engine's (kept, not applied,
+    by this fp32 engine, as the JAX package's no-op update keeps them), and
+    a save writes them back."""
     eng = _port_engine(_cfg("adamw"))
     eng.save_checkpoint(str(tmp_path))
     meta = json.loads((tmp_path / "global_step0/metadata.json").read_text())
-    i = meta["components"]["loss_scale"]["leaf_names"].index(".scale")
-    np.save(tmp_path / f"global_step0/loss_scale/leaf_{i:05d}.shard.0d.npy",
-            np.asarray(65536.0, np.float32))
-    with pytest.raises(NotImplementedError, match="A6"):
-        eng.load_checkpoint(str(tmp_path))
+    names = meta["components"]["loss_scale"]["leaf_names"]
+    for name, value in ((".scale", np.asarray(65536.0, np.float32)),
+                        (".good_steps", np.asarray(7, np.int32)),
+                        (".hysteresis_left", np.asarray(1, np.int32))):
+        np.save(tmp_path / f"global_step0/loss_scale/leaf_{names.index(name):05d}.shard.0d.npy",
+                value)
+    eng.load_checkpoint(str(tmp_path))
+    assert eng.loss_scale == 65536.0
+    assert tuple(eng._loss_scale) == (65536.0, 7, 1)
+    saved = dict(eng.checkpoint_components()["loss_scale"])
+    assert (float(saved[".scale"]), int(saved[".good_steps"]),
+            int(saved[".hysteresis_left"])) == (65536.0, 7, 1)
 
 
 # ------------------------------------------- serving and the fp32 export

@@ -139,7 +139,8 @@ def test_data_iter_and_labels():
 
 @pytest.mark.parametrize("extra,match", [
     ({"pipeline": {"stages": 2}}, "pipeline parallelism"),
-    ({"fp16": {"enabled": True}}, "fp16"),
+    ({"fp16": {"enabled": True}, "zero_optimization": {
+        "stage": 2, "offload_optimizer": {"device": "cpu"}}}, "fp16"),
     ({"optimizer": {"type": "onebitlamb", "params": {}}}, "1-bit optimizers"),
     ({"activation_checkpointing": {"policy": "dots_flash"}}, "dots_flash"),
     ({"tensor_parallel": {"tp_size": 2}}, "tensor parallelism"),

@@ -291,6 +291,11 @@ def test_partition_offsets_are_aligned():
      "ZeRO stage 3 \\(item 7\\) with sequence parallelism.*item 7.2c"),
     ({"stage": 3, "offload_param": {"device": "cpu"}}, {},
      "offload, NVMe included \\(item 7\\) over 2 ranks.*item 7.2c"),
+    # hpZ / MiCS: the JAX package builds a dp x fsdp topology (fault C1)
+    ({"stage": 3, "zero_hpz_partition_size": 2}, {},
+     "zero_hpz_partition_size 2 / mics_shard_size -1 over 2 ranks \\(item 7.2c\\)"),
+    ({"stage": 3, "mics_shard_size": 2}, {},
+     "zero_hpz_partition_size 1 / mics_shard_size 2 over 2 ranks \\(item 7.2c\\)"),
 ])
 def test_still_refused_over_ranks(monkeypatch, zero, extra, match):
     monkeypatch.setenv("WORLD_SIZE", "2")

@@ -1,7 +1,8 @@
 """Rank functions of the sequence-parallel tests (tests/test_torch_sequence_parallel.py,
 tests/test_torch_ring_flash.py), of the checkpointing test over ranks
 (tests/test_torch_checkpointing.py) and of ZeRO over dp ranks
-(tests/test_torch_zero_dp.py, tests/test_torch_zero3.py), run by
+(tests/test_torch_zero_dp.py, tests/test_torch_zero3.py) and of fp16 over
+them (tests/test_torch_fp16_dp.py), run by
 ``deepspeed_tpu_torch.launcher.launch_local`` in spawned processes: this module
 imports only torch and the port, so a rank starts without jax."""
 
@@ -13,6 +14,7 @@ import torch
 
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.comm import all_gather, get_topology, init_distributed, reduce_scatter
+from deepspeed_tpu_torch.comm.collectives import all_gather_async
 from deepspeed_tpu_torch.comm.topology import ParallelDims
 from deepspeed_tpu_torch.models import TransformerConfig, TransformerModel
 from deepspeed_tpu_torch.models.convert import params_from_numpy, params_to_numpy
@@ -20,8 +22,8 @@ from deepspeed_tpu_torch.models.sharding import use_topology
 from deepspeed_tpu_torch.ops.attention import attention, attention_impl
 from deepspeed_tpu_torch.parallel.sequence import ring_attention, ulysses_attention
 from deepspeed_tpu_torch.runtime import engine as engine_module
-from deepspeed_tpu_torch.runtime.zero import ShardedLeaf, shard_plan, stage3_plan
-from deepspeed_tpu_torch.utils.tree import tree_items, tree_map
+from deepspeed_tpu_torch.runtime.zero import ShardedLeaf, prefetch, shard_plan, stage3_plan
+from deepspeed_tpu_torch.utils.tree import tree_items, tree_leaves, tree_map
 from deepspeed_tpu_torch.zero import GatheredParameters
 
 
@@ -237,6 +239,74 @@ def zero3_rank(rank, runs):
     """ZeRO stage 3 over this world's dp ranks: :func:`zero_run` of each
     run, by label."""
     return {run["label"]: zero_run(run) for run in runs}
+
+
+def _parts(eng):
+    """This rank's masters and optimizer state as it holds them (its parts
+    over the dp ranks; no collective), as numpy copies."""
+    return [t.detach().numpy().copy() for t in
+            tree_leaves(eng.params) + tree_leaves(eng.opt_state)]
+
+
+def fp16_rank(rank, runs):
+    """fp16 over this world's dp ranks. Each run, a dict of ``label``,
+    ``model``, ``tree``, ``config`` and ``batches``, optionally ``poison``
+    (rank, step): on that rank at that step (1-based) one element of the
+    first gradient part this rank holds is set to inf just before the
+    overflow test, so the inf lies in that rank's part only. Returns per
+    label, per step, the loss, (scale, skipped_steps, global_steps, lr), the
+    overflow flag, the gradient norm and whether this rank's parts stayed bitwise as they were;
+    the whole masters at the end and ``gathered``, the dtypes the stage-3
+    gathers (``runtime/zero/prefetch.py``) moved. Last, ``collectives``: an
+    fp16 tensor through gloo's all-gather, blocking and asynchronous."""
+    out = {}
+    for run in runs:
+        model = TransformerModel(TransformerConfig(**run["model"]))
+        eng = deepspeed_tpu_torch.initialize(
+            model=model, config=run["config"], device="cpu",
+            model_parameters=params_from_numpy(model.config, run["tree"]))[0]
+        poison_rank, poison_step = run.get("poison") or (None, None)
+        unscale = eng._unscale
+        res = {"losses": [], "records": [], "unchanged": [], "overflow": [], "norms": []}
+        gathered = set()  # the dtypes the stage-3 gathers moved through gloo
+        real = {n: getattr(prefetch, n) for n in ("all_gather", "all_gather_async")}
+
+        def spy(name):
+            def call(x, *a, **k):
+                gathered.add(str(x.dtype))
+                return real[name](x, *a, **k)
+            return call
+
+        for name in real:
+            setattr(prefetch, name, spy(name))
+        try:
+            for step, batch in enumerate(run["batches"], 1):
+                if rank == poison_rank and step == poison_step:
+                    def poisoned(leaves, scale, accum):
+                        leaves[0].view(-1)[0] = float("inf")
+                        return unscale(leaves, scale, accum)
+                    eng._unscale = poisoned
+                before = _parts(eng)
+                res["losses"].append(eng.train_batch(batch=batch).item())
+                eng._unscale = unscale
+                res["records"].append((float(eng.loss_scale), eng.skipped_steps,
+                                       eng.global_steps, float(eng.lr)))
+                res["overflow"].append(bool(eng._metrics["overflow"]))
+                res["norms"].append(float(eng._metrics["grad_norm"]))
+                res["unchanged"].append(all(np.array_equal(a, b)
+                                            for a, b in zip(before, _parts(eng))))
+        finally:
+            for name, fn in real.items():
+                setattr(prefetch, name, fn)
+        res["gathered"] = sorted(gathered)
+        res["params"] = _masters(eng)
+        out[run["label"]] = res
+    world = get_topology().world_group()
+    x = torch.arange(6, dtype=torch.float16).view(2, 3) + 1000 * rank
+    handle = all_gather_async(x, world)
+    out["collectives"] = {"all_gather": all_gather(x, world).numpy(),
+                          "all_gather_async": handle.wait().numpy()}
+    return out
 
 
 def attention_rank(rank, sp, cases):
