@@ -143,8 +143,18 @@ arguments, in order, any failure exiting non-zero:
    at training_fp16's micro-batch and at Llama-3-8B's heads, the RMSNorm
    forward and backward on its 8192 rows of 2048) within an eighth of the
    bf16 forms' tolerances, timed likewise (SDPA and ``F.rms_norm`` in fp16
-   the library calls), and an overflow kept visible (a RMSNorm row and dq
-   elements past 65,504 give inf or NaN, never a clamped value);
+   the library calls), and an overflow kept visible (a RMSNorm row, a
+   LayerNorm row, LayerNorm dx and dq elements of the Llama and of the
+   masked form past 65,504 give inf or NaN, never a clamped value); then
+   the fp16 forms of the other families and masks (``fp16_flash_rows``):
+   the ALiBi forms at training_bloom's shape, the segment-id, bias +
+   segment and block-sparse forms at the packed, BLOOM-packed and sparse
+   paths' shapes, a [1, 16, 2048, 2048] fp16 bias's forms and its gradient
+   kernel at attention_bias's, the offset form at the ring's past hop and
+   the Llama form at the Ulysses shape, and the LayerNorm forward and
+   backward at bloom-560m's rows, each within an eighth of its bf16 form's
+   tolerance and timed likewise (SDPA in fp16 with the equivalent mask,
+   ``F.layer_norm`` in fp16);
 4. serving reference checks: two-layer full-width Llama-3-8B, BLOOM-7B1 and
    GPT-2-XL, kernel path against plain path, prefill and three cached
    decode steps;
@@ -166,7 +176,10 @@ arguments, in order, any failure exiting non-zero:
    training kernel ran; then 3 steps rerun from the same seed must give
    bitwise-equal losses, and 3 more through DeepSpeed's loop
    (``engine(mb)``, ``engine.backward(loss)``, ``engine.step()``) the same
-   losses and, bitwise, the rerun's masters (training_bloom likewise);
+   losses and, bitwise, the rerun's masters (training_bloom likewise;
+   ``training_bloom_fp16`` after it: bloom-560m in fp16 under the default
+   scaler, 10 steps, no rerun, its first loss within 2e-4 of
+   training_bloom's and its ms a step and MFU printed beside them);
 6b. ``checkpoint`` (run after the loop over the other main paths, before
    ``serving_mixtral``): 6's model (llama3-1b at full width and depth, its
    config and batch, ``checkpoint: {async_save: true, keep_last: 2}``): 2
@@ -183,12 +196,12 @@ arguments, in order, any failure exiting non-zero:
    names. The tags live under ``ckpts/`` in the checkout and are deleted at
    the end; the phase fails naming the shortfall if the disk or the host
    memory is too small for two tags and a pinned snapshot;
-6c. ``offload`` (after ``checkpoint``): 6's model, config and batch (3
-   steps) through ``initialize`` in five engines: stage 0 (the reference),
-   stage 3, stage 3 + ``offload_optimizer: cpu`` (the layer stream double
+6c. ``offload`` (after ``checkpoint``): 6's model, config and batch (2
+   steps) through ``initialize`` in four engines: stage 0 (the reference),
+   stage 3 + ``offload_optimizer: cpu`` (the layer stream double
    buffered, as always on a card), stage 3 + ``offload_param: cpu`` +
    ``offload_optimizer: cpu``, and stage 2 + ``offload_optimizer: nvme`` under
-   ``ckpts/`` (2 steps); each engine's losses bitwise the reference's, its
+   ``ckpts/``; each engine's losses bitwise the reference's, its
    masters and every Adam moment byte for byte the reference's after its
    last step (the reference's copies kept on the card; bucketed names
    mapped to the resident ones), its counters (zeroed before its steps)
@@ -196,14 +209,18 @@ arguments, in order, any failure exiting non-zero:
    per layer plus once per other leaf a step; per engine step ms, peak and
    resident device memory, host bytes, the stream's bytes and GB/s each way
    and the forward's copy of host masters (NVMe: the disk's read and write
-   GB/s). Fails naming the shortfall when
+   GB/s); then the fp16 pair (``offload_fp16``): stage 0 and stage 3 +
+   ``offload_optimizer: cpu`` in fp16, 2 steps, bitwise, and that
+   offloaded engine at a static scale of 2**32 for one skipped step: the
+   state hashing as before it and the layer stream never started (0
+   bytes). Fails naming the shortfall when
    the box lacks the host memory or the disk;
 6d. ``training_8b_offload``: Llama-3-8B's width at 2 layers, stage 0 against
    stage 3 + ``offload_optimizer: cpu``, 2 steps, bitwise as in 6c; then
    ``llama("llama3-8b")`` at full width and depth (OFFLOAD_8B_LAYERS),
    stage 3 + ``offload_optimizer: cpu``, remat
    ``full``, bf16 over fp32 masters, AdamW on fused Adam, micro-batch 1 x 2048
-   x 2 accumulation, 3 seeded steps: finite losses, the counters showing the
+   x 2 accumulation, 2 seeded steps: finite losses, the counters showing the
    flash, RMSNorm and per-slice fused Adam launches; step ms and its split
    (forward+backward, update, the stream's copy-in, update and copy-out
    device ms), tokens/s, MFU, peak device memory, host bytes, a profiled
@@ -244,12 +261,12 @@ arguments, in order, any failure exiting non-zero:
 11. the continuous-batching main path (``serving_cb``): init_serving on
    Llama-3-8B at full depth, bf16 weights, kernel injection, 8 slots x a
    64-token budget, pages of 16 tokens, max_tokens 1024; a seeded trace of
-   24 requests (prompts of 16-700 tokens, 8-32 new tokens, half sampled, six
+   16 requests (prompts of 16-700 tokens, 8-32 new tokens, half sampled, two
    sharing a 250-token prefix, two repeating an earlier prompt) through the
    contiguous and the paged arena with bf16 and with int8 KV: outputs equal
    bitwise between the arenas per request, one step shape, the page pool's
-   invariants, prefix reuse and copy-on-write, a rerun with identical
-   tokens; the counters, zeroed before each run, must show the paged and
+   invariants, prefix reuse and copy-on-write, a rerun of the first 8
+   requests with identical tokens; the counters, zeroed before each run, must show the paged and
    dense decode kernels (bf16 and int8) and RMSNorm ran and the plain
    attention never ran on the card; per run steps, tokens/s, step ms, TTFT,
    TPOT, pool bytes and peak memory; a profiled window of 20 steps;
@@ -272,6 +289,13 @@ arguments, in order, any failure exiting non-zero:
    show each path's masked flash forms ran;
 16. ``attention_bias``: the attention op with a learned [1, 16, 2048, 2048]
    bias, three forward+backward steps; the bias-gradient kernel must run;
+   then the fp16 legs: ``training_packed_fp16``,
+   ``training_bloom_packed_fp16`` and ``training_sparse_fp16`` (15's paths
+   at full width and 2 layers, one bf16 step then 3 fp16 steps from the
+   same masters: no skip, the first loss within 2e-4 of the bf16 step's,
+   the counters showing each path's forms in fp16) and
+   ``attention_bias_fp16`` (16 in fp16 with an fp16 bias: its forms and the
+   bias-gradient kernel in fp16);
 17. the Mixtral reference check: two-layer full-width Mixtral-8x7B with
    int8 (then int4) weights and the int8 KV cache: one MoE layer on a fixed
    input, kernel path against the plain fold (rel 1e-3) and the dequantized
@@ -286,8 +310,9 @@ arguments, in order, any failure exiting non-zero:
    ``serving_cb_mixtral``: init_serving on the same int8 weights, bf16 KV,
    the first 2 requests of 11's trace through the contiguous and the paged
    arena (paged == contiguous bitwise, one step shape, the MoE metrics);
-   then int4 weights (25.20 GB) on the greedy B=1 request. Each run twice
-   with identical tokens, counters zeroed before the second; speculative
+   then int4 weights (25.20 GB) on the greedy B=1 request. Each engine
+   first serves the B=1 request alone, then (counters zeroed) its requests,
+   the B=1 tokens identical; speculative
    decode is not driven (with 8 experts a verify window can drop tokens);
 19. ``training_sp``: sequence-parallel training through initialize on two
    ranks spawned on the one card, joined over gloo (NCCL refuses two ranks
@@ -299,7 +324,11 @@ arguments, in order, any failure exiting non-zero:
    rank, peak memory, the device's share of a step and the gloo transport's
    times; the ranks' counters, zeroed before each mode, must show the offset
    forms (ring) and the unmasked forms (Ulysses) ran and plain attention on
-   the card never did; then ``training_zero`` in the same world, at dp=2 and
+   the card never did; then ``training_sp_fp16`` in the same world: 2 ring
+   steps and 1 Ulysses step in fp16 under the default scaler, held as the
+   bf16 run is to an fp16 sp=1 run from the same seed, the counters showing
+   the offset and Llama forms in fp16, no step skipped; then
+   ``training_zero`` in the same world, at dp=2 and
    sp 1 (a row of 8,192 tokens a rank): ZeRO stages 0, 1, 2 and 3 (the
    default persistence threshold) from one seed, 2 steps each, stage 3 again
    with ``stage3_layer_prefetch``, and stage 0 twice more with its clipping
@@ -506,6 +535,29 @@ KERNELS = {
            ("flash_attention_bwd_dkv", "flash_attention_bwd_f16.cu", "flash_attention.py:517"),
            ("rmsnorm_fwd", "rmsnorm_f16.cu", "rmsnorm.py:23"),
            ("rmsnorm_bwd", "rmsnorm_bwd_f16.cu", "rmsnorm.py:30"))},
+    # the fp16 forms of the other flash forms (ALiBi, masked, offsets), of the
+    # bias gradient and of the LayerNorm kernels: the C entries of the fp16
+    # units (the masked forms reached through them in *_masked_f16.cu)
+    **{f"{name}{form}_f16": {
+        "source": f"deepspeed_tpu_torch/csrc/{stem}"
+                  f"{'_masked' if form not in ('_alibi', '_offsets') else ''}_f16.cu",
+        "replaces": f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}"}
+       for name, stem, line in (("flash_attention_fwd", "flash_attention_fwd", 175),
+                                ("flash_attention_bwd_dq", "flash_attention_bwd", 455),
+                                ("flash_attention_bwd_dkv", "flash_attention_bwd", 517))
+       for form in ("_alibi", "_seg", "_bias_seg", "_bias", "_sparse", "_offsets")},
+    "flash_attention_bias_grad_f16": {
+        "source": "deepspeed_tpu_torch/csrc/flash_attention_bias_grad_f16.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:570",
+    },
+    "layernorm_fwd_f16": {
+        "source": "deepspeed_tpu_torch/csrc/layernorm_f16.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/layernorm.py:25",
+    },
+    "layernorm_bwd_f16": {
+        "source": "deepspeed_tpu_torch/csrc/layernorm_bwd_f16.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/layernorm.py:37",
+    },
     # the decode kernel with slopes; the TPU package runs these steps on XLA
     # (models/decoding.py:424-438) since its Pallas kernel takes no slope
     "decode_attention_alibi": {
@@ -540,15 +592,20 @@ FP16_OVERFLOW_POWER, FP16_OVERFLOW_STEPS = 32, 3
 # flash gradients 2e-2 / 8 of the largest, RMSNorm two fp16 ulps (2 * 2**-10
 # relative, atol 1e-3 / 8)
 FP16_TOL_OUT, FP16_TOL_BWD = 2.5e-3, 2.5e-3
+FP16_TOL_BIAS_GRAD = 1.25e-3  # the bias gradient's 1e-2 of the largest, over 8
 FP16_NORM_ATOL, FP16_NORM_RTOL = 1.25e-4, 2e-3
 # the first loss of training_fp16 against training's (bf16, the same masters):
 # about 8x the gap measured on the H100 (2.376e-5: the loss, 0.4 above ln V,
 # moves with what the attention computes; bf16's activations round at 2**-8)
 FP16_FIRST_LOSS_RTOL = 2e-4
-# each main training path's first loss, by path (set as the paths run)
+# each main training path's first loss, and its (ms a step, MFU), by path
+# (set as the paths run)
 FIRST_LOSS: dict = {}
-# the continuous-batching main path: slots x token budget of the one step
+STEP_STATS: dict = {}
+# the continuous-batching main path: slots x token budget of the one step;
+# the trace's requests before its two repeats
 CB_SLOTS, CB_BUDGET, CB_PAGE = 8, 64, 16
+CB_TRACE_BASE, CB_RERUN = 14, 8
 # a contiguous-arena slot: max_tokens 1024 + the budget, rounded up to 128
 CB_CAPACITY = 1152
 CB_KERNELS = ("paged_decode_attention", "paged_decode_attention_int8",
@@ -560,6 +617,11 @@ GPT2_SERVING_KERNELS = ("flash_attention_fwd", "decode_attention", "layernorm_fw
 BLOOM_TRAINING_KERNELS = ("flash_attention_fwd_alibi", "flash_attention_bwd_dq_alibi",
                           "flash_attention_bwd_dkv_alibi", "layernorm_fwd",
                           "layernorm_bwd", "fused_adam")
+# training_bloom_fp16 and the fp16 legs of the packed, positions-bias, sparse,
+# attention-bias and sequence-parallel paths: each bf16 path's kernels in
+# their fp16 forms (fused Adam on the fp32 masters, as in bf16)
+BLOOM_TRAINING_FP16_KERNELS = tuple(k if k == "fused_adam" else k + "_f16"
+                                    for k in BLOOM_TRAINING_KERNELS)
 # the packed, positions-bias and block-sparse training paths
 PACKED_KERNELS = ("flash_attention_fwd_seg", "flash_attention_bwd_dq_seg",
                   "flash_attention_bwd_dkv_seg", "rmsnorm_fwd", "rmsnorm_bwd", "fused_adam")
@@ -569,6 +631,15 @@ BLOOM_PACKED_KERNELS = ("flash_attention_fwd_bias_seg", "flash_attention_bwd_dq_
 SPARSE_KERNELS = ("flash_attention_fwd_sparse", "flash_attention_bwd_dq_sparse",
                   "flash_attention_bwd_dkv_sparse", "rmsnorm_fwd", "rmsnorm_bwd",
                   "fused_adam")
+PACKED_FP16_KERNELS, BLOOM_PACKED_FP16_KERNELS, SPARSE_FP16_KERNELS = (
+    tuple(k if k == "fused_adam" else k + "_f16" for k in ks)
+    for ks in (PACKED_KERNELS, BLOOM_PACKED_KERNELS, SPARSE_KERNELS))
+ATTENTION_BIAS_FP16_KERNELS = ("flash_attention_fwd_bias_f16",
+                               "flash_attention_bwd_dq_bias_f16",
+                               "flash_attention_bwd_dkv_bias_f16",
+                               "flash_attention_bias_grad_f16")
+# the short fp16 legs: full width at the reference checks' depth, 3 steps
+FP16_LEG_LAYERS, FP16_LEG_STEPS = 2, 3
 # packed documents: lengths uniform in [DOC_MIN, DOC_MAX], seeded
 DOC_MIN, DOC_MAX, PACKED_SEED = 128, 1536, 6
 # Mixtral-8x7B: the serving_mixtral path's kernels (int8 engine with the int8
@@ -593,6 +664,12 @@ SP_RING_KERNELS = ("flash_attention_fwd_offsets", "flash_attention_bwd_dq_offset
                    "fused_adam")
 SP_ULYSSES_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                       "flash_attention_bwd_dkv", "rmsnorm_fwd", "rmsnorm_bwd", "fused_adam")
+# training_sp_fp16: the same world in fp16 (the default scaler), 2 ring steps
+# (the offset forms in fp16) and 1 Ulysses step (the Llama fp16 forms)
+SP_FP16_STEPS = {"ring": 2, "ulysses": 1}
+SP_RING_FP16_KERNELS, SP_ULYSSES_FP16_KERNELS = (
+    tuple(k if k == "fused_adam" else k + "_f16" for k in ks)
+    for ks in (SP_RING_KERNELS, SP_ULYSSES_KERNELS))
 # training_zero: training_sp's model and step over dp=SP_SIZE ranks (sp 1, one
 # row of 8,192 tokens a rank), from the same seed: ZeRO stages 0, 1, 2, 3 (the
 # default persistence threshold: the norm scales stay whole), 3 with the layer
@@ -612,7 +689,7 @@ MIXTRAL_TRAIN_LAYERS, MIXTRAL_TRAIN_STEPS = 2, 6
 MIXTRAL_TRAIN_KERNELS = TRAINING_KERNELS
 # offload: llama3-1b's training batch through six ZeRO/offload engines;
 # training_8b_offload: Llama-3-8B, micro-batch 1 x 2048 x 2 accumulation
-OFFLOAD_STEPS, OFFLOAD_NVME_STEPS, OFFLOAD_8B_STEPS = 3, 2, 3
+OFFLOAD_STEPS, OFFLOAD_8B_STEPS, OFFLOAD_FP16_STEPS = 2, 2, 2
 OFFLOAD_8B_LAYERS = 32  # full depth
 OFFLOAD_8B_B = 1
 # DeepSpeed's default sparsity mode at the flash kernels' 128-token block
@@ -662,12 +739,18 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+# launches the flash attention's plain versions are timed over (median): each
+# takes 10-30 ms at a training shape, and their time only sets the scale the
+# kernels are read against
+PLAIN_ITERS = 5
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
 def flash_fwd_case(gen, timer, path, B: int, S: int, H: int, KV: int, D: int,
-                   plain_iters: int = 20, dtype=BF16):
+                   plain_iters: int = PLAIN_ITERS, dtype=BF16):
     """The flash forward, causal, on one seeded draw against its plain
     version; timed (with SDPA as the library call) when ``path`` names the
     main path whose shape this is (the plain version over ``plain_iters``
@@ -1421,7 +1504,7 @@ def check_rmsnorm_bwd(gen, timer):
 
 
 def check_flash_bwd(gen, timer, D: int = 64, B: int = TRAIN_B, S: int = TRAIN_S,
-                    plain_iters: int = 20, dtype=BF16):
+                    plain_iters: int = PLAIN_ITERS, dtype=BF16):
     """The dq and dk/dv kernels at a training path's shape (micro-batch
     ``B`` x ``S``, 32 query / 8 kv heads: llama3-1b's of 64 by default,
     Mixtral's and Llama-3-8B's of 128 with ``D=128``), causal. The dk/dv
@@ -1486,16 +1569,35 @@ def check_flash_bwd(gen, timer, D: int = 64, B: int = TRAIN_B, S: int = TRAIN_S,
     return dq_r, dkv_r
 
 
+# the SASS listings of the built objects the instruction checks read, by stem
+_SASS: dict = {}
+
+
+def dump_sass(stems) -> None:
+    """``cuobjdump --dump-sass`` of each built object ``stem``.o into _SASS,
+    the dumps run at once (a no-op without cuobjdump)."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return
+    from concurrent.futures import ThreadPoolExecutor
+
+    def dump(stem):
+        return subprocess.run([str(tool), "--dump-sass", str(_build.BUILD_DIR / f"{stem}.o")],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+
+    with ThreadPoolExecutor(len(stems)) as pool:
+        _SASS.update(zip(stems, pool.map(dump, stems)))
+
+
 def object_listing(stem: str, ptx_marks, sass_marks):
     """(text, function header, marks) of the built object ``stem``.o: its
     ``cuobjdump --dump-sass`` with ``sass_marks``, or, without cuobjdump, its
     PTX with ``ptx_marks``."""
-    tool = Path(_build._nvcc()).parent / "cuobjdump"
-    if tool.exists():
-        text = subprocess.run([str(tool), "--dump-sass", str(_build.BUILD_DIR / f"{stem}.o")],
-                              capture_output=True, text=True, timeout=300,
-                              check=True).stdout
-        return text, "Function : ", sass_marks
+    if stem not in _SASS:
+        dump_sass([stem])
+    if stem in _SASS:
+        return _SASS[stem], "Function : ", sass_marks
     ptx = _build.BUILD_DIR / f"{stem}.ptx"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS[:4], "-ptx", "-o", str(ptx),
                     str(_build.CSRC / f"{stem}.cu")], check=True, timeout=600)
@@ -1516,6 +1618,12 @@ def count_marks(text: str, head: str, marks, name_of) -> dict:
     return counts
 
 
+FLASH_OBJECTS = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_bias_grad",
+                 "flash_attention_fwd_f16", "flash_attention_bwd_f16",
+                 "flash_attention_fwd_masked_f16", "flash_attention_bwd_masked_f16",
+                 "flash_attention_bias_grad_f16")
+
+
 def flash_instruction_counts() -> dict:
     """HGMMA (wgmma) and UTMALDG (TMA tile load) instructions in each
     instantiation of the flash forward, the two backward kernels and the
@@ -1532,15 +1640,14 @@ def flash_instruction_counts() -> dict:
         m = name_re.search(line)
         if not m:
             return None
-        if m.group(4) is None:
-            return f"{m.group(1)}<{m.group(2)}>"
-        alibi = f"alibi={m.group(3)}, " if m.group(3) is not None else ""
         f16 = ", fp16" if m.group(5) else ""
+        if m.group(4) is None:
+            return f"{m.group(1)}<{m.group(2)}{f16}>"
+        alibi = f"alibi={m.group(3)}, " if m.group(3) is not None else ""
         return f"{m.group(1)}<{m.group(2)}, {alibi}masked={m.group(4)}{f16}>"
 
     counts = {}
-    for stem in ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_bias_grad",
-                 "flash_attention_fwd_f16", "flash_attention_bwd_f16"):
+    for stem in FLASH_OBJECTS:
         counts.update(count_marks(*object_listing(
             stem, ("wgmma.mma_async", "cp.async.bulk.tensor"), ("HGMMA", "UTMALDG")),
             name_of))
@@ -1592,18 +1699,18 @@ def check_matvec_instructions() -> None:
 
 def check_flash_instructions() -> None:
     """The flash forward (Llama, ALiBi and masked forms), both backward
-    kernels and the bias-gradient kernel, in every instantiation at head dims
-    64 and 128, and the fp16 Llama forms of the forward and both backward
-    kernels, issue wgmma and load their tiles by TMA."""
+    kernels (unmasked and masked) and the bias-gradient kernel, in every
+    instantiation at head dims 64 and 128, bf16 and fp16, issue wgmma and
+    load their tiles by TMA."""
     counts = flash_instruction_counts()
     for fn, c in sorted(counts.items()):
         print(f"{fn}: " + ", ".join(f"{k} {n}" for k, n in c.items()))
     n_fwd = sum(fn.startswith("flash_fwd") for fn in counts)
     n_bg = sum(fn.startswith("flash_bias_grad") for fn in counts)
     n_f16 = sum(fn.endswith(", fp16>") for fn in counts)
-    require(n_fwd == 8 and n_bg == 2 and n_f16 == 6 and len(counts) == 22,
-            f"expected 8 forward (2 fp16), 12 backward (4 fp16) and 2 bias-gradient kernel "
-            f"instantiations, found {counts}")
+    require(n_fwd == 12 and n_bg == 4 and n_f16 == 16 and len(counts) == 32,
+            f"expected 12 forward (6 fp16), 16 backward (8 fp16) and 4 bias-gradient "
+            f"kernel instantiations (2 fp16), found {counts}")
     require(all(n > 0 for c in counts.values() for n in c.values()),
             "a flash kernel issues no wgmma or no TMA load")
 
@@ -1950,12 +2057,13 @@ def check_layernorm_bwd(gen, timer):
     }
 
 
-def alibi_mask(slopes: torch.Tensor, S: int) -> torch.Tensor:
-    """[H, S, S] bf16 float mask for SDPA: the ALiBi bias, -inf above the
-    diagonal (the library yardstick of the ALiBi flash kernels)."""
+def alibi_mask(slopes: torch.Tensor, S: int, dtype=BF16) -> torch.Tensor:
+    """[H, S, S] float mask (bf16, or ``dtype``) for SDPA: the ALiBi bias,
+    -inf above the diagonal (the library yardstick of the ALiBi flash
+    kernels)."""
     pos = torch.arange(S, device="cuda")
     dist = (pos[:, None] - pos[None, :]).float()
-    return torch.where(dist >= 0, -slopes[:, None, None] * dist, float("-inf")).to(BF16)
+    return torch.where(dist >= 0, -slopes[:, None, None] * dist, float("-inf")).to(dtype)
 
 
 def alibi_draws(B: int, S: int, H: int, D: int, slopes: torch.Tensor, tol_lse: float,
@@ -2035,7 +2143,7 @@ def check_alibi(gen, timer):
         timed[("fwd", path)] = {
             "max_abs_err": e_out,
             "ms": timer(lambda: fa.flash_attention_fwd(q, k, v, True, sl)),
-            "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v, True, sl)),
+            "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v, True, sl), iters=PLAIN_ITERS),
             "library_ms": timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask)),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -2078,7 +2186,7 @@ def check_alibi(gen, timer):
             "max_abs_err": errs["dq"][0],
             "ms": timer(lambda: fa.flash_attention_bwd_dq(q, k, v, out, lse, do, True, sl)),
             "plain_ms": timer(lambda: fa.flash_attention_bwd_dq_plain(
-                q, k, v, out, lse, do, True, sl)),
+                q, k, v, out, lse, do, True, sl), iters=PLAIN_ITERS),
             "library_ms": lib_ms, "bound_ms": b_dq[0], "bound_by": b_dq[1],
             "shape": shape + " (library: SDPA backward with the float mask, dq+dk+dv)",
         }
@@ -2087,7 +2195,7 @@ def check_alibi(gen, timer):
             "ms": timer(lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, rdelta, do,
                                                            True, sl)),
             "plain_ms": timer(lambda: fa.flash_attention_bwd_dkv_plain(
-                q, k, v, lse, rdelta, do, True, sl)),
+                q, k, v, lse, rdelta, do, True, sl), iters=PLAIN_ITERS),
             "library_ms": lib_ms, "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
             "shape": shape + " (library: same call)",
         }
@@ -2228,10 +2336,10 @@ def sparse_fixed_layout(S: int) -> np.ndarray:
     return sparse_layout(from_ds_config(SparseAttentionConfig(**SPARSE_SECTION)), S, True)
 
 
-def masked_library_mask(S, causal_seg=None, bias=None, layout=None):
+def masked_library_mask(S, causal_seg=None, bias=None, layout=None, dtype=BF16):
     """The SDPA mask equivalent to a masked form: bool [B|1, 1, S, S] (causal,
-    segments, layout), or with a bias the bf16 float mask [B, H, S, S]
-    (bias where visible, -inf elsewhere)."""
+    segments, layout), or with a bias the float mask [B, H, S, S] in bf16 (or
+    ``dtype``: bias where visible, -inf elsewhere)."""
     vis = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()[None, None]
     if causal_seg is not None:
         vis = vis & (causal_seg[:, None, :, None] == causal_seg[:, None, None, :])
@@ -2239,7 +2347,7 @@ def masked_library_mask(S, causal_seg=None, bias=None, layout=None):
         vis = vis & fa.layout_mask(layout, S, "cuda")
     if bias is None:
         return vis
-    return bias.masked_fill(~vis, float("-inf")).to(BF16)
+    return bias.masked_fill(~vis, float("-inf")).to(dtype)
 
 
 def check_masked_forms(gen, timer):
@@ -2328,7 +2436,7 @@ def check_masked_forms(gen, timer):
         rows[("flash_attention_fwd" + form, path)] = {
             "max_abs_err": errs["out"][0],
             "ms": timer(lambda: fa.flash_attention_fwd(q, k, v, True, **kw)),
-            "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v, True, **kw)),
+            "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v, True, **kw), iters=PLAIN_ITERS),
             "library_ms": timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask)),
             "bound_ms": b_fwd[0], "bound_by": b_fwd[1],
@@ -2344,7 +2452,7 @@ def check_masked_forms(gen, timer):
             "ms": timer(lambda: fa.flash_attention_bwd_dq(q, k, v, out, lse, do, True,
                                                           **kw)),
             "plain_ms": timer(lambda: fa.flash_attention_bwd_dq_plain(
-                q, k, v, out, lse, do, True, **kw)),
+                q, k, v, out, lse, do, True, **kw), iters=PLAIN_ITERS),
             "library_ms": lib_ms, "bound_ms": b_dq[0], "bound_by": b_dq[1],
             "shape": shape + " (library: SDPA backward with the mask, dq+dk+dv)",
         }
@@ -2353,7 +2461,7 @@ def check_masked_forms(gen, timer):
             "ms": timer(lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, rdelta, do, True,
                                                            **kw)),
             "plain_ms": timer(lambda: fa.flash_attention_bwd_dkv_plain(
-                q, k, v, lse, rdelta, do, True, **kw)),
+                q, k, v, lse, rdelta, do, True, **kw), iters=PLAIN_ITERS),
             "library_ms": lib_ms, "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
             "shape": shape + " (library: same call)",
         }
@@ -2757,7 +2865,8 @@ def check_bias_grad(gen, timer):
         "host_us": host_us(lambda: fa.flash_attention_bias_grad(q, k, v, bias, lse, delta,
                                                                 do), calls=50),
         "plain_ms": timer(lambda: fa.flash_attention_bias_grad_plain(q, k, v, bias, lse,
-                                                                     delta, do)),
+                                                                     delta, do),
+                          iters=PLAIN_ITERS),
         "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
         "shape": f"bias [1, {H}, {S}, {S}] fp32, B={B} H={H} D=64 causal (library: "
                  f"{lib_note})",
@@ -3201,19 +3310,21 @@ def reference_check_serving_cb():
 
 
 def cb_trace(V: int, seed: int = 7):
-    """The serving_cb trace, 24 requests (id, prompt, max_new_tokens,
-    sampling arguments, id that must have finished first): prompts of 16-700
-    tokens, 8-32 new tokens, odd requests sampled (T 0.8, top-k 50, top-p
-    0.9); requests 0, 12, 14, 16, 18 and 20 share a 250-token prefix (not a
+    """The serving_cb trace, CB_TRACE_BASE + 2 requests (id, prompt,
+    max_new_tokens, sampling arguments, id that must have finished first):
+    prompts of 16-700 tokens, 8-32 new tokens, odd requests sampled (T 0.8,
+    top-k 50, top-p 0.9); requests 0 and 12 share a 250-token prefix (not a
     multiple of the 16-token page, so a sharer diverges inside a shared page
-    and copies it); requests 22 and 23 repeat the prompts of 1 and 2 once
-    those have finished (the prefix cache then covers all but their last
-    prompt token)."""
+    and copies it); the last two repeat the prompts of 1 and 2 once those
+    have finished (the prefix cache then covers all but their last prompt
+    token). Its first requests are those of the longer trace earlier slices
+    drove (24 requests, sharers 0, 12, 14, 16, 18 and 20), cut to fit the
+    1,200 s run."""
     r = np.random.RandomState(seed)
     prefix = r.randint(0, V, 250)
     sharers = (0, 12, 14, 16, 18, 20)
     out = []
-    for i in range(22):
+    for i in range(CB_TRACE_BASE):
         if i in sharers:
             tail = 16 if i == 0 else r.randint(16, 451)
             prompt = np.concatenate([prefix, r.randint(0, V, tail)])
@@ -3223,7 +3334,7 @@ def cb_trace(V: int, seed: int = 7):
         out.append((f"cb{i}", prompt, 8 if i == 0 else int(r.randint(8, 33)), kw, None))
     for j, i in enumerate((1, 2)):
         _, prompt, new, kw, _ = out[i]
-        out.append((f"cb{22 + j}", prompt, new, kw, f"cb{i}"))
+        out.append((f"cb{CB_TRACE_BASE + j}", prompt, new, kw, f"cb{i}"))
     return out
 
 
@@ -3311,8 +3422,9 @@ def serve_cb(srv, trace, label: str):
         require(sched.pool.free_count + sched.pool.live_count == sched.num_pages
                 and all(s is None for s in sched.slots),
                 f"{label}: page pool invariants at the end")
-        if "cb22" in states:  # the whole trace, with its repeats and sharers
-            for rep in ("cb22", "cb23"):
+        repeats = (f"cb{CB_TRACE_BASE}", f"cb{CB_TRACE_BASE + 1}")
+        if repeats[0] in states:  # the whole trace, with its repeats and sharers
+            for rep in repeats:
                 st = states[rep]
                 require(st.cached_tokens == st.prompt_len - 1,
                         f"{label} {rep}: {st.cached_tokens} cached of {st.prompt_len}, "
@@ -3322,7 +3434,7 @@ def serve_cb(srv, trace, label: str):
         print(f"serving_cb {label}: pool invariants hold (free {sched.pool.free_count} + "
               f"live {sched.pool.live_count} = {sched.num_pages}; {held} prefix-cache "
               "references)" + ("; the two repeats fed only their last prompt token"
-                               if "cb22" in states else ""))
+                               if repeats[0] in states else ""))
     return outs, counts
 
 
@@ -3334,7 +3446,7 @@ def cb_serving(paged: bool):
 def main_path_serving_cb():
     """Continuous-batching serving of Llama-3-8B at full width and depth:
     init_serving with seeded random bf16 weights and kernel injection, the
-    24-request trace (:func:`cb_trace`) through four engines sharing the
+    16-request trace (:func:`cb_trace`) through four engines sharing the
     weights: the contiguous and the paged arena, each with bf16 and int8 KV.
     Each request's tokens must be bitwise equal between the two arenas, greedy
     and sampled, in each KV dtype; a rerun gives identical tokens; then a
@@ -3377,14 +3489,16 @@ def main_path_serving_cb():
         diff = [rid for rid in outs[(kv, False)]
                 if not np.array_equal(outs[(kv, False)][rid], outs[(kv, True)][rid])]
         print(f"serving_cb {kv} KV: paged == contiguous bitwise for "
-              f"{len(outs[(kv, False)]) - len(diff)}/{len(trace)} requests (12 greedy, "
-              f"12 sampled); differ: {diff}")
+              f"{len(outs[(kv, False)]) - len(diff)}/{len(trace)} requests "
+              f"({sum(not t[3] for t in trace)} greedy, {sum(bool(t[3]) for t in trace)} "
+              f"sampled); differ: {diff}")
         require(not diff, f"serving_cb {kv} KV: paged and contiguous outputs differ")
-    with torch.inference_mode():
-        again, _ = serve_cb(init_serving(serving=cb_serving(True), engine=engine), trace,
-                            "paged bf16 KV rerun")
+    with torch.inference_mode():  # the first requests, which arrive at once
+        again, _ = serve_cb(init_serving(serving=cb_serving(True), engine=engine),
+                            trace[:CB_RERUN], "paged bf16 KV rerun")
     same = all(np.array_equal(again[rid], outs[("bf16", True)][rid]) for rid in again)
-    print(f"serving_cb rerun (paged, bf16 KV): identical tokens: {same}")
+    print(f"serving_cb rerun (paged, bf16 KV, the first {CB_RERUN} requests): identical "
+          f"tokens: {same}")
     require(same, "serving_cb: the rerun gave other tokens")
 
     def window():
@@ -3637,11 +3751,12 @@ def decode_steps(eng, steps: int):
 def main_path_serving_mixtral():
     """Mixtral-8x7B at full width and depth, seeded random weights drawn and
     packed one layer at a time: the int8 engine with the int8 KV cache on the
-    three serving requests (twice: the second run with the counters zeroed
-    just before it, tokens equal to the first's); the continuous-batching
+    three serving requests, the counters zeroed just before them, after a
+    warm-up run of the B=1 request, whose tokens they repeat; the
+    continuous-batching
     path on the same int8 weights (:func:`main_path_serving_cb_mixtral`);
     then, the int8 engine freed, the int4 engine on the greedy B=1 request
-    (twice). Speculative decode is not driven: with E = 8 and top-2 a verify
+    (twice, the second run with the counters zeroed). Speculative decode is not driven: with E = 8 and top-2 a verify
     window can drop tokens, so its tokens are not promised to be plain
     greedy's. Returns (serving_mixtral's launches, the int8 and int4 runs
     summed; serving_cb_mixtral's)."""
@@ -3671,8 +3786,10 @@ def main_path_serving_mixtral():
                 f"{got} B, reckoning {want} B")
         with torch.inference_mode():
             t1 = time.perf_counter()
-            first = serve(eng, reqs, report=False)  # first use of every shape
-            print(f"serving_mixtral {wdtype}: first run of the requests "
+            # first use of the B=1 request's shapes (a warm-up, and its
+            # tokens the rerun's reference)
+            first = serve(eng, reqs[:1], report=False)
+            print(f"serving_mixtral {wdtype}: first run of the B=1 request "
                   f"{time.perf_counter() - t1:.2f} s")
             torch.cuda.reset_peak_memory_stats()
             stats = []
@@ -3689,7 +3806,7 @@ def main_path_serving_mixtral():
         for (name, _, _), a, b in zip(reqs, first, second):
             require(torch.equal(a, b), f"serving_mixtral {wdtype} {name}: tokens differ "
                     "between two runs")
-        print(f"serving_mixtral {wdtype} reruns: identical tokens")
+        print(f"serving_mixtral {wdtype} rerun of the B=1 request: identical tokens")
         for k, v in run.items():
             counts[k] = counts.get(k, 0) + v
         profile_device(decode_steps(eng, 8), f"serving_mixtral {wdtype} B=1, 8 decode "
@@ -3742,9 +3859,11 @@ def main_path_serving_cb_mixtral(model, params):
 
 
 def profile_device(run, label: str) -> int:
-    """Device busy share of ``run()``: kernel time from torch.profiler over
-    the wall time of the same call run without the profiler; and the top
-    kernels by device time. Returns the kernels launched."""
+    """Device busy share of ``run()``: kernel time from torch.profiler (its
+    device activity only: the CPU ops' trace cost 3-4 s a training step to
+    collect and read no other number) over the wall time of the same call run
+    without the profiler; and the top kernels by device time. Returns the
+    kernels launched."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3752,7 +3871,7 @@ def profile_device(run, label: str) -> int:
     run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
 
@@ -4019,17 +4138,21 @@ def check_packed_equals_unpacked(model) -> None:
     torch.cuda.empty_cache()
 
 
-def main_path_attention_bias(steps: int = 3) -> dict:
+def main_path_attention_bias(steps: int = 3, dtype=BF16) -> dict:
     """The one entry that reaches the bias-gradient kernel: the attention op
     (``ops.attention.attention``, flash) with a learned [1, 16, 2048, 2048]
-    fp32 bias shared by the batch (a T5-style relative bias), B=4 D=64 bf16
-    causal, forward and backward ``steps`` times; the counters, zeroed just
-    before, must show the kernel ran and the plain attention never did."""
+    bias shared by the batch (a T5-style relative bias), B=4 D=64 causal,
+    bf16 q, k, v and an fp32 bias (fp16 and an fp16 bias for
+    ``dtype=float16``: attention_bias_fp16, its gradient in fp16), forward
+    and backward ``steps`` times; the counters, zeroed just before, must
+    show the kernel ran and the plain attention never did."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     B, S, H, D = TRAIN_B, TRAIN_S, 16, 64
-    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=BF16)
+    f16 = "_f16" if dtype == torch.float16 else ""
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=dtype)
                .requires_grad_(True) for _ in range(3))
-    bias = (0.3 * torch.randn(1, H, S, S, generator=gen, device="cuda")).requires_grad_(True)
+    bias = 0.3 * torch.randn(1, H, S, S, generator=gen, device="cuda")
+    bias = (bias.to(dtype) if f16 else bias).requires_grad_(True)
     kernels.reset_launch_counts()
     with attention_impl("auto"):
         for _ in range(steps):
@@ -4039,14 +4162,68 @@ def main_path_attention_bias(steps: int = 3) -> dict:
     counts = kernels.launch_counts()
     plain = kernels.plain_attention_on_cuda()
     ok = bool(torch.isfinite(bias.grad).all()) and bias.grad.abs().max().item() > 0
-    print(f"attention_bias path: {steps} forward+backward steps of attention(bias=[1, {H}, "
-          f"{S}, {S}] fp32, requires grad) at B={B} D={D}: bias gradient finite and "
-          f"non-zero {ok}; launches flash_attention_bias_grad "
-          f"{counts['flash_attention_bias_grad']}, flash_attention_fwd_bias "
-          f"{counts['flash_attention_fwd_bias']}; plain attention on the card {plain}")
-    require(ok and counts["flash_attention_bias_grad"] > 0 and sum(plain.values()) == 0,
-            "attention_bias path: the bias-gradient kernel did not run")
+    expect = (ATTENTION_BIAS_FP16_KERNELS if f16 else
+              ("flash_attention_bias_grad", "flash_attention_fwd_bias"))
+    print(f"attention_bias{f16 and '_fp16'} path: {steps} forward+backward steps of "
+          f"attention(bias=[1, {H}, {S}, {S}] {bias.dtype}, requires grad) at B={B} D={D} "
+          f"{dtype}: bias gradient ({bias.grad.dtype}) finite and non-zero {ok}; launches "
+          f"{ {name: counts[name] for name in expect} }; plain attention on the card {plain}")
+    require(ok and all(counts[name] > 0 for name in expect) and sum(plain.values()) == 0,
+            f"attention_bias{f16 and '_fp16'} path: the bias-gradient kernel did not run")
     del q, k, v, bias, out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def fp16_leg(path: str, model, expect, packed: bool = False, extra=None) -> dict:
+    """A short fp16 leg of a bf16 training path: ``model`` at full width and
+    FP16_LEG_LAYERS layers (the reference checks' depth), training's config,
+    seeded masters and batch (packed as the path's when ``packed``;
+    ``extra`` config sections), one bf16 step for its first loss, then
+    FP16_LEG_STEPS steps in fp16 under the default scaler from the same
+    masters, the counters zeroed just before: no step skipped, the losses
+    finite, the first within FP16_FIRST_LOSS_RTOL of the bf16 step's, every
+    kernel of ``expect`` launched, no plain attention on the card. Returns
+    the fp16 run's counts."""
+    cfg = model.config
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_B * TRAIN_ACCUM, TRAIN_S),
+                        generator=torch.Generator().manual_seed(0)).cuda()
+    batch = packed_batch(ids, PACKED_SEED) if packed else {"input_ids": ids}
+
+    def build(sections):
+        eng, *_ = initialize(model=model,
+                             config={**train_config(True), **(extra or {}), **sections},
+                             rng=torch.Generator(device="cuda").manual_seed(0))
+        return eng
+
+    engine = build({})
+    bf16 = engine.train_batch(batch=batch).item()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = build(FP16_SECTIONS)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [engine.train_batch(batch=batch).item() for _ in range(FP16_LEG_STEPS)]
+    ms = (time.perf_counter() - t0) * 1e3 / FP16_LEG_STEPS
+    counts = kernels.launch_counts()
+    plain = kernels.plain_attention_on_cuda()
+    print(f"{path}: {cfg.name} at full width, {cfg.num_layers} layers, {FP16_LEG_STEPS} "
+          f"fp16 steps: losses {losses} ({ms:.1f} ms a step with the first), scale "
+          f"{engine.loss_scale}, skipped {engine.skipped_steps}; first loss beside the bf16 "
+          f"step's {bf16} from the same masters (relative difference "
+          f"{abs(losses[0] - bf16) / bf16:.3e}, tol {FP16_FIRST_LOSS_RTOL}); launches "
+          f"{ {k: counts[k] for k in expect} }; plain attention on the card {plain}")
+    require(all(math.isfinite(x) for x in losses) and engine.skipped_steps == 0,
+            f"{path}: a non-finite loss or a skipped step at the default scale")
+    require(abs(losses[0] - bf16) <= FP16_FIRST_LOSS_RTOL * bf16,
+            f"{path}: first loss {losses[0]} far from the bf16 step's {bf16}")
+    for name in expect:
+        require(counts[name] > 0, f"kernel {name} was not launched on the {path} path")
+    require(sum(plain.values()) == 0, f"{path}: plain attention ran on the card {plain}")
+    del engine
+    gc.collect()
     torch.cuda.empty_cache()
     return counts
 
@@ -4106,7 +4283,7 @@ def sp_rank(rank: int, ids: torch.Tensor) -> dict:
                      "plain": kernels.plain_attention_on_cuda(),
                      "peak": torch.cuda.max_memory_allocated()}
         if mode == "ulysses":
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 engine.train_batch(batch=batch).item()
             out["device_ms"] = sum(
                 getattr(e, "self_device_time_total", None) or
@@ -4130,6 +4307,21 @@ def sp_rank(rank: int, ids: torch.Tensor) -> dict:
             torch.cuda.synchronize()
             out["shift_ms"] = (time.perf_counter() - t0) * 1e3
             del flat, kv
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    # training_sp_fp16: the same world and seed in fp16 (the default scaler)
+    out["fp16"] = {}
+    for mode, steps in SP_FP16_STEPS.items():
+        engine, *_ = initialize(model=sp_model(), config={**sp_config(mode), **FP16_SECTIONS},
+                                rng=torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda:0")
+        kernels.reset_launch_counts()
+        losses, norms, ms = sp_steps(engine, batch, steps)
+        out["fp16"][mode] = {"losses": losses, "grad_norms": norms, "ms": ms,
+                             "counts": kernels.launch_counts(),
+                             "plain": kernels.plain_attention_on_cuda(),
+                             "scale": engine.loss_scale, "skipped": engine.skipped_steps}
         del engine
         gc.collect()
         torch.cuda.empty_cache()
@@ -4318,6 +4510,14 @@ def main_path_training_sp() -> tuple:
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    engine, *_ = initialize(model=model, config={**sp_config(), **FP16_SECTIONS},
+                            rng=torch.Generator(device="cuda").manual_seed(0))
+    single16 = dict(zip(("losses", "grad_norms", "ms"),
+                        sp_steps(engine, {"input_ids": ids.cuda()},
+                                 max(SP_FP16_STEPS.values()))))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
     tol = 1e-2  # bf16: the chunked attention rounds its merged outputs once more
     counts = {}
     for mode, expect in (("ring", SP_RING_KERNELS), ("ulysses", SP_ULYSSES_KERNELS)):
@@ -4354,7 +4554,33 @@ def main_path_training_sp() -> tuple:
           f"{r0['allreduce_ms']:.2f} ms, one ring hop's k/v shift {r0['shift_ms']:.2f} ms "
           f"({3 * SP_LAYERS * (SP_SIZE - 1) + SP_LAYERS} shifts a ring step: k/v forward, "
           f"k/v and dk/dv backward, dk/dv home)")
-    return (counts, *training_zero(ranks))
+    counts16 = {}
+    for mode, expect in (("ring", SP_RING_FP16_KERNELS), ("ulysses", SP_ULYSSES_FP16_KERNELS)):
+        runs = [r["fp16"][mode] for r in ranks]
+        n = len(runs[0]["losses"])
+        mode_counts = {k: sum(r["counts"][k] for r in runs) for k in runs[0]["counts"]}
+        plain = sum(sum(r["plain"].values()) for r in runs)
+        print(f"training_sp_fp16 {mode}: losses {runs[0]['losses']} (fp16 sp=1 "
+              f"{single16['losses'][:n]}, bf16 sp=1 {single['losses'][:n]}), grad norms "
+              f"{runs[0]['grad_norms']} (fp16 sp=1 {single16['grad_norms'][:n]}); scale "
+              f"{runs[0]['scale']}, skipped {runs[0]['skipped']}; ms a step "
+              f"{[round(x, 1) for x in runs[0]['ms']]}; launches (both ranks) "
+              f"{ {k: mode_counts[k] for k in expect} }; plain attention on the card {plain}")
+        for r in runs[1:]:
+            require(r["losses"] == runs[0]["losses"],
+                    f"training_sp_fp16 {mode}: ranks disagree")
+        require(all(r["skipped"] == 0 for r in runs),
+                f"training_sp_fp16 {mode}: a step skipped at the default scale")
+        for what in ("losses", "grad_norms"):
+            np.testing.assert_allclose(runs[0][what], single16[what][:n], rtol=tol,
+                                       err_msg=f"training_sp_fp16 {mode} {what} against sp=1")
+        for name in expect:
+            require(mode_counts[name] > 0, f"kernel {name} was not launched on "
+                                           f"training_sp_fp16 {mode}")
+        require(plain == 0, f"training_sp_fp16 {mode}: plain attention ran on the card")
+        for k, c in mode_counts.items():
+            counts16[k] = counts16.get(k, 0) + c
+    return (counts, *training_zero(ranks), counts16)
 
 
 def training_zero(ranks) -> tuple:
@@ -4474,7 +4700,7 @@ def train_flops(cfg, tokens: int, pairs: float) -> float:
 
 def main_path_training(model=None, expect=TRAINING_KERNELS, path: str = "training",
                        packed: bool = False, extra=None, pairs_per_seq=None,
-                       rerun: bool = True):
+                       rerun: bool = True, ref_path: str = "training"):
     """``model`` (llama3-1b by default; bloom-560m for training_bloom) at full
     width and depth, seeded random masters, one seeded batch of 8 x 2048
     tokens (micro-batch 4, 2 accumulation steps), 10 steps; then the same 3
@@ -4482,7 +4708,9 @@ def main_path_training(model=None, expect=TRAINING_KERNELS, path: str = "trainin
     packs the rows with seeded documents (segment ids, positions, labels
     inside each document); ``extra`` adds config sections; MFU counts the
     visible pairs (``pairs_per_seq`` per row, causal pairs by default, the
-    segments' when packed)."""
+    segments' when packed). Under fp16 (``extra``'s sections) the first loss
+    is held to the bf16 path ``ref_path``'s, from the same masters and batch,
+    and its ms a step and MFU printed beside that path's."""
     model = model or llama("llama3-1b")
     cfg = model.config
     steps, rows, tokens = 10, TRAIN_B * TRAIN_ACCUM, TRAIN_B * TRAIN_ACCUM * TRAIN_S
@@ -4522,6 +4750,7 @@ def main_path_training(model=None, expect=TRAINING_KERNELS, path: str = "trainin
     FIRST_LOSS[path] = losses[0]
     peak = torch.cuda.max_memory_allocated()
     mfu = train_flops(cfg, tokens, pairs) / (ms_step / 1e3) / BF16_FLOPS
+    STEP_STATS[path] = (ms_step, mfu)
     plain = kernels.plain_attention_on_cuda()
     print(f"{path} losses: {losses}")
     print(f"{path}: {ms_step:.2f} ms/step (steps 3-{steps}), "
@@ -4532,14 +4761,17 @@ def main_path_training(model=None, expect=TRAINING_KERNELS, path: str = "trainin
     print(f"{path} main path launches ({steps} steps): "
           f"{ {k: counts[k] for k in expect} }; plain attention on the card {plain}")
     if engine.fp16_enabled:
-        first, bf16 = losses[0], FIRST_LOSS.get("training")
-        require(bf16 is not None, f"{path} compares its first loss with the training "
-                "path's: run training before it")
+        first, bf16 = losses[0], FIRST_LOSS.get(ref_path)
+        require(bf16 is not None, f"{path} compares its first loss with the {ref_path} "
+                f"path's: run {ref_path} before it")
+        ref_ms, ref_mfu = STEP_STATS[ref_path]
         print(f"{path}: loss scale after {steps} steps {engine.loss_scale} (the default "
               f"scaler: 2**16, window 1000, hysteresis 2), skipped steps "
-              f"{engine.skipped_steps}; first loss {first} beside the bf16 path's {bf16} "
-              f"from the same seeded masters (relative difference "
-              f"{abs(first - bf16) / bf16:.3e}, tol {FP16_FIRST_LOSS_RTOL})")
+              f"{engine.skipped_steps}; first loss {first} beside the bf16 path's "
+              f"({ref_path}) {bf16} from the same seeded masters (relative difference "
+              f"{abs(first - bf16) / bf16:.3e}, tol {FP16_FIRST_LOSS_RTOL}); "
+              f"{ms_step:.2f} ms/step, MFU {mfu:.4f} beside {ref_path}'s {ref_ms:.2f} "
+              f"ms/step, MFU {ref_mfu:.4f}")
         require(engine.skipped_steps == 0, f"{path}: {engine.skipped_steps} steps overflowed "
                 "at the default scale")
         require(abs(first - bf16) <= FP16_FIRST_LOSS_RTOL * bf16,
@@ -4634,10 +4866,13 @@ def check_fp16_overflow() -> None:
     """The fp16 forms round to nearest, never clamping (the .satfinite
     forms), so an overflow reaches the loss scaler as inf or NaN: a RMSNorm
     row whose result passes 65,504 (one non-zero element: xhat = sqrt(D) =
-    45.25, times a scale of 2,000) gives inf; the dq kernel on gradients
-    large enough that the fp32 plain result passes 65,504 gives a non-finite
-    value at each of those elements (dst, rounded to fp16 before dS K as the
-    Pallas kernel rounds it, may overflow first: inf, or inf * 0 = NaN)."""
+    45.25, times a scale of 2,000) gives inf, and so does the LayerNorm
+    forward on it; the LayerNorm backward's dx past 65,504 is inf where the
+    rest of its rows stay finite; the dq kernel, in the Llama and in the
+    masked form, on gradients large enough that the fp32 plain result passes
+    65,504 gives a non-finite value at each of those elements (dst, rounded
+    to fp16 before dS K as the Pallas kernel rounds it, may overflow first:
+    inf, or inf * 0 = NaN)."""
     F16 = torch.float16
     gen = torch.Generator(device="cuda").manual_seed(91)
     D = 2048
@@ -4648,22 +4883,296 @@ def check_fp16_overflow() -> None:
           f"{math.sqrt(D) * 2000:.1f}): {out[0, :2].tolist()}")
     require(bool(torch.isinf(out[0, 0])) and out[0, 1].item() == 0.0,
             "rmsnorm_fwd (fp16) does not give inf past 65,504")
+    # LayerNorm: the same row gives xhat = sqrt(D - 1) = 45.24 at its one
+    # element, times 2,000; the backward's dx at a g of 6e4 times a scale of 2
+    # (1.2e5 in fp32) where every other element stays finite
+    out = ln.layernorm_fwd(x, torch.full((D,), 2000.0, device="cuda", dtype=F16),
+                           torch.zeros(D, device="cuda", dtype=F16))
+    xr = torch.randn(4, D, generator=gen, device="cuda", dtype=F16)
+    g = torch.zeros(4, D, device="cuda", dtype=F16)
+    g[:, 0] = 6e4
+    dx = ln.layernorm_bwd(xr, torch.full((D,), 2.0, device="cuda", dtype=F16), g)[0]
+    ref = ln.layernorm_bwd_plain(xr.float(), torch.full((D,), 2.0, device="cuda"), g.float())[0]
+    over = ref.abs() > 65504 * 1.01
+    print(f"layernorm_fwd (fp16), the same row, scale 2000: {out[0, :2].tolist()}; "
+          f"layernorm_bwd (fp16), g of 6e4 at one element a row, scale 2: {int(over.sum())} "
+          f"elements of the fp32 plain dx past 65,504 (largest {ref.abs().max().item():.1f}), "
+          f"the kernel's dx inf at {int(torch.isinf(dx[over]).sum())} of them, non-finite "
+          f"elsewhere at {int((~torch.isfinite(dx[~over])).sum())}")
+    require(bool(torch.isinf(out[0, 0])) and bool(torch.isfinite(out[0, 1:]).all()),
+            "layernorm_fwd (fp16) does not give inf past 65,504")
+    require(bool(over.any()) and bool(torch.isinf(dx[over]).all())
+            and bool(torch.isfinite(dx[~over]).all()),
+            "layernorm_bwd (fp16) hides an overflow")
     B, S, H, KV, Dh = 1, 256, 8, 2, 64
     q = torch.randn(B, S, H, Dh, generator=gen, device="cuda", dtype=F16)
     k = 4 * torch.randn(B, S, KV, Dh, generator=gen, device="cuda", dtype=F16)
     v = torch.randn(B, S, KV, Dh, generator=gen, device="cuda", dtype=F16)
     do = (2e4 * torch.randn(B, S, H, Dh, generator=gen, device="cuda").clamp(-3, 3)).to(F16)
-    o, lse = fa.flash_attention_fwd(q, k, v)
-    dq, _ = fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
-    ref, _ = fa.flash_attention_bwd_dq_plain(q.float(), k.float(), v.float(), o.float(), lse,
-                                             do.float())
-    over = ref.abs() > 65504 * 1.01
-    print(f"flash_attention_bwd_dq (fp16), do of up to 6e4: {int(over.sum())} elements of "
-          f"the fp32 plain dq past 65,504 (largest {ref.abs().max().item():.1f}); the "
-          f"kernel's dq non-finite at {int((~torch.isfinite(dq[over])).sum())} of them, "
-          f"{int((~torch.isfinite(dq)).sum())} of {dq.numel()} in all")
-    require(bool(over.any()) and not bool(torch.isfinite(dq[over]).any()),
-            "flash_attention_bwd_dq (fp16) hides an overflow")
+    seg = torch.zeros(B, S, dtype=torch.int32, device="cuda")
+    seg[:, 100:] = 1
+    # the Llama form, then the masked form (segment ids: the masked dq kernel)
+    for form, kw in (("", {}), ("_seg", {"segment_ids": seg})):
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        dq, _ = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
+        ref, _ = fa.flash_attention_bwd_dq_plain(q.float(), k.float(), v.float(), o.float(),
+                                                 lse, do.float(), **kw)
+        over = ref.abs() > 65504 * 1.01
+        print(f"flash_attention_bwd_dq{form} (fp16), do of up to 6e4: {int(over.sum())} "
+              f"elements of the fp32 plain dq past 65,504 (largest "
+              f"{ref.abs().max().item():.1f}); the kernel's dq non-finite at "
+              f"{int((~torch.isfinite(dq[over])).sum())} of them, "
+              f"{int((~torch.isfinite(dq)).sum())} of {dq.numel()} in all")
+        require(bool(over.any()) and not bool(torch.isfinite(dq[over]).any()),
+                f"flash_attention_bwd_dq{form} (fp16) hides an overflow")
+
+
+def fp16_flash_rows(gen, timer, path: str, B: int, S: int, H: int, KV: int, D: int,
+                    kw: dict, pairs_bh: float, plain_groups: int = 0) -> dict:
+    """The fp16 form of the flash forward, dq and dk/dv kernels that ``kw``
+    selects (``slopes``, ``bias``, ``segment_ids``, ``layout``, ``offsets``;
+    none: the Llama form) at ``path``'s shape, causal, on one seeded fp16
+    draw, each against its plain version (the dk/dv kernel on the plain
+    delta; by groups of kv heads when ``plain_groups``, where the fp32 scores
+    would not fit at once) within an eighth of the bf16 form's tolerance; a
+    full bias's gradient from the dq kernel, a broadcast one's from the
+    bias-gradient kernel, likewise. Each is timed as the bf16 rows are, with
+    the bf16 rows' bound formulas (``pairs_bh`` visible pairs per head over
+    the batch), the plain versions over PLAIN_ITERS launches, SDPA in fp16
+    with the equivalent mask (heads repeated for a mask) as the library
+    call, and the dq kernel as its path calls it, without the dbias output
+    (the positions bias takes no gradient), as the bf16 rows are. Returns
+    {kernel and form: row}."""
+    F16 = torch.float16
+    tol_delta = 1e-4
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=F16)
+
+    slopes = kw.get("slopes")
+    terms = {k: t for k, t in kw.items() if k != "slopes"}
+    bias, seg = terms.get("bias"), terms.get("segment_ids")
+    layout, offsets = terms.get("layout"), terms.get("offsets")
+    form = fa.form_suffix(slopes, bias, seg, layout, offsets, F16)
+    emit = bias is not None and tuple(bias.shape[:2]) == (B, H)
+    q, k, v, do = rand(B, S, H, D), rand(B, S, KV, D), rand(B, S, KV, D), rand(B, S, H, D)
+
+    def plain(kind, *args, **extra):
+        if plain_groups:
+            return plain_by_heads(kind, plain_groups, q, k, v, *args, slopes=slopes, **terms)
+        fn = {"fwd": fa.flash_attention_plain, "dq": fa.flash_attention_bwd_dq_plain,
+              "dkv": fa.flash_attention_bwd_dkv_plain}[kind]
+        return fn(q, k, v, *args, True, slopes, **terms, **extra)
+
+    out, lse = fa.flash_attention_fwd(q, k, v, True, slopes, **terms)
+    ref, rlse = plain("fwd")
+    errs = {"out": (max_err(out, ref), FP16_TOL_OUT), "lse": (max_err(lse, rlse), 1e-3)}
+    del ref, rlse
+    got = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, True, slopes, emit_dbias=emit,
+                                    **terms)
+    want = plain("dq", out, lse, do, **({"emit_dbias": True} if emit else {}))
+    rdelta = want[1]
+    for n, a, w in zip(("dq", "delta", "dbias"), got, want):
+        errs[n] = (max_err(a, w),
+                   (tol_delta if n == "delta" else FP16_TOL_BWD) * w.float().abs().max().item())
+    del got, want
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, rdelta, do, True, slopes, **terms)
+    rdk, rdv = plain("dkv", lse, rdelta, do)
+    for n, a, w in (("dk", dk, rdk), ("dv", dv, rdv)):
+        errs[n] = (max_err(a, w), FP16_TOL_BWD * w.float().abs().max().item())
+    del dk, dv, rdk, rdv
+    if bias is not None and not emit:
+        db = fa.flash_attention_bias_grad(q, k, v, bias, lse, rdelta, do, True, slopes, seg)
+        again = fa.flash_attention_bias_grad(q, k, v, bias, lse, rdelta, do, True, slopes, seg)
+        rdb = fa.flash_attention_bias_grad_plain(q, k, v, bias, lse, rdelta, do, True, slopes,
+                                                 seg)
+        require(torch.equal(db, again), "flash_attention_bias_grad (fp16): two runs differ")
+        errs["bias_grad"] = (max_err(db, rdb),
+                             FP16_TOL_BIAS_GRAD * rdb.float().abs().max().item())
+        del db, again, rdb
+    print(f"flash{form} ({path}) B={B} S={S} H={H} KV={KV} D={D} causal"
+          + (f" bias {tuple(bias.shape)} {bias.dtype}" if bias is not None else "")
+          + ": " + ", ".join(f"{n} max_abs_err {e:.3e} (tol {t:.3e})"
+                             for n, (e, t) in errs.items()))
+    for n, (e, t) in errs.items():
+        require(e <= t, f"flash{form} {n} disagrees with its plain version")
+    torch.cuda.empty_cache()
+
+    pairs = pairs_bh * H
+    rows_b = 4 * B * H * S
+    bias_bytes = 0 if bias is None else \
+        bias.element_size() * pairs * bias.shape[0] * bias.shape[1] / (B * H)
+    b_fwd = bound(4 * D * pairs, 2 * (2 * q.numel() + k.numel() + v.numel()) + rows_b
+                  + bias_bytes)
+    b_dq = bound(6 * D * pairs, 2 * (3 * q.numel() + k.numel() + v.numel() + q.numel())
+                 + 2 * rows_b + bias_bytes)
+    b_dkv = bound(8 * D * pairs, 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel())
+                  + 2 * rows_b + bias_bytes)
+    qt = q.transpose(1, 2).contiguous()
+    dot = do.transpose(1, 2).contiguous()
+    if offsets is None and (slopes is not None or terms):
+        mask = (alibi_mask(slopes, S, F16) if not terms
+                else masked_library_mask(S, seg, bias, layout, F16))
+        kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+                  for t in (k, v))
+        lib_kw, note = {"attn_mask": mask}, "SDPA with the equivalent mask"
+    else:  # the Llama form; a past hop sees every key of the visiting chunk
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        lib_kw = {"is_causal": offsets is None, "enable_gqa": True}
+        note = "SDPA" if offsets is None else "SDPA, no mask: the past hop sees every key"
+    lib_fwd = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib_kw))
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, **lib_kw)
+    lib_bwd = timer(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), dot,
+                                                retain_graph=True))
+
+    def plain_ms(fn):
+        return timer(fn, iters=PLAIN_ITERS, warmup=1)
+
+    shape = (f"B={B} S={S} H={H} KV={KV} D={D} causal {form[1:]} "
+             f"({pairs_bh:.0f} visible pairs per head)")
+    rows = {
+        "flash_attention_fwd" + form: {
+            "max_abs_err": errs["out"][0],
+            "ms": timer(lambda: fa.flash_attention_fwd(q, k, v, True, slopes, **terms)),
+            "plain_ms": plain_ms(lambda: plain("fwd")),
+            "library_ms": lib_fwd, "bound_ms": b_fwd[0], "bound_by": b_fwd[1],
+            "shape": shape + f" (library: {note}, fp16)"},
+        "flash_attention_bwd_dq" + form: {
+            "max_abs_err": max(errs["dq"][0], errs.get("dbias", (0.0,))[0]),
+            "ms": timer(lambda: fa.flash_attention_bwd_dq(q, k, v, out, lse, do, True, slopes,
+                                                          **terms)),
+            "plain_ms": plain_ms(lambda: plain("dq", out, lse, do)),
+            "library_ms": lib_bwd, "bound_ms": b_dq[0], "bound_by": b_dq[1],
+            "shape": shape + f" (library: {note} backward, dq+dk+dv, fp16)"},
+        "flash_attention_bwd_dkv" + form: {
+            "max_abs_err": max(errs["dk"][0], errs["dv"][0]),
+            "ms": timer(lambda: fa.flash_attention_bwd_dkv(q, k, v, lse, rdelta, do, True,
+                                                           slopes, **terms)),
+            "plain_ms": plain_ms(lambda: plain("dkv", lse, rdelta, do)),
+            "library_ms": lib_bwd, "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
+            "shape": shape + " (library: same call)"},
+    }
+    if "bias_grad" in errs:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        b_bg = bound(4 * D * pairs, 2 * 2 * (q.numel() + k.numel()) + 2 * rows_b
+                     + 2 * bias_bytes)
+        lib_mask = mask.detach().requires_grad_(True)
+        lib_ms, lib_note = None, "none"
+        # SDPA's own choice of backend, then its math backend (check_bias_grad's)
+        for backend, scope in (("", contextlib.nullcontext),
+                               (", math backend", lambda: sdpa_kernel(SDPBackend.MATH))):
+            try:
+                with scope():
+                    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lib_mask)
+                    lib_ms = timer(lambda: torch.autograd.grad(lib_out, (lib_mask,), dot,
+                                                               retain_graph=True))
+                lib_note = "SDPA backward wrt an fp16 float mask, all gradients" + backend
+                break
+            except RuntimeError as e:
+                print(f"flash_attention_bias_grad_f16 library: SDPA backward wrt a broadcast "
+                      f"mask refused{backend} ({str(e)[:100]})")
+            finally:
+                lib_out = None
+        rows["flash_attention_bias_grad_f16"] = {
+            "max_abs_err": errs["bias_grad"][0],
+            "ms": timer(lambda: fa.flash_attention_bias_grad(q, k, v, bias, lse, rdelta, do,
+                                                             True, slopes, seg)),
+            "plain_ms": plain_ms(lambda: fa.flash_attention_bias_grad_plain(
+                q, k, v, bias, lse, rdelta, do, True, slopes, seg)),
+            "library_ms": lib_ms, "bound_ms": b_bg[0], "bound_by": b_bg[1],
+            "shape": f"bias {list(bias.shape)} fp16, B={B} H={H} D={D} causal (library: "
+                     f"{lib_note})"}
+    del q, k, v, do, out, lse, rdelta, qt, kt, vt, qg, kg, vg, lib_out, dot
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_fp16_training_forms(timer) -> dict:
+    """The fp16 forms this slice adds, at the shapes of the paths that run
+    them, from a generator of their own: the flash forward, dq and dk/dv
+    (:func:`fp16_flash_rows`) with ALiBi (training_bloom_fp16: bloom-560m's
+    micro-batch, 16 heads of 64), segment ids (training_packed_fp16:
+    llama3-1b's, packed as training_packed), the fp32 positions bias with
+    segment ids (training_bloom_packed_fp16, the bias's gradient from the dq
+    kernel), the block-sparse layout (training_sparse_fp16), a [1, 16, 2048,
+    2048] fp16 bias with its gradient (attention_bias_fp16), the offset form
+    at the ring's past hop and the Llama form at the Ulysses shape
+    (training_sp_fp16); the LayerNorm forward and backward at bloom-560m's
+    8192 rows of 1024 in fp16 (``F.layer_norm`` in fp16 the library call;
+    dx within two fp16 ulps, dscale and dbias fp32 sums within 1e-5 of the
+    largest). Returns {(kernel and form, path): row}."""
+    gen = torch.Generator(device="cuda").manual_seed(101)
+    F16 = torch.float16
+    B, S, D = TRAIN_B, TRAIN_S, 64
+    seg_np, pos_np, _ = packed_rows(B, S, PACKED_SEED)
+    seg = torch.from_numpy(seg_np).int().cuda()
+    pos = torch.from_numpy(pos_np).cuda()
+    fixed = sparse_fixed_layout(S)
+    causal, seg_pairs = B * S * (S + 1) / 2, packed_pairs(B, S, PACKED_SEED)
+    hop, Hu = SP_SEQ // SP_SIZE, 32 // SP_SIZE
+    rows = {}
+    for path, shape, kw, pairs_bh, groups in (
+            ("training_bloom_fp16", (B, S, 16, 16, D),
+             {"slopes": alibi_slopes(16).cuda()}, causal, 0),
+            ("training_packed_fp16", (B, S, 32, 8, D), {"segment_ids": seg}, seg_pairs, 0),
+            ("training_bloom_packed_fp16", (B, S, 16, 16, D),
+             {"segment_ids": seg, "bias": alibi_position_bias(pos, alibi_slopes(16).cuda())},
+             seg_pairs, 0),
+            ("training_sparse_fp16", (B, S, 32, 8, D), {"layout": fixed},
+             B * layout_pairs(fixed, S), 0),
+            ("attention_bias_fp16", (B, S, 16, 16, D),
+             {"bias": (0.3 * torch.randn(1, 16, S, S, generator=gen, device="cuda")).to(F16)},
+             causal, 0),
+            ("training_sp_fp16", (1, hop, 32, 8, D), {"offsets": (hop, 0)}, hop * hop, 8),
+            ("training_sp_fp16", (1, SP_SEQ, Hu, 8 // SP_SIZE, D), {},
+             SP_SEQ * (SP_SEQ + 1) / 2, 8 // SP_SIZE)):
+        for name, row in fp16_flash_rows(gen, timer, path, *shape, kw, pairs_bh,
+                                         groups).items():
+            rows[(name, path)] = row
+        del kw
+    n, Dn, eps = B * S, 1024, 1e-5
+    red_rel = 1e-5
+    w = (1 + 0.1 * torch.randn(Dn, generator=gen, device="cuda")).to(F16)
+    bb = (0.1 * torch.randn(Dn, generator=gen, device="cuda")).to(F16)
+    x = torch.randn(n, Dn, generator=gen, device="cuda", dtype=F16)
+    g = torch.randn(n, Dn, generator=gen, device="cuda", dtype=F16)
+    fn = lambda t: ln.layernorm_fwd(t, w, bb, eps)  # noqa: E731
+    plain = lambda t: ln.layernorm_plain(t, w, bb, eps)  # noqa: E731
+    e = norm_agrees("layernorm_fwd (fp16)", fn, plain, x, FP16_NORM_ATOL, FP16_NORM_RTOL)
+    fwd = norm_row(timer, e, lambda: fn(x), lambda: plain(x),
+                   lambda: F.layer_norm(x, (Dn,), w, bb, eps),
+                   *bound(8 * x.numel(), 2 * 2 * x.numel() + 2 * 2 * Dn),
+                   f"rows={n} D={Dn} fp16 (library: F.layer_norm)")
+    dx, ds, db = ln.layernorm_bwd(x, w, g, eps)
+    again = ln.layernorm_bwd(x, w, g, eps)
+    rdx, rds, rdb = ln.layernorm_bwd_plain(x, w, g, eps)
+    ok_dx = bool(((dx.float() - rdx.float()).abs()
+                  <= FP16_NORM_ATOL + FP16_NORM_RTOL * rdx.float().abs()).all())
+    errs = (max_err(dx, rdx), max_err(ds, rds), max_err(db, rdb))
+    same = all(torch.equal(a, r) for a, r in zip((dx, ds, db), again))
+    print(f"layernorm_bwd (fp16) rows={n} D={Dn}: max_abs_err dx {errs[0]:.3e} (tol "
+          f"{FP16_NORM_ATOL} + {FP16_NORM_RTOL}*|ref|) dscale {errs[1]:.3e} dbias "
+          f"{errs[2]:.3e} (tol {red_rel}*max|ref|); two runs bitwise equal: {same}")
+    require(ok_dx and same and errs[1] <= red_rel * rds.abs().max().item()
+            and errs[2] <= red_rel * rdb.abs().max().item(),
+            "layernorm_bwd (fp16) disagrees with its plain version")
+    xr, wr, br = (t.detach().requires_grad_(True) for t in (x, w, bb))
+    lib_out = F.layer_norm(xr, (Dn,), wr, br, eps)
+    b_ms, b_by = bound(15 * x.numel(), 3 * 2 * x.numel() + 2 * Dn + 2 * 4 * Dn)
+    bwd = {"max_abs_err": max(errs),
+           "ms": timer(lambda: ln.layernorm_bwd(x, w, g, eps)),
+           "plain_ms": timer(lambda: ln.layernorm_bwd_plain(x, w, g, eps)),
+           "library_ms": timer(lambda: torch.autograd.grad(lib_out, (xr, wr, br), g,
+                                                           retain_graph=True)),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "shape": f"rows={n} D={Dn} fp16 (library: F.layer_norm backward)"}
+    for path in ("training_bloom_fp16", "training_bloom_packed_fp16"):
+        rows[("layernorm_fwd_f16", path)], rows[("layernorm_bwd_f16", path)] = fwd, bwd
+    del x, g, dx, again, rdx, xr, wr, br, lib_out
+    torch.cuda.empty_cache()
+    return rows
 
 
 HASH_CHUNK = 1 << 24  # elements a hashing pass takes
@@ -4671,7 +5180,8 @@ HASH_CHUNK = 1 << 24  # elements a hashing pass takes
 
 def state_hash(engine) -> str:
     """A hash of the engine's masters, optimizer state and update count,
-    computed on the card: each fp32 leaf's bits as int32, times a fixed
+    computed on the card (a host leaf, offloaded, copied in a chunk at a
+    time): each fp32 leaf's bits as int32, times a fixed
     random odd int64 weight per position (in chunks of HASH_CHUNK), summed
     with int64 wraparound; the per-leaf sums then through sha256 on the
     host. Any flipped bit changes its leaf's sum."""
@@ -4682,8 +5192,8 @@ def state_hash(engine) -> str:
     for t in tree_leaves(engine.params) + tree_leaves(engine.opt_state):
         flat = t.detach().reshape(-1).view(torch.int32)
         acc = torch.zeros((), dtype=torch.int64, device="cuda")
-        for s in range(0, flat.numel(), HASH_CHUNK):
-            c = flat[s:s + HASH_CHUNK]
+        for s in range(0, flat.numel(), HASH_CHUNK):  # a host leaf chunk by chunk
+            c = flat[s:s + HASH_CHUNK].to("cuda", non_blocking=True)
             acc += (c.long() * w[:c.numel()]).sum()
         sums.append(acc)
     h = hashlib.sha256(torch.stack(sums).cpu().numpy().tobytes())
@@ -4799,7 +5309,7 @@ def check_8b_offload_shapes(timer) -> dict:
 
 def check_training_shapes(timer, path: str, B: int, adam_n: int, seed: int,
                           hd: int = 128, S: int = TRAIN_S, D: int = 4096,
-                          plain_iters: int = 20) -> dict:
+                          plain_iters: int = PLAIN_ITERS) -> dict:
     """A training path's kernels at micro-batch ``B`` x ``S`` (32 query / 8
     kv heads of ``hd``; Llama-3-8B's and Mixtral's of 128 by default): the
     flash forward, dq and dk/dv, the RMSNorm forward and backward on its
@@ -5206,12 +5716,14 @@ def main_path_checkpoint() -> tuple:
 
 
 # ------------------------------------------------ offload (ZeRO at world 1)
-def offload_config(zero: dict, remat: str = "none", micro: int = TRAIN_B) -> dict:
+def offload_config(zero: dict, remat: str = "none", micro: int = TRAIN_B,
+                   extra=None) -> dict:
     """training's config (bf16 over fp32 masters, AdamW on fused Adam) with
     ``zero`` as its ZeRO section and the step's breakdown on (the offloaded
-    step's halves and its layer stream's device ms)."""
+    step's halves and its layer stream's device ms); ``extra`` sections
+    (fp16's) last."""
     return {**train_config(True, remat=remat, batch=micro * TRAIN_ACCUM, micro=micro),
-            "zero_optimization": zero, "wall_clock_breakdown": True}
+            "zero_optimization": zero, "wall_clock_breakdown": True, **(extra or {})}
 
 
 def resident_name(name: str) -> str:
@@ -5266,30 +5778,28 @@ def adam_launches_a_step(engine) -> int:
 
 def run_offload_form(label: str, model, zero: dict, batch: dict, steps: int,
                      reference=None, remat: str = "none", micro: int = TRAIN_B,
-                     snapshot_at=None) -> tuple:
+                     extra=None, expect=TRAINING_KERNELS) -> tuple:
     """One engine of the offload phases: ``steps`` seeded steps with the
     counters zeroed before them; prints its numbers; holds its losses and
-    state to ``reference`` (losses, {steps: state}) when given; with
-    ``snapshot_at`` keeps a host copy of its state after that step. Returns
-    (losses, counts, engine, info)."""
+    state to ``reference`` (losses, {steps: state}) when given; ``extra``
+    config sections (fp16's, whose kernels are ``expect``). Returns (losses,
+    counts, engine, info)."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine, *_ = initialize(model=model, config=offload_config(zero, remat, micro),
+    engine, *_ = initialize(model=model, config=offload_config(zero, remat, micro, extra),
                             rng=torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     kernels.reset_launch_counts()
-    losses, ms, timings, snapshot = [], [], [], None
-    for i in range(steps):
+    losses, ms, timings = [], [], []
+    for _ in range(steps):
         t0 = time.perf_counter()
         losses.append(engine.train_batch(batch=batch))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         timings.append(dict(engine._timings))
-        if snapshot_at == i + 1:  # outside the timed steps' numbers
-            snapshot = {k: t.detach().cpu() for k, t in engine_state(engine).items()}
     counts = kernels.launch_counts()
     losses = [x.item() for x in losses]
     resident = torch.cuda.memory_allocated()
@@ -5312,11 +5822,11 @@ def run_offload_form(label: str, model, zero: dict, batch: dict, steps: int,
                  f"({gbs_in:.2f} GB/s), update {last['stream_update']:.1f}, copy out "
                  f"{last['stream_copy_out']:.1f} ({gbs_out:.2f} GB/s)")
     print(line)
-    expect = {name: counts[name] for name in TRAINING_KERNELS}
-    print(f"{label} losses {losses}; launches {expect}; fused Adam "
-          f"{adam_launches_a_step(engine)} a step expected")
+    print(f"{label} losses {losses}; launches { {name: counts[name] for name in expect} }; "
+          f"fused Adam {adam_launches_a_step(engine)} a step expected")
     require(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss")
-    for name in TRAINING_KERNELS:
+    require(engine.skipped_steps == 0, f"{label}: a step skipped")
+    for name in expect:
         require(counts[name] > 0, f"{label}: kernel {name} was not launched")
     require(counts["fused_adam"] == steps * adam_launches_a_step(engine),
             f"{label}: fused Adam launched {counts['fused_adam']} times, "
@@ -5333,7 +5843,7 @@ def run_offload_form(label: str, model, zero: dict, batch: dict, steps: int,
         require(losses == want[:steps], f"{label}: losses differ from the resident run's")
         require(not differ, f"{label}: state differs from the resident run's")
     return losses, counts, engine, {"ms": ms, "timings": timings, "peak": peak,
-                                    "resident": resident, "snapshot": snapshot}
+                                    "resident": resident}
 
 
 def free_engine(engine, label: str = "") -> None:
@@ -5366,7 +5876,7 @@ def require_host(label: str, need: int, wait_s: float = 60.0) -> None:
 
 def main_path_offload() -> dict:
     """ZeRO stages and offload at world 1 on llama3-1b at full width and
-    depth, training's config and batch: the five engines of 6c. Returns the
+    depth, training's config and batch: the four engines of 6c. Returns the
     counts of the optimizer-offload engine's run (the path the kernels line
     reads)."""
     model = llama("llama3-1b")
@@ -5385,32 +5895,27 @@ def main_path_offload() -> dict:
                         generator=torch.Generator().manual_seed(0)).cuda()
     batch = {"input_ids": ids}
     cpu = {"device": "cpu"}
+    # (stage 3 alone is stage 0's step at world 1: training_zero runs it over ranks)
     forms = [
-        ("stage 3", {"stage": 3}, OFFLOAD_STEPS),
-        ("stage 3 + offload_optimizer cpu", {"stage": 3, "offload_optimizer": cpu},
-         OFFLOAD_STEPS),
+        ("stage 3 + offload_optimizer cpu", {"stage": 3, "offload_optimizer": cpu}),
         ("stage 3 + offload_param cpu + offload_optimizer cpu",
-         {"stage": 3, "offload_param": cpu, "offload_optimizer": cpu}, OFFLOAD_STEPS),
+         {"stage": 3, "offload_param": cpu, "offload_optimizer": cpu}),
         ("stage 2 + offload_optimizer nvme",
-         {"stage": 2, "offload_optimizer": {"device": "nvme", "nvme_path": str(swap)}},
-         OFFLOAD_NVME_STEPS),
+         {"stage": 2, "offload_optimizer": {"device": "nvme", "nvme_path": str(swap)}}),
     ]
     counts = None
     engine = None
     shutil.rmtree(swap, ignore_errors=True)
     try:
-        # the reference's state after the NVMe engine's last step, on the host,
-        # and after its own, on the card
-        losses, _, engine, info = run_offload_form(
-            "offload stage 0 (reference)", model, {"stage": 0}, batch, OFFLOAD_STEPS,
-            snapshot_at=OFFLOAD_NVME_STEPS)
-        reference = (losses, {OFFLOAD_NVME_STEPS: info["snapshot"], OFFLOAD_STEPS: {
+        # the reference's state after its last step, on the card
+        losses, _, engine, _ = run_offload_form(
+            "offload stage 0 (reference)", model, {"stage": 0}, batch, OFFLOAD_STEPS)
+        reference = (losses, {OFFLOAD_STEPS: {
             k: t.detach().clone() for k, t in engine_state(engine).items()}})
-        del info
         free_engine(engine, "offload stage 0 (reference)")
-        for label, zero, steps in forms:
-            _, c, engine, _ = run_offload_form(f"offload {label}", model, zero, batch, steps,
-                                               reference)
+        for label, zero in forms:
+            _, c, engine, _ = run_offload_form(f"offload {label}", model, zero, batch,
+                                               OFFLOAD_STEPS, reference)
             if engine._swapper is not None:
                 sw = engine._swapper
                 sw.wait_pending("opt_state")
@@ -5429,12 +5934,59 @@ def main_path_offload() -> dict:
             free_engine(engine, f"offload {label}")
             engine = None
         del reference
+        counts16 = offload_fp16(model, batch)
     finally:
         if engine is not None:
             engine.destroy()
         shutil.rmtree(swap, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
+    return counts, counts16
+
+
+def offload_fp16(model, batch) -> dict:
+    """The offload phase's fp16 pair: the resident fp16 run (stage 0) and
+    stage 3 + ``offload_optimizer: cpu`` (the bucketed stream) in fp16 under
+    the default scaler, OFFLOAD_FP16_STEPS steps each, bitwise (losses,
+    masters, Adam moments); then that offloaded engine at a static scale of
+    2**32 for one step, which overflows and is skipped: the masters, the
+    host moments and the update count hash as before it (``state_hash``) and
+    the layer stream never starts (no call of the bucketed update: 0 of its
+    bytes moved each way). Returns the fp16 offloaded run's counts."""
+    cpu = {"device": "cpu"}
+    offloaded = {"stage": 3, "offload_optimizer": cpu}
+    losses, _, engine, _ = run_offload_form(
+        "offload fp16 stage 0 (reference)", model, {"stage": 0}, batch, OFFLOAD_FP16_STEPS,
+        extra=FP16_SECTIONS, expect=TRAINING_FP16_KERNELS)
+    reference = (losses, {OFFLOAD_FP16_STEPS: {k: t.detach().clone()
+                                               for k, t in engine_state(engine).items()}})
+    free_engine(engine, "offload fp16 stage 0 (reference)")
+    _, counts, engine, _ = run_offload_form(
+        "offload fp16 stage 3 + offload_optimizer cpu", model, offloaded, batch,
+        OFFLOAD_FP16_STEPS, reference, extra=FP16_SECTIONS, expect=TRAINING_FP16_KERNELS)
+    del reference
+    free_engine(engine, "offload fp16 stage 3 + offload_optimizer cpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    static = {**FP16_SECTIONS, "fp16": {"enabled": True, "loss_scale": 2.0 ** 32}}
+    engine, *_ = initialize(model=model, config=offload_config(offloaded, extra=static),
+                            rng=torch.Generator(device="cuda").manual_seed(0))
+    calls = []
+    update = engine._bucketed.step
+    engine._bucketed.step = lambda *a, **kw: (calls.append(1), update(*a, **kw))[1]
+    h0 = state_hash(engine)
+    loss = engine.train_batch(batch=batch).item()
+    same = state_hash(engine) == h0
+    stream = engine.offload_stream
+    print(f"offload fp16 static scale 2**32, 1 step: overflow {engine._metrics['overflow']}, "
+          f"skipped {engine.skipped_steps}, loss {loss} (forward only); masters, host Adam "
+          f"moments and update count hash as before the step: {same} ({h0[:16]}); the "
+          f"layer stream's updates run: {len(calls)}, bytes moved {len(calls) * stream['bytes_in']}"
+          f" in and {len(calls) * stream['bytes_out']} out (an applied step moves "
+          f"{stream['bytes_in']} each way)")
+    require(engine.skipped_steps == 1 and same and not calls and math.isfinite(loss),
+            "offload fp16: the skipped step moved the offloaded state")
+    free_engine(engine, "offload fp16 static 2**32")
     return counts
 
 
@@ -6444,13 +6996,13 @@ RMSNORM_BWD_VARIANTS = {
                       "  __shared__ float lanes[kMergeLanes][kMergeCols];")),
 }
 
-# Copies of csrc/flash_attention_bias_grad.cu with one part cut out or the
+# Copies of csrc/flash_attention_bias_grad.cuh with one part cut out or the
 # ring's depth changed, for ``--bias-grad-breakdown``; only the times are read.
 _BG_PRODUCTS = _replace_once(
     "        wgmma_fence();\n"
-    "        ss_product<HD, BN>(s, st, kRows, r_lo, st + 2 * L::kQ);          // S = Q K^T\n"
+    "        ss_product<HD, BN, T>(s, st, kRows, r_lo, st + 2 * L::kQ);          // S = Q K^T\n"
     "        wgmma_commit();\n"
-    "        ss_product<HD, BN>(dp, st + L::kQ, kRows, r_lo, st + 2 * L::kQ + L::kKV);"
+    "        ss_product<HD, BN, T>(dp, st + L::kQ, kRows, r_lo, st + 2 * L::kQ + L::kKV);"
     "  // dP = dO V^T\n"
     "        wgmma_commit();\n",
     "        for (int e = 0; e < BN / 2; ++e) s[e] = dp[e] = static_cast<float>(e);\n")
@@ -6531,7 +7083,8 @@ def bias_grad_breakdown() -> None:
     on this card."""
     _build.library()
     libs = variant_libraries("flash_attention_bias_grad", BIAS_GRAD_VARIANTS,
-                             "flash_attention_bias_grad")
+                             "flash_attention_bias_grad",
+                             patched="flash_attention_bias_grad.cuh")
     gen = torch.Generator(device="cuda").manual_seed(73)
     timer = Timer()
     B, S, H, D = TRAIN_B, TRAIN_S, 16, 64
@@ -6609,7 +7162,8 @@ def layernorm_breakdown() -> None:
     ``LAYERNORM_VARIANTS`` timed by ``Timer`` at training_bloom's shape (8192
     rows of 1024, bf16), in one process on this card."""
     _build.library()
-    libs = variant_libraries("layernorm_bwd", LAYERNORM_VARIANTS, "layernorm_bwd")
+    libs = variant_libraries("layernorm_bwd", LAYERNORM_VARIANTS, "layernorm_bwd",
+                             patched="layernorm_bwd.cuh")
     gen = torch.Generator(device="cuda").manual_seed(43)
     timer = Timer()
     x = torch.randn(TRAIN_B * TRAIN_S, 1024, generator=gen, device="cuda", dtype=BF16)
@@ -6798,9 +7352,11 @@ def main() -> int:
     for line in _build.ptxas_log().splitlines():
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}")
+    dump_sass(FLASH_OBJECTS + ("decode_attention", "quantized_matvec"))
     check_flash_instructions()
     check_decode_instructions()
     check_matvec_instructions()
+    _SASS.clear()
     lap("build and instruction counts")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -6834,6 +7390,9 @@ def main() -> int:
     # Llama-3-8B's heads, printed beside them), overflows visible
     f16, f16_hd128 = check_fp16_forms(timer)
     check_fp16_overflow()
+    # the fp16 forms of the other families, masks, offsets and the bias
+    # gradient, at the shapes of the fp16 paths that run them
+    f16_more = check_fp16_training_forms(timer)
     # the quantized serving path runs the bf16 path's requests: its flash,
     # RMSNorm and (int4 engine, draft) dense decode shapes are the same
     rows = [
@@ -6930,6 +7489,20 @@ def main() -> int:
         # the fp32 masters from fp32 gradients, as in bf16
         *((name, "training_fp16", r) for name, r in f16.items()),
         ("fused_adam", "training_fp16", adam),
+        # the fp16 paths of this slice: their new forms at their shapes, the
+        # fp16 RMSNorm rows (8192 rows of 2048: training_fp16's, and a
+        # training_sp rank's) and fused Adam on the fp32 masters
+        *((name, path, r) for (name, path), r in f16_more.items()),
+        ("fused_adam", "training_bloom_fp16", adam_bloom),
+        *((name, path, f16[name]) for path in ("training_packed_fp16", "training_sparse_fp16",
+                                               "training_sp_fp16")
+          for name in ("rmsnorm_fwd_f16", "rmsnorm_bwd_f16")),
+        *(("fused_adam", path, adam) for path in ("training_packed_fp16",
+                                                  "training_sparse_fp16", "training_sp_fp16")),
+        ("fused_adam", "training_bloom_packed_fp16", adam_bloom),
+        *((name, "offload_fp16", f16[name]) for name in TRAINING_FP16_KERNELS
+          if name != "fused_adam"),
+        ("fused_adam", "offload_fp16", adam_slice),
     ]
     # the norms' decode rows are printed beside the main paths' rows; the
     # kernels line keeps one row per main path
@@ -6990,6 +7563,9 @@ def main() -> int:
                                                  "serving_gpt2"),
         "training_bloom": lambda: main_path_training(bloom("bloom-560m"),
                                                      BLOOM_TRAINING_KERNELS, "training_bloom"),
+        "training_bloom_fp16": lambda: main_path_training(
+            bloom("bloom-560m"), BLOOM_TRAINING_FP16_KERNELS, "training_bloom_fp16",
+            extra=FP16_SECTIONS, rerun=False, ref_path="training_bloom"),
         "training_packed": lambda: main_path_training(None, PACKED_KERNELS, "training_packed",
                                                       packed=True, rerun=False),
         "training_bloom_packed": lambda: main_path_training(
@@ -7000,6 +7576,17 @@ def main() -> int:
             extra={"sparse_attention": SPARSE_SECTION}, rerun=False,
             pairs_per_seq=layout_pairs(sparse_fixed_layout(TRAIN_S), TRAIN_S)),
         "attention_bias": main_path_attention_bias,
+        # the fp16 legs: full width at the reference checks' depth
+        "training_packed_fp16": lambda: fp16_leg(
+            "training_packed_fp16", llama("llama3-1b", num_layers=FP16_LEG_LAYERS),
+            PACKED_FP16_KERNELS, packed=True),
+        "training_bloom_packed_fp16": lambda: fp16_leg(
+            "training_bloom_packed_fp16", bloom("bloom-560m", num_layers=FP16_LEG_LAYERS),
+            BLOOM_PACKED_FP16_KERNELS, packed=True),
+        "training_sparse_fp16": lambda: fp16_leg(
+            "training_sparse_fp16", llama("llama3-1b", num_layers=FP16_LEG_LAYERS),
+            SPARSE_FP16_KERNELS, extra={"sparse_attention": SPARSE_SECTION}),
+        "attention_bias_fp16": lambda: main_path_attention_bias(dtype=torch.float16),
     }
     counts = {}
     for path, run in paths.items():
@@ -7007,14 +7594,14 @@ def main() -> int:
         lap(path)
     # training_zero runs in training_sp's world; both before training_mixtral,
     # whose blocks this process's allocator keeps cached beside the two ranks
-    counts["training_sp"], counts["training_zero"], counts["training_zero3"] = \
-        main_path_training_sp()
-    lap("training_sp and training_zero")
+    (counts["training_sp"], counts["training_zero"], counts["training_zero3"],
+     counts["training_sp_fp16"]) = main_path_training_sp()
+    lap("training_sp, training_zero and training_sp_fp16")
     counts["training_mixtral"] = main_path_training_mixtral()
     lap("training_mixtral")
     counts["checkpoint"], counts["checkpoint_serving"] = main_path_checkpoint()
     lap("checkpoint")
-    counts["offload"] = main_path_offload()
+    counts["offload"], counts["offload_fp16"] = main_path_offload()
     lap("offload")
     counts["training_8b_offload"] = main_path_training_8b_offload()
     lap("training_8b_offload")

@@ -101,7 +101,7 @@ struct Mask {
   long long bias_sb;     // its element strides; 0 on a broadcast dim
   long long bias_sh;
   long long bias_sq;     // query-row stride (the key stride is 1)
-  int bias_bf16;         // 1: bf16 storage, 0: fp32
+  int bias_dtype;        // its storage, a DType code: fp32, bf16 or fp16
   const int* cols;       // block-sparse table [nb, jmax] (per row of layout
                          // blocks, its active blocks ascending), or nullptr
   const int* counts;     // [nb]: active blocks per row
@@ -128,7 +128,7 @@ inline Mask parse_mask(const long long* m) {
   k.bias_sb = m[2];
   k.bias_sh = m[3];
   k.bias_sq = m[4];
-  k.bias_bf16 = static_cast<int>(m[5]);
+  k.bias_dtype = static_cast<int>(m[5]);
   k.cols = reinterpret_cast<const int*>(m[6]);
   k.counts = reinterpret_cast<const int*>(m[7]);
   k.jmax = static_cast<int>(m[8]);
@@ -141,16 +141,19 @@ inline Mask parse_mask(const long long* m) {
 }
 
 __device__ __forceinline__ float load_bias(const Mask& m, long long off) {
-  return m.bias_bf16
-             ? __bfloat162float(static_cast<const __nv_bfloat16*>(m.bias)[off])
-             : static_cast<const float*>(m.bias)[off];
+  switch (m.bias_dtype) {
+    case kBFloat16: return __bfloat162float(static_cast<const __nv_bfloat16*>(m.bias)[off]);
+    case kFloat16: return __half2float(static_cast<const __half*>(m.bias)[off]);
+    default: return static_cast<const float*>(m.bias)[off];
+  }
 }
 
+// dbias in the bias's dtype, rounded to nearest (an fp16 overflow stays inf).
 __device__ __forceinline__ void store_dbias(const Mask& m, long long off, float x) {
-  if (m.bias_bf16) {
-    static_cast<__nv_bfloat16*>(m.dbias)[off] = __float2bfloat16(x);
-  } else {
-    static_cast<float*>(m.dbias)[off] = x;
+  switch (m.bias_dtype) {
+    case kBFloat16: static_cast<__nv_bfloat16*>(m.dbias)[off] = __float2bfloat16(x); break;
+    case kFloat16: static_cast<__half*>(m.dbias)[off] = __float2half_rn(x); break;
+    default: static_cast<float*>(m.dbias)[off] = x;
   }
 }
 

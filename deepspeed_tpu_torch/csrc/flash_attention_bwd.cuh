@@ -90,8 +90,9 @@
 // This header holds the two kernels, templated on their element type T
 // (bf16 or fp16: __nv_bfloat16 or __half), and their C entries' bodies
 // (dq_entry<T>, dkv_entry<T>); the translation units flash_attention_bwd.cu
-// (bf16: every form) and flash_attention_bwd_f16.cu (fp16: the Llama form)
-// instantiate them, each compiled by its own nvcc. Its helpers sit in an
+// (bf16: every form), flash_attention_bwd_f16.cu (fp16: the unmasked
+// kernels, which take ALiBi and offsets) and flash_attention_bwd_masked_f16.cu
+// (fp16: the masked kernels) instantiate them, each compiled by its own nvcc. Its helpers sit in an
 // anonymous namespace: each unit has its own copy.
 #pragma once
 
@@ -104,16 +105,19 @@ namespace {
 
 constexpr int kStages = 3;  // ring stages
 
-// dbias at off and off + 1; one 8-byte (fp32) or 4-byte (bf16) store when
-// `aligned` (off even).
+// dbias at off and off + 1; one 8-byte (fp32) or 4-byte (bf16, fp16) store
+// when `aligned` (off even).
 __device__ __forceinline__ void store_dbias_pair(const Mask& m, long long off, float x,
                                                  float y, bool aligned) {
   if (!aligned) {
     store_dbias(m, off, x);
     store_dbias(m, off + 1, y);
-  } else if (m.bias_bf16) {
+  } else if (m.bias_dtype == dst::kBFloat16) {
     *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(m.dbias) + off) =
         __floats2bfloat162_rn(x, y);
+  } else if (m.bias_dtype == dst::kFloat16) {  // rounded to nearest: an overflow stays inf
+    *reinterpret_cast<__half2*>(static_cast<__half*>(m.dbias) + off) =
+        __floats2half2_rn(x, y);
   } else {
     *reinterpret_cast<float2*>(static_cast<float*>(m.dbias) + off) = make_float2(x, y);
   }
@@ -815,17 +819,11 @@ cudaError_t launch_dkv(DkvParams<T>& prm, const void* q, const void* dout, int B
                 L::bytes((S + L::kBQ - 1) / L::kBQ), s);
 }
 
-// The instantiation of a form: bf16 has the unmasked and masked ones; fp16
-// the unmasked (Llama) one only, without slopes or offsets (the wrapper
-// refuses the rest before the launch).
-template <typename T>
-bool form_ok(const void* slopes, const Mask& m) {
-  return !std::is_same<T, __half>::value ||
-         (slopes == nullptr && !needs_masked(m) && m.qoff == 0 && m.koff == 0);
-}
-
-// The body of the C entries dst_flash_attention_bwd_dq (T = bf16) and
-// dst_flash_attention_bwd_dq_f16 (T = __half).
+// The body of the C entries dst_flash_attention_bwd_dq (T = bf16, every form)
+// and dst_flash_attention_bwd_dq_f16 (T = __half; its masked form through
+// dst_flash_attention_bwd_dq_masked_f16), for the forms kForms (the unmasked
+// kernel takes ALiBi slopes and position offsets at run time; a call in a form
+// this unit does not hold is refused).
 // q, o, do, dq: [B, S, H, hd]; k, v: [B, S, KV, hd], each by its (batch, seq,
 // head) strides (st: 3 per tensor in the order q, k, v, o, do, dq) with a
 // contiguous last dim; q, k, v, do are read by TMA (16-byte aligned start and
@@ -834,7 +832,7 @@ bool form_ok(const void* slopes, const Mask& m) {
 // mask: nullptr, or the forward's masked form (flash_attention.cuh:parse_mask,
 // the table per query layout row), whose dbias slot may name a [B, H, S, S]
 // output in the bias's dtype.
-template <typename T>
+template <typename T, int kForms = kFormsAll>
 int dq_entry(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* delta, void* dq, int B, int S, int H, int KV, int hd,
@@ -865,18 +863,15 @@ int dq_entry(
   prm.scale = scale;
   prm.causal = causal;
   prm.mask = mask != nullptr ? parse_mask(mask) : Mask{};
-  if (!form_ok<T>(slopes, prm.mask)) return static_cast<int>(cudaErrorInvalidValue);
-  [[maybe_unused]] const bool masked = needs_masked(prm.mask);
-  cudaError_t r;
-  if constexpr (std::is_same<T, __half>::value) {
+  cudaError_t r = cudaErrorInvalidValue;
+  if (needs_masked(prm.mask)) {
+    if constexpr ((kForms & kFormMasked) != 0) {
+      r = hd == 128 ? launch_dq<128, true>(prm, k, v, B, S, KV, st, s)
+                    : launch_dq<64, true>(prm, k, v, B, S, KV, st, s);
+    }
+  } else if constexpr ((kForms & kFormPlain) != 0) {
     r = hd == 128 ? launch_dq<128, false>(prm, k, v, B, S, KV, st, s)
                   : launch_dq<64, false>(prm, k, v, B, S, KV, st, s);
-  } else if (hd == 128) {
-    r = masked ? launch_dq<128, true>(prm, k, v, B, S, KV, st, s)
-               : launch_dq<128, false>(prm, k, v, B, S, KV, st, s);
-  } else {
-    r = masked ? launch_dq<64, true>(prm, k, v, B, S, KV, st, s)
-               : launch_dq<64, false>(prm, k, v, B, S, KV, st, s);
   }
   return static_cast<int>(r);
 }
@@ -886,7 +881,7 @@ int dq_entry(
 // (delta from the dq kernel); slopes as for the dq kernel; mask as for the dq
 // kernel but with the transposed table (per key layout column, its active
 // query blocks) and no dbias.
-template <typename T>
+template <typename T, int kForms = kFormsAll>
 int dkv_entry(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
@@ -915,18 +910,15 @@ int dkv_entry(
   prm.scale = scale;
   prm.causal = causal;
   prm.mask = mask != nullptr ? parse_mask(mask) : Mask{};
-  if (!form_ok<T>(slopes, prm.mask)) return static_cast<int>(cudaErrorInvalidValue);
-  [[maybe_unused]] const bool masked = needs_masked(prm.mask);
-  cudaError_t r;
-  if constexpr (std::is_same<T, __half>::value) {
+  cudaError_t r = cudaErrorInvalidValue;
+  if (needs_masked(prm.mask)) {
+    if constexpr ((kForms & kFormMasked) != 0) {
+      r = hd == 128 ? launch_dkv<128, true>(prm, q, dout, B, S, st, s)
+                    : launch_dkv<64, true>(prm, q, dout, B, S, st, s);
+    }
+  } else if constexpr ((kForms & kFormPlain) != 0) {
     r = hd == 128 ? launch_dkv<128, false>(prm, q, dout, B, S, st, s)
                   : launch_dkv<64, false>(prm, q, dout, B, S, st, s);
-  } else if (hd == 128) {
-    r = masked ? launch_dkv<128, true>(prm, q, dout, B, S, st, s)
-               : launch_dkv<128, false>(prm, q, dout, B, S, st, s);
-  } else {
-    r = masked ? launch_dkv<64, true>(prm, q, dout, B, S, st, s)
-               : launch_dkv<64, false>(prm, q, dout, B, S, st, s);
   }
   return static_cast<int>(r);
 }

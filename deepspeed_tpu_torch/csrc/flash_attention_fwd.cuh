@@ -84,9 +84,10 @@
 //
 // This header holds the kernel, templated on its element type T (bf16 or
 // fp16: __nv_bfloat16 or __half), and its C entry's body (fwd_entry<T>); the
-// translation units flash_attention_fwd.cu (bf16: every form) and
-// flash_attention_fwd_f16.cu (fp16: the Llama form) instantiate it, each
-// compiled by its own nvcc. Its helpers sit in an anonymous namespace: each
+// translation units flash_attention_fwd.cu (bf16: every form),
+// flash_attention_fwd_f16.cu (fp16: the Llama and ALiBi forms) and
+// flash_attention_fwd_masked_f16.cu (fp16: the masked form) instantiate it,
+// each compiled by its own nvcc. Its helpers sit in an anonymous namespace: each
 // unit has its own copy.
 #pragma once
 
@@ -199,8 +200,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     if (has_seg) mbar_wait(rbar, 0);
     const int bias_h = mask.bias_sh != 0 ? h : 0;  // broadcast dims at coordinate 0
     const int bias_b = mask.bias_sb != 0 ? b : 0;
-    const int box_keys = mask.bias_bf16 ? 64 : 32;  // 128 bytes of keys
-    const uint32_t bias_bytes = has_bias ? kRows * BN * (mask.bias_bf16 ? 2 : 4) : 0;
+    const int box_keys = mask.bias_dtype != dst::kFloat32 ? 64 : 32;  // 128 bytes of keys
+    const uint32_t bias_bytes =
+        has_bias ? kRows * BN * (mask.bias_dtype != dst::kFloat32 ? 2 : 4) : 0;
     Ring<NST> ring;
     auto visit = [&](int t) {
       const int k0 = t * BN;
@@ -274,7 +276,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   const float slope_log2 = alibi ? p.slopes[h] * kLog2e : 0.f;
   const int seg0 = has_seg && row0 < S ? seg_b[row0] : 0;
   const int seg1 = has_seg && row1 < S ? seg_b[row1] : 0;
-  const bool bias_bf16 = mask.bias_bf16 != 0;
+  const int bias_dtype = mask.bias_dtype;
   // a score carries a term beyond q . k * scale (every tile, full or not)
   const bool terms = kAlibi || (kMasked && (has_bias || alibi));
 
@@ -298,7 +300,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       const int c = 8 * (e >> 2) + 2 * tq;  // the pair's first key, in the tile
       float2 bias = make_float2(0.f, 0.f);
       if constexpr (kMasked && kTerms) {
-        if (has_bias) bias = bias_pair(bt, row - row_base, c, bias_bf16);
+        if (has_bias) bias = bias_pair(bt, row - row_base, c, bias_dtype);
       }
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
@@ -468,7 +470,7 @@ cudaError_t launch_fwd(FwdParams<T>& prm, const void* q, const void* k, const vo
       !encode_rows_map(&prm.k, k, B, S, prm.KV, HD, ks.sb, ks.ss, ks.sh, L::kBN, ty) ||
       !encode_rows_map(&prm.v, v, B, S, prm.KV, HD, vs.sb, vs.ss, vs.sh, L::kBN, ty) ||
       (kMasked && m.bias != nullptr &&
-       !encode_bias_map(&prm.bias, m.bias, m.bias_bf16 != 0, B, S, prm.H, m.bias_sb,
+       !encode_bias_map(&prm.bias, m.bias, m.bias_dtype, B, S, prm.H, m.bias_sb,
                         m.bias_sh, m.bias_sq, kRows)))
     return cudaErrorInvalidValue;
   const dim3 grid(prm.H, B, (S + kRows - 1) / kRows);
@@ -476,25 +478,28 @@ cudaError_t launch_fwd(FwdParams<T>& prm, const void* q, const void* k, const vo
                 L::bytes((S + L::kBN - 1) / L::kBN), s);
 }
 
-// The form's instantiation: bf16 has all three; fp16 the Llama form only
-// (its ALiBi and masked forms, the offsets among them, are not instantiated,
-// and the wrapper refuses them before the launch).
-template <int HD, typename T>
+// The form's instantiation, among the forms kForms this unit holds (bf16:
+// all three; fp16: the Llama and ALiBi forms in flash_attention_fwd_f16.cu,
+// the masked one in flash_attention_fwd_masked_f16.cu).
+template <int HD, int kForms, typename T>
 cudaError_t launch_form(FwdParams<T>& prm, const void* q, const void* k, const void* v,
                         int B, int S, const long long* st, cudaStream_t s) {
-  if constexpr (std::is_same<T, __half>::value) {
-    if (needs_masked(prm.mask) || prm.slopes != nullptr || prm.mask.qoff != 0 ||
-        prm.mask.koff != 0)
-      return cudaErrorInvalidValue;
-  } else {
-    if (needs_masked(prm.mask)) return launch_fwd<HD, false, true>(prm, q, k, v, B, S, st, s);
-    if (prm.slopes != nullptr) return launch_fwd<HD, true, false>(prm, q, k, v, B, S, st, s);
+  const int form = form_of(prm.slopes, prm.mask);
+  if constexpr ((kForms & kFormMasked) != 0) {
+    if (form == kFormMasked) return launch_fwd<HD, false, true>(prm, q, k, v, B, S, st, s);
   }
-  return launch_fwd<HD, false, false>(prm, q, k, v, B, S, st, s);
+  if constexpr ((kForms & kFormAlibi) != 0) {
+    if (form == kFormAlibi) return launch_fwd<HD, true, false>(prm, q, k, v, B, S, st, s);
+  }
+  if constexpr ((kForms & kFormPlain) != 0) {
+    if (form == kFormPlain) return launch_fwd<HD, false, false>(prm, q, k, v, B, S, st, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
-// The body of the C entries dst_flash_attention_fwd (T = bf16) and
-// dst_flash_attention_fwd_f16 (T = __half). q: [B, S, H, hd], k/v:
+// The body of the C entries dst_flash_attention_fwd (T = bf16, every form) and
+// dst_flash_attention_fwd_f16 (T = __half; its masked form through
+// dst_flash_attention_fwd_masked_f16), for the forms kForms. q: [B, S, H, hd], k/v:
 // [B, S, KV, hd], out: [B, S, H, hd], each by its (batch, seq, head) strides with a contiguous last dim; q, k, v are read by
 // TMA (16-byte aligned start and strides). lse: [B, H, S] fp32 contiguous.
 // slopes: fp32 [H] ALiBi slopes on the device, or nullptr for none. scale:
@@ -504,7 +509,7 @@ cudaError_t launch_form(FwdParams<T>& prm, const void* q, const void* k, const v
 // tables, the keys' segment ids and the position offsets
 // (flash_attention.cuh:parse_mask; the table is per query layout row, its
 // block a multiple of 128 tokens).
-template <typename T>
+template <typename T, int kForms = kFormsAll>
 int fwd_entry(
     const void* q, const void* k, const void* v, void* out, void* lse, int B,
     int S, int H, int KV, int hd, long long q_sb, long long q_ss,
@@ -529,8 +534,8 @@ int fwd_entry(
   prm.scale_log2 = scale * kLog2e;
   prm.causal = causal;
   prm.mask = mask != nullptr ? parse_mask(mask) : Mask{};
-  const cudaError_t r = hd == 128 ? launch_form<128, T>(prm, q, k, v, B, S, st, s)
-                                  : launch_form<64, T>(prm, q, k, v, B, S, st, s);
+  const cudaError_t r = hd == 128 ? launch_form<128, kForms>(prm, q, k, v, B, S, st, s)
+                                  : launch_form<64, kForms>(prm, q, k, v, B, S, st, s);
   return static_cast<int>(r);
 }
 

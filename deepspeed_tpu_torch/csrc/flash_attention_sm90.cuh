@@ -417,19 +417,19 @@ inline bool encode_rows_map(CUtensorMap* map, const void* base, int B, int S, in
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The map of a dense additive bias [B|1, H|1, S, S] (fp32 or bf16, the key
-// dim contiguous) by its element strides (sq: query rows; sh, sb: 0 on a
-// broadcast dim): dims (S, S, H or 1, B or 1), byte strides of the query
-// rows, heads and batch rows (a broadcast dim of size 1 gets the next
-// inner one's span), box 128 bytes of keys (32 fp32 or 64 bf16) x rows
-// query rows x 1 x 1, 128-byte swizzle, zeros past S. The wrapper's
-// bias_tma_map (ops/cuda/flash_attention.py) computes and checks the same
-// numbers. False where the driver refuses.
-inline bool encode_bias_map(CUtensorMap* map, const void* base, bool bf16, int B, int S,
+// The map of a dense additive bias [B|1, H|1, S, S] (fp32, bf16 or fp16 by
+// the DType code `dtype`, the key dim contiguous) by its element strides (sq:
+// query rows; sh, sb: 0 on a broadcast dim): dims (S, S, H or 1, B or 1), byte
+// strides of the query rows, heads and batch rows (a broadcast dim of size 1
+// gets the next inner one's span), box 128 bytes of keys (32 fp32 or 64 bf16
+// or fp16) x rows query rows x 1 x 1, 128-byte swizzle, zeros past S. The
+// wrapper's bias_tma_map (ops/cuda/flash_attention.py) computes and checks
+// the same numbers. False where cuTensorMapEncodeTiled refuses.
+inline bool encode_bias_map(CUtensorMap* map, const void* base, int dtype, int B, int S,
                             int H, long long sb, long long sh, long long sq, int rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t esize = bf16 ? 2 : 4;
+  const cuuint64_t esize = dtype != kFloat32 ? 2 : 4;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(sh != 0 ? H : 1),
                               static_cast<cuuint64_t>(sb != 0 ? B : 1)};
@@ -440,8 +440,10 @@ inline bool encode_bias_map(CUtensorMap* map, const void* base, bool bf16, int B
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / esize),
                              static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-            4, const_cast<void*>(base), dims, strides, box, estr,
+  const CUtensorMapDataType type = dtype == kFloat16    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                   : dtype == kBFloat16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, estr,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

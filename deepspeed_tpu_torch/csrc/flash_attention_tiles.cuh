@@ -166,9 +166,10 @@ __device__ __forceinline__ void ss_product(float (&d)[N / 2], uint32_t a, int a_
 
 // The byte offset of element (r, key) of a dense bias tile of kRows rows in
 // shared memory, as TMA writes it: panels of 128 bytes a row (32 fp32 or 64
-// bf16 keys) with the 128-byte swizzle, one panel after another.
-__device__ __forceinline__ int bias_offset(int r, int key, bool bf16) {
-  if (bf16) {
+// bf16 or fp16 keys: `narrow`) with the 128-byte swizzle, one panel after
+// another.
+__device__ __forceinline__ int bias_offset(int r, int key, bool narrow) {
+  if (narrow) {
     return (key >> 6) * (kRows * 128) + r * 128 + ((((key & 63) >> 3) ^ (r & 7)) << 4) +
            ((key & 7) << 1);
   }
@@ -176,11 +177,14 @@ __device__ __forceinline__ int bias_offset(int r, int key, bool bf16) {
          ((key & 3) << 2);
 }
 
-// The bias pair (key, key + 1), key even, of row r of a bias tile.
-__device__ __forceinline__ float2 bias_pair(const uint8_t* tile, int r, int key, bool bf16) {
-  const uint8_t* at = tile + bias_offset(r, key, bf16);
-  return bf16 ? unpack(*reinterpret_cast<const uint32_t*>(at))
-              : *reinterpret_cast<const float2*>(at);
+// The bias pair (key, key + 1), key even, of row r of a bias tile whose
+// storage is the DType code `dtype`.
+__device__ __forceinline__ float2 bias_pair(const uint8_t* tile, int r, int key, int dtype) {
+  const uint8_t* at = tile + bias_offset(r, key, dtype != kFloat32);
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(at);
+  return dtype == kFloat16    ? unpack2<__half>(u)
+         : dtype == kBFloat16 ? unpack(u)
+                              : *reinterpret_cast<const float2*>(at);
 }
 
 // A table's layout block must hold whole blocks of kRows rows, so that no
@@ -193,6 +197,18 @@ inline bool table_ok(const long long* mask) {
 // ring hop without segment ids) run the unmasked one, which reads them too.
 inline bool needs_masked(const Mask& m) {
   return m.seg != nullptr || m.bias != nullptr || m.cols != nullptr || m.dbias != nullptr;
+}
+
+// The forms a translation unit instantiates, a bit each (the entries' kForms):
+// the Llama form (position offsets alone included), ALiBi (the forward has an
+// instantiation of its own; the backward's unmasked kernels take the slopes
+// at run time), the masked form. A call in a form its unit does not hold is
+// refused (cudaErrorInvalidValue).
+constexpr int kFormPlain = 1, kFormAlibi = 2, kFormMasked = 4;
+constexpr int kFormsAll = kFormPlain | kFormAlibi | kFormMasked;
+
+inline int form_of(const void* slopes, const Mask& m) {
+  return needs_masked(m) ? kFormMasked : slopes != nullptr ? kFormAlibi : kFormPlain;
 }
 
 // Launch a kernel of kBlockThreads threads with `bytes` of dynamic shared

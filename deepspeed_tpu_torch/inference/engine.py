@@ -307,7 +307,7 @@ class InferenceEngine:
             raise NotImplementedError(
                 "the CUDA serving kernels take bfloat16; "
                 f"got dtype={dtype} (serve other dtypes with device='cpu'; fp16 "
-                "serving, the decode kernels' fp16 forms, is ROADMAP A6 part 2)"
+                "serving, the decode kernels' fp16 forms, is ROADMAP A6 part 2 item 4)"
             )
         self.matvec_max_rows = (
             int(matvec_max_rows) if matvec_max_rows is not None else None

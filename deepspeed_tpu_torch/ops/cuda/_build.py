@@ -43,10 +43,13 @@ SIGNATURES: Dict[str, List] = {
     "dst_rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
     "dst_rmsnorm_bwd_nblocks": [_I, _I, _I],
     "dst_rmsnorm_bwd": [_P] * 6 + [_I, _I, _F, _I, _I, _P],
-    # the fp16 entries (rmsnorm, flash's Llama form) take the others' arguments
-    # less the dtype codes
+    # the fp16 entries (the norms, every flash form, the bias gradient) take
+    # the others' arguments less the dtype codes
     "dst_rmsnorm_fwd_f16": [_P, _P, _P, _I, _I, _F, _P],
     "dst_rmsnorm_bwd_f16": [_P] * 6 + [_I, _I, _F, _P],
+    "dst_layernorm_fwd_f16": [_P] * 4 + [_I, _I, _F, _P],
+    "dst_layernorm_bwd_f16": [_P] * 7 + [_I, _I, _F, _P],
+    "dst_flash_attention_bias_grad_f16": [_P] * 6 + [_I] * 7 + [_LP, _P, _F, _I, _LP, _P],
     "dst_layernorm_fwd": [_P] * 4 + [_I, _I, _F, _I, _I, _P],
     "dst_layernorm_bwd_nblocks": [_I, _I, _I],
     "dst_layernorm_bwd": [_P] * 7 + [_I, _I, _F, _I, _I, _P],
@@ -195,9 +198,9 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-# where the fp16 forms of the other kernels come
-FP16_LATER = ("ROADMAP A6 part 2 (fp16 LayerNorm, ALiBi, the masked and offset "
-              "flash forms, the bias gradient, decode)")
+# where the fp16 forms of the kernels still without one come: fp16 serving
+FP16_LATER = ("ROADMAP A6 part 2 item 4 (fp16 serving: the decode kernels' fp16 "
+              "forms)")
 
 
 def dtype_code(dtype, fp16: bool = False) -> int:

@@ -10,7 +10,7 @@ The forward replaces ``deepspeed_tpu/ops/pallas/flash_attention.py:_fwd_kernel``
 form of the Pallas kernels is here: causal, GQA, per-head ALiBi slopes
 ``slopes`` (fp32 [H]; BLOOM), segment ids ``segment_ids`` (int32 [B, S]:
 packed sequences attend inside their own segment), a dense additive
-``bias`` [B|1, H|1, S, S] (fp32 or bf16; its gradient comes from the dq
+``bias`` [B|1, H|1, S, S] (fp32, bf16 or fp16; its gradient comes from the dq
 kernel for a full bias, ``emit_dbias``, and from the bias-gradient kernel
 for a broadcast one) and a block-sparse ``layout`` ([S/blk, S/blk] 0/1 at
 ``blk`` tokens, a multiple of 128 dividing S: only the active blocks are
@@ -29,13 +29,16 @@ layout masks. ``slopes`` alone runs the kernels' ALiBi instantiation, nothing
 their Llama one (the code before ALiBi came in); a mask selects the masked
 instantiation, which reads its operands at run time.
 
-The Llama form (no slopes, bias, segment ids, layout or offsets) also has
-an fp16 instantiation of each of the three kernels, for fp16 training
-(``csrc/flash_attention_fwd_f16.cu``, ``csrc/flash_attention_bwd_f16.cu``:
-separate C entries, the same kernels with fp16 operands, P and dS rounded to
-fp16 as the Pallas kernels round them to the inputs' dtype, an overflow kept
-as inf); counted under ``*_f16``. An fp16 tensor in any other form raises,
-naming ROADMAP A6 part 2.
+Every form of the four kernels also has an fp16 instantiation, for fp16
+training: separate C entries (``dst_*_f16``) on the same kernels with fp16
+operands, P and dS rounded to fp16 as the Pallas kernels round them to the
+inputs' dtype, an overflow kept as inf; the Llama and ALiBi forms in
+``csrc/flash_attention_{fwd,bwd}_f16.cu``, the masked ones in
+``csrc/flash_attention_{fwd,bwd}_masked_f16.cu``, the bias gradient in
+``csrc/flash_attention_bias_grad_f16.cu``. A form's fp16 launches count under
+its bf16 name plus ``_f16`` (``flash_attention_fwd_alibi_f16``; the Llama
+form's ``flash_attention_fwd_f16``). A dense bias may be fp32, bf16 or fp16 in
+either, its gradient written in its dtype.
 
 Bound on the H100: operations for long sequences, per visible (query, key)
 pair 4 * D flops forward, 6 * D in the dq kernel and 8 * D in the dk/dv
@@ -79,11 +82,10 @@ TERMS = ("alibi", "bias", "sparse", "seg", "offsets")
 FORMS = tuple("".join(f"_{p}" for p, on in zip(TERMS, bits) if on)
               for bits in itertools.product((False, True), repeat=len(TERMS))
               if not (bits[1] and bits[2]) and not (bits[4] and (bits[1] or bits[2])))
-# kernel launches since the last reset, per kernel and form; "_f16": the
-# fp16 Llama form (csrc/flash_attention_fwd_f16.cu, _bwd_f16.cu)
-launches = {**{name + form: 0 for name in KERNEL_NAMES for form in FORMS},
-            **{name + "_f16": 0 for name in KERNEL_NAMES},
-            "flash_attention_bias_grad": 0}
+# kernel launches since the last reset, per kernel, form and dtype (a
+# trailing "_f16": the fp16 instantiation)
+launches = {name + form + f16: 0 for name in KERNEL_NAMES + ("flash_attention_bias_grad",)
+            for form in (FORMS if name in KERNEL_NAMES else ("",)) for f16 in ("", "_f16")}
 # calls of the plain attention on CUDA tensors since the last reset
 plain_on_cuda = {"flash_attention_plain": 0}
 
@@ -357,7 +359,7 @@ TMA_ROWS = 128     # a block's own rows (forward: q; dq: q, do; dk/dv: k, v)
 
 
 def tma_map(fn: str, name: str, t: torch.Tensor, rows: int) -> dict:
-    """The 4-D tensor map the flash kernels read ``t`` [B, S, H, D] (bf16)
+    """The 4-D tensor map the flash kernels read ``t`` [B, S, H, D] (bf16 or fp16)
     through: dims (D, S, H, B), byte strides of S, H and B, a box of 64
     columns x ``rows`` rows, and the start address; the C side
     (``csrc/flash_attention_sm90.cuh:encode_rows_map``) encodes the same
@@ -407,7 +409,7 @@ def bias_grad_tile(head_dim: int) -> int:
 
 def bias_tma_map(fn: str, bias: torch.Tensor, B: int, H: int, rows: int = TMA_ROWS) -> dict:
     """The 4-D tensor map the forward kernel reads a dense ``bias``
-    [B|1, H|1, S, S] (fp32 or bf16) through: dims (S keys, S queries, H or 1,
+    [B|1, H|1, S, S] (fp32, bf16 or fp16) through: dims (S keys, S queries, H or 1,
     B or 1; a broadcast dim, size 1 or stride 0, is read at coordinate 0),
     byte strides of the query rows, heads and batch rows (a broadcast dim's
     is the span of the dims inside it), a box of 128 bytes of keys x
@@ -503,32 +505,19 @@ def _check_inputs(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_strides(fn, name, t)
 
 
-def _entry(lib, fn: str, q: torch.Tensor, *terms):
-    """The C entry of the kernel ``fn`` for q's dtype: the bf16 one, or for
-    fp16 the Llama form's, which takes none of ``terms`` (slopes, a bias,
-    segment ids, a layout, offsets: their fp16 forms are ROADMAP A6 part 2)."""
-    if q.dtype != torch.float16:
-        return getattr(lib, f"dst_{fn}")
-    taken = [name for name, t in zip(("slopes", "a dense bias", "segment ids", "a layout",
-                                      "position offsets"), terms) if t is not None]
-    if taken:
-        raise NotImplementedError(
-            f"{fn}: the fp16 kernel has the Llama form only, not {', '.join(taken)}: "
-            f"{_build.FP16_LATER}")
-    return getattr(lib, f"dst_{fn}_f16")
+def _entry(lib, fn: str, q: torch.Tensor):
+    """The C entry of the kernel ``fn`` for q's dtype: bf16, or fp16."""
+    return getattr(lib, f"dst_{fn}_f16" if q.dtype == torch.float16 else f"dst_{fn}")
 
 
 def form_suffix(slopes: Optional[torch.Tensor], bias=None, segment_ids=None,
                 layout=None, offsets=None, dtype=torch.bfloat16) -> str:
     """The launch counter's suffix of a kernel's form: one ``_alibi``,
     ``_bias``, ``_sparse``, ``_seg``, ``_offsets`` for each term it takes, in
-    that order (nothing for the Llama form); ``_f16`` for the fp16 Llama
-    form."""
-    if dtype == torch.float16:
-        return "_f16"
+    that order (nothing for the Llama form), then ``_f16`` for fp16."""
     return "".join(f"_{name}" for name, t in zip(TERMS, (slopes, bias, layout,
                                                          segment_ids, offsets))
-                   if t is not None)
+                   if t is not None) + ("_f16" if dtype == torch.float16 else "")
 
 
 def slopes_ptr(fn: str, slopes: Optional[torch.Tensor], q: torch.Tensor):
@@ -575,11 +564,12 @@ def mask_array(fn: str, q: torch.Tensor, bias=None, segment_ids=None, layout=Non
             vals[11] = pair[1].data_ptr()
     if bias is not None:
         check_bias(fn, bias, q)
-        if bias.dtype not in (torch.float32, torch.bfloat16) \
+        if bias.dtype not in _build.DTYPE_CODES \
                 or bias.device != q.device or bias.stride(-1) != 1:
             raise ValueError(
-                f"{fn}: the bias must be fp32 or bf16 on {q.device} with a contiguous "
-                f"last dim, got {bias.dtype} on {bias.device}, strides {bias.stride()}"
+                f"{fn}: the bias must be fp32, bf16 or fp16 on {q.device} with a "
+                f"contiguous last dim, got {bias.dtype} on {bias.device}, strides "
+                f"{bias.stride()}"
             )
         if layout is not None:
             raise ValueError(f"{fn}: a dense bias does not combine with a block-sparse "
@@ -587,7 +577,7 @@ def mask_array(fn: str, q: torch.Tensor, bias=None, segment_ids=None, layout=Non
         vals[1] = bias.data_ptr()
         vals[2:6] = [bias.stride(0) if bias.shape[0] > 1 else 0,
                      bias.stride(1) if bias.shape[1] > 1 else 0, bias.stride(2),
-                     _build.dtype_code(bias.dtype)]
+                     _build.dtype_code(bias.dtype, fp16=True)]
     if layout is not None:
         blk = check_layout(fn, layout, S)
         kcols, kcounts, qrows, qcounts = block_tables(layout, q.device)
@@ -624,8 +614,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     koff).
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
-    kernel (bf16, or fp16 in the Llama form: no slopes, bias, segment ids,
-    layout or offsets; head_dim 64 or 128), or raise on what it does not
+    kernel (bf16 or fp16, head_dim 64 or 128), or raise on what it does not
     take."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, slopes, bias, segment_ids, layout,
@@ -633,7 +622,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.library()
     fn = "flash_attention_fwd"
     _check_inputs(fn, q, k, v)
-    entry = _entry(lib, fn, q, slopes, bias, segment_ids, layout, offsets)
+    entry = _entry(lib, fn, q)
     sl = slopes_ptr(fn, slopes, q)
     if bias is not None:
         check_bias(fn, bias, q)
@@ -671,7 +660,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
     lib = _build.library()
     fn = "flash_attention_bwd_dq"
     _check_inputs(fn, q, k, v, o=o, do=do)
-    entry = _entry(lib, fn, q, slopes, bias, segment_ids, layout, offsets)
+    entry = _entry(lib, fn, q)
     _check_rows(fn, q, lse=lse)
     tile = ring_tile(q.shape[-1], any(t is not None for t in (bias, segment_ids, layout)))
     for name, t, rows in (("q", q, TMA_ROWS), ("k", k, tile), ("v", v, tile),
@@ -712,7 +701,7 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal: bool = True,
     lib = _build.library()
     fn = "flash_attention_bwd_dkv"
     _check_inputs(fn, q, k, v, do=do)
-    entry = _entry(lib, fn, q, slopes, bias, segment_ids, layout, offsets)
+    entry = _entry(lib, fn, q)
     _check_rows(fn, q, lse=lse, delta=delta)
     tile = ring_tile(q.shape[-1], any(t is not None for t in (bias, segment_ids, layout)))
     for name, t, rows in (("q", q, tile), ("k", k, TMA_ROWS), ("v", v, TMA_ROWS),
@@ -747,8 +736,6 @@ def flash_attention_bias_grad(q, k, v, bias, lse, delta, do, causal: bool = True
     lib = _build.library()
     fn = "flash_attention_bias_grad"
     _check_inputs(fn, q, k, v, do=do)
-    if q.dtype == torch.float16:
-        raise NotImplementedError(f"{fn}: no fp16 form: {_build.FP16_LATER}")
     _check_rows(fn, q, lse=lse, delta=delta)
     sl = slopes_ptr(fn, slopes, q)
     check_bias(fn, bias, q)
@@ -761,14 +748,14 @@ def flash_attention_bias_grad(q, k, v, bias, lse, delta, do, causal: bool = True
         tma_map(fn, name, t, rows)
     dbias = torch.empty((Bb, Hb, S, S), dtype=bias.dtype, device=q.device)
     mask = mask_array(fn, q, bias, segment_ids, dbias=dbias)
-    status = lib.dst_flash_attention_bias_grad(
+    status = _entry(lib, fn, q)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), B, S, H, k.shape[2], D, Bb, Hb,
         _build.strides_array(q, k, v, do), sl, 1.0 / math.sqrt(D), int(bool(causal)),
         mask, _build.stream_handle(q),
     )
     _build.check(status, fn)
-    launches[fn] += 1
+    launches[fn + form_suffix(None, dtype=q.dtype)] += 1
     return dbias
 
 

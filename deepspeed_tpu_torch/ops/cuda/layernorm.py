@@ -17,6 +17,12 @@ the row in registers, persistent teams; the sum order fixed by D). The backward
 runs a warp (up to 8 for the widest rows) per row; its dscale and dbias are
 summed per block in fp32 partial rows and merged column strip by column
 strip in a second pass, with no atomics: two runs give the same bits.
+
+fp16 x with an fp16 scale and bias (the fp16 GPT-2 and BLOOM models' pair)
+takes the fp16 forms, the entries ``dst_layernorm_{fwd,bwd}_f16`` of
+``csrc/layernorm_f16.cu`` and ``csrc/layernorm_bwd_f16.cu`` (the same kernels,
+dx rounded to nearest: an overflow stays inf), counted as
+``layernorm_fwd_f16`` / ``layernorm_bwd_f16``.
 """
 
 from __future__ import annotations
@@ -26,10 +32,11 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .rmsnorm import _check
+from .rmsnorm import _check, _f16
 
-# kernel launches since the last reset
-launches = {"layernorm_fwd": 0, "layernorm_bwd": 0}
+# kernel launches since the last reset; "_f16": the fp16 forms
+launches = {"layernorm_fwd": 0, "layernorm_bwd": 0, "layernorm_fwd_f16": 0,
+            "layernorm_bwd_f16": 0}
 
 
 def layernorm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -72,13 +79,15 @@ def layernorm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     lib = _build.library()
     D = _check("layernorm_fwd", x, scale, bias)
     out = torch.empty_like(x)
-    status = lib.dst_layernorm_fwd(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        x.numel() // D if D else 0, D, eps, _build.dtype_code(x.dtype),
-        _build.dtype_code(scale.dtype), _build.stream_handle(x),
-    )
+    ptrs = (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            x.numel() // D if D else 0, D, eps)
+    if x.dtype == torch.float16:
+        status = lib.dst_layernorm_fwd_f16(*ptrs, _build.stream_handle(x))
+    else:
+        status = lib.dst_layernorm_fwd(*ptrs, _build.dtype_code(x.dtype),
+                                       _build.dtype_code(scale.dtype), _build.stream_handle(x))
     _build.check(status, "layernorm_fwd")
-    launches["layernorm_fwd"] += 1
+    launches["layernorm_fwd" + _f16(x)] += 1
     return out
 
 
@@ -103,17 +112,19 @@ def layernorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     if D * x.element_size() > 1024 * 16:
         raise ValueError(f"layernorm_bwd: D={D} over the kernel's row limit")
     rows = x.numel() // D if D else 0
+    code = _build.dtype_code(x.dtype, fp16=True)
     dx = torch.empty_like(x)
-    part = torch.empty((2 * lib.dst_layernorm_bwd_nblocks(rows, D, _build.dtype_code(x.dtype)),
-                        D), dtype=torch.float32, device=x.device)
+    part = torch.empty((2 * lib.dst_layernorm_bwd_nblocks(rows, D, code), D),
+                       dtype=torch.float32, device=x.device)
     dscale = torch.zeros((D,), dtype=torch.float32, device=x.device)
     dbias = torch.zeros((D,), dtype=torch.float32, device=x.device)
-    status = lib.dst_layernorm_bwd(
-        x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        part.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), rows, D, float(eps),
-        _build.dtype_code(x.dtype), _build.dtype_code(scale.dtype),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    ptrs = (x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(), part.data_ptr(),
+            dscale.data_ptr(), dbias.data_ptr(), rows, D, float(eps))
+    if x.dtype == torch.float16:
+        status = lib.dst_layernorm_bwd_f16(*ptrs, _build.stream_handle(x))
+    else:
+        status = lib.dst_layernorm_bwd(*ptrs, code, _build.dtype_code(scale.dtype),
+                                       _build.stream_handle(x))
     _build.check(status, "layernorm_bwd")
-    launches["layernorm_bwd"] += 1
+    launches["layernorm_bwd" + _f16(x)] += 1
     return dx, dscale, dbias

@@ -66,9 +66,8 @@ def _check(name: str, x: torch.Tensor, *weights: torch.Tensor) -> int:
     bias) must start on a whole vector of its values: the forward kernels
     load the values that meet one 16-byte vector of x at once."""
     if x.dtype == torch.float16 and any(t.dtype != torch.float16 for t in weights):
-        raise NotImplementedError(
-            f"{name}: fp16 x takes an fp16 scale (the fp16 model's pair); other "
-            f"mixes are {_build.FP16_LATER}")
+        raise ValueError(f"{name}: fp16 x takes an fp16 scale (and bias): the fp16 "
+                         f"model's pair")
     D = x.shape[-1]
     vec = 16 // x.element_size()
     if not x.is_cuda or not x.is_contiguous() or x.data_ptr() % 16 or D % vec:

@@ -19,7 +19,9 @@ a layer at a time, so the device holds one layer's state, not the tree's:
   slice's norms, as the JAX scan does; every other optimizer equals the
   resident update bit for bit;
 - ``offload_param`` (stage 3) keeps the fp32 masters on the host too: each
-  slice's master streams in and out beside its state;
+  slice's master streams in and out beside its state; a ``compute`` tree
+  (fp16 training's device copy of the masters in the compute dtype) takes
+  each updated slice, cast on the device, so it needs no copy of its own;
 - the layer stream's form follows the device: on the CPU, per layer, the
   copies in, the update, the copies out, through one slot of buffers; on a
   card, double buffered (JAX's ``offload_double_buffer``, always on): two
@@ -118,42 +120,45 @@ class BucketedOptimizer:
 
     # ------------------------------------------------------------ the step
     def step(self, params, grads, state, step: int, clip: Optional[torch.Tensor] = None,
-             host_params=None) -> None:
+             host_params=None, compute=None) -> None:
         """One update, in place on the host state (and ``host_params`` under
         ``offload_param``) or on ``params``' device masters. ``grads`` are the
-        device gradients (the params' tree)."""
+        device gradients (the params' tree); ``compute``, under
+        ``offload_param``, a device tree the updated masters are cast into."""
         opt = self.optimizer
         g_rest, g_layers = self.split(grads)
         p_rest, p_layers = self.split(params)
         src = host_params if self.offload_param else None
         h_rest, h_layers = self.split(src) if src is not None else (None, None)
+        c_rest, c_layers = self.split(compute) if compute is not None else (None, None)
         device = tree_leaves(g_layers)[0].device
         on_cuda = device.type == "cuda"
         timer = _Timer(on_cuda and self.timing)
 
-        def leaf_lists(group, p_tree, g_tree, h_tree):
+        def leaf_lists(group, p_tree, g_tree, h_tree, c_tree):
             hosts = [tree_leaves(state[group][name]) for name in opt.slots]
             ps, gs = tree_leaves(p_tree), tree_leaves(g_tree)
             hps = tree_leaves(h_tree) if h_tree is not None else [None] * len(ps)
+            cs = tree_leaves(c_tree) if c_tree is not None else [None] * len(ps)
             return [([h[j] for h in hosts] + ([hps[j]] if hps[j] is not None else []),
-                     ps[j], gs[j]) for j in range(len(ps))]
+                     ps[j], gs[j], cs[j]) for j in range(len(ps))]
 
         with torch.no_grad():
             # the rest group, a leaf at a time
-            for hosts, p, g in leaf_lists("rest", p_rest, g_rest, h_rest):
+            for hosts, p, g, c in leaf_lists("rest", p_rest, g_rest, h_rest, c_rest):
                 bufs = [torch.empty(h.shape, dtype=h.dtype, device=device) for h in hosts]
                 with timer("copy_in"):
                     for b, h in zip(bufs, hosts):
                         b.copy_(h, non_blocking=True)
                 with timer("update"):
-                    self._update(p, g, bufs, step, clip)
+                    self._update(p, g, bufs, step, clip, c)
                 with timer("copy_out"):
                     for b, h in zip(bufs, hosts):
                         h.copy_(b, non_blocking=True)
-            leaves = leaf_lists("layers", p_layers, g_layers, h_layers)
+            leaves = leaf_lists("layers", p_layers, g_layers, h_layers, c_layers)
             L = int(leaves[0][2].shape[0])
             slots = [[[torch.empty(h.shape[1:], dtype=h.dtype, device=device) for h in hosts]
-                      for hosts, _, _ in leaves] for _ in range(2 if on_cuda else 1)]
+                      for hosts, *_ in leaves] for _ in range(2 if on_cuda else 1)]
             if on_cuda:
                 self._double_buffered(leaves, slots, L, step, clip, device, timer)
             else:  # serial: one slot, the copies in, the update, the copies out
@@ -163,24 +168,26 @@ class BucketedOptimizer:
                     self._copy_out(leaves, slots[0], i)
         self.last_ms = timer.totals()
 
-    def _update(self, p, g, bufs, step, clip):
+    def _update(self, p, g, bufs, step, clip, c=None):
         k = len(self.optimizer.slots)
         target = bufs[k] if self.offload_param else p
         self.optimizer.update_leaf(target, g, bufs[:k], step, clip)
+        if c is not None:
+            c.copy_(target)
 
     def _update_layer(self, leaves, bufs, i, step, clip):
-        for (hosts, p, g), b in zip(leaves, bufs):
-            self._update(p[i], g[i], b, step, clip)
+        for (hosts, p, g, c), b in zip(leaves, bufs):
+            self._update(p[i], g[i], b, step, clip, None if c is None else c[i])
 
     @staticmethod
     def _copy_in(leaves, bufs, i):
-        for (hosts, _, _), bs in zip(leaves, bufs):
+        for (hosts, *_), bs in zip(leaves, bufs):
             for b, h in zip(bs, hosts):
                 b.copy_(h[i], non_blocking=True)
 
     @staticmethod
     def _copy_out(leaves, bufs, i):
-        for (hosts, _, _), bs in zip(leaves, bufs):
+        for (hosts, *_), bs in zip(leaves, bufs):
             for b, h in zip(bs, hosts):
                 h[i].copy_(b, non_blocking=True)
 

@@ -137,8 +137,9 @@ def unported_features(cfg: DeepSpeedConfig) -> List[str]:
     brings, each with its ROADMAP queue A item. ZeRO stages 1 and 2 run over
     dp ranks (item 7.2a), stage 3 too (item 7.2b); offload, a stage beside
     sequence parallelism, the quantized wires and the fsdp knobs over ranks
-    are item 7.2c. fp16 trains at every stage on one rank and over dp ranks
-    (item 6, part 1); with offload or sp > 1 it is part 2."""
+    are item 7.2c. fp16 trains wherever bf16 does (item 6, parts 1 and 2):
+    at every stage on one rank and over dp ranks, with offload and with
+    sp > 1; fp16 serving is part 2's item 4 (``init_inference``)."""
     raw = cfg.raw
     zc = cfg.zero_config
     pipe = raw.get("pipeline") or {}
@@ -151,13 +152,6 @@ def unported_features(cfg: DeepSpeedConfig) -> List[str]:
     pwire = zc.resolved_param_wire()  # fp32 below stage 3 (config.py)
     off = zc.offload_optimizer.enabled or zc.offload_param.enabled
     checks = [
-        (cfg.fp16.enabled and off,
-         "fp16 with optimizer/parameter offload (ROADMAP A6 part 2): the offloaded "
-         "update is the per-layer bucketed stream, which the JAX package turns off "
-         "under fp16 (its overflow skip selects over the whole state)"),
-        (cfg.fp16.enabled and sp > 1,
-         f"fp16 with sequence parallelism, sp_size {sp} (ROADMAP A6 part 2: the ring "
-         f"and Ulysses hops need the offset flash forms in fp16)"),
         (world > 1 and zc.stage > 0 and sp > 1,
          f"ZeRO stage {zc.stage} (item 7) with sequence parallelism (sp_size {sp}): "
          f"stages over ranks with sp > 1 are item 7.2c; stages 1-3 run over dp "
@@ -309,14 +303,6 @@ class TorchEngine:
         # section; JAX engine.py:296-319): the flash kernels' block-sparse
         # form, or its plain version with the flash switch off
         sp_cfg = from_ds_config(config.sparse_attention)
-        if on_cuda and self.fp16_enabled and (model.config.norm != "rmsnorm"
-                                              or sp_cfg is not None):
-            raise NotImplementedError(
-                f"fp16 on a CUDA device with a {model.config.norm} model"
-                + (" and a sparse_attention section" if sp_cfg is not None else "")
-                + ": the fp16 forms of the LayerNorm, ALiBi and masked flash kernels "
-                  "are ROADMAP A6 part 2; fp16 trains the Llama family (and Mixtral "
-                  "at ep 1) on the card")
         self._sparse_impl = (make_attention_impl(sp_cfg, kernels=tk.flash_attention)
                              if sp_cfg is not None else None)
         self.lr_schedule = build_schedule(config.scheduler.type,
@@ -424,6 +410,11 @@ class TorchEngine:
             self._swapped_bytes = sum(_nbytes(t) for t in tree_leaves(self.opt_state))
             self._swapper.swap_out("opt_state", self.opt_state)  # on disk between steps
             self.opt_state = None
+        # fp16 under offload_param: the card's copy of the masters in the
+        # compute dtype, made on first use and refreshed by an applied update
+        # only (the update casts each master it moves into it), so a skipped
+        # step moves no master between host and card
+        self._compute_copy = None
         if self._param_offload:
             pin = on_cuda and off_par.pin_memory
             self.params = tree_map(lambda t: host_empty(t.shape, t.dtype, pin).copy_(t), params)
@@ -512,11 +503,20 @@ class TorchEngine:
     def _step_params(self, grad: bool):
         """The masters forward and backward read: the device masters, or
         under ``offload_param`` a device copy of the host masters (JAX
-        ``_device_params``), a leaf needing its gradient when ``grad``."""
+        ``_device_params``), a leaf needing its gradient when ``grad``. Under
+        fp16 that copy is the compute copy widened on the device: the compute
+        dtype's cast of it is the cast of the masters, bit for bit, so forward,
+        backward and the fp32 gradients are the resident run's."""
         if not self._param_offload:
             return self.params
-        return tree_map(lambda h: h.to(self.device, non_blocking=True, copy=True)
-                        .requires_grad_(grad), self.params)
+        if not self.fp16_enabled:
+            return tree_map(lambda h: h.to(self.device, non_blocking=True, copy=True)
+                            .requires_grad_(grad), self.params)
+        if self._compute_copy is None:
+            self._compute_copy = tree_map(
+                lambda h: h.to(self.device, non_blocking=True).to(self.compute_dtype),
+                self.params)
+        return tree_map(lambda c: c.float().requires_grad_(grad), self._compute_copy)
 
     def _quiesce(self) -> None:
         """Wait for the copies into host memory still in flight (the offloaded
@@ -529,15 +529,24 @@ class TorchEngine:
         counts those of update ``step``."""
         if self._bucketed is not None:
             self._bucketed.step(params, grads, self.opt_state, step, clip,
-                                host_params=self.params if self._param_offload else None)
+                                host_params=self.params if self._param_offload else None,
+                                compute=self._compute_copy)
             return
-        if self._swapper is not None:  # its reads were started before forward
+        if self._swapper is not None:  # its reads started before forward (not under fp16)
             self.opt_state = self._swapper.swap_in("opt_state", device=self.device)
+        if self._compute_copy is not None:
+            # the step's leaves widen the compute copy; the update takes the
+            # masters themselves, moved in on this applied step only
+            params = tree_map(lambda h: h.to(self.device, non_blocking=True, copy=True),
+                              self.params)
         self.optimizer.step(params, grads, self.opt_state, step, clip)
         if self._param_offload:
             with torch.no_grad():
                 for h, d in zip(tree_leaves(self.params), tree_leaves(params)):
                     h.copy_(d, non_blocking=True)
+                if self._compute_copy is not None:
+                    for c, d in zip(tree_leaves(self._compute_copy), tree_leaves(params)):
+                        c.copy_(d)
         if self._swapper is not None:
             # the writes run on the aio threads behind the rest of this step;
             # the next train_batch's prefetch waits for them before its reads
@@ -700,9 +709,11 @@ class TorchEngine:
         num_tokens = prepared.num_tokens
         accum = cfg.gradient_accumulation_steps
         t1 = time.perf_counter()
-        if self._swapper is not None and self.opt_state is None:
+        if self._swapper is not None and self.opt_state is None and not self.fp16_enabled:
             # NVMe: the state's reads run on the aio threads under forward and
-            # backward (JAX train_batch's swap-in between its two programs)
+            # backward (JAX train_batch's swap-in between its two programs);
+            # under fp16 they wait for the overflow test, so a skipped step
+            # reads nothing
             self._swapper.prefetch("opt_state", device=self.device)
         params = self._step_params(True)
         loss_sum = m_sum = None
@@ -1072,6 +1083,7 @@ class TorchEngine:
             return _load(self, load_dir, tag=tag, strict=strict)
         finally:
             self._swap_out_opt()
+            self._compute_copy = None  # the masters changed under it
 
     def _held_masters(self) -> Dict[int, ShardedLeaf]:
         """Stage 3 over ranks: each master held as this rank's part, by the
@@ -1152,7 +1164,7 @@ class TorchEngine:
             self._swapper.close()
             self._swapper = None
         self._quiesce()
-        self.params = self.opt_state = None
+        self.params = self.opt_state = self._compute_copy = None
         self._micro_buffer, self._pending_batch, self._metrics = [], None, {}
 
     # ----------------------------------------------------------- properties

@@ -48,8 +48,10 @@ knobs pinned.
   JAX's legacy ``runtime/checkpointing.py`` reader, JAX's legacy writer into
   the port (``TpuEngine.save_checkpoint`` is red on this jax, ROADMAP C),
   and a bitwise resume inside the port.
-- The refusals: fp16 with offload and with sp > 1 (ROADMAP A6 part 2), and
-  on a CUDA device with a LayerNorm family or a sparse_attention section.
+- The refusals: fp16 with offload, with sp > 1, with a LayerNorm family or
+  a sparse_attention section is refused no longer (it trains, the families,
+  sp and offload held by ``tests/test_torch_fp16_{families,sp,offload}.py``);
+  fp16 serving on a card is refused by name (ROADMAP A6 part 2 item 4).
 
 About 50-60 s in one process on 8 CPU cores.
 """
@@ -496,19 +498,28 @@ def _model(family="llama"):
     return family_pair(family)[2]
 
 
-@pytest.mark.parametrize("extra,match", [
-    ({"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}},
-     "fp16 with optimizer/parameter offload \\(ROADMAP A6 part 2\\)"),
+# fp16 training is refused nowhere bf16 trains; what fp16 still lacks is
+# serving (ROADMAP A6 part 2 item 4): the decode kernels' fp16 forms
+ITEM_4 = "ROADMAP A6 part 2 item 4"
+
+
+@pytest.mark.parametrize("extra,serving", [
+    ({"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}}, {}),
     ({"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"},
                             "offload_optimizer": {"device": "cpu"}}},
-     "fp16 with optimizer/parameter offload"),
-    ({"sequence_parallel": {"sp_size": 2, "mode": "ring"}},
-     "fp16 with sequence parallelism, sp_size 2 \\(ROADMAP A6 part 2"),
+     {"quantize_bits": 8}),
+    ({"sequence_parallel": {"sp_size": 2, "mode": "ring"}}, {"kv_cache_dtype": "int8"}),
 ])
-def test_fp16_refused_by_name(extra, match):
-    cfg = {**_cfg(), **extra}
-    with pytest.raises(NotImplementedError, match=match):
-        deepspeed_tpu_torch.initialize(model=_model(), config=cfg, device="cpu")
+def test_fp16_refused_by_name(extra, serving):
+    """The fp16 configs once refused (offload, parameter offload, sp > 1)
+    now pass ``unported_features``; fp16 serving on a card (each form of the
+    inference engine) is refused by name, before any tensor reaches it."""
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    from deepspeed_tpu_torch.runtime.engine import unported_features
+    cfg = DeepSpeedConfig({**_cfg(), **extra})
+    assert unported_features(cfg) == []
+    with pytest.raises(NotImplementedError, match=ITEM_4):
+        InferenceEngine(_model(), device=torch.device("cuda"), dtype=torch.float16, **serving)
 
 
 @pytest.mark.parametrize("family,extra", [
@@ -516,32 +527,41 @@ def test_fp16_refused_by_name(extra, match):
     ("llama", {"sparse_attention": {"mode": "fixed", "block": 128}}),
 ])
 def test_fp16_on_a_card_refuses_later_forms(family, extra):
-    """On a CUDA device, fp16 with a LayerNorm family or a sparse_attention
-    section is refused at start-up (before any tensor reaches the card),
-    naming A6 part 2; on the CPU the same configs train on the plain paths."""
+    """fp16 serving of each family on a CUDA device is refused at start-up
+    (before any tensor reaches the card), naming A6 part 2 item 4; fp16
+    training of the same model and config (a LayerNorm family, a
+    sparse_attention section: refused on a card before) trains."""
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
     model = _model(family)
-    cfg = DeepSpeedConfig({**_cfg(), **extra})
-    cfg.resolve_batch_sizes(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6 part 2"):
-        TorchEngine(model, cfg, device=torch.device("cuda"))
+    with pytest.raises(NotImplementedError, match=ITEM_4):
+        InferenceEngine(model, device=torch.device("cuda"), dtype=torch.float16)
     eng, *_ = deepspeed_tpu_torch.initialize(model=model, config={**_cfg(), **extra},
                                              device="cpu", rng=torch.Generator().manual_seed(0))
     assert np.isfinite(eng.train_batch(batch=_batches(1)[0]).item())
 
 
 def test_kernel_wrappers_refuse_fp16_forms_not_ported():
-    """The wrappers name ROADMAP A6 part 2 for an fp16 form this slice does
-    not bring (checked before anything reaches a card)."""
+    """The one fp16 kernel form still missing is decode's (fp16 serving): its
+    wrappers' dtype code names ROADMAP A6 part 2 item 4 (checked before
+    anything reaches a card). Every flash form, the bias gradient and the
+    norms pick their fp16 entries by q's (or x's) dtype; an fp16 x with a
+    scale of another dtype is not a pair the model passes."""
+    from types import SimpleNamespace
+
     from deepspeed_tpu_torch.ops.cuda import _build
-    with pytest.raises(NotImplementedError, match="A6 part 2"):
+    with pytest.raises(NotImplementedError, match=ITEM_4):
         _build.dtype_code(torch.float16)
     assert _build.dtype_code(torch.float16, fp16=True) == 2
+    lib = SimpleNamespace(**{f"dst_{n}{s}": n + s for n in fa.KERNEL_NAMES +
+                             ("flash_attention_bias_grad",) for s in ("", "_f16")})
     q = torch.zeros(1, 8, 2, 64, dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="slopes.*A6 part 2"):
-        fa._entry(None, "flash_attention_fwd", q, torch.ones(2), None, None, None, None)
-    with pytest.raises(NotImplementedError, match="segment ids, position offsets"):
-        fa._entry(None, "flash_attention_bwd_dq", q, None, None, torch.ones(1), None, (0, 8))
-    with pytest.raises(NotImplementedError, match="fp16 x takes an fp16 scale"):
+    for name in fa.KERNEL_NAMES + ("flash_attention_bias_grad",):
+        assert fa._entry(lib, name, q) == name + "_f16"
+        assert fa._entry(lib, name, q.bfloat16()) == name
+    for fn in ("dst_layernorm_fwd_f16", "dst_layernorm_bwd_f16",
+               "dst_flash_attention_bias_grad_f16"):
+        assert fn in _build.SIGNATURES
+    with pytest.raises(ValueError, match="fp16 x takes an fp16 scale"):
         rn._check("rmsnorm_fwd", q.reshape(-1, 64), torch.ones(64))
 
 

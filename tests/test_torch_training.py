@@ -139,8 +139,11 @@ def test_data_iter_and_labels():
 
 @pytest.mark.parametrize("extra,match", [
     ({"pipeline": {"stages": 2}}, "pipeline parallelism"),
-    ({"fp16": {"enabled": True}, "zero_optimization": {
-        "stage": 2, "offload_optimizer": {"device": "cpu"}}}, "fp16"),
+    # fp16 with offload trains on one rank since ROADMAP A6 part 2; over more
+    # than one rank offload stays item 7.2c, in fp16 as in bf16
+    pytest.param({"fp16": {"enabled": True}, "sequence_parallel": {"sp_size": 2},
+                  "zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
+                 "offload, NVMe included \\(item 7\\) over 2 ranks", id="extra1-fp16"),
     ({"optimizer": {"type": "onebitlamb", "params": {}}}, "1-bit optimizers"),
     ({"activation_checkpointing": {"policy": "dots_flash"}}, "dots_flash"),
     ({"tensor_parallel": {"tp_size": 2}}, "tensor parallelism"),
