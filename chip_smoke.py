@@ -278,6 +278,25 @@ arguments, in order, any failure exiting non-zero:
    card; a rerun gives identical tokens;
 13. ``serving_gpt2``: the same for gpt2("gpt2-xl") (learned positions to
    1024, tanh GELU), greedy B=1 and B=4;
+13b. fp16 serving (each kernel's fp16 form checked and timed in 3 at its
+   path's shapes beside the bf16 row of the same shape, the fp16 decode
+   forms held to FP16_DEC_TOL, the HMMA counts of the fp16 decode and
+   matvec instantiations printed beside bf16's in 2): ``serving_fp16``, the
+   fp16 reference checks (4 in fp16 for Llama-3-8B, BLOOM-7B1 and GPT-2-XL),
+   then 7's path and requests in fp16 at full depth, its prefill and decode
+   ms beside 7's; ``serving_quantized_fp16``: Llama-3-8B in fp16 with
+   quantize_bits=8 and the int8 KV cache at full depth, quantize_bits=4 at
+   2 layers, and the ngram speculative decode of llama3-1b (2 layers, int8
+   weights and KV), its tokens bitwise plain greedy's;
+   ``serving_cb_fp16``: 11's engine in fp16 on the trace's first 8
+   requests, contiguous and paged, with fp16, int8 and bf16-storage KV
+   (the mixed form), paged == contiguous bitwise in each;
+   ``serving_bloom_fp16`` / ``serving_gpt2_fp16``: 12 and 13 in fp16 at 2
+   layers on the B=1 request; ``serving_mixtral_fp16``: Mixtral-8x7B in
+   fp16 at 2 layers with int8 then int4 banks and the int8 KV cache on the
+   B=1 request, its tokens against the plain path's (a first mismatch only
+   at a near tie); each path's counters showing its fp16 forms ran and the
+   plain attention never;
 14. ``training_bloom``: 6's training path on bloom("bloom-560m") at full
    width and depth: the LayerNorm forward and backward kernels, the ALiBi
    flash forward and backward and fused Adam must have run;
@@ -806,18 +825,23 @@ def check_flash(gen, timer):
     return rows
 
 
-def check_decode(gen, timer, H: int = 32, KV: int = 8, D: int = 128, slopes=None):
+def check_decode(gen, timer, H: int = 32, KV: int = 8, D: int = 128, slopes=None,
+                 dtype=BF16, cache_dtype=None):
     """The dense decode kernel at a serving path's decode step: B=4 rows at
     frontiers [0, 37, 511, 1023] (and a scalar 700) of a 1024-token cache,
-    Llama-3-8B's heads by default; ``slopes`` the ALiBi form. Returns the timed
-    row at the frontiers."""
+    Llama-3-8B's heads by default; ``slopes`` the ALiBi form; ``dtype``
+    float16 the fp16 form (held to FP16_DEC_TOL), with ``cache_dtype`` bf16
+    the mixed form (a bf16 cache under fp16 q). Returns the timed row at the
+    frontiers."""
     B, Smax = 4, 1024
-    tol = 1e-2
-    name = "decode_attention" + ("" if slopes is None else "_alibi")
-    q = torch.randn(B, 1, H, D, generator=gen, device="cuda", dtype=BF16)
+    cache_dtype = cache_dtype or dtype
+    tol = 1e-2 if dtype == BF16 else FP16_DEC_TOL
+    name = "decode_attention" + ("" if slopes is None else "_alibi") + f16_suffix(
+        dtype, cache_dtype)
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda", dtype=dtype)
     # one layer of a two-layer cache: the kernel reads the view in place
-    cache_k = torch.randn(2, B, Smax, KV, D, generator=gen, device="cuda", dtype=BF16)
-    cache_v = torch.randn(2, B, Smax, KV, D, generator=gen, device="cuda", dtype=BF16)
+    cache_k = torch.randn(2, B, Smax, KV, D, generator=gen, device="cuda", dtype=cache_dtype)
+    cache_v = torch.randn(2, B, Smax, KV, D, generator=gen, device="cuda", dtype=cache_dtype)
     kc, vc = cache_k[1], cache_v[1]
     frontier = torch.tensor([0, 37, 511, 1023], dtype=torch.int32, device="cuda")
     worst = 0.0
@@ -842,7 +866,8 @@ def check_decode(gen, timer, H: int = 32, KV: int = 8, D: int = 128, slopes=None
     if slopes is not None:  # a float mask: the ALiBi bias, -inf past the frontier
         dist = (frontier[:, None].long() - kpos).float()[:, None, None, :]
         mask = torch.where(mask, -slopes[None, :, None, None] * dist,
-                           float("-inf")).to(BF16)
+                           float("-inf")).to(dtype)
+    kt, vt = kt.to(dtype), vt.to(dtype)  # the mixed form's library call: q's dtype
     return {
         "max_abs_err": worst,
         "ms": timer(lambda: dec.decode_attention(q, kc, vc, frontier, **kw)),
@@ -852,7 +877,8 @@ def check_decode(gen, timer, H: int = 32, KV: int = 8, D: int = 128, slopes=None
             qt, kt, vt, attn_mask=mask, enable_gqa=True)),
         "bound_ms": b_ms, "bound_by": b_by,
         "shape": f"B={B} Smax={Smax} H={H} KV={KV} D={D} cache_len={frontier.tolist()}"
-                 + ("" if slopes is None else " ALiBi (library: SDPA, float mask)"),
+                 + ("" if slopes is None else " ALiBi (library: SDPA, float mask)")
+                 + dtype_note(dtype, cache_dtype),
     }
 
 
@@ -868,9 +894,29 @@ MATVEC_ROWS = (1, 4, 5, 8, 16)
 BQ_D_LEAF = ("Bq=D (GPT-2-XL width)", 1600, 6400)
 
 
+def fp16_ulp(v: float) -> float:
+    """One fp16 ulp at magnitude v (11 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(v), 1e-30))) - 10)
+
+
+def f16_suffix(dtype, cache_dtype=None) -> str:
+    """A launch counter's dtype suffix: "" (bf16), "_f16", or "_mixed_f16"
+    (a bf16 cache under fp16 q)."""
+    if dtype != torch.float16:
+        return ""
+    return "_mixed_f16" if cache_dtype == BF16 else "_f16"
+
+
+def dtype_note(dtype, cache_dtype=None) -> str:
+    """A row's shape note of its dtype: nothing for bf16."""
+    if dtype != torch.float16:
+        return ""
+    return " fp16, bf16 cache" if cache_dtype == BF16 else " fp16"
+
+
 def matvec_case(label, fn, plain, x, pw, rows_of):
     """One matvec form at every M of MATVEC_ROWS against its plain version
-    (two bf16 ulps of the output's largest value), each row alone bitwise
+    (two ulps of x's dtype, bf16 or fp16, of the output's largest value), each row alone bitwise
     equal to that row of every multi-row call, and a rerun bitwise equal:
     ``x`` holds MATVEC_ROWS[-1] rows (dim -2); ``rows_of(t, m)`` is row m of
     an output. Returns {M: (max_abs_err, tol)}."""
@@ -881,10 +927,11 @@ def matvec_case(label, fn, plain, x, pw, rows_of):
         out = fn(xm, pw)
         ref = plain(xm, pw)
         peak = ref.float().abs().max().item()
-        e, tol = max_err(out, ref), 2 * bf16_ulp(peak)
+        ulp, kind = (bf16_ulp, "bf16") if x.dtype == BF16 else (fp16_ulp, "fp16")
+        e, tol = max_err(out, ref), 2 * ulp(peak)
         rows_alone = all(torch.equal(single[m], rows_of(out, m)) for m in range(M))
         again = torch.equal(fn(xm, pw), out)
-        print(f"{label} M={M}: max_abs_err {e:.3e} (tol {tol:.3e}, 2 bf16 ulps of "
+        print(f"{label} M={M}: max_abs_err {e:.3e} (tol {tol:.3e}, 2 {kind} ulps of "
               f"{peak:.3e}); each row alone bitwise equal: {rows_alone}; rerun bitwise "
               f"equal: {again}")
         require(e <= tol, f"{label} disagrees at M={M}")
@@ -893,8 +940,9 @@ def matvec_case(label, fn, plain, x, pw, rows_of):
     return errs
 
 
-def check_quantized_matvec(gen, timer):
-    """The int8 and int4 matvec at Llama-3-8B's four leaf shapes and a
+def check_quantized_matvec(gen, timer, dtype=BF16):
+    """The int8 and int4 matvec (``dtype`` float16: its fp16 form, two fp16
+    ulps) at Llama-3-8B's four leaf shapes and a
     Bq = D weight (GPT-2-XL's width, one quantization block), M in
     MATVEC_ROWS, against the plain version (fp32 fold x·(q·s)), tolerance two
     bf16 ulps of the output's largest value; each row of every multi-row call
@@ -904,10 +952,11 @@ def check_quantized_matvec(gen, timer):
     rows = {}
     for bits in (8, 4):
         for leaf, D, N in LLAMA3_8B_LEAVES + (BQ_D_LEAF,):
-            w = (0.02 * torch.randn(D, N, generator=gen, device="cuda")).to(BF16)
+            w = (0.02 * torch.randn(D, N, generator=gen, device="cuda")).to(dtype)
             pw = pack_quantize_blockwise(w, bits=bits)
-            x = torch.randn(MATVEC_ROWS[-1], D, generator=gen, device="cuda", dtype=BF16)
-            errs = matvec_case(f"quantized_matvec int{bits} {leaf} D={D} N={N}",
+            x = torch.randn(MATVEC_ROWS[-1], D, generator=gen, device="cuda", dtype=dtype)
+            errs = matvec_case(f"quantized_matvec int{bits}{f16_suffix(dtype)} {leaf} D={D} "
+                               f"N={N}",
                                qmm.packed_matvec, qmm.packed_matvec_plain, x, pw,
                                lambda t, m: t[m:m + 1])
             if leaf == "wi/wg" or (leaf == "wk/wv" and bits == 8):
@@ -922,14 +971,14 @@ def check_quantized_matvec(gen, timer):
                     "plain_ms": timer(lambda: qmm.packed_matvec_plain(x1, pw)),
                     "library_ms": timer(lambda: torch.matmul(x1, wd)),
                     "bound_ms": b_ms, "bound_by": b_by,
-                    "shape": f"M=1 D={D} N={N} {leaf} int{bits} (library: "
-                             "torch.matmul on the dequantized bf16 weight)",
+                    "shape": f"M=1 D={D} N={N} {leaf} int{bits}{dtype_note(dtype)} (library: "
+                             "torch.matmul on the dequantized weight in x's dtype)",
                 }
                 del wd
             del w, pw
     torch.cuda.empty_cache()
     r = rows[(8, "wk/wv")]
-    print(f"quantized_matvec int8 wk/wv M=1: kernel {r['ms']:.4f} ms, plain "
+    print(f"quantized_matvec int8{f16_suffix(dtype)} wk/wv M=1: kernel {r['ms']:.4f} ms, plain "
           f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
           f"{r['bound_ms']:.4f} ms ({r['bound_by']}), host {r['host_us']:.1f} us a call")
     return rows[(8, "wi/wg")], rows[(4, "wi/wg")]
@@ -946,8 +995,9 @@ def routed_pair(x: torch.Tensor) -> torch.Tensor:
     return xs
 
 
-def check_expert_matvec(gen, timer):
-    """The expert form of the int8 and int4 matvec at Mixtral-8x7B's banks
+def check_expert_matvec(gen, timer, dtype=BF16):
+    """The expert form of the int8 and int4 matvec (``dtype`` float16: its
+    fp16 form, two fp16 ulps) at Mixtral-8x7B's banks
     (8 experts; wi/wg [8, 4096, 14336], wo [8, 14336, 4096]) and a small Bq =
     D bank, with C in MATVEC_ROWS rows an expert (4 is the decode step's eval
     capacity), against the plain version (fp32 fold x·(q·s) per expert),
@@ -962,11 +1012,12 @@ def check_expert_matvec(gen, timer):
     rows = {}
     for bits in (8, 4):
         for leaf, D, N, E in MIXTRAL_BANKS + (BQ_D_LEAF + (2,),):
-            w = (0.02 * torch.randn(E, D, N, generator=gen, device="cuda")).to(BF16)
+            w = (0.02 * torch.randn(E, D, N, generator=gen, device="cuda")).to(dtype)
             pw = pack_quantize_blockwise(w, bits=bits)
             del w
-            x = torch.randn(E, MATVEC_ROWS[-1], D, generator=gen, device="cuda", dtype=BF16)
-            label = f"quantized_matvec_expert int{bits} {leaf} E={E} D={D} N={N}"
+            x = torch.randn(E, MATVEC_ROWS[-1], D, generator=gen, device="cuda", dtype=dtype)
+            label = (f"quantized_matvec_expert int{bits}{f16_suffix(dtype)} {leaf} E={E} D={D} "
+                     f"N={N}")
             matvec_case(label, qmm.packed_expert_matvec, qmm.packed_expert_matvec_plain,
                         x, pw, lambda t, m: t[:, m:m + 1])
             for C in MATVEC_ROWS:
@@ -1001,8 +1052,8 @@ def check_expert_matvec(gen, timer):
                 "plain_ms": timer(lambda: qmm.packed_expert_matvec_plain(xc, pw)),
                 "library_ms": timer(lambda: torch.bmm(xc, wd)),
                 "bound_ms": b_ms, "bound_by": b_by,
-                "shape": f"E=8 C={C} D={D} N={N} int{bits} (library: torch.bmm on "
-                         "the bank dequantized to bf16)",
+                "shape": f"E=8 C={C} D={D} N={N} int{bits}{dtype_note(dtype)} (library: "
+                         "torch.bmm on the bank dequantized to x's dtype)",
             }
             # the routed pair's bound: their weight bytes, x and y
             pair_bytes = 2 * pw.nbytes // E + 2 * xs.numel() + 2 * E * C * N
@@ -1010,7 +1061,7 @@ def check_expert_matvec(gen, timer):
             pair_ms = timer(lambda: qmm.packed_expert_matvec(xs, pw))
             pair_plain = timer(lambda: qmm.packed_expert_matvec_plain(xs, pw))
             pair_lib = timer(lambda: torch.bmm(xs, wd))  # the whole bank: bmm skips nothing
-            print(f"quantized_matvec_expert int{bits} {leaf} C={C}: kernel "
+            print(f"quantized_matvec_expert int{bits}{f16_suffix(dtype)} {leaf} C={C}: kernel "
                   f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
                   f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
                   f"{nbytes / row['ms'] / 1e6:.1f} GB/s; host {row['host_us']:.1f} us a "
@@ -1040,48 +1091,50 @@ def int8_cache(gen, B, Smax, KV, D):
     return k8[1], v8[1], ks[1], vs[1]
 
 
-def check_decode_int8(gen, timer):
+def check_decode_int8(gen, timer, dtype=BF16):
     """The int8 form at B=4, Smax=1024, frontiers [0, 37, 511, 1023] and a
     scalar 700, head_dim 128 (Llama-3-8B) and 64, against its plain version
-    (rows dequantized and rounded to bf16 as the kernel does); timed at 128."""
+    (rows dequantized and rounded to q's dtype as the kernel does; ``dtype``
+    float16 the fp16 form, held to FP16_DEC_TOL); timed at 128."""
     B, Smax, H, KV = 4, 1024, 32, 8
-    tol = 1e-2
+    tol = 1e-2 if dtype == BF16 else FP16_DEC_TOL
+    name = "decode_attention_int8" + f16_suffix(dtype)
     frontier = torch.tensor([0, 37, 511, 1023], dtype=torch.int32, device="cuda")
     row = None
     for D in (128, 64):
-        q = torch.randn(B, 1, H, D, generator=gen, device="cuda", dtype=BF16)
+        q = torch.randn(B, 1, H, D, generator=gen, device="cuda", dtype=dtype)
         kc, vc, ks, vs = int8_cache(gen, B, Smax, KV, D)
         worst = 0.0
         for cl in (frontier, 700):
             out = dec.decode_attention(q, kc, vc, cl, ks, vs)
             ref = dec.decode_attention_plain(q, kc, vc, cl, ks, vs)
             e = max_err(out, ref)
-            print(f"decode_attention_int8 B={B} Smax={Smax} H={H} KV={KV} D={D} "
+            print(f"{name} B={B} Smax={Smax} H={H} KV={KV} D={D} "
                   f"cache_len={cl.tolist() if torch.is_tensor(cl) else cl}: "
                   f"max_abs_err {e:.3e} (tol {tol})")
-            require(e <= tol, f"decode_attention_int8 disagrees at D={D} cache_len={cl}")
+            require(e <= tol, f"{name} disagrees at D={D} cache_len={cl}")
             worst = max(worst, e)
         # a 5-token verify window of one sequence as decode rows over its
         # cache: each row bitwise the single-token decode at its position
-        qw = torch.randn(1, 5, H, D, generator=gen, device="cuda", dtype=BF16)
+        qw = torch.randn(1, 5, H, D, generator=gen, device="cuda", dtype=dtype)
         one = (kc[3:4], vc[3:4])
         sc = (ks[3:4], vs[3:4])
         win = _window_rows(qw, *one, 600, None, None, *sc, kernel=True)
         same = all(torch.equal(win[:, s:s + 1], dec.decode_attention(
             qw[:, s:s + 1], *one, 600 + s, *sc)) for s in range(5))
         e = max_err(win, dec.cached_attention_plain(qw, *one, 600, *sc))
-        print(f"decode_attention_int8 window of 5 at cache_len=600 D={D}: max_abs_err "
+        print(f"{name} window of 5 at cache_len=600 D={D}: max_abs_err "
               f"{e:.3e} against the plain window (tol {tol}); rows bitwise equal to "
               f"single-token decode: {same}")
-        require(e <= tol and same, f"decode_attention_int8 window rows at D={D}")
+        require(e <= tol and same, f"{name} window rows at D={D}")
         worst = max(worst, e)
         if D != 128:
             continue
         n_keys = sum(min(int(c) + 1, Smax) for c in frontier.tolist())
         nbytes = 2 * n_keys * KV * (D + 4) + 2 * 2 * B * H * D + 4 * B
         b_ms, b_by = bound(4 * H * D * n_keys, nbytes)
-        kt = dec.dequantize_cache(kc, ks).to(BF16).transpose(1, 2).contiguous()
-        vt = dec.dequantize_cache(vc, vs).to(BF16).transpose(1, 2).contiguous()
+        kt = dec.dequantize_cache(kc, ks).to(dtype).transpose(1, 2).contiguous()
+        vt = dec.dequantize_cache(vc, vs).to(dtype).transpose(1, 2).contiguous()
         qt = q.transpose(1, 2).contiguous()
         mask = (torch.arange(Smax, device="cuda")[None, :]
                 <= frontier[:, None].long())[:, None, None, :]
@@ -1094,19 +1147,19 @@ def check_decode_int8(gen, timer):
             "library_ms": timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True)),
             "bound_ms": b_ms, "bound_by": b_by,
-            "shape": f"B={B} Smax={Smax} H={H} KV={KV} D={D} int8 "
+            "shape": f"B={B} Smax={Smax} H={H} KV={KV} D={D} int8{dtype_note(dtype)} "
                      f"cache_len={frontier.tolist()} (library: SDPA over the "
-                     "dequantized bf16 cache)",
+                     "cache dequantized to q's dtype)",
         }
     return row
 
 
-def paged_pools(gen, P1: int, ps: int, KV: int, D: int, int8: bool):
-    """Random K and V page pools [P1, ps, KV, D] in bf16, or int8 filled by
-    ``_quantize_kv`` with their scale pools [P1, KV, ps]."""
+def paged_pools(gen, P1: int, ps: int, KV: int, D: int, int8: bool, dtype=BF16):
+    """Random K and V page pools [P1, ps, KV, D] in ``dtype``, or int8 filled
+    by ``_quantize_kv`` with their scale pools [P1, KV, ps]."""
     pools, scales = [], []
     for _ in range(2):
-        x = torch.randn(P1, ps, KV, D, generator=gen, device="cuda", dtype=BF16)
+        x = torch.randn(P1, ps, KV, D, generator=gen, device="cuda", dtype=dtype)
         if int8:
             x, sc = _quantize_kv(x)
             scales.append(sc.transpose(1, 2).contiguous())
@@ -1114,7 +1167,7 @@ def paged_pools(gen, P1: int, ps: int, KV: int, D: int, int8: bool):
     return tuple(pools), tuple(scales)
 
 
-def paged_case(gen, int8: bool):
+def paged_case(gen, int8: bool, dtype=BF16, cache_dtype=None):
     """The serving step's attention at its full shape: N = 8 slots of R = 64
     rows, 68 logical pages of 16 tokens a slot over a pool of 8 * 68 pages
     plus the NULL page, H = 32, KV = 8, hd = 128. Physical pages are
@@ -1123,12 +1176,14 @@ def paged_case(gen, int8: bool):
     -1), slot 7 idle; logical pages past a slot's frontier name the NULL
     page. The dense operands are layer 1 of a two-layer contiguous arena
     ([2, N, 1152, KV, hd], the serving engine's layout and strides) holding
-    the same bytes at every mapped position. Returns (q, pools, scales,
-    page_table, frontier, dense layers, dense scale layers)."""
+    the same bytes at every mapped position. q is ``dtype``, the cache
+    ``cache_dtype`` (q's by default). Returns (q, pools, scales, page_table,
+    frontier, dense layers, dense scale layers)."""
     N, R, mp, ps, H, KV, D = CB_SLOTS, CB_BUDGET, 68, 16, 32, 8, 128
     P = N * mp
-    q = torch.randn(N * R, 1, H, D, generator=gen, device="cuda", dtype=BF16)
-    (kp, vp), scales = paged_pools(gen, P + 1, ps, KV, D, int8)
+    cache_dtype = cache_dtype or dtype
+    q = torch.randn(N * R, 1, H, D, generator=gen, device="cuda", dtype=dtype)
+    (kp, vp), scales = paged_pools(gen, P + 1, ps, KV, D, int8, cache_dtype)
     frontier = torch.full((N, R), -1, dtype=torch.int32)
     frontier[0] = 448 + torch.arange(R, dtype=torch.int32)
     frontier[1:7, 0] = torch.tensor([0, 17, 100, 333, 640, 1023], dtype=torch.int32)
@@ -1138,7 +1193,7 @@ def paged_case(gen, int8: bool):
         used = -(-(int(frontier[n].max()) + 1) // ps)
         table[n, :used] = perm[n * mp:n * mp + used]
     table, frontier = table.cuda(), frontier.reshape(-1).cuda()
-    arena = init_cache(llama("llama3-8b", num_layers=2).config, N, CB_CAPACITY, BF16,
+    arena = init_cache(llama("llama3-8b", num_layers=2).config, N, CB_CAPACITY, cache_dtype,
                        "cuda", quantized=int8)
     span = mp * ps
     arena["k"][1, :, :span] = dec.gather_pages(kp, table)
@@ -1151,18 +1206,21 @@ def paged_case(gen, int8: bool):
     return q, (kp, vp), scales, table, frontier, dense, dense_scales
 
 
-def check_paged_decode(gen, timer):
-    """The paged decode kernel, bf16 and int8, against its plain version at
-    the continuous-batching step's shape (:func:`paged_case`), and equal bit
-    for bit to the dense decode kernel (``rows_per_seq`` = 64) over the same
-    bytes laid out contiguously. Returns timed rows: the paged kernels, and
-    the dense kernels at the contiguous arena's step shape."""
-    tol = 1e-2
+def check_paged_decode(gen, timer, dtype=BF16):
+    """The paged decode kernel, bf16 and int8 (``dtype`` float16: fp16, int8
+    and the mixed bf16 cache, held to FP16_DEC_TOL), against its plain
+    version at the continuous-batching step's shape (:func:`paged_case`),
+    and equal bit for bit to the dense decode kernel (``rows_per_seq`` = 64)
+    over the same bytes laid out contiguously. Returns timed rows: the paged
+    kernels, and the dense kernels at the contiguous arena's step shape."""
+    tol = 1e-2 if dtype == BF16 else FP16_DEC_TOL
     R, ps, KV, H, D = CB_BUDGET, 16, 8, 32, 128
     rows = {}
-    for int8 in (False, True):
-        q, pools, scales, table, frontier, dense, dense_scales = paged_case(gen, int8)
-        suffix = "_int8" if int8 else ""
+    forms = ((False, None), (True, None)) + (((False, BF16),) if dtype != BF16 else ())
+    for int8, cache_dtype in forms:
+        q, pools, scales, table, frontier, dense, dense_scales = paged_case(
+            gen, int8, dtype, cache_dtype)
+        suffix = ("_int8" if int8 else "") + f16_suffix(dtype, cache_dtype)
         out = dec.paged_decode_attention(q, *pools, frontier, table, *scales,
                                          rows_per_seq=R)
         ref = dec.paged_decode_attention_plain(q, *pools, frontier, table, *scales,
@@ -1182,7 +1240,7 @@ def check_paged_decode(gen, timer):
         # frontiers and, paged, the page table
         fr = frontier.reshape(CB_SLOTS, R).cpu()
         n_keys = sum(int(f.max()) + 1 for f in fr)
-        per_row = KV * (D + 4) if int8 else KV * D * 2
+        per_row = KV * (D + 4) if int8 else KV * D * 2  # bf16 and fp16: 2 bytes
         pairs = int((fr + 1).clamp_min(0).sum())
         nbytes = 2 * n_keys * per_row + 2 * H * D * int((fr >= 0).sum()) \
             + 2 * q.numel() + 4 * frontier.numel()
@@ -1198,14 +1256,15 @@ def check_paged_decode(gen, timer):
         def library(views=None):
             kv = views or (dec.gather_pages(pools[0], table), dec.gather_pages(pools[1], table))
             if int8 and views is None:
-                kv = tuple(dec.dequantize_cache(c, dec.gather_page_scales(s, table)).to(BF16)
+                kv = tuple(dec.dequantize_cache(c, dec.gather_page_scales(s, table)).to(dtype)
                            for c, s in zip(kv, scales))
-            kt, vt = (c.transpose(1, 2) for c in kv)
+            kt, vt = (c.transpose(1, 2).to(dtype) for c in kv)
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=masks[kt.shape[2]],
                                                   enable_gqa=True)
 
         shape = (f"N={CB_SLOTS} R={R} mp=68 ps={ps} H={H} KV={KV} D={D}"
-                 f"{' int8' if int8 else ''}; slot 0 a 64-row chunk at 448, six "
+                 f"{' int8' if int8 else ''}{dtype_note(dtype, cache_dtype)}; slot 0 a "
+                 "64-row chunk at 448, six "
                  "decode rows at [0, 17, 100, 333, 640, 1023], one idle slot")
         rows[f"paged_decode_attention{suffix}"] = {
             "max_abs_err": e,
@@ -1224,7 +1283,7 @@ def check_paged_decode(gen, timer):
         e_dense = max_err(flat, dec.decode_attention_plain(
             q, *dense, frontier, *dense_scales, rows_per_seq=R))
         require(e_dense <= tol, f"decode_attention{suffix} rows_per_seq disagrees")
-        lib_views = (tuple(dec.dequantize_cache(c, s).to(BF16)
+        lib_views = (tuple(dec.dequantize_cache(c, s).to(dtype)
                            for c, s in zip(dense, dense_scales)) if int8 else dense)
         rows[f"decode_attention{suffix}"] = {
             "max_abs_err": e_dense,
@@ -1654,47 +1713,85 @@ def flash_instruction_counts() -> dict:
     return counts
 
 
+# the mangled element types of the decode and matvec instantiations
+MANGLED = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "a": "int8"}
+
+
 def decode_instruction_counts() -> dict:
-    """HMMA (mma.sync) instructions in each bf16 instantiation of the decode
-    kernel, from cuobjdump (or the mma.sync lines of its PTX). Keyed
-    "decode_attention_kernel<bf16, int8=0, hd=128, paged=0>"."""
-    name_re = re.compile(r"decode_attention_kernelI13__nv_bfloat16(a|S\d*_)Li(\d+)ELb([01])E")
+    """HMMA (mma.sync) instructions in each bf16 and fp16 instantiation of
+    the decode kernel (decode_attention.o, decode_attention_f16.o), from
+    cuobjdump (or the mma.sync lines of their PTX). Keyed
+    "decode_attention_kernel<fp16, cache=bf16, hd=128, paged=0>" (cache: the
+    storage; a cache of q's type is a substitution in the mangled name)."""
+    name_re = re.compile(r"decode_attention_kernelI(13__nv_bfloat16|6__half)"
+                         r"(a|S\d*_|13__nv_bfloat16)Li(\d+)ELb([01])E")
 
     def name_of(line):
         m = name_re.search(line)
         if not m:
             return None
-        return (f"decode_attention_kernel<bf16, int8={int(m.group(1) == 'a')}, "
-                f"hd={m.group(2)}, paged={m.group(3)}>")
+        t = MANGLED[m.group(1)]
+        cache = t if m.group(2).startswith("S") else MANGLED[m.group(2)]
+        return (f"decode_attention_kernel<{t}, cache={cache}, hd={m.group(3)}, "
+                f"paged={m.group(4)}>")
 
-    return count_marks(*object_listing("decode_attention", ("mma.sync",), ("HMMA",)), name_of)
+    counts = {}
+    for stem in ("decode_attention", "decode_attention_f16"):
+        counts.update(count_marks(*object_listing(stem, ("mma.sync",), ("HMMA",)), name_of))
+    return counts
 
 
 def matvec_instruction_counts() -> dict:
     """HMMA (mma.sync) instructions in each instantiation of the packed
-    matvec, from cuobjdump (or the mma.sync lines of its PTX). Keyed
-    "quantized_matvec_kernel<halves=1, int4=0, tma=1>" (halves: 8-row halves
-    of x; tma: the weight streamed by TMA, else by per-thread cp.async)."""
-    name_re = re.compile(r"quantized_matvec_kernelILi(\d+)ELb([01])ELb([01])E")
+    matvec (quantized_matvec.o, quantized_matvec_f16.o), from cuobjdump (or
+    the mma.sync lines of their PTX). Keyed "quantized_matvec_kernel<bf16,
+    halves=1, int4=0, tma=1>" (halves: 8-row halves of x; tma: the weight
+    streamed by TMA, else by per-thread cp.async)."""
+    name_re = re.compile(r"quantized_matvec_kernelI(13__nv_bfloat16|6__half)"
+                         r"Li(\d+)ELb([01])ELb([01])E")
 
     def name_of(line):
         m = name_re.search(line)
-        return m and (f"quantized_matvec_kernel<halves={m.group(1)}, int4={m.group(2)}, "
-                      f"tma={m.group(3)}>")
+        return m and (f"quantized_matvec_kernel<{MANGLED[m.group(1)]}, halves={m.group(2)}, "
+                      f"int4={m.group(3)}, tma={m.group(4)}>")
 
-    return count_marks(*object_listing("quantized_matvec", ("mma.sync",), ("HMMA",)), name_of)
+    counts = {}
+    for stem in ("quantized_matvec", "quantized_matvec_f16"):
+        counts.update(count_marks(*object_listing(stem, ("mma.sync",), ("HMMA",)), name_of))
+    return counts
+
+
+def bf16_twin(fn: str) -> str:
+    """The bf16 instantiation an fp16 one is read against: the same key with
+    bf16 for fp16 (the mixed form's twin is bf16's dense one)."""
+    return fn.replace("<fp16", "<bf16").replace("cache=fp16", "cache=bf16")
+
+
+def pair_counts(counts: dict, kind: str) -> None:
+    """Each fp16 instantiation's counts beside its bf16 twin's."""
+    for fn, c in sorted(counts.items()):
+        if fn.startswith(f"{kind}<fp16"):
+            other = counts.get(bf16_twin(fn), {})
+            print(f"{fn}: " + ", ".join(f"{k} {n} (bf16 {other.get(k)})"
+                                        for k, n in c.items()))
 
 
 def check_matvec_instructions() -> None:
-    """Every instantiation of the packed matvec (int8 and int4 bytes, one or
-    two 8-row halves of x, TMA or per-thread copies) runs its products on
-    the tensor cores."""
+    """Every instantiation of the packed matvec (bf16 and fp16 x, int8 and
+    int4 bytes, one or two 8-row halves of x, TMA or per-thread copies) runs
+    its products on the tensor cores; an fp16 one issues as many as its
+    bf16 twin (the same fragments, .f16 for .bf16)."""
     counts = matvec_instruction_counts()
     for fn, c in sorted(counts.items()):
-        print(f"{fn}: " + ", ".join(f"{k} {n}" for k, n in c.items()))
-    require(len(counts) == 8, f"expected 8 matvec instantiations, found {counts}")
+        if fn.startswith("quantized_matvec_kernel<bf16"):
+            print(f"{fn}: " + ", ".join(f"{k} {n}" for k, n in c.items()))
+    pair_counts(counts, "quantized_matvec_kernel")
+    require(len(counts) == 16, f"expected 16 matvec instantiations (8 fp16), found {counts}")
     require(all(n > 0 for c in counts.values() for n in c.values()),
             "a matvec kernel issues no mma.sync")
+    require(all(c == counts.get(bf16_twin(fn)) for fn, c in counts.items()
+                if fn.startswith("quantized_matvec_kernel<fp16")),
+            "an fp16 matvec instantiation issues another count of mma.sync than bf16's")
 
 
 def check_flash_instructions() -> None:
@@ -1716,15 +1813,25 @@ def check_flash_instructions() -> None:
 
 
 def check_decode_instructions() -> None:
-    """Every bf16 instantiation of the decode kernel (dense and paged, bf16
-    and int8 cache, head dims 64 and 128) runs its products on the tensor
-    cores (mma.sync)."""
+    """Every bf16 and fp16 instantiation of the decode kernel (dense and
+    paged, head dims 64 and 128; bf16: bf16 and int8 caches; fp16: fp16,
+    int8 and bf16 caches) runs its products on the tensor cores (mma.sync).
+    An fp16 instantiation issues fewer than its bf16 twin: P V takes P once
+    (rounded to fp16), where bf16 takes it as two terms, hi + lo (at hd 128
+    a tile's 64 Q K^T and 128 P V products become 64 and 64)."""
     counts = decode_instruction_counts()
     for fn, c in sorted(counts.items()):
-        print(f"{fn}: " + ", ".join(f"{k} {n}" for k, n in c.items()))
-    require(len(counts) == 8, f"expected 8 bf16 decode instantiations, found {counts}")
+        if fn.startswith("decode_attention_kernel<bf16"):
+            print(f"{fn}: " + ", ".join(f"{k} {n}" for k, n in c.items()))
+    pair_counts(counts, "decode_attention_kernel")
+    n_f16 = sum(fn.startswith("decode_attention_kernel<fp16") for fn in counts)
+    require(len(counts) == 20 and n_f16 == 12,
+            f"expected 8 bf16 and 12 fp16 decode instantiations, found {counts}")
     require(all(n > 0 for c in counts.values() for n in c.values()),
-            "a bf16 decode kernel issues no mma.sync")
+            "a decode kernel issues no mma.sync")
+    require(all(sum(c.values()) < sum(counts[bf16_twin(fn)].values())
+                for fn, c in counts.items() if fn.startswith("decode_attention_kernel<fp16")),
+            "an fp16 decode instantiation issues as many mma.sync as bf16's (P in two terms?)")
 
 
 def check_bwd_tiles(gen):
@@ -2876,23 +2983,24 @@ def check_bias_grad(gen, timer):
     return row
 
 
-def reference_check(model=None, label: str = "", expect=SERVING_KERNELS):
-    """Two-layer full-width ``model`` (Llama-3-8B by default) in bf16: the
-    kernel path (flash prefill, decode kernel, RMSNorm or LayerNorm kernel,
-    the ALiBi forms for BLOOM) against the plain path on the same weights,
-    prefill of 160 tokens then three cached decode steps; every kernel of
-    ``expect`` must have run on the kernel path."""
+def reference_check(model=None, label: str = "", expect=SERVING_KERNELS, dtype=BF16):
+    """Two-layer full-width ``model`` (Llama-3-8B by default) in ``dtype``
+    (bf16, or fp16 and the kernels' fp16 forms): the kernel path (flash
+    prefill, decode kernel, RMSNorm or LayerNorm kernel, the ALiBi forms for
+    BLOOM) against the plain path on the same weights, prefill of 160 tokens
+    then three cached decode steps; every kernel of ``expect`` must have run
+    on the kernel path, the plain attention never on it."""
     tol = 2e-2
     model = model or llama("llama3-8b", num_layers=2)
     cfg = model.config
-    eng = init_inference(model, dtype=BF16, replace_with_kernel_inject=True,
+    eng = init_inference(model, dtype=dtype, replace_with_kernel_inject=True,
                          max_tokens=1024,
                          rng=torch.Generator(device="cuda").manual_seed(1))
     ids = torch.randint(0, cfg.vocab_size, (2, 163),
                         generator=torch.Generator().manual_seed(1)).cuda()
 
     def run():
-        cache = init_cache(cfg, 2, 256, BF16, "cuda")
+        cache = init_cache(cfg, 2, 256, dtype, "cuda")
         logits, _ = forward_with_cache(cfg, eng.params, ids[:, :160], cache, 0)
         outs = [logits]
         for pos in range(160, 163):
@@ -2907,20 +3015,27 @@ def reference_check(model=None, label: str = "", expect=SERVING_KERNELS):
             got = run()
             fwd = apply(cfg, eng.params, ids[:, :160])
         counts = kernels.launch_counts()
+        plain = kernels.plain_attention_on_cuda()
         with attention_impl("plain"), kernel_rmsnorm_scope(False):
             want = run()
     require(bool(torch.isfinite(got).all()), "non-finite logits on the kernel path")
     rel = ((got - want).norm() / want.norm()).item()
     rel_fwd = ((fwd - want[:, :160]).norm() / want[:, :160].norm()).item()
-    print(f"reference check {label}({cfg.name}, 2 layers, full width): relative L2 "
-          f"error cached {rel:.3e}, no-cache forward {rel_fwd:.3e} (tol {tol}); "
-          f"launches { {k: counts[k] for k in expect} }")
+    print(f"reference check {label}({cfg.name}, 2 layers, full width, {dtype}): relative "
+          f"L2 error cached {rel:.3e}, no-cache forward {rel_fwd:.3e} (tol {tol}); "
+          f"launches { {k: counts[k] for k in expect} }; plain attention on the card "
+          f"{sum(plain.values())}")
     require(rel <= tol and rel_fwd <= tol,
             f"{cfg.name}: kernel path disagrees with the plain path")
-    require(all(counts[k] > 0 for k in expect),
-            f"{cfg.name} reference check: a kernel of {expect} did not run")
+    require(all(counts[k] > 0 for k in expect) and sum(plain.values()) == 0,
+            f"{cfg.name} reference check: a kernel of {expect} did not run, or the "
+            "plain attention did")
     del eng
     torch.cuda.empty_cache()
+
+
+# each reported request's generate stats, by label and request name
+SERVE_STATS: dict = {}
 
 
 def serving_requests(V: int):
@@ -2956,6 +3071,7 @@ def serve(engine, requests, report: bool, label: str = ""):
         st = engine.last_generate_stats
         steps = st["decode_steps"]
         if report:
+            SERVE_STATS[label + name] = dict(st)
             tok_s = B * steps / (st["decode_ms"] / 1e3)
             print(f"request {label}{name}: prefill {st['prefill_ms']:.2f} ms "
                   f"(bucket {st['prompt_bucket']}), decode {steps} steps "
@@ -3010,22 +3126,24 @@ def main_path():
     return counts
 
 
-def main_path_family(model, n_requests: int, expect, path: str):
+def main_path_family(model, n_requests: int, expect, path: str, dtype=BF16,
+                     profile: bool = True, depth: str = "depth not cut"):
     """A LayerNorm family (bloom-7b1, gpt2-xl) served at full width and depth
-    with seeded random bf16 weights, kernel injection, max_tokens 1024: the
-    first ``n_requests`` of the three serving requests, twice (the second
-    run with the counters zeroed just before it); the tokens of the two runs
-    must be equal, every kernel of ``expect`` must have run and the plain
-    attention never on the card. Returns the second run's counts."""
+    with seeded random ``dtype`` weights (bf16, or fp16), kernel injection,
+    max_tokens 1024: the first ``n_requests`` of the three serving requests,
+    twice (the second run with the counters zeroed just before it); the
+    tokens of the two runs must be equal, every kernel of ``expect`` must
+    have run and the plain attention never on the card; then, with
+    ``profile``, a profiled B=1 generate. Returns the second run's counts."""
     cfg = model.config
     t0 = time.perf_counter()
-    engine = init_inference(model, dtype=BF16, replace_with_kernel_inject=True,
+    engine = init_inference(model, dtype=dtype, replace_with_kernel_inject=True,
                             max_tokens=1024,
                             rng=torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     print(f"{path}: {cfg.name} L={cfg.num_layers} d={cfg.hidden_size} H={cfg.num_heads} "
           f"hd={cfg.hd} ffn={cfg.ffn} V={cfg.vocab_size} {cfg.norm} {cfg.pos_embedding} "
-          f"{cfg.activation} ({cfg.num_params() / 1e9:.3f} B params), depth not cut; "
+          f"{cfg.activation} ({cfg.num_params() / 1e9:.3f} B params), {depth}, {dtype}; "
           f"max_tokens {engine.max_tokens}; init {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     requests = serving_requests(cfg.vocab_size)[:n_requests]
@@ -3043,8 +3161,9 @@ def main_path_family(model, n_requests: int, expect, path: str):
     for (name, _, _), a, b in zip(requests, first, second):
         require(torch.equal(a, b), f"{path} {name}: tokens differ between two runs")
     print(f"{path} reruns: identical tokens")
-    _, prompt, kw = requests[0]
-    profile_device(lambda: engine.generate(prompt, **kw), f"{path} B=1 generate")
+    if profile:
+        _, prompt, kw = requests[0]
+        profile_device(lambda: engine.generate(prompt, **kw), f"{path} B=1 generate")
     del engine
     torch.cuda.empty_cache()
     return counts
@@ -7294,6 +7413,368 @@ def decode_breakdown() -> None:
           f"the largest value, {2 * bf16_ulp(ref.float().abs().max().item()):.3e})")
 
 
+# --------------------------------------------------------------- fp16 serving
+F16 = torch.float16
+# the fp16 decode forms against their plain versions: a quarter of the bf16
+# forms' 1e-2 (fp16 keeps 3 more mantissa bits; P is rounded once to fp16,
+# 2^-12 relative, where bf16 takes it as two terms)
+FP16_DEC_TOL = 2.5e-3
+# the fp16 serving paths' kernels: each bf16 path's in its fp16 forms
+SERVING_FP16_KERNELS = ("flash_attention_fwd_f16", "decode_attention_f16", "rmsnorm_fwd_f16")
+QUANT_FP16_KERNELS = ("quantized_matvec_int8_f16", "quantized_matvec_int4_f16",
+                      "decode_attention_int8_f16", "decode_attention_f16",
+                      "flash_attention_fwd_f16", "rmsnorm_fwd_f16")
+CB_FP16_KERNELS = ("paged_decode_attention_f16", "paged_decode_attention_int8_f16",
+                   "paged_decode_attention_mixed_f16", "decode_attention_f16",
+                   "decode_attention_int8_f16", "decode_attention_mixed_f16", "rmsnorm_fwd_f16")
+BLOOM_SERVING_FP16_KERNELS, GPT2_SERVING_FP16_KERNELS = (
+    tuple(k + "_f16" for k in ks) for ks in (BLOOM_SERVING_KERNELS, GPT2_SERVING_KERNELS))
+MIXTRAL_FP16_KERNELS = ("quantized_matvec_expert_int8_f16", "quantized_matvec_expert_int4_f16",
+                        "quantized_matvec_int8_f16", "quantized_matvec_int4_f16",
+                        "decode_attention_int8_f16", "flash_attention_fwd_f16",
+                        "rmsnorm_fwd_f16")
+# the short fp16 serving legs (int4, speculative, BLOOM, GPT-2, Mixtral): full
+# width at the reference checks' depth; serving_cb_fp16's requests
+FP16_SERVING_LAYERS, CB_FP16_REQUESTS = 2, 8
+# the KV storage of each serving_cb_fp16 engine and its decode forms' suffix
+CB_FP16_KV = {"auto": "_f16", "int8": "_int8_f16", "bf16": "_mixed_f16"}
+KERNELS.update({
+    **{f"{name}{form}_f16": {
+        "source": "deepspeed_tpu_torch/csrc/decode_attention_f16.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:"
+                    + ("111" if name.startswith("paged") else "76")}
+       for name in dec.KERNEL_NAMES
+       for form in ("", "_alibi") + (() if name.endswith("int8") else ("_mixed",))},
+    **{f"quantized_matvec{form}_int{bits}_f16": {
+        "source": "deepspeed_tpu_torch/csrc/quantized_matvec_f16.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/quantized_matmul.py:"
+                    + ("330" if form else "38")}
+       for form in ("", "_expert") for bits in (8, 4)},
+})
+
+
+def check_fp16_serving_norms(gen, timer) -> dict:
+    """The fp16 RMSNorm forward at serving_fp16's prefill (2048 rows of
+    4096), serving_cb_fp16's step (512 rows) and a decode step's 1 and 4
+    rows, and the fp16 LayerNorm forward at serving_bloom_fp16's and
+    serving_gpt2_fp16's prefills (2048 rows of 4096 and of 1600) and their
+    decode step's 4 rows, each within two fp16 ulps of its plain version, a
+    rerun and single rows bitwise (:func:`norm_agrees`), timed as the bf16
+    rows (the decode rows with the wrapper's host us a call). Returns
+    {(kernel, path or "decode rows=N D=..."): row}."""
+    eps, rows = 1e-5, {}
+    for kind, n, D, key in (("rms", 2048, 4096, "serving_fp16"),
+                            ("rms", CB_SLOTS * CB_BUDGET, 4096, "serving_cb_fp16"),
+                            ("rms", 1, 4096, "decode rows=1 D=4096"),
+                            ("rms", 4, 4096, "decode rows=4 D=4096"),
+                            ("ln", 2048, 4096, "serving_bloom_fp16"),
+                            ("ln", 2048, 1600, "serving_gpt2_fp16"),
+                            ("ln", 4, 4096, "decode rows=4 D=4096"),
+                            ("ln", 4, 1600, "decode rows=4 D=1600")):
+        w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(F16)
+        b = (0.1 * torch.randn(D, generator=gen, device="cuda")).to(F16)
+        x = torch.randn(n, D, generator=gen, device="cuda", dtype=F16)
+        if kind == "rms":
+            name, lib = "rmsnorm_fwd_f16", lambda: F.rms_norm(x, (D,), w, eps)  # noqa: E731
+            fn = lambda t: rn.rmsnorm_fwd(t, w, eps)  # noqa: E731
+            plain = lambda t: rn.rmsnorm_plain(t, w, eps)  # noqa: E731
+            b_ms, b_by = bound(4 * x.numel(), 2 * 2 * x.numel() + 2 * D)
+        else:
+            name, lib = "layernorm_fwd_f16", lambda: F.layer_norm(x, (D,), w, b, eps)  # noqa: E731
+            fn = lambda t: ln.layernorm_fwd(t, w, b, eps)  # noqa: E731
+            plain = lambda t: ln.layernorm_plain(t, w, b, eps)  # noqa: E731
+            b_ms, b_by = bound(8 * x.numel(), 2 * 2 * x.numel() + 2 * 2 * D)
+        e = norm_agrees(name, fn, plain, x, FP16_NORM_ATOL, FP16_NORM_RTOL)
+        rows[(name, key)] = norm_row(timer, e, lambda: fn(x), lambda: plain(x), lib, b_ms,
+                                     b_by, f"rows={n} D={D} fp16", host=key.startswith("decode"))
+    return rows
+
+
+def check_fp16_serving_forms(timer, bf16: dict) -> dict:
+    """The fp16 forms of fp16 serving at the shapes of the paths that run
+    them, from a generator of their own, each against its plain version
+    (the checks of the bf16 forms, with fp16's tolerances) and timed as the
+    bf16 rows are: the dense decode kernel at serving_fp16's step, at
+    GPT-2-XL's 25 heads of 64 and with BLOOM's ALiBi slopes; the int8 form
+    (and its window of 5 rows bitwise single-token decode); the paged and
+    the contiguous ``rows_per_seq`` forms at serving_cb's step over fp16,
+    int8 and bf16 (mixed) caches, paged bitwise contiguous; the packed
+    matvec and its expert form (every check of :func:`check_quantized_matvec`
+    and :func:`check_expert_matvec`); the flash forward at the fp16 paths'
+    prefills (Llama, GPT-2, and BLOOM's ALiBi with its backward checked);
+    the norms (:func:`check_fp16_serving_norms`). ``bf16`` maps a row's key
+    to the bf16 row timed at the same shape in this run: its ms goes into
+    the row as ``bf16_ms``. Returns {(kernel and form, path): row}."""
+    gen = torch.Generator(device="cuda").manual_seed(131)
+    rows = {("decode_attention_f16", "serving_fp16"): check_decode(gen, timer, dtype=F16),
+            ("decode_attention_f16", "serving_gpt2_fp16"): check_decode(
+                gen, timer, H=25, KV=25, D=64, dtype=F16),
+            ("decode_attention_alibi_f16", "serving_bloom_fp16"): check_decode(
+                gen, timer, H=32, KV=32, D=128, slopes=alibi_slopes(32).cuda(), dtype=F16)}
+    dec8 = check_decode_int8(gen, timer, dtype=F16)
+    rows[("decode_attention_int8_f16", "serving_quantized_fp16")] = dec8
+    rows[("decode_attention_int8_f16", "serving_mixtral_fp16")] = dec8
+    rows[("decode_attention_f16", "serving_quantized_fp16")] = rows[
+        ("decode_attention_f16", "serving_fp16")]
+    for name, r in check_paged_decode(gen, timer, dtype=F16).items():
+        rows[(name, "serving_cb_fp16")] = r
+    qmv8, qmv4 = check_quantized_matvec(gen, timer, F16)
+    xmv8, xmv4 = check_expert_matvec(gen, timer, F16)
+    for path in ("serving_quantized_fp16", "serving_mixtral_fp16"):
+        rows[("quantized_matvec_int8_f16", path)] = qmv8
+        rows[("quantized_matvec_int4_f16", path)] = qmv4
+    rows[("quantized_matvec_expert_int8_f16", "serving_mixtral_fp16")] = xmv8
+    rows[("quantized_matvec_expert_int4_f16", "serving_mixtral_fp16")] = xmv4
+    flash = flash_fwd_case(gen, timer, "serving_fp16", 4, 512, 32, 8, 128, dtype=F16)
+    for path in ("serving_fp16", "serving_quantized_fp16", "serving_mixtral_fp16"):
+        rows[("flash_attention_fwd_f16", path)] = flash
+    rows[("flash_attention_fwd_f16", "serving_gpt2_fp16")] = flash_fwd_case(
+        gen, timer, "serving_gpt2_fp16", 4, 512, 25, 25, 64, dtype=F16)
+    rows[("flash_attention_fwd_alibi_f16", "serving_bloom_fp16")] = fp16_flash_rows(
+        gen, timer, "serving_bloom_fp16", 4, 512, 32, 32, 128,
+        {"slopes": alibi_slopes(32).cuda()}, 4 * 512 * 513 / 2)["flash_attention_fwd_alibi_f16"]
+    norms = check_fp16_serving_norms(gen, timer)
+    rows.update((k, r) for k, r in norms.items() if not k[1].startswith("decode"))
+    for path in ("serving_quantized_fp16", "serving_mixtral_fp16"):
+        rows[("rmsnorm_fwd_f16", path)] = rows[("rmsnorm_fwd_f16", "serving_fp16")]
+    for (name, path), r in list(rows.items()) + [(k, r) for k, r in norms.items()
+                                                 if k[1].startswith("decode")]:
+        twin = bf16.get((name, path))
+        if twin is not None:
+            r["bf16_ms"] = twin["ms"]
+        if path.startswith("decode"):  # printed here; the kernels line has the paths
+            print(f"{name} ({path}) [{r['shape']}]: kernel {r['ms']:.4f} ms (bf16 "
+                  f"{r.get('bf16_ms', float('nan')):.4f}), plain {r['plain_ms']:.4f} ms, "
+                  f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.2e} ms "
+                  f"({r['bound_by']}), host {r['host_us']:.1f} us a call")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def fp16_bf16_twins(rows: list, norm: dict, lnorm: dict) -> dict:
+    """Each fp16 serving row's key mapped to the bf16 row timed at its shape
+    in this run (from the main rows list and the norms' decode rows)."""
+    by = {(name, path): r for name, path, r in rows}
+    out = {}
+    for (name, path), r in by.items():
+        if path.startswith("serving") and not path.endswith("_fp16"):
+            out[(name + "_f16", path + "_fp16")] = r
+    out[("decode_attention_mixed_f16", "serving_cb_fp16")] = by[("decode_attention", "serving_cb")]
+    out[("paged_decode_attention_mixed_f16", "serving_cb_fp16")] = by[
+        ("paged_decode_attention", "serving_cb")]
+    for key, r in norm.items():
+        if key.startswith("decode"):
+            out[("rmsnorm_fwd_f16", f"{key} D=4096")] = r
+    for key, r in lnorm.items():
+        if key.startswith("decode"):
+            out[("layernorm_fwd_f16", key)] = r
+    return out
+
+
+def reference_check_fp16() -> None:
+    """The fp16 serving reference checks (:func:`reference_check` in fp16):
+    Llama-3-8B, bloom-7b1 and gpt2-xl at 2 layers, full width."""
+    reference_check(llama("llama3-8b", num_layers=2), "serving_fp16 ", SERVING_FP16_KERNELS, F16)
+    reference_check(bloom("bloom-7b1", num_layers=2), "serving_bloom_fp16 ",
+                    BLOOM_SERVING_FP16_KERNELS, F16)
+    reference_check(gpt2("gpt2-xl", num_layers=2), "serving_gpt2_fp16 ",
+                    GPT2_SERVING_FP16_KERNELS, F16)
+
+
+def main_path_serving_fp16() -> dict:
+    """serving in fp16: the fp16 reference checks first, then
+    ``init_inference(llama("llama3-8b"), dtype=torch.float16,
+    replace_with_kernel_inject=True)`` at full width and depth on the three
+    serving requests, twice (:func:`main_path_family`: the second run with
+    the counters zeroed, tokens equal, the plain attention never on the
+    card); each request's prefill ms and decode ms a step printed beside
+    serving's bf16 run's. Returns the second run's counts."""
+    reference_check_fp16()
+    counts = main_path_family(llama("llama3-8b"), 3, SERVING_FP16_KERNELS, "serving_fp16",
+                              dtype=F16, profile=False)
+    for name, _, _ in serving_requests(2):
+        a, b = SERVE_STATS.get(name), SERVE_STATS[f"serving_fp16 {name}"]
+        if a is None:
+            continue
+        print(f"serving_fp16 against serving (bf16, this run) {name}: prefill "
+              f"{b['prefill_ms']:.2f} ms (bf16 {a['prefill_ms']:.2f}, "
+              f"{b['prefill_ms'] / a['prefill_ms'] - 1:+.1%}), decode "
+              f"{b['decode_ms'] / b['decode_steps']:.3f} ms/step (bf16 "
+              f"{a['decode_ms'] / a['decode_steps']:.3f}, "
+              f"{b['decode_ms'] / b['decode_steps'] / (a['decode_ms'] / a['decode_steps']) - 1:+.1%})")
+    return counts
+
+
+def packed_leaf_dtypes(eng, dtype) -> None:
+    """Every packed leaf computes in ``dtype`` (``PackedWeight.dtype``), its
+    bytes int8 and its scales fp32; every dense floating leaf is ``dtype``."""
+    leaves = list(tree_leaves(eng.params))
+    packed = [w for w in leaves if isinstance(w, PackedWeight)]
+    dense = [t for t in leaves if not isinstance(t, PackedWeight) and t.is_floating_point()]
+    require(packed and all(w.dtype == dtype and w.qdata.dtype == torch.int8
+                           and w.scale.dtype == torch.float32 for w in packed)
+            and all(t.dtype == dtype for t in dense),
+            f"{eng.config.name}: a leaf of the packed tree is not {dtype}")
+
+
+def main_path_serving_quantized_fp16() -> dict:
+    """Quantized serving in fp16: Llama-3-8B at full depth with
+    ``dtype=torch.float16, quantize_bits=8, kv_cache_dtype="int8"`` on the
+    three serving requests; ``quantize_bits=4`` (fp16 KV) on the greedy B=1
+    request at 2 layers; the "ngram" speculative decode of llama3-1b (2
+    layers, int8 weights and KV) on a repetitive prompt, whose tokens must
+    equal plain greedy's bitwise (the packed matvec, the decode kernel and
+    the head take a verify window's rows as single-token decode does). All
+    twice, the second run's counters zeroed, its tokens the first's.
+    Returns its counts."""
+    model = llama("llama3-8b")
+    V = model.config.vocab_size
+    t0 = time.perf_counter()
+    kw = dict(dtype=F16, replace_with_kernel_inject=True, max_tokens=1024)
+    eng8 = init_inference(model, quantize_bits=8, kv_cache_dtype="int8",
+                          rng=torch.Generator(device="cuda").manual_seed(0), **kw)
+    eng4 = init_inference(llama("llama3-8b", num_layers=FP16_SERVING_LAYERS), quantize_bits=4,
+                          rng=torch.Generator(device="cuda").manual_seed(0), **kw)
+    small = llama("llama3-1b", num_layers=FP16_SERVING_LAYERS)
+    plain1b = init_inference(small, quantize_bits=8, kv_cache_dtype="int8",
+                             rng=torch.Generator(device="cuda").manual_seed(2), **kw)
+    ngram = init_inference(small, quantize_bits=8, kv_cache_dtype="int8",
+                           params=plain1b.params, draft_model="ngram", **kw)
+    torch.cuda.synchronize()
+    for eng in (eng8, eng4, ngram):
+        packed_leaf_dtypes(eng, F16)
+    print(f"serving_quantized_fp16: {model.config.name} full depth int8 weights "
+          f"{tree_bytes(eng8.params) / 1e9:.3f} GB; int4 at {FP16_SERVING_LAYERS} layers; "
+          f"llama3-1b at {FP16_SERVING_LAYERS} layers (ngram); leaves fp16, packed leaves' "
+          f"dtype fp16; init {time.perf_counter() - t0:.1f} s")
+    requests = serving_requests(V)
+    rep = torch.tensor([[11, 7, 3, 9, 5] * 20])
+
+    def run_all(report: bool):
+        outs = serve(eng8, requests, report, "serving_quantized_fp16 int8+int8-KV ")
+        outs += serve(eng4, requests[:1], report, "serving_quantized_fp16 int4 ")
+        plain = plain1b.generate(rep, max_new_tokens=SPEC_NEW)
+        got = ngram.generate(rep, max_new_tokens=SPEC_NEW, num_draft_tokens=4)
+        if report:
+            print(f"serving_quantized_fp16 speculative (ngram, llama3-1b int8 + int8 KV, fp16) "
+                  f"B=1 P=100 new={SPEC_NEW}: {ngram.last_spec_rounds} rounds, "
+                  f"{ngram.last_generate_stats['decode_ms']:.2f} ms (plain greedy "
+                  f"{plain1b.last_generate_stats['decode_ms']:.2f} ms); tokens equal to "
+                  f"plain greedy: {torch.equal(plain, got)}")
+        require(torch.equal(plain, got), "serving_quantized_fp16: speculative tokens differ "
+                "from plain greedy")
+        return outs + [plain, got]
+
+    with torch.inference_mode():
+        first = run_all(report=False)
+        kernels.reset_launch_counts()
+        second = run_all(report=True)
+    counts = kernels.launch_counts()
+    plain_att = kernels.plain_attention_on_cuda()
+    print(f"serving_quantized_fp16 launches: { {k: counts[k] for k in QUANT_FP16_KERNELS} }; "
+          f"plain attention on the card {plain_att}")
+    require(all(counts[k] > 0 for k in QUANT_FP16_KERNELS) and sum(plain_att.values()) == 0,
+            "serving_quantized_fp16: a kernel did not run, or the plain attention did")
+    require(all(torch.equal(a, b) for a, b in zip(first, second)),
+            "serving_quantized_fp16: an output differs between the two runs")
+    del eng8, eng4, plain1b, ngram
+    torch.cuda.empty_cache()
+    return counts
+
+
+def main_path_serving_cb_fp16() -> dict:
+    """Continuous batching in fp16: init_serving on Llama-3-8B at full width
+    and depth, ``dtype=torch.float16``, kernel injection, the first
+    CB_FP16_REQUESTS requests of the serving_cb trace through the contiguous
+    and the paged arena with fp16, int8 and bf16-storage KV (three engines
+    sharing the weights). Each request's tokens must be bitwise equal
+    between the two arenas in each KV form; one step shape; the plain
+    attention never on the card (:func:`serve_cb`). Returns the six runs'
+    launches, counters zeroed just before each."""
+    model = llama("llama3-8b")
+    t0 = time.perf_counter()
+    first = init_serving(model, serving=cb_serving(False), dtype=F16,
+                         replace_with_kernel_inject=True,
+                         rng=torch.Generator(device="cuda").manual_seed(0))
+    params = first.engine.params
+    engines = {kv: first.engine if kv == "auto" else init_inference(
+        model, dtype=F16, kv_cache_dtype=kv, replace_with_kernel_inject=True,
+        max_tokens=1024, params=params) for kv in CB_FP16_KV}
+    torch.cuda.synchronize()
+    print(f"serving_cb_fp16: {model.config.name} full depth fp16, {CB_FP16_REQUESTS} requests, "
+          f"KV auto (fp16) / int8 / bf16; init {time.perf_counter() - t0:.1f} s")
+    trace = cb_trace(model.config.vocab_size)[:CB_FP16_REQUESTS]
+    totals = {name: 0 for name in kernels.launch_counts()}
+    for kv, eng in engines.items():
+        outs = {}
+        for paged in (False, True):
+            srv = first if (kv, paged) == ("auto", False) else \
+                init_serving(serving=cb_serving(paged), engine=eng)
+            label = f"fp16 {'paged' if paged else 'contiguous'} {kv} KV"
+            with torch.inference_mode():
+                outs[paged], counts = serve_cb(srv, trace, label)
+            for name in totals:
+                totals[name] += counts[name]
+            want = ("paged_" if paged else "") + "decode_attention" + CB_FP16_KV[kv]
+            require(counts[want] > 0 and counts["rmsnorm_fwd_f16"] > 0,
+                    f"serving_cb_fp16 {label}: {want} or rmsnorm_fwd_f16 not launched")
+            del srv
+            torch.cuda.empty_cache()
+        diff = [rid for rid in outs[False] if not np.array_equal(outs[False][rid],
+                                                                 outs[True][rid])]
+        print(f"serving_cb_fp16 {kv} KV: paged == contiguous bitwise for "
+              f"{len(outs[False]) - len(diff)}/{len(trace)} requests; differ: {diff}")
+        require(not diff, f"serving_cb_fp16 {kv} KV: paged and contiguous outputs differ")
+    print(f"serving_cb_fp16 launches (six runs): { {k: totals[k] for k in CB_FP16_KERNELS} }")
+    del first, engines, params
+    torch.cuda.empty_cache()
+    return totals
+
+
+def main_path_serving_mixtral_fp16() -> dict:
+    """Mixtral-8x7B in fp16 at full width, FP16_SERVING_LAYERS layers:
+    int8, then int4 expert banks and projections with the int8 KV cache, on
+    the greedy B=1 request, twice (the second run with the counters zeroed,
+    its tokens the first's); its tokens against the plain path's on the same
+    weights (the products over the dequantized weights under
+    matvec_max_rows 0, the plain attention and norm): equal, or a first
+    mismatch at a near-tie (:func:`first_mismatch_is_near_tie`). Returns
+    the two kernel runs' counts summed."""
+    model = mixtral("mixtral-8x7b", num_layers=FP16_SERVING_LAYERS)
+    request = serving_requests(model.config.vocab_size)[:1]
+    (_, prompt, kw), totals = request[0], {}
+    for bits in (8, 4):
+        eng = init_inference(model, dtype=F16, quantize_bits=bits, kv_cache_dtype="int8",
+                             replace_with_kernel_inject=True, max_tokens=1024,
+                             rng=torch.Generator(device="cuda").manual_seed(0))
+        plain_eng = init_inference(model, dtype=F16, quantize_bits=bits, kv_cache_dtype="int8",
+                                   max_tokens=1024, params=eng.params, matvec_max_rows=0)
+        packed_leaf_dtypes(eng, F16)
+        label = f"serving_mixtral_fp16 int{bits} "
+        with torch.inference_mode():
+            first = serve(eng, request, report=False)
+            kernels.reset_launch_counts()
+            got = serve(eng, request, report=True, label=label)
+            counts = kernels.launch_counts()
+            plain_att = kernels.plain_attention_on_cuda()
+            with attention_impl("plain"), kernel_rmsnorm_scope(False):
+                want = plain_eng.generate(prompt, **kw)
+                print(f"{label}tokens equal to the plain path's: {torch.equal(want, got[0])}")
+                first_mismatch_is_near_tie(plain_eng, want, got[0], prompt.shape[1],
+                                           f"{label}against the plain path")
+        print(f"{label}launches { {k: counts[k] for k in MIXTRAL_FP16_KERNELS} }; plain "
+              f"attention on the card {plain_att}")
+        require(torch.equal(first[0], got[0]), f"{label}tokens differ between two runs")
+        require(sum(plain_att.values()) == 0, f"{label}plain attention ran {plain_att}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        del eng, plain_eng
+        torch.cuda.empty_cache()
+    require(all(totals[k] > 0 for k in MIXTRAL_FP16_KERNELS),
+            f"serving_mixtral_fp16: a kernel of {MIXTRAL_FP16_KERNELS} did not run")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing run", file=sys.stderr)
@@ -7352,7 +7833,8 @@ def main() -> int:
     for line in _build.ptxas_log().splitlines():
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}")
-    dump_sass(FLASH_OBJECTS + ("decode_attention", "quantized_matvec"))
+    dump_sass(FLASH_OBJECTS + ("decode_attention", "decode_attention_f16", "quantized_matvec",
+                               "quantized_matvec_f16"))
     check_flash_instructions()
     check_decode_instructions()
     check_matvec_instructions()
@@ -7504,6 +7986,10 @@ def main() -> int:
           if name != "fused_adam"),
         ("fused_adam", "offload_fp16", adam_slice),
     ]
+    # fp16 serving: its forms at its paths' shapes, each beside the bf16 row
+    # timed at the same shape above
+    rows += [(name, path, r) for (name, path), r in check_fp16_serving_forms(
+        timer, fp16_bf16_twins(rows, norm, lnorm)).items()]
     # the norms' decode rows are printed beside the main paths' rows; the
     # kernels line keeps one row per main path
     decode_rows = [(name, key, r) for name, table in (("rmsnorm_fwd", norm),
@@ -7514,6 +8000,8 @@ def main() -> int:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         host = f", host {r['host_us']:.1f} us a call" if "host_us" in r else ""
         b_ms = f"{r['bound_ms']:.4f}" if r["bound_ms"] >= 1e-3 else f"{r['bound_ms']:.2e}"
+        if "bf16_ms" in r:
+            host += f"; bf16 in this run {r['bf16_ms']:.4f} ms ({r['ms'] / r['bf16_ms'] - 1:+.1%})"
         print(f"{name} ({path}) [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {lib}, bound {b_ms} ms ({r['bound_by']}){host}")
     del timer
@@ -7561,6 +8049,19 @@ def main() -> int:
                                                   BLOOM_SERVING_KERNELS, "serving_bloom"),
         "serving_gpt2": lambda: main_path_family(gpt2("gpt2-xl"), 2, GPT2_SERVING_KERNELS,
                                                  "serving_gpt2"),
+        # fp16 serving: Llama-3-8B at full depth (after the fp16 reference
+        # checks), quantized, continuous batching; the LayerNorm families and
+        # Mixtral at the reference checks' depth
+        "serving_fp16": main_path_serving_fp16,
+        "serving_quantized_fp16": main_path_serving_quantized_fp16,
+        "serving_cb_fp16": main_path_serving_cb_fp16,
+        "serving_bloom_fp16": lambda: main_path_family(
+            bloom("bloom-7b1", num_layers=FP16_SERVING_LAYERS), 1, BLOOM_SERVING_FP16_KERNELS,
+            "serving_bloom_fp16", dtype=F16, profile=False, depth="2 of 30 layers"),
+        "serving_gpt2_fp16": lambda: main_path_family(
+            gpt2("gpt2-xl", num_layers=FP16_SERVING_LAYERS), 1, GPT2_SERVING_FP16_KERNELS,
+            "serving_gpt2_fp16", dtype=F16, profile=False, depth="2 of 48 layers"),
+        "serving_mixtral_fp16": main_path_serving_mixtral_fp16,
         "training_bloom": lambda: main_path_training(bloom("bloom-560m"),
                                                      BLOOM_TRAINING_KERNELS, "training_bloom"),
         "training_bloom_fp16": lambda: main_path_training(
@@ -7608,6 +8109,10 @@ def main() -> int:
     counts["serving_mixtral"], counts["serving_cb_mixtral"] = main_path_serving_mixtral()
     lap("serving_mixtral and serving_cb_mixtral")
 
+    # every fp16 serving row's kernel ran on its path
+    idle = [(name, path) for name, path, _ in rows
+            if path.startswith("serving") and path.endswith("_fp16") and not counts[path][name]]
+    require(not idle, f"fp16 serving kernels not launched on their paths: {idle}")
     # launches: the row's main path's run, counters zeroed just before it
     line = {"kernels": [
         {"name": name, "path": path, "route": "cuda", **KERNELS[name],

@@ -13,16 +13,23 @@ kernels: flash prefill attention, decode attention and RMSNorm or LayerNorm
 (``ops/cuda``). Attention resolves to the kernels on CUDA whatever the flag,
 as the JAX package resolves flash on a TPU; the flag adds the norm kernels.
 The GPT-2 and BLOOM families (LayerNorm, learned positions or ALiBi, GELU,
-biases, a tied head) serve in bf16 or fp32; their quantized weights, int8 KV
+biases, a tied head) serve in bf16, fp16 or fp32; their quantized weights, int8 KV
 cache and speculative decode are not ported yet and raise
 ``NotImplementedError`` naming ROADMAP queue A item 2.
 
-``dtype="int8"|"int4"`` (or ``quantize_bits``) serves weight-only quantized
-projections: bf16 compute, the six big projection leaves of every layer
-packed (``ops/quantizer.py``) and streamed by the quantized matvec for up to
-``matvec_max_rows`` rows (``ops/cuda/quantized_matmul.py``).
-``kv_cache_dtype="int8"`` stores the KV cache in int8 with one fp32 scale per
-(token, kv head). A Mixtral (MoE) model serves at ep = 1: its expert banks
+On a CUDA device the engine computes in ``dtype=torch.bfloat16`` or
+``torch.float16`` (every kernel on the path has both forms: flash prefill,
+decode, the norms, the packed matvec); fp32 and other dtypes serve on the CPU
+only. ``dtype="int8"|"int4"`` (or ``quantize_bits``) serves weight-only
+quantized projections: bf16 compute with ``dtype="int8"|"int4"`` (as the JAX
+engine), the compute dtype with ``quantize_bits`` (fp16 with
+``dtype=torch.float16, quantize_bits=8``), the six big projection leaves of
+every layer packed (``ops/quantizer.py``) and streamed by the quantized matvec
+for up to ``matvec_max_rows`` rows (``ops/cuda/quantized_matmul.py``).
+``kv_cache_dtype`` is ``"auto"`` (the compute dtype), ``"bf16"`` (a bf16
+cache; under fp16 compute the decode kernels round each tile to fp16 as it
+lands, the "mixed" form) or ``"int8"`` (int8 with one fp32 scale per (token,
+kv head)). A Mixtral (MoE) model serves at ep = 1: its expert banks
 [L, E, d, f] pack too, and each cached forward routes through
 ``moe.sharded_moe.moe_serving_mlp``, whose decode steps stream the banks
 through the expert form of the matvec; the lockstep engine's capacity counts
@@ -146,8 +153,14 @@ def init_inference(
     are drawn from ``rng`` (a ``torch.Generator`` on ``device``, seed 0 by
     default; with quantized weights each projection leaf is drawn and packed
     one layer at a time, :func:`init_layerwise`, so those draws differ from
-    the bf16 engine's). ``dtype="int8"|"int4"`` means bf16 compute with 8- or
-    4-bit packed projections (MoE expert banks included); ``matvec_max_rows``
+    the bf16 engine's). ``dtype`` is the compute dtype: ``torch.bfloat16`` or
+    ``torch.float16`` on a card (with or without ``quantize_bits``; the
+    packed leaves' ``PackedWeight.dtype`` and every dense leaf then in that
+    dtype), any float dtype on the CPU. ``dtype="int8"|"int4"`` means bf16
+    compute with 8- or 4-bit packed projections (MoE expert banks included),
+    as in the JAX package. ``kv_cache_dtype``: ``"auto"`` (the compute
+    dtype), ``"bf16"`` (a bf16 cache, under fp16 compute the mixed form) or
+    ``"int8"``. ``matvec_max_rows``
     (or ``config={"matvec_max_rows": N}``) sets the row threshold of the
     quantized matvec. ``device`` defaults
     to the current CUDA device; with no CUDA device it must be ``"cpu"``.
@@ -302,12 +315,11 @@ class InferenceEngine:
         self.kv_cache_storage_dtype = (
             torch.bfloat16 if kv_cache_dtype in ("bf16", "bfloat16") else dtype
         )
-        on_cuda = device.type == "cuda"
-        if on_cuda and dtype != torch.bfloat16:
+        if device.type == "cuda" and dtype not in (torch.bfloat16, torch.float16):
             raise NotImplementedError(
-                "the CUDA serving kernels take bfloat16; "
-                f"got dtype={dtype} (serve other dtypes with device='cpu'; fp16 "
-                "serving, the decode kernels' fp16 forms, is ROADMAP A6 part 2 item 4)"
+                "the CUDA serving kernels take bfloat16 or float16; got "
+                f"dtype={dtype} (serve other dtypes with device='cpu'; ROADMAP C, "
+                "departures by design)"
             )
         self.matvec_max_rows = (
             int(matvec_max_rows) if matvec_max_rows is not None else None

@@ -81,6 +81,16 @@ SIGNATURES: Dict[str, List] = {
         [_P] * 8 + [_I] * 7 + [_L] * 12 + [_P, _F, _I, _P]
     ),
     "dst_quantized_expert_matvec": [_I] + [_P] * 5 + [_I] * 9 + [_P],
+    # the fp16 decode and matvec entries take the bf16 ones' arguments; a
+    # decode entry's dtype code names the cache's storage (fp16, or bf16: the
+    # mixed form), the matvec's x's (fp16)
+    "dst_decode_attention_f16": [_P] * 5 + [_I] * 7 + [_L] * 8 + [_P, _F, _I, _P],
+    "dst_decode_attention_int8_f16": [_P] * 7 + [_I] * 7 + [_L] * 12 + [_P, _F, _I, _P],
+    "dst_paged_decode_attention_f16": [_P] * 6 + [_I] * 7 + [_L] * 8 + [_P, _F, _I, _P],
+    "dst_paged_decode_attention_int8_f16": (
+        [_P] * 8 + [_I] * 7 + [_L] * 12 + [_P, _F, _I, _P]
+    ),
+    "dst_quantized_expert_matvec_f16": [_I] + [_P] * 5 + [_I] * 9 + [_P],
 }
 
 # dtype codes shared with csrc/common.cuh
@@ -198,16 +208,9 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-# where the fp16 forms of the kernels still without one come: fp16 serving
-FP16_LATER = ("ROADMAP A6 part 2 item 4 (fp16 serving: the decode kernels' fp16 "
-              "forms)")
-
-
-def dtype_code(dtype, fp16: bool = False) -> int:
-    """The dtype's code; float16 only for a kernel with an fp16 form
-    (``fp16``), else the refusal names where those forms come."""
-    if dtype == torch.float16 and not fp16:
-        raise NotImplementedError(f"no fp16 form of this CUDA kernel: {FP16_LATER}")
+def dtype_code(dtype) -> int:
+    """The dtype's code (``csrc/common.cuh:DType``); raises on a dtype no
+    kernel takes."""
     try:
         return DTYPE_CODES[dtype]
     except KeyError:

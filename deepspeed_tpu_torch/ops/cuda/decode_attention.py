@@ -5,13 +5,22 @@ Replaces ``deepspeed_tpu/ops/pallas/decode_attention.py:_decode_kernel``
 (line 76) and ``_paged_decode_kernel`` (line 111), with ``_tile_update`` at
 line 35, reached through ``decode_attention_kernel`` (line 160) and
 ``paged_decode_attention_kernel`` (line 243) from ``decode_attention``
-(line 323): the dense form over a bf16 or fp32 cache, and the int8 form
-(``has_scales=True``) over an int8 cache with fp32 scales, one per
+(line 323): the dense form over a bf16, fp16 or fp32 cache, and the int8
+form (``has_scales=True``) over an int8 cache with fp32 scales, one per
 (token, kv head); each over a contiguous cache ([B, Smax, KV, hd] layers) or
 through per-sequence page tables over a shared page pool
 ([P + 1, page_size, KV, hd] layers, scales [P + 1, KV, page_size]). The int8
 forms dequantize each K/V value as it lands in shared memory, float(q) *
 scale rounded to q's dtype, the TPU kernel's order (``_tile_update:42-43``).
+
+fp16 queries take the fp16 instantiations (``csrc/decode_attention_f16.cu``,
+the ``dst_*_f16`` entries): an fp16 cache, an int8 one, or a bf16 one (the
+"mixed" form: ``kv_cache_dtype="bf16"`` on an fp16 engine), whose values are
+rounded to fp16 as each tile lands, the TPU kernel's ``k.astype(q.dtype)``
+(``_tile_update:44-48``). P is rounded once to fp16 before P V, as the TPU
+kernel rounds p to the cache's dtype (line 64); the bf16 forms keep P as two
+bf16 terms. An fp16 form's launches count under its bf16 name plus ``_f16``
+(``decode_attention_alibi_f16``), the mixed form's plus ``_mixed_f16``.
 
 ``rows_per_seq = R`` runs R query rows per sequence in one launch, row r
 reading sequence r // R at its own frontier: the serving engine's [N, W]
@@ -32,7 +41,7 @@ frontier, once, over 3.35 TB/s; at the serving shapes a launch is latency.
 The kernel holds up to 64 query rows a block (a sequence's rows times the G
 query heads of a kv head), so one K/V tile serves every row of a window and
 every head of the group, scored and applied on the tensor cores (mma.sync,
-bf16 in, fp32 out; the fp32 forms on CUDA cores). The key tiles are split
+bf16 or fp16 in, fp32 out; the fp32 forms on CUDA cores). The key tiles are split
 over a cluster of 8 blocks, tile t to block t mod 8, and the blocks merge
 their fp32 partials (max, sum, output) through distributed shared memory in
 rank order: one launch, no atomics. Tile size, cluster size and ownership
@@ -53,11 +62,12 @@ import torch
 from . import _build
 from .flash_attention import form_suffix, slopes_ptr
 
-# kernel launches since the last reset; the ALiBi form counts apart
-launches = {name + form: 0 for name in ("decode_attention", "decode_attention_int8",
-                                        "paged_decode_attention",
-                                        "paged_decode_attention_int8")
-            for form in ("", "_alibi")}
+KERNEL_NAMES = ("decode_attention", "decode_attention_int8", "paged_decode_attention",
+                "paged_decode_attention_int8")
+# kernel launches since the last reset; the ALiBi form, the fp16 forms
+# ("_f16") and the bf16 cache under fp16 q ("_mixed_f16") count apart
+launches = {name + form + dt: 0 for name in KERNEL_NAMES for form in ("", "_alibi")
+            for dt in ("", "_f16") + (() if name.endswith("int8") else ("_mixed_f16",))}
 # calls of the plain attention on CUDA tensors since the last reset: a
 # serving run that should take the kernels keeps it at 0
 plain_on_cuda = {"decode_attention_plain": 0}
@@ -86,6 +96,8 @@ def _attend_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     if k_scale is not None:
         k_cache = dequantize_cache(k_cache, k_scale).to(q.dtype)
         v_cache = dequantize_cache(v_cache, v_scale).to(q.dtype)
+    elif k_cache.dtype != q.dtype:  # a bf16 cache under fp16 q: q's dtype first
+        k_cache, v_cache = k_cache.to(q.dtype), v_cache.to(q.dtype)
     kf = k_cache.float().repeat_interleave(H // KV, dim=2)
     vf = v_cache.float().repeat_interleave(H // KV, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / math.sqrt(hd))
@@ -110,8 +122,10 @@ def cached_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     [B] tensor: query s of row b sits at position cache_len[b] + s and sees
     every cache position at or before it. An int8 cache comes with its
     scales [B,KV,Smax] and is dequantized as the decode kernel does it,
-    float(q) * scale rounded to q's dtype. fp32 softmax; returns [B,S,H,hd]
-    in q's dtype. For S = 1 this is the decode kernel's function.
+    float(q) * scale rounded to q's dtype; a cache of another float dtype
+    (bf16 under fp16 q) is rounded to q's dtype first, as the kernel does.
+    fp32 softmax; returns [B,S,H,hd] in q's dtype. For S = 1 this is the
+    decode kernel's function.
 
     For S > 1 new tokens against a cache already holding tokens (a
     speculative verify window) the JAX package runs plain XLA
@@ -209,7 +223,8 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 def _check_common(name, q, k, v, k_scale, v_scale, tensors):
-    """The checks both forms share; returns (H, KV, hd, int8)."""
+    """The checks both forms share; returns (H, KV, hd, int8, mixed): mixed
+    is a bf16 cache under fp16 q."""
     _, one, H, hd = q.shape
     KV = k.shape[2]
     int8 = k_scale is not None
@@ -217,10 +232,13 @@ def _check_common(name, q, k, v, k_scale, v_scale, tensors):
         raise ValueError(f"{name}: single-token rows, got {one} tokens")
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"{name}: q and the cache must be on one CUDA device")
-    want = torch.int8 if int8 else q.dtype
-    if k.dtype != want or v.dtype != want:
+    if q.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise ValueError(f"{name}: q dtype {q.dtype}, want bf16, fp16 or fp32")
+    want = ((torch.int8,) if int8 else (q.dtype,) + (
+        (torch.bfloat16,) if q.dtype == torch.float16 else ()))
+    if k.dtype not in want or v.dtype != k.dtype:
         raise ValueError(
-            f"{name}: cache dtype {k.dtype}, want {want} for q "
+            f"{name}: cache dtype {k.dtype}/{v.dtype}, want one of {want} for q "
             f"{q.dtype}{' with scales' if int8 else ''}"
         )
     if k.shape[3] != hd or v.shape != k.shape:
@@ -239,7 +257,17 @@ def _check_common(name, q, k, v, k_scale, v_scale, tensors):
     if int8 and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
                  or k_scale.stride(-1) != 1 or v_scale.stride(-1) != 1):
         raise ValueError(f"{name}: scales must be fp32 with the positions contiguous")
-    return H, KV, hd, int8
+    return H, KV, hd, int8, k.dtype == torch.bfloat16 and q.dtype == torch.float16
+
+
+def _entry(lib, name: str, q: torch.Tensor, k: torch.Tensor, int8: bool, mixed: bool):
+    """(C entry, its dtype code, the launch counter's dtype suffix) of the
+    form for q's dtype: the fp16 entries (``_f16``) take the cache's storage
+    code, the others q's."""
+    if q.dtype == torch.float16:
+        code = _build.dtype_code(torch.float16 if int8 else k.dtype)
+        return getattr(lib, f"dst_{name}_f16"), code, "_mixed_f16" if mixed else "_f16"
+    return getattr(lib, f"dst_{name}"), _build.dtype_code(q.dtype), ""
 
 
 def _frontier(cache_len, rows: int, device):
@@ -265,7 +293,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     int for every row, or an int tensor of each row's frontier ([B*R], or [B]
     when R = 1). An int8 cache comes with its fp32 scales [B,KV,Smax] (one
     layer of the [L,B,KV,Smax] scale caches, read in place); ``slopes`` are
-    ALiBi's fp32 [H]. Returns [B*R,1,H,hd].
+    ALiBi's fp32 [H]. q is bf16, fp16 or fp32; the cache q's dtype, int8
+    with scales, or bf16 under fp16 q. Returns [B*R,1,H,hd] in q's dtype.
 
     CPU tensors take :func:`decode_attention_plain`; CUDA tensors launch the
     kernel, or raise on what it does not take."""
@@ -276,8 +305,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     rows = q.shape[0]
     B, Smax = k_cache.shape[0], k_cache.shape[1]
     tensors = (q, k_cache, v_cache) + ((k_scale, v_scale) if k_scale is not None else ())
-    H, KV, hd, int8 = _check_common("decode_attention", q, k_cache, v_cache,
-                                    k_scale, v_scale, tensors)
+    H, KV, hd, int8, mixed = _check_common("decode_attention", q, k_cache, v_cache,
+                                           k_scale, v_scale, tensors)
     if rows_per_seq < 1 or rows != B * rows_per_seq:
         raise ValueError(
             f"decode_attention: {rows} query rows != {B} sequences x "
@@ -286,7 +315,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if int8 and (k_scale.shape != (B, KV, Smax) or v_scale.shape != (B, KV, Smax)):
         raise ValueError(f"decode_attention: scales must be [{B}, {KV}, {Smax}]")
     sl = slopes_ptr("decode_attention", slopes, q)
-    code = _build.dtype_code(q.dtype)
+    name = "decode_attention_int8" if int8 else "decode_attention"
+    fn, code, dt = _entry(lib, name, q, k_cache, int8, mixed)
     cl_ptr, cl_scalar, cl = None, 0, None
     if isinstance(cache_len, torch.Tensor):
         cl, cl_ptr = _frontier(cache_len, rows, q.device)
@@ -297,21 +327,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     common = (cl_ptr, cl_scalar, rows, Smax, H, KV, hd, rows_per_seq,
               q.stride(0), q.stride(2), *k_cache.stride()[:3], *v_cache.stride()[:3])
     if int8:
-        status = lib.dst_decode_attention_int8(
+        status = fn(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), *common,
             *k_scale.stride()[:2], *v_scale.stride()[:2],
             sl, 1.0 / math.sqrt(hd), code, stream,
         )
-        name = "decode_attention_int8"
     else:
-        status = lib.dst_decode_attention(
+        status = fn(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
             *common, sl, 1.0 / math.sqrt(hd), code, stream,
         )
-        name = "decode_attention"
-    _build.check(status, name)
-    launches[name + form_suffix(slopes)] += 1
+    _build.check(status, name + dt)
+    launches[name + form_suffix(slopes) + dt] += 1
     return out
 
 
@@ -342,8 +370,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     N, mp = page_table.shape
     tensors = (q, k_pool, v_pool, page_table) + (
         (k_scale, v_scale) if k_scale is not None else ())
-    H, KV, hd, int8 = _check_common("paged_decode_attention", q, k_pool, v_pool,
-                                    k_scale, v_scale, tensors)
+    H, KV, hd, int8, mixed = _check_common("paged_decode_attention", q, k_pool, v_pool,
+                                           k_scale, v_scale, tensors)
     if rows_per_seq < 1 or rows != N * rows_per_seq:
         raise ValueError(
             f"paged_decode_attention: {rows} query rows != {N} sequences x "
@@ -357,25 +385,24 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         cache_len = torch.tensor([int(cache_len)])
     cl, cl_ptr = _frontier(cache_len, rows, q.device)
     sl = slopes_ptr("paged_decode_attention", slopes, q)
-    code = _build.dtype_code(q.dtype)
+    name = "paged_decode_attention_int8" if int8 else "paged_decode_attention"
+    fn, code, dt = _entry(lib, name, q, k_pool, int8, mixed)
     out = torch.empty((rows, 1, H, hd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     common = (cl_ptr, page_table.data_ptr(), rows, mp, ps, H, KV, hd, rows_per_seq,
               q.stride(0), q.stride(2), *k_pool.stride()[:3], *v_pool.stride()[:3])
     if int8:
-        status = lib.dst_paged_decode_attention_int8(
+        status = fn(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), *common,
             *k_scale.stride()[:2], *v_scale.stride()[:2],
             sl, 1.0 / math.sqrt(hd), code, stream,
         )
-        name = "paged_decode_attention_int8"
     else:
-        status = lib.dst_paged_decode_attention(
+        status = fn(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
             *common, sl, 1.0 / math.sqrt(hd), code, stream,
         )
-        name = "paged_decode_attention"
-    _build.check(status, name)
-    launches[name + form_suffix(slopes)] += 1
+    _build.check(status, name + dt)
+    launches[name + form_suffix(slopes) + dt] += 1
     return out

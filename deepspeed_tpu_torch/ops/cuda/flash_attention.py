@@ -30,7 +30,7 @@ their Llama one (the code before ALiBi came in); a mask selects the masked
 instantiation, which reads its operands at run time.
 
 Every form of the four kernels also has an fp16 instantiation, for fp16
-training: separate C entries (``dst_*_f16``) on the same kernels with fp16
+training and serving (the forward is fp16 serving's prefill): separate C entries (``dst_*_f16``) on the same kernels with fp16
 operands, P and dS rounded to fp16 as the Pallas kernels round them to the
 inputs' dtype, an overflow kept as inf; the Llama and ALiBi forms in
 ``csrc/flash_attention_{fwd,bwd}_f16.cu``, the masked ones in
@@ -577,7 +577,7 @@ def mask_array(fn: str, q: torch.Tensor, bias=None, segment_ids=None, layout=Non
         vals[1] = bias.data_ptr()
         vals[2:6] = [bias.stride(0) if bias.shape[0] > 1 else 0,
                      bias.stride(1) if bias.shape[1] > 1 else 0, bias.stride(2),
-                     _build.dtype_code(bias.dtype, fp16=True)]
+                     _build.dtype_code(bias.dtype)]
     if layout is not None:
         blk = check_layout(fn, layout, S)
         kcols, kcounts, qrows, qcounts = block_tables(layout, q.device)

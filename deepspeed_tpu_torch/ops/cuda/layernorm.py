@@ -9,7 +9,7 @@ The forward replaces ``deepspeed_tpu/ops/pallas/layernorm.py:_fwd_kernel``
 Bound on the H100: bytes. Forward 2 * rows * D * itemsize, backward
 3 * rows * D * itemsize (x and g read, dx written) over 3.35 TB/s. Both take
 the mean first and the variance as the mean of (x - mean)^2, as the TPU
-kernel does; both read x in its own dtype (bf16 or fp32), compute in fp32 and
+kernel does; both read x in its own dtype (bf16, fp16 or fp32), compute in fp32 and
 write x's dtype, which fuses the fp32 casts the JAX model wraps around the
 TPU kernel, so each result is the fp32 result rounded once. The forward
 shares ``csrc/norm_fwd.cuh`` with the RMSNorm forward (a team of warps a row,
@@ -112,7 +112,7 @@ def layernorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     if D * x.element_size() > 1024 * 16:
         raise ValueError(f"layernorm_bwd: D={D} over the kernel's row limit")
     rows = x.numel() // D if D else 0
-    code = _build.dtype_code(x.dtype, fp16=True)
+    code = _build.dtype_code(x.dtype)
     dx = torch.empty_like(x)
     part = torch.empty((2 * lib.dst_layernorm_bwd_nblocks(rows, D, code), D),
                        dtype=torch.float32, device=x.device)

@@ -5,7 +5,10 @@ Replaces ``deepspeed_tpu/ops/pallas/quantized_matmul.py:_kernel`` (line 38),
 reached through ``_packed_matvec`` (line 89) from ``packed_proj`` (line 436),
 and its per-expert use (``_packed_expert_matvec_local``, line 330, one launch
 per expert from ``packed_expert_proj``, line 391): here one launch covers
-every expert of a bank (:func:`packed_expert_matvec`).
+every expert of a bank (:func:`packed_expert_matvec`). x and y are bf16, or
+fp16 (fp16 serving over packed weights: the ``dst_quantized_expert_matvec_f16``
+entry, ``csrc/quantized_matvec_f16.cu``, whose launches count under the bf16
+names plus ``_f16``); the TPU kernel writes y in x's dtype too (lines 85, 104).
 Dequantize-then-multiply would write a full-width copy of the weights every
 decode step; the kernel dequantizes in registers, so device memory streams
 only the int8/int4 bytes and the fp32 scales.
@@ -34,9 +37,9 @@ import torch
 from ..quantizer import PackedWeight
 from . import _build
 
-# kernel launches since the last reset, by weight width
-launches = {"quantized_matvec_int8": 0, "quantized_matvec_int4": 0,
-            "quantized_matvec_expert_int8": 0, "quantized_matvec_expert_int4": 0}
+# kernel launches since the last reset, by form, weight width and x's dtype
+launches = {f"quantized_matvec{form}_int{bits}{dt}": 0 for form in ("", "_expert")
+            for bits in (8, 4) for dt in ("", "_f16")}
 
 MAX_KERNEL_ROWS = 16  # rows of x the kernel holds
 COLS = 128            # columns of one block's tile
@@ -125,6 +128,8 @@ def _launch(x: torch.Tensor, w: PackedWeight, experts: bool) -> torch.Tensor:
         raise ValueError(f"{what}: x and the weight must be on one CUDA device")
     if q.dtype != torch.int8 or s.dtype != torch.float32:
         raise ValueError(f"{what}: qdata {q.dtype} / scale {s.dtype}, want int8 / float32")
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"{what}: x {x.dtype}, the kernel takes bf16 or fp16")
     if not 1 <= M <= MAX_KERNEL_ROWS:
         raise ValueError(f"{what}: {M} rows, the kernel takes 1 to {MAX_KERNEL_ROWS}")
     if N % COLS or tuple(s.shape[-3:]) != (G, 1, N) or G * Bq != D \
@@ -145,13 +150,14 @@ def _launch(x: torch.Tensor, w: PackedWeight, experts: bool) -> torch.Tensor:
                          "16-byte aligned (each expert's slice too)")
     splits, per = split_plan(Gp, N // COLS)
     out = torch.empty(x.shape[:-1] + (N,), dtype=x.dtype, device=x.device)
-    status = lib.dst_quantized_expert_matvec(
+    dt = "_f16" if x.dtype == torch.float16 else ""
+    status = getattr(lib, "dst_quantized_expert_matvec" + dt)(
         E, x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), None,
         M, D, N, Gp, Bq, int(w.nibbles), splits, per, _build.dtype_code(x.dtype),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(status, "quantized_expert_matvec" if experts else "quantized_matvec")
-    launches[f"quantized_matvec_{'expert_' if experts else ''}int{w.bits}"] += 1
+    _build.check(status, ("quantized_expert_matvec" if experts else "quantized_matvec") + dt)
+    launches[f"quantized_matvec_{'expert_' if experts else ''}int{w.bits}{dt}"] += 1
     return out
 
 

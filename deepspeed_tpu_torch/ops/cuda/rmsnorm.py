@@ -133,7 +133,7 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     if D * x.element_size() > 2048 * 16:
         raise ValueError(f"rmsnorm_bwd: D={D} over the kernel's row limit")
     rows = x.numel() // D if D else 0
-    code = _build.dtype_code(x.dtype, fp16=True)
+    code = _build.dtype_code(x.dtype)
     dx = torch.empty_like(x)
     part = torch.empty((lib.dst_rmsnorm_bwd_nblocks(rows, D, code), D),
                        dtype=torch.float32, device=x.device)

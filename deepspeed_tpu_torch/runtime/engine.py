@@ -139,7 +139,8 @@ def unported_features(cfg: DeepSpeedConfig) -> List[str]:
     sequence parallelism, the quantized wires and the fsdp knobs over ranks
     are item 7.2c. fp16 trains wherever bf16 does (item 6, parts 1 and 2):
     at every stage on one rank and over dp ranks, with offload and with
-    sp > 1; fp16 serving is part 2's item 4 (``init_inference``)."""
+    sp > 1; fp16 serves wherever bf16 serves (part 2's item 4,
+    ``init_inference``)."""
     raw = cfg.raw
     zc = cfg.zero_config
     pipe = raw.get("pipeline") or {}

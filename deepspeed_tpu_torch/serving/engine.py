@@ -83,7 +83,14 @@ class ServingEngine:
     flight. Pass ``engine=`` (an :class:`InferenceEngine`, whose weights the
     engine shares) or ``model=`` with ``init_inference`` keyword arguments
     (``device``, ``dtype``, ``replace_with_kernel_inject``, ...). ``clock``
-    (the scheduler's and the metrics' time source) is injectable."""
+    (the scheduler's and the metrics' time source) is injectable.
+
+    The step computes in the engine's dtype: bf16 or fp16 on a card (fp16
+    with or without ``quantize_bits``; ``dtype="int8"|"int4"`` means bf16
+    compute), any float dtype on the CPU. The arena holds
+    ``serving.kv_cache_dtype`` (or the engine's ``kv_cache_dtype``): "auto"
+    (the compute dtype), "bf16" (under fp16 compute the decode kernels'
+    mixed form) or "int8", contiguous or paged alike."""
 
     def __init__(self, model=None, serving=None,
                  engine: Optional[InferenceEngine] = None, clock=time.monotonic,

@@ -48,10 +48,12 @@ knobs pinned.
   JAX's legacy ``runtime/checkpointing.py`` reader, JAX's legacy writer into
   the port (``TpuEngine.save_checkpoint`` is red on this jax, ROADMAP C),
   and a bitwise resume inside the port.
-- The refusals: fp16 with offload, with sp > 1, with a LayerNorm family or
-  a sparse_attention section is refused no longer (it trains, the families,
-  sp and offload held by ``tests/test_torch_fp16_{families,sp,offload}.py``);
-  fp16 serving on a card is refused by name (ROADMAP A6 part 2 item 4).
+- The refusals gone: fp16 with offload, with sp > 1, with a LayerNorm
+  family or a sparse_attention section trains (the families, sp and offload
+  held by ``tests/test_torch_fp16_{families,sp,offload}.py``), and the same
+  models and configs serve in fp16 (``tests/test_torch_fp16_serving.py``
+  holds fp16 serving against JAX); the decode and matvec wrappers pick
+  their fp16 entries by dtype, as the flash and norm wrappers do.
 
 About 50-60 s in one process on 8 CPU cores.
 """
@@ -498,9 +500,14 @@ def _model(family="llama"):
     return family_pair(family)[2]
 
 
-# fp16 training is refused nowhere bf16 trains; what fp16 still lacks is
-# serving (ROADMAP A6 part 2 item 4): the decode kernels' fp16 forms
-ITEM_4 = "ROADMAP A6 part 2 item 4"
+# fp16 is refused nowhere bf16 trains or serves: the configs once refused
+# train, and the same models serve in fp16 (a few greedy tokens on the CPU)
+def _serves_fp16(model, **serving):
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    eng = InferenceEngine(model, device=torch.device("cpu"), dtype=torch.float16,
+                          rng=torch.Generator().manual_seed(0), **serving)
+    out = eng.generate(np.arange(12)[None, :] % model.config.vocab_size, max_new_tokens=4)
+    assert out.shape == (1, 16) and eng.dtype == torch.float16
 
 
 @pytest.mark.parametrize("extra,serving", [
@@ -512,14 +519,14 @@ ITEM_4 = "ROADMAP A6 part 2 item 4"
 ])
 def test_fp16_refused_by_name(extra, serving):
     """The fp16 configs once refused (offload, parameter offload, sp > 1)
-    now pass ``unported_features``; fp16 serving on a card (each form of the
-    inference engine) is refused by name, before any tensor reaches it."""
-    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    pass ``unported_features``; each form of the inference engine once
+    refused in fp16 on a card (dense, 8-bit weights, the int8 KV cache)
+    builds and serves in fp16 (here on the CPU: the card's kernels take
+    fp16 since fp16 serving was ported, ``tests/test_torch_fp16_serving.py``)."""
     from deepspeed_tpu_torch.runtime.engine import unported_features
     cfg = DeepSpeedConfig({**_cfg(), **extra})
     assert unported_features(cfg) == []
-    with pytest.raises(NotImplementedError, match=ITEM_4):
-        InferenceEngine(_model(), device=torch.device("cuda"), dtype=torch.float16, **serving)
+    _serves_fp16(_model(), **serving)
 
 
 @pytest.mark.parametrize("family,extra", [
@@ -527,37 +534,57 @@ def test_fp16_refused_by_name(extra, serving):
     ("llama", {"sparse_attention": {"mode": "fixed", "block": 128}}),
 ])
 def test_fp16_on_a_card_refuses_later_forms(family, extra):
-    """fp16 serving of each family on a CUDA device is refused at start-up
-    (before any tensor reaches the card), naming A6 part 2 item 4; fp16
-    training of the same model and config (a LayerNorm family, a
-    sparse_attention section: refused on a card before) trains."""
+    """Each family once refused fp16 serving on a CUDA device serves in fp16
+    (here on the CPU), and fp16 training of the same model and config (a
+    LayerNorm family, a sparse_attention section) trains; what a card still
+    refuses at start-up, before any tensor reaches it, is a dtype its
+    kernels do not take (fp32: ROADMAP C, by design)."""
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
     model = _model(family)
-    with pytest.raises(NotImplementedError, match=ITEM_4):
-        InferenceEngine(model, device=torch.device("cuda"), dtype=torch.float16)
+    _serves_fp16(model)
+    with pytest.raises(NotImplementedError, match="bfloat16 or float16"):
+        InferenceEngine(model, device=torch.device("cuda"), dtype=torch.float32)
     eng, *_ = deepspeed_tpu_torch.initialize(model=model, config={**_cfg(), **extra},
                                              device="cpu", rng=torch.Generator().manual_seed(0))
     assert np.isfinite(eng.train_batch(batch=_batches(1)[0]).item())
 
 
 def test_kernel_wrappers_refuse_fp16_forms_not_ported():
-    """The one fp16 kernel form still missing is decode's (fp16 serving): its
-    wrappers' dtype code names ROADMAP A6 part 2 item 4 (checked before
-    anything reaches a card). Every flash form, the bias gradient and the
-    norms pick their fp16 entries by q's (or x's) dtype; an fp16 x with a
-    scale of another dtype is not a pair the model passes."""
+    """No fp16 form is left unported: the dtype code of fp16 is 2 for every
+    kernel (no refusal, no flag), and every wrapper picks its fp16 entry by
+    its input's dtype: every flash form and the bias gradient, the decode
+    forms (the fp16 entries taking the cache's code: fp16, bf16 for the
+    mixed form, fp16 for int8) and the packed matvec; each fp16 entry has
+    its argument types. An fp16 x with a scale of another dtype is not a
+    pair the model passes."""
     from types import SimpleNamespace
 
     from deepspeed_tpu_torch.ops.cuda import _build
-    with pytest.raises(NotImplementedError, match=ITEM_4):
-        _build.dtype_code(torch.float16)
-    assert _build.dtype_code(torch.float16, fp16=True) == 2
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as dec
+
+    assert _build.dtype_code(torch.float16) == 2 and not hasattr(_build, "FP16_LATER")
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        _build.dtype_code(torch.int16)
     lib = SimpleNamespace(**{f"dst_{n}{s}": n + s for n in fa.KERNEL_NAMES +
-                             ("flash_attention_bias_grad",) for s in ("", "_f16")})
+                             ("flash_attention_bias_grad",) + dec.KERNEL_NAMES
+                             for s in ("", "_f16")})
     q = torch.zeros(1, 8, 2, 64, dtype=torch.float16)
     for name in fa.KERNEL_NAMES + ("flash_attention_bias_grad",):
         assert fa._entry(lib, name, q) == name + "_f16"
         assert fa._entry(lib, name, q.bfloat16()) == name
+    k16, kb, k8 = q, q.bfloat16(), q.to(torch.int8)
+    for name in dec.KERNEL_NAMES:
+        int8 = name.endswith("int8")
+        assert dec._entry(lib, name, q, k8 if int8 else k16, int8, False) == (
+            name + "_f16", 2, "_f16")
+        assert dec._entry(lib, name, q.bfloat16(), k8 if int8 else kb, int8, False) == (
+            name, 1, "")
+        if not int8:
+            assert dec._entry(lib, name, q, kb, False, True) == (name + "_f16", 1, "_mixed_f16")
+        assert f"dst_{name}_f16" in _build.SIGNATURES
+        assert _build.SIGNATURES[f"dst_{name}_f16"] == _build.SIGNATURES[f"dst_{name}"]
+    assert _build.SIGNATURES["dst_quantized_expert_matvec_f16"] == \
+        _build.SIGNATURES["dst_quantized_expert_matvec"]
     for fn in ("dst_layernorm_fwd_f16", "dst_layernorm_bwd_f16",
                "dst_flash_attention_bias_grad_f16"):
         assert fn in _build.SIGNATURES
